@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, serve.
+"""Smoke run of the PyTorch port on one GPU: build, check, serve, train.
 
     python3 chip_smoke.py
 
@@ -9,30 +9,47 @@ which raises on failure (the script then exits non-zero):
 
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel of the port from ``src/repro_torch/**/csrc``.
-2. Each kernel against its plain PyTorch version on the card, at the
-   shapes of llama2-7b's and gemma2-2b's serving path and at page size 16
-   in float32, with the maximum absolute error held to a stated tolerance;
-   the median time of 20 launches beside the least time the card could
-   take (its bound), the plain version's time and, where one PyTorch call
+2. Each kernel against its plain PyTorch version on the card, with the
+   maximum absolute error held to a stated tolerance: the paged kernels at
+   the shapes of llama2-7b's and gemma2-2b's serving path and at page
+   size 16 in float32; ``fastattn_fwd`` at llama2-7b's training shape, a
+   gemma2-2b band (GQA, window, softcap), a float32 ragged case with a
+   q_offset and a kv_valid tail, and a non-causal case.  Each is timed
+   (median of 20 launches) beside the least time the card could take
+   (its bound), the plain version's time and, where one PyTorch call
    computes the same function, that call's time (``library_ms``:
-   ``scaled_dot_product_attention`` on the pre-gathered dense view, the
-   gather excluded; the port never calls it).
+   ``scaled_dot_product_attention``, with a gather or GQA expansion
+   excluded from the time; the port never calls it).
 3. Serving: an ``EngineCore`` on llama2-7b at full width and depth (bf16,
    random weights from a seeded CUDA generator) answers 12 greedy
    requests of 37-1800 prompt tokens with 32 new tokens each.  Both
-   kernels' launch counts must be above 0, no page may leak, and the
-   first request's first chunk and one decode step must agree with the
-   plain attention path within a stated tolerance.
+   paged kernels' launch counts must be above 0, no page may leak, and
+   the first request's first chunk and one decode step must agree with
+   the plain attention path within a stated tolerance.
+4. Training: with phase 3's model freed, the trainer's own functions
+   (``init_train_state``, ``make_train_step``, ``TokenPipeline``,
+   ``CheckpointManager``, as ``repro_torch.launch.train`` calls them) take
+   5 AdamW steps of llama2-7b at full width, cut to 4 layers, on batches
+   of 4 x 2048 tokens.  Every loss must be finite, ``fastattn_fwd`` must
+   have launched once per layer and forward pass (twice per layer and
+   step under remat), a checkpoint must round-trip params and optimizer
+   state bit for bit, and on one 1 x 2048 batch the kernel path's loss
+   and gradient norm must agree with the plain attention path's within
+   1% and 5%.  One more step is traced with ``torch.profiler`` for the
+   share of the step's device time in ``fastattn_fwd``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -298,9 +315,93 @@ def prefill_case(name, *, hq, hkv, d, ps, n_kv, chunk, dtype, starts,
     return res
 
 
+def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
+             window=None, softcap=None, q_offset=0, kv_valid=None, seed=0):
+    """fastattn_fwd vs flash_reference on one shape.  Rows with no visible
+    key are 0 on both sides, so every row is compared."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.tiling_mask import dense_mask
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.kernels.fastattn.ref import flash_reference
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(tdt)
+               for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                             (b, hkv, skv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+
+    def kernel():
+        return fastattn_fwd(q, k, v, kv_valid=kv_valid, **kw)
+
+    def plain():
+        return flash_reference(q, k, v, kv_len=kv_valid, **kw)
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[dtype]
+    log(f"[fastattn] {name}: max_abs_err {err:.3e} (tol {tol:g})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+
+    # work this data needs: the visible (row, key) pairs of every head;
+    # every input read once, the output written once
+    mask = dense_mask(sq, skv, causal=causal, window=window,
+                      q_offset=q_offset, device="cuda")
+    if kv_valid is not None:
+        mask[:, kv_valid:] = False
+    pairs = int(mask.sum().item())
+    esize = q.element_size()
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+    n_ops = 4.0 * b * hq * pairs * d
+    bnd, by = bound_ms(n_bytes, n_ops, dtype)
+    res = {"err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain,
+                                                                 reps=5),
+           "bound_ms": bnd, "bound_by": by, "library_ms": None,
+           "pairs": pairs}
+    if softcap is None:
+        ke = k.repeat_interleave(hq // hkv, dim=1)      # GQA expanded
+        ve = v.repeat_interleave(hq // hkv, dim=1)      # outside the time
+        plain_causal = (causal and q_offset == 0 and sq == skv
+                        and window is None and kv_valid in (None, skv))
+
+        def lib():
+            if plain_causal:
+                return F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=True)
+            return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+        res["library_ms"] = time_ms(lib)
+    lib_s = ("n/a (no single PyTorch call applies a softcap)"
+             if res["library_ms"] is None else
+             f"{res['library_ms']:.4f} ms (scaled_dot_product_attention, "
+             "GQA expansion excluded)")
+    log(f"[fastattn] {name}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}, {pairs} visible pairs per head), library "
+        f"{lib_s}")
+    return res
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  Returns the main-path
     (llama2-7b) numbers of each kernel."""
+    fwd = fwd_case("llama2-7b train B=4 H=32/32 S=2048 D=128 bf16 causal",
+                   b=4, hq=32, hkv=32, sq=2048, skv=2048, d=128,
+                   dtype="bfloat16")
+    fwd_case("gemma2-2b train B=4 H=8/4 S=2048 D=256 bf16 window=512 "
+             "cap=50", b=4, hq=8, hkv=4, sq=2048, skv=2048, d=256,
+             dtype="bfloat16", window=512, softcap=50.0, seed=1)
+    fwd_case("f32 B=2 H=8/2 Sq=1000 Skv=1500 D=128 q_offset=300 "
+             "kv_valid=1400", b=2, hq=8, hkv=2, sq=1000, skv=1500, d=128,
+             dtype="float32", q_offset=300, kv_valid=1400, seed=2)
+    fwd_case("non-causal B=2 H=8/8 Sq=512 Skv=777 D=64 bf16", b=2, hq=8,
+             hkv=8, sq=512, skv=777, d=64, dtype="bfloat16", causal=False,
+             seed=3)
     dec = decode_case("llama2-7b B=8 H=32/32 D=128 bf16 ps=128",
                       b=8, hq=32, hkv=32, d=128, ps=128, n_kv=16,
                       dtype="bfloat16")
@@ -322,7 +423,7 @@ def phase_kernels() -> dict:
                  hq=8, hkv=2, d=128, ps=16, n_kv=12, chunk=64,
                  dtype="float32", starts=[0, 64, 100, 0],
                  nvalid=[64, 64, 20, 0], window=40, softcap=30.0, seed=2)
-    return {"paged_decode": dec, "paged_prefill": pre}
+    return {"paged_decode": dec, "paged_prefill": pre, "fastattn_fwd": fwd}
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +611,229 @@ def check_against_plain(model, params, prompt, first_token) -> None:
 # percent of their scale at most.
 LOGIT_TOL = 0.05
 
+# ---------------------------------------------------------------------------
+# phase 4: training llama2-7b at full width
+# ---------------------------------------------------------------------------
+
+# Depth cut for memory: at 32 layers bf16 params + bf16 grads + two f32
+# AdamW moments take about 13.5 + 13.5 + 54 GB, over one 80 GB card; 4
+# layers keep every width (1.07 B params, about 13 GB of state).
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 5
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# kernel path vs plain attention path on one 1 x 2048 batch: bf16
+# activations through 4 layers, rounded at different points by the two
+# attention paths (the kernel rounds its output once; the plain path's
+# backward recomputes in f32), move the loss by well under 1% and the
+# gradient norm by a few percent at most.
+LOSS_RTOL = 0.01
+GNORM_RTOL = 0.05
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def _train_group(name: str) -> str:
+    n = name.lower()
+    if "fastattn_fwd_kernel" in n:
+        return "attention forward: fastattn_fwd.cu"
+    if any(t in n for t in ("gemm", "nvjet", "cutlass", "sm90_", "cublas")):
+        if "f32f32" in n or "sgemm" in n:
+            return "matrix products, float32 (plain attention recompute)"
+        return "matrix products, bf16 (projections, MLP, LM head)"
+    if "reduce" in n or "softmax" in n or "logsumexp" in n:
+        return "reductions"
+    if "copy" in n or "memcpy" in n or "memset" in n or "cat" in n:
+        return "copies / casts"
+    return "elementwise and other"
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_training() -> dict:
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import (ParallelConfig, TrainConfig,
+                                    get_model_config)
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.fastattn.ops import fastattn, fastattn_fwd
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.training import tree
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.optimizer import adamw_update, global_norm
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    cfg = dataclasses.replace(get_model_config("llama2-7b"),
+                              num_layers=TRAIN_LAYERS)
+    parallel = ParallelConfig(remat="selective")   # as launch/train.py
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda", parallel)
+    state = init_train_state(model, model.generator(tcfg.seed))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(state.params))
+    log(f"[train] {cfg.name} cut to {cfg.num_layers} layers: d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, {n_params / 1e9:.3f}B params ({cfg.param_dtype}, f32 "
+        f"moments), remat {parallel.remat}; initialised in "
+        f"{time.perf_counter() - t0:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    step_fn = make_train_step(model, cfg, parallel, tcfg)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+
+    fastattn_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        batch = to_device(data.next(), model.device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(metrics["loss"]))
+        log(f"[train] step {i} loss {losses[-1]:.4f} lr "
+            f"{float(metrics['lr']):.2e} gnorm "
+            f"{float(metrics['grad_norm']):.4f} {step_s[-1] * 1e3:.1f} ms")
+    launches = fastattn_fwd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = TRAIN_LAYERS * (2 if parallel.remat != "none" else 1) \
+        * TRAIN_STEPS
+    log(f"[train] fastattn_fwd launches on the training path: {launches} "
+        f"(expected {TRAIN_LAYERS} layers x 2 forward passes under remat x "
+        f"{TRAIN_STEPS} steps = {expected})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if launches != expected:
+        raise AssertionError(f"fastattn_fwd launched {launches} times, "
+                             f"expected {expected}")
+    steady_s = statistics.median(step_s[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / steady_s
+
+    # checkpoint: params and optimizer state round-trip bit for bit
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir)
+        t1 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, state, extras={"data": data.state()})
+        save_s = time.perf_counter() - t1
+        restored, manifest = mgr.restore(state)
+        for (path, a), b in zip(tree.leaves_with_paths(restored),
+                                tree.leaves(state)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"checkpoint leaf {path} changed")
+        n_leaves = manifest["n_leaves"]
+        del restored
+    log(f"[train] checkpoint of {n_leaves} leaves saved in {save_s:.1f}s "
+        "and restored bit for bit")
+
+    # kernel path vs plain attention path on one 1 x 2048 batch
+    one = to_device(data.next(), model.device)
+    tokens, labels = one["tokens"][:1], one["labels"][:1]
+    res = {}
+    for impl in (None, "reference"):
+        leaves = tree.leaves(state.params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = model.loss(state.params, tokens, labels, impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        res[impl] = (loss.item(), global_norm(list(grads)).item())
+        del grads, loss
+    (k_loss, k_gn), (p_loss, p_gn) = res[None], res["reference"]
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    gn_rel = abs(k_gn - p_gn) / abs(p_gn)
+    log(f"[train] kernel vs plain path, 1 x {TRAIN_SEQ}: loss {k_loss:.5f}"
+        f" vs {p_loss:.5f} (rel {loss_rel:.2e}, tol {LOSS_RTOL}), grad norm "
+        f"{k_gn:.5f} vs {p_gn:.5f} (rel {gn_rel:.2e}, tol {GNORM_RTOL})")
+    if not (loss_rel <= LOSS_RTOL and gn_rel <= GNORM_RTOL):
+        raise AssertionError("kernel and plain training paths disagree")
+
+    # one more step under the profiler: where the device time goes
+    batch = to_device(data.next(), model.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0]
+    total_us = sum(_device_us(e) for e in kernels)
+    if total_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    fa = [e for e in kernels if "fastattn_fwd_kernel" in e.key]
+    fa_us = sum(_device_us(e) for e in fa)
+    groups = {}
+    for e in kernels:
+        grp = _train_group(e.key)
+        groups[grp] = groups.get(grp, 0.0) + _device_us(e) / 1e6
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+
+    # attention of one layer at the training shape, forward (kernel) plus
+    # backward (plain recompute), and one AdamW update of every parameter
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    shape = (TRAIN_BATCH, cfg.num_heads, TRAIN_SEQ, cfg.head_dim)
+    q, k, v, g = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    attn_ms = time_ms(lambda: torch.autograd.grad(
+        fastattn(q, k, v, impl="kernel"), (q, k, v), g), reps=5)
+    del q, k, v, g
+    zeros = tree.tree_map(torch.zeros_like, state.params)
+    opt_ms = time_ms(lambda: adamw_update(zeros, state.opt, state.params,
+                                          tcfg), reps=3, warmup=1)
+    del zeros
+    out = {"layers": TRAIN_LAYERS, "params": n_params, "steps": TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "losses": losses,
+           "step_s": step_s, "steady_step_s": steady_s, "tok_s": tok_s,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "loss_rel": loss_rel, "gnorm_rel": gn_rel,
+           "profiled_kernel_s": total_us / 1e6,
+           "fastattn_s": fa_us / 1e6,
+           "fastattn_calls": sum(e.count for e in fa),
+           "groups_s": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+           "fastattn_share_of_step": fa_us / 1e6 / steady_s,
+           "fastattn_share_of_kernels": fa_us / total_us,
+           "idle_share": 1.0 - total_us / 1e6 / steady_s,
+           "attn_layer_fwd_bwd_ms": attn_ms, "adamw_ms": opt_ms,
+           "card": _card()}
+    log(f"[train] {out['card']}: steady step {steady_s * 1e3:.1f} ms "
+        f"(median of steps 1-{TRAIN_STEPS - 1}), {tok_s:.0f} tok/s, peak "
+        f"memory {peak_gb:.1f} GB")
+    log(f"[train] profiled step: kernels {out['profiled_kernel_s']:.4f}s, "
+        f"fastattn_fwd {out['fastattn_s']:.4f}s in {out['fastattn_calls']} "
+        f"launches ({out['fastattn_share_of_step']:.1%} of the unprofiled "
+        f"step, {out['fastattn_share_of_kernels']:.1%} of kernel time), "
+        f"idle share {out['idle_share']:.3f}")
+    for grp, sec in out["groups_s"].items():
+        log(f"[train]   {sec:9.4f}s  {grp}")
+    log(f"[train] one layer's attention, kernel forward + plain backward: "
+        f"{attn_ms:.2f} ms (x{TRAIN_LAYERS} layers = "
+        f"{TRAIN_LAYERS * attn_ms / 1e3 / steady_s:.1%} of the step); one "
+        f"adamw_update of {n_params / 1e9:.2f}B params: {opt_ms:.2f} ms "
+        f"({opt_ms / 1e3 / steady_s:.1%} of the step)")
+    for e in top:
+        log(f"[train]   {_device_us(e) / 1e6:9.4f}s {e.count:6d}x "
+            f"{e.key[:90]}")
+    log("[train] " + json.dumps(out))
+    return out
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -527,22 +851,31 @@ def main() -> int:
     phase_card_and_build()
     kern = phase_kernels()
     served = phase_serving()
+    gc.collect()                  # phase 3's model, pools and engine
+    torch.cuda.empty_cache()
+    log(f"[train] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+        "allocated after serving")
+    trained = phase_training()
+    launches = {**served["launches"], "fastattn_fwd": trained["launches"]}
     sources = {"paged_decode": (
         "src/repro_torch/kernels/flash_decode/csrc/paged_decode.cu",
         "src/repro/kernels/flash_decode/kernel.py:171"),
         "paged_prefill": (
         "src/repro_torch/kernels/fastattn/csrc/paged_prefill.cu",
-        "src/repro/kernels/fastattn/kernel.py:322")}
+        "src/repro/kernels/fastattn/kernel.py:322"),
+        "fastattn_fwd": (
+        "src/repro_torch/kernels/fastattn/csrc/fastattn_fwd.cu",
+        "src/repro/kernels/fastattn/kernel.py:156")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],
-         "launches": served["launches"][name],
+         "launches": launches[name],
          "max_abs_err": kern[name]["err"], "ms": kern[name]["ms"],
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
          "library_ms": kern[name]["library_ms"]}
-        for name in ("paged_prefill", "paged_decode")]}
+        for name in ("paged_prefill", "paged_decode", "fastattn_fwd")]}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
-"""Configuration for the PyTorch port: model and serving configs.
+"""Configuration for the PyTorch port: model, parallel, train and serving
+configs.
 
-A copy of the JAX package's ``ModelConfig``, ``ServeConfig``, registry and
-``reduce_for_smoke`` (the port imports nothing of that package), field for
-field, so one set of keyword arguments configures both.  Fields of
-subsystems not ported yet (MoE, SSM, M-RoPE, preemption/swap, prefix
-cache, speculation, tensor parallelism) are kept for that reason; the
-model and the engine refuse the settings that would need them.  Configs
-are plain frozen dataclasses; ``repro_torch.configs`` registers the
-architectures the port serves.
+A copy of the JAX package's ``ModelConfig``, ``TrainConfig``,
+``ServeConfig``, registry and ``reduce_for_smoke`` (the port imports
+nothing of that package), field for field, so one set of keyword
+arguments configures both; ``ParallelConfig`` keeps the part the trainer
+reads.  Fields of subsystems not ported yet (MoE, SSM, M-RoPE,
+preemption/swap, prefix cache, speculation, tensor parallelism) are kept
+for that reason; the model, the trainer and the engine refuse the
+settings that would need them.  Configs are plain frozen dataclasses;
+``repro_torch.configs`` registers the architectures the port runs.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 from dataclasses import dataclass, replace
 from typing import Callable, Optional, Sequence
 
@@ -47,7 +51,10 @@ class ModelConfig:
     block_pattern: tuple = ("attn",)
 
     # --- attention options -------------------------------------------------
-    attention_impl: str = "reference"   # reference | pallas (TPU only)
+    # auto | kernel | reference: "auto" is the CUDA kernel for CUDA tensors
+    # and the plain version for CPU tensors; "pallas" (the JAX package's
+    # name) is accepted for "kernel"
+    attention_impl: str = "auto"
     causal: bool = True
     qkv_bias: bool = False
     attn_logit_softcap: Optional[float] = None
@@ -100,6 +107,54 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+
+# ---------------------------------------------------------------------------
+# Parallel / memory configuration (the part the trainer reads)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    # Mesh shape.  The port trains on one device: data or model above 1
+    # raise NotImplementedError (tensor parallelism is a later slice).
+    data: int = 1
+    model: int = 1
+    # none | full | selective.  "full" recomputes each block in the
+    # backward (torch.utils.checkpoint, non-reentrant); "selective" runs
+    # as "full" -- the same numbers with more recompute (the JAX policy
+    # keeps the matmul outputs, which torch's checkpoint cannot select).
+    remat: str = "selective"
+    microbatches: int = 1               # gradient accumulation steps
+
+    def __post_init__(self):
+        if self.data != 1 or self.model != 1:
+            raise NotImplementedError(
+                f"data={self.data}, model={self.model}: the port trains on "
+                "one device (tensor/data parallelism is not ported yet)")
+        if self.remat not in ("none", "full", "selective"):
+            raise ValueError(f"unknown remat {self.remat!r}")
+
+
+# ---------------------------------------------------------------------------
+# Training runtime config
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(),
+                                       "repro_torch_ckpt")
+    keep_checkpoints: int = 3
+    log_every: int = 10
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,2 @@
-"""Attention facade used by the model layers."""
+"""Attention facade used by the model layers, the tiling-mask rules and the
+Hopper two-level tiling planner."""

@@ -1,7 +1,18 @@
-"""Public paged-attention API used by the model layers.
+"""Public attention API used by the model layers.
 
 Model layers use (B, S, H, D) activations; kernels use (B, H, S, D).
-This facade handles the transposition and the implementation choice:
+This facade handles the transposition and the implementation choice.
+
+Dense attention (training, full forward), ``fast_attention``:
+
+* ``impl="kernel"`` (alias ``"pallas"``, the JAX package's name) runs the
+  CUDA kernel ``fastattn_fwd`` with the plain recompute as its backward
+  (its wrapper takes the plain PyTorch version only for CPU tensors);
+* ``impl="reference"`` runs the plain PyTorch version;
+* ``impl=None`` or ``"auto"`` means "kernel" for CUDA tensors and
+  "reference" for CPU tensors.
+
+Paged attention (serving):
 
 * ``impl="paged"`` runs the CUDA kernel (its wrapper takes the plain
   PyTorch version only for CPU tensors);
@@ -9,7 +20,7 @@ This facade handles the transposition and the implementation choice:
 * ``impl=None`` means "paged" for CUDA tensors and "paged_reference" for
   CPU tensors.
 
-Only the paged paths of the JAX facade are ported in this slice.
+The dense-cache decode path of the JAX facade is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +29,22 @@ from typing import Optional
 import torch
 
 PAGED_IMPLS = ("paged", "paged_reference")
+
+
+def fast_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   softcap: Optional[float] = None,
+                   scale: Optional[float] = None, q_offset: int = 0,
+                   kv_valid: Optional[int] = None,
+                   impl: Optional[str] = None) -> torch.Tensor:
+    """Attention over (B, S, H, D) tensors, differentiable.  Returns
+    (B, Sq, Hq, D).  ``kv_valid`` masks K/V rows past that length."""
+    from repro_torch.kernels.fastattn.ops import fastattn
+    qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = fastattn(qT, kT, vT, causal=causal, window=window,
+                   softcap=softcap, scale=scale, q_offset=q_offset,
+                   kv_valid=kv_valid, impl=impl)
+    return out.transpose(1, 2)
 
 
 def default_paged_impl(x: torch.Tensor) -> str:

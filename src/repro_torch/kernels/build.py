@@ -30,6 +30,7 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES: Dict[str, str] = {
     "paged_decode": "kernels/flash_decode/csrc/paged_decode.cu",
     "paged_prefill": "kernels/fastattn/csrc/paged_prefill.cu",
+    "fastattn_fwd": "kernels/fastattn/csrc/fastattn_fwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,1 +1,2 @@
-"""Paged chunked prefill: CUDA kernel, wrapper and plain PyTorch version."""
+"""FastAttention kernels (dense two-level-tiled forward, paged chunked
+prefill): CUDA sources, wrappers and plain PyTorch versions."""

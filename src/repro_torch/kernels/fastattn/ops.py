@@ -1,10 +1,17 @@
-"""Paged chunked prefill: the wrapper of ``csrc/paged_prefill.cu``.
+"""Wrappers of the FastAttention CUDA kernels.
 
-For CUDA tensors ``fastattn_paged_prefill`` launches the CUDA kernel
-(built at first use, see ``kernels/build.py``) or raises; for CPU tensors
-it runs the plain PyTorch version in ``ref.py``.
-``fastattn_paged_prefill.launches`` counts kernel launches (plain-version
-calls are not counted).
+* ``fastattn_fwd`` -- the dense two-level-tiled forward,
+  ``csrc/fastattn_fwd.cu``;
+* ``fastattn`` -- the same op with a gradient (``torch.autograd.Function``
+  whose backward recomputes through the plain ``flash_reference``, as the
+  JAX package's ``_bwd`` does: there is no backward kernel to port);
+* ``fastattn_paged_prefill`` -- chunked prefill against the paged KV
+  pools, ``csrc/paged_prefill.cu``.
+
+For CUDA tensors a wrapper launches its CUDA kernel (built at first use,
+see ``kernels/build.py``) or raises; for CPU tensors it runs the plain
+PyTorch version in ``ref.py``.  ``<wrapper>.launches`` counts kernel
+launches (plain-version calls are not counted).
 """
 from __future__ import annotations
 
@@ -12,13 +19,130 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import tiling
 from repro_torch.kernels import _launch as L
 from repro_torch.kernels import build
-from repro_torch.kernels.fastattn.ref import paged_prefill_reference
+from repro_torch.kernels.fastattn.ref import (flash_reference,
+                                              paged_prefill_reference)
 
-_ARGTYPES = (L.P, L.P, L.P, L.P, L.P, L.P, L.P,   # q k v table start len out
-             L.I, L.I, L.I, L.I, L.I, L.I, L.I,   # B hq sq hkv P ps d
-             L.I, L.I, L.F, L.F, L.I, L.P)        # n_kv win cap scale dt s
+# impl names of ``fastattn``: "kernel" (the JAX package's name for its
+# kernel, "pallas", is accepted too) and "reference" (plain PyTorch);
+# None or "auto" = the kernel for CUDA tensors, the plain version for CPU.
+FASTATTN_IMPLS = ("kernel", "reference")
+REF_BLOCK_KV = 1024       # the JAX package's block_kv1 default (ops.py:31)
+
+_PREFILL_ARGTYPES = (L.P, L.P, L.P, L.P, L.P, L.P, L.P,   # q k v table s l o
+                     L.I, L.I, L.I, L.I, L.I, L.I, L.I,   # B hq sq hkv P ps d
+                     L.I, L.I, L.F, L.F, L.I, L.P)        # n_kv w cap sc dt s
+_FWD_ARGTYPES = (L.P, L.P, L.P, L.P,                  # q k v out
+                 L.I, L.I, L.I, L.I, L.I, L.I, L.I,   # B hq hkv sq skv d kv1
+                 L.I, L.I, L.F, L.F,                  # causal win cap scale
+                 L.I, L.I, L.I, L.P)                  # q_off kv_valid dt s
+
+
+def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
+    if impl in (None, "auto"):
+        return "kernel" if x.is_cuda else "reference"
+    if impl == "pallas":
+        return "kernel"
+    if impl not in FASTATTN_IMPLS:
+        raise ValueError(f"unknown fastattn impl {impl!r}")
+    return impl
+
+
+def fastattn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: Optional[int] = None,
+                 softcap: Optional[float] = None,
+                 scale: Optional[float] = None, q_offset: int = 0,
+                 kv_valid: Optional[int] = None) -> torch.Tensor:
+    """Two-level-tiled FlashAttention-2 forward.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0.  Any Sq/Skv
+    (ragged edges are masked in the kernel); ``kv_valid`` masks the keys
+    at or past it.  The level-1 block comes from the Hopper planner
+    (``core/tiling.py``); block_q (64) and block_kv2 (32) are fixed by the
+    kernel's thread layout.  A row with no visible key is 0.
+    """
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    kv_valid = skv if kv_valid is None else max(min(int(kv_valid), skv), 0)
+    if q.device.type == "cpu":
+        return flash_reference(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            scale=scale, q_offset=q_offset,
+            kv_len=None if kv_valid == skv else kv_valid)
+    code = L.check_tensors("fastattn_fwd", {"q": q, "k": k, "v": v}, {})
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or k.shape[1] == 0 or hq % k.shape[1] or d not in L.HEAD_DIMS
+            or q_offset < 0):
+        raise ValueError(
+            f"fastattn_fwd: bad arguments q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, q_offset {q_offset} "
+            f"(head_dim must be one of {L.HEAD_DIMS}, Hq a multiple of "
+            "Hkv, q_offset >= 0)")
+    block_kv1 = tiling.plan_two_level_tiling(
+        sq, skv, d, dtype_bytes=q.element_size()).block_kv1
+    if b == 0 or hq == 0 or sq == 0 or skv == 0:
+        return torch.zeros_like(q)
+    out = torch.empty_like(q)
+    lib = build.library("fastattn_fwd", _FWD_ARGTYPES)
+    status = lib.fastattn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        k.shape[1], sq, skv, d, block_kv1, int(causal), L.opt_int(window),
+        L.opt_float(softcap), float(scale), int(q_offset), kv_valid, code,
+        L.stream_ptr(q.device))
+    L.check_status("fastattn_fwd", status)
+    fastattn_fwd.launches += 1
+    return out
+
+
+fastattn_fwd.launches = 0
+
+
+class _FastAttn(torch.autograd.Function):
+    """Forward through ``fastattn_fwd``; backward recomputes the plain
+    ``flash_reference`` on the saved q/k/v and differentiates it (same
+    numerics as the JAX package's custom_vjp, linear memory in Skv per
+    chunk)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, kv_valid):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask, ctx.kv_valid = mask, kv_valid
+        return fastattn_fwd(q, k, v, kv_valid=kv_valid, **mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = flash_reference(*leaves, kv_len=ctx.kv_valid,
+                                  block_kv=REF_BLOCK_KV, **ctx.mask)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None)
+
+
+def fastattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             causal: bool = True, window: Optional[int] = None,
+             softcap: Optional[float] = None, scale: Optional[float] = None,
+             q_offset: int = 0, kv_valid: Optional[int] = None,
+             impl: Optional[str] = None) -> torch.Tensor:
+    """FastAttention with a gradient: (B, Hq, Sq, D) x (B, Hkv, Skv, D) ->
+    (B, Hq, Sq, D).
+
+    impl "kernel" (alias "pallas") runs ``fastattn_fwd`` in the forward
+    (its plain version for CPU tensors) and the plain recompute in the
+    backward; "reference" differentiates ``flash_reference`` directly
+    (chunks of 1024 keys, the JAX package's default).
+    None or "auto": the kernel for CUDA tensors, the plain version for CPU.
+    """
+    mask = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                q_offset=q_offset)
+    if resolve_impl(impl, q) == "reference":
+        return flash_reference(q, k, v, kv_len=kv_valid,
+                               block_kv=REF_BLOCK_KV, **mask)
+    return _FastAttn.apply(q, k, v, mask, kv_valid)
 
 
 def fastattn_paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
@@ -60,7 +184,7 @@ def fastattn_paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
-    lib = build.library("paged_prefill", _ARGTYPES)
+    lib = build.library("paged_prefill", _PREFILL_ARGTYPES)
     status = lib.paged_prefill(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), pos_start.data_ptr(), kv_len.data_ptr(),

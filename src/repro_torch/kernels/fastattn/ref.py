@@ -1,13 +1,16 @@
-"""Plain PyTorch versions for the paged prefill kernel.
+"""Plain PyTorch versions of the FastAttention kernels.
 
-``flash_reference_with_lse`` is the chunked online-softmax attention of the
-JAX package's ``kernels/fastattn/ref.py`` (same masks, same block walk,
-f32 throughout); ``paged_prefill_reference`` gathers the owned pages and
+``standard_attention`` is the paper's baseline (softmax over a dense,
+materialised mask); ``flash_reference`` / ``flash_reference_with_lse`` are
+the chunked online-softmax attention of the JAX package's
+``kernels/fastattn/ref.py`` (same masks, same block walk, f32 throughout)
+-- the function ``csrc/fastattn_fwd.cu`` computes, and the recompute of
+its backward; ``paged_prefill_reference`` gathers the owned pages and
 runs it with runtime per-sequence query offsets -- the function
 ``csrc/paged_prefill.cu`` computes.
 
 As in ``flash_decode/ref.py``, a query row with no valid key returns 0
-(the JAX oracle averages the masked values there); its lse is NEG_INF.
+(the JAX oracles average the masked values there); its lse is NEG_INF.
 """
 from __future__ import annotations
 
@@ -15,8 +18,55 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.core.tiling_mask import dense_mask
 from repro_torch.kernels.flash_decode.ref import (NEG_INF, paged_gather,
                                                   softcap_logits)
+
+
+def _expand_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, Hkv, S, D) -> (B, Hkv * n_rep, S, D), each kv head repeated."""
+    return k if n_rep == 1 else k.repeat_interleave(n_rep, dim=1)
+
+
+def standard_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: Optional[int] = None,
+                       softcap: Optional[float] = None,
+                       scale: Optional[float] = None, q_offset: int = 0,
+                       kv_len: Optional[Union[int, torch.Tensor]] = None
+                       ) -> torch.Tensor:
+    """Naive attention with a fully materialised (Sq, Skv) mask.
+    q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D)."""
+    b, hq, sq, d = q.shape
+    skv = k.shape[2]
+    k = _expand_kv(k, hq // k.shape[1]).float()
+    v = _expand_kv(v, hq // v.shape[1]).float()
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * scale
+    s = softcap_logits(s, softcap)
+    mask = dense_mask(sq, skv, causal=causal, window=window,
+                      q_offset=q_offset, device=q.device)[None, None]
+    if kv_len is not None:
+        lens = torch.as_tensor(kv_len, device=q.device).reshape(-1, 1, 1, 1)
+        mask = mask & (torch.arange(skv, device=q.device) < lens)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1) * mask
+    return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+
+
+def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
+                    kv_len: Optional[Union[int, torch.Tensor]] = None,
+                    block_kv: int = 512) -> torch.Tensor:
+    """Chunked online-softmax attention (the kernel's algorithm in plain
+    PyTorch); differentiable.  Chunks wholly in the future of the last
+    query row are not visited (the static part of the paper's block
+    skip)."""
+    out, _ = flash_reference_with_lse(
+        q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+        q_offset=q_offset, kv_len=kv_len, block_kv=block_kv)
+    return out
 
 
 def flash_reference_with_lse(q: torch.Tensor, k: torch.Tensor,

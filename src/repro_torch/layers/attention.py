@@ -1,4 +1,5 @@
-"""GQA attention layer on paged KV pools (the non-tensor-parallel paths).
+"""GQA attention layer: the dense training/full-forward path and the paged
+KV-pool paths (all non-tensor-parallel).
 
 The pools are updated IN PLACE (``index_put_`` through a flat view): the
 JAX package wrote them functionally (``.at[].set``) and donated the old
@@ -13,7 +14,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.fastattention import (fast_attention_decode,
+from repro_torch.core.fastattention import (fast_attention,
+                                            fast_attention_decode,
                                             fast_attention_prefill_paged)
 from repro_torch.layers import common, rotary
 
@@ -55,6 +57,21 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
             f"rope_type {cfg.rope_type!r} is not ported yet (M-RoPE comes "
             "with the qwen2-vl slice)")
     return q, k, v
+
+
+def apply_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor, window: Optional[int] = None,
+                    causal: bool = True,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """Training / full-forward attention.  x: (B, S, D); positions (B, S).
+    ``impl`` (default ``cfg.attention_impl``) as in ``fast_attention``."""
+    impl = impl or cfg.attention_impl
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    out = fast_attention(q, k, v, causal=causal, window=window,
+                         softcap=cfg.attn_logit_softcap, impl=impl)
+    b, s = x.shape[:2]
+    out = out.reshape(b, s, cfg.q_dim)
+    return common.dense(out, params["wo"])
 
 
 def init_kv_pages(cfg: ModelConfig, num_pages: int, page_size: int,

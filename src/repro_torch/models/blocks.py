@@ -1,5 +1,5 @@
-"""Per-layer attention blocks for paged serving (kinds ``attn`` and
-``attn_local``).
+"""Per-layer attention blocks (kinds ``attn`` and ``attn_local``): the
+training / full forward and the paged serving paths.
 
 ``moe``, ``hymba``, ``mlstm`` and ``slstm`` blocks are not ported yet and
 raise ``NotImplementedError``.
@@ -53,8 +53,8 @@ def init_block_pages(cfg: ModelConfig, kind: str, num_pages: int,
 
 def _attn_block_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
-    """Residual + FFN half of an attention block, shared by the prefill
-    and decode paths so they cannot diverge."""
+    """Residual + FFN half of an attention block, shared by the training,
+    prefill and decode paths so they cannot diverge."""
     if cfg.post_norm:
         a = apply_norm(params["ln1_post"], a, cfg.norm_type, cfg.norm_eps)
     x = x + a
@@ -63,6 +63,17 @@ def _attn_block_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
     if cfg.post_norm:
         f = apply_norm(params["ln2_post"], f, cfg.norm_type, cfg.norm_eps)
     return x + f
+
+
+def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                *, positions: torch.Tensor,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """Training / full forward of one block over (B, S, D)."""
+    check_kind(kind)
+    h = apply_norm(params["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    a = attn_mod.apply_attention(params["attn"], h, cfg, positions=positions,
+                                 window=_window(cfg, kind), impl=impl)
+    return _attn_block_tail(params, x, a, cfg)
 
 
 def apply_block_prefill_paged(params: dict, x: torch.Tensor,

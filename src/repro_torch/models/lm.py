@@ -1,4 +1,4 @@
-"""Decoder-only language model for paged serving.
+"""Decoder-only language model: training forward and paged serving.
 
 Layers are a plain Python list (the JAX package stacked repeating units
 and ran them under ``lax.scan``; eager PyTorch needs neither).  Parameters
@@ -8,15 +8,18 @@ are nested dicts of tensors:
      "layers": [block params, ...]}
 
 The model lives on ``device`` -- ``"cuda"`` unless the caller passes
-another (the tests pass ``"cpu"``).
+another (the tests pass ``"cpu"``).  ``parallel.remat`` "full" (and
+"selective", which runs as "full") recomputes each block in the backward
+through ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.layers.embedding import (embed_tokens, init_embedding,
                                           lm_logits)
@@ -26,13 +29,15 @@ from repro_torch.models import blocks as B
 
 class LM:
     def __init__(self, cfg: ModelConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 parallel: Optional[ParallelConfig] = None):
         if cfg.modality != "text" or cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"{cfg.name}: only text decoder-only models are ported")
         for kind in set(cfg.blocks()):
             B.check_kind(kind)
         self.cfg = cfg
+        self.parallel = parallel or ParallelConfig()
         self.device = resolve_device(device)
 
     def generator(self, seed: int) -> torch.Generator:
@@ -57,6 +62,47 @@ class LM:
             "layers": [B.init_block(gen, cfg, kind, dtype)
                        for kind in cfg.blocks()],
         }
+
+    # ------------------------------------------------------------------
+    # training / full forward
+    # ------------------------------------------------------------------
+    def hidden_states(self, params: dict, x: torch.Tensor, *,
+                      positions: torch.Tensor,
+                      impl: Optional[str] = None) -> torch.Tensor:
+        """Backbone forward: embedded input (B, S, D) -> final-norm hidden
+        states.  Under remat each block is recomputed in the backward, so
+        its attention kernel launches twice per step."""
+        cfg = self.cfg
+        remat = self.parallel.remat != "none" and torch.is_grad_enabled()
+        for kind, bp in zip(cfg.blocks(), params["layers"]):
+            def run(h, bp=bp, kind=kind):
+                return B.apply_block(bp, h, cfg, kind, positions=positions,
+                                     impl=impl)
+            x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        return apply_norm(params["final_norm"], x, cfg.norm_type,
+                          cfg.norm_eps)
+
+    def apply(self, params: dict, tokens: torch.Tensor, *,
+              positions: Optional[torch.Tensor] = None,
+              impl: Optional[str] = None) -> torch.Tensor:
+        """Forward to logits.  tokens: (B, S) int; returns (B, S, V)."""
+        x = embed_tokens(params["embedding"], tokens, self.cfg)
+        if positions is None:
+            b, s = tokens.shape
+            positions = torch.arange(s, device=tokens.device).expand(b, s)
+        x = self.hidden_states(params, x, positions=positions, impl=impl)
+        return lm_logits(params["embedding"], x, self.cfg)
+
+    def loss(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+             *, impl: Optional[str] = None) -> torch.Tensor:
+        """Mean next-token cross entropy; labels < 0 are masked."""
+        logits = self.apply(params, tokens, impl=impl).float()
+        mask = labels >= 0
+        lab = torch.clamp(labels, min=0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
 
     # ------------------------------------------------------------------
     # serving

@@ -5,12 +5,13 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.models.lm import LM
 
 
 def build_model(cfg: ModelConfig,
-                device: Optional[Union[str, torch.device]] = None) -> LM:
+                device: Optional[Union[str, torch.device]] = None,
+                parallel: Optional[ParallelConfig] = None) -> LM:
     """The model for ``cfg`` on ``device`` (default ``"cuda"``; raises
     without a GPU unless the caller passes ``device="cpu"``)."""
-    return LM(cfg, device=device)
+    return LM(cfg, device=device, parallel=parallel)

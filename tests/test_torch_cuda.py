@@ -15,10 +15,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.fastattention import fast_attention_decode  # noqa: E402
-from repro_torch.kernels.fastattn.ops import \
-    fastattn_paged_prefill  # noqa: E402
-from repro_torch.kernels.fastattn.ref import \
-    paged_prefill_reference  # noqa: E402
+from repro_torch.kernels.fastattn.ops import (  # noqa: E402
+    fastattn, fastattn_fwd, fastattn_paged_prefill)
+from repro_torch.kernels.fastattn.ref import (  # noqa: E402
+    flash_reference, paged_prefill_reference)
 from repro_torch.kernels.flash_decode.ops import \
     paged_flash_decode  # noqa: E402
 
@@ -116,3 +116,75 @@ def test_cuda_paged_prefill_matches_plain(cuda_device, case, dtype, tol):
             continue
         torch.testing.assert_close(got[i, :, :n].float(),
                                    want[i, :, :n].float(), rtol=0, atol=tol)
+
+
+# (b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset, kv_valid):
+# ragged Sq/Skv that are no multiple of the tiles, GQA, window bands with
+# SKIP sub-tiles, a q_offset past 0, kv_valid tails; rows with no visible
+# key are 0 on both sides
+FWD_CASES = [
+    (2, 4, 4, 200, 200, 64, True, None, None, 0, None),
+    (1, 8, 2, 300, 257, 128, True, 100, 30.0, 0, None),
+    (1, 4, 2, 130, 333, 256, True, None, 50.0, 150, 300),
+    (2, 4, 1, 96, 160, 128, False, None, None, 0, 140),
+    (1, 2, 2, 64, 700, 64, False, 64, None, 600, None),
+    (1, 2, 2, 50, 40, 128, True, 16, None, 0, 0),
+]
+
+
+def _qkv(rng, b, hq, hkv, sq, skv, d, device, dtype):
+    return [_t(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+            for shape in ((b, hq, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_cuda_fastattn_fwd_matches_plain(cuda_device, case, dtype, tol):
+    b, hq, hkv, sq, skv, d, causal, window, softcap, off, kv_valid = case
+    rng = np.random.default_rng(7)
+    q, k, v = _qkv(rng, b, hq, hkv, sq, skv, d, cuda_device, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=off)
+    before = fastattn_fwd.launches
+    got = fastattn_fwd(q, k, v, kv_valid=kv_valid, **kw)
+    assert fastattn_fwd.launches == before + 1
+    want = flash_reference(q, k, v, kv_len=kv_valid, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window,softcap", [(True, None, None),
+                                                   (True, 48, 20.0),
+                                                   (False, None, None)])
+def test_cuda_fastattn_autograd_matches_plain(cuda_device, causal, window,
+                                              softcap):
+    """The autograd op launches the kernel in the forward and recomputes
+    through the plain version in the backward: output and gradients
+    equal the plain path's (float32, 1e-4)."""
+    rng = np.random.default_rng(9)
+    q, k, v = _qkv(rng, 2, 4, 2, 160, 160, 64, cuda_device, torch.float32)
+    g = _t(rng.normal(size=q.shape).astype(np.float32)).to(cuda_device)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    res = {}
+    for impl in ("kernel", "reference"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fastattn_fwd.launches
+        out = fastattn(*leaves, impl=impl, **kw)
+        launched = fastattn_fwd.launches - before
+        assert launched == (1 if impl == "kernel" else 0)
+        res[impl] = (out, *torch.autograd.grad(out, leaves, g))
+    for got, want in zip(res["kernel"], res["reference"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_fastattn_fwd_rejects_bad_arguments(cuda_device):
+    q = torch.zeros((1, 2, 8, 96), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fastattn_fwd(q, q, q)
+    q = torch.zeros((1, 2, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fastattn_fwd(q.transpose(1, 2), q, q)

@@ -76,7 +76,11 @@ def test_embed_and_logits_match_jax(arch):
     untied lm_head, no softcap."""
     jcfg = reduce_for_smoke(get_model_config(arch))
     tcfg = t_reduce(t_get(arch))
-    assert jcfg == jcfg.__class__(**tcfg.__dict__)
+    # field for field, but for the attention default: "auto" puts CUDA
+    # tensors on the kernel in the port, JAX's "reference" would not
+    assert tcfg.attention_impl == "auto"
+    assert jcfg == jcfg.__class__(**{**tcfg.__dict__, "attention_impl":
+                                     jcfg.attention_impl})
     rng = np.random.default_rng(2)
     embed = rng.normal(size=(jcfg.vocab_size, jcfg.d_model))
     head = rng.normal(size=(jcfg.d_model, jcfg.vocab_size)) * 0.2
