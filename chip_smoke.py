@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, serve, train.
+"""Smoke run of the PyTorch port on one GPU: build, check, serve, train,
+offload.
 
     python3 chip_smoke.py
 
@@ -10,22 +11,36 @@ which raises on failure (the script then exits non-zero):
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel of the port from ``src/repro_torch/**/csrc``.
 2. Each kernel against its plain PyTorch version on the card, with the
-   maximum absolute error held to a stated tolerance: the paged kernels at
+   maximum absolute error held to a stated tolerance (the dense-decode
+   checks also hold each row's error to that row's scale): the paged
+   kernels at
    the shapes of llama2-7b's and gemma2-2b's serving path and at page
    size 16 in float32; ``fastattn_fwd`` at llama2-7b's training shape, a
    gemma2-2b band (GQA, window, softcap), a float32 ragged case with a
-   q_offset and a kv_valid tail, and a non-causal case.  Each is timed
-   (median of 20 launches) beside the least time the card could take
-   (its bound), the plain version's time and, where one PyTorch call
-   computes the same function, that call's time (``library_ms``:
-   ``scaled_dot_product_attention``, with a gather or GQA expansion
-   excluded from the time; the port never calls it).
+   q_offset and a kv_valid tail, and a non-causal case; ``flash_decode``
+   on dense caches at llama2-7b's decode shape in both layouts, a
+   gemma2-2b window/softcap case, a float32 case and llama2-7b at B=1 on
+   a 65536-token cache.  Each is timed (median of 20 launches) beside
+   the least time the card could take (its bound), the plain version's
+   time and, where one PyTorch call computes the same function, that
+   call's time (``library_ms``: ``scaled_dot_product_attention``, with a
+   gather, GQA expansion or layout copy excluded from the time; the port
+   never calls it).
 3. Serving: an ``EngineCore`` on llama2-7b at full width and depth (bf16,
    random weights from a seeded CUDA generator) answers 12 greedy
    requests of 37-1800 prompt tokens with 32 new tokens each.  Both
    paged kernels' launch counts must be above 0, no page may leak, and
    the first request's first chunk and one decode step must agree with
    the plain attention path within a stated tolerance.
+3b. Dense generation, on phase 3's model before it is freed:
+   ``ServeEngine.generate`` of 8 prompts of 128 tokens (numpy seed 0), 32
+   greedy new tokens, dense KV caches through ``flash_decode``, which must
+   launch exactly 32 layers x (128 + 31) steps; the paged ``EngineCore``
+   must give the same greedy tokens wherever the top-1 margin exceeds the
+   phase 3 tolerance, and kernel and plain ``decode_step`` logits must
+   agree within it at positions 0-3 and 36-39.  ``flash_decode`` is held
+   to its plain version on generate's own caches (B=8, kv_len 159) and
+   timed there: those are the kernels line's numbers for it.
 4. Training: with phase 3's model freed, the trainer's own functions
    (``init_train_state``, ``make_train_step``, ``TokenPipeline``,
    ``CheckpointManager``, as ``repro_torch.launch.train`` calls them) take
@@ -37,6 +52,15 @@ which raises on failure (the script then exits non-zero):
    and gradient norm must agree with the plain attention path's within
    1% and 5%.  One more step is traced with ``torch.profiler`` for the
    share of the step's device time in ``fastattn_fwd``.
+5. Cooperative offload (paper §4.4), after phase 4: ``plan_offload`` and
+   ``max_context_length`` for llama2-7b on one 80 GB card, then one
+   layer's decode attention at B=1, S=65536 with the KV on the host
+   (``HostOffloadEngine``: Q down, host attention, output up) against
+   classical offloading (upload the layer's bf16 KV from pinned memory,
+   then ``flash_decode``), outputs held to each other, times, the
+   measured pinned copy rate and host GFLOP/s, and ``table3_row`` under
+   those constants.  The host KV is f32 (twice the upload's bytes), so
+   host attention is also timed once over the pinned bf16 copy.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -63,6 +87,10 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # bf16 outputs: kernel and plain version both accumulate in f32 and
 # round once to bf16 (2^-8 relative); inputs are N(0, 1), outputs |o| < 4.
 # f32: only the summation order differs.
+REL_TOL = {"bfloat16": 1e-2, "float32": 1e-3}
+# the decode checks also hold each batch row's error to its own scale
+# (held_to_plain): one bf16 rounding apart is at most 2^-7 of the row's
+# largest |output|.
 
 
 def log(msg: str) -> None:
@@ -387,6 +415,117 @@ def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
     return res
 
 
+def held_to_plain(tag, name, out, ref, dtype) -> tuple:
+    """Hold ``out`` to its plain version ``ref`` (leading dim = batch
+    rows): the max abs error within TOL, and every row's max abs error
+    within REL_TOL of that row's largest |ref|.  The second check matters
+    on long caches, where an output's scale is about sqrt(e / kv_len) and
+    TOL alone would pass a kernel that skipped part of the keys.  Returns
+    (max abs error, max error relative to its row's scale)."""
+    import torch
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{name}: non-finite output")
+    diff = (out.float() - ref.float()).abs().flatten(1).amax(1)
+    scale = ref.float().abs().flatten(1).amax(1)
+    err = diff.max().item()
+    rel = (diff / scale.clamp_min(1e-30)).max().item()
+    tol, rtol = TOL[dtype], REL_TOL[dtype]
+    log(f"[{tag}] {name}: max_abs_err {err:.3e} (tol {tol:g}), max error "
+        f"/ row scale {rel:.3e} (tol {rtol:g}), smallest row scale "
+        f"{scale.min().item():.3e}")
+    if not (err <= tol and rel <= rtol):
+        raise AssertionError(f"{name}: max_abs_err {err} (tol {tol}), "
+                             f"relative {rel} (tol {rtol})")
+    return err, rel
+
+
+def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
+                         window=None, softcap=None) -> dict:
+    """flash_decode vs decode_reference on given cache tensors (read in
+    place in ``layout``) and host kv_len ``lens``; then the kernel, the
+    plain version and SDPA timed, and the bound of this data's work."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import decode_reference
+    b, hq, d = q.shape
+    if layout == "bshd":
+        s, hkv = k.shape[1], k.shape[2]
+    else:
+        hkv, s = k.shape[1], k.shape[2]
+    lens_t = torch.from_numpy(lens).cuda()
+    kw = dict(window=window, softcap=softcap, layout=layout)
+
+    def kernel():
+        return flash_decode(q, k, v, lens_t, **kw)
+
+    def plain():
+        return decode_reference(q[:, :, None], k, v, lens_t,
+                                **kw)[:, :, 0]
+
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel = held_to_plain("flash_decode", name, out, ref, dtype)
+
+    # work this data needs: each valid K/V row read once per kv head
+    keys = np.minimum(lens, window) if window else lens
+    esize = q.element_size()
+    n_bytes = (2 * hkv * int(keys.sum()) * d + 2 * b * hq * d) * esize \
+        + lens.nbytes
+    n_ops = 4.0 * hq * int(keys.sum()) * d
+    bnd, by = bound_ms(n_bytes, n_ops, dtype)
+    res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
+           "plain_ms": time_ms(plain, reps=5), "bound_ms": bnd,
+           "bound_by": by, "library_ms": None}
+    lib_note = "n/a (no single PyTorch call applies a softcap or window)"
+    if window is None and softcap is None:
+        # SDPA takes (B, H, S, D): a "bshd" cache is copied to that layout
+        # outside the timed region
+        kd = k.transpose(1, 2).contiguous() if layout == "bshd" else k
+        vd = v.transpose(1, 2).contiguous() if layout == "bshd" else v
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] < lens_t[:, None].long())[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kd, vd, attn_mask=mask,
+                enable_gqa=hq != hkv)
+        res["library_ms"] = time_ms(lib)
+        lib_note = (f"{res['library_ms']:.4f} ms (scaled_dot_product_"
+                    "attention, boolean mask"
+                    + (", layout copy excluded)" if layout == "bshd"
+                       else ")"))
+    log(f"[flash_decode] {name}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}, {n_bytes / 1e6:.1f} MB), library {lib_note}")
+    return res
+
+
+def dense_decode_case(name, *, b, hq, hkv, s, d, dtype, layout,
+                      window=None, softcap=None, seed=0):
+    """flash_decode vs decode_reference on random N(0, 1) inputs of one
+    shape, the cache in ``layout``.  kv_len is ragged in 1..s with one row
+    at s and (for b > 1) one at 1."""
+    import numpy as np
+    import torch
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (b, s, hkv, d) if layout == "bshd" else (b, hkv, s, d)
+    k, v = (torch.randn(shape, generator=gen, device="cuda").to(tdt)
+            for _ in range(2))
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(tdt)
+    lens = rng.integers(1, s + 1, size=b).astype(np.int32)
+    lens[0] = s
+    if b > 1:
+        lens[-1] = 1
+    return dense_decode_measure(name, q, k, v, lens, dtype=dtype,
+                                layout=layout, window=window,
+                                softcap=softcap)
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  Returns the main-path
     (llama2-7b) numbers of each kernel."""
@@ -423,6 +562,23 @@ def phase_kernels() -> dict:
                  hq=8, hkv=2, d=128, ps=16, n_kv=12, chunk=64,
                  dtype="float32", starts=[0, 64, 100, 0],
                  nvalid=[64, 64, 20, 0], window=40, softcap=30.0, seed=2)
+    dense_decode_case("llama2-7b B=8 H=32/32 D=128 bf16 bshd S=4096",
+                      b=8, hq=32, hkv=32, s=4096, d=128, dtype="bfloat16",
+                      layout="bshd")
+    dense_decode_case("llama2-7b B=8 H=32/32 D=128 bf16 bhsd S=4096",
+                      b=8, hq=32, hkv=32, s=4096, d=128, dtype="bfloat16",
+                      layout="bhsd")
+    dense_decode_case("gemma2-2b B=8 H=8/4 D=256 bf16 bshd S=8192 "
+                      "window=4096 cap=50", b=8, hq=8, hkv=4, s=8192,
+                      d=256, dtype="bfloat16", layout="bshd", window=4096,
+                      softcap=50.0, seed=1)
+    dense_decode_case("f32 B=4 H=8/2 D=64 bshd S=1000", b=4, hq=8, hkv=2,
+                      s=1000, d=64, dtype="float32", layout="bshd", seed=2)
+    dense_decode_case("llama2-7b B=1 H=32/32 D=128 bf16 bshd S=65536",
+                      b=1, hq=32, hkv=32, s=65536, d=128, dtype="bfloat16",
+                      layout="bshd", seed=3)
+    # flash_decode's numbers for the kernels line are taken at the main
+    # path's own shape, in phase 3b
     return {"paged_decode": dec, "paged_prefill": pre, "fastattn_fwd": fwd}
 
 
@@ -430,16 +586,11 @@ def phase_kernels() -> dict:
 # phase 3: serving llama2-7b
 # ---------------------------------------------------------------------------
 
-def phase_serving(n_requests: int = 12, new_tokens: int = 32) -> dict:
-    import numpy as np
+def build_llama():
+    """llama2-7b at full width and depth, random weights from seed 0."""
     import torch
-    from repro_torch.config import ServeConfig, get_model_config
-    from repro_torch.kernels.fastattn.ops import fastattn_paged_prefill
-    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+    from repro_torch.config import get_model_config
     from repro_torch.models import build_model
-    from repro_torch.serving.core import EngineCore
-    from repro_torch.serving.scheduler import FINISHED, SamplingParams
-
     cfg = get_model_config("llama2-7b")
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
@@ -449,6 +600,19 @@ def phase_serving(n_requests: int = 12, new_tokens: int = 32) -> dict:
     log(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {n_params / 1e9:.2f}B params ({cfg.param_dtype}) "
         f"initialised in {time.perf_counter() - t0:.1f}s")
+    return model, params
+
+
+def phase_serving(model, params, n_requests: int = 12,
+                  new_tokens: int = 32) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels.fastattn.ops import fastattn_paged_prefill
+    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+    from repro_torch.serving.scheduler import FINISHED, SamplingParams
+
+    cfg = model.cfg
     serve = ServeConfig(max_batch=8, max_seq_len=2048, page_size=128,
                         prefill_chunk=512)
     core = _make_timed_core()(model, params, cfg, serve, device="cuda")
@@ -610,6 +774,184 @@ def check_against_plain(model, params, prompt, first_token) -> None:
 # outputs to bf16 at different points, so the logits drift by a few
 # percent of their scale at most.
 LOGIT_TOL = 0.05
+
+# ---------------------------------------------------------------------------
+# phase 3b: dense generation on llama2-7b
+# ---------------------------------------------------------------------------
+
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 128, 32
+DENSE_CHECK_POS = (0, 1, 2, 3, 36, 37, 38, 39)
+
+
+def _compare_logits(what, got, ref) -> None:
+    """Hold kernel-path logits ``got`` (B, V) to ``ref``: within LOGIT_TOL
+    of ``ref``'s scale, and the same greedy token in every row whose top-1
+    margin exceeds that tolerance."""
+    import torch
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item()
+    tol = LOGIT_TOL * scale
+    if not err <= tol:
+        raise AssertionError(f"{what}: logits differ by {err} > {tol}")
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    same = torch.argmax(got, -1) == torch.argmax(ref, -1)
+    if bool((clear & ~same).any()):
+        raise AssertionError(f"{what}: greedy tokens differ")
+    log(f"[dense] {what}: max_abs_err {err:.4f} (tol {tol:.4f}), greedy "
+        f"tokens equal in {int(clear.sum())} rows with a clear margin")
+
+
+def phase_dense(model, params) -> dict:
+    """ServeEngine.generate on phase 3's llama2-7b: B=8 prompts of 128
+    tokens, 32 greedy new tokens, dense caches through flash_decode."""
+    import numpy as np
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import decode_reference
+    from repro_torch.serving.core import EngineCore
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.scheduler import SamplingParams
+
+    cfg = model.cfg
+    b, s, n_new = DENSE_BATCH, DENSE_PROMPT, DENSE_NEW
+    serve = ServeConfig(max_seq_len=s + n_new + 1, top_k=1)
+    engine = ServeEngine(model=model, params=params, cfg=cfg, serve=serve)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                size=(b, s))
+    cache_gb = 2 * cfg.num_layers * b * serve.max_seq_len * cfg.kv_dim \
+        * 2 / 1e9
+    # the logits each generated token was sampled from, for the margins,
+    # and the dense caches as generate left them
+    seen, last_cache = [], []
+    decode = engine._decode
+
+    def recording(tok, cache, pos):
+        logits, cache = decode(tok, cache, pos)
+        if pos >= s - 1:
+            seen.append(logits.float())
+        last_cache[:] = [cache]
+        return logits, cache
+    engine._decode = recording
+
+    torch.cuda.synchronize()
+    flash_decode.launches = 0
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, n_new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_decode.launches
+    engine._decode = decode
+    expected = cfg.num_layers * (s + n_new - 1)
+    log(f"[dense] generate: B={b} x {s} prompt tokens, {n_new} new, dense "
+        f"cache {cache_gb:.2f} GB, {wall:.2f}s wall; flash_decode launches "
+        f"{launches} (expected {cfg.num_layers} layers x ({s} prompt + "
+        f"{n_new - 1} decode steps) = {expected})")
+    if launches != expected:
+        raise AssertionError(f"flash_decode launched {launches} times, "
+                             f"expected {expected}")
+    out = out.cpu().numpy()
+    if out.shape != (b, n_new) or not ((0 <= out) & (out < cfg.vocab_size)
+                                       ).all():
+        raise AssertionError(f"bad generated tokens {out.shape}")
+
+    # the kernel against its plain version at the main path's own shape:
+    # generate's caches (B=8, 161 token rows, "bshd") of the first and the
+    # last layer, at the last step's kv_len (prompt + new - 1 = 159); the
+    # first layer's numbers are the kernels line's
+    cache, = last_cache
+    del last_cache
+    kv_len = s + n_new - 1
+    lens = np.full((b,), kv_len, np.int32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    kern = None
+    for layer in (0, cfg.num_layers - 1):
+        q = torch.randn((b, cfg.num_heads, cfg.head_dim), generator=gen,
+                        device="cuda").to(cache[layer].k.dtype)
+        what = (f"generate's layer-{layer} cache B={b} "
+                f"S={serve.max_seq_len} kv_len={kv_len} bshd")
+        if kern is None:
+            kern = dense_decode_measure(what, q, cache[layer].k,
+                                        cache[layer].v, lens,
+                                        dtype="bfloat16", layout="bshd")
+            continue
+        out_k = flash_decode(q, cache[layer].k, cache[layer].v,
+                             torch.from_numpy(lens).cuda(), layout="bshd")
+        ref_k = decode_reference(q[:, :, None], cache[layer].k,
+                                 cache[layer].v, torch.from_numpy(lens),
+                                 layout="bshd")[:, :, 0]
+        held_to_plain("flash_decode", what, out_k, ref_k, "bfloat16")
+    del cache
+
+    # the same prompts through the paged EngineCore: equal greedy tokens
+    # wherever the dense path's top-1 margin exceeds the tolerance; the
+    # streams may fork only at a near-tie, after which contexts differ
+    core = EngineCore(model, params, cfg, ServeConfig(
+        max_batch=b, max_seq_len=s + n_new + 128, page_size=128,
+        prefill_chunk=512), device="cuda")
+    ids = [core.add_request(p, SamplingParams(max_new_tokens=n_new))
+           for p in prompts]
+    paged = {i: [] for i in ids}
+    while core.has_work:
+        for ev in core.step():
+            if ev.kind != "token":
+                raise AssertionError(f"request {ev.request_id}: {ev}")
+            paged[ev.request_id].append(ev.token)
+    logits = torch.stack(seen, dim=1)                 # (B, n_new, V)
+    top2 = torch.topk(logits, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    tol = LOGIT_TOL * logits.abs().amax(dim=-1).cpu().numpy()
+    compared = equal = 0
+    for row, rid in enumerate(ids):
+        for t in range(n_new):
+            clear = margin[row, t] > tol[row, t]
+            if paged[rid][t] != out[row, t]:
+                if clear:
+                    raise AssertionError(
+                        f"row {row} token {t}: paged {paged[rid][t]} != "
+                        f"dense {out[row, t]} at margin {margin[row, t]}")
+                break                   # forked at a near-tie
+            equal += 1
+            compared += int(clear)
+    log(f"[dense] paged EngineCore vs dense generate: {equal} of "
+        f"{b * n_new} greedy tokens equal before the streams fork at a "
+        f"near-tie, {compared} of them with a top-1 margin above the "
+        "tolerance")
+    del core, logits, seen
+
+    # kernel vs plain attention path, each teacher-forced on its own
+    # cache: the first 4 prompt positions, and 4 past one 32-key pass of
+    # the kernel's thread groups (flash_decode.cu)
+    caches = {impl: model.init_cache(b, serve.max_seq_len)
+              for impl in ("kernel", "reference")}
+    toks = torch.from_numpy(prompts).cuda()
+    for pos in range(DENSE_CHECK_POS[-1] + 1):
+        res = {}
+        for impl, cache in caches.items():
+            res[impl], _ = model.decode_step(params, toks[:, pos], cache,
+                                             pos, impl=impl)
+        if pos in DENSE_CHECK_POS:
+            _compare_logits(f"decode_step pos {pos}, kernel vs plain",
+                            res["kernel"], res["reference"])
+    del caches
+    tok_s = engine.throughput_tokens_per_s(b, s, n_new=8)
+    res = {"batch": b, "prompt": s, "new_tokens": n_new,
+           "wall_s": wall, "tokens_per_s_generate": b * n_new / wall,
+           "throughput_tokens_per_s": tok_s, "launches": launches,
+           "tokens_equal": equal, "tokens_clear": compared,
+           "cache_gb": cache_gb, "kernel": kern}
+    log(f"[dense] generate {res['tokens_per_s_generate']:.1f} new tok/s "
+        f"(prompt teacher-forced one position a step); "
+        f"throughput_tokens_per_s(B={b}, prompt {s}, 8 steps) "
+        f"{tok_s:.1f} tok/s")
+    log("[dense] " + json.dumps(res))
+    return res
+
 
 # ---------------------------------------------------------------------------
 # phase 4: training llama2-7b at full width
@@ -835,6 +1177,175 @@ def phase_training() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the paper's CPU-GPU cooperative offload
+# ---------------------------------------------------------------------------
+
+OFFLOAD_SEQ = 65536
+
+
+def _host_memory_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) / 2 ** 20      # kB -> GiB
+    raise AssertionError("MemTotal not in /proc/meminfo")
+
+
+def _wall_ms(fn, reps: int = 10):
+    """Median host wall time of ``fn()`` (synchronised) and its last
+    result."""
+    import torch
+    out, times = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def phase_offload() -> dict:
+    """Per-layer decode attention at llama2-7b's layer shape, B=1,
+    S=65536: the cooperative strategy (KV on the host, attention there,
+    only Q and the output cross PCIe) against classical offloading
+    (upload the layer's KV, then the kernel)."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.core.offload import (HostOffloadEngine,
+                                          OffloadLatencyModel,
+                                          max_context_length, plan_offload,
+                                          table3_row)
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+
+    cfg = get_model_config("llama2-7b")
+    for seq in (131072, 196608):
+        plan = plan_offload(cfg, batch=1, seq_len=seq, gen_len=64,
+                            n_devices=1, device_memory_gb=80.0)
+        log(f"[offload] plan_offload {cfg.name} B=1 S={seq} gen 64, one "
+            f"80 GB device: {plan.summary()}")
+    host_gb = _host_memory_gb()
+    ctx = max_context_length(cfg, batch=1, n_devices=1,
+                             device_memory_gb=80.0, host_memory_gb=host_gb)
+    log(f"[offload] max_context_length with {host_gb:.1f} GiB of host "
+        f"memory: {ctx['device_only']} tokens on the device alone, "
+        f"{ctx['cooperative']} with the cooperative strategy")
+
+    s, hkv, d = OFFLOAD_SEQ, cfg.num_kv_heads, cfg.head_dim
+    plan = dc.replace(plan_offload(cfg, batch=1, seq_len=s, gen_len=64,
+                                   n_devices=1),
+                      l_gpu=cfg.num_layers - 2, l_cpu=2, needs_offload=True)
+    t0 = time.perf_counter()
+    eng = HostOffloadEngine(cfg, plan, max_batch=1, max_seq=s)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    k, v = (torch.randn((1, s, hkv, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    for layer in range(plan.l_cpu):
+        eng.prefill_offload(layer, k[:, :s - 1], v[:, :s - 1])
+        eng.decode_append(layer, k[:, s - 1:], v[:, s - 1:], s - 1)
+    torch.cuda.synchronize()
+    host_kv_gb = 2 * s * hkv * d * 4 / 1e9
+    log(f"[offload] HostOffloadEngine l_cpu={plan.l_cpu}: host KV "
+        f"{host_kv_gb:.2f} GB a layer (f32, pinned), filled by "
+        f"prefill_offload + one decode_append in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    q = torch.randn((1, 1, cfg.num_heads, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    lens = torch.full((1,), s, dtype=torch.int32)
+    eng.decode_attention(0, q, lens)                      # warm-up
+    down_ms, q_h = _wall_ms(lambda: q.to("cpu"))
+    host_ms, out_h = _wall_ms(lambda: eng.host_attention(0, q_h, lens))
+    up_ms, _ = _wall_ms(lambda: out_h.to("cuda"))
+    coop_ms, coop = _wall_ms(lambda: eng.decode_attention(0, q, lens))
+
+    # classical: the layer's bf16 KV in pinned host memory, uploaded, then
+    # the kernel on it
+    k_h, v_h = (t.cpu().pin_memory() for t in (k, v))
+    k_d, v_d = torch.empty_like(k), torch.empty_like(v)
+    lens_d = lens.cuda()
+    kv_bytes = 2 * k.numel() * k.element_size()
+
+    def upload():
+        k_d.copy_(k_h, non_blocking=True)
+        v_d.copy_(v_h, non_blocking=True)
+
+    def classical():
+        upload()
+        return flash_decode(q[:, 0], k_d, v_d, lens_d, layout="bshd")
+    classical()
+    upload_ms = time_ms(upload, reps=10)
+    calc_ms = time_ms(lambda: flash_decode(q[:, 0], k_d, v_d, lens_d,
+                                           layout="bshd"), reps=10)
+    classical_ms, ref = _wall_ms(classical)
+    err, rel = held_to_plain("offload", "host output vs flash_decode on "
+                             "the uploaded KV", coop[:, 0], ref, "bfloat16")
+
+    # the host KV is f32 (JAX's layout), twice the bytes the classical path
+    # uploads: host attention once more over the pinned bf16 copies, for a
+    # comparison of equal bytes (f32 math on 4096-key slices widened from
+    # bf16, so the bf16 bytes are read once)
+    g, step = cfg.num_heads // hkv, 4096
+    slices = [slice(i, i + step) for i in range(0, s, step)]
+
+    def host_bf16():
+        qg = q_h[0, 0].float().reshape(hkv, g, d) * d ** -0.5
+        logits = torch.cat([torch.einsum("hgd,shd->hgs", qg,
+                                         k_h[0, sl].float())
+                            for sl in slices], dim=-1)
+        p = torch.softmax(logits, dim=-1)
+        out = sum(torch.einsum("hgs,shd->hgd", p[..., sl], v_h[0, sl].float())
+                  for sl in slices)
+        return out.reshape(1, -1, d).to(q_h.dtype)
+    host_bf16_ms, out_b = _wall_ms(host_bf16, reps=5)
+    held_to_plain("offload", "bf16 host attention vs flash_decode", out_b,
+                  ref.cpu(), "bfloat16")
+
+    flops = 4.0 * s * cfg.q_dim
+    pcie_gbps = kv_bytes / (upload_ms / 1e3) / 1e9
+    host_gflops = flops / (host_ms / 1e3) / 1e9
+    model = OffloadLatencyModel(pcie_gbps=pcie_gbps, host_gflops=host_gflops)
+    pred_classical = (model.classical_upload_s(kv_bytes)
+                      + model.device_attention_s(1, s, cfg.q_dim)) * 1e3
+    pred_coop = (model.host_attention_s(1, s, cfg.q_dim)
+                 + model.coop_offupload_s(1, cfg.q_dim)) * 1e3
+    rows = [table3_row(cfg, seq, n_devices=1, model=model)
+            for seq in (131072, 196608)]
+    res = {"seq": s, "host_kv_gb_per_layer": host_kv_gb,
+           "coop_ms": coop_ms, "coop_q_down_ms": down_ms,
+           "coop_host_attention_ms": host_ms, "coop_out_up_ms": up_ms,
+           "classical_ms": classical_ms, "classical_upload_ms": upload_ms,
+           "classical_kernel_ms": calc_ms,
+           "classical_over_coop": classical_ms / coop_ms,
+           "pinned_h2d_gbps": pcie_gbps, "host_attention_gflops":
+           host_gflops, "predicted_classical_ms": pred_classical,
+           "predicted_coop_ms": pred_coop,
+           "host_attention_bf16_kv_ms": host_bf16_ms,
+           "table3_rows": rows, "max_abs_err": err, "rel_err": rel,
+           "host_memory_gib": host_gb, "max_context": ctx}
+    log(f"[offload] cooperative {coop_ms:.2f} ms a layer (Q down "
+        f"{down_ms:.3f}, host attention over {host_kv_gb:.2f} GB of f32 KV "
+        f"{host_ms:.2f}, output up {up_ms:.3f}); classical "
+        f"{classical_ms:.2f} ms (upload of {kv_bytes / 1e9:.2f} GB of bf16 "
+        f"KV {upload_ms:.2f}, flash_decode {calc_ms:.3f}); classical / "
+        f"cooperative {classical_ms / coop_ms:.3f} (the paper's Table 3: "
+        f"1.27-1.48); host attention over the {kv_bytes / 1e9:.2f} GB of "
+        f"bf16 KV {host_bf16_ms:.2f} ms")
+    log(f"[offload] measured: pinned host->device {pcie_gbps:.2f} GB/s, "
+        f"host attention {host_gflops:.2f} GFLOP/s; the latency model "
+        f"with them predicts classical {pred_classical:.2f} ms, "
+        f"cooperative {pred_coop:.2f} ms at S={s}")
+    for row in rows:
+        log(f"[offload] table3_row S={row['seq']} (measured constants): "
+            + json.dumps({k: v for k, v in row.items() if k != "seq"}))
+    log("[offload] " + json.dumps(res))
+    return res
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -850,13 +1361,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_card_and_build()
     kern = phase_kernels()
-    served = phase_serving()
-    gc.collect()                  # phase 3's model, pools and engine
+    model, params = build_llama()
+    served = phase_serving(model, params)
+    dense = phase_dense(model, params)
+    del model, params
+    gc.collect()                  # phase 3's model, pools and engines
     torch.cuda.empty_cache()
     log(f"[train] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
         "allocated after serving")
     trained = phase_training()
-    launches = {**served["launches"], "fastattn_fwd": trained["launches"]}
+    gc.collect()                  # phase 4's model and optimizer state
+    torch.cuda.empty_cache()
+    phase_offload()
+    launches = {**served["launches"], "fastattn_fwd": trained["launches"],
+                "flash_decode": dense["launches"]}
+    kern["flash_decode"] = dense["kernel"]
     sources = {"paged_decode": (
         "src/repro_torch/kernels/flash_decode/csrc/paged_decode.cu",
         "src/repro/kernels/flash_decode/kernel.py:171"),
@@ -865,7 +1384,10 @@ def main() -> int:
         "src/repro/kernels/fastattn/kernel.py:322"),
         "fastattn_fwd": (
         "src/repro_torch/kernels/fastattn/csrc/fastattn_fwd.cu",
-        "src/repro/kernels/fastattn/kernel.py:156")}
+        "src/repro/kernels/fastattn/kernel.py:156"),
+        "flash_decode": (
+        "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_decode/kernel.py:87")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],
@@ -875,7 +1397,8 @@ def main() -> int:
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
          "library_ms": kern[name]["library_ms"]}
-        for name in ("paged_prefill", "paged_decode", "fastattn_fwd")]}
+        for name in ("paged_prefill", "paged_decode", "fastattn_fwd",
+                     "flash_decode")]}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,12 @@ A copy of the JAX package's ``ModelConfig``, ``TrainConfig``,
 ``ServeConfig``, registry and ``reduce_for_smoke`` (the port imports
 nothing of that package), field for field, so one set of keyword
 arguments configures both; ``ParallelConfig`` keeps the part the trainer
-reads.  Fields of subsystems not ported yet (MoE, SSM, M-RoPE,
-preemption/swap, prefix cache, speculation, tensor parallelism) are kept
-for that reason; the model, the trainer and the engine refuse the
-settings that would need them.  Configs are plain frozen dataclasses;
-``repro_torch.configs`` registers the architectures the port runs.
+and the offload planner read.  Fields of subsystems not ported yet (MoE,
+SSM, M-RoPE, preemption/swap, prefix cache, speculation, tensor
+parallelism) are kept for that reason; the model, the trainer and the
+engine refuse the settings that would need them.  Configs are plain
+frozen dataclasses; ``repro_torch.configs`` registers the architectures
+the port runs.
 """
 from __future__ import annotations
 
@@ -110,7 +111,8 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Parallel / memory configuration (the part the trainer reads)
+# Parallel / memory configuration (the part the trainer and the offload
+# planner read)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -126,11 +128,22 @@ class ParallelConfig:
     remat: str = "selective"
     microbatches: int = 1               # gradient accumulation steps
 
+    # --- paper T4: CPU-GPU cooperative offload (core/offload.py) ---------
+    # offload_kv=True raises NotImplementedError: no decode path routes
+    # its layers to a HostOffloadEngine yet (nor does the JAX package's)
+    offload_kv: bool = False
+    host_memory_gb: float = 512.0
+    device_memory_gb: float = 80.0      # one H100 SXM's HBM3
+
     def __post_init__(self):
         if self.data != 1 or self.model != 1:
             raise NotImplementedError(
                 f"data={self.data}, model={self.model}: the port trains on "
                 "one device (tensor/data parallelism is not ported yet)")
+        if self.offload_kv:
+            raise NotImplementedError(
+                "offload_kv: no decode path reads host KV yet; drive "
+                "core.offload.HostOffloadEngine directly")
         if self.remat not in ("none", "full", "selective"):
             raise ValueError(f"unknown remat {self.remat!r}")
 

@@ -12,7 +12,8 @@ Dense attention (training, full forward), ``fast_attention``:
 * ``impl=None`` or ``"auto"`` means "kernel" for CUDA tensors and
   "reference" for CPU tensors.
 
-Paged attention (serving):
+Paged attention (serving), ``fast_attention_prefill_paged`` and
+``fast_attention_decode`` with a ``page_table``:
 
 * ``impl="paged"`` runs the CUDA kernel (its wrapper takes the plain
   PyTorch version only for CPU tensors);
@@ -20,7 +21,13 @@ Paged attention (serving):
 * ``impl=None`` means "paged" for CUDA tensors and "paged_reference" for
   CPU tensors.
 
-The dense-cache decode path of the JAX facade is not ported yet.
+Dense-cache decode, ``fast_attention_decode`` without a ``page_table``:
+
+* ``impl="kernel"`` (alias ``"pallas"``) runs the CUDA kernel
+  ``flash_decode`` on the cache in place, either layout;
+* ``impl="reference"`` runs the JAX facade's einsum branch;
+* ``impl=None`` or ``"auto"`` means "kernel" for CUDA tensors and
+  "reference" for CPU tensors.
 """
 from __future__ import annotations
 
@@ -89,29 +96,76 @@ def fast_attention_prefill_paged(q: torch.Tensor, k_pages: torch.Tensor,
     return out.transpose(1, 2)
 
 
-def fast_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
-                          v_pages: torch.Tensor, kv_len: torch.Tensor, *,
-                          page_table: torch.Tensor,
+def fast_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, kv_len: torch.Tensor, *,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None,
                           scale: Optional[float] = None,
-                          impl: Optional[str] = None) -> torch.Tensor:
-    """Single-token decode attention against global page pools.
+                          impl: Optional[str] = None,
+                          layout: str = "bshd",
+                          page_table: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Single-token decode attention.
 
-    q: (B, 1, Hq, D); pools (Hkv, P, page_size, D) shared by every
-    sequence; ``page_table`` (B, n_kv) int32 maps each sequence's logical
-    KV block to its physical page; kv_len (B,).  Returns (B, 1, Hq, D).
+    q: (B, 1, Hq, D); caches (B, S, Hkv, D) ["bshd"] or (B, Hkv, S, D)
+    ["bhsd"]; kv_len (B,).  Returns (B, 1, Hq, D).
+
+    With a ``page_table`` (B, n_kv) int32 the caches are instead global
+    page pools (Hkv, P, page_size, D) shared by every sequence, and the
+    table maps each sequence's logical KV block to its physical page
+    (``serving/paged_cache`` owns it); ``impl`` is then a paged one, and
+    otherwise one of ``fast_attention``'s.  The JAX facade's ``block_kv``
+    (its kernel's tile) has no counterpart here: the CUDA kernel tiles on
+    its own.
     """
-    impl = _resolve(impl, q, "decode")
-    if impl == "paged_reference":
-        from repro_torch.kernels.flash_decode.ref import \
-            paged_decode_reference
-        out = paged_decode_reference(
-            q.transpose(1, 2), k_pages, v_pages, page_table, kv_len,
+    if page_table is not None:
+        impl = _resolve(impl, q, "decode")
+        if impl == "paged_reference":
+            from repro_torch.kernels.flash_decode.ref import \
+                paged_decode_reference
+            out = paged_decode_reference(
+                q.transpose(1, 2), k_cache, v_cache, page_table, kv_len,
+                window=window, softcap=softcap, scale=scale)
+            return out.transpose(1, 2)
+        from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+        out = paged_flash_decode(
+            q[:, 0].contiguous(), k_cache, v_cache, page_table, kv_len,
             window=window, softcap=softcap, scale=scale)
-        return out.transpose(1, 2)
-    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
-    out = paged_flash_decode(
-        q[:, 0].contiguous(), k_pages, v_pages, page_table, kv_len,
-        window=window, softcap=softcap, scale=scale)
-    return out[:, None]
+        return out[:, None]
+
+    from repro_torch.kernels.fastattn.ops import resolve_impl
+    if resolve_impl(impl, q) == "kernel":
+        from repro_torch.kernels.flash_decode.ops import flash_decode
+        out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, kv_len,
+                           window=window, softcap=softcap, scale=scale,
+                           layout=layout)
+        return out[:, None]
+
+    # the JAX facade's reference branch: the cache is read in place (no
+    # transpose, no GQA expansion); logits and PV accumulate in f32 and
+    # the normalised P is rounded to the cache dtype before PV
+    b, _, hq, d = q.shape
+    if layout == "bhsd":
+        hkv, s = k_cache.shape[1], k_cache.shape[2]
+    else:
+        s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, g, d).float()
+    kv_eq = "bhsd" if layout == "bhsd" else "bshd"
+    logits = torch.einsum(f"bhgd,{kv_eq}->bhgs", qg,
+                          k_cache.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    pos = torch.arange(s, device=q.device)[None, None, None, :]
+    lens = kv_len.to(q.device).long().reshape(b, 1, 1, 1)
+    mask = pos < lens
+    if window is not None:
+        mask = mask & (pos >= lens - window)
+    logits = torch.where(mask, logits, -1e30)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = (p / torch.where(l == 0, 1.0, l)).to(k_cache.dtype)
+    out = torch.einsum(f"bhgs,{kv_eq}->bhgd", p.float(), v_cache.float())
+    return out.reshape(b, 1, hq, d).to(q.dtype)

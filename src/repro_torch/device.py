@@ -26,3 +26,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def torch_dtype(name: str) -> torch.dtype:
     """A config dtype name ("bfloat16", "float32") as a torch dtype."""
     return DTYPES[name]
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU), so a
+    host clock read after it measures the work and not its enqueueing."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

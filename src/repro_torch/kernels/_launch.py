@@ -12,6 +12,7 @@ HEAD_DIMS = (64, 128, 256)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 
@@ -37,6 +38,23 @@ def check_tensors(name: str, floats: dict, ints: dict) -> int:
         if t.dtype != torch.int32:
             raise ValueError(f"{name}: {arg} must be int32, got {t.dtype}")
     return DTYPE_CODES[dtype]
+
+
+def check_strided(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    """Raise ValueError unless ``t`` is on ``like``'s CUDA device with its
+    dtype, a contiguous last dimension, and a base address and strides
+    that keep every row 16-byte aligned (the kernels load 16 bytes a
+    thread).  Its other dimensions may be strided."""
+    if t.device != like.device:
+        raise ValueError(f"{name}: must be on {like.device}, got {t.device}")
+    if t.dtype != like.dtype:
+        raise ValueError(f"{name} is {t.dtype}, expected {like.dtype}")
+    if t.dim() and t.stride(-1) != 1:
+        raise ValueError(f"{name}: the last dimension must be contiguous")
+    vec = 16 // t.element_size()
+    if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
+        raise ValueError(f"{name}: rows must be 16-byte aligned "
+                         f"(strides {t.stride()})")
 
 
 def check_status(name: str, status: int) -> None:

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions for the paged decode kernel.
+"""Plain PyTorch versions for the decode kernels.
 
+``decode_reference`` is the dense decode in f32 (masked softmax) over a
+"bhsd" or "bshd" cache, the function ``csrc/flash_decode.cu`` computes;
 ``paged_gather`` materialises the dense (B, Hkv, S, D) view of a paged
-pool; ``paged_decode_reference`` chains it with a dense decode in f32
-(masked softmax), the function ``csrc/paged_decode.cu`` computes.  The
-CPU tests hold these to the JAX package's ``paged_flash_decode_fwd``; on
-the card the kernel is held to them.
+pool and ``paged_decode_reference`` chains it with ``decode_reference``,
+the function ``csrc/paged_decode.cu`` computes.  The CPU tests hold these
+to the JAX package's ``flash_decode_fwd`` / ``paged_flash_decode_fwd``;
+on the card the kernels are held to them.
 
 One deliberate difference from the JAX oracle: a query row with no valid
 key returns 0 here (as the CUDA kernels do), where the JAX oracle averages
@@ -41,18 +43,27 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: torch.Tensor, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     layout: str) -> torch.Tensor:
     """Single-token decode attention in f32.
 
-    q: (B, Hq, 1, D); caches: (B, Hkv, S, D); kv_len: (B,) current lengths
-    (the new token's position is kv_len - 1).  Returns (B, Hq, 1, D).
+    q: (B, Hq, 1, D); caches: (B, Hkv, S, D) ["bhsd"] or (B, S, Hkv, D)
+    ["bshd"], read in place through the einsum (no transposed copy);
+    kv_len: (B,) current lengths (the new token's position is kv_len - 1).
+    Returns (B, Hq, 1, D).
     """
     b, hq, _, d = q.shape
-    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    if layout == "bhsd":
+        hkv, s = k_cache.shape[1], k_cache.shape[2]
+    elif layout == "bshd":
+        s, hkv = k_cache.shape[1], k_cache.shape[2]
+    else:
+        raise ValueError(f"unknown cache layout {layout!r}")
     g = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     qg = q.float().reshape(b, hkv, g, d)
-    logits = torch.einsum("bhgd,bhsd->bhgs", qg, k_cache.float()) * scale
+    logits = torch.einsum(f"bhgd,{layout}->bhgs", qg,
+                          k_cache.float()) * scale
     logits = softcap_logits(logits, softcap)
     pos = torch.arange(s, device=q.device)[None, None, None, :]
     lens = kv_len.to(q.device).long().reshape(b, 1, 1, 1)
@@ -63,7 +74,7 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
+    out = torch.einsum(f"bhgs,{layout}->bhgd", p, v_cache.float())
     out = out / torch.where(l == 0, 1.0, l)
     return out.reshape(b, hq, 1, d).to(q.dtype)
 
@@ -78,4 +89,4 @@ def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,
     k = paged_gather(k_pages, page_table)
     v = paged_gather(v_pages, page_table)
     return decode_reference(q, k, v, kv_len, window=window, softcap=softcap,
-                            scale=scale)
+                            scale=scale, layout="bhsd")

@@ -1,11 +1,13 @@
-"""GQA attention layer: the dense training/full-forward path and the paged
-KV-pool paths (all non-tensor-parallel).
+"""GQA attention layer: the dense training/full-forward path, the
+dense-cache decode path and the paged KV-pool paths (all
+non-tensor-parallel).
 
-The pools are updated IN PLACE (``index_put_`` through a flat view): the
-JAX package wrote them functionally (``.at[].set``) and donated the old
-buffers to the jitted step; here the step owns the only reference, so an
-in-place write saves a copy of every pool per layer.  The functions still
-return the cache so call sites read like their JAX counterparts.
+Caches and pools are updated IN PLACE (slice assignment, ``index_put_``
+through a flat view): the JAX package wrote them functionally
+(``dynamic_update_slice``, ``.at[].set``) and donated the old buffers to
+the jitted step; here the step owns the only reference, so an in-place
+write saves a copy of every cache per layer.  The functions still return
+the cache so call sites read like their JAX counterparts.
 """
 from __future__ import annotations
 
@@ -20,8 +22,15 @@ from repro_torch.core.fastattention import (fast_attention,
 from repro_torch.layers import common, rotary
 
 
+# Dense decode cache layout: "bshd" (B, S_max, Hkv, D), token-major, as
+# the JAX package keeps it.
+KV_CACHE_LAYOUT = "bshd"
+
+
 class KVCache(NamedTuple):
-    k: torch.Tensor            # (Hkv, P, page_size, D) page pool
+    # dense: (B, S_max, Hkv, D) ["bshd"];
+    # paged: (Hkv, P, page_size, D) page pools shared by every sequence
+    k: torch.Tensor
     v: torch.Tensor
 
 
@@ -72,6 +81,38 @@ def apply_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s = x.shape[:2]
     out = out.reshape(b, s, cfg.q_dim)
     return common.dense(out, params["wo"])
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  dtype: torch.dtype, device: torch.device) -> KVCache:
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def apply_attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                           cache: KVCache, *, pos: int,
+                           window: Optional[int] = None,
+                           impl: Optional[str] = None):
+    """One-token decode against dense caches.  x: (B, 1, D); pos: the
+    scalar current position, shared by every row.  The new K/V row is
+    written in place at ``pos`` for every row; attention then reads
+    kv_len = pos + 1 tokens.  ``impl`` (default ``cfg.attention_impl``) as
+    in the dense branches of ``fast_attention_decode``.  Returns
+    (out (B, 1, D), cache)."""
+    impl = impl or cfg.attention_impl
+    b = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+        buf[:, pos] = new[:, 0].to(buf.dtype)
+    kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    out = fast_attention_decode(
+        q, cache.k, cache.v, kv_len, window=window,
+        softcap=cfg.attn_logit_softcap, impl=impl, layout=KV_CACHE_LAYOUT)
+    out = out.reshape(b, 1, cfg.q_dim)
+    return common.dense(out, params["wo"]), cache
 
 
 def init_kv_pages(cfg: ModelConfig, num_pages: int, page_size: int,

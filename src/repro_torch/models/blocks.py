@@ -1,5 +1,6 @@
 """Per-layer attention blocks (kinds ``attn`` and ``attn_local``): the
-training / full forward and the paged serving paths.
+training / full forward, the dense-cache decode and the paged serving
+paths.
 
 ``moe``, ``hymba``, ``mlstm`` and ``slstm`` blocks are not ported yet and
 raise ``NotImplementedError``.
@@ -42,6 +43,13 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
         p["ln1_post"] = init_norm(d, cfg.norm_type, dtype, dev)
         p["ln2_post"] = init_norm(d, cfg.norm_type, dtype, dev)
     return p
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     dtype: torch.dtype,
+                     device: torch.device) -> attn_mod.KVCache:
+    check_kind(kind)
+    return attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, device)
 
 
 def init_block_pages(cfg: ModelConfig, kind: str, num_pages: int,
@@ -106,4 +114,17 @@ def apply_block_decode_paged(params: dict, x: torch.Tensor,
     a, cache = attn_mod.apply_attention_decode_paged(
         params["attn"], h, cfg, cache, page_table=page_table, pos=pos,
         window=_window(cfg, kind), impl=impl)
+    return _attn_block_tail(params, x, a, cfg), cache
+
+
+def apply_block_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                       kind: str, cache, *, pos: int,
+                       impl: Optional[str] = None):
+    """Dense-cache one-token decode: x (B, 1, D), ``pos`` the scalar
+    position shared by every row."""
+    check_kind(kind)
+    h = apply_norm(params["ln1"], x, cfg.norm_type, cfg.norm_eps)
+    a, cache = attn_mod.apply_attention_decode(
+        params["attn"], h, cfg, cache, pos=pos, window=_window(cfg, kind),
+        impl=impl)
     return _attn_block_tail(params, x, a, cfg), cache

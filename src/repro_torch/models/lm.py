@@ -1,4 +1,5 @@
-"""Decoder-only language model: training forward and paged serving.
+"""Decoder-only language model: training forward, dense-cache decode and
+paged serving.
 
 Layers are a plain Python list (the JAX package stacked repeating units
 and ran them under ``lax.scan``; eager PyTorch needs neither).  Parameters
@@ -107,6 +108,14 @@ class LM:
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int) -> List:
+        """Per-layer dense KV caches (``layers/attention.KV_CACHE_LAYOUT``)
+        on the model's device."""
+        dtype = torch_dtype(self.cfg.dtype)
+        return [B.init_block_cache(self.cfg, kind, batch, max_seq, dtype,
+                                   self.device)
+                for kind in self.cfg.blocks()]
+
     def init_paged_cache(self, num_pages: int, page_size: int) -> List:
         """Per-layer KV page pools (no batch dim -- the serving page
         manager owns the page table that carves the pools into
@@ -129,6 +138,18 @@ class LM:
             new_cache.append(bc)
         x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
         return lm_logits(params["embedding"], x, cfg), new_cache
+
+    def decode_step(self, params: dict, token: torch.Tensor, cache: List,
+                    pos: int, *, impl: Optional[str] = None):
+        """Dense-cache decode step.  token: (B,) int; pos: the scalar
+        position shared by every row.  Each layer writes its K/V row at
+        ``pos`` in place.  Returns (logits (B, V), cache)."""
+        def block_fn(bp, x, kind, bc):
+            return B.apply_block_decode(bp, x, self.cfg, kind, bc, pos=pos,
+                                        impl=impl)
+        x = embed_tokens(params["embedding"], token[:, None], self.cfg)
+        logits, cache = self._cached_segments(params, x, cache, block_fn)
+        return logits[:, 0], cache
 
     def decode_step_paged(self, params: dict, token: torch.Tensor,
                           cache: List, page_table: torch.Tensor,

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import time
 import warnings
+from collections import deque
 from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
@@ -93,6 +94,22 @@ class StreamEvent(NamedTuple):
     finished: bool        # True on the request's last event
     kind: str = "token"
     detail: str = ""
+
+
+class _CountingDeque(deque):
+    """Bounded deque that counts evictions instead of losing them
+    silently: a full ``append`` still drops the oldest entry (the bound
+    is the point), but ``dropped`` records how many orphaned events were
+    lost so ``stats()`` can surface the loss."""
+
+    def __init__(self, maxlen: int):
+        super().__init__(maxlen=maxlen)
+        self.dropped = 0
+
+    def append(self, item) -> None:
+        if self.maxlen is not None and len(self) == self.maxlen:
+            self.dropped += 1
+        super().append(item)
 
 
 class EngineCore:
@@ -208,6 +225,11 @@ class EngineCore:
         self.pools = None              # device pools, materialised lazily
         self.next_tok = np.zeros((serve.max_batch,), np.int32)
         self.requests: Dict[int, Request] = {}     # live (unfinished) only
+        # events a ServeEngine.generate_stream drain stepped out for
+        # requests no drain owns (direct add_request users): step() hands
+        # each event to exactly one caller, so mixed-mode users recover
+        # them here (drops past the bound are counted, see stats())
+        self.orphan_events: _CountingDeque = _CountingDeque(maxlen=4096)
         # terminal error events produced outside a step() (queue
         # shedding at submit time): the next step() returns them first
         self._pending_events: List[StreamEvent] = []
@@ -255,6 +277,18 @@ class EngineCore:
             self.flight.records.clear()
         self.mgr.reset_peak()
 
+    def export_prometheus(self) -> str:
+        """Prometheus text-format (0.0.4) exposition of the registry."""
+        return self.metrics.to_prometheus()
+
+    def chrome_trace(self, records: Optional[List[dict]] = None) -> dict:
+        """Chrome ``trace_event`` JSON for the flight recorder's current
+        ring (or a prior ``dump()``): load the result into
+        chrome://tracing or Perfetto for a step/phase timeline."""
+        if self.flight is None:
+            return {"traceEvents": [], "displayTimeUnit": "ms"}
+        return self.flight.to_chrome_trace(records)
+
     @property
     def has_work(self) -> bool:
         return self.sched.has_work
@@ -275,6 +309,8 @@ class EngineCore:
             "peak_utilization": mgr.peak_utilization,
             "prefill_launches": self.prefill_launches,
             "decode_launches": self.decode_launches,
+            "orphan_events_pending": len(self.orphan_events),
+            "orphans_dropped": self.orphan_events.dropped,
             "health": {
                 "failed": self.failed_count,
                 "shed": self.shed_count,

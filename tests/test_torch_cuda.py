@@ -19,8 +19,10 @@ from repro_torch.kernels.fastattn.ops import (  # noqa: E402
     fastattn, fastattn_fwd, fastattn_paged_prefill)
 from repro_torch.kernels.fastattn.ref import (  # noqa: E402
     flash_reference, paged_prefill_reference)
-from repro_torch.kernels.flash_decode.ops import \
-    paged_flash_decode  # noqa: E402
+from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
+    flash_decode, paged_flash_decode)
+from repro_torch.kernels.flash_decode.ref import \
+    decode_reference  # noqa: E402
 
 # (b, hq, hkv, ps, n_kv, d, lens, window, softcap); the last row is an
 # idle engine slot: all-scratch table row, kv_len 1
@@ -188,3 +190,66 @@ def test_cuda_fastattn_fwd_rejects_bad_arguments(cuda_device):
     q = torch.zeros((1, 2, 8, 64), device=cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         fastattn_fwd(q.transpose(1, 2), q, q)
+
+
+# (b, hq, hkv, s, d, lens, window, softcap): ragged kv_len with a length-1
+# row, a cache length no multiple of the tiles, GQA groups of 1, 2, 4 and
+# 10 (two row tiles), window and softcap
+DENSE_DECODE_CASES = [
+    (3, 4, 4, 300, 64, [300, 77, 1], None, None),
+    (2, 8, 4, 1000, 128, [999, 400], 256, 30.0),
+    (2, 8, 2, 512, 256, [512, 3], None, 50.0),
+    (2, 20, 2, 777, 128, [700, 129], 100, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd", "bhsd-view"])
+@pytest.mark.parametrize("case", DENSE_DECODE_CASES)
+def test_cuda_flash_decode_matches_plain(cuda_device, case, layout, dtype,
+                                         tol):
+    """Both layouts, and a "bhsd" view of a "bshd" cache read through its
+    strides (no copy)."""
+    b, hq, hkv, s, d, lens, window, softcap = case
+    rng = np.random.default_rng(8)
+    q = _t(rng.normal(size=(b, hq, d)).astype(np.float32)).to(cuda_device,
+                                                               dtype)
+    shape = (b, s, hkv, d) if layout == "bshd" else (b, hkv, s, d)
+    if layout == "bhsd-view":
+        shape = (b, s, hkv, d)
+    k, v = (_t(rng.normal(size=shape).astype(np.float32)).to(cuda_device,
+                                                             dtype)
+            for _ in range(2))
+    lay = layout
+    if layout == "bhsd-view":
+        k, v, lay = k.transpose(1, 2), v.transpose(1, 2), "bhsd"
+    kv_len = _t(np.asarray(lens, np.int32)).to(cuda_device)
+    kw = dict(window=window, softcap=softcap, layout=lay)
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, kv_len, **kw)
+    assert flash_decode.launches == before + 1
+    want = decode_reference(q[:, :, None], k, v, kv_len, window=window,
+                            softcap=softcap, layout=lay)[:, :, 0]
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_rejects_bad_arguments(cuda_device):
+    q = torch.zeros((1, 2, 96), device=cuda_device)
+    k = torch.zeros((1, 8, 2, 96), device=cuda_device)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_decode(q, k, k, lens, layout="bshd")
+    q = torch.zeros((1, 2, 64), device=cuda_device)
+    k = torch.zeros((1, 2, 64, 8), device=cuda_device).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode(q, k, k, lens, layout="bhsd")
+    k = torch.zeros((1, 8, 2, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        flash_decode(q, k, k, lens.long(), layout="bshd")
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_decode(q, k.bfloat16(), k.bfloat16(), lens, layout="bshd")

@@ -27,7 +27,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     names = _modules()
-    assert "repro_torch.serving.core" in names
+    for name in ("repro_torch.serving.core", "repro_torch.launch.serve",
+                 "repro_torch.analysis.flops", "repro_torch.core.offload"):
+        assert name in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
