@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build, check, serve, train,
-offload.
+offload, xLSTM.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,11 @@ which raises on failure (the script then exits non-zero):
    q_offset and a kv_valid tail, and a non-causal case; ``flash_decode``
    on dense caches at llama2-7b's decode shape in both layouts, a
    gemma2-2b window/softcap case, a float32 case and llama2-7b at B=1 on
-   a 65536-token cache.  Each is timed (median of 20 launches) beside
+   a 65536-token cache; ``mlstm_chunkwise_fwd`` at xlstm-125m's training
+   shape (the model's (B, S, H, D) projections read in place), a ragged
+   float32 case and a sequence shorter than the chunk, h held to the
+   plain version as an unbounded output and the float32 state (C, n, m)
+   to 1e-3 of its scale.  Each is timed (median of 20 launches) beside
    the least time the card could take (its bound), the plain version's
    time and, where one PyTorch call computes the same function, that
    call's time (``library_ms``: ``scaled_dot_product_attention``, with a
@@ -61,12 +65,34 @@ which raises on failure (the script then exits non-zero):
    measured pinned copy rate and host GFLOP/s, and ``table3_row`` under
    those constants.  The host KV is f32 (twice the upload's bytes), so
    host attention is also timed once over the pinned bf16 copy.
+6. xlstm-125m at full width and depth (12 layers: 10 mLSTM blocks on
+   ``mlstm_chunkwise.cu``, 2 sLSTM blocks; random weights from a seeded
+   CUDA generator), after phase 5.  (a) ``LM.apply`` on 8 x 2048 tokens
+   through the kernel: exactly 10 launches, finite logits, and every
+   mlstm block held on the inputs this run gave it -- its output and its
+   input and weight gradients to the plain version's, and the recurrent
+   cells' output over the first 128 positions to the kernel's -- within
+   one bf16 ulp.  End to end this random-weight bf16 model is
+   ill-conditioned, so the logits of the kernel and plain paths are
+   compared beside the plain path against itself with one bf16 ulp
+   added to 1% of every mlstm h (``_perturbed_h``), and held to
+   max(5%, twice that).  (c) ``ServeEngine.generate`` of 8 prompts of 128
+   tokens (the first 128 of (a)'s), 32 greedy new tokens through the
+   recurrent cells (no kernel launch), its teacher-forced logits at the
+   last prompt position held to (a)'s the same way, and one profiled
+   decode step.  (b) The trainer's functions take 5 AdamW steps of
+   8 x 2048 tokens: finite losses, exactly 10 x 2 (remat) x 5 launches, a
+   bit-exact checkpoint; on one batch the kernel path's loss within 1% of
+   the plain path's and its gradient norm within a factor of 2 (both
+   paths also measured under two perturbations of h); one profiled step
+   and one sLSTM block's forward and backward timed alone.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -415,13 +441,19 @@ def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
     return res
 
 
-def held_to_plain(tag, name, out, ref, dtype) -> tuple:
+def held_to_plain(tag, name, out, ref, dtype, unbounded=False) -> tuple:
     """Hold ``out`` to its plain version ``ref`` (leading dim = batch
     rows): the max abs error within TOL, and every row's max abs error
     within REL_TOL of that row's largest |ref|.  The second check matters
     on long caches, where an output's scale is about sqrt(e / kv_len) and
-    TOL alone would pass a kernel that skipped part of the keys.  Returns
-    (max abs error, max error relative to its row's scale)."""
+    TOL alone would pass a kernel that skipped part of the keys.  TOL
+    assumes outputs below 4 in magnitude (an attention output).  For an
+    ``unbounded`` output (the mLSTM's h, whose denominator can be small,
+    reaches ~80 on N(0, 1) inputs at xlstm-125m's training shape; the
+    xLSTM blocks' outputs and gradients) TOL is scaled by
+    max(1, max|ref| / 2): two bf16 values one rounding apart differ by
+    one ulp, at most 2^-7 of the largest value.
+    Returns (max abs error, max error relative to its row's scale)."""
     import torch
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
@@ -430,6 +462,8 @@ def held_to_plain(tag, name, out, ref, dtype) -> tuple:
     err = diff.max().item()
     rel = (diff / scale.clamp_min(1e-30)).max().item()
     tol, rtol = TOL[dtype], REL_TOL[dtype]
+    if unbounded:
+        tol *= max(1.0, scale.max().item() / 2)
     log(f"[{tag}] {name}: max_abs_err {err:.3e} (tol {tol:g}), max error "
         f"/ row scale {rel:.3e} (tol {rtol:g}), smallest row scale "
         f"{scale.min().item():.3e}")
@@ -526,6 +560,74 @@ def dense_decode_case(name, *, b, hq, hkv, s, d, dtype, layout,
                                 softcap=softcap)
 
 
+MLSTM_STATE_RTOL = 1e-3     # C, n, m: float32 on both sides
+
+
+def mlstm_case(name, *, b, h, s, dk, dv, dtype, chunk=128, layout="bhsd",
+               seed=0):
+    """mlstm_chunkwise_fwd vs ref.mlstm_chunkwise on one shape: h under
+    held_to_plain (an unbounded output), the float32 state (C, n, m)
+    within MLSTM_STATE_RTOL of each one's largest |value|.  q/k/v are
+    N(0, 1) in ``dtype``; with layout "bshd" they are (B, S, H, D) tensors
+    passed transposed, as the model passes its projections.  Gates: i
+    N(0, 1), f N(0, 1) + 3 (the model's forget-gate bias)."""
+    import torch
+    from repro_torch.kernels.mlstm import ref as mref
+    from repro_torch.kernels.mlstm.ops import mlstm_chunkwise_fwd
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def draw(d):
+        shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+        t = torch.randn(shape, generator=gen, device="cuda").to(tdt)
+        return t.transpose(1, 2) if layout == "bshd" else t
+    q, k, v = draw(dk), draw(dk), draw(dv)
+    ig = torch.randn((b, h, s), generator=gen, device="cuda")
+    fg = torch.randn((b, h, s), generator=gen, device="cuda") + 3.0
+
+    def kernel():
+        return mlstm_chunkwise_fwd(q, k, v, ig, fg, chunk=chunk)
+
+    def plain():
+        return mref.mlstm_chunkwise(q, k, v, ig, fg, chunk=chunk,
+                                    return_state=True)
+
+    (out, state), (ref, ref_state) = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel = held_to_plain("mlstm", name, out.flatten(0, 1),
+                             ref.flatten(0, 1), dtype, unbounded=True)
+    for what, got, want in zip("Cnm", state, ref_state):
+        serr = (got - want).abs().max().item()
+        sscale = want.abs().max().item()
+        log(f"[mlstm] {name}: state {what} max_abs_err {serr:.3e} "
+            f"({serr / sscale:.3e} of its scale {sscale:.3e}, tol "
+            f"{MLSTM_STATE_RTOL:g})")
+        if not serr <= MLSTM_STATE_RTOL * sscale:
+            raise AssertionError(f"{name}: state {what} differs by {serr}")
+
+    # work this data needs: q, k, v and gates read once, h and the state
+    # written once; operations: the causal (row, key) pairs of every chunk
+    # (q.k and the weighted sum of v: 2 (dk + dv) each) and per token q C,
+    # the k v^T update (2 dk dv each) and q.n, the n update (2 dk each)
+    esize = q.element_size()
+    n_bytes = ((2 * dk + 2 * dv) * b * h * s * esize + 2 * b * h * s * 4
+               + (dk * dv + dk + 1) * b * h * 4)
+    L = min(chunk, s)
+    sizes = [L] * (s // L) + ([s % L] if s % L else [])
+    pairs = sum(n * (n + 1) // 2 for n in sizes)
+    n_ops = b * h * (2.0 * (dk + dv) * pairs + s * (4.0 * dk * dv + 4 * dk))
+    bnd, by = bound_ms(n_bytes, n_ops, dtype)
+    res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
+           "plain_ms": time_ms(plain, reps=5), "bound_ms": bnd,
+           "bound_by": by, "library_ms": None}
+    log(f"[mlstm] {name}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({by}, {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP), library "
+        "n/a (no single PyTorch call computes the mLSTM)")
+    return res
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  Returns the main-path
     (llama2-7b) numbers of each kernel."""
@@ -577,9 +679,18 @@ def phase_kernels() -> dict:
     dense_decode_case("llama2-7b B=1 H=32/32 D=128 bf16 bshd S=65536",
                       b=1, hq=32, hkv=32, s=65536, d=128, dtype="bfloat16",
                       layout="bshd", seed=3)
+    mls = mlstm_case("xlstm-125m train B=8 H=4 S=2048 dk=dv=384 bf16 "
+                     "chunk=128 bshd", b=8, h=4, s=2048, dk=384, dv=384,
+                     dtype="bfloat16", layout="bshd")
+    mlstm_case("f32 B=2 H=3 S=1000 dk=64 dv=96 chunk=128 (ragged)", b=2,
+               h=3, s=1000, dk=64, dv=96, dtype="float32", seed=1)
+    mlstm_case("bf16 B=2 H=4 S=77 dk=dv=384 chunk=128 (S below the chunk)",
+               b=2, h=4, s=77, dk=384, dv=384, dtype="bfloat16",
+               layout="bshd", seed=2)
     # flash_decode's numbers for the kernels line are taken at the main
     # path's own shape, in phase 3b
-    return {"paged_decode": dec, "paged_prefill": pre, "fastattn_fwd": fwd}
+    return {"paged_decode": dec, "paged_prefill": pre, "fastattn_fwd": fwd,
+            "mlstm_chunkwise": mls}
 
 
 # ---------------------------------------------------------------------------
@@ -983,6 +1094,8 @@ def _train_group(name: str) -> str:
     n = name.lower()
     if "fastattn_fwd_kernel" in n:
         return "attention forward: fastattn_fwd.cu"
+    if "mlstm_chunkwise_kernel" in n:
+        return "mLSTM forward: mlstm_chunkwise.cu"
     if any(t in n for t in ("gemm", "nvjet", "cutlass", "sm90_", "cublas")):
         if "f32f32" in n or "sgemm" in n:
             return "matrix products, float32 (plain attention recompute)"
@@ -1015,7 +1128,7 @@ def phase_training() -> dict:
     from repro_torch.models import build_model
     from repro_torch.training import tree
     from repro_torch.training.checkpoint import CheckpointManager
-    from repro_torch.training.optimizer import adamw_update, global_norm
+    from repro_torch.training.optimizer import adamw_update
     from repro_torch.training.train_step import (init_train_state,
                                                  make_train_step)
 
@@ -1086,20 +1199,10 @@ def phase_training() -> dict:
         "and restored bit for bit")
 
     # kernel path vs plain attention path on one 1 x 2048 batch
-    one = to_device(data.next(), model.device)
-    tokens, labels = one["tokens"][:1], one["labels"][:1]
-    res = {}
-    for impl in (None, "reference"):
-        leaves = tree.leaves(state.params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = model.loss(state.params, tokens, labels, impl=impl)
-        grads = torch.autograd.grad(loss, leaves)
-        for p in leaves:
-            p.requires_grad_(False)
-        res[impl] = (loss.item(), global_norm(list(grads)).item())
-        del grads, loss
-    (k_loss, k_gn), (p_loss, p_gn) = res[None], res["reference"]
+    one = {k: x[:1] for k, x in to_device(data.next(), model.device).items()}
+    (k_loss, k_gn), (p_loss, p_gn) = (
+        _loss_and_gnorm(model, state.params, one, impl)
+        for impl in (None, "reference"))
     loss_rel = abs(k_loss - p_loss) / abs(p_loss)
     gn_rel = abs(k_gn - p_gn) / abs(p_gn)
     log(f"[train] kernel vs plain path, 1 x {TRAIN_SEQ}: loss {k_loss:.5f}"
@@ -1346,6 +1449,468 @@ def phase_offload() -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: xlstm-125m at full width and depth
+# ---------------------------------------------------------------------------
+
+XLSTM_BATCH, XLSTM_SEQ, XLSTM_STEPS = 8, 2048, 5
+XLSTM_PROMPT, XLSTM_NEW = 128, 32
+
+
+def _profile_kernels(fn):
+    """Run ``fn()`` under torch.profiler (kernels only) and return its
+    kernel events and their summed device time in seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0]
+    total = sum(_device_us(e) for e in kernels) / 1e6
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return kernels, total
+
+
+def _wall_s(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def _logit_err(got, ref) -> tuple:
+    """(max abs difference, that over max |ref|, the median over
+    positions of each position's max difference over max |ref|)."""
+    import torch
+    v = ref.shape[-1]
+    diff = (got.float() - ref.float()).abs().reshape(-1, v).amax(-1)
+    scale = ref.float().abs().max().item()
+    return (diff.max().item(), diff.max().item() / scale,
+            torch.median(diff).item() / scale)
+
+
+@contextlib.contextmanager
+def _perturbed_h(seed: int = 9, path: str = "reference"):
+    """Within the block, every mlstm block runs ``path`` (the plain version
+    or the kernel, whatever impl the model passes) with one bf16 ulp added to a seeded 1% of the elements
+    of its h: what rounding alone does downstream.  (The mLSTM output h = q C / max(|q.n|,
+    exp(-m)) changes fast where q.n crosses 0; with random weights ten
+    such blocks make a 1-ulp difference as large as the logits
+    themselves, so two correct paths that round h at different places
+    disagree end to end by about the logits' scale, and their gradient
+    norms by far more than 5%.)"""
+    import torch
+    from repro_torch.layers import ssm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    chunkwise = ssm.mlstm_chunkwise
+
+    def perturbed(q, k, v, ig, fg, chunk=128, impl=None):
+        h = chunkwise(q, k, v, ig, fg, chunk, impl=path)
+        hb = h.to(torch.bfloat16).float()
+        flip = torch.rand(h.shape, generator=gen, device="cuda") < 0.01
+        return torch.where(flip, hb + hb.abs() * 2 ** -7, hb)
+    ssm.mlstm_chunkwise = perturbed
+    try:
+        yield
+    finally:
+        ssm.mlstm_chunkwise = chunkwise
+
+
+def _end_to_end_gate(what, err, base, rtol) -> None:
+    """End to end the kernel and plain paths may differ by what rounding
+    alone does (``base``, the largest difference measured under
+    _perturbed_h), so the gate is ``rtol`` or twice that, whichever is
+    larger: it catches non-finite or exploding results; the blocks
+    themselves are held to their plain versions one by one on the same
+    inputs, forward and backward (phase 6a)."""
+    tol = max(rtol, 2 * base)
+    if not err <= tol:
+        raise AssertionError(f"{what}: kernel and plain paths differ by "
+                             f"{err:.3g} (relative), above {tol:.3g}")
+
+
+def _loss_and_gnorm(model, params, batch, impl):
+    import torch
+    from repro_torch.training import tree
+    from repro_torch.training.optimizer import global_norm
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = model.loss(params, batch["tokens"], batch["labels"],
+                          impl=impl)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    return loss.item(), global_norm(list(grads)).item()
+
+
+def phase_xlstm() -> dict:
+    """xlstm-125m (12 layers: 10 mLSTM blocks through mlstm_chunkwise.cu,
+    2 sLSTM blocks) at full width and depth, random weights from a seeded
+    CUDA generator: (a) LM.apply on 8 x 2048 tokens, kernel vs plain; (b)
+    5 AdamW steps through the trainer's functions; (c)
+    ServeEngine.generate through the recurrent cells, held to (a)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import (ParallelConfig, ServeConfig,
+                                    TrainConfig, get_model_config)
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.mlstm.ops import mlstm_chunkwise_fwd
+    from repro_torch.launch.train import to_device
+    from repro_torch.layers import ssm
+    from repro_torch.models import blocks as B
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training import tree
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+
+    cfg = get_model_config("xlstm-125m")
+    kinds = cfg.blocks()
+    n_mlstm = kinds.count("mlstm")
+    parallel = ParallelConfig(remat="selective")   # as launch/train.py
+    b, s = XLSTM_BATCH, XLSTM_SEQ
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda", parallel)
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    log(f"[xlstm] {cfg.name}: {cfg.num_layers} layers ({n_mlstm} mlstm, "
+        f"{kinds.count('slstm')} slstm), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e6:.1f}M params ({cfg.param_dtype}) initialised in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- (a) forward through the kernel ----------------------------------
+    # Each mlstm block's input is captured on the way, so that every block
+    # can be held to its plain version (and to the recurrent cells) on the
+    # very inputs the main path gave it: end to end the bf16 model is too
+    # ill-conditioned for a logit comparison to test the kernel (see
+    # _perturbed_plain below).
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32)).cuda()
+    apply_mlstm = ssm.apply_mlstm
+    captured = []
+
+    def capturing(bp, x, c, **kw):
+        captured.append((bp, x))
+        return apply_mlstm(bp, x, c, **kw)
+    v = cfg.vocab_size
+    with torch.no_grad():
+        ssm.apply_mlstm = capturing
+        try:
+            mlstm_chunkwise_fwd.launches = 0
+            fwd_s, logits = _wall_s(lambda: model.apply(params, tokens))
+            fwd_launches = mlstm_chunkwise_fwd.launches
+        finally:
+            ssm.apply_mlstm = apply_mlstm
+        log(f"[xlstm] (a) LM.apply B={b} S={s} through the kernel: "
+            f"{fwd_s:.2f}s; mlstm_chunkwise_fwd launches {fwd_launches} "
+            f"(expected {n_mlstm}, one per mlstm block)")
+        if fwd_launches != n_mlstm or len(captured) != n_mlstm:
+            raise AssertionError(f"mlstm_chunkwise_fwd launched "
+                                 f"{fwd_launches} times, expected {n_mlstm}")
+        if logits.shape != (b, s, v) or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad logits {tuple(logits.shape)}")
+        # every block: the kernel's output against the plain version's,
+        # and the recurrent cells' (generate's path) over the first
+        # XLSTM_PROMPT positions, on the main path's own inputs
+        p = XLSTM_PROMPT
+        blk = {"kernel_vs_plain": [0.0, 0.0], "recurrent_vs_kernel": [0.0, 0.0],
+               "grad_kernel_vs_plain": [0.0, 0.0]}
+        for i, (bp, x) in enumerate(captured):
+            out_k = apply_mlstm(bp, x, cfg)
+            out_p = apply_mlstm(bp, x, cfg, impl="reference")
+            out_r, _ = apply_mlstm(bp, x[:, :p], cfg, decode=True)
+            for key, got, want in (
+                    ("kernel_vs_plain", out_k, out_p),
+                    ("recurrent_vs_kernel", out_r, out_k[:, :p])):
+                e = held_to_plain("xlstm", f"mlstm block {i} output, "
+                                  f"{key.replace('_', ' ')}",
+                                  got.flatten(0, 1), want.flatten(0, 1),
+                                  "bfloat16", unbounded=True)
+                blk[key] = [max(a, c) for a, c in zip(blk[key], e)]
+            # backward: the gradients of the block's input and weights
+            # for one seeded upstream gradient, kernel path vs plain path
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(100 + i)
+            g = torch.randn(out_k.shape, generator=gen,
+                            device="cuda").to(out_k.dtype)
+            grads = {}
+            for impl in (None, "reference"):
+                leaves = {k: t.detach().requires_grad_()
+                          for k, t in bp.items()}
+                xg = x.detach().requires_grad_()
+                with torch.enable_grad():
+                    out = apply_mlstm(leaves, xg, cfg, impl=impl)
+                    grads[impl] = torch.autograd.grad(
+                        out, [xg, *leaves.values()], g)
+            for name, got, want in zip(["x", *bp], grads[None],
+                                       grads["reference"]):
+                e = held_to_plain("xlstm", f"mlstm block {i} gradient of "
+                                  f"{name}, kernel vs plain",
+                                  got.reshape(got.shape[0], -1)
+                                  if got.dim() > 1 else got[None],
+                                  want.reshape(want.shape[0], -1)
+                                  if want.dim() > 1 else want[None],
+                                  "bfloat16", unbounded=True)
+                blk["grad_kernel_vs_plain"] = [
+                    max(a, c) for a, c in zip(blk["grad_kernel_vs_plain"], e)]
+        del captured, out_k, out_p, out_r, grads
+        ref_s, ref = _wall_s(lambda: model.apply(params, tokens,
+                                                 impl="reference"))
+        with _perturbed_h():
+            base = model.apply(params, tokens, impl="reference")
+    fwd_err = _logit_err(logits, ref)
+    base_err = _logit_err(base, ref)
+    last_prompt = logits[:, XLSTM_PROMPT - 1].float()
+    last_base = (base_err, _logit_err(base[:, XLSTM_PROMPT - 1],
+                                      ref[:, XLSTM_PROMPT - 1]))
+    del logits, ref, base
+    log(f"[xlstm] (a) end to end, kernel vs plain path ({ref_s:.2f}s): "
+        f"logits differ by {fwd_err[0]:.4f}, {fwd_err[1]:.3f} of their scale "
+        f"(median position {fwd_err[2]:.3f}); the plain path against itself "
+        f"with 1% of every mlstm h moved by one bf16 ulp: {base_err[0]:.4f}, "
+        f"{base_err[1]:.3f} (median {base_err[2]:.3f})")
+    _end_to_end_gate("LM.apply logits", fwd_err[1], base_err[1], LOGIT_TOL)
+
+    # ---- (c) serving through the recurrent cells --------------------------
+    prompts = tokens[:, :XLSTM_PROMPT].cpu().numpy()
+    serve = ServeConfig(max_seq_len=XLSTM_PROMPT + XLSTM_NEW + 1, top_k=1)
+    engine = ServeEngine(model=model, params=params, cfg=cfg, serve=serve)
+    seen = {}
+    decode = engine._decode
+
+    def recording(tok, cache, pos):
+        out, cache = decode(tok, cache, pos)
+        if pos == XLSTM_PROMPT - 1:
+            seen["logits"] = out.float()
+        return out, cache
+    engine._decode = recording
+    mlstm_chunkwise_fwd.launches = 0
+    gen_s, out = _wall_s(lambda: engine.generate(prompts, XLSTM_NEW))
+    engine._decode = decode
+    if mlstm_chunkwise_fwd.launches != 0:
+        raise AssertionError("generate launched the chunkwise kernel")
+    out = out.cpu().numpy()
+    if out.shape != (b, XLSTM_NEW) or not ((0 <= out) & (out < v)).all():
+        raise AssertionError(f"bad generated tokens {out.shape}")
+    dec_err = _logit_err(seen["logits"], last_prompt)
+    log(f"[xlstm] (c) recurrent decode_step logits at position "
+        f"{XLSTM_PROMPT - 1} vs (a)'s kernel LM.apply: {dec_err[0]:.4f}, "
+        f"{dec_err[1]:.3f} of their scale; the perturbed plain path there: "
+        f"{last_base[1][0]:.4f}, {last_base[1][1]:.3f}")
+    _end_to_end_gate("decode_step logits", dec_err[1], last_base[1][1],
+                     LOGIT_TOL)
+    steps = XLSTM_PROMPT + XLSTM_NEW - 1
+    tok_s = engine.throughput_tokens_per_s(b, XLSTM_PROMPT, n_new=8)
+    log(f"[xlstm] (c) generate B={b} x {XLSTM_PROMPT} prompt + {XLSTM_NEW} "
+        f"greedy: {gen_s:.2f}s for {steps} decode steps "
+        f"({gen_s / steps * 1e3:.1f} ms a step, {b * XLSTM_NEW / gen_s:.1f} "
+        f"new tok/s, prompt teacher-forced); throughput_tokens_per_s(B={b}, "
+        f"prompt {XLSTM_PROMPT}, 8 steps) {tok_s:.1f} tok/s")
+    # where a decode step's device time goes: 9 decode steps (a 4-token
+    # prompt, one warm-up step and 4 timed ones) under the profiler
+    dec_kernels, dec_dev = _profile_kernels(
+        lambda: engine.throughput_tokens_per_s(b, 4, n_new=4))
+    dec_groups = {}
+    for e in dec_kernels:
+        grp = _train_group(e.key)
+        dec_groups[grp] = dec_groups.get(grp, 0.0) + _device_us(e) / 9e6
+    dec_step_dev = dec_dev / 9
+    log(f"[xlstm] (c) a decode step: {dec_step_dev * 1e3:.2f} ms of kernels "
+        f"against {gen_s / steps * 1e3:.1f} ms of wall (idle share "
+        f"{1 - dec_step_dev / (gen_s / steps):.3f}), "
+        f"{sum(e.count for e in dec_kernels) / 9:.0f} kernels a step")
+    for grp, sec in sorted(dec_groups.items(), key=lambda kv: -kv[1]):
+        log(f"[xlstm]   {sec * 1e3:9.3f} ms  {grp}")
+    del engine, seen, last_prompt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) training -------------------------------------------------------
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=XLSTM_STEPS)
+    state = init_train_state(model, model.generator(tcfg.seed))
+    step_fn = make_train_step(model, cfg, parallel, tcfg)
+    data = TokenPipeline(DataConfig(vocab_size=v, seq_len=s,
+                                    global_batch=b))
+    mlstm_chunkwise_fwd.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i in range(XLSTM_STEPS):
+        batch = to_device(data.next(), model.device)
+        dt, (state, metrics) = _wall_s(lambda: step_fn(state, batch))
+        step_s.append(dt)
+        losses.append(float(metrics["loss"]))
+        log(f"[xlstm] (b) step {i} loss {losses[-1]:.4f} gnorm "
+            f"{float(metrics['grad_norm']):.4f} {dt * 1e3:.1f} ms")
+    launches = mlstm_chunkwise_fwd.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = n_mlstm * (2 if parallel.remat != "none" else 1) * XLSTM_STEPS
+    log(f"[xlstm] (b) mlstm_chunkwise_fwd launches on the training path: "
+        f"{launches} (expected {n_mlstm} blocks x 2 forward passes under "
+        f"remat x {XLSTM_STEPS} steps = {expected})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if launches != expected:
+        raise AssertionError(f"mlstm_chunkwise_fwd launched {launches} "
+                             f"times, expected {expected}")
+    steady_s = statistics.median(step_s[1:])
+    train_tok_s = b * s / steady_s
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir)
+        mgr.save(XLSTM_STEPS, state, extras={"data": data.state()})
+        restored, _ = mgr.restore(state)
+        for (path, x), y in zip(tree.leaves_with_paths(restored),
+                                tree.leaves(state)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"checkpoint leaf {path} changed")
+        del restored
+    log("[xlstm] (b) checkpoint saved and restored bit for bit")
+
+    # kernel path vs plain path on one batch: loss and gradient norm,
+    # beside the plain path under _perturbed_h
+    one = to_device(data.next(), model.device)
+    (k_loss, k_gn), (p_loss, p_gn) = (
+        _loss_and_gnorm(model, state.params, one, impl)
+        for impl in (None, "reference"))
+    # both paths again under two perturbations of h each (seeded)
+    perturbed = {impl: [] for impl in ("reference", "kernel")}
+    for impl, runs in perturbed.items():
+        for seed in (9, 10):
+            with _perturbed_h(seed, impl):
+                runs.append(_loss_and_gnorm(model, state.params, one,
+                                            "reference"))
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    gn_rel = abs(k_gn - p_gn) / abs(p_gn)
+    base_loss = max(abs(q - p_loss) / abs(p_loss)
+                    for q, _ in perturbed["reference"])
+    base_gn = max(abs(q - p_gn) / abs(p_gn)
+                  for _, q in perturbed["reference"])
+    log(f"[xlstm] (b) kernel vs plain path, {b} x {s}: loss {k_loss:.5f} vs "
+        f"{p_loss:.5f} (rel {loss_rel:.2e}), grad norm {k_gn:.5f} vs "
+        f"{p_gn:.5f} (rel {gn_rel:.2e})")
+    for impl, runs in perturbed.items():
+        log(f"[xlstm] (b) the {impl} path under two perturbations of h: "
+            f"losses {', '.join(f'{q:.5f}' for q, _ in runs)}, grad norms "
+            f"{', '.join(f'{q:.5f}' for _, q in runs)}")
+    _end_to_end_gate("loss", loss_rel, base_loss, LOSS_RTOL)
+    # the gradient norm of this model is heavy-tailed (a position where
+    # |q.n| nearly cancels contributes ~1/den^2), so end to end it is only
+    # guarded against exploding: within a factor of 2
+    if not (math.isfinite(k_gn) and 0.5 <= k_gn / p_gn <= 2.0):
+        raise AssertionError(f"grad norm {k_gn} against the plain path's "
+                             f"{p_gn}")
+
+    # one more step under the profiler: where the device time goes
+    batch = to_device(data.next(), model.device)
+    kernels, total_s = _profile_kernels(lambda: step_fn(state, batch))
+    ml = [e for e in kernels if "mlstm_chunkwise_kernel" in e.key]
+    ml_s = sum(_device_us(e) for e in ml) / 1e6
+    groups = {}
+    for e in kernels:
+        grp = _train_group(e.key)
+        groups[grp] = groups.get(grp, 0.0) + _device_us(e) / 1e6
+
+    # the sLSTM time loop alone: one slstm block's forward and backward at
+    # the training shape, wall time and device time
+    layer = kinds.index("slstm")
+    bp = state.params["layers"][layer]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    g = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pos = torch.arange(s, device="cuda").expand(b, s)
+
+    def slstm_fwd():
+        with torch.no_grad():
+            return B.apply_block(bp, x, cfg, "slstm", positions=pos)
+
+    def slstm_fwd_bwd():
+        y = B.apply_block(bp, x, cfg, "slstm", positions=pos)
+        return torch.autograd.grad(y, x, g)
+    sl_fwd_s, _ = _wall_s(slstm_fwd)
+    sl_fb_s, _ = _wall_s(slstm_fwd_bwd)
+    _, sl_fwd_dev = _profile_kernels(slstm_fwd)
+    _, sl_fb_dev = _profile_kernels(slstm_fwd_bwd)
+    n_sl = kinds.count("slstm")
+    # a step runs each block's forward twice (remat) and its backward once
+    sl_wall = n_sl * (sl_fwd_s + sl_fb_s)
+    sl_dev = n_sl * (sl_fwd_dev + sl_fb_dev)
+    del x, g
+
+    out = {"layers": cfg.num_layers, "params": n_params, "batch": b,
+           "seq": s, "forward_s": fwd_s, "forward_plain_s": ref_s,
+           "forward_launches": fwd_launches,
+           "forward_logit_err": fwd_err, "perturbed_plain_logit_err": base_err,
+           "block_kernel_vs_plain": blk["kernel_vs_plain"],
+           "block_recurrent_vs_kernel": blk["recurrent_vs_kernel"],
+           "block_grad_kernel_vs_plain": blk["grad_kernel_vs_plain"],
+           "generate_s": gen_s,
+           "generate_ms_per_step": gen_s / steps * 1e3,
+           "generate_new_tok_s": b * XLSTM_NEW / gen_s,
+           "decode_step_device_ms": dec_step_dev * 1e3,
+           "decode_step_idle_share": 1 - dec_step_dev / (gen_s / steps),
+           "decode_step_groups_ms": {k: x * 1e3 for k, x in
+                                     dec_groups.items()},
+           "throughput_tokens_per_s": tok_s, "decode_logit_err": dec_err,
+           "perturbed_plain_logit_err_at_prompt_end": last_base[1],
+           "steps": XLSTM_STEPS,
+           "losses": losses, "step_s": step_s, "steady_step_s": steady_s,
+           "tok_s": train_tok_s, "peak_mem_gb": peak_gb,
+           "launches": launches, "loss_rel": loss_rel, "gnorm_rel": gn_rel,
+           "perturbed_loss_rel": base_loss, "perturbed_gnorm_rel": base_gn,
+           "perturbed_loss_gnorm": perturbed, "loss_gnorm": [
+               [k_loss, k_gn], [p_loss, p_gn]],
+           "profiled_kernel_s": total_s, "mlstm_s": ml_s,
+           "mlstm_calls": sum(e.count for e in ml),
+           "mlstm_share_of_kernels": ml_s / total_s,
+           "mlstm_share_of_step": ml_s / steady_s,
+           "idle_share": 1.0 - total_s / steady_s,
+           "groups_s": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+           "slstm_block_fwd_s": sl_fwd_s, "slstm_block_fwd_bwd_s": sl_fb_s,
+           "slstm_block_fwd_device_s": sl_fwd_dev,
+           "slstm_block_fwd_bwd_device_s": sl_fb_dev,
+           "slstm_share_of_step": sl_wall / steady_s,
+           "slstm_share_of_kernels": sl_dev / total_s,
+           "card": _card()}
+    log(f"[xlstm] (b) {out['card']}: steady step {steady_s * 1e3:.1f} ms "
+        f"(median of steps 1-{XLSTM_STEPS - 1}), {train_tok_s:.0f} tok/s, "
+        f"peak memory {peak_gb:.1f} GB")
+    log(f"[xlstm] (b) profiled step: kernels {total_s:.4f}s (idle share "
+        f"{out['idle_share']:.3f}); mlstm_chunkwise {ml_s:.4f}s in "
+        f"{out['mlstm_calls']} launches ({out['mlstm_share_of_kernels']:.1%}"
+        f" of kernel time, {out['mlstm_share_of_step']:.1%} of the step)")
+    log(f"[xlstm] (b) sLSTM time loop, one block at {b} x {s}: forward "
+        f"{sl_fwd_s:.3f}s wall / {sl_fwd_dev:.4f}s device, forward + "
+        f"backward {sl_fb_s:.3f}s / {sl_fb_dev:.4f}s; the step's {n_sl} "
+        f"blocks (forward, remat recompute, backward): "
+        f"{out['slstm_share_of_step']:.1%} of the step's wall time, "
+        f"{out['slstm_share_of_kernels']:.1%} of its kernel time")
+    for grp, sec in out["groups_s"].items():
+        log(f"[xlstm]   {sec:9.4f}s  {grp}")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        log(f"[xlstm]   {_device_us(e) / 1e6:9.4f}s {e.count:6d}x "
+            f"{e.key[:90]}")
+    log("[xlstm] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -1373,8 +1938,12 @@ def main() -> int:
     gc.collect()                  # phase 4's model and optimizer state
     torch.cuda.empty_cache()
     phase_offload()
+    gc.collect()                  # phase 5's host engine and caches
+    torch.cuda.empty_cache()
+    xlstm = phase_xlstm()
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
-                "flash_decode": dense["launches"]}
+                "flash_decode": dense["launches"],
+                "mlstm_chunkwise": xlstm["launches"]}
     kern["flash_decode"] = dense["kernel"]
     sources = {"paged_decode": (
         "src/repro_torch/kernels/flash_decode/csrc/paged_decode.cu",
@@ -1387,7 +1956,10 @@ def main() -> int:
         "src/repro/kernels/fastattn/kernel.py:156"),
         "flash_decode": (
         "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
-        "src/repro/kernels/flash_decode/kernel.py:87")}
+        "src/repro/kernels/flash_decode/kernel.py:87"),
+        "mlstm_chunkwise": (
+        "src/repro_torch/kernels/mlstm/csrc/mlstm_chunkwise.cu",
+        "src/repro/kernels/mlstm/kernel.py:116")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1],
@@ -1398,7 +1970,7 @@ def main() -> int:
          "bound_by": kern[name]["bound_by"],
          "library_ms": kern[name]["library_ms"]}
         for name in ("paged_prefill", "paged_decode", "fastattn_fwd",
-                     "flash_decode")]}
+                     "flash_decode", "mlstm_chunkwise")]}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

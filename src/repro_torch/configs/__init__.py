@@ -7,4 +7,5 @@ from repro_torch.configs import (  # noqa: F401
     gemma2_2b,
     paper_models,
     qwen25_32b,
+    xlstm_125m,
 )

@@ -133,8 +133,8 @@ def fast_attention_decode(q: torch.Tensor, k_cache: torch.Tensor,
             window=window, softcap=softcap, scale=scale)
         return out[:, None]
 
-    from repro_torch.kernels.fastattn.ops import resolve_impl
-    if resolve_impl(impl, q) == "kernel":
+    from repro_torch.kernels._launch import resolve_impl
+    if resolve_impl(impl, q, "fastattn") == "kernel":
         from repro_torch.kernels.flash_decode.ops import flash_decode
         out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, kv_len,
                            window=window, softcap=softcap, scale=scale,

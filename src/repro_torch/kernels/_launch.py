@@ -8,12 +8,28 @@ import torch
 
 # kernel dtype codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# impl names of the ops with a gradient (``fastattn``, ``mlstm_chunkwise``):
+# "kernel" (the JAX package's name for its kernel, "pallas", is accepted
+# too) and "reference" (plain PyTorch); None or "auto" = the kernel for
+# CUDA tensors, the plain version for CPU tensors.
+IMPLS = ("kernel", "reference")
 HEAD_DIMS = (64, 128, 256)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 F = ctypes.c_float
+
+
+def resolve_impl(impl: Optional[str], x: torch.Tensor, what: str) -> str:
+    """``impl`` as one of IMPLS, for an op named ``what`` on ``x``."""
+    if impl in (None, "auto"):
+        return "kernel" if x.is_cuda else "reference"
+    if impl == "pallas":
+        return "kernel"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown {what} impl {impl!r}")
+    return impl
 
 
 def check_tensors(name: str, floats: dict, ints: dict) -> int:

@@ -32,6 +32,7 @@ SOURCES: Dict[str, str] = {
     "paged_prefill": "kernels/fastattn/csrc/paged_prefill.cu",
     "fastattn_fwd": "kernels/fastattn/csrc/fastattn_fwd.cu",
     "flash_decode": "kernels/flash_decode/csrc/flash_decode.cu",
+    "mlstm_chunkwise": "kernels/mlstm/csrc/mlstm_chunkwise.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -25,10 +25,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.fastattn.ref import (flash_reference,
                                               paged_prefill_reference)
 
-# impl names of ``fastattn``: "kernel" (the JAX package's name for its
-# kernel, "pallas", is accepted too) and "reference" (plain PyTorch);
-# None or "auto" = the kernel for CUDA tensors, the plain version for CPU.
-FASTATTN_IMPLS = ("kernel", "reference")
 REF_BLOCK_KV = 1024       # the JAX package's block_kv1 default (ops.py:31)
 
 _PREFILL_ARGTYPES = (L.P, L.P, L.P, L.P, L.P, L.P, L.P,   # q k v table s l o
@@ -38,16 +34,6 @@ _FWD_ARGTYPES = (L.P, L.P, L.P, L.P,                  # q k v out
                  L.I, L.I, L.I, L.I, L.I, L.I, L.I,   # B hq hkv sq skv d kv1
                  L.I, L.I, L.F, L.F,                  # causal win cap scale
                  L.I, L.I, L.I, L.P)                  # q_off kv_valid dt s
-
-
-def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
-    if impl in (None, "auto"):
-        return "kernel" if x.is_cuda else "reference"
-    if impl == "pallas":
-        return "kernel"
-    if impl not in FASTATTN_IMPLS:
-        raise ValueError(f"unknown fastattn impl {impl!r}")
-    return impl
 
 
 def fastattn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -139,7 +125,7 @@ def fastattn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     mask = dict(causal=causal, window=window, softcap=softcap, scale=scale,
                 q_offset=q_offset)
-    if resolve_impl(impl, q) == "reference":
+    if L.resolve_impl(impl, q, "fastattn") == "reference":
         return flash_reference(q, k, v, kv_len=kv_valid,
                                block_kv=REF_BLOCK_KV, **mask)
     return _FastAttn.apply(q, k, v, mask, kv_valid)

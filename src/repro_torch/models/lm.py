@@ -1,5 +1,6 @@
 """Decoder-only language model: training forward, dense-cache decode and
-paged serving.
+paged serving (attention models; the xLSTM blocks decode from their
+recurrent state and have no paged path).
 
 Layers are a plain Python list (the JAX package stacked repeating units
 and ran them under ``lax.scan``; eager PyTorch needs neither).  Parameters
@@ -72,7 +73,7 @@ class LM:
                       impl: Optional[str] = None) -> torch.Tensor:
         """Backbone forward: embedded input (B, S, D) -> final-norm hidden
         states.  Under remat each block is recomputed in the backward, so
-        its attention kernel launches twice per step."""
+        its attention or mLSTM kernel launches twice per step."""
         cfg = self.cfg
         remat = self.parallel.remat != "none" and torch.is_grad_enabled()
         for kind, bp in zip(cfg.blocks(), params["layers"]):
@@ -109,8 +110,9 @@ class LM:
     # serving
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int) -> List:
-        """Per-layer dense KV caches (``layers/attention.KV_CACHE_LAYOUT``)
-        on the model's device."""
+        """Per-layer dense decode caches on the model's device: KV caches
+        (``layers/attention.KV_CACHE_LAYOUT``) for attention blocks, the
+        float32 recurrent state for mlstm / slstm blocks."""
         dtype = torch_dtype(self.cfg.dtype)
         return [B.init_block_cache(self.cfg, kind, batch, max_seq, dtype,
                                    self.device)
@@ -119,7 +121,8 @@ class LM:
     def init_paged_cache(self, num_pages: int, page_size: int) -> List:
         """Per-layer KV page pools (no batch dim -- the serving page
         manager owns the page table that carves the pools into
-        per-sequence caches)."""
+        per-sequence caches).  Raises NotImplementedError for models with
+        recurrent (mlstm / slstm) blocks, as the JAX package does."""
         dtype = torch_dtype(self.cfg.dtype)
         return [B.init_block_pages(self.cfg, kind, num_pages, page_size,
                                    dtype, self.device)
@@ -142,8 +145,9 @@ class LM:
     def decode_step(self, params: dict, token: torch.Tensor, cache: List,
                     pos: int, *, impl: Optional[str] = None):
         """Dense-cache decode step.  token: (B,) int; pos: the scalar
-        position shared by every row.  Each layer writes its K/V row at
-        ``pos`` in place.  Returns (logits (B, V), cache)."""
+        position shared by every row.  Each attention layer writes its K/V
+        row at ``pos`` in place; a recurrent layer returns its new state.
+        Returns (logits (B, V), cache)."""
         def block_fn(bp, x, kind, bc):
             return B.apply_block_decode(bp, x, self.cfg, kind, bc, pos=pos,
                                         impl=impl)

@@ -8,6 +8,12 @@ only PyTorch:
 
 Tolerances: float32 1e-4 (only the order of sums differs); bfloat16 2e-2
 (both sides accumulate in float32 and round the output once to bf16).
+The mLSTM's h is not bounded like an attention output (|h| reaches tens
+on N(0, 1) inputs, and a denominator that nearly cancels magnifies the
+order of sums to ~1e-5 of |h| between its own three float32 forms), so
+its tolerance is relative to each case's largest |h|: 1e-4 (float32) and
+2^-7 (bfloat16, one rounding of the output); its float32 state (C, n, m)
+is held to 1e-4 of its own scale.
 """
 import numpy as np
 import pytest
@@ -23,6 +29,9 @@ from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
     flash_decode, paged_flash_decode)
 from repro_torch.kernels.flash_decode.ref import \
     decode_reference  # noqa: E402
+from repro_torch.kernels.mlstm import ref as mlstm_ref  # noqa: E402
+from repro_torch.kernels.mlstm.ops import (  # noqa: E402
+    mlstm_chunkwise, mlstm_chunkwise_fwd)
 
 # (b, hq, hkv, ps, n_kv, d, lens, window, softcap); the last row is an
 # idle engine slot: all-scratch table row, kv_len 1
@@ -253,3 +262,93 @@ def test_cuda_flash_decode_rejects_bad_arguments(cuda_device):
         flash_decode(q, k, k, lens.long(), layout="bshd")
     with pytest.raises(ValueError, match="bfloat16"):
         flash_decode(q, k.bfloat16(), k.bfloat16(), lens, layout="bshd")
+
+
+# (b, h, s, dk, dv, chunk, layout): ragged S, S below the chunk, dv not a
+# multiple of the 64-column tile, dk = dv = 384 (xlstm-125m's heads), and
+# the model's (B, S, H, D) projections read in place ("bshd")
+MLSTM_CASES = [
+    (2, 3, 300, 64, 96, 128, "bhsd"),
+    (1, 2, 50, 32, 32, 128, "bhsd"),
+    (2, 2, 200, 48, 40, 64, "bshd"),
+    (1, 2, 260, 384, 384, 128, "bshd"),
+]
+
+
+def _mlstm_inputs(rng, b, h, s, dk, dv, layout, device, dtype):
+    def draw(*shape):
+        return _t(rng.normal(size=shape).astype(np.float32)).to(device)
+    if layout == "bshd":
+        q, k, v = (draw(b, s, h, d).to(dtype).transpose(1, 2)
+                   for d in (dk, dk, dv))
+    else:
+        q, k, v = (draw(b, h, s, d).to(dtype) for d in (dk, dk, dv))
+    return q, k, v, draw(b, h, s), draw(b, h, s) + 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MLSTM_CASES)
+def test_cuda_mlstm_chunkwise_fwd_matches_plain(cuda_device, case, dtype):
+    b, h, s, dk, dv, chunk, layout = case
+    rng = np.random.default_rng(11)
+    q, k, v, ig, fg = _mlstm_inputs(rng, b, h, s, dk, dv, layout,
+                                    cuda_device, dtype)
+    before = mlstm_chunkwise_fwd.launches
+    got, state = mlstm_chunkwise_fwd(q, k, v, ig, fg, chunk=chunk)
+    assert mlstm_chunkwise_fwd.launches == before + 1
+    want, want_state = mlstm_ref.mlstm_chunkwise(
+        q, k, v, ig, fg, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, h, s, dv)
+    assert torch.isfinite(got).all()
+    rel = 1e-4 if dtype == torch.float32 else 2 ** -7
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=rel * scale)
+    for g, w in zip(state, want_state):
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_autograd_matches_plain(cuda_device):
+    """The autograd op launches the kernel in the forward and recomputes
+    through the plain version in the backward: h and every gradient equal
+    the plain path's (float32, 1e-4 of each one's scale)."""
+    rng = np.random.default_rng(12)
+    inputs = _mlstm_inputs(rng, 2, 2, 150, 64, 64, "bshd", cuda_device,
+                           torch.float32)
+    g = _t(rng.normal(size=(2, 2, 150, 64)).astype(np.float32)).to(
+        cuda_device)
+    res = {}
+    for impl in ("kernel", "reference"):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        before = mlstm_chunkwise_fwd.launches
+        out = mlstm_chunkwise(*leaves, 64, impl=impl)
+        launched = mlstm_chunkwise_fwd.launches - before
+        assert launched == (1 if impl == "kernel" else 0)
+        res[impl] = (out, *torch.autograd.grad(out, leaves, g))
+    for got, want in zip(res["kernel"], res["reference"]):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_mlstm_chunkwise_fwd_rejects_bad_arguments(cuda_device):
+    q = torch.zeros((1, 2, 8, 32), device=cuda_device)
+    gates = torch.zeros((1, 2, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="bad arguments"):
+        mlstm_chunkwise_fwd(q, q[..., :16], q, gates, gates)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros((1, 2, 32, 8), device=cuda_device).transpose(2, 3)
+        mlstm_chunkwise_fwd(t, t, t, gates, gates)
+    with pytest.raises(ValueError, match="chunk"):
+        q = torch.zeros((1, 2, 300, 32), device=cuda_device)
+        g = torch.zeros((1, 2, 300), device=cuda_device)
+        mlstm_chunkwise_fwd(q, q, q, g, g, chunk=256)
+    with pytest.raises(ValueError, match="expected"):
+        mlstm_chunkwise_fwd(q, q.bfloat16(), q, g, g)
+    with pytest.raises(ValueError, match="shared memory"):
+        q = torch.zeros((1, 1, 8, 2048), device=cuda_device)
+        g = torch.zeros((1, 1, 8), device=cuda_device)
+        mlstm_chunkwise_fwd(q, q, q, g, g)

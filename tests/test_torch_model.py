@@ -139,7 +139,7 @@ def test_model_device_defaults_to_cuda():
         params_from_jax({}, cfg)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen3-moe-30b-a3b"])
 def test_unported_block_kinds_raise(arch):
     from repro_torch.config import ModelConfig
     jcfg = reduce_for_smoke(get_model_config(arch))
