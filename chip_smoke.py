@@ -15,9 +15,11 @@ which raises on failure (the script then exits non-zero):
    checks also hold each row's error to that row's scale): the paged
    kernels at
    the shapes of llama2-7b's and gemma2-2b's serving path and at page
-   size 16 in float32; ``fastattn_fwd`` at llama2-7b's training shape, a
-   gemma2-2b band (GQA, window, softcap), a float32 ragged case with a
-   q_offset and a kv_valid tail, and a non-causal case; ``flash_decode``
+   size 16 in float32, and qwen2.5-32b's GQA 40/8 at page size 16 in
+   bf16 (ragged chunks, a padded row); ``fastattn_fwd`` at llama2-7b's
+   training shape, a gemma2-2b band (GQA, window, softcap), a ragged case
+   with a q_offset and a kv_valid tail in float32 and in bf16, and a
+   non-causal case; ``flash_decode``
    on dense caches at llama2-7b's decode shape in both layouts, a
    gemma2-2b window/softcap case, a float32 case and llama2-7b at B=1 on
    a 65536-token cache; ``mlstm_chunkwise_fwd`` at xlstm-125m's training
@@ -29,7 +31,8 @@ which raises on failure (the script then exits non-zero):
    time and, where one PyTorch call computes the same function, that
    call's time (``library_ms``: ``scaled_dot_product_attention``, with a
    gather, GQA expansion or layout copy excluded from the time; the port
-   never calls it).
+   never calls it), its achieved TFLOP/s on this data's useful operations
+   and its time over ``library_ms``.
 3. Serving: an ``EngineCore`` on llama2-7b at full width and depth (bf16,
    random weights from a seeded CUDA generator) answers 12 greedy
    requests of 37-1800 prompt tokens with 32 new tokens each.  Both
@@ -170,7 +173,9 @@ def phase_card_and_build() -> dict:
         log(f"[build] {name}: {r['seconds']:.1f}s"
             f"{' (cached)' if r['cached'] else ''}")
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line or "Performance" in line
+                    or "warning" in line):
                 log(f"[build]   {line.strip()}")
     return report
 
@@ -194,14 +199,22 @@ def _tables(rng, b, n_kv, num_pages):
     return perm.reshape(b, n_kv).astype(np.int32)
 
 
-def _report(kind: str, name: str, res: dict) -> None:
+def _speed(res: dict, n_ops: float) -> str:
+    """The kernel's achieved rate on this data's useful operations, and
+    its time over the library call's (where there is one)."""
+    ratio = ("" if res["library_ms"] is None else
+             f", kernel / library {res['ms'] / res['library_ms']:.2f}x")
+    return f"{n_ops / (res['ms'] * 1e-3) / 1e12:.1f} TFLOP/s{ratio}"
+
+
+def _report(kind: str, name: str, res: dict, n_ops: float) -> None:
     lib = ("n/a (no single PyTorch call applies a softcap or window)"
            if res["library_ms"] is None else
            f"{res['library_ms']:.4f} ms (scaled_dot_product_attention on the "
            "gathered view, gather excluded)")
     log(f"[{kind}] {name}: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}), library {lib}")
+        f"({res['bound_by']}), library {lib}; {_speed(res, n_ops)}")
 
 
 def decode_case(name, *, b, hq, hkv, d, ps, n_kv, dtype, window=None,
@@ -270,7 +283,7 @@ def decode_case(name, *, b, hq, hkv, d, ps, n_kv, dtype, window=None,
                 q[:, :, None], kd, vd, attn_mask=mask,
                 enable_gqa=hq != hkv)
         res["library_ms"] = time_ms(lib)
-    _report("decode", name, res)
+    _report("decode", name, res, n_ops)
     return res
 
 
@@ -365,7 +378,7 @@ def prefill_case(name, *, hq, hkv, d, ps, n_kv, chunk, dtype, starts,
             return F.scaled_dot_product_attention(
                 q, kd, vd, attn_mask=mask, enable_gqa=hq != hkv)
         res["library_ms"] = time_ms(lib)
-    _report("prefill", name, res)
+    _report("prefill", name, res, n_ops)
     return res
 
 
@@ -437,7 +450,7 @@ def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
     log(f"[fastattn] {name}: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
         f"({res['bound_by']}, {pairs} visible pairs per head), library "
-        f"{lib_s}")
+        f"{lib_s}; {_speed(res, n_ops)}")
     return res
 
 
@@ -532,7 +545,8 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
                        else ")"))
     log(f"[flash_decode] {name}: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}, {n_bytes / 1e6:.1f} MB), library {lib_note}")
+        f"({res['bound_by']}, {n_bytes / 1e6:.1f} MB), library {lib_note}; "
+        f"{_speed(res, n_ops)}")
     return res
 
 
@@ -624,7 +638,8 @@ def mlstm_case(name, *, b, h, s, dk, dv, dtype, chunk=128, layout="bhsd",
     log(f"[mlstm] {name}: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
         f"({by}, {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP), library "
-        "n/a (no single PyTorch call computes the mLSTM)")
+        f"n/a (no single PyTorch call computes the mLSTM); "
+        f"{_speed(res, n_ops)}")
     return res
 
 
@@ -643,6 +658,9 @@ def phase_kernels() -> dict:
     fwd_case("non-causal B=2 H=8/8 Sq=512 Skv=777 D=64 bf16", b=2, hq=8,
              hkv=8, sq=512, skv=777, d=64, dtype="bfloat16", causal=False,
              seed=3)
+    fwd_case("bf16 B=2 H=8/2 Sq=1000 Skv=1500 D=128 q_offset=300 "
+             "kv_valid=1400", b=2, hq=8, hkv=2, sq=1000, skv=1500, d=128,
+             dtype="bfloat16", q_offset=300, kv_valid=1400, seed=4)
     dec = decode_case("llama2-7b B=8 H=32/32 D=128 bf16 ps=128",
                       b=8, hq=32, hkv=32, d=128, ps=128, n_kv=16,
                       dtype="bfloat16")
@@ -664,6 +682,10 @@ def phase_kernels() -> dict:
                  hq=8, hkv=2, d=128, ps=16, n_kv=12, chunk=64,
                  dtype="float32", starts=[0, 64, 100, 0],
                  nvalid=[64, 64, 20, 0], window=40, softcap=30.0, seed=2)
+    prefill_case("qwen2.5-32b ps=16 B=4 chunk=512 H=40/8 D=128 bf16",
+                 hq=40, hkv=8, d=128, ps=16, n_kv=68, chunk=512,
+                 dtype="bfloat16", starts=[0, 512, 1000, 0],
+                 nvalid=[512, 301, 77, 0], seed=3)
     dense_decode_case("llama2-7b B=8 H=32/32 D=128 bf16 bshd S=4096",
                       b=8, hq=32, hkv=32, s=4096, d=128, dtype="bfloat16",
                       layout="bshd")
@@ -1092,7 +1114,7 @@ def _device_us(evt) -> float:
 
 def _train_group(name: str) -> str:
     n = name.lower()
-    if "fastattn_fwd_kernel" in n:
+    if "fastattn_fwd_" in n:
         return "attention forward: fastattn_fwd.cu"
     if "mlstm_chunkwise_kernel" in n:
         return "mLSTM forward: mlstm_chunkwise.cu"
@@ -1221,7 +1243,7 @@ def phase_training() -> dict:
     total_us = sum(_device_us(e) for e in kernels)
     if total_us <= 0:
         raise AssertionError("the profiler saw no device time")
-    fa = [e for e in kernels if "fastattn_fwd_kernel" in e.key]
+    fa = [e for e in kernels if "fastattn_fwd_" in e.key]
     fa_us = sum(_device_us(e) for e in fa)
     groups = {}
     for e in kernels:

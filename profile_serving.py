@@ -44,7 +44,7 @@ def _group(name: str) -> str:
     n = name.lower()
     if "paged_decode_kernel" in n:
         return "attention: paged_decode.cu"
-    if "paged_prefill_kernel" in n:
+    if "paged_prefill_" in n:
         return "attention: paged_prefill.cu"
     if any(s in n for s in ("gemm", "gemv", "nvjet", "cutlass", "sm90_",
                             "cublas")):

@@ -7,8 +7,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o build/<name>-<hash>.so <source>
 
 The build runs at first use, into ``src/repro_torch/build/`` (listed in
-``.gitignore``).  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``.gitignore``).  A library's file name carries a hash of its source,
+the local headers it includes (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
 ``build_all()`` starts one nvcc per source at once and waits for all.
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -17,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG_DIR / "build"
@@ -51,10 +53,32 @@ def find_nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(path: Path) -> List[Path]:
+    """``path`` and every local header it includes (``#include "..."``,
+    relative to the including file, recursively), each once."""
+    files, todo = [], [path.resolve()]
+    while todo:
+        p = todo.pop()
+        if p in files:
+            continue
+        files.append(p)
+        for inc in _INCLUDE.findall(p.read_bytes()):
+            h = (p.parent / inc.decode()).resolve()
+            if h.exists():
+                todo.append(h)
+    return files
+
+
 def lib_path(name: str) -> Path:
-    src = (PKG_DIR / SOURCES[name]).read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{h}.so"
+    """The library of source ``name``, named by a hash of the source, the
+    headers it includes and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in source_files(PKG_DIR / SOURCES[name]):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

@@ -14,41 +14,54 @@
 // What bounds it on the H100: operations.  At training shapes (llama2-7b,
 // B=4, Hq=32, S=2048, D=128) it does 4 * B * Hq * Sq * Skv * D FLOP, about
 // halved by the causal SKIP sub-tiles, against (Sq + 2 Skv) * D * bytes per
-// head: ~300 FLOP per byte, over the bf16 ridge of the card.  The least
-// time is the operation count over the tensor cores' 989 TFLOP/s; this
-// first kernel runs its products as float32 FMAs (67 TFLOP/s peak), so it
-// cannot approach that bound (wgmma/TMA is later work).  Its design spends
-// the FMA pipes only on work that counts:
+// head: ~300 FLOP per byte, over the bf16 ridge of the card, so the least
+// time is the operation count over the tensor cores' 989 TFLOP/s.
+//
+// The entry point dispatches on dtype alone, with no fallback between the
+// two instances:
+//
+//  * bfloat16 -> `fastattn_fwd_wgmma`, the tensor-core kernel of
+//    attn_sm90.cuh (shared with paged_prefill.cu): one CTA per (128- or
+//    64-row query block, query head, sequence), one consumer warpgroup per
+//    64 rows; S = Q K^T and O += P V as bf16 `wgmma` with f32 accumulators,
+//    Q staged once in bf16, K/V in a three-slot `cp.async` ring of
+//    `block_kv1` keys (level 1, from core/tiling.py), each stage walked in
+//    64-key sub-tiles classified SKIP / FULL / PARTIAL (level 2).  Causal
+//    CTAs with the most keys start first (blockIdx.x is walked backwards).
+//    A launch it refuses returns its CUDA error; nothing retries elsewhere.
+//  * float32 -> `fastattn_fwd_kernel` below, FP32 FMA register tiles
+//    (67 TFLOP/s peak): `wgmma` has no f32 form, and its TF32 form would
+//    not hold float32 results to 1e-4.  Its design:
 //
 //  * Grid and scratch.  One CTA per (64-row query block, query head,
 //    sequence).  The TPU's sequential `ki` grid axis and its VMEM scratch
 //    become a loop inside the CTA with the running max, sum and the f32
-//    accumulator in registers.  Causal CTAs with the most keys start first
-//    (blockIdx.x is walked backwards) so the long ones do not form the tail.
+//    accumulator in registers, longest causal CTAs first.
 //  * Level 1.  The CTA walks only the macro-blocks of `block_kv1` keys in
 //    [first_valid, last_valid] (kernel.py:55-62: the causal end, the
 //    kv_valid tail, the window start); pruned macro-blocks are never
 //    fetched (the TPU's clamped index map, kernel.py:204-217).  A
-//    macro-block is staged into shared memory -- K transposed and V, in the
-//    input dtype -- behind ONE barrier, so the barrier count per key falls
-//    as block_kv1 grows (the synchronisations the paper's level 1 removes).
-//    block_kv1 comes from the Hopper planner (core/tiling.py): the largest
-//    that keeps two CTAs per SM, within the 227 KB a CTA may use.
+//    macro-block is staged into shared memory -- K transposed and V --
+//    behind ONE barrier, so the barrier count per key falls as block_kv1
+//    grows (the synchronisations the paper's level 1 removes).  block_kv1
+//    comes from the Hopper planner: the largest that keeps two CTAs per
+//    SM, within the 227 KB a CTA may use.
 //  * Level 2.  Each 32-key sub-tile is classified with the rule of
 //    kernel.py:80-91, which is tiling_mask.classify_block: SKIP sub-tiles
 //    are neither loaded nor computed; FULL sub-tiles go straight to the
 //    online softmax with no mask evaluation; only PARTIAL sub-tiles are
-//    masked.  On Hopper a compare is cheaper than a shared-memory read of a
-//    (2M)^2 M-mask, so PARTIAL sub-tiles mask by arithmetic (causal
-//    q_offset + row >= col, window row - col < window, tail col <
-//    kv_valid); the M-mask lookup is not carried over, the SKIP/FULL/
-//    PARTIAL classification -- the saving the paper claims -- is.
+//    masked, by arithmetic (causal q_offset + row >= col, window row - col
+//    < window, tail col < kv_valid); the (2M)^2 M-mask lookup is not
+//    carried over, the SKIP/FULL/PARTIAL classification -- the saving the
+//    paper claims -- is.
 //  * Register tiles.  Each thread computes 4 query rows x 4 keys of S and
 //    owns 4 output rows x D/8 columns of the accumulator, so both products
 //    issue 16 FMAs per pair of shared-memory loads.  P goes from the S
 //    layout to the PV layout through warp shuffles (the 8 lanes of a row
 //    group are one warp quarter), not through shared memory, so a sub-tile
 //    needs no barrier at all.
+#include "attn_sm90.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,18 +84,6 @@ __device__ __forceinline__ void load8(const float* p, float (&o)[VEC]) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&o)[VEC]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
 }
 
 // 8 consecutive elements copied as they are (16 or 32 bytes)
@@ -114,24 +115,9 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-  h[0] = __floats2bfloat162_rn(a, b);
-  h[1] = __floats2bfloat162_rn(c, d);
 }
 
 // Dynamic shared memory of one CTA; core/tiling.py:smem_working_set
@@ -366,10 +352,11 @@ fastattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int hq, int hkv, int sq, int skv, int kv1,
-                   int causal, int window, float softcap, float scale,
-                   int q_offset, int kv_valid, cudaStream_t stream) {
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       void* out, int B, int hq, int hkv, int sq, int skv,
+                       int kv1, int causal, int window, float softcap,
+                       float scale, int q_offset, int kv_valid,
+                       cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D>(kv1);
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   static size_t configured = 0;    // the largest size allowed so far
@@ -386,6 +373,79 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const T*>(v), static_cast<T*>(out), hq, hkv, sq, skv, kv1,
       causal, window, softcap, scale, q_offset, kv_valid);
   return cudaGetLastError();
+}
+
+// ---- bfloat16: the tensor-core kernel of attn_sm90.cuh ---------------------
+
+template <int D>
+struct DenseRows {      // element offset of key `key`'s row in its kv head
+  __device__ size_t operator()(int key) const { return (size_t)key * D; }
+};
+
+// grid: (ceil(Sq / BQ), Hq, B); block: Cfg<D>::NT; dynamic shared memory:
+// sm90::smem_bytes<D>(kv1).
+template <int D>
+__global__ void __launch_bounds__(sm90::Cfg<D>::NT, 1)
+fastattn_fwd_wgmma(const sm90::bf16* __restrict__ q,
+                  const sm90::bf16* __restrict__ k,
+                  const sm90::bf16* __restrict__ v,
+                  sm90::bf16* __restrict__ out, int hq, int hkv, int sq,
+                  int skv, int kv1, int causal, int window, float softcap,
+                  float scale, int q_offset, int kv_valid) {
+  constexpr int BQ = sm90::Cfg<D>::BQ;
+  const int qb = gridDim.x - 1 - blockIdx.x;       // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int row0 = qb * BQ;
+  const size_t q_off = (((size_t)b * hq + h) * sq + row0) * D;
+  const size_t kv_off = ((size_t)b * hkv + kvh) * (size_t)skv * D;
+  sm90::attn_fwd_tile<D>(q + q_off, min(BQ, sq - row0), k + kv_off,
+                         v + kv_off, DenseRows<D>{}, out + q_off,
+                         q_offset + row0, kv_valid, causal, window, softcap,
+                         scale, kv1);
+}
+
+template <int D>
+cudaError_t launch_sm90(const void* q, const void* k, const void* v,
+                        void* out, int B, int hq, int hkv, int sq, int skv,
+                        int kv1, int causal, int window, float softcap,
+                        float scale, int q_offset, int kv_valid,
+                        cudaStream_t stream) {
+  const size_t smem = sm90::smem_bytes<D>(kv1);
+  if (kv1 % sm90::BKV2 != 0 || smem > (size_t)MAX_SMEM)
+    return cudaErrorInvalidValue;
+  static size_t configured = 0;    // the largest size allowed so far
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fastattn_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    configured = smem;
+  }
+  constexpr int BQ = sm90::Cfg<D>::BQ;
+  const dim3 grid((sq + BQ - 1) / BQ, hq, B);
+  fastattn_fwd_wgmma<D><<<grid, sm90::Cfg<D>::NT, smem, stream>>>(
+      static_cast<const sm90::bf16*>(q), static_cast<const sm90::bf16*>(k),
+      static_cast<const sm90::bf16*>(v), static_cast<sm90::bf16*>(out), hq,
+      hkv, sq, skv, kv1, causal, window, softcap, scale, q_offset, kv_valid);
+  return cudaGetLastError();
+}
+
+// the instance of dtype T: float32 -> FMA kernel, bfloat16 -> wgmma kernel
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int hq, int hkv, int sq, int skv, int kv1,
+                   int causal, int window, float softcap, float scale,
+                   int q_offset, int kv_valid, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4)
+    return launch_fma<float, D>(q, k, v, out, B, hq, hkv, sq, skv, kv1,
+                                causal, window, softcap, scale, q_offset,
+                                kv_valid, stream);
+  else
+    return launch_sm90<D>(q, k, v, out, B, hq, hkv, sq, skv, kv1, causal,
+                          window, softcap, scale, q_offset, kv_valid,
+                          stream);
 }
 
 template <typename T>
@@ -414,8 +474,10 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B, Hq, Sq, D); k/v (B, Hkv, Skv, D); out (B, Hq, Sq, D), all
-// contiguous.  dtype 0 = float32, 1 = bfloat16.  block_kv1: keys per
-// level-1 macro-block, a multiple of 32 (at most 32 sub-tiles).  window
+// contiguous.  dtype 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma
+// kernel).  block_kv1: keys per level-1 macro-block, from
+// core/tiling.py's plan for the dtype: float32 a multiple of 32 (at most
+// 32 sub-tiles), bfloat16 a multiple of 64 whose ring fits.  window
 // <= 0 and softcap <= 0 mean "none"; kv_valid in [0, Skv].  Launches on
 // `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int fastattn_fwd(const void* q, const void* k, const void* v,
@@ -425,8 +487,9 @@ extern "C" int fastattn_fwd(const void* q, const void* k, const void* v,
                             int q_offset, int kv_valid, int dtype,
                             void* stream) {
   if (B <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
-      block_kv1 < TK || block_kv1 % TK != 0 || block_kv1 / TK > MAX_SUB ||
-      q_offset < 0 || kv_valid < 0 || kv_valid > skv)
+      block_kv1 < TK || block_kv1 % TK != 0 ||
+      (dtype == 0 && block_kv1 / TK > MAX_SUB) || q_offset < 0 ||
+      kv_valid < 0 || kv_valid > skv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

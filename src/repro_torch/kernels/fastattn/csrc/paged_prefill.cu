@@ -3,34 +3,42 @@
 // page table, at runtime per-sequence offsets.
 //
 // Replaces the TPU kernel `paged_prefill_fwd`
-// (src/repro/kernels/fastattn/kernel.py, body `_paged_prefill_kernel`).
+// (src/repro/kernels/fastattn/kernel.py:322, body `_paged_prefill_kernel`).
 // Same function: the chunk's own K/V rows are already scattered into the
 // pools; arithmetic masks -- causal on global positions, `cols < kv_len`,
 // `rows - cols < window` -- then softcap after the scale, then an f32
 // online softmax.  A row with no valid key (a padded batch row with
 // kv_len = 0) gives exactly 0.
 //
-// What bounds it on the H100: operations, at the chunk sizes serving uses
-// (512 query rows against up to a few thousand keys: ~4 * rows * keys * D
-// FLOP against (rows + 2 * keys) * D * bytes).  Against the tensor cores'
-// bf16 peak the least time is the operation count / 989 TFLOP/s; this first
-// kernel runs its products on the FP32 pipes with plain FMAs, so it cannot
-// approach that bound (the tensor-core version with wgmma/TMA is later
-// work).
+// What bounds it on the H100: operations at long chunks against long
+// contexts (512 query rows against up to a few thousand keys: ~4 * rows *
+// keys * D FLOP against (rows + 2 * keys) * D * bytes); at the serving
+// path's chunks, where most sequences hold few keys, the bytes of the
+// pages read once.
 //
-// What the design does about it:
-//  * one CTA per (64-row query block, query head, sequence); the kv head
-//    is hq / (Hq / Hkv);
-//  * the CTA walks only the pages that can hold a valid key for its rows,
-//    from first_valid = (q_start - window + 1) / page_size (with a window)
-//    to last_valid = min(q_end, kv_len - 1) / page_size, as the TPU kernel
-//    does, clamping every table index to [0, n_kv - 1];
-//  * K/V are staged through shared memory in sub-tiles of at most 32 keys
-//    (not whole pages: a 128 x 256 f32 page is 128 KB per operand), with
-//    sub-tiles outside the valid range skipped;
-//  * each thread computes a 4 x 4 register tile of scores and owns 4
-//    output rows x D/8 columns of the f32 accumulator, so both products
-//    issue 16 FMAs per pair of 16-byte shared-memory loads.
+// The entry point dispatches on dtype alone, with no fallback between the
+// two instances:
+//
+//  * bfloat16 -> `paged_prefill_wgmma`, the tensor-core mainloop of
+//    attn_sm90.cuh (shared with fastattn_fwd.cu): bf16 `wgmma` for
+//    S = Q K^T and O += P V, K/V in a three-slot `cp.async` ring whose row
+//    addresses go through the page table (table[clamp(key / ps)] * ps +
+//    key % ps within the kv head's pool), so a 64-key sub-tile may straddle
+//    pages of any size.  The CTA walks only keys in [first_key, last_key]
+//    (the window start, min(q_end, kv_len - 1)); keys at or past kv_len
+//    are zero-filled, never read.  One CTA per (128- or 64-row query block,
+//    query head, sequence); the kv head is hq / (Hq / Hkv).
+//  * float32 -> `paged_prefill_kernel` below, FP32 FMA register tiles
+//    (`wgmma` has no f32 form): one CTA per (64-row query block, query
+//    head, sequence); it walks the pages from first_valid =
+//    (q_start - window + 1) / page_size to last_valid = min(q_end,
+//    kv_len - 1) / page_size, clamping every table index to [0, n_kv - 1];
+//    K/V are staged through shared memory in sub-tiles of at most 32 keys,
+//    those outside the valid range skipped; each thread computes a 4 x 4
+//    register tile of scores and owns 4 output rows x D/8 columns of the
+//    f32 accumulator.
+#include "attn_sm90.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,28 +61,9 @@ __device__ __forceinline__ void load8(const float* p, float (&o)[VEC]) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&o)[VEC]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-  h[0] = __floats2bfloat162_rn(a, b);
-  h[1] = __floats2bfloat162_rn(c, d);
 }
 
 template <int D>
@@ -287,11 +276,12 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* table, const void* starts, const void* lens,
-                   void* out, int B, int hq, int sq, int hkv, int num_pages,
-                   int page_size, int n_kv, int window, float softcap,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       const void* table, const void* starts,
+                       const void* lens, void* out, int B, int hq, int sq,
+                       int hkv, int num_pages, int page_size, int n_kv,
+                       int window, float softcap, float scale,
+                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
@@ -309,6 +299,98 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<T*>(out), hq, sq, hkv, num_pages, page_size, n_kv, window,
       softcap, scale);
   return cudaGetLastError();
+}
+
+// ---- bfloat16: the tensor-core kernel of attn_sm90.cuh ---------------------
+
+// keys a stage: the largest power of two from 64 whose three ring slots
+// fit the 227 KB beside Q, as core/tiling.py plans it for a long key range
+template <int D>
+constexpr int STAGE_KEYS = D == 64 ? 256 : D == 128 ? 128 : 64;
+
+struct PagedRows {      // element offset of key `key`'s row in its kv head
+  const int* table;     // this sequence's page table row
+  int n_kv, page_size, num_pages, d;
+  __device__ size_t operator()(int key) const {
+    const int page =
+        min(max(table[min(key / page_size, n_kv - 1)], 0), num_pages - 1);
+    return ((size_t)page * page_size + key % page_size) * d;
+  }
+};
+
+// grid: (ceil(Sq / BQ), Hq, B); block: Cfg<D>::NT; dynamic shared memory:
+// sm90::smem_bytes<D>(STAGE_KEYS<D>).
+template <int D>
+__global__ void __launch_bounds__(sm90::Cfg<D>::NT, 1)
+paged_prefill_wgmma(const sm90::bf16* __restrict__ q,
+                   const sm90::bf16* __restrict__ k_pages,
+                   const sm90::bf16* __restrict__ v_pages,
+                   const int* __restrict__ page_table,
+                   const int* __restrict__ pos_starts,
+                   const int* __restrict__ kv_lens,
+                   sm90::bf16* __restrict__ out, int hq, int sq, int hkv,
+                   int num_pages, int page_size, int n_kv, int window,
+                   float softcap, float scale) {
+  constexpr int BQ = sm90::Cfg<D>::BQ;
+  const int qb = gridDim.x - 1 - blockIdx.x;       // longest rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (hq / hkv);
+  const int row0 = qb * BQ;
+  const size_t q_off = (((size_t)b * hq + h) * sq + row0) * D;
+  const size_t head_off = (size_t)kvh * num_pages * page_size * D;
+  const int kv_len = min(kv_lens[b], n_kv * page_size);
+  const PagedRows rows{page_table + (size_t)b * n_kv, n_kv, page_size,
+                       num_pages, D};
+  sm90::attn_fwd_tile<D>(q + q_off, min(BQ, sq - row0), k_pages + head_off,
+                         v_pages + head_off, rows, out + q_off,
+                         pos_starts[b] + row0, kv_len, /*causal=*/1, window,
+                         softcap, scale, STAGE_KEYS<D>);
+}
+
+template <int D>
+cudaError_t launch_sm90(const void* q, const void* k, const void* v,
+                        const void* table, const void* starts,
+                        const void* lens, void* out, int B, int hq, int sq,
+                        int hkv, int num_pages, int page_size, int n_kv,
+                        int window, float softcap, float scale,
+                        cudaStream_t stream) {
+  constexpr size_t smem = sm90::smem_bytes<D>(STAGE_KEYS<D>);
+  static_assert(smem <= (size_t)sm90::MAX_SMEM, "ring over 227 KB");
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_prefill_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  constexpr int BQ = sm90::Cfg<D>::BQ;
+  const dim3 grid((sq + BQ - 1) / BQ, hq, B);
+  paged_prefill_wgmma<D><<<grid, sm90::Cfg<D>::NT, smem, stream>>>(
+      static_cast<const sm90::bf16*>(q), static_cast<const sm90::bf16*>(k),
+      static_cast<const sm90::bf16*>(v), static_cast<const int*>(table),
+      static_cast<const int*>(starts), static_cast<const int*>(lens),
+      static_cast<sm90::bf16*>(out), hq, sq, hkv, num_pages, page_size, n_kv,
+      window, softcap, scale);
+  return cudaGetLastError();
+}
+
+// the instance of dtype T: float32 -> FMA kernel, bfloat16 -> wgmma kernel
+template <typename T, int D>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* table, const void* starts, const void* lens,
+                   void* out, int B, int hq, int sq, int hkv, int num_pages,
+                   int page_size, int n_kv, int window, float softcap,
+                   float scale, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4)
+    return launch_fma<float, D>(q, k, v, table, starts, lens, out, B, hq, sq,
+                                hkv, num_pages, page_size, n_kv, window,
+                                softcap, scale, stream);
+  else
+    return launch_sm90<D>(q, k, v, table, starts, lens, out, B, hq, sq, hkv,
+                          num_pages, page_size, n_kv, window, softcap, scale,
+                          stream);
 }
 
 template <typename T>
@@ -340,9 +422,9 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 
 // q (B, Hq, Sq, D); k/v pages (Hkv, P, page_size, D); page_table
 // (B, n_kv), pos_start (B,), kv_len (B,) int32; out (B, Hq, Sq, D).
-// dtype 0 = float32, 1 = bfloat16.  window <= 0 and softcap <= 0 mean
-// "none".  Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
+// dtype 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel).  window
+// <= 0 and softcap <= 0 mean "none".  Launches on `stream`, allocates
+// nothing, returns cudaGetLastError().
 extern "C" int paged_prefill(const void* q, const void* k_pages,
                              const void* v_pages, const void* page_table,
                              const void* pos_start, const void* kv_len,

@@ -1,12 +1,13 @@
 """Wrappers of the FastAttention CUDA kernels.
 
 * ``fastattn_fwd`` -- the dense two-level-tiled forward,
-  ``csrc/fastattn_fwd.cu``;
+  ``csrc/fastattn_fwd.cu`` (bf16 on the tensor cores through the mainloop
+  of ``csrc/attn_sm90.cuh``, float32 on FP32 FMA tiles);
 * ``fastattn`` -- the same op with a gradient (``torch.autograd.Function``
   whose backward recomputes through the plain ``flash_reference``, as the
   JAX package's ``_bwd`` does: there is no backward kernel to port);
 * ``fastattn_paged_prefill`` -- chunked prefill against the paged KV
-  pools, ``csrc/paged_prefill.cu``.
+  pools, ``csrc/paged_prefill.cu`` (the same two instances).
 
 For CUDA tensors a wrapper launches its CUDA kernel (built at first use,
 see ``kernels/build.py``) or raises; for CPU tensors it runs the plain
@@ -45,9 +46,13 @@ def fastattn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), Hq % Hkv == 0.  Any Sq/Skv
     (ragged edges are masked in the kernel); ``kv_valid`` masks the keys
-    at or past it.  The level-1 block comes from the Hopper planner
-    (``core/tiling.py``); block_q (64) and block_kv2 (32) are fixed by the
-    kernel's thread layout.  A row with no visible key is 0.
+    at or past it.  The dtype selects the kernel: bfloat16 the tensor-core
+    (``wgmma``) instance, float32 the FP32 FMA one.  The level-1 block
+    (keys a stage) comes from the Hopper planner (``core/tiling.py``), which
+    describes the instance the dtype launches; block_q and block_kv2 are
+    fixed by that instance's thread layout (bf16: 128 or 64 rows, 64-key
+    sub-tiles; f32: 64 rows, 32-key sub-tiles).  A row with no visible key
+    is 0.
     """
     b, hq, sq, d = q.shape
     skv = k.shape[2]

@@ -42,12 +42,21 @@ DECODE_CASES = [
     (3, 20, 2, 128, 3, 128, [384, 129, 1], 100, None),     # g=10: 2 tiles
 ]
 # (hq, hkv, ps, n_kv, d, chunk, starts, nvalid, window, softcap); a row
-# with n_valid 0 is a padded batch row: all-scratch table, kv_len 0
+# with n_valid 0 is a padded batch row: all-scratch table, kv_len 0.
+# Beside the first four: a chunk of 1 row and one of 129 (across the
+# bf16 kernel's 128-row block), fewer keys than one 64-key sub-tile,
+# head_dim 256 with a window, and 64-key sub-tiles straddling 16-key
+# pages from an unaligned start
 PREFILL_CASES = [
     (4, 4, 16, 6, 64, 32, [0, 32, 0], [32, 20, 0], None, None),
     (4, 2, 16, 6, 128, 32, [16, 50, 0], [32, 11, 0], 24, 30.0),
     (2, 2, 128, 2, 256, 64, [0, 100, 0], [64, 37, 0], None, 50.0),
     (4, 2, 128, 3, 128, 100, [128, 3, 0], [100, 77, 0], 100, None),
+    (4, 2, 16, 6, 128, 1, [40, 0, 7], [1, 0, 1], None, None),
+    (4, 4, 16, 12, 64, 129, [0, 50, 0], [129, 100, 0], None, None),
+    (4, 2, 16, 3, 128, 32, [0, 10, 0], [32, 20, 0], None, None),
+    (4, 2, 128, 3, 256, 128, [100, 0, 0], [128, 60, 0], 64, None),
+    (8, 2, 16, 16, 128, 96, [37, 150, 0], [96, 70, 0], None, None),
 ]
 
 
@@ -132,7 +141,10 @@ def test_cuda_paged_prefill_matches_plain(cuda_device, case, dtype, tol):
 # (b, hq, hkv, sq, skv, d, causal, window, softcap, q_offset, kv_valid):
 # ragged Sq/Skv that are no multiple of the tiles, GQA, window bands with
 # SKIP sub-tiles, a q_offset past 0, kv_valid tails; rows with no visible
-# key are 0 on both sides
+# key are 0 on both sides.  Beside the first six: Sq = 1 and Sq = 129
+# (across the bf16 kernel's 128-row block), Skv below one 64-key
+# sub-tile, head_dim 256 with a window, and kv_valid = 0 (every row
+# exactly 0)
 FWD_CASES = [
     (2, 4, 4, 200, 200, 64, True, None, None, 0, None),
     (1, 8, 2, 300, 257, 128, True, 100, 30.0, 0, None),
@@ -140,6 +152,12 @@ FWD_CASES = [
     (2, 4, 1, 96, 160, 128, False, None, None, 0, 140),
     (1, 2, 2, 64, 700, 64, False, 64, None, 600, None),
     (1, 2, 2, 50, 40, 128, True, 16, None, 0, 0),
+    (1, 4, 2, 1, 300, 128, True, None, None, 299, None),
+    (2, 4, 4, 129, 129, 64, True, None, None, 0, None),
+    (1, 4, 2, 129, 500, 128, True, None, None, 371, None),
+    (1, 4, 2, 100, 40, 128, False, None, None, 0, None),
+    (1, 4, 2, 300, 300, 256, True, 100, None, 0, None),
+    (1, 2, 1, 129, 100, 64, False, None, None, 0, 0),
 ]
 
 
@@ -164,6 +182,8 @@ def test_cuda_fastattn_fwd_matches_plain(cuda_device, case, dtype, tol):
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    if kv_valid == 0:
+        assert torch.count_nonzero(got) == 0
 
 
 @pytest.mark.cuda

@@ -232,16 +232,33 @@ def test_m_mask_and_dense_mask_equal_jax():
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype_bytes", [2, 4])
 def test_hopper_plan_fits_shared_memory(d, dtype_bytes):
+    """The plan describes the kernel the dtype launches: float32 the FMA
+    kernel (64-row blocks, 32-key sub-tiles, level 1 grown while two CTAs
+    fit an SM); bfloat16 the wgmma kernel (64 rows per warpgroup, two
+    warpgroups up to head_dim 128; 64-key sub-tiles; a ring of three
+    level-1 stages, grown while it fits one CTA's 227 KB)."""
     plan = tiling.plan_two_level_tiling(2048, 2048, d,
                                         dtype_bytes=dtype_bytes)
     assert plan.smem_bytes <= 232_448
     assert plan.smem_bytes == tiling.smem_working_set(
         plan.block_q, plan.block_kv1, d, dtype_bytes)
     assert plan.block_kv1 % plan.block_kv2 == 0
-    assert (plan.block_q, plan.block_kv2) == (64, 32)
+    if dtype_bytes == 4:
+        assert (plan.block_q, plan.block_kv2) == (64, 32)
+    else:
+        assert (plan.block_q, plan.block_kv2) == ((128 if d <= 128 else 64),
+                                                  64)
+        # the ring's stages fit one CTA, and a larger stage would not
+        assert plan.stages == 3
+        assert plan.smem_bytes == (1024 + 2 * plan.block_q * d
+                                   + plan.stages * 2 * 2 * plan.block_kv1 * d
+                                   + plan.stages * 2 * 8)
+        assert tiling.smem_working_set(plan.block_q, 2 * plan.block_kv1, d,
+                                       2) > 232_448
     assert plan.ctas_per_sm >= 1
-    # level 1 grows while two CTAs still fit an SM
-    if tiling.smem_working_set(64, 32, d, dtype_bytes) <= 115_712:
+    # float32: level 1 grows while two CTAs still fit an SM
+    if (dtype_bytes == 4
+            and tiling.smem_working_set(64, 32, d, dtype_bytes) <= 115_712):
         assert plan.ctas_per_sm == 2
     if d <= 128:
         assert plan.block_kv1 > plan.block_kv2

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package ``repro``, and neither do ``chip_smoke.py`` and
-``profile_serving.py``."""
+package ``repro``, and neither do ``chip_smoke.py``,
+``profile_serving.py`` and ``attn_bench.py``."""
 import ast
 import os
 import pkgutil
@@ -55,7 +55,8 @@ def _imported_roots(path: Path):
             yield node.lineno, (node.module or "").split(".")[0]
 
 
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "profile_serving.py"]
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
+           ROOT / "attn_bench.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + SCRIPTS,
@@ -72,3 +73,30 @@ def test_kernel_sources_are_listed_for_the_build():
     assert sources == {str(p) for p in PKG.rglob("csrc/*.cu")}
     for name in build.SOURCES:
         assert build.lib_path(name).parent == PKG / "build"
+
+
+def test_library_name_covers_included_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` header renames the library of every source
+    that includes it (directly or through another header), so no stale
+    ``.so`` is reused; an unrelated header does not."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "outer.cuh"\nint a;\n')
+    (csrc / "outer.cuh").write_text('#include "inner.cuh"\n')
+    (csrc / "inner.cuh").write_text("// v1\n")
+    (csrc / "other.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "PKG_DIR", tmp_path)
+    monkeypatch.setattr(build, "SOURCES", {"a": "csrc/a.cu"})
+    assert [p.name for p in build.source_files(csrc / "a.cu")] == [
+        "a.cu", "outer.cuh", "inner.cuh"]
+    before = build.lib_path("a")
+    (csrc / "other.cuh").write_text("// v2\n")
+    assert build.lib_path("a") == before
+    (csrc / "inner.cuh").write_text("// v2\n")
+    assert build.lib_path("a") != before
+    # the port's two attention sources include the shared mainloop
+    monkeypatch.undo()
+    for name in ("fastattn_fwd", "paged_prefill"):
+        files = build.source_files(PKG / build.SOURCES[name])
+        assert PKG / "kernels/fastattn/csrc/attn_sm90.cuh" in files
