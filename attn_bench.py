@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Time the bf16 attention-forward kernels on one GPU beside SDPA.
 
-    python3 attn_bench.py [--rounds 3] [--parent DIR]
+    python3 attn_bench.py [--parent DIR]
 
-1. ``fastattn_fwd`` and ``fastattn_paged_prefill`` at ``chip_smoke.py``'s
-   phase-2 shapes (llama2-7b training and chunk 512, a head_dim-64 causal
-   case, gemma2-2b's band, qwen2.5-32b's GQA at page size 16), each held
-   to its plain version and timed with SDPA, ``--rounds`` times.
+1. ``fastattn_fwd`` and ``fastattn_paged_prefill`` on the bfloat16 cases
+   of ``chip_smoke.py``'s phase 2 (its ``FWD_CASES`` and
+   ``PREFILL_CASES``), each held to its plain version and timed with
+   SDPA.
 2. ``fastattn_fwd`` against SDPA across CTA lengths: 2048 CTAs of 128
    query rows each, 4 to 32 stages of 128 keys, causal and not.  A
    straight line through (stages, ms) splits a fixed cost per CTA from
@@ -37,24 +37,12 @@ PHASE3 = ("import sys, json, torch; sys.path[:0] = ['src', '.']; "
           "'prefill_tok_s', 'decode_tok_s')}))")
 
 
-def kernels(cs, rounds: int) -> None:
-    for _ in range(rounds):
-        cs.fwd_case("llama2-7b train B=4 H=32/32 S=2048 D=128 bf16 causal",
-                    b=4, hq=32, hkv=32, sq=2048, skv=2048, d=128,
-                    dtype="bfloat16")
-        cs.fwd_case("B=4 H=32/32 S=2048 D=64 bf16 causal", b=4, hq=32,
-                    hkv=32, sq=2048, skv=2048, d=64, dtype="bfloat16")
-        cs.fwd_case("gemma2-2b train B=4 H=8/4 S=2048 D=256 bf16 window=512 "
-                    "cap=50", b=4, hq=8, hkv=4, sq=2048, skv=2048, d=256,
-                    dtype="bfloat16", window=512, softcap=50.0, seed=1)
-        cs.prefill_case("llama2-7b B=4 chunk=512 H=32/32 D=128 bf16 ps=128",
-                        hq=32, hkv=32, d=128, ps=128, n_kv=16, chunk=512,
-                        dtype="bfloat16", starts=[0, 512, 1024, 0],
-                        nvalid=[512, 300, 512, 0])
-        cs.prefill_case("qwen2.5-32b ps=16 B=4 chunk=512 H=40/8 D=128 bf16",
-                        hq=40, hkv=8, d=128, ps=16, n_kv=68, chunk=512,
-                        dtype="bfloat16", starts=[0, 512, 1000, 0],
-                        nvalid=[512, 301, 77, 0], seed=3)
+def kernels(cs) -> None:
+    for case, cases in ((cs.fwd_case, cs.FWD_CASES),
+                        (cs.prefill_case, cs.PREFILL_CASES)):
+        for name, kw in cases:
+            if kw["dtype"] == "bfloat16":
+                case(name, **kw)
 
 
 def sweep(cs) -> None:
@@ -93,7 +81,6 @@ def phase3(parent: Path) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--parent", type=Path, default=None)
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
@@ -104,7 +91,7 @@ def main() -> int:
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase_card_and_build()
-    kernels(cs, args.rounds)
+    kernels(cs)
     sweep(cs)
     if args.parent is not None:
         phase3(args.parent.resolve())

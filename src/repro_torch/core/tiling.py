@@ -32,8 +32,6 @@ the paper's level-1 enlargement removes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
-
 SMEM_PER_BLOCK = 232_448      # the most dynamic shared memory one CTA may use
 SMEM_PER_SM = 233_472         # 228 KB per SM
 SMEM_RESERVED = 1_024         # per resident CTA, kept by the runtime
@@ -76,11 +74,10 @@ def block_q_for(head_dim: int, dtype_bytes: int) -> int:
 
 
 def smem_working_set(block_q: int, block_kv1: int, head_dim: int,
-                     dtype_bytes: int = 2,
-                     stages: Optional[int] = None) -> int:
+                     dtype_bytes: int = 2) -> int:
     """Dynamic shared memory of one fastattn_fwd CTA, exactly as the
     kernel lays it out.  2-byte inputs: alignment slack, the bf16 Q tile,
-    ``stages`` (default 3) slots of K and V, and their mbarriers.  4-byte
+    the ring's STAGES slots of K and V, and their mbarriers.  4-byte
     inputs: the float32 Q tile transposed, the K macro-block transposed
     and the V macro-block (one stage)."""
     if dtype_bytes == 4:
@@ -88,10 +85,9 @@ def smem_working_set(block_q: int, block_kv1: int, head_dim: int,
         k = 4 * head_dim * (block_kv1 + PAD)
         v = 4 * block_kv1 * head_dim
         return q + k + v
-    stages = STAGES if stages is None else stages
     return (SMEM_ALIGN + dtype_bytes * block_q * head_dim
-            + stages * 2 * dtype_bytes * block_kv1 * head_dim
-            + stages * 2 * MBARRIER_BYTES)
+            + STAGES * 2 * dtype_bytes * block_kv1 * head_dim
+            + STAGES * 2 * MBARRIER_BYTES)
 
 
 def plan_two_level_tiling(seq_q: int, seq_kv: int, head_dim: int, *,
@@ -106,8 +102,7 @@ def plan_two_level_tiling(seq_q: int, seq_kv: int, head_dim: int, *,
         kv2, stages, max_kv1 = BLOCK_KV2, STAGES, None
 
     def smem(kv1: int) -> int:
-        return smem_working_set(block_q, kv1, head_dim, dtype_bytes,
-                                stages if dtype_bytes != 4 else None)
+        return smem_working_set(block_q, kv1, head_dim, dtype_bytes)
 
     two_ctas = SMEM_PER_SM // 2 - SMEM_RESERVED
     budget = (two_ctas if dtype_bytes == 4 and smem(kv2) <= two_ctas

@@ -84,14 +84,17 @@ def lib_path(name: str) -> Path:
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile every named source whose library is missing, one nvcc per
     source, all started together.  Returns {name: {"seconds", "log",
-    "cached"}}; raises RuntimeError naming the source if nvcc fails."""
+    "cached"}}, a cached library's log read from the ``.log`` beside it;
+    raises RuntimeError naming the source if nvcc fails."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo, report = {}, {}
     for name in names:
         path = lib_path(name)
         if path.exists():
-            report[name] = {"seconds": 0.0, "log": "", "cached": True}
+            log = path.with_suffix(".log")
+            report[name] = {"seconds": 0.0, "cached": True, "log":
+                            log.read_text() if log.exists() else ""}
             continue
         tmp = path.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -108,6 +111,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             failed.append(f"{SOURCES[name]} (nvcc exit {proc.returncode}):"
                           f"\n{log}")
             continue
+        path.with_suffix(".log").write_text(log)
         os.replace(tmp, path)      # atomic: a reader sees all or nothing
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))

@@ -21,10 +21,12 @@
 //
 //  * bfloat16 -> `paged_prefill_wgmma`, the tensor-core mainloop of
 //    attn_sm90.cuh (shared with fastattn_fwd.cu): bf16 `wgmma` for
-//    S = Q K^T and O += P V, K/V in a three-slot `cp.async` ring whose row
-//    addresses go through the page table (table[clamp(key / ps)] * ps +
-//    key % ps within the kv head's pool), so a 64-key sub-tile may straddle
-//    pages of any size.  The CTA walks only keys in [first_key, last_key]
+//    S = Q K^T and O += P V, K/V in a three-slot `cp.async` ring of
+//    `block_kv1` keys a stage (level 1, from core/tiling.py's plan for the
+//    table's n_kv * page_size keys, as fastattn_fwd's) whose row addresses
+//    go through the page table (table[clamp(key / ps)] * ps + key % ps
+//    within the kv head's pool), so a stage and a 64-key sub-tile may
+//    straddle pages of any size.  The CTA walks only keys in [first_key, last_key]
 //    (the window start, min(q_end, kv_len - 1)); keys at or past kv_len
 //    are zero-filled, never read.  One CTA per (128- or 64-row query block,
 //    query head, sequence); the kv head is hq / (Hq / Hkv).
@@ -303,11 +305,6 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 
 // ---- bfloat16: the tensor-core kernel of attn_sm90.cuh ---------------------
 
-// keys a stage: the largest power of two from 64 whose three ring slots
-// fit the 227 KB beside Q, as core/tiling.py plans it for a long key range
-template <int D>
-constexpr int STAGE_KEYS = D == 64 ? 256 : D == 128 ? 128 : 64;
-
 struct PagedRows {      // element offset of key `key`'s row in its kv head
   const int* table;     // this sequence's page table row
   int n_kv, page_size, num_pages, d;
@@ -319,7 +316,7 @@ struct PagedRows {      // element offset of key `key`'s row in its kv head
 };
 
 // grid: (ceil(Sq / BQ), Hq, B); block: Cfg<D>::NT; dynamic shared memory:
-// sm90::smem_bytes<D>(STAGE_KEYS<D>).
+// sm90::smem_bytes<D>(kv1).
 template <int D>
 __global__ void __launch_bounds__(sm90::Cfg<D>::NT, 1)
 paged_prefill_wgmma(const sm90::bf16* __restrict__ q,
@@ -329,8 +326,8 @@ paged_prefill_wgmma(const sm90::bf16* __restrict__ q,
                    const int* __restrict__ pos_starts,
                    const int* __restrict__ kv_lens,
                    sm90::bf16* __restrict__ out, int hq, int sq, int hkv,
-                   int num_pages, int page_size, int n_kv, int window,
-                   float softcap, float scale) {
+                   int num_pages, int page_size, int n_kv, int kv1,
+                   int window, float softcap, float scale) {
   constexpr int BQ = sm90::Cfg<D>::BQ;
   const int qb = gridDim.x - 1 - blockIdx.x;       // longest rows first
   const int h = blockIdx.y;
@@ -345,7 +342,7 @@ paged_prefill_wgmma(const sm90::bf16* __restrict__ q,
   sm90::attn_fwd_tile<D>(q + q_off, min(BQ, sq - row0), k_pages + head_off,
                          v_pages + head_off, rows, out + q_off,
                          pos_starts[b] + row0, kv_len, /*causal=*/1, window,
-                         softcap, scale, STAGE_KEYS<D>);
+                         softcap, scale, kv1);
 }
 
 template <int D>
@@ -353,17 +350,19 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v,
                         const void* table, const void* starts,
                         const void* lens, void* out, int B, int hq, int sq,
                         int hkv, int num_pages, int page_size, int n_kv,
-                        int window, float softcap, float scale,
+                        int kv1, int window, float softcap, float scale,
                         cudaStream_t stream) {
-  constexpr size_t smem = sm90::smem_bytes<D>(STAGE_KEYS<D>);
-  static_assert(smem <= (size_t)sm90::MAX_SMEM, "ring over 227 KB");
-  static bool configured = false;
-  if (!configured) {
+  const size_t smem = sm90::smem_bytes<D>(kv1);
+  if (kv1 < sm90::BKV2 || kv1 % sm90::BKV2 != 0 ||
+      smem > (size_t)sm90::MAX_SMEM)
+    return cudaErrorInvalidValue;
+  static size_t configured = 0;    // the largest size allowed so far
+  if (smem > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
         paged_prefill_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return e;
-    configured = true;
+    configured = smem;
   }
   constexpr int BQ = sm90::Cfg<D>::BQ;
   const dim3 grid((sq + BQ - 1) / BQ, hq, B);
@@ -372,7 +371,7 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v,
       static_cast<const sm90::bf16*>(v), static_cast<const int*>(table),
       static_cast<const int*>(starts), static_cast<const int*>(lens),
       static_cast<sm90::bf16*>(out), hq, sq, hkv, num_pages, page_size, n_kv,
-      window, softcap, scale);
+      kv1, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -381,16 +380,16 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* table, const void* starts, const void* lens,
                    void* out, int B, int hq, int sq, int hkv, int num_pages,
-                   int page_size, int n_kv, int window, float softcap,
-                   float scale, cudaStream_t stream) {
+                   int page_size, int n_kv, int kv1, int window,
+                   float softcap, float scale, cudaStream_t stream) {
   if constexpr (sizeof(T) == 4)
     return launch_fma<float, D>(q, k, v, table, starts, lens, out, B, hq, sq,
                                 hkv, num_pages, page_size, n_kv, window,
                                 softcap, scale, stream);
   else
     return launch_sm90<D>(q, k, v, table, starts, lens, out, B, hq, sq, hkv,
-                          num_pages, page_size, n_kv, window, softcap, scale,
-                          stream);
+                          num_pages, page_size, n_kv, kv1, window, softcap,
+                          scale, stream);
 }
 
 template <typename T>
@@ -398,21 +397,21 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
                        const void* table, const void* starts,
                        const void* lens, void* out, int B, int hq, int sq,
                        int hkv, int num_pages, int page_size, int n_kv,
-                       int window, float softcap, float scale,
+                       int kv1, int window, float softcap, float scale,
                        cudaStream_t stream) {
   switch (d) {
     case 64:
       return launch<T, 64>(q, k, v, table, starts, lens, out, B, hq, sq, hkv,
-                           num_pages, page_size, n_kv, window, softcap,
+                           num_pages, page_size, n_kv, kv1, window, softcap,
                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, table, starts, lens, out, B, hq, sq,
-                            hkv, num_pages, page_size, n_kv, window, softcap,
-                            scale, stream);
+                            hkv, num_pages, page_size, n_kv, kv1, window,
+                            softcap, scale, stream);
     case 256:
       return launch<T, 256>(q, k, v, table, starts, lens, out, B, hq, sq,
-                            hkv, num_pages, page_size, n_kv, window, softcap,
-                            scale, stream);
+                            hkv, num_pages, page_size, n_kv, kv1, window,
+                            softcap, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -422,16 +421,19 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 
 // q (B, Hq, Sq, D); k/v pages (Hkv, P, page_size, D); page_table
 // (B, n_kv), pos_start (B,), kv_len (B,) int32; out (B, Hq, Sq, D).
-// dtype 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel).  window
-// <= 0 and softcap <= 0 mean "none".  Launches on `stream`, allocates
-// nothing, returns cudaGetLastError().
+// dtype 0 = float32 (FMA kernel), 1 = bfloat16 (wgmma kernel).
+// block_kv1: keys a stage of the bfloat16 ring, from core/tiling.py's plan
+// for n_kv * page_size keys (a multiple of 64 whose ring fits); the
+// float32 kernel stages 32-key sub-tiles of a page and does not read it.
+// window <= 0 and softcap <= 0 mean "none".  Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
 extern "C" int paged_prefill(const void* q, const void* k_pages,
                              const void* v_pages, const void* page_table,
                              const void* pos_start, const void* kv_len,
                              void* out, int B, int hq, int sq, int hkv,
                              int num_pages, int page_size, int d, int n_kv,
-                             int window, float softcap, float scale,
-                             int dtype, void* stream) {
+                             int block_kv1, int window, float softcap,
+                             float scale, int dtype, void* stream) {
   if (B <= 0 || sq <= 0 || hkv <= 0 || hq % hkv != 0 || n_kv <= 0 ||
       page_size <= 0)
     return (int)cudaErrorInvalidValue;
@@ -439,11 +441,12 @@ extern "C" int paged_prefill(const void* q, const void* k_pages,
   if (dtype == 0)
     return (int)dispatch_d<float>(d, q, k_pages, v_pages, page_table,
                                   pos_start, kv_len, out, B, hq, sq, hkv,
-                                  num_pages, page_size, n_kv, window,
-                                  softcap, scale, s);
+                                  num_pages, page_size, n_kv, block_kv1,
+                                  window, softcap, scale, s);
   if (dtype == 1)
     return (int)dispatch_d<__nv_bfloat16>(
         d, q, k_pages, v_pages, page_table, pos_start, kv_len, out, B, hq,
-        sq, hkv, num_pages, page_size, n_kv, window, softcap, scale, s);
+        sq, hkv, num_pages, page_size, n_kv, block_kv1, window, softcap,
+        scale, s);
   return (int)cudaErrorInvalidValue;
 }

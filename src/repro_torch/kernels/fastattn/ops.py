@@ -30,7 +30,8 @@ REF_BLOCK_KV = 1024       # the JAX package's block_kv1 default (ops.py:31)
 
 _PREFILL_ARGTYPES = (L.P, L.P, L.P, L.P, L.P, L.P, L.P,   # q k v table s l o
                      L.I, L.I, L.I, L.I, L.I, L.I, L.I,   # B hq sq hkv P ps d
-                     L.I, L.I, L.F, L.F, L.I, L.P)        # n_kv w cap sc dt s
+                     L.I, L.I, L.I, L.F, L.F,             # n_kv kv1 w cap sc
+                     L.I, L.P)                            # dt s
 _FWD_ARGTYPES = (L.P, L.P, L.P, L.P,                  # q k v out
                  L.I, L.I, L.I, L.I, L.I, L.I, L.I,   # B hq hkv sq skv d kv1
                  L.I, L.I, L.F, L.F,                  # causal win cap scale
@@ -172,6 +173,10 @@ def fastattn_paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
             f"{tuple(page_table.shape)}, pos_start {tuple(pos_start.shape)}"
             f", kv_len {tuple(kv_len.shape)} (head_dim must be one of "
             f"{L.HEAD_DIMS})")
+    # keys a stage of the bf16 ring, planned for the longest key range a
+    # sequence of this table can hold (the float32 kernel does not read it)
+    block_kv1 = tiling.plan_two_level_tiling(
+        sq, n_kv * page_size, d, dtype_bytes=q.element_size()).block_kv1
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
@@ -180,7 +185,7 @@ def fastattn_paged_prefill(q: torch.Tensor, k_pages: torch.Tensor,
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), pos_start.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), b, hq, sq, hkv, num_pages, page_size, d, n_kv,
-        L.opt_int(window), L.opt_float(softcap), float(scale), code,
+        block_kv1, L.opt_int(window), L.opt_float(softcap), float(scale), code,
         L.stream_ptr(q.device))
     L.check_status("fastattn_paged_prefill", status)
     fastattn_paged_prefill.launches += 1

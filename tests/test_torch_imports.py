@@ -100,3 +100,20 @@ def test_library_name_covers_included_headers(tmp_path, monkeypatch):
     for name in ("fastattn_fwd", "paged_prefill"):
         files = build.source_files(PKG / build.SOURCES[name])
         assert PKG / "kernels/fastattn/csrc/attn_sm90.cuh" in files
+
+
+def test_cached_library_reports_its_build_log(tmp_path, monkeypatch):
+    """A library built earlier reports the ``-Xptxas -v`` log kept beside
+    it, so a check of that log does not pass on an empty one."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "PKG_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "SOURCES", {"a": "a.cu"})
+    (tmp_path / "a.cu").write_text("int a;\n")
+    (tmp_path / "build").mkdir()
+    lib = build.lib_path("a")
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text("ptxas info    : Used 8 registers\n")
+    report = build.build_all(["a"])
+    assert report["a"]["cached"]
+    assert report["a"]["log"] == "ptxas info    : Used 8 registers\n"
