@@ -14,20 +14,26 @@ which raises on failure (the script then exits non-zero):
    the tensor-core (``*_wgmma``) kernels.
 2. Each kernel against its plain PyTorch version on the card, with the
    maximum absolute error held to a stated tolerance (the attention
-   checks other than paged decode also hold each output row's error to
-   that row's scale): the paged kernels at the shapes of llama2-7b's and gemma2-2b's serving path and at page
-   size 16 in float32, and qwen2.5-32b's GQA 40/8 at page size 16 in
-   bf16 (ragged chunks, a padded row); ``fastattn_fwd`` at llama2-7b's
-   training shape, a gemma2-2b band (GQA, window, softcap), a ragged case
-   with a q_offset and a kv_valid tail in float32 and in bf16, and a
-   non-causal case; ``flash_decode``
-   on dense caches at llama2-7b's decode shape in both layouts, a
-   gemma2-2b window/softcap case, a float32 case and llama2-7b at B=1 on
-   a 65536-token cache; ``mlstm_chunkwise_fwd`` at xlstm-125m's training
-   shape (the model's (B, S, H, D) projections read in place), a ragged
-   float32 case and a sequence shorter than the chunk, h held to the
-   plain version as an unbounded output and the float32 state (C, n, m)
-   to 1e-3 of its scale.  Each is timed (median of 20 launches) beside
+   checks also hold each output row's error to that row's scale): the
+   paged kernels at the shapes of llama2-7b's and gemma2-2b's serving
+   path and at page size 16 in float32, qwen2.5-32b's GQA 40/8 at page
+   size 16 in bf16 (ragged chunks, a padded row), and paged decode at its
+   split-KV edges (``DECODE_CASES``: kv_len one below, at and one above a
+   split, a window narrower than the table, 4096 keys in one sequence,
+   only idle rows); ``fastattn_fwd`` at llama2-7b's training shape, a
+   gemma2-2b band (GQA, window, softcap), a ragged case with a q_offset
+   and a kv_valid tail in float32 and in bf16, and a non-causal case;
+   ``flash_decode`` on dense caches at llama2-7b's decode shape in both
+   layouts, a gemma2-2b window/softcap case, a float32 case and llama2-7b
+   at B=1 on a 65536-token cache; ``mlstm_chunkwise_fwd``
+   (``MLSTM_CASES``) at xlstm-125m's training shape (the model's
+   (B, S, H, D) projections read in place), a ragged float32 case, a
+   sequence shorter than the chunk, 16 chunks at a small dk/dv, a ragged
+   S over eight chunks and a forget bias of -2, h held to the plain
+   version as an unbounded output and the float32 state (C, n, m) to 1e-3
+   of its scale.  Each is timed (median of 20 launches, CUDA events
+   around each: the wrapper's host work included) and on the device
+   alone (``device_ms``: 20 launches queued behind a spin kernel) beside
    the least time the card could take (its bound), the plain version's
    time and, where one PyTorch call computes the same function, that
    call's time (``library_ms``: ``scaled_dot_product_attention``, with a
@@ -91,7 +97,8 @@ which raises on failure (the script then exits non-zero):
    paths also measured under two perturbations of h); one profiled step
    and one sLSTM block's forward and backward timed alone.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel
+(``ms`` per launch as above, ``device_ms`` on the device alone); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -148,6 +155,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one launch of ``fn()``: ``reps`` launches queued
+    behind a spin kernel (``torch.cuda._sleep``), so the card runs them
+    back to back while the host is still enqueueing them; CUDA events
+    around the run, mean per launch.  time_ms's window also holds the
+    host's work between its two events (the wrapper's checks and the
+    launch itself), which is most of a short kernel's time; this one
+    holds only the card's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)         # ~10 ms: longer than the enqueue
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype: str):
@@ -232,10 +261,16 @@ def _tables(rng, b, n_kv, num_pages):
 
 def _speed(res: dict, n_ops: float) -> str:
     """The kernel's achieved rate on this data's useful operations, and
-    its time over the library call's (where there is one)."""
+    its time over the library call's (where there is one); then both
+    again on device time alone (``device_ms``)."""
     ratio = ("" if res["library_ms"] is None else
              f", kernel / library {res['ms'] / res['library_ms']:.2f}x")
-    return f"{n_ops / (res['ms'] * 1e-3) / 1e12:.1f} TFLOP/s{ratio}"
+    dev = (f"; device time {res['device_ms']:.4f} ms (bound / device "
+           f"{res['bound_ms'] / res['device_ms']:.1%}")
+    if res["library_ms"] is not None:
+        dev += (f", library {res['library_device_ms']:.4f} ms, kernel / "
+                f"library {res['device_ms'] / res['library_device_ms']:.2f}x")
+    return f"{n_ops / (res['ms'] * 1e-3) / 1e12:.1f} TFLOP/s{ratio}{dev})"
 
 
 def _report(kind: str, name: str, res: dict, n_ops: float) -> None:
@@ -249,14 +284,18 @@ def _report(kind: str, name: str, res: dict, n_ops: float) -> None:
 
 
 def decode_case(name, *, b, hq, hkv, d, ps, n_kv, dtype, window=None,
-                softcap=None, seed=0, idle_row=True, library=True):
-    """paged_flash_decode vs paged_decode_reference on one shape.  With
-    ``idle_row`` the last row is an idle engine slot: all-scratch table
-    row and kv_len 1."""
+                softcap=None, seed=0, lens=None, library=True):
+    """paged_flash_decode vs paged_decode_reference on one shape, every
+    (sequence, query head) row held to its own scale (held_to_plain).
+    kv_len: ``lens`` -- a list, or a function of the launch's split_keys
+    (the split-KV edges) -- or else drawn in 1..n_kv * ps with the first
+    row full and the last an idle engine slot.  A row of kv_len 1 is an
+    idle slot: all-scratch table row."""
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+    from repro_torch.kernels.flash_decode.ops import (paged_flash_decode,
+                                                      plan_splits)
     from repro_torch.kernels.flash_decode.ref import (paged_decode_reference,
                                                       paged_gather)
     tdt = getattr(torch, dtype)
@@ -266,11 +305,17 @@ def decode_case(name, *, b, hq, hkv, d, ps, n_kv, dtype, window=None,
     num_pages = b * n_kv + 8
     kp, vp = _pools(gen, hkv, num_pages, ps, d, tdt)
     table = _tables(rng, b, n_kv, num_pages)
-    lens = rng.integers(1, n_kv * ps + 1, size=b).astype(np.int32)
-    lens[0] = n_kv * ps                              # one full-length row
-    if idle_row:
-        table[-1] = 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_keys, n_split = plan_splits(b, hkv, hq // hkv, n_kv, ps, window,
+                                      sms)
+    if lens is None:
+        lens = rng.integers(1, n_kv * ps + 1, size=b)
+        lens[0] = n_kv * ps                          # one full-length row
         lens[-1] = 1
+    elif callable(lens):
+        lens = lens(split_keys)
+    lens = np.asarray(lens, np.int32)
+    table[lens == 1] = 0
     q = torch.randn((b, hq, d), generator=gen, device="cuda").to(tdt)
     table_t = torch.from_numpy(table).cuda()
     lens_t = torch.from_numpy(lens).cuda()
@@ -285,13 +330,10 @@ def decode_case(name, *, b, hq, hkv, d, ps, n_kv, dtype, window=None,
 
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    if not torch.isfinite(out).all():
-        raise AssertionError(f"{name}: non-finite kernel output")
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[dtype]
-    log(f"[decode] {name}: max_abs_err {err:.3e} (tol {tol:g})")
-    if not err <= tol:
-        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+    log(f"[decode] {name}: kv_len {lens.tolist()}; split planner "
+        f"{split_keys}-key splits, {n_split} a row on {sms} SMs")
+    err, rel = held_to_plain("decode", name, out.reshape(-1, d),
+                             ref.reshape(-1, d), dtype)
 
     # work this data needs: each valid K/V row read once per kv head
     keys = np.minimum(lens, window) if window else lens
@@ -300,9 +342,11 @@ def decode_case(name, *, b, hq, hkv, d, ps, n_kv, dtype, window=None,
         + table.nbytes + lens.nbytes
     n_ops = 4.0 * (hq // hkv) * hkv * int(keys.sum()) * d
     bnd, by = bound_ms(n_bytes, n_ops, dtype)
-    res = {"err": err, "ms": time_ms(kernel), "plain_ms": time_ms(plain,
-                                                                 reps=5),
-           "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
+           "plain_ms": time_ms(plain, reps=5), "bound_ms": bnd,
+           "bound_by": by, "library_ms": None, "split_keys": split_keys,
+           "n_split": n_split}
+    res["device_ms"] = device_ms(kernel)
     if library and window is None and softcap is None:
         kd = paged_gather(kp, table_t)
         vd = paged_gather(vp, table_t)
@@ -314,6 +358,7 @@ def decode_case(name, *, b, hq, hkv, d, ps, n_kv, dtype, window=None,
                 q[:, :, None], kd, vd, attn_mask=mask,
                 enable_gqa=hq != hkv)
         res["library_ms"] = time_ms(lib)
+        res["library_device_ms"] = device_ms(lib)
     _report("decode", name, res, n_ops)
     return res
 
@@ -392,6 +437,7 @@ def prefill_case(name, *, hq, hkv, d, ps, n_kv, chunk, dtype, starts,
     res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
            "plain_ms": time_ms(plain, reps=5), "bound_ms": bnd,
            "bound_by": by, "library_ms": None}
+    res["device_ms"] = device_ms(kernel)
     if library and window is None and softcap is None:
         kd = paged_gather(kp, table_t)
         vd = paged_gather(vp, table_t)
@@ -405,6 +451,7 @@ def prefill_case(name, *, hq, hkv, d, ps, n_kv, chunk, dtype, starts,
             return F.scaled_dot_product_attention(
                 q, kd, vd, attn_mask=mask, enable_gqa=hq != hkv)
         res["library_ms"] = time_ms(lib)
+        res["library_device_ms"] = device_ms(lib)
     _report("prefill", name, res, n_ops)
     return res
 
@@ -454,6 +501,7 @@ def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
     res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
            "plain_ms": time_ms(plain, reps=5), "bound_ms": bnd,
            "bound_by": by, "library_ms": None, "pairs": pairs}
+    res["device_ms"] = device_ms(kernel)
     if softcap is None:
         ke = k.repeat_interleave(hq // hkv, dim=1)      # GQA expanded
         ve = v.repeat_interleave(hq // hkv, dim=1)      # outside the time
@@ -466,6 +514,7 @@ def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
                                                       is_causal=True)
             return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
         res["library_ms"] = time_ms(lib)
+        res["library_device_ms"] = device_ms(lib)
     lib_s = ("n/a (no single PyTorch call applies a softcap)"
              if res["library_ms"] is None else
              f"{res['library_ms']:.4f} ms (scaled_dot_product_attention, "
@@ -549,6 +598,7 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
     res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
            "plain_ms": time_ms(plain, reps=5), "bound_ms": bnd,
            "bound_by": by, "library_ms": None}
+    res["device_ms"] = device_ms(kernel)
     lib_note = "n/a (no single PyTorch call applies a softcap or window)"
     if window is None and softcap is None:
         # SDPA takes (B, H, S, D): a "bshd" cache is copied to that layout
@@ -563,6 +613,7 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
                 q[:, :, None], kd, vd, attn_mask=mask,
                 enable_gqa=hq != hkv)
         res["library_ms"] = time_ms(lib)
+        res["library_device_ms"] = device_ms(lib)
         lib_note = (f"{res['library_ms']:.4f} ms (scaled_dot_product_"
                     "attention, boolean mask"
                     + (", layout copy excluded)" if layout == "bshd"
@@ -602,13 +653,13 @@ MLSTM_STATE_RTOL = 1e-3     # C, n, m: float32 on both sides
 
 
 def mlstm_case(name, *, b, h, s, dk, dv, dtype, chunk=128, layout="bhsd",
-               seed=0):
+               fbias=3.0, seed=0):
     """mlstm_chunkwise_fwd vs ref.mlstm_chunkwise on one shape: h under
     held_to_plain (an unbounded output), the float32 state (C, n, m)
     within MLSTM_STATE_RTOL of each one's largest |value|.  q/k/v are
     N(0, 1) in ``dtype``; with layout "bshd" they are (B, S, H, D) tensors
     passed transposed, as the model passes its projections.  Gates: i
-    N(0, 1), f N(0, 1) + 3 (the model's forget-gate bias)."""
+    N(0, 1), f N(0, 1) + ``fbias`` (3: the model's forget-gate bias)."""
     import torch
     from repro_torch.kernels.mlstm import ref as mref
     from repro_torch.kernels.mlstm.ops import mlstm_chunkwise_fwd
@@ -622,7 +673,7 @@ def mlstm_case(name, *, b, h, s, dk, dv, dtype, chunk=128, layout="bhsd",
         return t.transpose(1, 2) if layout == "bshd" else t
     q, k, v = draw(dk), draw(dk), draw(dv)
     ig = torch.randn((b, h, s), generator=gen, device="cuda")
-    fg = torch.randn((b, h, s), generator=gen, device="cuda") + 3.0
+    fg = torch.randn((b, h, s), generator=gen, device="cuda") + fbias
 
     def kernel():
         return mlstm_chunkwise_fwd(q, k, v, ig, fg, chunk=chunk)
@@ -659,6 +710,7 @@ def mlstm_case(name, *, b, h, s, dk, dv, dtype, chunk=128, layout="bhsd",
     res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
            "plain_ms": time_ms(plain, reps=5), "bound_ms": bnd,
            "bound_by": by, "library_ms": None}
+    res["device_ms"] = device_ms(kernel)
     log(f"[mlstm] {name}: kernel {res['ms']:.4f} ms, plain "
         f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
         f"({by}, {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} GFLOP), library "
@@ -704,19 +756,63 @@ PREFILL_CASES = [
 ]
 
 
+# phase 2's paged decode cases, (name, arguments): the first is the main
+# path's shape (the kernels line's numbers).  kv_len as a function of the
+# launch's split_keys puts rows one below, at and one above a split; then
+# a window narrower than the table, one sequence over many splits, and
+# only idle rows (kv_len 1, all-scratch table rows)
+DECODE_CASES = [
+    ("llama2-7b B=8 H=32/32 D=128 bf16 ps=128",
+     dict(b=8, hq=32, hkv=32, d=128, ps=128, n_kv=16, dtype="bfloat16")),
+    ("gemma2-2b B=8 H=8/4 D=256 bf16 ps=128 window=256 cap=50",
+     dict(b=8, hq=8, hkv=4, d=256, ps=128, n_kv=16, dtype="bfloat16",
+          window=256, softcap=50.0, seed=1)),
+    ("ps=16 f32 B=4 H=8/2 D=128 window=100 cap=30",
+     dict(b=4, hq=8, hkv=2, d=128, ps=16, n_kv=24, dtype="float32",
+          window=100, softcap=30.0, seed=2)),
+    ("split edges B=4 H=32/8 D=128 bf16 ps=128 kv_len split-1/split/"
+     "split+1/1", dict(b=4, hq=32, hkv=8, d=128, ps=128, n_kv=16,
+                       dtype="bfloat16", seed=3,
+                       lens=lambda sk: [sk - 1, sk, sk + 1, 1])),
+    ("window in a later split B=4 H=8/4 D=256 bf16 ps=16 window=300",
+     dict(b=4, hq=8, hkv=4, d=256, ps=16, n_kv=128, dtype="bfloat16",
+          window=300, seed=4, lens=[2048, 1337, 301, 1])),
+    ("B=1 H=32/8 D=128 bf16 ps=128 kv_len=4096 (many splits)",
+     dict(b=1, hq=32, hkv=8, d=128, ps=128, n_kv=32, dtype="bfloat16",
+          seed=5, lens=[4096])),
+    ("idle rows only B=2 H=8/8 D=64 bf16 ps=16",
+     dict(b=2, hq=8, hkv=8, d=64, ps=16, n_kv=8, dtype="bfloat16", seed=6,
+          lens=[1, 1])),
+]
+# phase 2's mLSTM cases: xlstm-125m's training shape first (the kernels
+# line's numbers); then a ragged f32 case, S below the chunk, 16 chunks of
+# state recurrence at a small dk/dv, a ragged S over eight chunks, and a
+# forget bias of -2 (m falls across chunks, the stabiliser changes sign)
+MLSTM_CASES = [
+    ("xlstm-125m train B=8 H=4 S=2048 dk=dv=384 bf16 chunk=128 bshd",
+     dict(b=8, h=4, s=2048, dk=384, dv=384, dtype="bfloat16",
+          layout="bshd")),
+    ("f32 B=2 H=3 S=1000 dk=64 dv=96 chunk=128 (ragged)",
+     dict(b=2, h=3, s=1000, dk=64, dv=96, dtype="float32", seed=1)),
+    ("bf16 B=2 H=4 S=77 dk=dv=384 chunk=128 (S below the chunk)",
+     dict(b=2, h=4, s=77, dk=384, dv=384, dtype="bfloat16", layout="bshd",
+          seed=2)),
+    ("bf16 B=2 H=2 S=2048 dk=32 dv=48 chunk=128 (16 chunks)",
+     dict(b=2, h=2, s=2048, dk=32, dv=48, dtype="bfloat16", seed=3)),
+    ("bf16 B=2 H=4 S=1000 dk=dv=384 chunk=128 bshd (ragged, 8 chunks)",
+     dict(b=2, h=4, s=1000, dk=384, dv=384, dtype="bfloat16",
+          layout="bshd", seed=4)),
+    ("bf16 B=2 H=4 S=2048 dk=dv=384 chunk=128 forget bias -2",
+     dict(b=2, h=4, s=2048, dk=384, dv=384, dtype="bfloat16", fbias=-2.0,
+          seed=5)),
+]
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  Returns the main-path
-    (llama2-7b) numbers of each kernel."""
+    numbers of each kernel."""
     fwd = [fwd_case(name, **kw) for name, kw in FWD_CASES][0]
-    dec = decode_case("llama2-7b B=8 H=32/32 D=128 bf16 ps=128",
-                      b=8, hq=32, hkv=32, d=128, ps=128, n_kv=16,
-                      dtype="bfloat16")
-    decode_case("gemma2-2b B=8 H=8/4 D=256 bf16 ps=128 window=256 cap=50",
-                b=8, hq=8, hkv=4, d=256, ps=128, n_kv=16, dtype="bfloat16",
-                window=256, softcap=50.0, seed=1)
-    decode_case("ps=16 f32 B=4 H=8/2 D=128 window=100 cap=30",
-                b=4, hq=8, hkv=2, d=128, ps=16, n_kv=24, dtype="float32",
-                window=100, softcap=30.0, seed=2)
+    dec = [decode_case(name, **kw) for name, kw in DECODE_CASES][0]
     pre = [prefill_case(name, **kw) for name, kw in PREFILL_CASES][0]
     dense_decode_case("llama2-7b B=8 H=32/32 D=128 bf16 bshd S=4096",
                       b=8, hq=32, hkv=32, s=4096, d=128, dtype="bfloat16",
@@ -733,14 +829,7 @@ def phase_kernels() -> dict:
     dense_decode_case("llama2-7b B=1 H=32/32 D=128 bf16 bshd S=65536",
                       b=1, hq=32, hkv=32, s=65536, d=128, dtype="bfloat16",
                       layout="bshd", seed=3)
-    mls = mlstm_case("xlstm-125m train B=8 H=4 S=2048 dk=dv=384 bf16 "
-                     "chunk=128 bshd", b=8, h=4, s=2048, dk=384, dv=384,
-                     dtype="bfloat16", layout="bshd")
-    mlstm_case("f32 B=2 H=3 S=1000 dk=64 dv=96 chunk=128 (ragged)", b=2,
-               h=3, s=1000, dk=64, dv=96, dtype="float32", seed=1)
-    mlstm_case("bf16 B=2 H=4 S=77 dk=dv=384 chunk=128 (S below the chunk)",
-               b=2, h=4, s=77, dk=384, dv=384, dtype="bfloat16",
-               layout="bshd", seed=2)
+    mls = [mlstm_case(name, **kw) for name, kw in MLSTM_CASES][0]
     # flash_decode's numbers for the kernels line are taken at the main
     # path's own shape, in phase 3b
     return {"paged_decode": dec, "paged_prefill": pre, "fastattn_fwd": fwd,
@@ -1144,11 +1233,16 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+# every CUDA kernel of mlstm_chunkwise.cu is named mlstm_chunkwise_*: the
+# float32 FMA kernel, and bf16's gates, states and outputs kernels
+MLSTM_KERNELS = "mlstm_chunkwise_"
+
+
 def _train_group(name: str) -> str:
     n = name.lower()
     if "fastattn_fwd_" in n:
         return "attention forward: fastattn_fwd.cu"
-    if "mlstm_chunkwise_kernel" in n:
+    if MLSTM_KERNELS in n:
         return "mLSTM forward: mlstm_chunkwise.cu"
     if any(t in n for t in ("gemm", "nvjet", "cutlass", "sm90_", "cublas")):
         if "f32f32" in n or "sgemm" in n:
@@ -1872,7 +1966,7 @@ def phase_xlstm() -> dict:
     # one more step under the profiler: where the device time goes
     batch = to_device(data.next(), model.device)
     kernels, total_s = _profile_kernels(lambda: step_fn(state, batch))
-    ml = [e for e in kernels if "mlstm_chunkwise_kernel" in e.key]
+    ml = [e for e in kernels if MLSTM_KERNELS in e.key]
     ml_s = sum(_device_us(e) for e in ml) / 1e6
     groups = {}
     for e in kernels:
@@ -1947,8 +2041,9 @@ def phase_xlstm() -> dict:
         f"(median of steps 1-{XLSTM_STEPS - 1}), {train_tok_s:.0f} tok/s, "
         f"peak memory {peak_gb:.1f} GB")
     log(f"[xlstm] (b) profiled step: kernels {total_s:.4f}s (idle share "
-        f"{out['idle_share']:.3f}); mlstm_chunkwise {ml_s:.4f}s in "
-        f"{out['mlstm_calls']} launches ({out['mlstm_share_of_kernels']:.1%}"
+        f"{out['idle_share']:.3f}); mlstm_chunkwise.cu {ml_s:.4f}s in "
+        f"{out['mlstm_calls']} CUDA kernels (gates, states, outputs a "
+        f"wrapper launch; {out['mlstm_share_of_kernels']:.1%}"
         f" of kernel time, {out['mlstm_share_of_step']:.1%} of the step)")
     log(f"[xlstm] (b) sLSTM time loop, one block at {b} x {s}: forward "
         f"{sl_fwd_s:.3f}s wall / {sl_fwd_dev:.4f}s device, forward + "
@@ -2022,7 +2117,8 @@ def main() -> int:
          "plain_ms": kern[name]["plain_ms"],
          "bound_ms": kern[name]["bound_ms"],
          "bound_by": kern[name]["bound_by"],
-         "library_ms": kern[name]["library_ms"]}
+         "library_ms": kern[name]["library_ms"],
+         "device_ms": kern[name]["device_ms"]}
         for name in ("paged_prefill", "paged_decode", "fastattn_fwd",
                      "flash_decode", "mlstm_chunkwise")]}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")

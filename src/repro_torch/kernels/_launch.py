@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Optional
 
 import torch
@@ -41,8 +42,9 @@ def check_tensors(name: str, floats: dict, ints: dict) -> int:
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: dtype {dtype} not supported "
                          f"(float32 or bfloat16)")
-    for arg, t in {**floats, **ints}.items():
-        if t.device != dev or dev.type != "cuda":
+    on_cuda = dev.type == "cuda"
+    for arg, t in itertools.chain(floats.items(), ints.items()):
+        if not on_cuda or t.device != dev:
             raise ValueError(f"{name}: {arg} must be on {dev} (CUDA), "
                              f"got {t.device}")
         if not t.is_contiguous():
@@ -88,4 +90,8 @@ def opt_float(x: Optional[float]) -> float:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw cudaStream_t of ``device``'s current stream: the binding
+    PyTorch's own generated kernels call.  ``torch.cuda.current_stream(
+    device).cuda_stream`` builds a Stream object first, ~7 us a call on
+    the H100's host, 32 times a decode step."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -14,43 +14,62 @@
 // 2 * B * Hkv * kv_len * D * bytes / 3.35 TB/s.
 //
 // What the design does about it:
-//  * one CTA per (sequence, kv head, tile of <= 8 query rows of its GQA
-//    group), so each K/V row is read once for every query head sharing it
-//    (the TPU kernel padded the group to 8 sublanes; no padding here);
-//  * the CTA reads its own page-table row and walks only the valid key
-//    range [max(kv_len - window, 0), kv_len) -- no masked page is fetched,
-//    and every table index is clamped to [0, n_kv - 1];
+//  * split-KV: the grid is (B, Hkv * ceil(g / G), n_split).  A CTA owns
+//    one kv head, a tile of <= G query rows of its GQA group (each K/V row
+//    is read once for every query head sharing it) and split `z` of the
+//    row's valid key range [max(kv_len - window, 0), kv_len): keys
+//    kv_begin + z * split_keys onwards, split_keys of them.  The host picks
+//    split_keys from the shapes alone (`plan_splits` in ops.py; kv_len
+//    stays on the card), so a long row is walked by many CTAs at once and
+//    a short or idle row's surplus CTAs exit at once;
+//  * a row whose keys fill one split is written directly; otherwise each
+//    active CTA writes its partial (m, l, acc) and the last one merges
+//    them in the same launch (`decode_split.cuh`: an atomic counter per
+//    row tile, reset by the merging CTA);
 //  * a "thread group" of D/8 threads owns one key at a time, each thread
 //    loading 16 bytes of bf16 (8 values) of the K and V rows, so a group
-//    reads a whole row in one coalesced transaction; each group keeps 4
-//    keys' loads in flight before it reduces them (shuffles inside the
-//    group) and folds them into its online softmax with one rescale;
-//  * the groups' partial (m, l, acc) merge once at the end through shared
-//    memory.
-// Not done yet (later work): split-KV across CTAs when B * Hkv is small
-// (gemma2-2b at B=8 has only 32 CTAs for 132 SMs), cp.async/TMA staging.
+//    reads a whole row in one coalesced transaction; every table index is
+//    clamped to [0, n_kv - 1] and every page to [0, P - 1];
+//  * a register double buffer: a group's next U keys are loaded while its
+//    current U are folded into its online softmax (one rescale per U), so
+//    each iteration no longer waits out a whole load latency;
+//  * the groups' partial (m, l, acc) merge through shared memory.
+// Not done (later work): cp.async/TMA staging.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode_split.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int NUM_THREADS = 128;
 constexpr int VEC = 8;      // elements of a row per thread (16 B of bf16)
-constexpr int UNROLL = 4;   // keys in flight per thread group
 
-__device__ __forceinline__ void load8(const float* p, float (&o)[VEC]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+// 16-byte words of a thread's VEC elements: 1 (bf16) or 2 (float32)
+template <typename T>
+__host__ __device__ constexpr int words() {
+  return (int)sizeof(T) * VEC / 16;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&o)[VEC]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+template <typename T, int W>
+__device__ __forceinline__ void load_raw(const T* p, uint4 (&r)[W]) {
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+    r[w] = __ldg(reinterpret_cast<const uint4*>(p) + w);
+}
+
+__device__ __forceinline__ void to_float(const uint4 (&r)[2],
+                                         float (&o)[VEC]) {
+  const float* f = reinterpret_cast<const float*>(r);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) o[e] = f[e];
+}
+
+__device__ __forceinline__ void to_float(const uint4 (&r)[1],
+                                         float (&o)[VEC]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(r);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
@@ -59,22 +78,29 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const int* page_table;
+  const int* kv_lens;
+  void* out;
+  float* partials;      // decode_split workspace
+  int* counters;        // one per row tile, 0 between launches
+  int hq, hkv, num_pages, page_size, n_kv, window, split_keys, n_split;
+  float softcap, scale;
+};
 
-// grid: (B, Hkv, ceil(g / G)); block: NUM_THREADS.
+// grid: (B, Hkv * ceil(g / G), n_split); block: NUM_THREADS.
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(NUM_THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ kv_lens, T* __restrict__ out,
-                    int hq, int hkv, int num_pages, int page_size, int n_kv,
-                    int window, float softcap, float scale) {
+paged_decode_kernel(const Args a) {
   constexpr int TG = D / VEC;            // threads per key row
   constexpr int NG = NUM_THREADS / TG;   // thread groups per CTA
+  constexpr int W = words<T>();
+  // keys of a group per buffer: 4 for bf16, 2 for f32 and 8-row tiles
+  // (their registers hold 8 query rows)
+  constexpr int U = W == 1 && G < 8 ? 4 : 2;
   static_assert(TG <= 32 && 32 % TG == 0, "a group must sit in one warp");
 
   __shared__ float sm_m[NG][G];
@@ -82,30 +108,66 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   __shared__ float sm_acc[NG][G][D];
 
   const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int g = hq / hkv;
-  const int r0 = blockIdx.z * G;         // first query row of the group
+  const int g = a.hq / a.hkv;
+  const int n_tiles = (g + G - 1) / G;
+  const int h = blockIdx.y / n_tiles;
+  const int tile = blockIdx.y % n_tiles;
+  const int split = blockIdx.z;
+  const int r0 = tile * G;               // first query row of the group
   const int nrows = min(G, g - r0);
+  const int row0 = b * a.hq + h * g + r0;   // its output row
+  T* const out = static_cast<T*>(a.out);
+
+  const int len = a.kv_lens[b];
+  const int kv_end = min(len, a.n_kv * a.page_size);
+  const int kv_begin = a.window > 0 ? max(len - a.window, 0) : 0;
+  const int n_keys = max(kv_end - kv_begin, 0);
+  const int n_active = (n_keys + a.split_keys - 1) / a.split_keys;
+  if (n_active == 0) {                   // no valid key: the row is 0
+    if (split == 0)
+      for (int idx = threadIdx.x; idx < nrows * D; idx += NUM_THREADS)
+        decode_split::store_out(out + (size_t)row0 * D + idx, 0.f);
+    return;
+  }
+  if (split >= n_active) return;
+  const int s0 = kv_begin + split * a.split_keys;
+  const int s1 = min(s0 + a.split_keys, kv_end);
+
   const int gi = threadIdx.x / TG;
   const int li = threadIdx.x % TG;
   const int d0 = li * VEC;
-
+  const T* const q = static_cast<const T*>(a.q);
   float qr[G][VEC];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     if (r < nrows) {
-      load8(q + ((size_t)b * hq + (size_t)h * g + r0 + r) * D + d0, qr[r]);
+      uint4 raw[W];
+      load_raw(q + (size_t)(row0 + r) * D + d0, raw);
+      to_float(raw, qr[r]);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) qr[r][e] = 0.f;
     }
   }
 
-  const int len = kv_lens[b];
-  const int kv_end = min(len, n_kv * page_size);
-  const int kv_begin = window > 0 ? max(len - window, 0) : 0;
-  const int* table = page_table + (size_t)b * n_kv;
-  const size_t head_off = (size_t)h * num_pages * page_size * D;
+  const int* table = a.page_table + (size_t)b * a.n_kv;
+  const size_t head_off = (size_t)h * a.num_pages * a.page_size * D;
+  const T* const kp = static_cast<const T*>(a.k_pages) + head_off + d0;
+  const T* const vp = static_cast<const T*>(a.v_pages) + head_off + d0;
+
+  // loads of the keys [base, base + U) of this group (positions past s1
+  // read the split's first key and are masked when folded)
+  auto fetch = [&](int base, uint4 (&kr)[U][W], uint4 (&vr)[U][W]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = base + u < s1 ? base + u : s0;
+      const int lp = min(p / a.page_size, a.n_kv - 1);
+      const int page = min(max(table[lp], 0), a.num_pages - 1);
+      const size_t off = ((size_t)page * a.page_size + p % a.page_size) * D;
+      load_raw(kp + off, kr[u]);
+      load_raw(vp + off, vr[u]);
+    }
+  };
 
   float m[G], l[G], acc[G][VEC];
 #pragma unroll
@@ -116,61 +178,63 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
   }
 
+  uint4 kc[U][W], vc[U][W], kn[U][W], vn[U][W];
+  fetch(s0 + gi * U, kc, vc);
   // uniform trip count for the whole CTA: the in-group shuffles below
   // need every lane of the warp present
-  for (int base0 = kv_begin; base0 < kv_end; base0 += NG * UNROLL) {
-    const int base = base0 + gi * UNROLL;
-    float kf[UNROLL][VEC], vf[UNROLL][VEC];
-    bool valid[UNROLL];
+  for (int base0 = s0; base0 < s1; base0 += NG * U) {
+    if (base0 + NG * U < s1) fetch(base0 + NG * U + gi * U, kn, vn);
+    const int base = base0 + gi * U;
+    float kf[U][VEC], vf[U][VEC];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int pos = base + u;
-      valid[u] = pos < kv_end;
-      const int p = valid[u] ? pos : kv_begin;
-      const int lp = min(p / page_size, n_kv - 1);
-      const int page = min(max(table[lp], 0), num_pages - 1);
-      const size_t off =
-          head_off + ((size_t)page * page_size + p % page_size) * D + d0;
-      load8(k_pages + off, kf[u]);
-      load8(v_pages + off, vf[u]);
+    for (int u = 0; u < U; ++u) {
+      to_float(kc[u], kf[u]);
+      to_float(vc[u], vf[u]);
     }
 #pragma unroll
     for (int r = 0; r < G; ++r) {
-      float s[UNROLL];
+      float s[U];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
+      for (int u = 0; u < U; ++u) {
         float part = 0.f;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) part += qr[r][e] * kf[u][e];
 #pragma unroll
         for (int o = TG / 2; o > 0; o >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, o);
-        float sc = part * scale;
-        if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
-        s[u] = valid[u] ? sc : NEG_INF;
+        float sc = part * a.scale;
+        if (a.softcap > 0.f) sc = a.softcap * tanhf(sc / a.softcap);
+        s[u] = base + u < s1 ? sc : NEG_INF;
       }
       float mt = s[0];
 #pragma unroll
-      for (int u = 1; u < UNROLL; ++u) mt = fmaxf(mt, s[u]);
+      for (int u = 1; u < U; ++u) mt = fmaxf(mt, s[u]);
       const float mn = fmaxf(m[r], mt);
       const float alpha = expf(m[r] - mn);
-      float p[UNROLL];
+      float p[U];
       float psum = 0.f;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        p[u] = valid[u] ? expf(s[u] - mn) : 0.f;
+      for (int u = 0; u < U; ++u) {
+        p[u] = base + u < s1 ? expf(s[u] - mn) : 0.f;
         psum += p[u];
       }
       l[r] = l[r] * alpha + psum;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        float a = acc[r][e] * alpha;
+        float x = acc[r][e] * alpha;
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) a += p[u] * vf[u][e];
-        acc[r][e] = a;
+        for (int u = 0; u < U; ++u) x += p[u] * vf[u][e];
+        acc[r][e] = x;
       }
       m[r] = mn;
     }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        kc[u][w] = kn[u][w];
+        vc[u][w] = vn[u][w];
+      }
   }
 
 #pragma unroll
@@ -184,76 +248,68 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
   __syncthreads();
 
+  // this CTA's (m, l, acc) per row: the output itself when the row's keys
+  // fill one split, else a partial for decode_split's merge
   for (int idx = threadIdx.x; idx < nrows * D; idx += NUM_THREADS) {
     const int r = idx / D;
     const int d = idx % D;
     float mx = NEG_INF;
 #pragma unroll
     for (int j = 0; j < NG; ++j) mx = fmaxf(mx, sm_m[j][r]);
-    float lsum = 0.f, a = 0.f;
+    float lsum = 0.f, x = 0.f;
 #pragma unroll
     for (int j = 0; j < NG; ++j) {
       const float w = expf(sm_m[j][r] - mx);
       lsum += sm_l[j][r] * w;
-      a += sm_acc[j][r][d] * w;
+      x += sm_acc[j][r][d] * w;
     }
-    const float o = lsum > 0.f ? a / lsum : 0.f;
-    store1(out + ((size_t)b * hq + (size_t)h * g + r0 + r) * D + d, o);
+    if (n_active == 1) {
+      decode_split::store_out(out + (size_t)(row0 + r) * D + d,
+                              lsum > 0.f ? x / lsum : 0.f);
+    } else {
+      float* pp =
+          decode_split::partial(a.partials, row0 + r, split, a.n_split, D);
+      pp[2 + d] = x;
+      if (d == 0) {
+        pp[0] = mx;
+        pp[1] = lsum;
+      }
+    }
   }
+  if (n_active == 1) return;
+  int* const counter = a.counters + (size_t)b * a.hkv * n_tiles + blockIdx.y;
+  if (decode_split::arrive_last(counter, n_active))
+    decode_split::merge_rows(a.partials, row0, nrows, a.n_split, n_active, D,
+                             out, counter);
 }
 
 template <typename T, int D, int G>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* table, const void* lens, void* out, int B,
-                   int hq, int hkv, int num_pages, int page_size, int n_kv,
-                   int window, float softcap, float scale,
-                   cudaStream_t stream) {
-  const int g = hq / hkv;
-  const dim3 grid(B, hkv, (g + G - 1) / G);
-  paged_decode_kernel<T, D, G><<<grid, NUM_THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(table),
-      static_cast<const int*>(lens), static_cast<T*>(out), hq, hkv,
-      num_pages, page_size, n_kv, window, softcap, scale);
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const int g = a.hq / a.hkv;
+  const dim3 grid(B, a.hkv * ((g + G - 1) / G), a.n_split);
+  paged_decode_kernel<T, D, G><<<grid, NUM_THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+// G: query rows a CTA (the wrapper's `rows_per_cta` mirrors this)
 template <typename T, int D>
-cudaError_t dispatch_g(int g, const void* q, const void* k, const void* v,
-                       const void* table, const void* lens, void* out,
-                       int B, int hq, int hkv, int num_pages, int page_size,
-                       int n_kv, int window, float softcap, float scale,
-                       cudaStream_t stream) {
-#define PD_LAUNCH(G_)                                                      \
-  return launch<T, D, G_>(q, k, v, table, lens, out, B, hq, hkv,          \
-                          num_pages, page_size, n_kv, window, softcap,    \
-                          scale, stream)
-  if (g == 1) PD_LAUNCH(1);
-  if (g == 2) PD_LAUNCH(2);
-  if (g <= 4) PD_LAUNCH(4);
-  PD_LAUNCH(8);
-#undef PD_LAUNCH
+cudaError_t dispatch_g(const Args& a, int B, cudaStream_t stream) {
+  const int g = a.hq / a.hkv;
+  if (g == 1) return launch<T, D, 1>(a, B, stream);
+  if (g == 2) return launch<T, D, 2>(a, B, stream);
+  if (g <= 4) return launch<T, D, 4>(a, B, stream);
+  return launch<T, D, 8>(a, B, stream);
 }
 
 template <typename T>
-cudaError_t dispatch_d(int d, int g, const void* q, const void* k,
-                       const void* v, const void* table, const void* lens,
-                       void* out, int B, int hq, int hkv, int num_pages,
-                       int page_size, int n_kv, int window, float softcap,
-                       float scale, cudaStream_t stream) {
+cudaError_t dispatch_d(int d, const Args& a, int B, cudaStream_t stream) {
   switch (d) {
     case 64:
-      return dispatch_g<T, 64>(g, q, k, v, table, lens, out, B, hq, hkv,
-                               num_pages, page_size, n_kv, window, softcap,
-                               scale, stream);
+      return dispatch_g<T, 64>(a, B, stream);
     case 128:
-      return dispatch_g<T, 128>(g, q, k, v, table, lens, out, B, hq, hkv,
-                                num_pages, page_size, n_kv, window, softcap,
-                                scale, stream);
+      return dispatch_g<T, 128>(a, B, stream);
     case 256:
-      return dispatch_g<T, 256>(g, q, k, v, table, lens, out, B, hq, hkv,
-                                num_pages, page_size, n_kv, window, softcap,
-                                scale, stream);
+      return dispatch_g<T, 256>(a, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -263,25 +319,31 @@ cudaError_t dispatch_d(int d, int g, const void* q, const void* k,
 
 // q (B, Hq, D); k/v pages (Hkv, P, page_size, D); page_table (B, n_kv)
 // int32; kv_len (B,) int32; out (B, Hq, D).  dtype 0 = float32,
-// 1 = bfloat16.  window <= 0 and softcap <= 0 mean "none".  Launches on
-// `stream`, allocates nothing, returns cudaGetLastError().
+// 1 = bfloat16.  window <= 0 and softcap <= 0 mean "none".  Split-KV:
+// split_keys keys a CTA; n_split = ceil(span / split_keys), span =
+// n_kv * page_size, or the window where it is smaller.  partials: at
+// least B * Hq * n_split * (D + 2) floats; counters: at least B * Hq int32,
+// all 0 (each launch leaves them 0).  Launches on `stream`, allocates
+// nothing, returns cudaGetLastError().
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* page_table,
-                            const void* kv_len, void* out, int B, int hq,
-                            int hkv, int num_pages, int page_size, int d,
-                            int n_kv, int window, float softcap, float scale,
-                            int dtype, void* stream) {
-  if (B <= 0 || hkv <= 0 || hq % hkv != 0 || n_kv <= 0 || page_size <= 0)
+                            const void* kv_len, void* out, void* partials,
+                            void* counters, int B, int hq, int hkv,
+                            int num_pages, int page_size, int d, int n_kv,
+                            int window, int split_keys, float softcap,
+                            float scale, int dtype, void* stream) {
+  if (B <= 0 || hkv <= 0 || hq % hkv != 0 || n_kv <= 0 || page_size <= 0 ||
+      split_keys <= 0)
     return (int)cudaErrorInvalidValue;
-  const int g = hq / hkv;
+  const int width = n_kv * page_size;
+  const int span = window > 0 ? min(window, width) : width;
+  const Args a{q, k_pages, v_pages, static_cast<const int*>(page_table),
+               static_cast<const int*>(kv_len), out,
+               static_cast<float*>(partials), static_cast<int*>(counters),
+               hq, hkv, num_pages, page_size, n_kv, window, split_keys,
+               (span + split_keys - 1) / split_keys, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(d, g, q, k_pages, v_pages, page_table,
-                                  kv_len, out, B, hq, hkv, num_pages,
-                                  page_size, n_kv, window, softcap, scale, s);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(
-        d, g, q, k_pages, v_pages, page_table, kv_len, out, B, hq, hkv,
-        num_pages, page_size, n_kv, window, softcap, scale, s);
+  if (dtype == 0) return (int)dispatch_d<float>(d, a, B, s);
+  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(d, a, B, s);
   return (int)cudaErrorInvalidValue;
 }

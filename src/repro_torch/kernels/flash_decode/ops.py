@@ -1,5 +1,5 @@
 """Flash decode: the wrappers of ``csrc/flash_decode.cu`` (dense caches)
-and ``csrc/paged_decode.cu`` (paged pools).
+and ``csrc/paged_decode.cu`` (paged pools, split-KV).
 
 For CUDA tensors ``flash_decode`` and ``paged_flash_decode`` launch their
 CUDA kernel (built at first use, see ``kernels/build.py``) or raise; for
@@ -9,7 +9,9 @@ counted).
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,8 +23,10 @@ from repro_torch.kernels.flash_decode.ref import (decode_reference,
 LAYOUTS = ("bshd", "bhsd")
 
 _ARGTYPES = (L.P, L.P, L.P, L.P, L.P, L.P,        # q k v table kv_len out
+             L.P, L.P,                            # partials counters
              L.I, L.I, L.I, L.I, L.I, L.I, L.I,   # B hq hkv P ps d n_kv
-             L.I, L.F, L.F, L.I, L.P)             # window softcap scale dt s
+             L.I, L.I, L.F, L.F, L.I, L.P)        # window split_keys cap
+                                                  # scale dtype stream
 _DENSE_ARGTYPES = (L.P, L.P, L.P, L.P, L.P,     # q k v kv_len out
                    L.I, L.I, L.I, L.I, L.I,     # B hq hkv s_max d
                    L.L, L.L, L.L,               # stride b, s, h
@@ -87,6 +91,73 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 flash_decode.launches = 0
 
 
+# split-KV planning of ``paged_decode.cu``
+SPLIT_STEP = 32       # split_keys is a multiple of this many keys
+# the grid aims at this many active CTAs an SM: what the register file
+# holds of the 1-row bf16 instance (~123 registers x 128 threads), so the
+# longest rows run in one wave (``kernels_bench.py --sweep`` times 4
+# against 8-64 at the main-path case)
+CTAS_PER_SM = 4
+
+
+def rows_per_cta(g: int) -> int:
+    """Query rows of a GQA group one CTA of ``paged_decode.cu`` takes (its
+    ``dispatch_g``)."""
+    return 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_splits(b: int, hkv: int, g: int, n_kv: int, page_size: int,
+                window: Optional[int], sm_count: int) -> Tuple[int, int]:
+    """(split_keys, n_split) of a paged decode launch, from the shapes
+    alone: kv_len lives on the card, and reading it would stall the host.
+
+    A row's valid keys are at most ``span`` = the table width
+    ``n_kv * page_size`` (or the window, where smaller); split z of a row
+    walks its keys kv_begin + z * split_keys onwards.  The grid
+    (B, Hkv * ceil(g / G), n_split) aims at CTAS_PER_SM CTAs an SM, so
+    the longest row is spread over several SMs; the splits a shorter row
+    does not reach exit at once.  split_keys is a multiple of SPLIT_STEP, so
+    there are at most ceil(span / SPLIT_STEP) splits."""
+    width = n_kv * page_size
+    span = min(window, width) if window and window > 0 else width
+    base = b * hkv * math.ceil(g / rows_per_cta(g))
+    want = max(1, math.ceil(CTAS_PER_SM * sm_count / base))
+    split_keys = max(SPLIT_STEP, SPLIT_STEP * math.ceil(
+        math.ceil(span / want) / SPLIT_STEP))
+    return split_keys, math.ceil(span / split_keys)
+
+
+# per device: the SM count and the split-KV workspace (partials, counters)
+_SM_COUNT: Dict[torch.device, int] = {}
+_WORKSPACE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device]
+
+
+def split_workspace(device: torch.device, n_partial: int,
+                    n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-KV workspace of ``device``: at least ``n_partial`` float32
+    partial values and ``n_counters`` int32 counters (all 0).  Kept per
+    device and grown when a launch needs more; the kernel leaves every
+    counter at 0, so it is zeroed only when allocated.  Launches on one
+    stream share it (a second stream running decode at once would race)."""
+    part, cnt = _WORKSPACE.get(device, (None, None))
+    if part is None or part.numel() < n_partial or cnt.numel() < n_counters:
+        part = torch.empty(max(n_partial, 0 if part is None else
+                               part.numel()), dtype=torch.float32,
+                           device=device)
+        cnt = torch.zeros(max(n_counters, 0 if cnt is None else cnt.numel()),
+                          dtype=torch.int32, device=device)
+        _WORKSPACE[device] = (part, cnt)
+    return part, cnt
+
+
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, page_table: torch.Tensor,
                        kv_len: torch.Tensor, *,
@@ -95,7 +166,12 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention over a paged cache: q (B, Hq, D), pages
     (Hkv, P, page_size, D), page_table (B, n_kv) int32, kv_len (B,) int32.
-    Returns (B, Hq, D)."""
+    Returns (B, Hq, D).
+
+    The kernel splits each row's keys over CTAs (``plan_splits``) and
+    merges the splits in the same launch, through the per-device
+    ``split_workspace``: B * Hq * n_split * (D + 2) float32 partials and
+    B * Hq int32 counters."""
     b, hq, d = q.shape
     hkv, num_pages, page_size, dk = k_pages.shape
     scale = scale if scale is not None else d ** -0.5
@@ -119,12 +195,16 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    split_keys, n_split = plan_splits(b, hkv, hq // hkv, n_kv, page_size,
+                                      window, _sm_count(q.device))
+    part, cnt = split_workspace(q.device, b * hq * n_split * (d + 2), b * hq)
     lib = build.library("paged_decode", _ARGTYPES)
     status = lib.paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        b, hq, hkv, num_pages, page_size, d, n_kv, L.opt_int(window),
-        L.opt_float(softcap), float(scale), code, L.stream_ptr(q.device))
+        part.data_ptr(), cnt.data_ptr(), b, hq, hkv, num_pages, page_size,
+        d, n_kv, L.opt_int(window), split_keys, L.opt_float(softcap),
+        float(scale), code, L.stream_ptr(q.device))
     L.check_status("paged_flash_decode", status)
     paged_flash_decode.launches += 1
     return out

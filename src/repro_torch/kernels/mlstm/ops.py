@@ -23,9 +23,10 @@ from repro_torch.kernels.mlstm import ref
 
 MAX_CHUNK = 128           # rows of the kernel's intra-chunk tile
 NO_FIT = -2               # the C entry's status when dk does not fit SMEM
+GATE_FLOATS = 5 * MAX_CHUNK + 4     # a chunk's gate record in the workspace
 
 _ARGTYPES = (L.P, L.P, L.P, L.P, L.P,                 # q k v ig fg
-             L.P, L.P, L.P, L.P,                      # h C n m
+             L.P, L.P, L.P, L.P, L.P,                 # h C n m workspace
              L.I, L.I, L.I, L.I, L.I, L.I, L.F,       # B H S dk dv L scale
              L.L, L.L, L.L, L.L, L.L, L.L,            # q, k strides b h s
              L.L, L.L, L.L, L.L, L.L, L.L,            # v, h strides b h s
@@ -46,6 +47,16 @@ def _check(q, k, v, i_gate, f_gate, chunk):
             "dv and chunk at least 1)")
 
 
+def workspace_floats(b: int, h: int, s: int, dk: int, dv: int,
+                     chunk: int) -> int:
+    """float32 values of the bfloat16 kernel's workspace: the state (C, n)
+    before each of the ceil(S / chunk) chunks of every (b, h), and each
+    chunk's gate record.  xlstm-125m's training shape (B=8, H=4, S=2048,
+    dk=dv=384, chunk 128): 76,023,808 floats, 304 MB."""
+    n = b * h * -(-s // chunk)
+    return n * (dk * dv + dk + GATE_FLOATS)
+
+
 def mlstm_chunkwise_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         i_gate: torch.Tensor, f_gate: torch.Tensor, *,
                         chunk: int = 128):
@@ -58,6 +69,12 @@ def mlstm_chunkwise_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``min(chunk, S)``, at most 128 on the card).  Returns
     (h (B, H, S, dv) in q's dtype and q's layout,
     (C (B, H, dk, dv), n (B, H, dk), m (B, H)) float32).
+
+    On the card, bfloat16 runs the tensor-core kernels, which need dk, dv
+    and q/k/v's strides to be multiples of 8 and a workspace of
+    ``workspace_floats(B, H, S, dk, dv, chunk)`` float32 values (304 MB at
+    xlstm-125m's training shape), allocated here per call; float32 runs
+    the FMA kernel and takes none.
     """
     _check(q, k, v, i_gate, f_gate, chunk)
     b, h, s, dk = q.shape
@@ -81,6 +98,13 @@ def mlstm_chunkwise_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.stride(-1) != 1:
             raise ValueError(f"mlstm_chunkwise_fwd: {name}'s last dimension "
                              "must be contiguous")
+        if q.dtype == torch.bfloat16 and (
+                dk % 8 or dv % 8 or t.data_ptr() % 16
+                or any(x % 8 for x in t.stride()[:3])):
+            raise ValueError(
+                f"mlstm_chunkwise_fwd: bfloat16 needs dk ({dk}), dv ({dv}) "
+                f"and {name}'s strides {t.stride()} to be multiples of 8 and "
+                "16-byte aligned rows")
     for name, t in (("i_gate", i_gate), ("f_gate", f_gate)):
         if t.device != q.device:
             raise ValueError(f"mlstm_chunkwise_fwd: {name} must be on "
@@ -99,11 +123,14 @@ def mlstm_chunkwise_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.empty((b, h), **f32)
     if b == 0 or h == 0:
         return out, (C, n, m)
+    ws = (torch.empty(workspace_floats(b, h, s, dk, dv, chunk), **f32)
+          if q.dtype == torch.bfloat16 else None)
     lib = build.library("mlstm_chunkwise", _ARGTYPES)
     status = lib.mlstm_chunkwise(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
         fg.data_ptr(), out.data_ptr(), C.data_ptr(), n.data_ptr(),
-        m.data_ptr(), b, h, s, dk, dv, chunk, float(dk ** -0.5),
+        m.data_ptr(), None if ws is None else ws.data_ptr(),
+        b, h, s, dk, dv, chunk, float(dk ** -0.5),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], L.DTYPE_CODES[q.dtype], L.stream_ptr(q.device))
     if status == NO_FIT:

@@ -1,5 +1,7 @@
 """The parts of ``chip_smoke.py`` that run without a card: its check of
-the ``-Xptxas -v`` build log and its phase-2 attention cases."""
+the ``-Xptxas -v`` build log, its phase-2 case lists, its per-row output
+gate and its profile groups; and ``kernels_bench.py``'s refusal without
+a card."""
 import importlib.util
 from pathlib import Path
 
@@ -65,3 +67,102 @@ def test_attention_cases_reach_the_tile_edges(cs):
                and 0 in kw["nvalid"] for _, kw in cs.PREFILL_CASES)
     for _, kw in cs.FWD_CASES + cs.PREFILL_CASES:
         assert kw["dtype"] in cs.TOL
+
+
+def test_decode_and_mlstm_cases_reach_the_split_edges(cs):
+    """Phase 2 keeps the main-path shapes first, holds paged decode at the
+    split-KV edges and the mLSTM over many chunks and a negative forget
+    bias."""
+    _, dec = cs.DECODE_CASES[0]
+    assert (dec["b"], dec["hq"], dec["d"], dec["ps"], dec["n_kv"],
+            dec["dtype"]) == (8, 32, 128, 128, 16, "bfloat16")
+    assert "lens" not in dec
+    kws = [kw for _, kw in cs.DECODE_CASES]
+    assert [kw["lens"](256) for kw in kws if callable(kw.get("lens"))] == [
+        [255, 256, 257, 1]]
+    assert any(kw.get("window") and max(kw["lens"]) > kw["window"]
+               for kw in kws if isinstance(kw.get("lens"), list))
+    assert any(kw["b"] == 1 and kw.get("lens") == [4096] for kw in kws)
+    assert any(kw.get("lens") == [1] * kw["b"] for kw in kws)
+    _, mls = cs.MLSTM_CASES[0]
+    assert (mls["b"], mls["h"], mls["s"], mls["dk"], mls["dv"],
+            mls["dtype"], mls["layout"]) == (8, 4, 2048, 384, 384,
+                                             "bfloat16", "bshd")
+    kws = [kw for _, kw in cs.MLSTM_CASES]
+    assert any(kw["s"] >= 16 * 128 and kw["dk"] < 384 for kw in kws)
+    assert any(kw["s"] % 128 and kw["s"] > 4 * 128
+               and kw["dtype"] == "bfloat16" for kw in kws)
+    assert any(kw.get("fbias", 3.0) < 0 for kw in kws)
+    for _, kw in cs.DECODE_CASES + cs.MLSTM_CASES:
+        assert kw["dtype"] in cs.TOL
+
+
+def test_row_gate_rejects_a_dropped_split(cs):
+    """A decode "kernel" that drops the last 256-key split of a long row:
+    on a 16384-key row the absolute gate alone passes it, held_to_plain's
+    per-row gate (which phase 2 now applies to paged decode) does not."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode.ref import paged_decode_reference
+    rng = np.random.default_rng(0)
+    hkv, d, ps, n_kv = 2, 128, 128, 128
+    num_pages = 2 * n_kv + 4
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).bfloat16().float()
+    kp, vp = draw(hkv, num_pages, ps, d), draw(hkv, num_pages, ps, d)
+    table = torch.from_numpy(rng.permutation(np.arange(1, num_pages))[
+        :2 * n_kv].reshape(2, n_kv).astype(np.int32))
+    q = draw(2, hkv, 1, d)
+    lens = torch.tensor([n_kv * ps, 700], dtype=torch.int32)
+    want = paged_decode_reference(q, kp, vp, table, lens)[:, :, 0]
+    dropped = lens.clone()
+    dropped[0] -= 256
+    got = paged_decode_reference(q, kp, vp, table, dropped)[:, :, 0]
+    err = (got - want).abs().max().item()
+    assert err <= cs.TOL["bfloat16"]
+    with pytest.raises(AssertionError, match="relative"):
+        cs.held_to_plain("decode", "dropped split", got.reshape(-1, d),
+                         want.reshape(-1, d), "bfloat16")
+    cs.held_to_plain("decode", "whole", want.reshape(-1, d),
+                     want.reshape(-1, d), "bfloat16")
+
+
+def _kernels_of(source):
+    import re
+    text = (ROOT / source).read_text()
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                      r"\s+)?(\w+)", text)
+
+
+def test_profiles_read_every_kernel_of_the_redesigned_sources(cs):
+    """The profile groups of phase 6b and profile_serving.py match every
+    CUDA kernel of mlstm_chunkwise.cu and paged_decode.cu (so a kernel
+    renamed or added in a redesign is not read as 0)."""
+    spec = importlib.util.spec_from_file_location(
+        "profile_serving", ROOT / "profile_serving.py")
+    ps = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ps)
+    mlstm = _kernels_of("src/repro_torch/kernels/mlstm/csrc/"
+                        "mlstm_chunkwise.cu")
+    assert len(mlstm) == 4
+    for name in mlstm:
+        key = f"void (anonymous namespace)::{name}<float, 64>(Args)"
+        assert cs._train_group(key).startswith("mLSTM forward")
+    decode = _kernels_of("src/repro_torch/kernels/flash_decode/csrc/"
+                         "paged_decode.cu")
+    assert decode
+    for name in decode:
+        key = f"void (anonymous namespace)::{name}<__nv_bfloat16, 128, 1>"
+        assert ps._group(key) == "attention: paged_decode.cu"
+
+
+def test_kernels_bench_needs_a_card():
+    """kernels_bench.py measures only on a GPU: without one it exits 2
+    and prints no result."""
+    import subprocess
+    import sys
+    run = subprocess.run([sys.executable, str(ROOT / "kernels_bench.py")],
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 2 and run.stdout == ""

@@ -26,20 +26,31 @@ from repro_torch.kernels.fastattn.ops import (  # noqa: E402
 from repro_torch.kernels.fastattn.ref import (  # noqa: E402
     flash_reference, paged_prefill_reference)
 from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
-    flash_decode, paged_flash_decode)
+    flash_decode, paged_flash_decode, plan_splits)
 from repro_torch.kernels.flash_decode.ref import \
     decode_reference  # noqa: E402
 from repro_torch.kernels.mlstm import ref as mlstm_ref  # noqa: E402
 from repro_torch.kernels.mlstm.ops import (  # noqa: E402
     mlstm_chunkwise, mlstm_chunkwise_fwd)
 
-# (b, hq, hkv, ps, n_kv, d, lens, window, softcap); the last row is an
-# idle engine slot: all-scratch table row, kv_len 1
+# (b, hq, hkv, ps, n_kv, d, lens, window, softcap); a row of kv_len 1 is
+# an idle engine slot: all-scratch table row.  lens may be a function of
+# the launch's split_keys (``plan_splits`` on this card): the split-KV
+# edges.  After the first four: kv_len one below, at and one above a
+# split, a window narrower than the table (its range starts mid-page and
+# ends in a part split), one sequence of 4096 keys over many splits, and
+# only idle rows.
 DECODE_CASES = [
     (3, 4, 4, 16, 5, 64, [80, 33, 1], None, None),
     (3, 8, 4, 16, 6, 128, [17, 96, 1], 40, 30.0),
     (2, 4, 2, 128, 2, 256, [200, 1], None, 50.0),
     (3, 20, 2, 128, 3, 128, [384, 129, 1], 100, None),     # g=10: 2 tiles
+    (4, 4, 4, 16, 64, 128, lambda sk: [sk - 1, sk, sk + 1, 1], None, None),
+    (4, 8, 4, 16, 64, 128, lambda sk: [2 * sk + 1, 2 * sk, 3 * sk - 1, 1],
+     None, 30.0),
+    (3, 8, 2, 16, 64, 256, [1000, 301, 1], 100, 50.0),
+    (1, 8, 8, 128, 32, 128, [4096], None, None),
+    (2, 4, 4, 16, 8, 64, [1, 1], 20, None),
 ]
 # (hq, hkv, ps, n_kv, d, chunk, starts, nvalid, window, softcap); a row
 # with n_valid 0 is a padded batch row: all-scratch table, kv_len 0.
@@ -88,12 +99,17 @@ def cuda_device():
 @pytest.mark.parametrize("case", DECODE_CASES)
 def test_cuda_paged_decode_matches_plain(cuda_device, case, dtype, tol):
     b, hq, hkv, ps, n_kv, d, lens, window, softcap = case
+    if callable(lens):
+        split_keys, _ = plan_splits(
+            b, hkv, hq // hkv, n_kv, ps, window,
+            torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+        lens = lens(split_keys)
     rng = np.random.default_rng(5)
     num_pages = b * n_kv + 3
     kp, vp = (_t(a).to(cuda_device, dtype)
               for a in _pools(rng, hkv, num_pages, ps, d))
     table = _table(rng, b, n_kv, num_pages)
-    table[-1] = 0
+    table[np.asarray(lens) == 1] = 0
     q = _t(rng.normal(size=(b, hq, d)).astype(np.float32)).to(cuda_device,
                                                                dtype)
     args = (q, kp, vp, _t(table).to(cuda_device),
@@ -284,18 +300,24 @@ def test_cuda_flash_decode_rejects_bad_arguments(cuda_device):
         flash_decode(q, k.bfloat16(), k.bfloat16(), lens, layout="bshd")
 
 
-# (b, h, s, dk, dv, chunk, layout): ragged S, S below the chunk, dv not a
-# multiple of the 64-column tile, dk = dv = 384 (xlstm-125m's heads), and
-# the model's (B, S, H, D) projections read in place ("bshd")
+# (b, h, s, dk, dv, chunk, layout, forget bias): ragged S, S below the
+# chunk, dv not a multiple of the 64-column tile, dk = dv = 384
+# (xlstm-125m's heads), and the model's (B, S, H, D) projections read in
+# place ("bshd").  Then 16 chunks of state recurrence at a small dk/dv, a
+# ragged S over eight chunks, and a forget bias of -2: m then falls across
+# chunks and the stabiliser changes sign
 MLSTM_CASES = [
-    (2, 3, 300, 64, 96, 128, "bhsd"),
-    (1, 2, 50, 32, 32, 128, "bhsd"),
-    (2, 2, 200, 48, 40, 64, "bshd"),
-    (1, 2, 260, 384, 384, 128, "bshd"),
+    (2, 3, 300, 64, 96, 128, "bhsd", 2.0),
+    (1, 2, 50, 32, 32, 128, "bhsd", 2.0),
+    (2, 2, 200, 48, 40, 64, "bshd", 2.0),
+    (1, 2, 260, 384, 384, 128, "bshd", 2.0),
+    (2, 2, 2048, 32, 48, 128, "bhsd", 2.0),
+    (1, 3, 1000, 64, 64, 128, "bshd", 2.0),
+    (2, 2, 700, 64, 96, 128, "bhsd", -2.0),
 ]
 
 
-def _mlstm_inputs(rng, b, h, s, dk, dv, layout, device, dtype):
+def _mlstm_inputs(rng, b, h, s, dk, dv, layout, device, dtype, bias=2.0):
     def draw(*shape):
         return _t(rng.normal(size=shape).astype(np.float32)).to(device)
     if layout == "bshd":
@@ -303,17 +325,17 @@ def _mlstm_inputs(rng, b, h, s, dk, dv, layout, device, dtype):
                    for d in (dk, dk, dv))
     else:
         q, k, v = (draw(b, h, s, d).to(dtype) for d in (dk, dk, dv))
-    return q, k, v, draw(b, h, s), draw(b, h, s) + 2.0
+    return q, k, v, draw(b, h, s), draw(b, h, s) + bias
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", MLSTM_CASES)
 def test_cuda_mlstm_chunkwise_fwd_matches_plain(cuda_device, case, dtype):
-    b, h, s, dk, dv, chunk, layout = case
+    b, h, s, dk, dv, chunk, layout, bias = case
     rng = np.random.default_rng(11)
     q, k, v, ig, fg = _mlstm_inputs(rng, b, h, s, dk, dv, layout,
-                                    cuda_device, dtype)
+                                    cuda_device, dtype, bias)
     before = mlstm_chunkwise_fwd.launches
     got, state = mlstm_chunkwise_fwd(q, k, v, ig, fg, chunk=chunk)
     assert mlstm_chunkwise_fwd.launches == before + 1

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
 package ``repro``, and neither do ``chip_smoke.py``,
-``profile_serving.py`` and ``attn_bench.py``."""
+``profile_serving.py``, ``attn_bench.py`` and ``kernels_bench.py``."""
 import ast
 import os
 import pkgutil
@@ -56,7 +56,7 @@ def _imported_roots(path: Path):
 
 
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
-           ROOT / "attn_bench.py"]
+           ROOT / "attn_bench.py", ROOT / "kernels_bench.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + SCRIPTS,
