@@ -10,8 +10,9 @@ which raises on failure (the script then exits non-zero):
 
 1. The card's name and power limit (``nvidia-smi``), then the build of
    every CUDA kernel of the port from ``src/repro_torch/**/csrc``; the
-   ``-Xptxas -v`` log must show no spills and no serialized ``wgmma`` in
-   the tensor-core (``*_wgmma``) kernels.
+   ``-Xptxas -v`` log must show no spills in the tensor-core (``*_wgmma``)
+   kernels and the dense decode kernel (``flash_decode_*``), and no
+   serialized ``wgmma``.
 2. Each kernel against its plain PyTorch version on the card, with the
    maximum absolute error held to a stated tolerance (the attention
    checks also hold each output row's error to that row's scale): the
@@ -23,9 +24,13 @@ which raises on failure (the script then exits non-zero):
    only idle rows); ``fastattn_fwd`` at llama2-7b's training shape, a
    gemma2-2b band (GQA, window, softcap), a ragged case with a q_offset
    and a kv_valid tail in float32 and in bf16, and a non-causal case;
-   ``flash_decode`` on dense caches at llama2-7b's decode shape in both
-   layouts, a gemma2-2b window/softcap case, a float32 case and llama2-7b
-   at B=1 on a 65536-token cache; ``mlstm_chunkwise_fwd``
+   ``flash_decode`` on dense caches (``DENSE_DECODE_CASES``, every
+   (batch, head) row to its own scale) at llama2-7b's decode shape in both
+   layouts, a gemma2-2b window/softcap case, a float32 case, llama2-7b
+   at B=1 on a 65536-token cache (the kernels line's long shape) and on
+   the paper's longest, 262144 tokens, qwen2.5-32b's GQA 40/8 at B=2 on
+   32768 tokens, and its split-KV edges (kv_len one below, at and one
+   above a split; a window narrower than a split); ``mlstm_chunkwise_fwd``
    (``MLSTM_CASES``) at xlstm-125m's training shape (the model's
    (B, S, H, D) projections read in place), a ragged float32 case, a
    sequence shorter than the chunk, 16 chunks at a small dk/dv, a ragged
@@ -52,9 +57,16 @@ which raises on failure (the script then exits non-zero):
    launch exactly 32 layers x (128 + 31) steps; the paged ``EngineCore``
    must give the same greedy tokens wherever the top-1 margin exceeds the
    phase 3 tolerance, and kernel and plain ``decode_step`` logits must
-   agree within it at positions 0-3 and 36-39.  ``flash_decode`` is held
+   agree within it at positions 0-3 and 62-65.  ``flash_decode`` is held
    to its plain version on generate's own caches (B=8, kv_len 159) and
    timed there: those are the kernels line's numbers for it.
+3c. One long-context decode step, on phase 3's model before it is
+   freed: ``LM.decode_step`` at B=1 on a 65537-token dense cache (34.4
+   GB; every layer's K/V seeded at the RMS of 3b's) at kv_len 65536,
+   through ``flash_decode`` (exactly 32 launches) and the plain attention
+   path, logits within the phase 3 tolerance; the step's wall time
+   (median of 10), its device time and ``flash_decode``'s share of it
+   (one profiled step).
 4. Training: with phase 3's model freed, the trainer's own functions
    (``init_train_state``, ``make_train_step``, ``TokenPipeline``,
    ``CheckpointManager``, as ``repro_torch.launch.train`` calls them) take
@@ -71,7 +83,8 @@ which raises on failure (the script then exits non-zero):
    layer's decode attention at B=1, S=65536 with the KV on the host
    (``HostOffloadEngine``: Q down, host attention, output up) against
    classical offloading (upload the layer's bf16 KV from pinned memory,
-   then ``flash_decode``), outputs held to each other, times, the
+   then ``flash_decode``), outputs held to each other per query head,
+   times (the kernel's also on the device alone), the
    measured pinned copy rate and host GFLOP/s, and ``table3_row`` under
    those constants.  The host KV is f32 (twice the upload's bytes), so
    host attention is also timed once over the pinned bf16 copy.
@@ -98,8 +111,9 @@ which raises on failure (the script then exits non-zero):
    and one sLSTM block's forward and backward timed alone.
 
 The line before the last is a JSON object with one entry per kernel
-(``ms`` per launch as above, ``device_ms`` on the device alone); the
-last line is ``{"ok": true, "device": {...}}``.
+(``ms`` per launch as above, ``device_ms`` on the device alone;
+``flash_decode`` also ``long_*``: phase 2's B=1, S=65536 case and phase
+3c's step); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -193,11 +207,17 @@ _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 
 
+# entry functions that must not spill: the tensor-core kernels, and the
+# dense decode kernel, whose design keeps its K/V in flight in shared
+# memory so that its registers stay few
+NO_SPILL_ENTRIES = ("_wgmma", "flash_decode_")
+
+
 def ptxas_faults(log: str) -> list:
-    """The faults of a ``-Xptxas -v`` build log that the tensor-core
-    kernels must not have: spill stores or loads in a ``*_wgmma`` entry
-    function, and any "Performance Loss" advisory on ``wgmma`` (C7510 to
-    C7520: ptxas serialized the wgmmas, which costs the kernel ~1.7x)."""
+    """The faults of a ``-Xptxas -v`` build log: spill stores or loads in
+    an entry function named with one of NO_SPILL_ENTRIES, and any
+    "Performance Loss" advisory on ``wgmma`` (C7510 to C7520: ptxas
+    serialized the wgmmas, which costs the kernel ~1.7x)."""
     faults, entry = [], None
     for line in log.splitlines():
         m = _ENTRY.search(line)
@@ -205,8 +225,8 @@ def ptxas_faults(log: str) -> list:
             entry = m.group(1)
             continue
         m = _SPILLS.search(line)
-        if m and entry and "_wgmma" in entry and (int(m.group(1))
-                                                  or int(m.group(2))):
+        if m and entry and any(t in entry for t in NO_SPILL_ENTRIES) and (
+                int(m.group(1)) or int(m.group(2))):
             faults.append(f"{entry}: {line.strip()}")
         if "Performance Loss" in line and "wgmma" in line:
             faults.append(line.strip())
@@ -236,7 +256,8 @@ def phase_card_and_build() -> dict:
               for f in ptxas_faults(r["log"])]
     if faults:
         raise AssertionError("ptxas: spills or serialized wgmma in the "
-                             "tensor-core kernels:\n" + "\n".join(faults))
+                             "kernels that must have neither:\n"
+                             + "\n".join(faults))
     return report
 
 
@@ -574,6 +595,7 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
         s, hkv = k.shape[1], k.shape[2]
     else:
         hkv, s = k.shape[1], k.shape[2]
+    split_keys, n_split = _dense_plan(b, hq, hkv, s, window)
     lens_t = torch.from_numpy(lens).cuda()
     kw = dict(window=window, softcap=softcap, layout=layout)
 
@@ -586,7 +608,11 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
 
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
-    err, rel = held_to_plain("flash_decode", name, out, ref, dtype)
+    log(f"[flash_decode] {name}: kv_len {lens.tolist()}; split planner "
+        f"{split_keys}-key splits, {n_split} a row")
+    # every (batch, query head) row to its own scale
+    err, rel = held_to_plain("flash_decode", name, out.reshape(-1, d),
+                             ref.reshape(-1, d), dtype)
 
     # work this data needs: each valid K/V row read once per kv head
     keys = np.minimum(lens, window) if window else lens
@@ -597,7 +623,8 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
     bnd, by = bound_ms(n_bytes, n_ops, dtype)
     res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
            "plain_ms": time_ms(plain, reps=5), "bound_ms": bnd,
-           "bound_by": by, "library_ms": None}
+           "bound_by": by, "library_ms": None, "split_keys": split_keys,
+           "n_split": n_split}
     res["device_ms"] = device_ms(kernel)
     lib_note = "n/a (no single PyTorch call applies a softcap or window)"
     if window is None and softcap is None:
@@ -625,11 +652,21 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
     return res
 
 
+def _dense_plan(b, hq, hkv, s, window):
+    """(split_keys, n_split) of a flash_decode launch on this card."""
+    import torch
+    from repro_torch.kernels.flash_decode.ops import plan_dense_splits
+    return plan_dense_splits(b, hq, hkv, s, window,
+                             torch.cuda.get_device_properties(
+                                 0).multi_processor_count)
+
+
 def dense_decode_case(name, *, b, hq, hkv, s, d, dtype, layout,
-                      window=None, softcap=None, seed=0):
+                      window=None, softcap=None, seed=0, lens=None):
     """flash_decode vs decode_reference on random N(0, 1) inputs of one
-    shape, the cache in ``layout``.  kv_len is ragged in 1..s with one row
-    at s and (for b > 1) one at 1."""
+    shape, the cache in ``layout``.  kv_len: ``lens`` -- a list, or a
+    function of the launch's split_keys (the split-KV edges) -- or else
+    ragged in 1..s with one row at s and (for b > 1) one at 1."""
     import numpy as np
     import torch
     tdt = getattr(torch, dtype)
@@ -640,12 +677,15 @@ def dense_decode_case(name, *, b, hq, hkv, s, d, dtype, layout,
     k, v = (torch.randn(shape, generator=gen, device="cuda").to(tdt)
             for _ in range(2))
     q = torch.randn((b, hq, d), generator=gen, device="cuda").to(tdt)
-    lens = rng.integers(1, s + 1, size=b).astype(np.int32)
-    lens[0] = s
-    if b > 1:
-        lens[-1] = 1
-    return dense_decode_measure(name, q, k, v, lens, dtype=dtype,
-                                layout=layout, window=window,
+    if lens is None:
+        lens = rng.integers(1, s + 1, size=b)
+        lens[0] = s
+        if b > 1:
+            lens[-1] = 1
+    elif callable(lens):
+        lens = lens(_dense_plan(b, hq, hkv, s, window)[0])
+    return dense_decode_measure(name, q, k, v, np.asarray(lens, np.int32),
+                                dtype=dtype, layout=layout, window=window,
                                 softcap=softcap)
 
 
@@ -784,6 +824,44 @@ DECODE_CASES = [
      dict(b=2, hq=8, hkv=8, d=64, ps=16, n_kv=8, dtype="bfloat16", seed=6,
           lens=[1, 1])),
 ]
+# phase 2's dense decode cases, (name, arguments).  The main path's own
+# shape is phase 3b's (generate's caches); LONG_DECODE is the kernels
+# line's long shape (llama2-7b at B=1 on a 65536-token cache), then the
+# paper's longest input (262144 tokens), qwen2.5-32b's GQA 40/8 (a group
+# of 5 in the 8-row instance) at its native context, kv_len one below, at
+# and one above a split, and a window narrower than the 32-key split
+LONG_DECODE = "llama2-7b B=1 H=32/32 D=128 bf16 bshd S=65536"
+DENSE_DECODE_CASES = [
+    ("llama2-7b B=8 H=32/32 D=128 bf16 bshd S=4096",
+     dict(b=8, hq=32, hkv=32, s=4096, d=128, dtype="bfloat16",
+          layout="bshd")),
+    ("llama2-7b B=8 H=32/32 D=128 bf16 bhsd S=4096",
+     dict(b=8, hq=32, hkv=32, s=4096, d=128, dtype="bfloat16",
+          layout="bhsd")),
+    ("gemma2-2b B=8 H=8/4 D=256 bf16 bshd S=8192 window=4096 cap=50",
+     dict(b=8, hq=8, hkv=4, s=8192, d=256, dtype="bfloat16", layout="bshd",
+          window=4096, softcap=50.0, seed=1)),
+    ("f32 B=4 H=8/2 D=64 bshd S=1000",
+     dict(b=4, hq=8, hkv=2, s=1000, d=64, dtype="float32", layout="bshd",
+          seed=2)),
+    (LONG_DECODE,
+     dict(b=1, hq=32, hkv=32, s=65536, d=128, dtype="bfloat16",
+          layout="bshd", seed=3)),
+    ("llama2-7b B=1 H=32/32 D=128 bf16 bshd S=262144",
+     dict(b=1, hq=32, hkv=32, s=262144, d=128, dtype="bfloat16",
+          layout="bshd", seed=4)),
+    ("qwen2.5-32b B=2 H=40/8 D=128 bf16 bshd S=32768",
+     dict(b=2, hq=40, hkv=8, s=32768, d=128, dtype="bfloat16",
+          layout="bshd", seed=5, lens=[32768, 32768])),
+    ("split edges B=4 H=32/8 D=128 bf16 bhsd S=4096 kv_len split-1/split/"
+     "split+1/1", dict(b=4, hq=32, hkv=8, s=4096, d=128, dtype="bfloat16",
+                       layout="bhsd", seed=6,
+                       lens=lambda sk: [sk - 1, sk, sk + 1, 1])),
+    ("window narrower than a split B=4 H=8/2 D=256 bf16 bshd S=2048 "
+     "window=20", dict(b=4, hq=8, hkv=2, s=2048, d=256, dtype="bfloat16",
+                       layout="bshd", window=20, seed=7,
+                       lens=[2048, 21, 20, 1])),
+]
 # phase 2's mLSTM cases: xlstm-125m's training shape first (the kernels
 # line's numbers); then a ragged f32 case, S below the chunk, 16 chunks of
 # state recurrence at a small dk/dv, a ragged S over eight chunks, and a
@@ -814,26 +892,13 @@ def phase_kernels() -> dict:
     fwd = [fwd_case(name, **kw) for name, kw in FWD_CASES][0]
     dec = [decode_case(name, **kw) for name, kw in DECODE_CASES][0]
     pre = [prefill_case(name, **kw) for name, kw in PREFILL_CASES][0]
-    dense_decode_case("llama2-7b B=8 H=32/32 D=128 bf16 bshd S=4096",
-                      b=8, hq=32, hkv=32, s=4096, d=128, dtype="bfloat16",
-                      layout="bshd")
-    dense_decode_case("llama2-7b B=8 H=32/32 D=128 bf16 bhsd S=4096",
-                      b=8, hq=32, hkv=32, s=4096, d=128, dtype="bfloat16",
-                      layout="bhsd")
-    dense_decode_case("gemma2-2b B=8 H=8/4 D=256 bf16 bshd S=8192 "
-                      "window=4096 cap=50", b=8, hq=8, hkv=4, s=8192,
-                      d=256, dtype="bfloat16", layout="bshd", window=4096,
-                      softcap=50.0, seed=1)
-    dense_decode_case("f32 B=4 H=8/2 D=64 bshd S=1000", b=4, hq=8, hkv=2,
-                      s=1000, d=64, dtype="float32", layout="bshd", seed=2)
-    dense_decode_case("llama2-7b B=1 H=32/32 D=128 bf16 bshd S=65536",
-                      b=1, hq=32, hkv=32, s=65536, d=128, dtype="bfloat16",
-                      layout="bshd", seed=3)
+    dense = {name: dense_decode_case(name, **kw)
+             for name, kw in DENSE_DECODE_CASES}
     mls = [mlstm_case(name, **kw) for name, kw in MLSTM_CASES][0]
     # flash_decode's numbers for the kernels line are taken at the main
-    # path's own shape, in phase 3b
+    # path's own shape, in phase 3b; its long_* keys at LONG_DECODE
     return {"paged_decode": dec, "paged_prefill": pre, "fastattn_fwd": fwd,
-            "mlstm_chunkwise": mls}
+            "mlstm_chunkwise": mls, "flash_decode_long": dense[LONG_DECODE]}
 
 
 # ---------------------------------------------------------------------------
@@ -1034,7 +1099,7 @@ LOGIT_TOL = 0.05
 # ---------------------------------------------------------------------------
 
 DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 128, 32
-DENSE_CHECK_POS = (0, 1, 2, 3, 36, 37, 38, 39)
+DENSE_CHECK_POS = (0, 1, 2, 3, 62, 63, 64, 65)
 
 
 def _compare_logits(what, got, ref) -> None:
@@ -1139,7 +1204,12 @@ def phase_dense(model, params) -> dict:
         ref_k = decode_reference(q[:, :, None], cache[layer].k,
                                  cache[layer].v, torch.from_numpy(lens),
                                  layout="bshd")[:, :, 0]
-        held_to_plain("flash_decode", what, out_k, ref_k, "bfloat16")
+        held_to_plain("flash_decode", what, out_k.reshape(-1, cfg.head_dim),
+                      ref_k.reshape(-1, cfg.head_dim), "bfloat16")
+    # the RMS of the K and V rows generate wrote, per layer: phase 3c
+    # fills its long cache to these scales
+    kv_rms = [[t[:, :kv_len].float().square().mean().sqrt().item()
+               for t in (c.k, c.v)] for c in cache]
     del cache
 
     # the same prompts through the paged EngineCore: equal greedy tokens
@@ -1179,8 +1249,9 @@ def phase_dense(model, params) -> dict:
     del core, logits, seen
 
     # kernel vs plain attention path, each teacher-forced on its own
-    # cache: the first 4 prompt positions, and 4 past one 32-key pass of
-    # the kernel's thread groups (flash_decode.cu)
+    # cache: the first 4 prompt positions, and kv_len 63-66 around the
+    # 64-key split of flash_decode's plan for these 161-token caches (one
+    # split, then two merged in the launch)
     caches = {impl: model.init_cache(b, serve.max_seq_len)
               for impl in ("kernel", "reference")}
     toks = torch.from_numpy(prompts).cuda()
@@ -1198,12 +1269,109 @@ def phase_dense(model, params) -> dict:
            "wall_s": wall, "tokens_per_s_generate": b * n_new / wall,
            "throughput_tokens_per_s": tok_s, "launches": launches,
            "tokens_equal": equal, "tokens_clear": compared,
-           "cache_gb": cache_gb, "kernel": kern}
+           "cache_gb": cache_gb, "kernel": kern, "kv_rms": kv_rms}
     log(f"[dense] generate {res['tokens_per_s_generate']:.1f} new tok/s "
         f"(prompt teacher-forced one position a step); "
         f"throughput_tokens_per_s(B={b}, prompt {s}, 8 steps) "
         f"{tok_s:.1f} tok/s")
     log("[dense] " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: one long-context decode step of llama2-7b
+# ---------------------------------------------------------------------------
+
+LONG_KV = 65536       # kv_len of the step: the token at position LONG_KV - 1
+
+
+def phase_long_decode(model, params, kv_rms) -> dict:
+    """One ``LM.decode_step`` of phase 3's llama2-7b at B=1 on a dense
+    cache of LONG_KV + 1 tokens, at position LONG_KV - 1 (kv_len
+    LONG_KV): every layer's K/V drawn from a seeded CUDA generator at the
+    RMS of what phase 3b's generate wrote (``kv_rms``), then the step
+    through flash_decode (exactly one launch a layer) and through the
+    plain attention path, logits held to each other; then the kernel
+    step's wall time (median of 10, synchronised) and one profiled step:
+    its device time and flash_decode's share."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+
+    cfg = model.cfg
+    gc.collect()                  # phase 3's engines and pools
+    torch.cuda.empty_cache()
+    pos = LONG_KV - 1
+    t0 = time.perf_counter()
+    cache = model.init_cache(1, LONG_KV + 1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for c, rms in zip(cache, kv_rms):
+        for buf, r in zip((c.k, c.v), rms):
+            buf.copy_(torch.randn(buf.shape, generator=gen,
+                                  device="cuda").mul_(r))
+    torch.cuda.synchronize()
+    cache_gb = sum(c.k.nbytes + c.v.nbytes for c in cache) / 1e9
+    log(f"[long] {cfg.name}: dense cache B=1 x {LONG_KV + 1} tokens, "
+        f"{cache_gb:.1f} GB, filled at generate's K/V RMS in "
+        f"{time.perf_counter() - t0:.1f}s; "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(1,)).astype(np.int32)).cuda()
+
+    def step(impl):
+        return model.decode_step(params, tok, cache, pos, impl=impl)[0]
+
+    flash_decode.launches = 0
+    got = step("kernel")
+    torch.cuda.synchronize()
+    launches = flash_decode.launches
+    log(f"[long] decode_step at position {pos} (kv_len {LONG_KV}): "
+        f"flash_decode launches {launches} (expected {cfg.num_layers}, one "
+        "a layer)")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"flash_decode launched {launches} times, "
+                             f"expected {cfg.num_layers}")
+    ref = step("reference")
+    _compare_logits(f"long decode step kv_len {LONG_KV}, kernel vs plain",
+                    got, ref)
+    wall_ms, _ = _wall_ms(lambda: step("kernel"))
+    plain_ms, _ = _wall_ms(lambda: step("reference"), reps=3)
+    kernels, dev_s = _profile_kernels(lambda: step("kernel"))
+    fd = [e for e in kernels if "flash_decode_" in e.key]
+    fd_s = sum(_device_us(e) for e in fd) / 1e6
+    # least time of the step: every weight read once (bf16; of an untied
+    # embedding table only the token's row) and every layer's kv_len K/V
+    # rows read once
+    n_params = sum(t.numel() for t in _leaves(params))
+    if not cfg.tie_embeddings:
+        n_params -= params["embedding"]["embed"].numel() - cfg.d_model
+    step_bytes = n_params * 2 + cfg.num_layers * 2 * LONG_KV \
+        * cfg.kv_dim * 2
+    res = {"kv_len": LONG_KV, "cache_gb": cache_gb, "launches": launches,
+           "wall_ms": wall_ms, "plain_wall_ms": plain_ms,
+           "device_ms": dev_s * 1e3, "flash_decode_device_ms": fd_s * 1e3,
+           "flash_decode_calls": sum(e.count for e in fd),
+           "flash_decode_share_of_device": fd_s / dev_s,
+           "idle_share": 1 - dev_s * 1e3 / wall_ms,
+           "bound_ms": step_bytes / H100_BYTES_PER_S * 1e3,
+           "card": _card()}
+    log(f"[long] {res['card']}: step {wall_ms:.2f} ms wall (median of 10; "
+        f"plain attention path {plain_ms:.2f} ms), {res['device_ms']:.2f} "
+        f"ms of kernels in one profiled step (idle share "
+        f"{res['idle_share']:.3f}); flash_decode {fd_s * 1e3:.3f} ms in "
+        f"{res['flash_decode_calls']} launches, "
+        f"{res['flash_decode_share_of_device']:.1%} of the device time; "
+        f"the step's byte bound {res['bound_ms']:.2f} ms")
+    groups = {}
+    for e in kernels:
+        grp = ("attention: flash_decode.cu" if "flash_decode_" in e.key
+               else _train_group(e.key))
+        groups[grp] = groups.get(grp, 0.0) + _device_us(e) / 1e3
+    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"[long]   {ms:9.3f} ms  {grp}")
+    log("[long] " + json.dumps(res))
+    del cache
     return res
 
 
@@ -1244,7 +1412,8 @@ def _train_group(name: str) -> str:
         return "attention forward: fastattn_fwd.cu"
     if MLSTM_KERNELS in n:
         return "mLSTM forward: mlstm_chunkwise.cu"
-    if any(t in n for t in ("gemm", "nvjet", "cutlass", "sm90_", "cublas")):
+    if any(t in n for t in ("gemm", "gemv", "nvjet", "cutlass", "sm90_",
+                            "cublas")):
         if "f32f32" in n or "sgemm" in n:
             return "matrix products, float32 (plain attention recompute)"
         return "matrix products, bf16 (projections, MLP, LM head)"
@@ -1532,9 +1701,13 @@ def phase_offload() -> dict:
     upload_ms = time_ms(upload, reps=10)
     calc_ms = time_ms(lambda: flash_decode(q[:, 0], k_d, v_d, lens_d,
                                            layout="bshd"), reps=10)
+    calc_device_ms = device_ms(lambda: flash_decode(q[:, 0], k_d, v_d,
+                                                    lens_d, layout="bshd"))
     classical_ms, ref = _wall_ms(classical)
+    # every query head's output to its own scale
     err, rel = held_to_plain("offload", "host output vs flash_decode on "
-                             "the uploaded KV", coop[:, 0], ref, "bfloat16")
+                             "the uploaded KV", coop[:, 0].reshape(-1, d),
+                             ref.reshape(-1, d), "bfloat16")
 
     # the host KV is f32 (JAX's layout), twice the bytes the classical path
     # uploads: host attention once more over the pinned bf16 copies, for a
@@ -1553,8 +1726,8 @@ def phase_offload() -> dict:
                   for sl in slices)
         return out.reshape(1, -1, d).to(q_h.dtype)
     host_bf16_ms, out_b = _wall_ms(host_bf16, reps=5)
-    held_to_plain("offload", "bf16 host attention vs flash_decode", out_b,
-                  ref.cpu(), "bfloat16")
+    held_to_plain("offload", "bf16 host attention vs flash_decode",
+                  out_b.reshape(-1, d), ref.cpu().reshape(-1, d), "bfloat16")
 
     flops = 4.0 * s * cfg.q_dim
     pcie_gbps = kv_bytes / (upload_ms / 1e3) / 1e9
@@ -1571,6 +1744,7 @@ def phase_offload() -> dict:
            "coop_host_attention_ms": host_ms, "coop_out_up_ms": up_ms,
            "classical_ms": classical_ms, "classical_upload_ms": upload_ms,
            "classical_kernel_ms": calc_ms,
+           "classical_kernel_device_ms": calc_device_ms,
            "classical_over_coop": classical_ms / coop_ms,
            "pinned_h2d_gbps": pcie_gbps, "host_attention_gflops":
            host_gflops, "predicted_classical_ms": pred_classical,
@@ -1582,7 +1756,8 @@ def phase_offload() -> dict:
         f"{down_ms:.3f}, host attention over {host_kv_gb:.2f} GB of f32 KV "
         f"{host_ms:.2f}, output up {up_ms:.3f}); classical "
         f"{classical_ms:.2f} ms (upload of {kv_bytes / 1e9:.2f} GB of bf16 "
-        f"KV {upload_ms:.2f}, flash_decode {calc_ms:.3f}); classical / "
+        f"KV {upload_ms:.2f}, flash_decode {calc_ms:.3f}, on the device "
+        f"{calc_device_ms:.3f}); classical / "
         f"cooperative {classical_ms / coop_ms:.3f} (the paper's Table 3: "
         f"1.27-1.48); host attention over the {kv_bytes / 1e9:.2f} GB of "
         f"bf16 KV {host_bf16_ms:.2f} ms")
@@ -2078,6 +2253,7 @@ def main() -> int:
     model, params = build_llama()
     served = phase_serving(model, params)
     dense = phase_dense(model, params)
+    long_step = phase_long_decode(model, params, dense["kv_rms"])
     del model, params
     gc.collect()                  # phase 3's model, pools and engines
     torch.cuda.empty_cache()
@@ -2121,6 +2297,14 @@ def main() -> int:
          "device_ms": kern[name]["device_ms"]}
         for name in ("paged_prefill", "paged_decode", "fastattn_fwd",
                      "flash_decode", "mlstm_chunkwise")]}
+    # flash_decode also at the long shape (phase 2's LONG_DECODE), and the
+    # long-context decode step it carries (phase 3c)
+    long = kern["flash_decode_long"]
+    next(k for k in line["kernels"] if k["name"] == "flash_decode").update(
+        long_device_ms=long["device_ms"], long_bound_ms=long["bound_ms"],
+        long_library_device_ms=long["library_device_ms"],
+        long_step_device_ms=long_step["device_ms"],
+        long_step_wall_ms=long_step["wall_ms"])
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the split-KV paged decode kernel and the chunkwise mLSTM kernel on
-one GPU, at the main paths' shapes, beside another checkout's kernels.
+"""Time the split-KV decode kernels (paged and dense) and the chunkwise
+mLSTM kernel on one GPU, at the main paths' shapes, beside another
+checkout's kernels.
 
     python3 kernels_bench.py [--parent DIR] [--sweep]
 
@@ -14,17 +15,23 @@ JSON line each:
   work between the events included, as ``chip_smoke.py``'s ``ms``);
 * ``device_ms``: 20 launches queued behind a spin kernel
   (``torch.cuda._sleep``), events around the run: the card's time alone;
-* ``host_us``: the host's time a call while the card is still busy;
+* ``host_us``: the host's time a call while the card is still busy (the
+  least of 5 runs of 100 calls);
 * for the mLSTM, each CUDA kernel's device time a call (torch.profiler).
 
 Cases: paged decode at llama2-7b's serving shape (B=8, H=32/32, D=128,
 page 128, 16 pages a row, kv_len drawn as ``chip_smoke.py`` draws it) and
-gemma2-2b's (B=8, H=8/4, D=256, window 256, softcap 50); the mLSTM at
+gemma2-2b's (B=8, H=8/4, D=256, window 256, softcap 50); dense decode
+(``flash_decode``, "bshd" caches, bf16) at phase 3b's shape (llama2-7b
+B=8, 161-token caches, kv_len 159), llama2-7b at B=1 on a 65536-token
+cache and qwen2.5-32b's GQA 40/8 at B=2 on 32768 tokens; the mLSTM at
 xlstm-125m's training shape (B=8, H=4, S=2048, dk=dv=384, bf16, the
 model's (B, S, H, D) layout).  ``--parent DIR`` runs DIR's kernels and
 this tree's in turns (parent, this, this, parent) in one call.
-``--sweep`` times this tree's paged decode at several
-``CTAS_PER_SM`` of its split planner.
+``--sweep`` times this tree's paged decode at several ``CTAS_PER_SM``
+of the split planner, and its ``flash_decode`` at several
+``DENSE_CTAS_PER_SM`` with each of its two K/V feeds (``DENSE_FEED``: the
+register double buffer, the shared-memory ring).
 """
 from __future__ import annotations
 
@@ -41,17 +48,21 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (this tree's timing helpers)
 
 
-def host_us(fn, reps: int = 100) -> float:
+def host_us(fn, reps: int = 100, runs: int = 5) -> float:
+    """The host's time a call, the least of ``runs`` runs of ``reps``
+    calls (the host's noise only adds)."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)     # the card stays busy meanwhile
-    t0 = time.perf_counter()
-    for _ in range(reps):
+    best = float("inf")
+    for _ in range(runs):
         fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / reps * 1e6
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)     # the card stays busy meanwhile
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return best / reps * 1e6
 
 
 def decode_inputs(b, hq, hkv, d, ps, n_kv, seed):
@@ -81,6 +92,27 @@ DECODE = [("paged_decode llama2-7b B=8 H=32/32 D=128 ps=128",
            dict(window=256, softcap=50.0))]
 
 
+def dense_inputs(b, hq, hkv, s, kv_len, seed, d=128):
+    """q (B, Hq, D) and "bshd" caches (B, S, Hkv, D), N(0, 1) in bf16, and
+    kv_len (B,) = ``kv_len`` for every row."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").bfloat16()
+    lens = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
+    return q, k, v, lens
+
+
+DENSE = [("flash_decode phase 3b llama2-7b B=8 H=32/32 S=161 kv_len=159",
+          dict(b=8, hq=32, hkv=32, s=161, kv_len=159, seed=0)),
+         ("flash_decode llama2-7b B=1 H=32/32 S=65536",
+          dict(b=1, hq=32, hkv=32, s=65536, kv_len=65536, seed=1)),
+         ("flash_decode qwen2.5-32b B=2 H=40/8 S=32768",
+          dict(b=2, hq=40, hkv=8, s=32768, kv_len=32768, seed=2))]
+
+
 def child(tree: Path, sweep: bool) -> None:
     """Measure the cases with ``tree``'s kernels; print JSON lines."""
     sys.path.insert(0, str(tree / "src"))
@@ -88,8 +120,9 @@ def child(tree: Path, sweep: bool) -> None:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_decode import ops as dops
     from repro_torch.kernels.mlstm.ops import mlstm_chunkwise_fwd
-    build.build_all(["paged_decode", "mlstm_chunkwise"])
+    build.build_all(["paged_decode", "flash_decode", "mlstm_chunkwise"])
     tag = str(tree)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def emit(**kw):
         print(json.dumps({"tree": tag, **kw}), flush=True)
@@ -101,7 +134,16 @@ def child(tree: Path, sweep: bool) -> None:
             return dops.paged_flash_decode(*args, **kw)
         emit(case=name, ms=cs.time_ms(fn), device_ms=cs.device_ms(fn),
              host_us=host_us(fn))
+    for name, shape in DENSE:
+        args = dense_inputs(**shape)
+
+        def fn():
+            return dops.flash_decode(*args, layout="bshd")
+        emit(case=name, ms=cs.time_ms(fn), device_ms=cs.device_ms(fn),
+             host_us=host_us(fn))
+        del args
     if sweep:
+        planned = dops.CTAS_PER_SM, dops.DENSE_CTAS_PER_SM, dops.DENSE_FEED
         for ctas in (4, 8, 16, 32, 64):
             dops.CTAS_PER_SM = ctas
             dops.plan_splits.cache_clear()
@@ -109,11 +151,28 @@ def child(tree: Path, sweep: bool) -> None:
                 args = decode_inputs(**shape)
                 split = dops.plan_splits(
                     shape["b"], shape["hkv"], shape["hq"] // shape["hkv"],
-                    shape["n_kv"], shape["ps"], kw.get("window"),
-                    torch.cuda.get_device_properties(0).multi_processor_count)
+                    shape["n_kv"], shape["ps"], kw.get("window"), sms)
                 emit(case=name, ctas_per_sm=ctas, split=list(split),
                      device_ms=cs.device_ms(
                          lambda: dops.paged_flash_decode(*args, **kw)))
+        for ctas in (1, 1.5, 1.75, 1.9, 2, 3, 4, 8):
+            dops.DENSE_CTAS_PER_SM = ctas
+            dops.plan_dense_splits.cache_clear()
+            for feed in (1, 0):
+                dops.DENSE_FEED = feed
+                for name, shape in DENSE:
+                    args = dense_inputs(**shape)
+                    split = dops.plan_dense_splits(
+                        shape["b"], shape["hq"], shape["hkv"], shape["s"],
+                        None, sms)
+                    emit(case=name, dense_ctas_per_sm=ctas,
+                         split=list(split), feed=("ring", "registers")[feed],
+                         device_ms=cs.device_ms(
+                             lambda: dops.flash_decode(*args, layout="bshd")))
+                    del args
+        dops.CTAS_PER_SM, dops.DENSE_CTAS_PER_SM, dops.DENSE_FEED = planned
+        dops.plan_splits.cache_clear()
+        dops.plan_dense_splits.cache_clear()
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

@@ -1,5 +1,6 @@
 """Flash decode: the wrappers of ``csrc/flash_decode.cu`` (dense caches)
-and ``csrc/paged_decode.cu`` (paged pools, split-KV).
+and ``csrc/paged_decode.cu`` (paged pools), both split-KV with one planner
+(``plan_splits``) and one workspace (``split_workspace``).
 
 For CUDA tensors ``flash_decode`` and ``paged_flash_decode`` launch their
 CUDA kernel (built at first use, see ``kernels/build.py``) or raise; for
@@ -28,9 +29,16 @@ _ARGTYPES = (L.P, L.P, L.P, L.P, L.P, L.P,        # q k v table kv_len out
              L.I, L.I, L.F, L.F, L.I, L.P)        # window split_keys cap
                                                   # scale dtype stream
 _DENSE_ARGTYPES = (L.P, L.P, L.P, L.P, L.P,     # q k v kv_len out
+                   L.P, L.P,                    # partials counters
                    L.I, L.I, L.I, L.I, L.I,     # B hq hkv s_max d
                    L.L, L.L, L.L,               # stride b, s, h
-                   L.I, L.F, L.F, L.I, L.P)     # window cap scale dt s
+                   L.I, L.I, L.F, L.F,          # window split_keys cap scale
+                   L.I, L.I, L.P)               # feed dtype stream
+# how flash_decode.cu feeds K/V to its thread groups: 0 = a shared-memory
+# ring of cp.async stages, 1 = a register double buffer, 5-11% faster at
+# llama2-7b's B=1, S=65536 on the H100 (``kernels_bench.py --sweep`` times
+# both)
+DENSE_FEED = 1
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -44,10 +52,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     (B, Hq, D).
 
     The kernel reads either layout in place through the caches' strides
-    (batch, token, head); their head dim must be contiguous.  The JAX
-    kernel's ``block_kv`` has no counterpart: the CUDA kernel walks the
-    valid key range with its own tiling (4 keys per thread group in
-    flight, ``csrc/flash_decode.cu``)."""
+    (batch, token, head); their head dim must be contiguous.  It splits
+    each row's keys over CTAs as ``paged_flash_decode`` does
+    (``plan_splits`` with the cache width S as the span, one key a
+    "page") and merges the splits in the same launch through the shared
+    ``split_workspace``.  The JAX kernel's ``block_kv`` has no
+    counterpart."""
     if layout not in LAYOUTS:
         raise ValueError(f"flash_decode: unknown cache layout {layout!r}")
     b, hq, d = q.shape
@@ -57,8 +67,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             q[:, :, None], k_cache, v_cache, kv_len, window=window,
             softcap=softcap, scale=scale, layout=layout)[:, :, 0]
     code = L.check_tensors("flash_decode", {"q": q}, {"kv_len": kv_len})
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        L.check_strided(name, t, q)
+    L.check_strided("k_cache", k_cache, q)
     if layout == "bhsd":
         cb, hkv, s_max, dk = k_cache.shape
         sb, sh, ss, _ = k_cache.stride()
@@ -74,14 +83,23 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             f"{k_cache.stride()}/{v_cache.stride()} ({layout}), kv_len "
             f"{tuple(kv_len.shape)} (head_dim must be one of "
             f"{L.HEAD_DIMS})")
+    # v has k's shape and strides: its device, dtype and base address
+    # are what is left to check (check_strided's full walk costs ~2 us)
+    if (v_cache.device != q.device or v_cache.dtype != q.dtype
+            or v_cache.data_ptr() % 16):
+        L.check_strided("v_cache", v_cache, q)
     out = torch.empty_like(q)
     if b == 0:
         return out
+    split_keys, n_split = plan_dense_splits(b, hq, hkv, s_max, window,
+                                            _sm_count(q.device))
+    part, cnt = split_workspace(q.device, b * hq * n_split * (d + 2), b * hq)
     lib = build.library("flash_decode", _DENSE_ARGTYPES)
     status = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), b, hq, hkv, s_max, d, sb, ss, sh,
-        L.opt_int(window), L.opt_float(softcap), float(scale), code,
+        kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+        b, hq, hkv, s_max, d, sb, ss, sh, L.opt_int(window), split_keys,
+        L.opt_float(softcap), float(scale), DENSE_FEED, code,
         L.stream_ptr(q.device))
     L.check_status("flash_decode", status)
     flash_decode.launches += 1
@@ -91,41 +109,66 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 flash_decode.launches = 0
 
 
-# split-KV planning of ``paged_decode.cu``
+# split-KV planning of ``paged_decode.cu`` and ``flash_decode.cu``
 SPLIT_STEP = 32       # split_keys is a multiple of this many keys
 # the grid aims at this many active CTAs an SM: what the register file
-# holds of the 1-row bf16 instance (~123 registers x 128 threads), so the
-# longest rows run in one wave (``kernels_bench.py --sweep`` times 4
-# against 8-64 at the main-path case)
+# holds of paged_decode.cu's 1-row bf16 instance (~123 registers x 128
+# threads), so the longest rows run in one wave (``kernels_bench.py
+# --sweep`` times 4 against 8-64 at its cases)
 CTAS_PER_SM = 4
+# flash_decode.cu's aim: a register-fed CTA keeps ~16 KB of K/V in flight,
+# and about two an SM keep the ~32 KB an SM the card needs.  Just under 2,
+# because plan_splits rounds the split count up (by up to one CTA a base
+# row) and the 8-row instance fits only 2 an SM: the grid then stays one
+# wave, and rows that already fill the card (phase 3b's B=8 x 32 heads)
+# are not split, where a merge costs more than it saves
+# (``kernels_bench.py --sweep`` times 1-8)
+DENSE_CTAS_PER_SM = 1.9
 
 
 def rows_per_cta(g: int) -> int:
-    """Query rows of a GQA group one CTA of ``paged_decode.cu`` takes (its
-    ``dispatch_g``)."""
+    """Query rows of a GQA group one CTA of ``paged_decode.cu`` or
+    ``flash_decode.cu`` takes (their ``dispatch_g``)."""
     return 1 if g == 1 else 2 if g == 2 else 4 if g <= 4 else 8
 
 
 @functools.lru_cache(maxsize=1024)
 def plan_splits(b: int, hkv: int, g: int, n_kv: int, page_size: int,
-                window: Optional[int], sm_count: int) -> Tuple[int, int]:
-    """(split_keys, n_split) of a paged decode launch, from the shapes
+                window: Optional[int], sm_count: int,
+                ctas_per_sm: Optional[float] = None) -> Tuple[int, int]:
+    """(split_keys, n_split) of a split-KV decode launch, from the shapes
     alone: kv_len lives on the card, and reading it would stall the host.
+    A paged launch passes its table width in pages; a dense one its cache
+    width S as ``n_kv`` with ``page_size`` 1, and its own aim
+    (DENSE_CTAS_PER_SM; None: CTAS_PER_SM).
 
     A row's valid keys are at most ``span`` = the table width
     ``n_kv * page_size`` (or the window, where smaller); split z of a row
     walks its keys kv_begin + z * split_keys onwards.  The grid
-    (B, Hkv * ceil(g / G), n_split) aims at CTAS_PER_SM CTAs an SM, so
+    (B, Hkv * ceil(g / G), n_split) aims at ``ctas_per_sm`` CTAs an SM, so
     the longest row is spread over several SMs; the splits a shorter row
     does not reach exit at once.  split_keys is a multiple of SPLIT_STEP, so
     there are at most ceil(span / SPLIT_STEP) splits."""
     width = n_kv * page_size
     span = min(window, width) if window and window > 0 else width
     base = b * hkv * math.ceil(g / rows_per_cta(g))
-    want = max(1, math.ceil(CTAS_PER_SM * sm_count / base))
+    aim = CTAS_PER_SM if ctas_per_sm is None else ctas_per_sm
+    want = max(1, math.ceil(aim * sm_count / base))
     split_keys = max(SPLIT_STEP, SPLIT_STEP * math.ceil(
         math.ceil(span / want) / SPLIT_STEP))
     return split_keys, math.ceil(span / split_keys)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_dense_splits(b: int, hq: int, hkv: int, s_max: int,
+                      window: Optional[int], sm_count: int
+                      ) -> Tuple[int, int]:
+    """(split_keys, n_split) of a ``flash_decode`` launch on caches of
+    ``s_max`` tokens: ``plan_splits`` with the cache width as the span
+    and DENSE_CTAS_PER_SM as the aim (cached: clear the cache after
+    changing it)."""
+    return plan_splits(b, hkv, hq // hkv, s_max, 1, window, sm_count,
+                       DENSE_CTAS_PER_SM)
 
 
 # per device: the SM count and the split-KV workspace (partials, counters)

@@ -30,10 +30,24 @@ def _entry(name, stores=0, loads=0, regs=183):
 
 WG = "_ZN12_GLOBAL__N_118fastattn_fwd_wgmmaILi128EEEvPK13__nv_bfloat16"
 FMA = "_ZN12_GLOBAL__N_119fastattn_fwd_kernelIfLi256EEEvPKT_"
+DECODE = ("_ZN12_GLOBAL__N_119flash_decode_kernelI13__nv_bfloat16Li128ELi1E"
+          "Lb1EEEvNS_4ArgsE")
+PAGED = "_ZN12_GLOBAL__N_119paged_decode_kernelIfLi256ELi8EEEvNS_4ArgsE"
 
 
 def test_clean_build_log_has_no_faults(cs):
-    assert cs.ptxas_faults(_entry(WG) + _entry(FMA, 8, 8)) == []
+    assert cs.ptxas_faults(_entry(WG) + _entry(FMA, 8, 8) + _entry(DECODE)
+                           + _entry(PAGED, 8, 8)) == []
+
+
+@pytest.mark.parametrize("stores,loads", [(16, 0), (0, 16)])
+def test_spills_in_a_flash_decode_kernel_are_faults(cs, stores, loads):
+    """The dense decode kernel keeps its K/V in flight in shared memory,
+    so that it needs few registers: a spill in any of its instances fails
+    phase 1 (the paged kernel's instances are not held to it)."""
+    faults = cs.ptxas_faults(_entry(PAGED, 8, 8)
+                             + _entry(DECODE, stores, loads))
+    assert len(faults) == 1 and faults[0].startswith(DECODE)
 
 
 @pytest.mark.parametrize("stores,loads", [(16, 0), (0, 16), (8, 8)])
@@ -93,14 +107,30 @@ def test_decode_and_mlstm_cases_reach_the_split_edges(cs):
     assert any(kw["s"] % 128 and kw["s"] > 4 * 128
                and kw["dtype"] == "bfloat16" for kw in kws)
     assert any(kw.get("fbias", 3.0) < 0 for kw in kws)
-    for _, kw in cs.DECODE_CASES + cs.MLSTM_CASES:
+    # dense decode: the long shapes (the kernels line's, and the paper's
+    # longest), qwen2.5-32b's GQA, the split edges and a window narrower
+    # than the 32-key split
+    dense = dict(cs.DENSE_DECODE_CASES)
+    long = dense[cs.LONG_DECODE]
+    assert (long["b"], long["hq"], long["hkv"], long["s"], long["d"],
+            long["dtype"], long["layout"]) == (1, 32, 32, 65536, 128,
+                                               "bfloat16", "bshd")
+    kws = list(dense.values())
+    assert any(kw["b"] == 1 and kw["s"] == 262144 for kw in kws)
+    assert any((kw["hq"], kw["hkv"]) == (40, 8) and kw["s"] == 32768
+               for kw in kws)
+    assert [kw["lens"](256) for kw in kws if callable(kw.get("lens"))] == [
+        [255, 256, 257, 1]]
+    assert any(kw.get("window") and kw["window"] < 32
+               and max(kw["lens"]) > kw["window"] for kw in kws
+               if isinstance(kw.get("lens"), list))
+    for _, kw in cs.DECODE_CASES + cs.MLSTM_CASES + cs.DENSE_DECODE_CASES:
         assert kw["dtype"] in cs.TOL
 
 
-def test_row_gate_rejects_a_dropped_split(cs):
-    """A decode "kernel" that drops the last 256-key split of a long row:
-    on a 16384-key row the absolute gate alone passes it, held_to_plain's
-    per-row gate (which phase 2 now applies to paged decode) does not."""
+def _dropped_paged_split():
+    """Paged decode that drops the last 256-key split of a 16384-key row
+    (B=2, 2 kv heads): (the kernel's output, the plain one)."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_decode.ref import paged_decode_reference
@@ -120,8 +150,47 @@ def test_row_gate_rejects_a_dropped_split(cs):
     dropped = lens.clone()
     dropped[0] -= 256
     got = paged_decode_reference(q, kp, vp, table, dropped)[:, :, 0]
+    return got, want
+
+
+def _dropped_dense_split():
+    """Dense decode at llama2-7b's long shape, B=1 with 32 query heads on
+    a 65536-key row, in which head 5 lost the first split of the card's
+    plan (8192 keys: the window below leaves them out).  One kv head
+    shared by the 32 (MQA) keeps the cache small here; the output is
+    (1, 32, 128) as in phase 2.  (the kernel's output, the plain one)"""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_decode.ops import plan_dense_splits
+    from repro_torch.kernels.flash_decode.ref import decode_reference
+    s, d = 65536, 128
+    split_keys, _ = plan_dense_splits(1, 32, 32, s, None, 132)
+    rng = np.random.default_rng(1)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).bfloat16().float()
+    k, v, q = draw(1, s, 1, d), draw(1, s, 1, d), draw(1, 32, 1, d)
+    lens = torch.tensor([s], dtype=torch.int32)
+    want = decode_reference(q, k, v, lens, layout="bshd")[:, :, 0]
+    dropped = decode_reference(q, k, v, lens, window=s - split_keys,
+                               layout="bshd")[:, :, 0]
+    got = want.clone()
+    got[:, 5] = dropped[:, 5]
+    return got, want
+
+
+@pytest.mark.parametrize("kind", ["paged", "dense"])
+def test_row_gate_rejects_a_dropped_split(cs, kind):
+    """A decode "kernel" that drops one split of a long row: the absolute
+    gate alone passes it, held_to_plain's per-row gate (which phase 2
+    applies to every (batch, head) row of both decode kernels) does
+    not."""
+    got, want = (_dropped_paged_split if kind == "paged"
+                 else _dropped_dense_split)()
+    d = want.shape[-1]
     err = (got - want).abs().max().item()
-    assert err <= cs.TOL["bfloat16"]
+    assert 0 < err <= cs.TOL["bfloat16"]
     with pytest.raises(AssertionError, match="relative"):
         cs.held_to_plain("decode", "dropped split", got.reshape(-1, d),
                          want.reshape(-1, d), "bfloat16")
@@ -138,8 +207,9 @@ def _kernels_of(source):
 
 def test_profiles_read_every_kernel_of_the_redesigned_sources(cs):
     """The profile groups of phase 6b and profile_serving.py match every
-    CUDA kernel of mlstm_chunkwise.cu and paged_decode.cu (so a kernel
-    renamed or added in a redesign is not read as 0)."""
+    CUDA kernel of mlstm_chunkwise.cu and paged_decode.cu, and phase 3c
+    every one of flash_decode.cu (so a kernel renamed or added in a
+    redesign is not read as 0)."""
     spec = importlib.util.spec_from_file_location(
         "profile_serving", ROOT / "profile_serving.py")
     ps = importlib.util.module_from_spec(spec)
@@ -156,6 +226,10 @@ def test_profiles_read_every_kernel_of_the_redesigned_sources(cs):
     for name in decode:
         key = f"void (anonymous namespace)::{name}<__nv_bfloat16, 128, 1>"
         assert ps._group(key) == "attention: paged_decode.cu"
+    # phase 3c reads the dense decode kernel's share by this name
+    dense = _kernels_of("src/repro_torch/kernels/flash_decode/csrc/"
+                        "flash_decode.cu")
+    assert dense and all("flash_decode_" in name for name in dense)
 
 
 def test_kernels_bench_needs_a_card():

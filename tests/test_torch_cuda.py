@@ -26,7 +26,7 @@ from repro_torch.kernels.fastattn.ops import (  # noqa: E402
 from repro_torch.kernels.fastattn.ref import (  # noqa: E402
     flash_reference, paged_prefill_reference)
 from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
-    flash_decode, paged_flash_decode, plan_splits)
+    flash_decode, paged_flash_decode, plan_dense_splits, plan_splits)
 from repro_torch.kernels.flash_decode.ref import \
     decode_reference  # noqa: E402
 from repro_torch.kernels.mlstm import ref as mlstm_ref  # noqa: E402
@@ -280,6 +280,108 @@ def test_cuda_flash_decode_matches_plain(cuda_device, case, layout, dtype,
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+# (b, hq, hkv, s, d, lens, window, softcap): split-KV edges of the dense
+# kernel.  lens may be a function of the launch's split_keys
+# (``plan_dense_splits`` on this card): kv_len one
+# below, at and one above a split (GQA groups of 1, 2, 5 in the 8-row
+# tile, 8), a window (its range starts mid-split), a window narrower than
+# the 32-key split, and one row over many splits
+DENSE_SPLIT_CASES = [
+    (4, 4, 4, 2048, 128, lambda sk: [sk - 1, sk, sk + 1, 1], None, None),
+    (4, 8, 4, 4096, 64, lambda sk: [2 * sk + 1, 2 * sk, 3 * sk - 1, 1],
+     None, 30.0),
+    (3, 40, 8, 3000, 128, lambda sk: [sk + 1, 3000, 1], None, None),
+    (2, 16, 2, 5000, 256, lambda sk: [5000, sk + 1], 777, None),
+    (4, 8, 2, 1024, 128, [1024, 21, 20, 1], 20, None),
+    (1, 32, 32, 20000, 128, [20000], None, None),
+]
+
+
+def _dense_inputs(rng, b, hq, hkv, s, d, layout, device, dtype):
+    shape = (b, s, hkv, d) if layout == "bshd" else (b, hkv, s, d)
+    q = _t(rng.normal(size=(b, hq, d)).astype(np.float32)).to(device, dtype)
+    k, v = (_t(rng.normal(size=shape).astype(np.float32)).to(device, dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feed", [1, 0])
+@pytest.mark.parametrize("dtype,tol,rtol", [(torch.float32, 1e-4, 1e-3),
+                                            (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+@pytest.mark.parametrize("case", DENSE_SPLIT_CASES)
+def test_cuda_flash_decode_split_edges_match_plain(cuda_device, monkeypatch,
+                                                   case, layout, dtype, tol,
+                                                   rtol, feed):
+    """Every (batch, head) row against the plain version, within the
+    absolute tolerance and within ``rtol`` of the row's own scale (a long
+    row's output is small: the absolute gate alone would pass a dropped
+    split); a row of kv_len 1 and the idle splits included.  Both K/V
+    feeds of the kernel (``DENSE_FEED``: 1 registers, 0 the cp.async
+    ring)."""
+    from repro_torch.kernels.flash_decode import ops
+    monkeypatch.setattr(ops, "DENSE_FEED", feed)
+    b, hq, hkv, s, d, lens, window, softcap = case
+    if callable(lens):
+        split_keys, _ = plan_dense_splits(
+            b, hq, hkv, s, window,
+            torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+        lens = lens(split_keys)
+    rng = np.random.default_rng(10)
+    q, k, v = _dense_inputs(rng, b, hq, hkv, s, d, layout, cuda_device,
+                            dtype)
+    kv_len = _t(np.asarray(lens, np.int32)).to(cuda_device)
+    kw = dict(window=window, softcap=softcap, layout=layout)
+    before = flash_decode.launches
+    got = flash_decode(q, k, v, kv_len, **kw)
+    assert flash_decode.launches == before + 1
+    want = decode_reference(q[:, :, None], k, v, kv_len, **kw)[:, :, 0]
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    diff = (got.float() - want.float()).abs().reshape(-1, d).amax(1)
+    scale = want.float().abs().reshape(-1, d).amax(1)
+    assert bool((diff <= rtol * scale).all()), (diff / scale).max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_dense_and_paged_decode_share_the_split_workspace(cuda_device):
+    """Dense and paged split-KV launches back to back on one stream share
+    the per-device ``split_workspace``: each launch's merging CTAs reset
+    their counters, so every launch finds them at 0 and stays right, and
+    they are all 0 once the stream is done."""
+    from repro_torch.kernels.flash_decode.ops import split_workspace
+    rng = np.random.default_rng(13)
+    dt = torch.bfloat16
+    q, k, v = _dense_inputs(rng, 2, 8, 2, 3000, 128, "bshd", cuda_device, dt)
+    dense_len = _t(np.asarray([3000, 1500], np.int32)).to(cuda_device)
+    num_pages = 2 * 64 + 3
+    kp, vp = (_t(a).to(cuda_device, dt)
+              for a in _pools(rng, 2, num_pages, 16, 128))
+    table = _t(_table(rng, 2, 64, num_pages)).to(cuda_device)
+    paged_len = _t(np.asarray([1024, 700], np.int32)).to(cuda_device)
+    pq = _t(rng.normal(size=(2, 8, 128)).astype(np.float32)).to(cuda_device,
+                                                                 dt)
+    want_d = decode_reference(q[:, :, None], k, v, dense_len,
+                              layout="bshd")[:, :, 0]
+    want_p = fast_attention_decode(pq[:, None], kp, vp, paged_len,
+                                   page_table=table,
+                                   impl="paged_reference")[:, 0]
+    outs = []
+    for _ in range(3):
+        outs.append((flash_decode(q, k, v, dense_len, layout="bshd"),
+                     paged_flash_decode(pq, kp, vp, table, paged_len)))
+    torch.cuda.synchronize()
+    _, counters = split_workspace(q.device, 0, 0)
+    assert torch.count_nonzero(counters) == 0
+    for got_d, got_p in outs:
+        torch.testing.assert_close(got_d.float(), want_d.float(), rtol=0,
+                                   atol=2e-2)
+        torch.testing.assert_close(got_p.float(), want_p.float(), rtol=0,
+                                   atol=2e-2)
 
 
 @pytest.mark.cuda
