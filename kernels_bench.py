@@ -16,7 +16,7 @@ JSON line each:
 * ``device_ms``: 20 launches queued behind a spin kernel
   (``torch.cuda._sleep``), events around the run: the card's time alone;
 * ``host_us``: the host's time a call while the card is still busy (the
-  least of 5 runs of 100 calls);
+  least of 20 runs of 100 calls: the host's noise only adds);
 * for the mLSTM, each CUDA kernel's device time a call (torch.profiler).
 
 Cases: paged decode at llama2-7b's serving shape (B=8, H=32/32, D=128,
@@ -24,14 +24,14 @@ page 128, 16 pages a row, kv_len drawn as ``chip_smoke.py`` draws it) and
 gemma2-2b's (B=8, H=8/4, D=256, window 256, softcap 50); dense decode
 (``flash_decode``, "bshd" caches, bf16) at phase 3b's shape (llama2-7b
 B=8, 161-token caches, kv_len 159), llama2-7b at B=1 on a 65536-token
-cache and qwen2.5-32b's GQA 40/8 at B=2 on 32768 tokens; the mLSTM at
+cache, qwen2.5-32b's GQA 40/8 at B=2 on 32768 tokens and llama2-7b at
+B=8 on ragged 4096-token caches; the mLSTM at
 xlstm-125m's training shape (B=8, H=4, S=2048, dk=dv=384, bf16, the
 model's (B, S, H, D) layout).  ``--parent DIR`` runs DIR's kernels and
 this tree's in turns (parent, this, this, parent) in one call.
 ``--sweep`` times this tree's paged decode at several ``CTAS_PER_SM``
 of the split planner, and its ``flash_decode`` at several
-``DENSE_CTAS_PER_SM`` with each of its two K/V feeds (``DENSE_FEED``: the
-register double buffer, the shared-memory ring).
+``DENSE_CTAS_PER_SM``.
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402  (this tree's timing helpers)
 
 
-def host_us(fn, reps: int = 100, runs: int = 5) -> float:
+def host_us(fn, reps: int = 100, runs: int = 20) -> float:
     """The host's time a call, the least of ``runs`` runs of ``reps``
     calls (the host's noise only adds)."""
     import torch
@@ -94,14 +94,15 @@ DECODE = [("paged_decode llama2-7b B=8 H=32/32 D=128 ps=128",
 
 def dense_inputs(b, hq, hkv, s, kv_len, seed, d=128):
     """q (B, Hq, D) and "bshd" caches (B, S, Hkv, D), N(0, 1) in bf16, and
-    kv_len (B,) = ``kv_len`` for every row."""
+    kv_len (B,): ``kv_len`` for every row, or a list of B lengths."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     k, v = (torch.randn((b, s, hkv, d), generator=gen,
                         device="cuda").bfloat16() for _ in range(2))
     q = torch.randn((b, hq, d), generator=gen, device="cuda").bfloat16()
-    lens = torch.full((b,), kv_len, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(kv_len if isinstance(kv_len, list) else [kv_len] * b,
+                        dtype=torch.int32, device="cuda")
     return q, k, v, lens
 
 
@@ -110,7 +111,12 @@ DENSE = [("flash_decode phase 3b llama2-7b B=8 H=32/32 S=161 kv_len=159",
          ("flash_decode llama2-7b B=1 H=32/32 S=65536",
           dict(b=1, hq=32, hkv=32, s=65536, kv_len=65536, seed=1)),
          ("flash_decode qwen2.5-32b B=2 H=40/8 S=32768",
-          dict(b=2, hq=40, hkv=8, s=32768, kv_len=32768, seed=2))]
+          dict(b=2, hq=40, hkv=8, s=32768, kv_len=32768, seed=2)),
+         # chip_smoke.py's ragged B=8 case: rows that fill the card by
+         # count and are long, which the shape-only plan does not split
+         ("flash_decode llama2-7b B=8 H=32/32 S=4096 ragged",
+          dict(b=8, hq=32, hkv=32, s=4096, seed=3,
+               kv_len=[4096, 2609, 2094, 1106, 1261, 168, 309, 1]))]
 
 
 def child(tree: Path, sweep: bool) -> None:
@@ -143,7 +149,7 @@ def child(tree: Path, sweep: bool) -> None:
              host_us=host_us(fn))
         del args
     if sweep:
-        planned = dops.CTAS_PER_SM, dops.DENSE_CTAS_PER_SM, dops.DENSE_FEED
+        planned = dops.CTAS_PER_SM, dops.DENSE_CTAS_PER_SM
         for ctas in (4, 8, 16, 32, 64):
             dops.CTAS_PER_SM = ctas
             dops.plan_splits.cache_clear()
@@ -158,19 +164,16 @@ def child(tree: Path, sweep: bool) -> None:
         for ctas in (1, 1.5, 1.75, 1.9, 2, 3, 4, 8):
             dops.DENSE_CTAS_PER_SM = ctas
             dops.plan_dense_splits.cache_clear()
-            for feed in (1, 0):
-                dops.DENSE_FEED = feed
-                for name, shape in DENSE:
-                    args = dense_inputs(**shape)
-                    split = dops.plan_dense_splits(
-                        shape["b"], shape["hq"], shape["hkv"], shape["s"],
-                        None, sms)
-                    emit(case=name, dense_ctas_per_sm=ctas,
-                         split=list(split), feed=("ring", "registers")[feed],
-                         device_ms=cs.device_ms(
-                             lambda: dops.flash_decode(*args, layout="bshd")))
-                    del args
-        dops.CTAS_PER_SM, dops.DENSE_CTAS_PER_SM, dops.DENSE_FEED = planned
+            for name, shape in DENSE:
+                args = dense_inputs(**shape)
+                split = dops.plan_dense_splits(
+                    shape["b"], shape["hq"], shape["hkv"], shape["s"], None,
+                    sms)
+                emit(case=name, dense_ctas_per_sm=ctas, split=list(split),
+                     device_ms=cs.device_ms(
+                         lambda: dops.flash_decode(*args, layout="bshd")))
+                del args
+        dops.CTAS_PER_SM, dops.DENSE_CTAS_PER_SM = planned
         dops.plan_splits.cache_clear()
         dops.plan_dense_splits.cache_clear()
 

@@ -42,20 +42,16 @@
 //    (`group_sums`: 16 shuffles a key for 8 rows where reducing each row
 //    alone takes 32); U keys a group are folded into its online softmax
 //    with one rescale, V converted one key at a time;
-//  * bytes in flight: two feeds, chosen by the wrapper (`feed`).  The
-//    "registers" feed (the default) loads the next U keys of a group
-//    into a register double buffer while the current U are folded: 16 KB
-//    of K/V in flight a CTA, about two CTAs an SM (the plan), one wave.
-//    The "ring" feed copies each thread's own 16-byte words of the next
-//    STAGES - 1 steps with `cp.async.cg` (L2 only; src-size 0 zero-fills
-//    a key past the split) into a 4-slot ring of 8 KB shared-memory stages
-//    and reads a step back when it folds it; a thread reads only the words
-//    it copied itself, so its own `cp.async.wait_group` orders copy before
-//    read (no mbarrier, no CTA barrier in the loop).  It keeps more bytes
-//    in flight for fewer registers, yet was slower at every shape
-//    `kernels_bench.py --sweep` times on the H100 (PERF.md);
-//  * the groups' partial (m, l, acc) merge through shared memory (the
-//    ring's bytes, once the loop is done) and divide by l there.
+//  * bytes in flight from registers: a group's next U keys are loaded
+//    into a register double buffer while its current U are folded, ~16 KB
+//    of K/V in flight a CTA; the plan aims just under two CTAs an SM (the
+//    ~32 KB an SM the card needs) and keeps the grid in one wave of
+//    resident CTAs.  A shared-memory ring (each thread `cp.async`-copying
+//    its own words of the next steps, four 8 KB stages) kept more bytes in
+//    flight for fewer registers and was slower at every shape measured on
+//    the H100 (PERF.md);
+//  * the groups' partial (m, l, acc) merge through shared memory and
+//    divide by l there.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,53 +63,11 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int NUM_THREADS = 128;
 constexpr int VEC = 8;               // elements of a row per thread
-constexpr int STAGES = 4;            // ring slots
-constexpr int STAGE_BYTES = 8192;    // K and V of one step of keys
 
 // 16-byte words of a thread's VEC elements: 1 (bf16) or 2 (float32)
 template <typename T>
 __host__ __device__ constexpr int words() {
   return (int)sizeof(T) * VEC / 16;
-}
-
-// keys a thread group folds a step: a ring stage holds NUM_THREADS threads'
-// K and V words of them (2 bf16, 1 float32); the register feed holds
-// paged_decode.cu's 4 (bf16, G < 8) or 2
-template <typename T, int G, bool RING>
-__host__ __device__ constexpr int keys_a_step() {
-  return RING ? STAGE_BYTES / (NUM_THREADS * 2 * 16 * words<T>())
-              : (words<T>() == 1 && G < 8 ? 4 : 2);
-}
-
-// dynamic shared memory: the ring, and the groups' (m, l, acc) after it
-template <typename T, int D, int G, bool RING>
-constexpr size_t smem_bytes() {
-  constexpr size_t merge =
-      (size_t)(NUM_THREADS / (D / VEC)) * G * (D + 2) * sizeof(float);
-  constexpr size_t ring = RING ? (size_t)STAGES * STAGE_BYTES : 0;
-  return ring > merge ? ring : merge;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; `valid` false zero-fills and reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N of this thread's committed copy groups are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <int W>
@@ -152,7 +106,8 @@ __device__ __forceinline__ void group_sums(float (&v)[G]) {
   constexpr unsigned FULL = 0xffffffffu;
   if constexpr (G == 1) {
 #pragma unroll
-    for (int o = TG / 2; o > 0; o >>= 1) v[0] += __shfl_xor_sync(FULL, v[0], o);
+    for (int o = TG / 2; o > 0; o >>= 1)
+      v[0] += __shfl_xor_sync(FULL, v[0], o);
   } else {
     static_assert(G <= TG, "a lane must end with at most one row");
     const int li = threadIdx.x % TG;
@@ -199,18 +154,21 @@ struct Args {
 };
 
 // grid: (B, Hkv * ceil(g / G), n_split); block: NUM_THREADS.
-template <typename T, int D, int G, bool RING>
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(NUM_THREADS)
 flash_decode_kernel(const Args a) {
   constexpr int TG = D / VEC;            // threads per key row
   constexpr int NG = NUM_THREADS / TG;   // thread groups per CTA
   constexpr int W = words<T>();
-  constexpr int U = keys_a_step<T, G, RING>();
-  constexpr int KPS = NG * U;            // keys a step (a ring stage)
-  constexpr int ROW = D * (int)sizeof(T);
+  // keys of a group a step: 4 for bf16, 2 for f32 and 8-row tiles (their
+  // registers hold 8 query rows)
+  constexpr int U = W == 1 && G < 8 ? 4 : 2;
+  constexpr int KPS = NG * U;            // keys a step
   static_assert(TG <= 32 && 32 % TG == 0, "a group must sit in one warp");
-  static_assert(!RING || 2 * KPS * ROW == STAGE_BYTES, "stage size");
-  extern __shared__ __align__(16) unsigned char smem[];
+
+  __shared__ float sm_m[NG][G];
+  __shared__ float sm_l[NG][G];
+  __shared__ float sm_acc[NG][G][D];
 
   const int b = blockIdx.x;
   const int g = a.hq / a.hkv;
@@ -321,89 +279,41 @@ flash_decode_kernel(const Args a) {
     }
   };
 
+  auto fetch = [&](int t, uint4 (&kr)[U][W], uint4 (&vr)[U][W]) {
+    const int first = s0 + t * KPS + gi * U;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t off =
+          (int64_t)(first + u < s1 ? first + u : s0) * a.stride_s;
+      load_raw(kp + off, kr[u]);
+      load_raw(vp + off, vr[u]);
+    }
+  };
+
   // uniform trip count for the whole CTA: the in-group shuffles need
   // every lane of the warp present
-  uint4 kc[U][W], vc[U][W];
-  if constexpr (RING) {
-    // this thread's words of key u of its group in slot s: K at
-    // s * STAGE_BYTES + (gi * U + u) * ROW + 16 * li * W, V KPS rows on
-    const int own = gi * U * ROW + d0 * (int)sizeof(T);
-    const uint32_t ring = smem_u32(smem) + own;
-    auto issue = [&](int t) {
-      const uint32_t dst = ring + (t % STAGES) * STAGE_BYTES;
-      const int first = s0 + t * KPS + gi * U;
+  uint4 kc[U][W], vc[U][W], kn[U][W], vn[U][W];
+  fetch(0, kc, vc);
+  for (int t = 0; t < n_steps; ++t) {
+    if (t + 1 < n_steps) fetch(t + 1, kn, vn);
+    fold(t, kc, vc);
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const bool ok = first + u < s1;
-        const int64_t off = (int64_t)(ok ? first + u : s0) * a.stride_s;
+    for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          cp_async16(dst + u * ROW + 16 * w, kp + off + w * 16 / sizeof(T),
-                     ok);
-          cp_async16(dst + (KPS + u) * ROW + 16 * w,
-                     vp + off + w * 16 / sizeof(T), ok);
-        }
+      for (int w = 0; w < W; ++w) {
+        kc[u][w] = kn[u][w];
+        vc[u][w] = vn[u][w];
       }
-    };
-#pragma unroll
-    for (int t = 0; t < STAGES - 1; ++t) {
-      if (t < n_steps) issue(t);
-      cp_async_commit();
-    }
-    for (int t = 0; t < n_steps; ++t) {
-      cp_async_wait<STAGES - 2>();       // step t has landed
-      const unsigned char* src = smem + own + (t % STAGES) * STAGE_BYTES;
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          kc[u][w] = reinterpret_cast<const uint4*>(src + u * ROW)[w];
-          vc[u][w] = reinterpret_cast<const uint4*>(src + (KPS + u) * ROW)[w];
-        }
-      // into the slot step t - 1 used: this thread read it last iteration
-      if (t + STAGES - 1 < n_steps) issue(t + STAGES - 1);
-      cp_async_commit();
-      fold(t, kc, vc);
-    }
-    cp_async_wait<0>();
-  } else {
-    auto fetch = [&](int t, uint4 (&kr)[U][W], uint4 (&vr)[U][W]) {
-      const int first = s0 + t * KPS + gi * U;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int64_t off =
-            (int64_t)(first + u < s1 ? first + u : s0) * a.stride_s;
-        load_raw(kp + off, kr[u]);
-        load_raw(vp + off, vr[u]);
-      }
-    };
-    uint4 kn[U][W], vn[U][W];
-    fetch(0, kc, vc);
-    for (int t = 0; t < n_steps; ++t) {
-      if (t + 1 < n_steps) fetch(t + 1, kn, vn);
-      fold(t, kc, vc);
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          kc[u][w] = kn[u][w];
-          vc[u][w] = vn[u][w];
-        }
-    }
   }
-  __syncthreads();                       // every thread is done with the ring
 
-  float* const sm_m = reinterpret_cast<float*>(smem);   // [NG][G]
-  float* const sm_l = sm_m + NG * G;                    // [NG][G]
-  float* const sm_acc = sm_l + NG * G;                  // [NG][G][D]
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     if (li == 0) {
-      sm_m[gi * G + r] = m[r];
-      sm_l[gi * G + r] = l[r];
+      sm_m[gi][r] = m[r];
+      sm_l[gi][r] = l[r];
     }
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) sm_acc[(gi * G + r) * D + d0 + e] = acc[r][e];
+    for (int e = 0; e < VEC; ++e) sm_acc[gi][r][d0 + e] = acc[r][e];
   }
   __syncthreads();
 
@@ -414,13 +324,13 @@ flash_decode_kernel(const Args a) {
     const int d = idx % D;
     float mx = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < NG; ++j) mx = fmaxf(mx, sm_m[j * G + r]);
+    for (int j = 0; j < NG; ++j) mx = fmaxf(mx, sm_m[j][r]);
     float lsum = 0.f, x = 0.f;
 #pragma unroll
     for (int j = 0; j < NG; ++j) {
-      const float w = expf(sm_m[j * G + r] - mx);
-      lsum += sm_l[j * G + r] * w;
-      x += sm_acc[(j * G + r) * D + d] * w;
+      const float w = expf(sm_m[j][r] - mx);
+      lsum += sm_l[j][r] * w;
+      x += sm_acc[j][r][d] * w;
     }
     if (n_active == 1) {
       decode_split::store_out(out + (size_t)(row0 + r) * D + d,
@@ -442,44 +352,36 @@ flash_decode_kernel(const Args a) {
                              out, counter);
 }
 
-template <typename T, int D, int G, bool RING>
+template <typename T, int D, int G>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   const int g = a.hq / a.hkv;
   const dim3 grid(B, a.hkv * ((g + G - 1) / G), a.n_split);
-  flash_decode_kernel<T, D, G, RING>
-      <<<grid, NUM_THREADS, smem_bytes<T, D, G, RING>(), stream>>>(a);
+  flash_decode_kernel<T, D, G><<<grid, NUM_THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool RING>
+// G: query rows a CTA (the wrapper's `rows_per_cta` mirrors this)
+template <typename T, int D>
 cudaError_t dispatch_g(const Args& a, int B, cudaStream_t stream) {
   const int g = a.hq / a.hkv;
-  if (g == 1) return launch<T, D, 1, RING>(a, B, stream);
-  if (g == 2) return launch<T, D, 2, RING>(a, B, stream);
-  if (g <= 4) return launch<T, D, 4, RING>(a, B, stream);
-  return launch<T, D, 8, RING>(a, B, stream);
-}
-
-template <typename T, bool RING>
-cudaError_t dispatch_d(int d, const Args& a, int B, cudaStream_t stream) {
-  switch (d) {
-    case 64:
-      return dispatch_g<T, 64, RING>(a, B, stream);
-    case 128:
-      return dispatch_g<T, 128, RING>(a, B, stream);
-    case 256:
-      return dispatch_g<T, 256, RING>(a, B, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (g == 1) return launch<T, D, 1>(a, B, stream);
+  if (g == 2) return launch<T, D, 2>(a, B, stream);
+  if (g <= 4) return launch<T, D, 4>(a, B, stream);
+  return launch<T, D, 8>(a, B, stream);
 }
 
 template <typename T>
-cudaError_t dispatch_feed(int feed, int d, const Args& a, int B,
-                          cudaStream_t stream) {
-  if (feed == 0) return dispatch_d<T, true>(d, a, B, stream);
-  if (feed == 1) return dispatch_d<T, false>(d, a, B, stream);
-  return cudaErrorInvalidValue;
+cudaError_t dispatch_d(int d, const Args& a, int B, cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return dispatch_g<T, 64>(a, B, stream);
+    case 128:
+      return dispatch_g<T, 128>(a, B, stream);
+    case 256:
+      return dispatch_g<T, 256>(a, B, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -491,8 +393,7 @@ cudaError_t dispatch_feed(int feed, int d, const Args& a, int B,
 // "none".  Split-KV: split_keys keys a CTA; n_split = ceil(span /
 // split_keys), span = s_max, or the window where it is smaller.
 // partials: at least B * Hq * n_split * (D + 2) floats; counters: at least
-// B * Hq int32, all 0 (each launch leaves them 0).  feed 0 = the
-// shared-memory ring, 1 = the register double buffer.  Launches on
+// B * Hq int32, all 0 (each launch leaves them 0).  Launches on
 // `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int flash_decode(const void* q, const void* k_cache,
                             const void* v_cache, const void* kv_len,
@@ -500,7 +401,7 @@ extern "C" int flash_decode(const void* q, const void* k_cache,
                             int hq, int hkv, int s_max, int d,
                             long long stride_b, long long stride_s,
                             long long stride_h, int window, int split_keys,
-                            float softcap, float scale, int feed, int dtype,
+                            float softcap, float scale, int dtype,
                             void* stream) {
   if (B <= 0 || hkv <= 0 || hq % hkv != 0 || s_max <= 0 || split_keys <= 0)
     return (int)cudaErrorInvalidValue;
@@ -512,7 +413,7 @@ extern "C" int flash_decode(const void* q, const void* k_cache,
                hq, hkv, s_max, stride_b, stride_s, stride_h, window,
                split_keys, n_split, softcap, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_feed<float>(feed, d, a, B, s);
-  if (dtype == 1) return (int)dispatch_feed<__nv_bfloat16>(feed, d, a, B, s);
+  if (dtype == 0) return (int)dispatch_d<float>(d, a, B, s);
+  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(d, a, B, s);
   return (int)cudaErrorInvalidValue;
 }

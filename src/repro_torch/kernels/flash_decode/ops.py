@@ -33,12 +33,7 @@ _DENSE_ARGTYPES = (L.P, L.P, L.P, L.P, L.P,     # q k v kv_len out
                    L.I, L.I, L.I, L.I, L.I,     # B hq hkv s_max d
                    L.L, L.L, L.L,               # stride b, s, h
                    L.I, L.I, L.F, L.F,          # window split_keys cap scale
-                   L.I, L.I, L.P)               # feed dtype stream
-# how flash_decode.cu feeds K/V to its thread groups: 0 = a shared-memory
-# ring of cp.async stages, 1 = a register double buffer, 5-11% faster at
-# llama2-7b's B=1, S=65536 on the H100 (``kernels_bench.py --sweep`` times
-# both)
-DENSE_FEED = 1
+                   L.I, L.P)                    # dtype stream
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -54,10 +49,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     The kernel reads either layout in place through the caches' strides
     (batch, token, head); their head dim must be contiguous.  It splits
     each row's keys over CTAs as ``paged_flash_decode`` does
-    (``plan_splits`` with the cache width S as the span, one key a
-    "page") and merges the splits in the same launch through the shared
-    ``split_workspace``.  The JAX kernel's ``block_kv`` has no
-    counterpart."""
+    (``plan_dense_splits``: the cache width S as the span) and merges the
+    splits in the same launch through the shared ``split_workspace``.
+    The JAX kernel's ``block_kv`` has no counterpart."""
     if layout not in LAYOUTS:
         raise ValueError(f"flash_decode: unknown cache layout {layout!r}")
     b, hq, d = q.shape
@@ -99,8 +93,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
         b, hq, hkv, s_max, d, sb, ss, sh, L.opt_int(window), split_keys,
-        L.opt_float(softcap), float(scale), DENSE_FEED, code,
-        L.stream_ptr(q.device))
+        L.opt_float(softcap), float(scale), code, L.stream_ptr(q.device))
     L.check_status("flash_decode", status)
     flash_decode.launches += 1
     return out

@@ -308,22 +308,16 @@ def _dense_inputs(rng, b, hq, hkv, s, d, layout, device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("feed", [1, 0])
 @pytest.mark.parametrize("dtype,tol,rtol", [(torch.float32, 1e-4, 1e-3),
                                             (torch.bfloat16, 2e-2, 1e-2)])
 @pytest.mark.parametrize("layout", ["bshd", "bhsd"])
 @pytest.mark.parametrize("case", DENSE_SPLIT_CASES)
-def test_cuda_flash_decode_split_edges_match_plain(cuda_device, monkeypatch,
-                                                   case, layout, dtype, tol,
-                                                   rtol, feed):
+def test_cuda_flash_decode_split_edges_match_plain(cuda_device, case, layout,
+                                                   dtype, tol, rtol):
     """Every (batch, head) row against the plain version, within the
     absolute tolerance and within ``rtol`` of the row's own scale (a long
     row's output is small: the absolute gate alone would pass a dropped
-    split); a row of kv_len 1 and the idle splits included.  Both K/V
-    feeds of the kernel (``DENSE_FEED``: 1 registers, 0 the cp.async
-    ring)."""
-    from repro_torch.kernels.flash_decode import ops
-    monkeypatch.setattr(ops, "DENSE_FEED", feed)
+    split); a row of kv_len 1 and the idle splits included."""
     b, hq, hkv, s, d, lens, window, softcap = case
     if callable(lens):
         split_keys, _ = plan_dense_splits(
