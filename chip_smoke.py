@@ -18,7 +18,10 @@ which raises on failure (the script then exits non-zero):
    checks also hold each output row's error to that row's scale): the
    paged kernels at the shapes of llama2-7b's and gemma2-2b's serving
    path and at page size 16 in float32, qwen2.5-32b's GQA 40/8 at page
-   size 16 in bf16 (ragged chunks, a padded row), and paged decode at its
+   size 16 in bf16 (ragged chunks, a padded row), paged prefill at the
+   speculative verify shape (``VERIFY_CASE``: B=8 rows of a 5-token chunk
+   at pos_start 37-1900 of a 2048-token table, n_valid 5 down to 0), and
+   paged decode at its
    split-KV edges (``DECODE_CASES``: kv_len one below, at and one above a
    split, a window narrower than the table, 4096 keys in one sequence,
    only idle rows); ``fastattn_fwd`` at llama2-7b's training shape, a
@@ -67,6 +70,30 @@ which raises on failure (the script then exits non-zero):
    path, logits within the phase 3 tolerance; the step's wall time
    (median of 10), its device time and ``flash_decode``'s share of it
    (one profiled step).
+3d. The rest of the paged engine, on phase 3's model after 3c freed its
+   cache (``phase_features``), each run against the same traffic with
+   the feature off (the reference run records the top-1 margin of every
+   token it takes; tokens must be equal up to the first position whose
+   margin is under the phase 3 tolerance), with both paged kernels'
+   launch counts set to 0 just before each run and read just after it,
+   and no page or host stash left behind: (a) the prefix cache, 8
+   requests of one 1024-token system prompt plus 64-448 tokens in two
+   waves, 32 new each: prefix hits, and the warm wave prefilling at least
+   the system prompt fewer tokens a request; (b) a pool at 60% of the
+   worst-case demand of 8 requests of 1200-1800 tokens with 128 new each,
+   the host stash capped at 48 pages, under preempt_policy swap,
+   recompute and auto: preemptions in each, swap bytes in == out; (c)
+   speculation (4 drafted tokens) on 8 tiled-motif prompts of 256 tokens,
+   64 new each: verify launches and drafted tokens, the first verify
+   launch (and the first with every slot in it) held to the same launch
+   through the plain attention path, and paged_prefill's launches beyond
+   the prefill's exactly one a layer a verify launch; (d) (a)+(b)+(c)
+   together with every fault site armed once (``FAULT_CALLS``): every
+   failed request names a fault of the injector's log, every fault at a
+   request's site failed one, the survivors' and the fault-free run's
+   tokens equal the all-off run's, and the fault-free run fails nothing;
+   (e) one 128-token prompt through the scan prefill oracle (a decode
+   step a prompt token, no prefill launch) against the chunked prefill.
 4. Training: with phase 3's model freed, the trainer's own functions
    (``init_train_state``, ``make_train_step``, ``TokenPipeline``,
    ``CheckpointManager``, as ``repro_torch.launch.train`` calls them) take
@@ -113,7 +140,9 @@ which raises on failure (the script then exits non-zero):
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
 ``flash_decode`` also ``long_*``: phase 2's B=1, S=65536 case and phase
-3c's step); the last line is ``{"ok": true, "device": {...}}``.
+3c's step; ``paged_prefill`` also ``verify_*``: phase 2's VERIFY_CASE,
+with its launches in phase 3d (c)); the last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -794,6 +823,15 @@ PREFILL_CASES = [
      dict(hq=40, hkv=8, d=128, ps=16, n_kv=68, chunk=512, dtype="bfloat16",
           starts=[0, 512, 1000, 0], nvalid=[512, 301, 77, 0], seed=3)),
 ]
+# the speculative verify launch's shape (phase 3d (c)): one row a running
+# slot, K+1 = 5 query rows deep in a 2048-token cache, a different n_valid
+# a row (59 or more rows of each 64-row tile are padding), one padded row
+VERIFY_CASE = "llama2-7b verify B=8 chunk=5 H=32/32 D=128 bf16 ps=128"
+PREFILL_CASES.append(
+    (VERIFY_CASE,
+     dict(hq=32, hkv=32, d=128, ps=128, n_kv=16, chunk=5, dtype="bfloat16",
+          starts=[37, 300, 811, 1024, 1500, 1777, 1900, 0],
+          nvalid=[5, 5, 4, 3, 2, 1, 1, 0], seed=4)))
 
 
 # phase 2's paged decode cases, (name, arguments): the first is the main
@@ -891,14 +929,16 @@ def phase_kernels() -> dict:
     numbers of each kernel."""
     fwd = [fwd_case(name, **kw) for name, kw in FWD_CASES][0]
     dec = [decode_case(name, **kw) for name, kw in DECODE_CASES][0]
-    pre = [prefill_case(name, **kw) for name, kw in PREFILL_CASES][0]
+    pres = {name: prefill_case(name, **kw) for name, kw in PREFILL_CASES}
+    pre = pres[PREFILL_CASES[0][0]]
     dense = {name: dense_decode_case(name, **kw)
              for name, kw in DENSE_DECODE_CASES}
     mls = [mlstm_case(name, **kw) for name, kw in MLSTM_CASES][0]
     # flash_decode's numbers for the kernels line are taken at the main
     # path's own shape, in phase 3b; its long_* keys at LONG_DECODE
     return {"paged_decode": dec, "paged_prefill": pre, "fastattn_fwd": fwd,
-            "mlstm_chunkwise": mls, "flash_decode_long": dense[LONG_DECODE]}
+            "mlstm_chunkwise": mls, "flash_decode_long": dense[LONG_DECODE],
+            "paged_prefill_verify": pres[VERIFY_CASE]}
 
 
 # ---------------------------------------------------------------------------
@@ -969,7 +1009,8 @@ def phase_serving(model, params, n_requests: int = 12,
         raise AssertionError(f"a kernel never launched: {launches}")
     if stats["pages_used"] != 0:
         raise AssertionError(f"{stats['pages_used']} pages leaked")
-    pre_s, dec_s = core.device_seconds()
+    dev = core.device_seconds()
+    pre_s, dec_s = dev["prefill"], dev["decode"]
     n_prompt = int(lens.sum())
     n_decode = n_requests * (new_tokens - 1)
     out = {"requests": n_requests, "prompt_tokens": n_prompt,
@@ -1009,13 +1050,16 @@ def _make_timed_core():
     from repro_torch.serving.core import EngineCore
 
     class TimedCore(EngineCore):
-        """EngineCore that brackets every prefill and decode launch with
-        CUDA events, so their device time is read without extra
-        synchronisation on the serving path."""
+        """EngineCore that brackets every prefill, decode, verify and scan
+        launch with CUDA events, so their device time is read without
+        extra synchronisation on the serving path, and counts the prefill
+        kernel's launches made by verify launches."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            self._ev = {"prefill": [], "decode": []}
+            self._ev = {"prefill": [], "decode": [], "verify": [],
+                        "scan": []}
+            self.verify_kernel_launches = 0
 
         def _timed(self, kind, fn, *args):
             import torch
@@ -1033,11 +1077,23 @@ def _make_timed_core():
         def _decode(self, *args):
             return self._timed("decode", super()._decode, *args)
 
-        def device_seconds(self):
+        def _verify(self, *args):
+            from repro_torch.kernels.fastattn.ops import \
+                fastattn_paged_prefill
+            before = fastattn_paged_prefill.launches
+            out = self._timed("verify", super()._verify, *args)
+            self.verify_kernel_launches += (fastattn_paged_prefill.launches
+                                            - before)
+            return out
+
+        def _scan(self, *args):
+            return self._timed("scan", super()._scan, *args)
+
+        def device_seconds(self) -> dict:
             import torch
             torch.cuda.synchronize()
-            return tuple(sum(s.elapsed_time(e) for s, e in self._ev[k]) / 1e3
-                         for k in ("prefill", "decode"))
+            return {k: sum(s.elapsed_time(e) for s, e in ev) / 1e3
+                    for k, ev in self._ev.items()}
 
     return TimedCore
 
@@ -1120,7 +1176,7 @@ def _compare_logits(what, got, ref) -> None:
     same = torch.argmax(got, -1) == torch.argmax(ref, -1)
     if bool((clear & ~same).any()):
         raise AssertionError(f"{what}: greedy tokens differ")
-    log(f"[dense] {what}: max_abs_err {err:.4f} (tol {tol:.4f}), greedy "
+    log(f"{what}: max_abs_err {err:.4f} (tol {tol:.4f}), greedy "
         f"tokens equal in {int(clear.sum())} rows with a clear margin")
 
 
@@ -1260,7 +1316,8 @@ def phase_dense(model, params) -> dict:
             res[impl], _ = model.decode_step(params, toks[:, pos], cache,
                                              pos, impl=impl)
         if pos in DENSE_CHECK_POS:
-            _compare_logits(f"decode_step pos {pos}, kernel vs plain",
+            _compare_logits(f"[dense] decode_step pos {pos}, kernel vs "
+                            "plain",
                             res["kernel"], res["reference"])
     del caches
     tok_s = engine.throughput_tokens_per_s(b, s, n_new=8)
@@ -1332,8 +1389,8 @@ def phase_long_decode(model, params, kv_rms) -> dict:
         raise AssertionError(f"flash_decode launched {launches} times, "
                              f"expected {cfg.num_layers}")
     ref = step("reference")
-    _compare_logits(f"long decode step kv_len {LONG_KV}, kernel vs plain",
-                    got, ref)
+    _compare_logits(f"[long] decode step kv_len {LONG_KV}, kernel "
+                    "vs plain", got, ref)
     wall_ms, _ = _wall_ms(lambda: step("kernel"))
     plain_ms, _ = _wall_ms(lambda: step("reference"), reps=3)
     kernels, dev_s = _profile_kernels(lambda: step("kernel"))
@@ -1371,6 +1428,495 @@ def phase_long_decode(model, params, kv_rms) -> dict:
         log(f"[long]   {ms:9.3f} ms  {grp}")
     log("[long] " + json.dumps(res))
     del cache
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the rest of the paged engine on llama2-7b
+# ---------------------------------------------------------------------------
+
+FEATURE_SERVE = dict(max_batch=8, max_seq_len=2048, page_size=128,
+                     prefill_chunk=512)
+SYSTEM_LEN = 1024           # (a), (d): a shared system prompt of 8 pages
+PRESSURE_FRAC = 0.6         # (b): the pool over the worst-case demand
+HOST_POOL_PAGES = 48        # (b): 3.2 GB of pinned host stash at most
+# (d): the one call of each fault site that fails
+FAULT_CALLS = {"page_alloc": 7, "swap_d2h": 1, "swap_h2d": 1,
+               "cow_copy": 1, "prefill_launch": 3, "decode_launch": 5,
+               "sample": 9, "spec_verify": 2}
+# (d): the sites whose fault always fails the request it hit (a
+# page_alloc fault may instead unwind an admission, which retries)
+FAILING_SITES = ("cow_copy", "sample")
+
+
+def _motif(rng, vocab, n, period=5):
+    import numpy as np
+    motif = rng.integers(1, vocab, size=period).tolist()
+    return np.array((motif * (n // period + 1))[:n], np.int32)
+
+
+def feature_traffic(vocab: int) -> dict:
+    """Phase 3d's traffic, ``{run: [wave of (request id, prompt,
+    max_new_tokens)]}``, from numpy seeds alone."""
+    import numpy as np
+    rng = np.random.default_rng(31)
+    system = rng.integers(0, vocab, size=SYSTEM_LEN)
+    tails = rng.integers(64, 449, size=8)
+    prefix = [[(i, np.concatenate([system, rng.integers(
+        0, vocab, size=int(tails[i]))]), 32) for i in range(w, w + 4)]
+        for w in (0, 4)]
+    rng = np.random.default_rng(32)
+    pressure = [[(i, rng.integers(0, vocab, size=int(n)), 128)
+                 for i, n in enumerate(rng.integers(1200, 1801, size=8))]]
+    rng = np.random.default_rng(33)
+    spec = [[(i, _motif(rng, vocab, 256), 64) for i in range(8)]]
+    # (d): motif tails on the system prompt; the second wave also serves
+    # the system prompt alone -- fully cached and page-aligned, so its
+    # last token is recomputed into a copy of its shared tail page
+    rng = np.random.default_rng(34)
+    faults = [[(i, np.concatenate([system, _motif(rng, vocab, int(n))]),
+                32) for i, n in zip(range(w, w + 4),
+                                    rng.integers(64, 449, size=4))]
+              for w in (0, 4)]
+    faults[1][-1] = (7, system.copy(), 32)
+    rng = np.random.default_rng(35)
+    scan = [[(0, rng.integers(0, vocab, size=128), 16)]]
+    return {"prefix": prefix, "pressure": pressure, "spec": spec,
+            "faults": faults, "scan": scan}
+
+
+def worst_pages(waves, page_size: int) -> int:
+    return sum(-(-(len(p) + n) // page_size) for w in waves
+               for _, p, n in w)
+
+
+def tokens_gate(what, got: dict, ref: dict, margins: dict) -> tuple:
+    """Phase 3b's rule: ``got``'s greedy tokens equal the reference run's
+    up to the first position whose top-1 margin in the reference logits
+    (``margins[(request id, index)] = (margin, tol)``) is under the
+    tolerance; a clear-margin mismatch fails.  Returns (tokens equal
+    before any fork, tokens compared)."""
+    equal = total = 0
+    for rid, want in ref.items():
+        toks = got[rid]
+        total += len(want)
+        if len(toks) != len(want):
+            raise AssertionError(f"{what}: request {rid} gave {len(toks)} "
+                                 f"tokens, the reference {len(want)}")
+        for t, (a, b) in enumerate(zip(toks, want)):
+            if a != b:
+                margin, tol = margins[(rid, t)]
+                if margin > tol:
+                    raise AssertionError(
+                        f"{what}: request {rid} token {t}: {a} != {b} at "
+                        f"margin {margin:.4f} > tol {tol:.4f}")
+                break                   # forked at a near-tie
+            equal += 1
+    return equal, total
+
+
+def launch_gate(what, launches: dict, kernels) -> None:
+    """Every kernel of the run's path launched in it."""
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched: "
+                             f"{launches}")
+
+
+def leak_gate(what, stats: dict, host_stash: int) -> None:
+    """Nothing but the prefix index holds a page, and no swap stash
+    survives."""
+    cached = stats.get("prefix_cached_pages", 0)
+    if stats["pages_used"] != cached or stats["active_slots"] or host_stash:
+        raise AssertionError(
+            f"{what}: {stats['pages_used']} pages used beside "
+            f"{cached} cached, {stats['active_slots']} slots busy, "
+            f"{host_stash} host stashes left")
+
+
+def pressure_gate(what, stats: dict) -> None:
+    p = stats["pressure"]
+    if p["preemptions"] <= 0:
+        raise AssertionError(f"{what}: the pool was never pressured")
+    if p["swap_bytes_in"] != p["swap_bytes_out"]:
+        raise AssertionError(f"{what}: swapped out {p['swap_bytes_out']} "
+                             f"bytes, back in {p['swap_bytes_in']}")
+
+
+def prefix_gate(what, stats: dict, warm: list, system_len: int) -> int:
+    """Prefix hits, and the warm wave (``warm``: (prompt length,
+    matched_len) a request) prefilling at least the shared system prompt
+    fewer tokens than its prompts hold.  Returns the tokens it
+    prefilled."""
+    if stats["prefix"]["hits"] <= 0:
+        raise AssertionError(f"{what}: no prefix hit")
+    prompt = sum(n for n, _ in warm)
+    computed = sum(n - m for n, m in warm)
+    if computed > prompt - len(warm) * system_len:
+        raise AssertionError(
+            f"{what}: the warm wave prefilled {computed} of {prompt} "
+            f"prompt tokens; the shared {system_len} a request should "
+            "have been cached")
+    return computed
+
+
+def spec_gate(what, stats: dict) -> None:
+    sp = stats["spec"]
+    if sp["verify_launches"] <= 0 or sp["drafted"] <= 0:
+        raise AssertionError(f"{what}: {sp['verify_launches']} verify "
+                             f"launches, {sp['drafted']} drafted tokens")
+
+
+def fault_gate(what, errors: dict, fired_log: list) -> None:
+    """Every failed request names an injected fault of the log, each at
+    most once, and every fault at FAILING_SITES failed one.  A request
+    that failed for any other reason fails the run: a kernel fault must
+    not hide behind the engine's request isolation."""
+    fired = set(fired_log)
+    named = []
+    for rid, detail in errors.items():
+        m = re.fullmatch(r"injected: injected fault at (\w+) \(call (\d+)\)",
+                         detail)
+        if m is None or (m.group(1), int(m.group(2))) not in fired:
+            raise AssertionError(f"{what}: request {rid} failed for "
+                                 f"another reason: {detail}")
+        named.append((m.group(1), int(m.group(2))))
+    if len(set(named)) != len(named):
+        raise AssertionError(f"{what}: one fault failed two requests: "
+                             f"{errors}")
+    unnamed = [f for f in fired_log if f[0] in FAILING_SITES
+               and f not in named]
+    if unnamed:
+        raise AssertionError(f"{what}: faults {unnamed} failed no request")
+
+
+def failure_gate(what, errors: dict, stats: dict, armed: bool) -> None:
+    """A run without an injector fails no request and records no error,
+    so that no fault of a kernel hides behind the engine's request
+    isolation.  An armed run reports every request it failed as an error
+    event, for fault_gate to name, and sheds or times out none."""
+    h = stats["health"]
+    if armed:
+        if h["failed"] != len(errors) or h["shed"] or h["timed_out"]:
+            raise AssertionError(
+                f"{what}: {h['failed']} failed, {h['shed']} shed, "
+                f"{h['timed_out']} timed out; error events {errors}")
+    elif errors or h["failed"] or h["shed"] or h["timed_out"] or \
+            h["last_error"] is not None:
+        raise AssertionError(f"{what}: requests failed with no fault "
+                             f"armed: {errors}, last error "
+                             f"{h['last_error']}")
+
+
+def _make_feature_core():
+    import torch
+    from repro_torch.serving.scheduler import RUNNING
+
+    class FeatureCore(_make_timed_core()):
+        """TimedCore that records, when ``record`` is set, the top-1
+        margin of every row a greedy token is taken from (the reference
+        runs of phase 3d), and holds its first verify launch to the same
+        launch through the plain attention path (``check_verify``).  The
+        check's own seconds (the pool clone, the plain launch and the
+        comparison, each waited on) add up in ``check_s``, which the run
+        takes off its wall time."""
+
+        def __init__(self, *a, record=False, check_verify=False, **kw):
+            super().__init__(*a, **kw)
+            self.record = record
+            self.check_verify = check_verify
+            self.margins = {}
+            # the first verify launch, and the first with every row in it
+            self.verify_check = {}
+            self.check_s = 0.0
+
+        def _note(self, keys, logits):
+            lf = logits.float()
+            top2 = torch.topk(lf, 2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).cpu().tolist()
+            tol = (LOGIT_TOL * lf.abs().amax(dim=-1)).cpu().tolist()
+            for i, key in keys:
+                self.margins[key] = (margin[i], tol[i])
+
+        def _first_token(self, req, slot, last_logits, events):
+            if self.record:
+                self._note([(0, (req.id, len(req.generated)))],
+                           last_logits.reshape(1, -1))
+            return super()._first_token(req, slot, last_logits, events)
+
+        def _decode(self, table, pos):
+            logits = super()._decode(table, pos)
+            if self.record:
+                self._note([(s, (r.id, len(r.generated)))
+                            for s, r in enumerate(self.sched.slots)
+                            if r is not None and r.state == RUNNING
+                            and not r.done], logits)
+            return logits
+
+        def _verify(self, buf, table, pos0, nval):
+            which = ("first" if "first" not in self.verify_check else
+                     "full" if "full" not in self.verify_check
+                     and (nval > 0).all() else None)
+            if not self.check_verify or which is None:
+                return super()._verify(buf, table, pos0, nval)
+            # the pools as the launch finds them, for the plain launch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = [type(c)(*(t.clone() for t in c)) for c in self.pools]
+            torch.cuda.synchronize()
+            self.check_s += time.perf_counter() - t0
+            got = super()._verify(buf, table, pos0, nval)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref, _ = self.model.prefill_chunk_paged(
+                self.params, self._to_device(buf), before,
+                self._to_device(table), self._to_device(pos0),
+                self._to_device(nval), impl="paged_reference")
+            del before
+            rows = [(b, r) for b, n in enumerate(nval) for r in range(n)]
+            idx = torch.tensor(rows, device=got.device)
+            _compare_logits(
+                f"[3d] {which} verify launch ({len(rows)} valid rows of "
+                f"{tuple(buf.shape)}, pos_start {pos0.tolist()}, n_valid "
+                f"{nval.tolist()}), kernel vs plain",
+                got[idx[:, 0], idx[:, 1]], ref[idx[:, 0], idx[:, 1]])
+            self.verify_check[which] = {"rows": len(rows),
+                                        "pos0": pos0.tolist(),
+                                        "nval": nval.tolist()}
+            self.check_s += time.perf_counter() - t0
+            return got
+
+    return FeatureCore
+
+
+def _feature_run(name, model, params, waves, *, injector=None,
+                 record=False, check_verify=False, **serve_kw) -> dict:
+    """One engine run of phase 3d: a fresh core, the kernel counts set to
+    0 just before the traffic and read just after it, then the run's
+    numbers, printed on one line."""
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels.fastattn.ops import fastattn_paged_prefill
+    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+    from repro_torch.serving.scheduler import SamplingParams
+
+    serve = ServeConfig(**{**FEATURE_SERVE, **serve_kw})
+    core = _make_feature_core()(model, params, model.cfg, serve,
+                                device=model.device, injector=injector,
+                                record=record, check_verify=check_verify)
+    tokens, errors = {}, {}
+    torch.cuda.synchronize()
+    fastattn_paged_prefill.launches = 0
+    paged_flash_decode.launches = 0
+    t0 = time.perf_counter()
+    for wave in waves:
+        for rid, prompt, n_new in wave:
+            core.add_request(prompt, SamplingParams(max_new_tokens=n_new),
+                             request_id=rid)
+            tokens[rid] = []
+        while core.has_work:
+            for ev in core.step():
+                if ev.kind == "token":
+                    tokens[ev.request_id].append(ev.token)
+                elif ev.kind == "error":
+                    errors[ev.request_id] = ev.detail
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - core.check_s
+    launches = {"paged_prefill": fastattn_paged_prefill.launches,
+                "paged_decode": paged_flash_decode.launches}
+    stats = core.stats()
+    failure_gate(name, errors, stats, armed=injector is not None)
+    device_s = sum(core.device_seconds().values())
+    served = sum(len(p) for w in waves for _, p, _ in w) + sum(
+        len(t) for t in tokens.values())
+    finished = {r.id: r for r in core.sched.finished}
+    p = stats["pressure"]
+    pre = stats.get("prefix")
+    sp = stats.get("spec")
+    out = {"run": name, "wall_s": wall, "steps": stats["steps"],
+           "device_s": device_s, "tokens_served": served,
+           "device_tok_s": served / device_s if device_s else 0.0,
+           "preemptions": p["preemptions"], "swaps": p["swaps"],
+           "recomputes": p["recomputes"],
+           "swap_bytes_out": p["swap_bytes_out"],
+           "swap_bytes_in": p["swap_bytes_in"],
+           "swap_fail_downgrades": p["swap_fail_downgrades"],
+           "prefix_hit_rate": (pre["hits"] / max(1, pre["hits"]
+                                                 + pre["misses"])
+                               if pre else None),
+           "accept_rate": sp["accept_rate"] if sp else None,
+           "verify_launches": core.spec_launches,
+           "verify_kernel_launches": core.verify_kernel_launches,
+           "prefill_launches": core.prefill_launches,
+           "pool_pages": serve.pool_pages(), "launches": launches,
+           "failed": len(errors)}
+    log(f"[3d] {name}: {out['wall_s']:.2f}s wall, {out['steps']} steps, "
+        f"{out['device_tok_s']:.0f} device-time tok/s ({served} prompt + "
+        f"generated tokens over {device_s:.3f}s of launches), "
+        f"preemptions {p['preemptions']} (swap {p['swaps']}, recompute "
+        f"{p['recomputes']}), swap bytes out/in {p['swap_bytes_out']}/"
+        f"{p['swap_bytes_in']}, prefix hit rate {out['prefix_hit_rate']}, "
+        f"accept rate {out['accept_rate']}, verify launches "
+        f"{core.spec_launches}, kernel launches {launches}, pool "
+        f"{out['pool_pages'] - 1} pages")
+    res = {"out": out, "tokens": tokens, "errors": errors, "stats": stats,
+           "margins": core.margins, "verify_check": core.verify_check,
+           "host_stash": len(core.pressure.host_pool),
+           "matched": {rid: (len(r.prompt), r.matched_len)
+                       for rid, r in finished.items()},
+           "fired_log": (list(injector.fired_log) if injector is not None
+                         else [])}
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _held(what, run, ref) -> None:
+    """A run's streams against its reference run's (tokens_gate), for
+    the requests the run did not fail."""
+    equal, total = tokens_gate(what, {r: t for r, t in run["tokens"].items()
+                                      if r not in run["errors"]},
+                               {r: t for r, t in ref["tokens"].items()
+                                if r not in run["errors"]},
+                               ref["margins"])
+    run["out"]["tokens_equal"] = equal
+    run["out"]["tokens_compared"] = total
+    log(f"[3d] {what}: {equal} of {total} greedy tokens equal the "
+        "feature-off run's before any fork at a near-tie")
+
+
+def phase_features(model, params) -> dict:
+    """Phase 3d on phase 3's llama2-7b: the prefix cache, preemption and
+    swap, speculative decoding, fault injection and the scan prefill
+    oracle, each against the same traffic with the feature off."""
+    import torch
+    from repro_torch.serving.faults import FaultInjector
+
+    gc.collect()                  # phase 3c's dense cache
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    traffic = feature_traffic(model.cfg.vocab_size)
+    both = ("paged_prefill", "paged_decode")
+    res = {}
+
+    # (a) the prefix cache: two waves over one system prompt
+    off = _feature_run("prefix off", model, params, traffic["prefix"],
+                       record=True)
+    on = _feature_run("prefix on", model, params, traffic["prefix"],
+                      prefix_cache=True)
+    for run in (off, on):
+        launch_gate(run["out"]["run"], run["out"]["launches"], both)
+        leak_gate(run["out"]["run"], run["stats"], run["host_stash"])
+    _held("prefix on vs off", on, off)
+    warm = [on["matched"][rid] for rid, _, _ in traffic["prefix"][1]]
+    on["out"]["warm_prefilled"] = prefix_gate("prefix on", on["stats"],
+                                              warm, SYSTEM_LEN)
+    on["out"]["warm_prompt"] = sum(n for n, _ in warm)
+    res["prefix"] = {"off": off["out"], "on": on["out"]}
+    del off, on
+
+    # (b) preemption and swap: a pool at 60% of the worst-case demand
+    waves = traffic["pressure"]
+    pool = int(PRESSURE_FRAC * worst_pages(
+        waves, FEATURE_SERVE["page_size"])) + 1
+    ref = _feature_run("pressure off", model, params, waves, record=True)
+    launch_gate("pressure off", ref["out"]["launches"], both)
+    res["pressure"] = {"off": ref["out"]}
+    for policy in ("swap", "recompute", "auto"):
+        run = _feature_run(f"pressure {policy}", model, params, waves,
+                           num_pages=pool, preempt_policy=policy,
+                           host_pool_pages=HOST_POOL_PAGES)
+        launch_gate(run["out"]["run"], run["out"]["launches"], both)
+        pressure_gate(run["out"]["run"], run["stats"])
+        leak_gate(run["out"]["run"], run["stats"], run["host_stash"])
+        _held(f"pressure {policy} vs off", run, ref)
+        res["pressure"][policy] = run["out"]
+    del ref, run
+
+    # (c) speculative decoding on tiled-motif prompts
+    off = _feature_run("spec off", model, params, traffic["spec"],
+                       record=True)
+    on = _feature_run("spec on", model, params, traffic["spec"],
+                      spec_mode="lookup", spec_tokens=4, check_verify=True)
+    launch_gate("spec off", off["out"]["launches"], both)
+    # with speculation on every decode step is a verify launch
+    launch_gate("spec on", on["out"]["launches"], ("paged_prefill",))
+    for run in (off, on):
+        leak_gate(run["out"]["run"], run["stats"], run["host_stash"])
+    spec_gate("spec on", on["stats"])
+    if "first" not in on["verify_check"]:
+        raise AssertionError("spec on: no verify launch was checked")
+    _held("spec on vs off", on, off)
+    # one prefill-kernel launch a layer for each verify launch, and the
+    # rest of them the prefill's, as with speculation off
+    verify_kernel = on["out"]["verify_kernel_launches"]
+    if verify_kernel != model.cfg.num_layers * on["out"][
+            "verify_launches"] or on["out"]["launches"]["paged_prefill"] \
+            - verify_kernel != off["out"]["launches"]["paged_prefill"]:
+        raise AssertionError(
+            f"spec on: {verify_kernel} prefill-kernel launches at verify "
+            f"launches, for {on['out']['verify_launches']} verify launches")
+    on["out"]["verify_check"] = on["verify_check"]
+    log(f"[3d] spec: accept rate {on['out']['accept_rate']:.3f}, "
+        f"{on['out']['steps']} steps against {off['out']['steps']} with "
+        f"speculation off; paged_prefill.cu launched {verify_kernel} times "
+        "at the verify shape")
+    res["spec"] = {"off": off["out"], "on": on["out"]}
+    del off, on
+
+    # (d) faults on (a)+(b)+(c) together
+    waves = traffic["faults"]
+    # the pool at 60% of one wave's worst-case demand: the cold wave
+    # preempts, the warm one shares the cached system prompt
+    kw = dict(prefix_cache=True, spec_mode="lookup", spec_tokens=4,
+              num_pages=int(PRESSURE_FRAC * worst_pages(
+                  waves, FEATURE_SERVE["page_size"]) / len(waves)) + 1,
+              preempt_policy="swap", host_pool_pages=HOST_POOL_PAGES)
+    ref = _feature_run("faults: all off", model, params, waves, record=True)
+    clean = _feature_run("faults: all on, none armed", model, params,
+                         waves, **kw)
+    inj = FaultInjector(seed=0)
+    for site, call in FAULT_CALLS.items():
+        inj.arm(site, nth=(call,))
+    hit = _feature_run("faults: all on, every site armed once", model,
+                       params, waves, injector=inj, **kw)
+    launch_gate("faults: all off", ref["out"]["launches"], both)
+    for run in (ref, clean, hit):
+        if run is not ref:              # decode steps are verify launches
+            launch_gate(run["out"]["run"], run["out"]["launches"],
+                        ("paged_prefill",))
+        leak_gate(run["out"]["run"], run["stats"], run["host_stash"])
+    fault_gate("faults", hit["errors"], hit["fired_log"])
+    _held("faults: all on vs off", clean, ref)
+    _held("faults: survivors vs off", hit, ref)
+    hit["out"]["fired"] = [list(f) for f in hit["fired_log"]]
+    hit["out"]["failed_ids"] = sorted(hit["errors"])
+    log(f"[3d] faults: fired {hit['fired_log']}; failed requests "
+        f"{hit['errors']}")
+    res["faults"] = {"off": ref["out"], "clean": clean["out"],
+                     "armed": hit["out"]}
+    del ref, clean, hit
+
+    # (e) the scan prefill oracle against the chunked prefill
+    chunked = _feature_run("scan: chunked", model, params, traffic["scan"],
+                           record=True)
+    scan = _feature_run("scan: scan", model, params, traffic["scan"],
+                        prefill_mode="scan")
+    launch_gate("scan: chunked", chunked["out"]["launches"], both)
+    launch_gate("scan: scan", scan["out"]["launches"], ("paged_decode",))
+    if scan["out"]["launches"]["paged_prefill"] or scan["out"][
+            "prefill_launches"]:
+        raise AssertionError("scan: the scan oracle launched the prefill "
+                             "kernel")
+    for run in (chunked, scan):
+        leak_gate(run["out"]["run"], run["stats"], run["host_stash"])
+    _held("scan vs chunked", scan, chunked)
+    res["scan"] = {"chunked": chunked["out"], "scan": scan["out"]}
+    res["seconds"] = time.perf_counter() - t0
+    res["card"] = _card()
+    log(f"[3d] {res['card']}: all runs passed in {res['seconds']:.1f}s")
+    log("[3d] " + json.dumps(res))
     return res
 
 
@@ -2253,6 +2799,7 @@ def main() -> int:
     served = phase_serving(model, params)
     dense = phase_dense(model, params)
     long_step = phase_long_decode(model, params, dense["kv_rms"])
+    features = phase_features(model, params)
     del model, params
     gc.collect()                  # phase 3's model, pools and engines
     torch.cuda.empty_cache()
@@ -2304,6 +2851,16 @@ def main() -> int:
         long_library_device_ms=long["library_device_ms"],
         long_step_device_ms=long_step["device_ms"],
         long_step_wall_ms=long_step["wall_ms"])
+    # paged_prefill also at the speculative verify shape (phase 2's
+    # VERIFY_CASE), with its launches in phase 3d (c)'s run
+    ver = kern["paged_prefill_verify"]
+    next(k for k in line["kernels"] if k["name"] == "paged_prefill").update(
+        verify_launches=features["spec"]["on"]["verify_kernel_launches"],
+        verify_max_abs_err=ver["err"], verify_ms=ver["ms"],
+        verify_device_ms=ver["device_ms"], verify_plain_ms=ver["plain_ms"],
+        verify_bound_ms=ver["bound_ms"], verify_bound_by=ver["bound_by"],
+        verify_library_ms=ver["library_ms"],
+        verify_library_device_ms=ver.get("library_device_ms"))
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

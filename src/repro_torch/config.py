@@ -193,8 +193,8 @@ class ServeConfig:
     page_size: int = 128
     # Physical pages in the shared pool (page 0 is scratch).  0 = auto:
     # enough for max_batch sequences of max_seq_len, i.e. a dense cache's
-    # worth.  The port's EngineCore refuses a smaller pool (oversubscribing
-    # needs the preemption subsystem, which is not ported yet).
+    # worth.  A smaller pool oversubscribes: optimistic admission and
+    # preemption (swap or recompute) keep it serving.
     num_pages: int = 0
     # paged attention impl: auto | paged | paged_reference
     # (auto = the CUDA kernels for CUDA tensors, the plain PyTorch

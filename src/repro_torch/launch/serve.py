@@ -16,8 +16,10 @@ default), or the persistent paged EngineCore (``--stream``).
 
 ``--device`` defaults to ``cuda`` and the run fails without a GPU;
 ``--device cpu`` runs the plain PyTorch path (with ``--smoke`` for the
-reduced configs).  ``--spec-mode lookup`` is refused: speculative decoding
-is not ported.
+reduced configs).  With ``--stream``, ``--spec-mode lookup`` turns on
+speculative decoding (prompt-lookup drafts of up to ``--spec-tokens``
+tokens, verified in one paged-prefill launch); the prompts are then a
+tiled motif, so the drafts are accepted.
 """
 from __future__ import annotations
 
@@ -48,7 +50,9 @@ def _run_stream(model, params, cfg, args) -> None:
         max_seq_len=args.prompt_len + args.gen + page_size,
         page_size=page_size,
         max_waiting=args.max_waiting,
-        queue_policy=args.queue_policy)
+        queue_policy=args.queue_policy,
+        spec_mode=args.spec_mode,
+        spec_tokens=args.spec_tokens if args.spec_tokens > 0 else 4)
     core = EngineCore(model, params, cfg, serve, device=model.device)
     rng = np.random.default_rng(0)
     # --top-k 1 (the dense-path greedy default) would make the "sampled"
@@ -63,7 +67,15 @@ def _run_stream(model, params, cfg, args) -> None:
         else:
             sp = SamplingParams(max_new_tokens=args.gen,
                                 deadline_ms=deadline)   # greedy
-        prompt = rng.integers(0, cfg.vocab_size, size=args.prompt_len)
+        if args.spec_mode != "off":
+            # prompt-lookup thrives on repetitive text; tile a short
+            # motif so the run shows a real accept rate
+            motif = rng.integers(1, cfg.vocab_size, size=7).tolist()
+            prompt = np.array(
+                (motif * (args.prompt_len // 7 + 1))[:args.prompt_len],
+                np.int32)
+        else:
+            prompt = rng.integers(0, cfg.vocab_size, size=args.prompt_len)
         try:
             core.add_request(prompt, sp)
         except RequestRejected as e:
@@ -87,12 +99,19 @@ def _run_stream(model, params, cfg, args) -> None:
     print(f"{n_events} tokens in {dt:.2f}s ({n_events / dt:.1f} tok/s), "
           f"{s['steps']} engine steps, peak pool "
           f"{s['pages_peak']}/{core.mgr.usable_pages} pages "
-          f"({s['peak_utilization']:.0%})")
+          f"({s['peak_utilization']:.0%}), "
+          f"{s['pressure']['preemptions']} preemptions")
     h = s["health"]
     print(f"health: {h['failed']} failed, {h['shed']} shed, "
-          f"{h['timed_out']} timed out, slowest step "
-          f"{h['step_s_high_water'] * 1e3:.1f}ms"
+          f"{h['timed_out']} timed out, {h['swap_retries']} swap retries "
+          f"({h['swap_fail_downgrades']} downgraded to recompute), "
+          f"slowest step {h['step_s_high_water'] * 1e3:.1f}ms"
           + (f", last error: {h['last_error']}" if h["last_error"] else ""))
+    if "spec" in s:
+        sp = s["spec"]
+        print(f"speculation: {sp['accepted']}/{sp['drafted']} drafts "
+              f"accepted ({sp['accept_rate']:.0%}) over "
+              f"{sp['verify_launches']} verify launches")
     if core.tracer is not None and core.tracer.completed:
         ttfts = sorted(r["first_token_t"] - r["submit_t"]
                        for r in core.tracer.completed
@@ -139,7 +158,13 @@ def main(argv=None):
                          "shed the oldest waiting request")
     ap.add_argument("--spec-mode", default="off",
                     choices=["off", "lookup"],
-                    help="speculative decoding: only 'off' is ported")
+                    help="with --stream: speculative decoding drafter "
+                         "(lookup = prompt-lookup n-gram matching; "
+                         "greedy output is identical either way)")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="max draft tokens per request per step "
+                         "(0 = engine default of 4; only with "
+                         "--spec-mode lookup)")
     ap.add_argument("--metrics", nargs="?", const="-", default=None,
                     metavar="TRACE_JSON",
                     help="with --stream: print the Prometheus text "
@@ -147,10 +172,6 @@ def main(argv=None):
                          "write the flight recorder's Chrome trace_event "
                          "JSON there (load in chrome://tracing)")
     args = ap.parse_args(argv)
-    if args.spec_mode != "off":
-        raise NotImplementedError(
-            f"--spec-mode {args.spec_mode}: speculative decoding is not "
-            "ported yet")
 
     cfg = get_model_config(args.arch)
     if args.smoke:

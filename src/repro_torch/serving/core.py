@@ -1,7 +1,8 @@
 """EngineCore: the persistent, iteration-level serving engine (PyTorch).
 
 A port of the JAX package's ``serving/core.py``.  The core owns the page
-manager, the scheduler, the device page pools and the model, and advances
+manager, the scheduler, the pressure manager, the radix prefix index, the
+speculation drafter, the device page pools and the model, and advances
 the whole system one iteration per ``step()`` call:
 
     core = EngineCore(model, params, cfg, serve)      # device="cuda"
@@ -11,11 +12,17 @@ the whole system one iteration per ``step()`` call:
             ...
     core.abort(rid)                     # any time: frees pages, no leaks
 
-One step = deadline sweep, retire finished sequences, admit waiting
-requests, spend the prefill token budget on chunked prompt prefill
+One step = deadline sweep, retire finished sequences, admit waiting and
+resuming requests (a swap-preempted one gets its host stash copied back),
+spend the prefill token budget on chunked prompt prefill
 (``LM.prefill_chunk_paged``, jobs of distinct sequences batched into one
-launch), then one fused decode step (``LM.decode_step_paged``) for every
-running slot.
+launch; ``prefill_mode="scan"`` feeds the prompt one token at a time
+through ``LM.decode_step_paged`` instead, the equivalence oracle), then
+one fused decode step (``LM.decode_step_paged``) for every running slot
+-- or, with ``spec_mode="lookup"``, one verify launch of each slot's
+drafted tokens (``LM.prefill_chunk_paged`` returning every row's logits).
+Growth that runs out of pages reclaims prefix-cache leaves, then preempts
+the newest-admitted sequence (swap to a host stash, or recompute).
 
 Sampling is per request (``SamplingParams``) with a counter-based RNG: the
 n-th sampled token of a request draws from a ``torch.Generator`` seeded by
@@ -23,10 +30,8 @@ a hash of ``(seed, n)``, so sampled tokens are invariant to batch
 composition and admission order (the JAX engine's ``fold_in(PRNGKey(seed),
 n)`` stream cannot be replayed in PyTorch; the invariants can).
 
-Not ported yet, and refused by the constructor with NotImplementedError:
-speculative decoding, tensor parallelism, the prefix cache, the scan
-prefill oracle, the fault injector, and a pool smaller than the auto size
-(oversubscription needs the preemption/swap subsystem).
+Not ported, and refused by the constructor with NotImplementedError:
+tensor parallelism (``tp > 1``).
 """
 from __future__ import annotations
 
@@ -40,16 +45,21 @@ import torch
 
 from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
-from repro_torch.serving.faults import (EngineError, LogitError,
-                                        RequestError, RequestRejected,
-                                        RequestTimeout)
+from repro_torch.serving.faults import (EngineError, InjectedFault,
+                                        LogitError, RequestError,
+                                        RequestRejected, RequestTimeout,
+                                        SwapRestoreFailed)
 from repro_torch.serving.metrics import (FlightRecorder, LifecycleTracer,
                                          MetricsRegistry)
 from repro_torch.serving.paged_cache import OutOfPages, PagedKVCache
+from repro_torch.serving.prefix_cache import RadixPrefixIndex
+from repro_torch.serving.pressure import PressureManager, copy_pages
 from repro_torch.serving.scheduler import (ABORTED, FAILED, FINISHED,
                                            PREFILLING, RUNNING,
                                            ContinuousBatchScheduler,
                                            Request, SamplingParams)
+from repro_torch.serving.spec import (PromptLookupDrafter, verify_greedy,
+                                      verify_residual)
 
 _MASK64 = (1 << 64) - 1
 
@@ -113,7 +123,10 @@ class _CountingDeque(deque):
 
 
 class EngineCore:
-    """Persistent iteration-level engine over the paged KV cache."""
+    """Persistent iteration-level engine over the paged KV cache.  All
+    state lives on the core and survives between calls -- including the
+    device page pools, so prefix-cache hits keep their KV across
+    requests."""
 
     def __init__(self, model, params: dict, cfg: ModelConfig,
                  serve: Optional[ServeConfig] = None, *,
@@ -127,9 +140,12 @@ class EngineCore:
         self.params = params
         self.cfg = cfg
         self.serve = serve = serve or ServeConfig()
-        self._check_supported(serve, injector)
+        self._check_supported(serve)
         # None lets the attention facade pick by device (kernel on CUDA)
         self._impl = None if serve.paged_impl == "auto" else serve.paged_impl
+        # fault-injection harness (serving/faults.py): threaded through
+        # the page manager and pressure manager; None costs nothing
+        self.injector = injector
         # token ids -> text, required only by SamplingParams.stop_strings
         self.detokenize = detokenize
         # engine clock (seconds, monotonic) for deadlines and all engine
@@ -147,12 +163,29 @@ class EngineCore:
                                    help="caller aborts")
         self._c_failed = m.counter("engine_requests_failed_total",
                                    help="requests quarantined "
-                                        "(internal/logits)")
+                                        "(internal/logits/injected)")
         self._c_shed = m.counter("engine_requests_shed_total",
                                  help="requests shed from the bounded "
                                       "waiting queue")
         self._c_timeout = m.counter("engine_requests_timed_out_total",
                                     help="deadline_ms expiries")
+        # speculative decoding (serving/spec.py): created unconditionally,
+        # touched only when spec_mode != "off"
+        self._c_spec_drafted = m.counter(
+            "engine_spec_drafted_total",
+            help="speculative tokens drafted for verification")
+        self._c_spec_accepted = m.counter(
+            "engine_spec_accepted_total",
+            help="drafted tokens accepted by verification")
+        self._h_spec_accept = m.histogram(
+            "engine_spec_accept_rate",
+            buckets=(0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875,
+                     1.0),
+            help="per-request accept rate per verify step")
+        self._h_spec_run = m.histogram(
+            "engine_spec_run_length",
+            buckets=tuple(float(i) for i in range(serve.spec_tokens + 1)),
+            help="accepted draft run length per verify step")
         self._h_step = m.histogram("engine_step_seconds",
                                    help="step() wall-clock on the "
                                         "engine clock")
@@ -168,15 +201,19 @@ class EngineCore:
         self.last_flight_dump: Optional[List[dict]] = None
         self._step_rec: Optional[dict] = None
         self._dump_pending = False
-        # prefill chunk launches (calls of LM.prefill_chunk_paged)
+        # prefill chunk launches (calls of LM.prefill_chunk_paged): a
+        # prefix-cache hit skips the matched prefix's launches entirely
         self.prefill_launches = 0
         self.decode_launches = 0
+        # speculative verify launches, counted apart from prefill so
+        # spec_mode="off" provably never touches the verify path
+        self.spec_launches = 0
         self._warned_legacy_sampling = False
         self._next_id = 0
         self.reset()
 
     @staticmethod
-    def _check_supported(serve: ServeConfig, injector) -> None:
+    def _check_supported(serve: ServeConfig) -> None:
         if serve.logit_guard not in ("fail", "ignore"):
             raise ValueError(f"unknown logit_guard {serve.logit_guard!r}")
         if serve.queue_policy not in ("reject", "shed_oldest"):
@@ -185,43 +222,54 @@ class EngineCore:
             raise ValueError(f"unknown paged_impl {serve.paged_impl!r}")
         if serve.prefill_mode not in ("chunked", "scan"):
             raise ValueError(f"unknown prefill_mode {serve.prefill_mode!r}")
-        later = []
-        if serve.spec_mode != "off":
-            later.append(f"spec_mode={serve.spec_mode!r} (speculative "
-                         "decoding slice)")
+        if serve.spec_mode not in ("off", "lookup"):
+            raise ValueError(f"unknown spec_mode {serve.spec_mode!r}")
+        if serve.spec_mode != "off" and serve.spec_tokens < 1:
+            raise ValueError(
+                f"spec_tokens must be >= 1 with spec_mode="
+                f"{serve.spec_mode!r}, got {serve.spec_tokens}")
         if serve.tp > 1:
-            later.append(f"tp={serve.tp} (tensor-parallel slice)")
-        if serve.prefix_cache:
-            later.append("prefix_cache=True (prefix-cache slice)")
-        if serve.prefill_mode == "scan":
-            later.append("prefill_mode='scan' (scan-prefill oracle)")
-        if injector is not None:
-            later.append("a fault injector (fault-injection slice)")
-        auto = serve.max_batch * serve.max_pages_per_seq + 1
-        if serve.num_pages and serve.num_pages < auto:
-            later.append(f"num_pages={serve.num_pages} below the auto size "
-                         f"{auto} (oversubscription needs the "
-                         "preemption/swap slice)")
-        if later:
             raise NotImplementedError(
-                "not ported yet: " + "; ".join(later))
+                f"not ported yet: tp={serve.tp} (tensor-parallel slice)")
 
     # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
     def reset(self) -> None:
-        """Drop every request and page and rebuild the serving state from
-        ``self.serve``.  Launch counters and the metrics registry survive
-        -- use ``reset_metrics_window()`` to open a fresh window."""
+        """Drop every request, page, stash and cached prefix and rebuild
+        the serving state from ``self.serve``.  Launch counters and the
+        metrics registry survive -- use ``reset_metrics_window()`` to open
+        a fresh window."""
         serve = self.serve
         self.mgr = PagedKVCache(serve.pool_pages(), serve.page_size,
                                 serve.max_batch, serve.max_pages_per_seq,
+                                injector=self.injector,
                                 metrics=self.metrics)
+        self.prefix = (RadixPrefixIndex(self.mgr, serve.page_size,
+                                        serve.prefix_cache_pages,
+                                        metrics=self.metrics)
+                       if serve.prefix_cache else None)
         self.sched = ContinuousBatchScheduler(
             self.mgr, serve.max_batch, admission=serve.admission,
-            watermark_pages=serve.watermark, tracer=self.tracer)
+            watermark_pages=serve.watermark, prefix_cache=self.prefix,
+            tracer=self.tracer)
+        self.pressure = PressureManager(self.cfg, serve, self.mgr,
+                                        self.sched,
+                                        prefix_cache=self.prefix,
+                                        injector=self.injector,
+                                        metrics=self.metrics,
+                                        tracer=self.tracer)
         if self.tracer is not None:
             self.tracer.reset()
+        # speculation drafter: per-request n-gram indexes and accept-rate
+        # EMAs die with the requests.  ``spec is None`` IS the off switch:
+        # the decode phase branches on it once per step
+        self.spec = (PromptLookupDrafter(
+            max_tokens=serve.spec_tokens,
+            ngram_max=serve.spec_ngram_max,
+            ngram_min=serve.spec_ngram_min,
+            ema_alpha=serve.spec_ema_alpha)
+            if serve.spec_mode == "lookup" else None)
         self.pools = None              # device pools, materialised lazily
         self.next_tok = np.zeros((serve.max_batch,), np.int32)
         self.requests: Dict[int, Request] = {}     # live (unfinished) only
@@ -296,11 +344,12 @@ class EngineCore:
     def stats(self) -> dict:
         """Point-in-time engine statistics (live objects, not a log)."""
         mgr, sched = self.mgr, self.sched
-        return {
+        out = {
             "steps": self.steps,
             "events_emitted": self.events_emitted,
             "aborts": self.aborts,
             "waiting": len(sched.waiting),
+            "resuming": len(sched.resuming),
             "active_slots": sum(1 for r in sched.slots if r is not None),
             "finished": sched.finished_count,
             "pages_used": mgr.used_pages,
@@ -311,14 +360,34 @@ class EngineCore:
             "decode_launches": self.decode_launches,
             "orphan_events_pending": len(self.orphan_events),
             "orphans_dropped": self.orphan_events.dropped,
+            "pressure": dict(self.pressure.stats),
+            "host_pool_pages": self.pressure.host_pool.used_pages,
             "health": {
                 "failed": self.failed_count,
                 "shed": self.shed_count,
                 "timed_out": self.timed_out_count,
+                "swap_retries": self.pressure.stats["swap_retries"],
+                "swap_fail_downgrades":
+                    self.pressure.stats["swap_fail_downgrades"],
                 "last_error": self.last_error,
                 "step_s_high_water": self.step_s_high_water,
             },
         }
+        if self.spec is not None:
+            drafted = self._c_spec_drafted.window
+            accepted = self._c_spec_accepted.window
+            out["spec"] = {
+                "drafted": drafted,
+                "accepted": accepted,
+                "accept_rate": (accepted / drafted) if drafted else 0.0,
+                "verify_launches": self.spec_launches,
+            }
+        if self.injector is not None:
+            out["injected_faults"] = self.injector.stats()
+        if self.prefix is not None:
+            out["prefix"] = dict(self.prefix.stats)
+            out["prefix_cached_pages"] = self.prefix.cached_pages
+        return out
 
     # ------------------------------------------------------------------
     # request intake
@@ -398,16 +467,26 @@ class EngineCore:
     def get_request(self, request_id: int) -> Optional[Request]:
         return self.requests.get(request_id)
 
+    def _forget(self, req: Request) -> None:
+        """Drop a request's engine-side state: its pressure stash (by the
+        caller), stop-string state and drafter index."""
+        self.requests.pop(req.id, None)
+        self._stop_state.pop(req.id, None)
+        if self.spec is not None:
+            self.spec.forget(req.id)
+
     def abort(self, request_id: int) -> bool:
-        """Cancel a request anywhere in its lifecycle (waiting,
-        mid-prefill or mid-decode -- its slot's pages are freed).
-        Returns False for an unknown or already-finished id.
-        Idempotent."""
+        """Cancel a request anywhere in its lifecycle: waiting, resuming
+        (its host swap stash is dropped), mid-prefill or mid-decode (its
+        slot's pages are freed -- shared prefix pages just decref -- and
+        its pending copy-on-write debts die with it).  Returns False for
+        an unknown or already-finished id.  Idempotent."""
         req = self.sched.abort(request_id)
         if req is None:
             return False
-        self.requests.pop(request_id, None)
-        self._stop_state.pop(request_id, None)
+        if self.pressure.holds(request_id):
+            self.pressure.drop(request_id, reason="abort")
+        self._forget(req)
         self._c_aborts.inc()
         if self.tracer is not None:
             self.tracer.on_abort(req)
@@ -416,19 +495,27 @@ class EngineCore:
     # ------------------------------------------------------------------
     # fault isolation
     # ------------------------------------------------------------------
-    def _quarantine(self, req: Request, exc: RequestError,
+    def _quarantine(self, req: Request, exc: Exception,
                     events: Optional[List[StreamEvent]] = None) -> None:
         """Fail exactly one request in place: its slot's pages are freed
-        and a terminal ``kind="error"`` event emitted -- co-tenants keep
-        serving.  ``events=None`` queues the event for the next
-        ``step()`` (submit-time shedding has no step underway)."""
-        detail = exc.detail
-        self.sched.abort(req.id)        # frees slot/pages wherever it is
+        (shared prefix pages decref'd), its pending copy-on-write debts
+        cancelled, any host swap stash dropped, and a terminal
+        ``kind="error"`` event emitted -- co-tenants keep serving.
+        ``events=None`` queues the event for the next ``step()``
+        (submit-time shedding has no step underway)."""
+        if isinstance(exc, RequestError):
+            detail = exc.detail
+        elif isinstance(exc, InjectedFault):
+            detail = f"injected: {exc}"
+        else:
+            detail = f"internal: {exc}"
+        self.sched.abort(req.id)        # frees slot/pages/COW wherever it is
+        if self.pressure.holds(req.id):
+            self.pressure.drop(req.id, reason="fail")
         req.state = FAILED
         req.error = detail
         req.slot = None
-        self.requests.pop(req.id, None)
-        self._stop_state.pop(req.id, None)
+        self._forget(req)
         if isinstance(exc, RequestTimeout):
             self._c_timeout.inc()
             code = "timed_out"
@@ -457,25 +544,56 @@ class EngineCore:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _chunk(self, buf: np.ndarray, table: np.ndarray, pos0: np.ndarray,
+               nval: np.ndarray) -> torch.Tensor:
+        logits, self.pools = self.model.prefill_chunk_paged(
+            self.params, self._to_device(buf), self.pools,
+            self._to_device(table), self._to_device(pos0),
+            self._to_device(nval), impl=self._impl)
+        return logits
+
     def _prefill(self, buf: np.ndarray, table: np.ndarray, pos0: np.ndarray,
                  nval: np.ndarray) -> torch.Tensor:
         """One chunked-prefill launch; returns the logits of every row's
         last *valid* chunk token, (rows, V) -- padding rows attended
         through the scratch page and are garbage."""
         self.prefill_launches += 1
-        logits, self.pools = self.model.prefill_chunk_paged(
-            self.params, self._to_device(buf), self.pools,
-            self._to_device(table), self._to_device(pos0),
-            self._to_device(nval), impl=self._impl)
+        logits = self._chunk(buf, table, pos0, nval)
         last = torch.from_numpy(np.maximum(nval - 1, 0)).to(self.device)
         rows = torch.arange(len(nval), device=self.device)
         return logits[rows, last.long()]
+
+    def _verify(self, buf: np.ndarray, table: np.ndarray, pos0: np.ndarray,
+                nval: np.ndarray) -> torch.Tensor:
+        """One speculative verify launch: the chunked prefill forward
+        returning the FULL (B, K+1, V) logits -- acceptance reads every
+        position.  Rows past a slot's ``n_valid`` are garbage (on the card
+        possibly non-finite) and are never read."""
+        self.spec_launches += 1
+        return self._chunk(buf, table, pos0, nval)
 
     def _decode(self, table: np.ndarray, pos: np.ndarray) -> torch.Tensor:
         self.decode_launches += 1
         logits, self.pools = self.model.decode_step_paged(
             self.params, self._to_device(self.next_tok), self.pools,
             self._to_device(table), self._to_device(pos), impl=self._impl)
+        return logits
+
+    def _scan(self, toks: np.ndarray, row: np.ndarray,
+              start: int) -> torch.Tensor:
+        """The scan prefill oracle: feed ``toks`` one at a time through
+        ``LM.decode_step_paged`` on a one-row batch (page-table row
+        ``row``, positions from ``start``), writing the pools in place.
+        Returns the last token's logits, (1, V)."""
+        tt = self._to_device(np.asarray(toks, np.int32))
+        pos = torch.arange(start, start + len(toks), dtype=torch.int32,
+                           device=self.device)
+        table = self._to_device(row)
+        logits = None
+        for t in range(len(toks)):
+            logits, self.pools = self.model.decode_step_paged(
+                self.params, tt[t:t + 1], self.pools, table,
+                pos[t:t + 1], impl=self._impl)
         return logits
 
     # ------------------------------------------------------------------
@@ -495,6 +613,10 @@ class EngineCore:
                            temperature=sp.temperature, top_k=sp.top_k)
         return int(tok.reshape(-1)[0])
 
+    def _fire(self, site: str) -> None:
+        if self.injector is not None:
+            self.injector.fire(site)
+
     def _guard_logits(self, req: Request, row: torch.Tensor) -> None:
         """NaN/Inf guard on one request's logits row: under
         ``logit_guard="fail"`` a non-finite row fails only the offending
@@ -510,11 +632,13 @@ class EngineCore:
                      last_logits: torch.Tensor,
                      events: List[StreamEvent]) -> None:
         """Sample a freshly-prefilled sequence's first token and flip the
-        request into the decoding state."""
+        request into the decoding state.  Sampling faults (injected,
+        non-finite logits) quarantine this request only."""
         try:
+            self._fire("sample")
             self._guard_logits(req, last_logits)
             tok = self._sample(req, last_logits)
-        except RequestError as e:
+        except (InjectedFault, RequestError) as e:
             self._quarantine(req, e, events)
             return
         req.state = RUNNING
@@ -602,16 +726,44 @@ class EngineCore:
             self.pools = self.model.init_paged_cache(self.mgr.num_pages,
                                                      self.mgr.page_size)
 
-    def _grow(self, slot: int, n: int) -> None:
-        """``mgr.append(slot, n)``.  The pool has the auto size (enforced
-        at construction), so every admitted sequence fits at its worst
-        case and this cannot run out; reaching OutOfPages means engine
-        state is inconsistent."""
+    def _apply_cow(self) -> None:
+        """Replay pending copy-on-write page moves on the device pools:
+        the host manager already rewired the page table, the contents
+        must follow before the next launch reads or writes the copy."""
+        mgr = self.mgr
+        if not mgr.cow_pending:
+            return
+        pairs, mgr.cow_pending = mgr.cow_pending, []
         try:
-            self.mgr.append(slot, n)
-        except OutOfPages as e:
-            raise EngineError(f"page pool exhausted growing slot {slot}: "
-                              f"{e}") from e
+            self._fire("cow_copy")
+        except InjectedFault:
+            # debt restored untouched: the caller quarantines the grower
+            # (whose abort cancels exactly the debts that die with it)
+            # and every other pair stays owed for the next _apply_cow
+            mgr.cow_pending = pairs
+            raise
+        t0 = self._clock() if self._step_rec is not None else 0.0
+        self.pools = copy_pages(self.pools, [s for s, _ in pairs],
+                                [d for _, d in pairs])
+        if self._step_rec is not None:
+            ph = self._step_rec["phases"]
+            ph["cow_replay"] = ph.get("cow_replay", 0.0) \
+                + (self._clock() - t0)
+
+    def _grow(self, slot: int, n: int) -> None:
+        """``mgr.append(slot, n)`` with page-pressure relief: on
+        OutOfPages, reclaim prefix-cache leaves or evict the newest-
+        admitted other sequence (swap or recompute) and retry.
+        Terminates because submit-time validation guarantees any single
+        request fits the pool alone.  Applies any resulting copy-on-write
+        page copies to the device pools."""
+        while True:
+            try:
+                self.mgr.append(slot, n)
+                self._apply_cow()
+                return
+            except OutOfPages:
+                self.pressure.relieve(self.pools, protect=slot)
 
     @staticmethod
     def _prefill_groups(jobs, width: int):
@@ -629,8 +781,16 @@ class EngineCore:
                 groups.append([job])
         return groups
 
+    def _resume_decode(self, req: Request, slot: int) -> None:
+        """Flip a resumed sequence whose prefill state is fully restored
+        back into decode: its next input token was already sampled before
+        the preemption, so nothing is emitted here."""
+        req.state = RUNNING
+        self.next_tok[slot] = req.generated[-1]
+
     def _check_invariants(self) -> None:
-        self.mgr.check_invariants()
+        self.mgr.check_invariants(
+            extern_refs=self.prefix.page_refs() if self.prefix else None)
 
     # ------------------------------------------------------------------
     # the step
@@ -639,15 +799,18 @@ class EngineCore:
         """Advance the engine one iteration and return the events it
         produced (possibly none).  Event order within a step: terminal
         events queued since the last step, deadline expiries, first
-        tokens of sequences whose prefill completed, then one decode
-        token per running slot.  Per-request failures (non-finite logits)
-        quarantine the offending request only; an ``EngineError``
-        propagates out carrying the flight-recorder dump as ``.flight``."""
+        tokens of sequences whose prefill completed, then the decode
+        tokens of every running slot.  Per-request failures (injected
+        faults, non-finite logits) quarantine the offending request only;
+        an ``EngineError`` propagates out carrying the flight-recorder
+        dump as ``.flight``."""
         t0 = self._clock()
         if self.flight is not None:
             self._step_rec = {
                 "step": self._c_steps.value, "t_start": t0,
                 "phases": {}, "events": 0, "quarantined": [],
+                "faults_fired": (self.injector.total_fired
+                                 if self.injector is not None else 0),
             }
         err: Optional[EngineError] = None
         try:
@@ -667,6 +830,10 @@ class EngineCore:
             if rec is not None:
                 rec["dur_s"] = dt
                 rec["pages_used"] = self.mgr.used_pages
+                rec["faults_fired"] = \
+                    (self.injector.total_fired
+                     if self.injector is not None else 0) \
+                    - rec["faults_fired"]
                 if err is not None:
                     rec["error"] = str(err)
                 self.flight.record(rec)
@@ -690,7 +857,8 @@ class EngineCore:
         if rec is not None:
             # phase marks: elapsed engine-clock time since the previous
             # mark (device work is asynchronous: a phase that launches
-            # kernels is charged when a later phase waits for them)
+            # kernels is charged when a later phase waits for them;
+            # cow_replay is accounted inside _apply_cow)
             clock = self._clock
             last_t = [clock()]
 
@@ -706,8 +874,11 @@ class EngineCore:
         self._ensure_pools()
 
         # ---- deadline sweep ------------------------------------------
+        # before admission, so an already-expired waiting request never
+        # takes a slot; expired running requests are quarantined cleanly
         now = self._clock()
-        expired = [r for r in sched.waiting if r.deadline_expired(now)]
+        expired = [r for r in list(sched.waiting) + list(sched.resuming)
+                   if r.deadline_expired(now)]
         expired += [r for _, r in sched.running()
                     if r.deadline_expired(now) and not r.done]
         for req in expired:
@@ -719,19 +890,54 @@ class EngineCore:
 
         for req in sched.retire():
             self.requests.pop(req.id, None)
+            if self.spec is not None:
+                self.spec.forget(req.id)
         admitted = sched.admit()
         mark("schedule")
+        # swap-preempted requests re-admitted by the scheduler get their
+        # stashed KV copied back into the pages admission just
+        # materialised (their shared prefix was re-shared from the
+        # index); a sequence that was decoding when evicted rejoins the
+        # decode batch directly.  A stash whose resume was downgraded to
+        # recompute is dropped.
+        for slot, req in admitted:
+            if self.pressure.holds(req.id):
+                if req.resume_kind == "swap":
+                    try:
+                        self.pools = self.pressure.restore(
+                            self.pools, slot, req)
+                    except SwapRestoreFailed:
+                        # the H2D failed past its retry budget: downgrade
+                        # the resume to recompute -- unwind the slot, drop
+                        # the stash, requeue.  Strictly slower, never a
+                        # failed request.
+                        self.pressure.drop(req.id)
+                        self.pressure._bump("swap_fail_downgrades")
+                        req.resume_kind = "recompute"
+                        req.resume_shared_len = 0
+                        sched.preempt(slot)
+                        continue
+                else:
+                    self.pressure.drop(req.id)
+            if req.state == RUNNING:
+                self.next_tok[slot] = req.generated[-1]
+        mark("swap_restore")
         if rec is not None:
             rec["waiting"] = len(sched.waiting)
+            rec["resuming"] = len(sched.resuming)
             rec["prefilling"] = len(sched.prefilling())
             rec["decoding"] = len(sched.decoding())
         if not admitted and not sched.running():
-            if not sched.waiting:
+            if not sched.waiting and not sched.resuming:
                 return events           # everything retired
-            # submit-time validation guarantees the head of the queue fits
-            # an empty pool; reaching this means engine state is
+            if self.injector is not None:
+                # an injected admission fault can unwind this step's whole
+                # admission -- benign, the queue retries next step
+                return events
+            # submit-time validation guarantees the head of either queue
+            # fits an empty pool; reaching this means engine state is
             # inconsistent, not that one request is bad
-            req = sched.waiting[0]
+            req = (sched.resuming or sched.waiting)[0]
             raise EngineError(
                 f"pool too small for request {req.id}: needs "
                 f"{-(-req.target_len // ps)} pages, pool has "
@@ -740,50 +946,38 @@ class EngineCore:
             self._check_invariants()
 
         # ---- prefill phase -------------------------------------------
-        # fixed-size chunks through the full forward, jobs for distinct
-        # sequences batched into one launch, padded to the next
-        # power-of-two row count (padding rows: scratch table, n_valid 0)
-        chunk = serve.prefill_chunk_tokens
-        budget = serve.prefill_budget_tokens
-        width = serve.max_batch
-        for group in self._prefill_groups(
-                sched.prefill_schedule(budget, chunk), width):
-            live = []
-            for slot, req, start, n in group:
-                if sched.slots[slot] is not req or req.state != PREFILLING:
-                    continue
-                self._grow(slot, n)
-                live.append((slot, req, start, n))
-            if not live:
-                continue
-            bw = 1
-            while bw < len(live):
-                bw *= 2
-            bw = min(bw, width)
-            buf = np.zeros((bw, chunk), np.int32)
-            table = np.full((bw, mgr.max_pages_per_seq), mgr.SCRATCH,
-                            np.int32)
-            pos0 = np.zeros((bw,), np.int32)
-            nval = np.zeros((bw,), np.int32)
-            for i, (slot, req, start, n) in enumerate(live):
-                buf[i, :n] = req.prefill_tokens[start:start + n]
-                table[i] = mgr.table[slot]
-                pos0[i] = start
-                nval[i] = n
-            last_logits = self._prefill(buf, table, pos0, nval)
-            for i, (slot, req, start, n) in enumerate(live):
-                req.prefilled = start + n
-                if req.prefill_done:
-                    self._first_token(req, slot, last_logits[i:i + 1],
-                                      events)
+        if serve.prefill_mode == "scan":
+            self._scan_prefill(admitted, events)
+        else:
+            self._chunked_prefill(events)
         mark("prefill")
 
         # ---- decode phase --------------------------------------------
+        cand = [(s, r) for s, r in sched.decoding() if not r.done]
+        try:
+            # fires BEFORE the decode growth: the whole decode phase is
+            # skipped untouched this step and retries on the next one
+            self._fire("decode_launch")
+        except InjectedFault:
+            cand = []
+        if self.spec is not None and cand:
+            # speculative path: draft + multi-token verify replaces the
+            # one-token decode launch (greedy output is identical either
+            # way; only the launch count differs)
+            self._spec_decode(cand, events, mark)
+            self._c_events.inc(len(events))
+            return events
         # materialise the page every running sequence's next token is
-        # written to, THEN snapshot the table for the device step
-        running = [(s, r) for s, r in sched.decoding() if not r.done]
-        for slot, _ in running:
-            self._grow(slot, 1)
+        # written to -- evicting other sequences under pressure -- THEN
+        # snapshot the table for the device step
+        for slot, req in cand:
+            if sched.slots[slot] is not req:
+                continue                # evicted by an earlier _grow
+            try:
+                self._grow(slot, 1)
+            except InjectedFault as e:
+                self._quarantine(req, e, events)
+        running = [(s, r) for s, r in cand if sched.slots[s] is r]
         if serve.debug_invariants:
             self._check_invariants()
         if not running:
@@ -814,10 +1008,14 @@ class EngineCore:
                       for slot, req in running}
         mark("sample")
         for slot, req in running:
-            if rowok is not None and not rowok[slot]:
-                self._quarantine(req, LogitError(
-                    f"request {req.id}: non-finite logits at token "
-                    f"{len(req.generated)}", request_id=req.id), events)
+            try:
+                self._fire("sample")
+                if rowok is not None and not rowok[slot]:
+                    raise LogitError(
+                        f"request {req.id}: non-finite logits at token "
+                        f"{len(req.generated)}", request_id=req.id)
+            except (InjectedFault, RequestError) as e:
+                self._quarantine(req, e, events)
                 continue
             tok = picked[slot]
             req.generated.append(tok)
@@ -828,3 +1026,210 @@ class EngineCore:
         mark("detok")
         self._c_events.inc(len(events))
         return events
+
+    def _scan_prefill(self, admitted, events: List[StreamEvent]) -> None:
+        """The scan oracle: each admitted sequence's whole uncached
+        (re)prefill tail at once, one token a decode step; a prefix-cache
+        hit starts the scan at matched_len over the shared pages.  A
+        sequence whose launch an injected fault skipped in an earlier
+        step is still PREFILLING and is scanned after this step's
+        admissions (the JAX engine scans only this step's admissions and
+        strands it)."""
+        sched, mgr = self.sched, self.mgr
+        fresh = {id(r) for _, r in admitted}
+        for slot, req in list(admitted) + [
+                (s, r) for s, r in sched.prefilling() if id(r) not in fresh]:
+            if sched.slots[slot] is not req or req.state != PREFILLING:
+                continue                # preempted again, or swap-resumed
+            try:
+                # launch-site faults fire BEFORE any page mutation: the
+                # untouched prefill simply retries next step
+                self._fire("prefill_launch")
+            except InjectedFault:
+                continue
+            start = req.prefilled
+            toks = req.prefill_tokens[start:]
+            try:
+                self._grow(slot, len(toks))
+            except InjectedFault as e:
+                self._quarantine(req, e, events)
+                continue
+            last_logits = self._scan(toks, mgr.device_row(slot), start)
+            req.prefilled = start + len(toks)
+            if req.generated:
+                self._resume_decode(req, slot)
+            else:
+                self._first_token(req, slot, last_logits, events)
+
+    def _chunked_prefill(self, events: List[StreamEvent]) -> None:
+        """Fixed-size chunks through the full forward, jobs for distinct
+        sequences batched into one launch, padded to the next power-of-two
+        row count (padding rows: scratch table, n_valid 0)."""
+        sched, mgr, serve = self.sched, self.mgr, self.serve
+        chunk = serve.prefill_chunk_tokens
+        width = serve.max_batch
+        for group in self._prefill_groups(
+                sched.prefill_schedule(serve.prefill_budget_tokens, chunk),
+                width):
+            try:
+                # fires BEFORE the group's page growth; skipping the REST
+                # of this step's prefill keeps chunk order (a slot's chunk
+                # k+1 must never launch before chunk k)
+                self._fire("prefill_launch")
+            except InjectedFault:
+                break
+            live = []
+            for slot, req, start, n in group:
+                if sched.slots[slot] is not req or req.state != PREFILLING:
+                    continue            # victim of an earlier _grow
+                try:
+                    self._grow(slot, n)
+                except InjectedFault as e:
+                    self._quarantine(req, e, events)
+                    continue
+                live.append((slot, req, start, n))
+            # _grow may have evicted an earlier group member
+            live = [(s, r, st, n) for s, r, st, n in live
+                    if sched.slots[s] is r]
+            if not live:
+                continue
+            bw = 1
+            while bw < len(live):
+                bw *= 2
+            bw = min(bw, width)
+            buf = np.zeros((bw, chunk), np.int32)
+            table = np.full((bw, mgr.max_pages_per_seq), mgr.SCRATCH,
+                            np.int32)
+            pos0 = np.zeros((bw,), np.int32)
+            nval = np.zeros((bw,), np.int32)
+            for i, (slot, req, start, n) in enumerate(live):
+                buf[i, :n] = req.prefill_tokens[start:start + n]
+                table[i] = mgr.table[slot]
+                pos0[i] = start
+                nval[i] = n
+            last_logits = self._prefill(buf, table, pos0, nval)
+            for i, (slot, req, start, n) in enumerate(live):
+                req.prefilled = start + n
+                if not req.prefill_done:
+                    continue
+                if req.generated:       # recompute-resume finished
+                    self._resume_decode(req, slot)
+                else:
+                    self._first_token(req, slot, last_logits[i:i + 1],
+                                      events)
+
+    # ------------------------------------------------------------------
+    # speculative decode phase (serving/spec.py)
+    # ------------------------------------------------------------------
+    def _spec_decode(self, cand, events: List[StreamEvent], mark) -> None:
+        """One speculative step for every running slot: draft up to K
+        continuation tokens from the request's own text, append them to
+        the paged KV (COW-safe multi-token ``append``) and score all K+1
+        positions in ONE chunked paged-prefill launch, then keep the
+        accepted prefix plus one correction/bonus token and ``truncate``
+        the rejected rows' KV exactly -- restoring the RUNNING invariant
+        ``seq_len == len(prompt)+len(generated)-1`` so prefix sharing,
+        preemption/swap and quarantine compose unchanged.  The
+        ``spec_verify`` fault site fires before any drafting; an injected
+        fault degrades the step to K=0 (a one-token verify -- same
+        tokens, no speculation)."""
+        sched, mgr, serve = self.sched, self.mgr, self.serve
+        width = serve.spec_tokens + 1
+        try:
+            self._fire("spec_verify")
+            drafts = {}
+            for slot, req in cand:
+                # cap K so a fully-accepted run plus its bonus token never
+                # overshoots max_new_tokens (also bounds page growth to
+                # what submit-time validation admitted)
+                cap = min(serve.spec_tokens,
+                          req.max_new_tokens - len(req.generated) - 1)
+                drafts[slot] = (self.spec.propose(req)[:cap]
+                                if cap > 0 else [])
+        except InjectedFault:
+            drafts = {slot: [] for slot, _ in cand}
+        for slot, req in cand:
+            if sched.slots[slot] is not req:
+                continue                # evicted by an earlier _grow
+            try:
+                self._grow(slot, 1 + len(drafts[slot]))
+            except InjectedFault as e:
+                self._quarantine(req, e, events)
+        running = [(s, r) for s, r in cand if sched.slots[s] is r]
+        if serve.debug_invariants:
+            self._check_invariants()
+        if not running:
+            mark("verify")
+            return
+        # slot-indexed batch like the decode step, but every row NOT in
+        # the verify batch gets a scratch table row: with n_valid=0 all
+        # its K/V writes land in the scratch page, so prefilling, done and
+        # idle slots never see this launch
+        buf = np.zeros((serve.max_batch, width), np.int32)
+        table = np.full((serve.max_batch, mgr.max_pages_per_seq),
+                        mgr.SCRATCH, np.int32)
+        pos0 = np.zeros((serve.max_batch,), np.int32)
+        nval = np.zeros((serve.max_batch,), np.int32)
+        for slot, req in running:
+            d = drafts[slot]
+            buf[slot, 0] = self.next_tok[slot]
+            if d:
+                buf[slot, 1:1 + len(d)] = d
+            table[slot] = mgr.table[slot]
+            pos0[slot] = mgr.seq_len(slot) - (1 + len(d))
+            nval[slot] = 1 + len(d)
+        logits = self._verify(buf, table, pos0, nval)
+        mark("verify")
+        rowok = None
+        if serve.logit_guard == "fail":
+            # (B, width) bools: acceptance guards a row only when its
+            # logits are consumed (rows past n_valid may be non-finite on
+            # the card), so K=0 matches the plain path exactly
+            rowok = torch.isfinite(logits).all(dim=-1).cpu().numpy()
+        argm = torch.argmax(logits, dim=-1).cpu().numpy()
+        survivors = []
+        for slot, req in running:
+            d = drafts[slot]
+            sp = req.sampling
+            old_len = int(pos0[slot])
+            ok_row = rowok[slot] if rowok is not None else None
+            try:
+                self._fire("sample")
+                if sp.greedy:
+                    toks, acc = verify_greedy(
+                        d, argm[slot], stop_ids=req.stop_token_ids,
+                        budget=req.max_new_tokens - len(req.generated),
+                        row_ok=ok_row, request_id=req.id,
+                        n0=len(req.generated))
+                else:
+                    toks, acc = verify_residual(
+                        d, logits[slot], seed=sp.seed,
+                        n0=len(req.generated),
+                        temperature=sp.temperature, top_k=sp.top_k,
+                        stop_ids=req.stop_token_ids,
+                        budget=req.max_new_tokens - len(req.generated),
+                        row_ok=ok_row, request_id=req.id)
+            except (InjectedFault, RequestError) as e:
+                self._quarantine(req, e, events)
+                continue
+            if d:
+                self.spec.observe(req.id, len(d), acc)
+                self._c_spec_drafted.inc(len(d))
+                self._c_spec_accepted.inc(acc)
+                self._h_spec_accept.observe(acc / len(d))
+                self._h_spec_run.observe(float(acc))
+            for tok in toks:
+                req.generated.append(int(tok))
+                if self.tracer is not None:
+                    self.tracer.on_token(req)
+            self.next_tok[slot] = req.generated[-1]
+            # exact rollback: drop the rejected drafts' KV rows and the
+            # (never-written) row grown for the newest sampled token
+            mgr.truncate(slot, old_len + len(toks))
+            survivors.append((slot, req))
+        if serve.debug_invariants:
+            self._check_invariants()
+        mark("sample")
+        for slot, req in survivors:
+            self._stream(req, events)
+        mark("detok")

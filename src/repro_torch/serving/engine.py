@@ -20,8 +20,8 @@ dropped; ``generate`` draws from a ``torch.Generator`` seeded with
 ``generate_stream`` takes no JAX key.  ``offload`` must be None: the JAX
 engine stores it and never reads it, so the dense path here would keep
 every layer's KV on the device whatever engine is passed, and the port
-refuses it rather than ignore it.  ``injector`` must be None: the port's
-``EngineCore`` refuses a fault injector.
+refuses it rather than ignore it.  ``injector`` (a ``FaultInjector``) is
+passed to the core, as in the JAX engine.
 """
 from __future__ import annotations
 
@@ -80,7 +80,8 @@ class ServeEngine:
     # token-ids -> text callable, forwarded to the core; required only
     # when requests carry SamplingParams.stop_strings
     detokenize: Optional[object] = None
-    # must stay None: the port's EngineCore refuses a fault injector
+    # fault-injection harness (serving/faults.py) for the core; None is
+    # the no-op default
     injector: Optional[object] = None
     _core: Optional[EngineCore] = field(default=None, repr=False)
     # live generate_stream drains: (id set, event buffer) per call, so
@@ -115,8 +116,8 @@ class ServeEngine:
                                     clock=self._clock)
         return self._core
 
-    # observability aliases of the JAX engine that exist on the port's
-    # core (the pressure manager and prefix index are not ported)
+    # observability aliases of the JAX engine: the persistent core's
+    # live objects
     @property
     def last_cache(self):
         return self.core.mgr
@@ -124,6 +125,14 @@ class ServeEngine:
     @property
     def last_scheduler(self):
         return self.core.sched
+
+    @property
+    def last_pressure(self):
+        return self.core.pressure
+
+    @property
+    def last_prefix(self):
+        return self.core.prefix
 
     @property
     def metrics(self):

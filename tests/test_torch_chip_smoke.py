@@ -1,7 +1,8 @@
 """The parts of ``chip_smoke.py`` that run without a card: its check of
 the ``-Xptxas -v`` build log, its phase-2 case lists, its per-row output
-gate and its profile groups; and ``kernels_bench.py``'s refusal without
-a card."""
+gate, its profile groups, and phase 3d's traffic and gates (each must
+reject a faked failure); and ``kernels_bench.py``'s refusal without a
+card."""
 import importlib.util
 from pathlib import Path
 
@@ -240,3 +241,131 @@ def test_kernels_bench_needs_a_card():
     run = subprocess.run([sys.executable, str(ROOT / "kernels_bench.py")],
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 2 and run.stdout == ""
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the rest of the paged engine
+# ---------------------------------------------------------------------------
+
+def test_verify_shape_case_and_feature_traffic(cs):
+    """Phase 2 holds paged_prefill at the speculative verify shape, and
+    phase 3d's traffic has the sizes it is meant to have."""
+    kw = dict(cs.PREFILL_CASES)[cs.VERIFY_CASE]
+    assert (kw["chunk"], kw["ps"], kw["n_kv"], kw["dtype"]) == (
+        5, 128, 16, "bfloat16")
+    assert kw["nvalid"] == [5, 5, 4, 3, 2, 1, 1, 0]
+    assert kw["starts"][-1] == 0
+    assert min(kw["starts"][:-1]) >= 37 and max(kw["starts"]) <= 1900
+    t = cs.feature_traffic(32000)
+    prefix = [x for w in t["prefix"] for x in w]
+    assert len(t["prefix"]) == 2 and len(prefix) == 8
+    system = prefix[0][1][:cs.SYSTEM_LEN]
+    for _, prompt, n in prefix:
+        assert (prompt[:cs.SYSTEM_LEN] == system).all() and n == 32
+        assert 64 <= len(prompt) - cs.SYSTEM_LEN <= 448
+    assert len(t["pressure"][0]) == 8 and all(
+        1200 <= len(p) <= 1800 and n == 128 for _, p, n in t["pressure"][0])
+    assert all(len(p) == 256 and n == 64 for _, p, n in t["spec"][0])
+    faults = [x for w in t["faults"] for x in w]
+    assert len({rid for rid, _, _ in faults}) == 8
+    assert any(len(p) == cs.SYSTEM_LEN for _, p, _ in faults)
+    assert [len(p) for _, p, _ in t["scan"][0]] == [128]
+
+
+def test_every_fault_site_is_armed_once(cs):
+    from repro_torch.serving.faults import SITES
+    assert set(cs.FAULT_CALLS) == set(SITES)
+    assert set(cs.FAILING_SITES) < set(SITES)
+
+
+def test_tokens_gate_rejects_a_clear_margin_mismatch(cs):
+    ref = {0: [5, 6, 7], 1: [1, 2, 3]}
+    margins = {(r, t): (1.0, 0.1) for r in ref for t in range(3)}
+    assert cs.tokens_gate("same", ref, ref, margins) == (6, 6)
+    forked = {0: [5, 9, 9], 1: [1, 2, 3]}
+    near = dict(margins)
+    near[(0, 1)] = (0.05, 0.1)                 # a near-tie may fork
+    assert cs.tokens_gate("near-tie", forked, ref, near) == (4, 6)
+    with pytest.raises(AssertionError, match="margin"):
+        cs.tokens_gate("clear", forked, ref, margins)
+    with pytest.raises(AssertionError, match="tokens"):
+        cs.tokens_gate("short", {0: [5, 6], 1: [1, 2, 3]}, ref, margins)
+
+
+def test_run_gates_reject_faked_failures(cs):
+    cs.launch_gate("ok", {"paged_prefill": 3, "paged_decode": 0},
+                   ("paged_prefill",))
+    with pytest.raises(AssertionError, match="never launched"):
+        cs.launch_gate("none", {"paged_prefill": 3, "paged_decode": 0},
+                       ("paged_prefill", "paged_decode"))
+    clean = {"pages_used": 8, "prefix_cached_pages": 8, "active_slots": 0}
+    cs.leak_gate("ok", clean, 0)
+    for stats, stash in ((dict(clean, pages_used=9), 0),
+                         (dict(clean, active_slots=1), 0), (clean, 1)):
+        with pytest.raises(AssertionError):
+            cs.leak_gate("leak", stats, stash)
+    pressure = {"preemptions": 2, "swap_bytes_in": 64, "swap_bytes_out": 64}
+    cs.pressure_gate("ok", {"pressure": pressure})
+    for bad in (dict(pressure, preemptions=0),
+                dict(pressure, swap_bytes_in=32)):
+        with pytest.raises(AssertionError):
+            cs.pressure_gate("bad", {"pressure": bad})
+    warm = [(1100, 1024), (1300, 1024)]
+    assert cs.prefix_gate("ok", {"prefix": {"hits": 2}}, warm, 1024) == 352
+    with pytest.raises(AssertionError, match="no prefix hit"):
+        cs.prefix_gate("cold", {"prefix": {"hits": 0}}, warm, 1024)
+    with pytest.raises(AssertionError, match="prefilled"):
+        cs.prefix_gate("short", {"prefix": {"hits": 2}},
+                       [(1100, 1024), (1300, 896)], 1024)
+    cs.spec_gate("ok", {"spec": {"verify_launches": 3, "drafted": 5}})
+    for bad in ({"verify_launches": 0, "drafted": 5},
+                {"verify_launches": 3, "drafted": 0}):
+        with pytest.raises(AssertionError):
+            cs.spec_gate("bad", {"spec": bad})
+
+
+def test_fault_gate_rejects_other_failures(cs):
+    log = [("prefill_launch", 3), ("sample", 9), ("cow_copy", 1),
+           ("page_alloc", 7)]
+    named = {3: "injected: injected fault at sample (call 9)",
+             7: "injected: injected fault at cow_copy (call 1)"}
+
+    def plus(rid, detail):
+        return {**named, rid: detail}
+    cs.fault_gate("ok", named, log)
+    cs.fault_gate("page_alloc too", plus(
+        2, "injected: injected fault at page_alloc (call 7)"), log)
+    with pytest.raises(AssertionError, match="another reason"):
+        cs.fault_gate("logits", plus(
+            1, "logits: request 1: non-finite logits at token 4"), log)
+    with pytest.raises(AssertionError, match="another reason"):
+        cs.fault_gate("not fired", plus(
+            1, "injected: injected fault at sample (call 4)"), log)
+    with pytest.raises(AssertionError, match="two requests"):
+        cs.fault_gate("twice", plus(
+            5, "injected: injected fault at sample (call 9)"), log)
+    with pytest.raises(AssertionError, match="failed no request"):
+        cs.fault_gate("lost", {3: named[3]}, log)
+
+
+def test_failure_gate_rejects_failed_requests_without_a_fault(cs):
+    """Every run of phase 3d goes through failure_gate: without an
+    injector one failed request (non-finite logits quarantined by the
+    engine, say) fails the run, whatever its token comparison shows."""
+    health = {"failed": 0, "shed": 0, "timed_out": 0, "last_error": None}
+    cs.failure_gate("clean", {}, {"health": health}, armed=False)
+    failed = dict(health, failed=1,
+                  last_error="request 3: logits: non-finite logits")
+    error = {3: "logits: request 3: non-finite logits at token 4"}
+    for errors, h in ((error, failed), ({}, failed), (error, health),
+                      ({}, dict(health, last_error="request 3: x")),
+                      ({}, dict(health, shed=1)),
+                      ({}, dict(health, timed_out=1))):
+        with pytest.raises(AssertionError, match="no fault armed"):
+            cs.failure_gate("unarmed", errors, {"health": h}, armed=False)
+    named = {3: "injected: injected fault at sample (call 9)"}
+    cs.failure_gate("armed", named, {"health": failed}, armed=True)
+    for errors, h in (({}, failed), (named, dict(failed, failed=2)),
+                      (named, dict(failed, shed=1))):
+        with pytest.raises(AssertionError, match="error events"):
+            cs.failure_gate("armed", errors, {"health": h}, armed=True)

@@ -334,10 +334,19 @@ def test_throughput_reads_the_injected_clock(gemma):
 
 
 def test_serve_engine_refuses_an_injector(gemma):
+    """The engine takes a fault injector and hands it to its core (as the
+    JAX engine does); what it still refuses is tensor parallelism."""
+    from repro_torch.serving.faults import FaultInjector
     *_, tcfg, tm, tp = gemma
-    engine = ServeEngine(model=tm, params=tp, cfg=tcfg, injector=object())
-    with pytest.raises(NotImplementedError, match="fault injector"):
-        engine.core
+    inj = FaultInjector(seed=0)
+    engine = ServeEngine(model=tm, params=tp, cfg=tcfg, injector=inj)
+    assert engine.core.injector is inj
+    assert engine.core.mgr.injector is inj
+    assert engine.last_pressure.injector is inj
+    refused = ServeEngine(model=tm, params=tp, cfg=tcfg, injector=inj,
+                          serve=ServeConfig(tp=2))
+    with pytest.raises(NotImplementedError, match="tp=2"):
+        refused.core
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +368,16 @@ def test_serve_cli_on_cpu(capsys, mode, expect):
         assert out.count("finished (5 tokens)") == 4
 
 
-def test_serve_cli_refuses_speculation():
+def test_serve_cli_refuses_speculation(capsys):
+    """The CLI refuses an unknown drafter and serves ``--spec-mode
+    lookup`` through the engine's verify launches."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="speculative"):
-        serve.main(["--smoke", "--device", "cpu", "--spec-mode", "lookup"])
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--spec-mode", "draft"])
+    capsys.readouterr()
+    serve.main(["--arch", "llama2-7b", "--smoke", "--device", "cpu",
+                "--stream", "--requests", "3", "--prompt-len", "21",
+                "--gen", "6", "--spec-mode", "lookup", "--spec-tokens", "3"])
+    out = capsys.readouterr().out
+    assert out.count("finished (6 tokens)") == 3
+    assert "speculation:" in out and " 0 verify launches" not in out

@@ -29,6 +29,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.core import (EngineCore, sample_token,  # noqa: E402
                                       stream_seed)
+from repro_torch.serving.faults import FaultInjector  # noqa: E402
 from repro_torch.serving.scheduler import (ABORTED, FINISHED,  # noqa: E402
                                            SamplingParams)
 
@@ -223,16 +224,46 @@ def test_bounded_queue_rejects(setup):
         core.add_request(prompts[1], SamplingParams(max_new_tokens=2))
 
 
-@pytest.mark.parametrize("kw", [
-    {"spec_mode": "lookup"}, {"tp": 2}, {"prefix_cache": True},
-    {"prefill_mode": "scan"}, {"num_pages": 10}, {"injector": True}])
+# tensor parallelism is the one engine feature still refused: alone and
+# beside each of the single-card features the engine now serves
+FEATURES = [{"spec_mode": "lookup"}, {"prefix_cache": True},
+            {"prefill_mode": "scan"}, {"num_pages": 10}, {"injector": True}]
+
+
+@pytest.mark.parametrize("kw", [{"tp": 2}] + [
+    {"tp": 4, **f} for f in FEATURES])
 def test_unsupported_configs_raise(setup, kw):
     _, _, _, tcfg, tm, tp, _ = setup
     kw = dict(kw)
-    injector = kw.pop("injector", None)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    injector = FaultInjector() if kw.pop("injector", None) else None
+    with pytest.raises(NotImplementedError, match="not ported yet: tp="):
         EngineCore(tm, tp, tcfg, ServeConfig(**{**SERVE, **kw}),
                    device="cpu", injector=injector)
+
+
+def _serve_all(core, prompts):
+    ids = [core.add_request(p, SamplingParams(max_new_tokens=n))
+           for p, (_, n) in zip(prompts, SPEC)]
+    return _drain(core, ids)
+
+
+@pytest.fixture(scope="module")
+def plain_tokens(setup):
+    return _serve_all(_core(setup), setup[-1])
+
+
+@pytest.mark.parametrize("kw", FEATURES)
+def test_single_card_features_are_served(setup, plain_tokens, kw):
+    """Each single-card feature serves the traffic of the first test to
+    the same greedy tokens as the plain engine."""
+    _, _, _, tcfg, tm, tp, prompts = setup
+    kw = dict(kw)
+    injector = FaultInjector() if kw.pop("injector", None) else None
+    core = EngineCore(tm, tp, tcfg, ServeConfig(**{**SERVE, **kw}),
+                      device="cpu", injector=injector)
+    assert _serve_all(core, prompts) == plain_tokens
+    assert core.stats()["pages_used"] == (
+        core.prefix.cached_pages if core.prefix else 0)
 
 
 def test_engine_defaults_to_cuda(setup):
