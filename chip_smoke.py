@@ -20,8 +20,10 @@ which raises on failure (the script then exits non-zero):
    path and at page size 16 in float32, qwen2.5-32b's GQA 40/8 at page
    size 16 in bf16 (ragged chunks, a padded row), paged prefill at the
    speculative verify shape (``VERIFY_CASE``: B=8 rows of a 5-token chunk
-   at pos_start 37-1900 of a 2048-token table, n_valid 5 down to 0), and
-   paged decode at its
+   at pos_start 37-1900 of a 2048-token table, n_valid 5 down to 0), both
+   at one rank's shape of phase 3e (a) (llama2-7b at tp=2: 16/16 heads,
+   8 rows, with its own split-KV plan and its split edges), and paged
+   decode at its
    split-KV edges (``DECODE_CASES``: kv_len one below, at and one above a
    split, a window narrower than the table, 4096 keys in one sequence,
    only idle rows); ``fastattn_fwd`` at llama2-7b's training shape, a
@@ -94,6 +96,25 @@ which raises on failure (the script then exits non-zero):
    tokens equal the all-off run's, and the fault-free run fails nothing;
    (e) one 128-token prompt through the scan prefill oracle (a decode
    step a prompt token, no prefill launch) against the chunked prefill.
+3e. Tensor-parallel serving (``phase_tp``), after 3d: (a) phase 3's 12
+   requests on phase 3's llama2-7b at tp=2 (g=2, s=1) as two ranks of
+   ``launch.mesh.spawn_ranks``, the weights shared by CUDA IPC and each
+   rank keeping its slices, under the tiled and the single all-reduce;
+   with one GPU both ranks share cuda:0 over gloo, which stages every
+   collective through the host (its times are no TP speed), with
+   several one GPU a rank over NCCL.  Its reference is phase 3's engine
+   on the same traffic at tp=1, run again here to record its top-1
+   margins and first prefill logits (phase 3's timed run records
+   nothing).  Gates: every rank's streams equal, equal to the reference's
+   under its margins, the first prefill launch's logits within the
+   phase 3 tolerance of the reference's, both paged
+   kernels launched on every rank exactly 32 times a prefill or decode
+   launch, no page left, ``stats()["tp"]`` the plan.  (b) Reduced
+   gemma2-2b at tp=4 (g=2, s=2: the LSE merge over page-row sub-shards on
+   CUDA tensors) against its own tp=1 run (plain paged attention: the
+   kernels take no head dim 16), three requests under each mode and an
+   oversubscribed pool under swap.  The ring and reduce-scatter variants
+   run only under NCCL (gloo has no CUDA send/recv or reduce-scatter).
 4. Training: with phase 3's model freed, the trainer's own functions
    (``init_train_state``, ``make_train_step``, ``TokenPipeline``,
    ``CheckpointManager``, as ``repro_torch.launch.train`` calls them) take
@@ -141,7 +162,9 @@ The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
 ``flash_decode`` also ``long_*``: phase 2's B=1, S=65536 case and phase
 3c's step; ``paged_prefill`` also ``verify_*``: phase 2's VERIFY_CASE,
-with its launches in phase 3d (c)); the last line is ``{"ok": true,
+with its launches in phase 3d (c); both paged kernels also
+``tp_launches``, each rank's launches in phase 3e (a) under each
+all-reduce mode); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -150,6 +173,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -822,6 +846,12 @@ PREFILL_CASES = [
     ("qwen2.5-32b ps=16 B=4 chunk=512 H=40/8 D=128 bf16",
      dict(hq=40, hkv=8, d=128, ps=16, n_kv=68, chunk=512, dtype="bfloat16",
           starts=[0, 512, 1000, 0], nvalid=[512, 301, 77, 0], seed=3)),
+    # one rank of phase 3e (a): llama2-7b at tp=2 holds 16 of the 32 query
+    # and kv heads
+    ("llama2-7b tp=2 rank B=8 chunk=512 H=16/16 D=128 bf16 ps=128",
+     dict(hq=16, hkv=16, d=128, ps=128, n_kv=16, chunk=512,
+          dtype="bfloat16", starts=[0, 512, 1024, 1536, 0, 512, 0, 0],
+          nvalid=[512, 300, 512, 512, 37, 512, 0, 0], seed=5)),
 ]
 # the speculative verify launch's shape (phase 3d (c)): one row a running
 # slot, K+1 = 5 query rows deep in a 2048-token cache, a different n_valid
@@ -861,6 +891,17 @@ DECODE_CASES = [
     ("idle rows only B=2 H=8/8 D=64 bf16 ps=16",
      dict(b=2, hq=8, hkv=8, d=64, ps=16, n_kv=8, dtype="bfloat16", seed=6,
           lens=[1, 1])),
+    # one rank of phase 3e (a): llama2-7b at tp=2 decodes 16/16 heads at
+    # its 8 slots, a split plan of its own (the planner reads B * Hkv);
+    # drawn lengths, then rows one below, at and one above its first two
+    # split edges, a full row and an idle slot
+    ("llama2-7b tp=2 rank B=8 H=16/16 D=128 bf16 ps=128",
+     dict(b=8, hq=16, hkv=16, d=128, ps=128, n_kv=16, dtype="bfloat16",
+          seed=7)),
+    ("llama2-7b tp=2 rank split edges B=8 H=16/16 D=128 bf16 ps=128",
+     dict(b=8, hq=16, hkv=16, d=128, ps=128, n_kv=16, dtype="bfloat16",
+          seed=8, lens=lambda sk: [sk - 1, sk, sk + 1, 2 * sk - 1, 2 * sk,
+                                   2 * sk + 1, 16 * 128, 1])),
 ]
 # phase 2's dense decode cases, (name, arguments).  The main path's own
 # shape is phase 3b's (generate's caches); LONG_DECODE is the kernels
@@ -962,9 +1003,14 @@ def build_llama():
     return model, params
 
 
+# phase 3's engine and traffic (also phase 3e's)
+SERVE_3 = dict(max_batch=8, max_seq_len=2048, page_size=128,
+               prefill_chunk=512)
+SERVE_3_NEW = 32                # new tokens a request
+
+
 def phase_serving(model, params, n_requests: int = 12,
-                  new_tokens: int = 32) -> dict:
-    import numpy as np
+                  new_tokens: int = SERVE_3_NEW) -> dict:
     import torch
     from repro_torch.config import ServeConfig
     from repro_torch.kernels.fastattn.ops import fastattn_paged_prefill
@@ -972,12 +1018,9 @@ def phase_serving(model, params, n_requests: int = 12,
     from repro_torch.serving.scheduler import FINISHED, SamplingParams
 
     cfg = model.cfg
-    serve = ServeConfig(max_batch=8, max_seq_len=2048, page_size=128,
-                        prefill_chunk=512)
+    serve = ServeConfig(**SERVE_3)
     core = _make_timed_core()(model, params, cfg, serve, device="cuda")
-    rng = np.random.default_rng(0)
-    lens = rng.integers(37, 1801, size=n_requests)
-    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
+    prompts, lens = serve_traffic(cfg.vocab_size, n_requests)
     greedy = SamplingParams(max_new_tokens=new_tokens)
 
     paged_flash_decode.launches = 0
@@ -1033,6 +1076,14 @@ def phase_serving(model, params, n_requests: int = 12,
     log("[serve] " + json.dumps({k: v for k, v in out.items()}))
     check_against_plain(model, params, prompts[0], tokens[ids[0]][0])
     return out
+
+
+def serve_traffic(vocab: int, n_requests: int = 12):
+    """Phase 3's prompts (numpy seed 0): 37-1800 tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(37, 1801, size=n_requests)
+    return [rng.integers(0, vocab, size=int(n)) for n in lens], lens
 
 
 def _leaves(tree):
@@ -1614,12 +1665,13 @@ def _make_feature_core():
 
     class FeatureCore(_make_timed_core()):
         """TimedCore that records, when ``record`` is set, the top-1
-        margin of every row a greedy token is taken from (the reference
-        runs of phase 3d), and holds its first verify launch to the same
-        launch through the plain attention path (``check_verify``).  The
-        check's own seconds (the pool clone, the plain launch and the
-        comparison, each waited on) add up in ``check_s``, which the run
-        takes off its wall time."""
+        margin of every row a greedy token is taken from (in its wall
+        time) and the first prefill launch's logits (the reference runs
+        of phases 3d and 3e), and holds its first verify launch to the
+        same launch through the plain attention path (``check_verify``).
+        The seconds of the logits' copy and of the check (the pool
+        clone, the plain launch and the comparison, each waited on) add
+        up in ``check_s``, which the run takes off its wall time."""
 
         def __init__(self, *a, record=False, check_verify=False, **kw):
             super().__init__(*a, **kw)
@@ -1628,6 +1680,7 @@ def _make_feature_core():
             self.margins = {}
             # the first verify launch, and the first with every row in it
             self.verify_check = {}
+            self.first_prefill = None   # the first launch's last-row logits
             self.check_s = 0.0
 
         def _note(self, keys, logits):
@@ -1637,6 +1690,15 @@ def _make_feature_core():
             tol = (LOGIT_TOL * lf.abs().amax(dim=-1)).cpu().tolist()
             for i, key in keys:
                 self.margins[key] = (margin[i], tol[i])
+
+        def _prefill(self, *args):
+            out = super()._prefill(*args)
+            if self.record and self.first_prefill is None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                self.first_prefill = out.float().cpu()
+                self.check_s += time.perf_counter() - t0
+            return out
 
         def _first_token(self, req, slot, last_logits, events):
             if self.record:
@@ -1918,6 +1980,369 @@ def phase_features(model, params) -> dict:
     log(f"[3d] {res['card']}: all runs passed in {res['seconds']:.1f}s")
     log("[3d] " + json.dumps(res))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_MODES = ("tiled", "single")
+TP_INIT_TIMEOUT_S = 120.0     # every collective of a rank
+TP_DEADLINE_S = 420.0         # a spawned group as a whole
+GLOO_NOTE = "gloo stages through the host: not a TP speed"
+
+
+def tp_backend() -> tuple:
+    """(backend, device of each rank): one GPU a rank over NCCL where the
+    machine has as many; else every rank on cuda:0 over gloo (NCCL
+    refuses two ranks on one device)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return "nccl", (lambda r: f"cuda:{r}")
+    # every rank is on this host: gloo's sockets on the loopback device,
+    # whatever the host name resolves to
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    return "gloo", (lambda r: "cuda:0")
+
+
+def _tp_drive(core, waves, counts) -> dict:
+    """Drive one rank's core over ``waves`` of (request id, prompt,
+    max_new_tokens), the kernel and collective counts set to 0 just
+    before and read just after; the run's numbers."""
+    import torch
+    from repro_torch.core.tiled_allreduce import COUNTS
+    from repro_torch.serving.scheduler import SamplingParams
+    torch.cuda.synchronize()
+    for c in counts.values():
+        c.launches = 0
+    COUNTS.update(all_reduce=0, bytes=0)
+    torch.cuda.reset_peak_memory_stats()
+    tokens = {}
+    t0 = time.perf_counter()
+    for wave in waves:
+        for rid, prompt, n_new in wave:
+            core.add_request(prompt, SamplingParams(max_new_tokens=n_new),
+                             request_id=rid)
+            tokens[rid] = []
+        while core.has_work:
+            for ev in core.step():
+                if ev.kind != "token":
+                    raise AssertionError(f"request {ev.request_id}: {ev}")
+                tokens[ev.request_id].append(ev.token)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - core.check_s
+    stats = core.stats()
+    dev = core.device_seconds()
+    served = sum(len(p) for w in waves for _, p, _ in w) + sum(
+        len(t) for t in tokens.values())
+    return {"tokens": tokens, "wall_s": wall, "steps": stats["steps"],
+            "prefill_launches": stats["prefill_launches"],
+            "decode_launches": stats["decode_launches"],
+            "launches": {k: c.launches for k, c in counts.items()},
+            "all_reduce": COUNTS["all_reduce"],
+            "all_reduce_bytes": COUNTS["bytes"],
+            "device_s": sum(dev.values()),
+            "device_tok_s": served / sum(dev.values()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "pages_used": stats["pages_used"], "tp": stats.get("tp"),
+            "pool_gb": sum(t.numel() * t.element_size()
+                           for c in core.pools for t in c) / 1e9,
+            "swap_bytes_out": stats["pressure"]["swap_bytes_out"],
+            "preemptions": stats["pressure"]["preemptions"],
+            "first_prefill": core.first_prefill.numpy(),
+            "device": torch.cuda.current_device(),
+            "margins": core.margins}
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _tp_rank(rank: int, arch: str, params, runs) -> dict:
+    """One rank of phase 3e: for each (name, ServeConfig keywords, waves)
+    of ``runs`` a fresh EngineCore on this rank's slices of ``params``
+    (shared with the parent by CUDA IPC; copied over first where the rank
+    has a GPU of its own), driven over the waves."""
+    import torch
+    from repro_torch.config import ServeConfig, get_model_config
+    from repro_torch.config import reduce_for_smoke
+    from repro_torch.kernels.fastattn.ops import fastattn_paged_prefill
+    from repro_torch.kernels.flash_decode.ops import paged_flash_decode
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_model_config(arch.removesuffix(" reduced"))
+    if arch.endswith(" reduced"):
+        cfg = reduce_for_smoke(cfg)
+    model = build_model(cfg, device=dev)
+    if next(_leaves(params)).device != dev:
+        params = _tree_to(params, dev)
+    counts = {"paged_prefill": fastattn_paged_prefill,
+              "paged_decode": paged_flash_decode}
+    out = {}
+    for name, serve, waves in runs:
+        core = _make_feature_core()(model, params, cfg, ServeConfig(**serve),
+                                    device=dev, record=True)
+        out[name] = _tp_drive(core, waves, counts)
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_gate(what, ranks: list, ref_tokens: dict, margins: dict,
+            plan: dict, layers: int, kernels) -> tuple:
+    """Phase 3e's gates on one run, every rank's result in ``ranks``: the
+    ranks' streams exactly equal; equal to the tp=1 reference under the
+    greedy margin rule (``tokens_gate``); every kernel of ``kernels``
+    launched on every rank exactly ``layers`` times a prefill or decode
+    launch; no page left; ``stats()["tp"] == plan``.  Returns
+    tokens_gate's (equal, compared)."""
+    first = ranks[0]["tokens"]
+    for r, res in enumerate(ranks):
+        if res["tokens"] != first:
+            raise AssertionError(f"{what}: rank {r}'s streams differ from "
+                                 "rank 0's")
+        if res["tp"] != plan:
+            raise AssertionError(f"{what}: rank {r} ran plan {res['tp']}, "
+                                 f"not {plan}")
+        if res["pages_used"]:
+            raise AssertionError(f"{what}: rank {r} leaked "
+                                 f"{res['pages_used']} pages")
+        want = {"paged_prefill": layers * res["prefill_launches"],
+                "paged_decode": layers * res["decode_launches"]}
+        for k in kernels:
+            if res["launches"][k] != want[k] or want[k] <= 0:
+                raise AssertionError(
+                    f"{what}: rank {r} launched {k} {res['launches'][k]} "
+                    f"times, not {want[k]}")
+    return tokens_gate(what, first, ref_tokens, margins)
+
+
+def _tp_report(what, ranks: list, backend: str) -> dict:
+    """Print a run's lines and return its numbers (per rank)."""
+    steps = ranks[0]["steps"]
+    for r, res in enumerate(ranks):
+        log(f"[3e] {what} rank {r} on cuda:{res['device']} ({backend}): "
+            f"{res['wall_s']:.2f}s wall, {res['steps']} steps, "
+            f"{res['all_reduce'] / max(1, steps):.1f} all-reduces a step "
+            f"({res['all_reduce_bytes'] / 1e9:.3f} GB through them), "
+            f"{res['device_tok_s']:.0f} device-time tok/s, peak memory "
+            f"{res['peak_mem_gb']:.2f} GB (pools {res['pool_gb']:.2f} GB), "
+            f"kernel launches {res['launches']}")
+    log(f"[3e] {what}: {GLOO_NOTE}" if backend == "gloo" else
+        f"[3e] {what}: one GPU a rank over nccl")
+    keys = ("wall_s", "steps", "all_reduce", "all_reduce_bytes",
+            "device_tok_s", "peak_mem_gb", "pool_gb", "launches")
+    return {k: [res[k] for res in ranks] for k in keys}
+
+
+def _tp_memory(params, cfg, serve: dict, tp: int) -> None:
+    """The peak reckoned before the first spawn: the parent's weights
+    (shared with the ranks), and each rank's slices and local pools."""
+    import torch
+    from repro_torch.sharding.tp import plan_tp
+    plan = plan_tp(cfg, tp, serve["page_size"])
+    sliced = sum(t.numel() * t.element_size() for bp in params["layers"]
+                 for k in ("attn", "mlp") for t in _leaves(bp[k]))
+    from repro_torch.config import ServeConfig
+    pages = ServeConfig(**serve).pool_pages()
+    pools = (cfg.num_layers * 2 * cfg.num_kv_heads // plan.g * pages
+             * serve["page_size"] // plan.s * cfg.head_dim * 2)
+    log(f"[3e] memory reckoned: parent "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated; each of "
+        f"{tp} ranks about "
+        f"{sliced / tp / 1e9:.1f} GB of slices (column slices copied, row "
+        f"slices views of the parent's) + {pools / 1e9:.1f} GB of pools + "
+        "about 1 GB of context and activations")
+
+
+# (b): reduced gemma2-2b at tp=4 (g=2, s=2), the LSE merge on CUDA
+# tensors: tests/test_tp_serving.py's engine, three requests, then an
+# oversubscribed pool under swap
+TP_B_SERVE = dict(max_batch=3, max_seq_len=96, page_size=16,
+                  prefill_chunk=16, num_pages=24)
+TP_B_PRESSURE = dict(max_batch=4, max_seq_len=64, page_size=16,
+                     prefill_chunk=16, num_pages=14, preempt_policy="swap")
+TP_B_SPEC = [(8, 56), (5, 43), (20, 44), (4, 44), (30, 34), (6, 58)]
+
+
+def tp_b_traffic(vocab: int) -> dict:
+    import numpy as np
+    rng = np.random.default_rng(7)
+    basic = [[(i, rng.integers(0, vocab, size=n), 8)
+              for i, n in enumerate((5, 23, 40))]]
+    rng = np.random.default_rng(7)
+    pressure = [[(i, rng.integers(0, vocab, size=s), n)
+                 for i, (s, n) in enumerate(TP_B_SPEC)]]
+    return {"tiled": (TP_B_SERVE, basic), "single": (TP_B_SERVE, basic),
+            "swap": (TP_B_PRESSURE, pressure)}
+
+
+def _tp_nccl_collectives(rank: int) -> dict:
+    """The ring and reduce-scatter variants on CUDA tensors, one GPU a
+    rank (NCCL): each rank's output against the sum of the per-rank
+    products, which every rank computes from one seed."""
+    import torch
+    from repro_torch.core import tiled_allreduce as ta
+    import torch.distributed as dist
+    n = dist.get_world_size()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((4096, 4096), generator=gen, device="cuda")
+    w = torch.randn((4096, 1024), generator=gen, device="cuda")
+    f = 4096 // n
+    want = sum(x[:, r * f:(r + 1) * f] @ w[r * f:(r + 1) * f]
+               for r in range(n))
+    xs, ws = x[:, rank * f:(rank + 1) * f], w[rank * f:(rank + 1) * f]
+    got = {"ring": ta.ring_matmul_allreduce(xs, ws),
+           "reducescatter": ta.tiled_matmul_reducescatter(xs, ws,
+                                                          n_chunks=1)}
+    rows = 4096 // n
+    ref = {"ring": want, "reducescatter": want[rank * rows:
+                                               (rank + 1) * rows]}
+    return {k: ((got[k] - ref[k]).abs().max().item(),
+                ref[k].abs().max().item()) for k in got}
+
+
+def phase_tp(model, params) -> dict:
+    """Phase 3e: (a) phase 3's traffic on phase 3's llama2-7b at tp=2
+    (g=2, s=1), two ranks, under each collective mode, against a tp=1 run
+    of phase 3's engine on the same traffic that records its margins (a
+    run of its own, so that phase 3's timed run stays as it was); (b)
+    reduced gemma2-2b at tp=4 (g=2, s=2) against its own tp=1 run; the
+    ring and reduce-scatter variants where NCCL runs."""
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    from repro_torch.config import ServeConfig
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    backend, dev_of = tp_backend()
+    cfg = model.cfg
+    out = {"backend": backend}
+
+    def spawn(tmp, tag, tp, *args, fn=_tp_rank):
+        devs = [dev_of(r) for r in range(tp)]
+        log(f"[3e] {tag}: {tp} ranks over {backend} on {devs}")
+        res = spawn_ranks(fn, tp, args=args, device_of_rank=dev_of,
+                          backend=backend,
+                          init_method=f"file://{tmp}/pg-{tag}",
+                          timeout_s=TP_DEADLINE_S,
+                          init_timeout_s=TP_INIT_TIMEOUT_S)
+        torch.cuda.ipc_collect()      # the ranks' handles on our tensors
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the slice: llama2-7b at full width and depth, tp=2, against
+        # phase 3's engine and traffic at tp=1, margins recorded
+        prompts, _ = serve_traffic(cfg.vocab_size)
+        waves = [[(i, p, SERVE_3_NEW) for i, p in enumerate(prompts)]]
+        core = _make_feature_core()(model, params, cfg,
+                                    ServeConfig(**SERVE_3), device="cuda",
+                                    record=True)
+        tp1 = _tp_drive(core, waves, {})
+        del core
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[3e] (a) llama2-7b tp=1 reference: {tp1['wall_s']:.2f}s "
+            f"wall, {tp1['steps']} steps, {tp1['device_tok_s']:.0f} "
+            "device-time tok/s")
+        out["a_tp1"] = {k: tp1[k] for k in ("wall_s", "steps",
+                                            "device_tok_s", "peak_mem_gb")}
+        _tp_memory(params, cfg, SERVE_3, 2)
+        ranks = spawn(tmp, "a", 2, "llama2-7b", params, [
+            (m, dict(SERVE_3, tp=2, tp_collectives=m), waves)
+            for m in TP_MODES])
+        for m in TP_MODES:
+            what = f"(a) llama2-7b tp=2 {m}"
+            rr = [r[m] for r in ranks]
+            eq, tot = tp_gate(what, rr, tp1["tokens"], tp1["margins"],
+                              {"tp": 2, "g": 2, "s": 1, "collectives": m},
+                              cfg.num_layers,
+                              ("paged_prefill", "paged_decode"))
+            _compare_logits(f"[3e] {what}: first prefill launch against "
+                            "tp=1's", torch.from_numpy(rr[0]["first_prefill"]),
+                            torch.from_numpy(tp1["first_prefill"]))
+            out[f"a_{m}"] = {**_tp_report(what, rr, backend),
+                             "tokens_equal": eq, "tokens_compared": tot}
+            log(f"[3e] {what}: {eq} of {tot} greedy tokens equal tp=1's "
+                "before any fork at a near-tie")
+        del ranks
+
+        # (b) the LSE merge on CUDA tensors: reduced gemma2-2b at tp=4
+        rcfg = reduce_for_smoke(get_model_config("gemma2-2b"))
+        rmodel = build_model(rcfg, device="cuda")
+        rparams = rmodel.init(rmodel.generator(0))
+        traffic = tp_b_traffic(rcfg.vocab_size)
+        refs = {}
+        for name, (serve, w) in traffic.items():
+            if name == "single":
+                refs[name] = refs["tiled"]
+                continue
+            # tp=1 on the plain paged attention: the kernels take head
+            # dims 64, 128 and 256, the reduced config has 16
+            core = _make_feature_core()(
+                rmodel, rparams, rcfg,
+                ServeConfig(**dict(serve, paged_impl="paged_reference")),
+                device="cuda", record=True)
+            refs[name] = _tp_drive(core, w, {})
+            del core
+        ranks = spawn(tmp, "b", 4, "gemma2-2b reduced", rparams, [
+            (name, dict(serve, tp=4, tp_collectives=(
+                "single" if name == "single" else "tiled")), w)
+            for name, (serve, w) in traffic.items()])
+        for name in traffic:
+            what = f"(b) gemma2-2b reduced tp=4 {name}"
+            rr = [r[name] for r in ranks]
+            coll = "single" if name == "single" else "tiled"
+            eq, tot = tp_gate(what, rr, refs[name]["tokens"],
+                              refs[name]["margins"],
+                              {"tp": 4, "g": 2, "s": 2, "collectives": coll},
+                              rcfg.num_layers, ())
+            _compare_logits(f"[3e] {what}: first prefill launch against "
+                            "tp=1's", torch.from_numpy(rr[0]["first_prefill"]),
+                            torch.from_numpy(refs[name]["first_prefill"]))
+            if name == "swap" and not (
+                    rr[0]["preemptions"] > 0 and rr[0]["swap_bytes_out"]
+                    == refs[name]["swap_bytes_out"] > 0):
+                raise AssertionError(
+                    f"{what}: {rr[0]['preemptions']} preemptions, swap "
+                    f"bytes {rr[0]['swap_bytes_out']} against tp=1's "
+                    f"{refs[name]['swap_bytes_out']}")
+            out[f"b_{name}"] = {**_tp_report(what, rr, backend),
+                                "tokens_equal": eq, "tokens_compared": tot}
+            log(f"[3e] {what}: {eq} of {tot} greedy tokens equal tp=1's")
+        del ranks, rparams, rmodel
+
+        # the ring and reduce-scatter variants need CUDA send/recv and
+        # reduce-scatter: NCCL's, one GPU a rank
+        if backend == "nccl":
+            tp = min(torch.cuda.device_count(), 4)
+            for r, errs in enumerate(spawn(tmp, "ring", tp,
+                                           fn=_tp_nccl_collectives)):
+                for k, (err, scale) in errs.items():
+                    if not err <= 1e-4 * scale:
+                        raise AssertionError(f"{k} on rank {r}: error "
+                                             f"{err} of scale {scale}")
+            log(f"[3e] ring and reduce-scatter on {tp} GPUs: within 1e-4 "
+                "of the products' scale")
+        else:
+            log("[3e] ring and reduce-scatter variants not run: one GPU, "
+                "and gloo has no CUDA send/recv or reduce-scatter (NCCL "
+                "refuses two ranks on one device)")
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = _card()
+    log(f"[3e] {out['card']}: all runs passed in {out['seconds']:.1f}s")
+    log("[3e] " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2800,6 +3225,7 @@ def main() -> int:
     dense = phase_dense(model, params)
     long_step = phase_long_decode(model, params, dense["kv_rms"])
     features = phase_features(model, params)
+    tp = phase_tp(model, params)
     del model, params
     gc.collect()                  # phase 3's model, pools and engines
     torch.cuda.empty_cache()
@@ -2861,6 +3287,13 @@ def main() -> int:
         verify_bound_ms=ver["bound_ms"], verify_bound_by=ver["bound_by"],
         verify_library_ms=ver["library_ms"],
         verify_library_device_ms=ver.get("library_device_ms"))
+    # paged_prefill and paged_decode also launched on each rank of phase
+    # 3e (a)'s tp=2 run, under each collective mode
+    for k in line["kernels"]:
+        if k["name"] in ("paged_prefill", "paged_decode"):
+            k["tp_launches"] = {m: [r[k["name"]] for r in
+                                    tp[f"a_{m}"]["launches"]]
+                                for m in TP_MODES}
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

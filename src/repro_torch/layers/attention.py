@@ -1,6 +1,6 @@
 """GQA attention layer: the dense training/full-forward path, the
-dense-cache decode path and the paged KV-pool paths (all
-non-tensor-parallel).
+dense-cache decode path and the paged KV-pool paths, the latter also
+tensor-parallel.
 
 Caches and pools are updated IN PLACE (slice assignment, ``index_put_``
 through a flat view): the JAX package wrote them functionally
@@ -8,6 +8,17 @@ through a flat view): the JAX package wrote them functionally
 the jitted step; here the step owns the only reference, so an in-place
 write saves a copy of every cache per layer.  The functions still return
 the cache so call sites read like their JAX counterparts.
+
+Under an active tensor-parallel context (``sharding/tp.py``) the paged
+paths run one rank's share: its sliced projections (``shard_params``),
+its local pools (the kv heads of its group, its rows of every page), its
+attention, and a row-parallel O-proj whose partial sums all-reduce over
+every rank (``core/tiled_allreduce.py``).  With one page-row sub-shard
+(``s == 1``) the rank's pools are ordinary pools and attention runs
+through the paged kernels; with ``s > 1`` each rank attends over its
+page rows in plain PyTorch and the group's sub-shards merge by their
+log-sum-exp (``core/distributed_decode.py``), as the JAX package's TP
+bodies do for every ``s``.
 """
 from __future__ import annotations
 
@@ -16,10 +27,16 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.core.distributed_decode import (attend_with_positions,
+                                                 merge_partial_attention,
+                                                 paged_local_view,
+                                                 paged_shard_kv_positions)
 from repro_torch.core.fastattention import (fast_attention,
                                             fast_attention_decode,
                                             fast_attention_prefill_paged)
+from repro_torch.core.tiled_allreduce import matmul_allreduce
 from repro_torch.layers import common, rotary
+from repro_torch.sharding.tp import current_tp, local_pool_shape
 
 
 # Dense decode cache layout: "bshd" (B, S_max, Hkv, D), token-major, as
@@ -117,9 +134,11 @@ def apply_attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def init_kv_pages(cfg: ModelConfig, num_pages: int, page_size: int,
                   dtype: torch.dtype, device: torch.device) -> KVCache:
-    """Global page pools (Hkv, P, page_size, D).  Every sequence's cache
-    is a subset of pages named by its page-table row."""
-    shape = (cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
+    """Page pools (Hkv, P, page_size, D) shared by every sequence, each
+    sequence's cache the pages named by its page-table row.  Under an
+    active tensor-parallel context, this rank's share
+    (``local_pool_shape``)."""
+    shape = local_pool_shape(cfg, num_pages, page_size)
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -136,6 +155,32 @@ def _table_pages(page_table: torch.Tensor,
     return page_table[rows, lp].long()
 
 
+def _shard() -> tuple:
+    """(page-row sub-shard index, sub-shards): (0, 1) without TP."""
+    tpc = current_tp()
+    return (0, 1) if tpc is None else (tpc.si, tpc.plan.s)
+
+
+def _row_slots(pool: torch.Tensor, page_table: torch.Tensor,
+               positions: torch.Tensor,
+               write: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flat row (page * local rows + local offset) of every (b, s)
+    position in this rank's pool, where ``write`` holds (every position
+    when None) and this rank owns the position's within-page offset; row
+    0 of the scratch page elsewhere, so that padding rows and other
+    sub-shards' rows never touch a live page."""
+    si, s = _shard()
+    psl = pool.shape[2]
+    off = positions % (psl * s)
+    flat = _table_pages(page_table, positions, psl * s) * psl
+    if s == 1:
+        flat, own = flat + off, write
+    else:
+        own = off // psl == si
+        flat, own = flat + off % psl, own if write is None else own & write
+    return flat if own is None else torch.where(own, flat, 0)
+
+
 def scatter_kv_pages(cache: KVCache, k_new: torch.Tensor,
                      v_new: torch.Tensor, page_table: torch.Tensor,
                      positions: torch.Tensor,
@@ -145,18 +190,58 @@ def scatter_kv_pages(cache: KVCache, k_new: torch.Tensor,
     k_new/v_new: (B, S, Hkv, D); positions: (B, S) global token positions;
     n_valid: (B,) -- rows past it (chunk padding) are redirected into the
     scratch page 0 so fixed-size chunks never touch pages owned by live
-    sequences.
+    sequences.  Under TP only the rows this rank's sub-shard owns are
+    written (the rest go to its scratch slice).
     """
-    hkv, npages, ps, d = cache.k.shape
+    hkv, npages, psl, d = cache.k.shape
     b, s = positions.shape
-    flat = _table_pages(page_table, positions, ps) * ps + positions % ps
     valid = torch.arange(s, device=positions.device)[None] < \
         n_valid.long()[:, None]
-    flat = torch.where(valid, flat, 0).reshape(-1)
+    flat = _row_slots(cache.k, page_table, positions, valid).reshape(-1)
     for pool, new in ((cache.k, k_new), (cache.v, v_new)):
         rows = new.to(pool.dtype).permute(2, 0, 1, 3).reshape(hkv, b * s, d)
-        pool.view(hkv, npages * ps, d)[:, flat] = rows
+        pool.view(hkv, npages * psl, d)[:, flat] = rows
     return cache
+
+
+def _merged_rows(q: torch.Tensor, cache: KVCache, page_table: torch.Tensor,
+                 positions: torch.Tensor, kv_len: torch.Tensor,
+                 window: Optional[int], cfg: ModelConfig) -> torch.Tensor:
+    """Attention of a rank with page-row sub-shards (``s > 1``): its
+    queries q (B, S, Hq_group, D) over its rows of every page, merged
+    across its group's sub-shards by the log-sum-exp, then cut to the
+    rank's 1/s of the query heads.  Returns (B, S, Hq_group/s * D) in
+    q's dtype, the O-proj input of this rank's wo rows."""
+    tpc = current_tp()
+    si, s = tpc.si, tpc.plan.s
+    psl = cache.k.shape[2]
+    kv_pos = paged_shard_kv_positions(page_table.shape[1], psl * s, psl,
+                                      si, device=q.device)
+    out, lse = attend_with_positions(
+        q.transpose(1, 2), paged_local_view(cache.k, page_table),
+        paged_local_view(cache.v, page_table), q_positions=positions,
+        kv_positions=kv_pos, kv_len=kv_len, causal=True, window=window,
+        softcap=cfg.attn_logit_softcap)
+    merged = merge_partial_attention(out, lse, tpc.seq_group)
+    hq_s = merged.shape[1] // s
+    mine = merged[:, si * hq_s:(si + 1) * hq_s].to(q.dtype)
+    b, _, sq, d = mine.shape
+    return mine.transpose(1, 2).reshape(b, sq, hq_s * d)
+
+
+def _o_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """out (B, S, F) @ wo; under TP the rank's partial sum, all-reduced
+    over every rank (tiled or single, as the plan says)."""
+    tpc = current_tp()
+    if tpc is None:
+        return common.dense(out, wo)
+    plan = tpc.plan
+    b, s, f = out.shape
+    y = matmul_allreduce(out.reshape(b * s, f), wo.to(out.dtype),
+                         tpc.world_group, mode=plan.collectives,
+                         n_chunks=plan.ar_chunks,
+                         first_chunk_frac=plan.first_chunk_frac)
+    return y.reshape(b, s, -1)
 
 
 def apply_attention_prefill_paged(params: dict, x: torch.Tensor,
@@ -183,11 +268,15 @@ def apply_attention_prefill_paged(params: dict, x: torch.Tensor,
     cache = scatter_kv_pages(cache, k_new, v_new, page_table, positions,
                              n_valid)
     kv_len = (pos_start + n_valid).to(torch.int32)
-    out = fast_attention_prefill_paged(
-        q, cache.k, cache.v, page_table, pos_start, kv_len,
-        window=window, softcap=cfg.attn_logit_softcap, impl=impl)
-    out = out.reshape(b, s, cfg.q_dim)
-    return common.dense(out, params["wo"]), cache
+    if _shard()[1] > 1:
+        out = _merged_rows(q, cache, page_table, positions, kv_len, window,
+                           cfg)
+    else:
+        out = fast_attention_prefill_paged(
+            q, cache.k, cache.v, page_table, pos_start, kv_len,
+            window=window, softcap=cfg.attn_logit_softcap, impl=impl)
+        out = out.reshape(b, s, -1)
+    return _o_proj(out, params["wo"]), cache
 
 
 def apply_attention_decode_paged(params: dict, x: torch.Tensor,
@@ -200,22 +289,27 @@ def apply_attention_decode_paged(params: dict, x: torch.Tensor,
 
     x: (B, 1, D); pos: (B,) int32 per-sequence positions; page_table:
     (B, n_kv) int32.  The new K/V row is written into page
-    ``page_table[b, pos // page_size]`` at offset ``pos % page_size``;
-    attention then reads kv_len = pos + 1 tokens through the table.
-    Returns (out (B, 1, D), pools).
+    ``page_table[b, pos // page_size]`` at offset ``pos % page_size``
+    (under TP by the one sub-shard that owns that offset; the others
+    write their scratch slice); attention then reads kv_len = pos + 1
+    tokens through the table.  Returns (out (B, 1, D), pools).
     """
     b = x.shape[0]
     positions = pos.long()[:, None]
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
-    ps = cache.k.shape[2]
-    page = _table_pages(page_table, positions, ps)[:, 0]
-    off = positions[:, 0] % ps
+    hkv, npages, psl, d = cache.k.shape
+    flat = _row_slots(cache.k, page_table, positions)[:, 0]
     for pool, new in ((cache.k, k_new), (cache.v, v_new)):
-        # (B, 1, Hkv, D) -> (Hkv, B, D) rows written at [:, page[b], off[b]]
-        pool[:, page, off] = new[:, 0].to(pool.dtype).transpose(0, 1)
+        # (B, 1, Hkv, D) -> (Hkv, B, D) rows written at their flat rows
+        pool.view(hkv, npages * psl, d)[:, flat] = \
+            new[:, 0].to(pool.dtype).transpose(0, 1)
     kv_len = (pos + 1).to(torch.int32)
-    out = fast_attention_decode(
-        q, cache.k, cache.v, kv_len, page_table=page_table, window=window,
-        softcap=cfg.attn_logit_softcap, impl=impl)
-    out = out.reshape(b, 1, cfg.q_dim)
-    return common.dense(out, params["wo"]), cache
+    if _shard()[1] > 1:
+        out = _merged_rows(q, cache, page_table, positions, kv_len, window,
+                           cfg)
+    else:
+        out = fast_attention_decode(
+            q, cache.k, cache.v, kv_len, page_table=page_table,
+            window=window, softcap=cfg.attn_logit_softcap, impl=impl)
+        out = out.reshape(b, 1, -1)
+    return _o_proj(out, params["wo"]), cache

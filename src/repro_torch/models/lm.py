@@ -122,7 +122,9 @@ class LM:
         """Per-layer KV page pools (no batch dim -- the serving page
         manager owns the page table that carves the pools into
         per-sequence caches).  Raises NotImplementedError for models with
-        recurrent (mlstm / slstm) blocks, as the JAX package does."""
+        recurrent (mlstm / slstm) blocks, as the JAX package does.  Under
+        an active tensor-parallel context each pool is this rank's share,
+        (Hkv/g, P, page_size/s, D) (``sharding/tp.local_pool_shape``)."""
         dtype = torch_dtype(self.cfg.dtype)
         return [B.init_block_pages(self.cfg, kind, num_pages, page_size,
                                    dtype, self.device)

@@ -30,8 +30,14 @@ a hash of ``(seed, n)``, so sampled tokens are invariant to batch
 composition and admission order (the JAX engine's ``fold_in(PRNGKey(seed),
 n)`` stream cannot be replayed in PyTorch; the invariants can).
 
-Not ported, and refused by the constructor with NotImplementedError:
-tensor parallelism (``tp > 1``).
+Tensor parallelism (``serve.tp > 1``, ``sharding/tp.py``) runs one
+process a rank inside a process group of ``tp`` ranks
+(``launch/mesh.py``), every rank with its own core and the same host
+state: the constructor keeps the rank's slices of ``params``, its local
+pools hold its share of the KV, and only the model forward communicates.
+So that the host state never drifts, every token id (and every
+finite-logits verdict) a step takes from the logits is rank 0's,
+broadcast to the others.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
@@ -60,6 +67,8 @@ from repro_torch.serving.scheduler import (ABORTED, FAILED, FINISHED,
                                            Request, SamplingParams)
 from repro_torch.serving.spec import (PromptLookupDrafter, verify_greedy,
                                       verify_residual)
+from repro_torch.sharding.tp import (plan_tp, rank_context, shard_params,
+                                     tp_context)
 
 _MASK64 = (1 << 64) - 1
 
@@ -137,10 +146,23 @@ class EngineCore:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
         self.model = model
-        self.params = params
         self.cfg = cfg
         self.serve = serve = serve or ServeConfig()
         self._check_supported(serve)
+        # tensor parallelism (sharding/tp.py): factor serve.tp into
+        # kv-head groups x page-row sub-shards, bind this process's rank
+        # and keep only its slices of the weights; step() runs the model
+        # under tp_context, flipping the attention/MLP layers and the
+        # pool allocation onto their per-rank bodies
+        self.tp = None
+        if serve.tp > 1:
+            plan = plan_tp(cfg, serve.tp, serve.page_size,
+                           collectives=serve.tp_collectives,
+                           ar_chunks=serve.tp_ar_chunks,
+                           first_chunk_frac=serve.tp_first_chunk_frac)
+            self.tp = rank_context(cfg, plan)
+            params = shard_params(params, cfg, plan, self.tp.rank)
+        self.params = params
         # None lets the attention facade pick by device (kernel on CUDA)
         self._impl = None if serve.paged_impl == "auto" else serve.paged_impl
         # fault-injection harness (serving/faults.py): threaded through
@@ -228,9 +250,6 @@ class EngineCore:
             raise ValueError(
                 f"spec_tokens must be >= 1 with spec_mode="
                 f"{serve.spec_mode!r}, got {serve.spec_tokens}")
-        if serve.tp > 1:
-            raise NotImplementedError(
-                f"not ported yet: tp={serve.tp} (tensor-parallel slice)")
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -384,6 +403,10 @@ class EngineCore:
             }
         if self.injector is not None:
             out["injected_faults"] = self.injector.stats()
+        if self.tp is not None:
+            plan = self.tp.plan
+            out["tp"] = {"tp": plan.tp, "g": plan.g, "s": plan.s,
+                         "collectives": plan.collectives}
         if self.prefix is not None:
             out["prefix"] = dict(self.prefix.stats)
             out["prefix_cached_pages"] = self.prefix.cached_pages
@@ -544,6 +567,16 @@ class EngineCore:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
+    def _agree(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t``, broadcast to every rank (``t`` itself without
+        TP): what a step reads from the logits must be the same on every
+        rank, or their host states would drift apart."""
+        if self.tp is None:
+            return t
+        t = t.to(self.device).contiguous()
+        dist.broadcast(t, 0, group=self.tp.world_group)
+        return t
+
     def _chunk(self, buf: np.ndarray, table: np.ndarray, pos0: np.ndarray,
                nval: np.ndarray) -> torch.Tensor:
         logits, self.pools = self.model.prefill_chunk_paged(
@@ -617,16 +650,9 @@ class EngineCore:
         if self.injector is not None:
             self.injector.fire(site)
 
-    def _guard_logits(self, req: Request, row: torch.Tensor) -> None:
-        """NaN/Inf guard on one request's logits row: under
-        ``logit_guard="fail"`` a non-finite row fails only the offending
-        request (LogitError -> quarantine)."""
-        if self.serve.logit_guard != "fail":
-            return
-        if not bool(torch.isfinite(row).all()):
-            raise LogitError(
-                f"request {req.id}: non-finite logits at token "
-                f"{len(req.generated)}", request_id=req.id)
+    def _logit_error(self, req: Request) -> LogitError:
+        return LogitError(f"request {req.id}: non-finite logits at token "
+                          f"{len(req.generated)}", request_id=req.id)
 
     def _first_token(self, req: Request, slot: int,
                      last_logits: torch.Tensor,
@@ -636,8 +662,14 @@ class EngineCore:
         non-finite logits) quarantine this request only."""
         try:
             self._fire("sample")
-            self._guard_logits(req, last_logits)
-            tok = self._sample(req, last_logits)
+            # NaN/Inf guard: under logit_guard="fail" a non-finite row
+            # (id -1) fails only this request
+            ok = self.serve.logit_guard != "fail" or \
+                bool(torch.isfinite(last_logits).all())
+            tok = self._sample(req, last_logits) if ok else -1
+            tok = int(self._agree(torch.tensor([tok]))[0])
+            if tok < 0:
+                raise self._logit_error(req)
         except (InjectedFault, RequestError) as e:
             self._quarantine(req, e, events)
             return
@@ -814,7 +846,8 @@ class EngineCore:
             }
         err: Optional[EngineError] = None
         try:
-            events = self._step()
+            with tp_context(self.tp):
+                events = self._step()
             if self._step_rec is not None:
                 self._step_rec["events"] = len(events)
             return events
@@ -995,29 +1028,28 @@ class EngineCore:
             table[slot, :] = mgr.SCRATCH
         logits = self._decode(table, pos_np)
         mark("decode")
-        rowok = None
-        if serve.logit_guard == "fail":
-            # one device-side reduction + a max_batch-bool transfer
-            rowok = torch.isfinite(logits).all(dim=-1).cpu().numpy()
         if all(r.sampling.greedy for _, r in running):
             # one batched argmax for the common all-greedy step
-            toks = torch.argmax(logits, dim=-1).cpu().numpy()
-            picked = {slot: int(toks[slot]) for slot, _ in running}
+            ids = torch.argmax(logits, dim=-1)
         else:
-            picked = {slot: self._sample(req, logits[slot])
-                      for slot, req in running}
+            ids = torch.zeros((serve.max_batch,), dtype=torch.long)
+            for slot, req in running:
+                ids[slot] = self._sample(req, logits[slot])
+        if serve.logit_guard == "fail":
+            # one device-side reduction; a non-finite row's id is -1
+            ids = torch.where(torch.isfinite(logits).all(dim=-1).to(
+                ids.device), ids, -1)
+        ids = self._agree(ids).cpu().numpy()
         mark("sample")
         for slot, req in running:
             try:
                 self._fire("sample")
-                if rowok is not None and not rowok[slot]:
-                    raise LogitError(
-                        f"request {req.id}: non-finite logits at token "
-                        f"{len(req.generated)}", request_id=req.id)
+                if ids[slot] < 0:
+                    raise self._logit_error(req)
             except (InjectedFault, RequestError) as e:
                 self._quarantine(req, e, events)
                 continue
-            tok = picked[slot]
+            tok = int(ids[slot])
             req.generated.append(tok)
             self.next_tok[slot] = tok
             if self.tracer is not None:
@@ -1180,13 +1212,16 @@ class EngineCore:
             nval[slot] = 1 + len(d)
         logits = self._verify(buf, table, pos0, nval)
         mark("verify")
-        rowok = None
+        argm = torch.argmax(logits, dim=-1)
         if serve.logit_guard == "fail":
-            # (B, width) bools: acceptance guards a row only when its
-            # logits are consumed (rows past n_valid may be non-finite on
-            # the card), so K=0 matches the plain path exactly
-            rowok = torch.isfinite(logits).all(dim=-1).cpu().numpy()
-        argm = torch.argmax(logits, dim=-1).cpu().numpy()
+            # (B, width): acceptance guards a row only when its logits are
+            # consumed (rows past n_valid may be non-finite on the card),
+            # so K=0 matches the plain path exactly; a non-finite row's
+            # id is -1
+            argm = torch.where(torch.isfinite(logits).all(dim=-1), argm,
+                               -1)
+        argm = self._agree(argm).cpu().numpy()
+        rowok = argm >= 0 if serve.logit_guard == "fail" else None
         survivors = []
         for slot, req in running:
             d = drafts[slot]
@@ -1203,7 +1238,7 @@ class EngineCore:
                         n0=len(req.generated))
                 else:
                     toks, acc = verify_residual(
-                        d, logits[slot], seed=sp.seed,
+                        d, self._agree(logits[slot]), seed=sp.seed,
                         n0=len(req.generated),
                         temperature=sp.temperature, top_k=sp.top_k,
                         stop_ids=req.stop_token_ids,

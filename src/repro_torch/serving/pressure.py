@@ -168,6 +168,10 @@ class PressureManager:
         self.lat = latency_model or OffloadLatencyModel()
         self.swap_latency_s = swap_latency_s
         self.dtype_bytes = torch_dtype(cfg.dtype).itemsize
+        # swap bytes are reported for the whole KV, as the JAX engine's
+        # host copy of a sharded pool is the whole array: under tensor
+        # parallelism each rank stashes 1/tp of it
+        self.tp = serve.tp
         self.prefix_cache = prefix_cache    # RadixPrefixIndex or None
         self.injector = injector            # FaultInjector or None
         self.swap_retries = serve.swap_retries
@@ -283,7 +287,7 @@ class PressureManager:
         if kind == "swap":
             self.host_pool.put(req.id, host_data, n_pages - shared)
             self._bump("swaps")
-            self._bump("swap_bytes_out", _nbytes(host_data))
+            self._bump("swap_bytes_out", _nbytes(host_data) * self.tp)
             req.resume_shared_len = shared_len
             if self.tracer is not None:
                 self.tracer.on_swap_out(req)
@@ -321,7 +325,7 @@ class PressureManager:
                 f"request {req.id}: swap-in failed past "
                 f"{self.swap_retries} retries")
         self.host_pool.pop(req.id)
-        self._bump("swap_bytes_in", _nbytes(host_data))
+        self._bump("swap_bytes_in", _nbytes(host_data) * self.tp)
         req.resume_kind = None
         req.resume_shared_len = 0
         if self.tracer is not None:

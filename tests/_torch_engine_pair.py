@@ -34,6 +34,8 @@ from repro_torch.serving.core import EngineCore
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.scheduler import SamplingParams
 
+from _torch_tp_ranks import host_state  # noqa: F401  (shared with ranks)
+
 MARGIN = 1e-4
 
 
@@ -140,29 +142,3 @@ def streams_match(pair: Pair, prompts: dict, got: dict, want: dict) -> bool:
         else:
             assert len(g) == len(w), (rid, g, w)
     return exact
-
-
-def host_state(core, *, tokens_equal: bool = True) -> dict:
-    """The host counters the two engines must agree on exactly.  The
-    token-dependent ones are left out unless ``tokens_equal``."""
-    st = core.stats()
-    out = {k: st[k] for k in ("steps", "finished", "pages_used",
-                              "pages_peak", "prefill_launches",
-                              "events_emitted", "waiting", "resuming",
-                              "active_slots", "host_pool_pages")}
-    out["pressure"] = st["pressure"]
-    health = dict(st["health"])
-    health.pop("step_s_high_water")
-    out["health"] = health
-    if "prefix" in st:
-        out["prefix"] = st["prefix"]
-        out["prefix_cached_pages"] = st["prefix_cached_pages"]
-    if "spec" in st:
-        out["spec"] = {k: st["spec"][k] for k in (
-            "drafted", "accepted", "accept_rate", "verify_launches")}
-    if core.injector is not None:
-        out["fired_log"] = list(core.injector.fired_log)
-        out["calls"] = core.injector.stats()["calls"]
-    if not tokens_equal:
-        out.pop("spec", None)
-    return out

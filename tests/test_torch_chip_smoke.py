@@ -93,8 +93,8 @@ def test_decode_and_mlstm_cases_reach_the_split_edges(cs):
             dec["dtype"]) == (8, 32, 128, 128, 16, "bfloat16")
     assert "lens" not in dec
     kws = [kw for _, kw in cs.DECODE_CASES]
-    assert [kw["lens"](256) for kw in kws if callable(kw.get("lens"))] == [
-        [255, 256, 257, 1]]
+    assert [255, 256, 257, 1] in [kw["lens"](256) for kw in kws
+                                  if callable(kw.get("lens"))]
     assert any(kw.get("window") and max(kw["lens"]) > kw["window"]
                for kw in kws if isinstance(kw.get("lens"), list))
     assert any(kw["b"] == 1 and kw.get("lens") == [4096] for kw in kws)
@@ -127,6 +127,36 @@ def test_decode_and_mlstm_cases_reach_the_split_edges(cs):
                if isinstance(kw.get("lens"), list))
     for _, kw in cs.DECODE_CASES + cs.MLSTM_CASES + cs.DENSE_DECODE_CASES:
         assert kw["dtype"] in cs.TOL
+
+
+def test_phase2_holds_the_paged_kernels_at_a_tp2_rank_shape(cs):
+    """Phase 3e (a) runs both paged kernels on each rank of llama2-7b at
+    tp=2 (16 of the 32 heads): phase 2 holds them to their plain versions
+    at that shape, paged decode at the engine's 8 slots (the split plan
+    of B * Hkv = 128) and at that plan's split edges, prefill on 8 rows
+    with padding."""
+    from repro_torch.config import ServeConfig, get_model_config
+    from repro_torch.sharding.tp import plan_tp
+    cfg = get_model_config("llama2-7b")
+    serve = ServeConfig(**cs.SERVE_3)
+    plan = plan_tp(cfg, 2, serve.page_size)
+    shape = dict(hq=cfg.num_heads // plan.g, hkv=cfg.num_kv_heads // plan.g,
+                 d=cfg.head_dim, ps=serve.page_size // plan.s,
+                 n_kv=serve.max_seq_len // serve.page_size,
+                 dtype="bfloat16")
+    assert (shape["hq"], shape["hkv"]) == (16, 16)
+
+    def at_shape(kw):
+        return all(kw[k] == v for k, v in shape.items())
+    dec = [kw for _, kw in cs.DECODE_CASES
+           if at_shape(kw) and kw["b"] == serve.max_batch]
+    assert any("lens" not in kw for kw in dec)
+    edges = [kw["lens"](416) for kw in dec if callable(kw.get("lens"))]
+    assert edges == [[415, 416, 417, 831, 832, 833, 2048, 1]]
+    pre = [kw for _, kw in cs.PREFILL_CASES
+           if at_shape(kw) and kw["chunk"] == serve.prefill_chunk]
+    assert len(pre) == 1 and len(pre[0]["starts"]) == serve.max_batch
+    assert 0 in pre[0]["nvalid"]
 
 
 def _dropped_paged_split():
@@ -369,3 +399,50 @@ def test_failure_gate_rejects_failed_requests_without_a_fault(cs):
                       (named, dict(failed, shed=1))):
         with pytest.raises(AssertionError, match="error events"):
             cs.failure_gate("armed", errors, {"health": h}, armed=True)
+
+
+def _tp_rank_result(**kw):
+    res = {"tokens": {0: [5, 6, 7], 1: [1, 2, 3]},
+           "tp": {"tp": 2, "g": 2, "s": 1, "collectives": "tiled"},
+           "pages_used": 0, "prefill_launches": 2, "decode_launches": 3,
+           "launches": {"paged_prefill": 64, "paged_decode": 96}}
+    res.update(kw)
+    return res
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(tokens={0: [5, 6, 8], 1: [1, 2, 3]}), "streams differ"),
+    (dict(tp={"tp": 2, "g": 1, "s": 2, "collectives": "tiled"}), "plan"),
+    (dict(pages_used=3), "leaked"),
+    (dict(launches={"paged_prefill": 63, "paged_decode": 96}),
+     "launched paged_prefill 63"),
+    (dict(launches={"paged_prefill": 64, "paged_decode": 0}),
+     "launched paged_decode 0")])
+def test_tp_gate_rejects_faked_failures(cs, bad, match):
+    """Phase 3e's gate: the ranks agree exactly, ran the plan, leaked no
+    page and launched each paged kernel 32 (here 32) times a launch on
+    every rank; and the streams hold to tp=1's under the margin rule."""
+    ref = {0: [5, 6, 7], 1: [1, 2, 3]}
+    margins = {(r, t): (1.0, 0.1) for r in ref for t in range(3)}
+    plan = {"tp": 2, "g": 2, "s": 1, "collectives": "tiled"}
+    kernels = ("paged_prefill", "paged_decode")
+    assert cs.tp_gate("ok", [_tp_rank_result()] * 2, ref, margins, plan,
+                      32, kernels) == (6, 6)
+    with pytest.raises(AssertionError, match=match):
+        cs.tp_gate("bad", [_tp_rank_result(), _tp_rank_result(**bad)], ref,
+                   margins, plan, 32, kernels)
+    forked = _tp_rank_result(tokens={0: [5, 9, 9], 1: [1, 2, 3]})
+    with pytest.raises(AssertionError, match="margin"):
+        cs.tp_gate("clear", [forked] * 2, ref, margins, plan, 32, kernels)
+
+
+def test_tp_phase_b_traffic_preempts_on_its_pool(cs):
+    """Phase 3e (b)'s pressured run asks more pages of its pool than it
+    holds, and its two lighter runs share one traffic."""
+    t = cs.tp_b_traffic(256)
+    assert t["tiled"][1] is t["single"][1]
+    serve, waves = t["swap"]
+    need = sum(-(-(len(p) + n) // serve["page_size"]) for w in waves
+               for _, p, n in w)
+    assert serve["preempt_policy"] == "swap"
+    assert need > serve["num_pages"] - 1

@@ -335,7 +335,8 @@ def test_throughput_reads_the_injected_clock(gemma):
 
 def test_serve_engine_refuses_an_injector(gemma):
     """The engine takes a fault injector and hands it to its core (as the
-    JAX engine does); what it still refuses is tensor parallelism."""
+    JAX engine does), and passes tp to it: without a process group of tp
+    ranks the core refuses."""
     from repro_torch.serving.faults import FaultInjector
     *_, tcfg, tm, tp = gemma
     inj = FaultInjector(seed=0)
@@ -345,7 +346,7 @@ def test_serve_engine_refuses_an_injector(gemma):
     assert engine.last_pressure.injector is inj
     refused = ServeEngine(model=tm, params=tp, cfg=tcfg, injector=inj,
                           serve=ServeConfig(tp=2))
-    with pytest.raises(NotImplementedError, match="tp=2"):
+    with pytest.raises(ValueError, match="tp=2 needs a torch.distributed"):
         refused.core
 
 

@@ -224,8 +224,9 @@ def test_bounded_queue_rejects(setup):
         core.add_request(prompts[1], SamplingParams(max_new_tokens=2))
 
 
-# tensor parallelism is the one engine feature still refused: alone and
-# beside each of the single-card features the engine now serves
+# tensor parallelism needs one process a rank in a process group of tp
+# ranks (tests/test_torch_tp_*.py run it): without one the engine
+# refuses, alone and beside each of the single-card features
 FEATURES = [{"spec_mode": "lookup"}, {"prefix_cache": True},
             {"prefill_mode": "scan"}, {"num_pages": 10}, {"injector": True}]
 
@@ -236,7 +237,8 @@ def test_unsupported_configs_raise(setup, kw):
     _, _, _, tcfg, tm, tp, _ = setup
     kw = dict(kw)
     injector = FaultInjector() if kw.pop("injector", None) else None
-    with pytest.raises(NotImplementedError, match="not ported yet: tp="):
+    with pytest.raises(ValueError, match=f"tp={kw['tp']} needs a torch."
+                       "distributed process group"):
         EngineCore(tm, tp, tcfg, ServeConfig(**{**SERVE, **kw}),
                    device="cpu", injector=injector)
 
