@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build, check, serve, train,
-offload, xLSTM.
+offload, xLSTM, head dims 80 and 96.
 
     python3 chip_smoke.py
 
@@ -41,7 +41,15 @@ which raises on failure (the script then exits non-zero):
    sequence shorter than the chunk, 16 chunks at a small dk/dv, a ragged
    S over eight chunks and a forget bias of -2, h held to the plain
    version as an unbounded output and the float32 state (C, n, m) to 1e-3
-   of its scale.  Each is timed (median of 20 launches, CUDA events
+   of its scale; and the four attention kernels at head dims 80
+   (stablelm-3b) and 96 (phi3-mini-3.8b), phase 7's models, in bf16 and
+   float32 (``HEAD_DIM_ARCHS``, ``head_dim_case``): paged decode at B=8,
+   32/32 heads, 16 pages of 128, its split edges (D=80) and a GQA group
+   of 4 (D=96); paged prefill at chunk 512 and a ragged 100-token chunk
+   with a padded row; ``fastattn_fwd`` at B=4, S=2048 causal and a ragged
+   float32 case with a q_offset and a kv_valid tail; ``flash_decode`` at
+   B=8, kv_len 159 in both layouts and at B=1 on 65536 tokens.  Each is
+   timed (median of 20 launches, CUDA events
    around each: the wrapper's host work included) and on the device
    alone (``device_ms``: 20 launches queued behind a spin kernel) beside
    the least time the card could take (its bound), the plain version's
@@ -158,13 +166,29 @@ which raises on failure (the script then exits non-zero):
    paths also measured under two perturbations of h); one profiled step
    and one sLSTM block's forward and backward timed alone.
 
+7. Head dims 80 and 96, after phase 6 (``phase_head_dims``):
+   stablelm-3b (D=80, LayerNorm) and phi3-mini-3.8b (D=96) at full width
+   and depth, bf16, random weights from a seeded CUDA generator, each
+   freed before the next.  (a) Phase 3's serving on phase 3's engine and
+   traffic: each paged kernel exactly one launch a layer a prefill launch
+   or decode step, no page left, the first chunk and one decode step
+   within the phase 3 tolerance of the plain path; (b) phase 3b's dense
+   generation: ``flash_decode`` exactly 32 x 159 launches, greedy tokens
+   equal the paged engine's under the margin rule, ``flash_decode`` held
+   to its plain version on generate's caches; (c) ``LM.apply`` on
+   1 x 2048 tokens: exactly 32 ``fastattn_fwd`` launches, logits within
+   the phase 3 tolerance of the plain path's.
+
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
 ``flash_decode`` also ``long_*``: phase 2's B=1, S=65536 case and phase
 3c's step; ``paged_prefill`` also ``verify_*``: phase 2's VERIFY_CASE,
 with its launches in phase 3d (c); both paged kernels also
 ``tp_launches``, each rank's launches in phase 3e (a) under each
-all-reduce mode); the last line is ``{"ok": true,
+all-reduce mode; each attention kernel also ``d80_*`` and ``d96_*``, its
+phase 2 bf16 case at the main path's shape -- flash_decode's from phase 7
+(b), its ``d80_long_*`` / ``d96_long_*`` at B=1 on 65536 tokens -- and
+its launches in phase 7); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -941,6 +965,70 @@ DENSE_DECODE_CASES = [
                        layout="bshd", window=20, seed=7,
                        lens=[2048, 21, 20, 1])),
 ]
+# head dims 80 (stablelm-3b) and 96 (phi3-mini-3.8b), phase 7's models:
+# each attention kernel in bf16 and float32 at its main path's shape (the
+# bf16 case is the kernels line's d80_* / d96_* numbers; flash_decode's at
+# phase 7 (b)'s own caches, its long_* at B=1 on 65536 tokens); paged
+# decode also at its split edges (D = 80) and a GQA group of 4 (D = 96:
+# the 16-lane thread group against the 4-row tile), paged prefill also a
+# ragged 100-token chunk, fastattn_fwd also a ragged float32 case with a
+# q_offset and a kv_valid tail
+HEAD_DIM_ARCHS = {80: "stablelm-3b", 96: "phi3-mini-3.8b"}
+
+
+def _hd_tag(d: int, dtype: str) -> str:
+    short = "bf16" if dtype == "bfloat16" else "f32"
+    return f"{HEAD_DIM_ARCHS[d]} D={d} {short}"
+
+
+def head_dim_case(kernel: str, d: int, dtype: str = "bfloat16") -> str:
+    """The name of ``kernel``'s phase-2 case at head dim ``d`` at its main
+    path's shape (flash_decode: B=1 on 65536 tokens, the long shape)."""
+    tag = _hd_tag(d, dtype)
+    return {"paged_decode": f"{tag} B=8 H=32/32 ps=128",
+            "paged_prefill": f"{tag} B=4 chunk=512 H=32/32 ps=128",
+            "fastattn_fwd": f"{tag} B=4 H=32/32 S=2048 causal",
+            "flash_decode": f"{tag} B=1 H=32/32 bshd S=65536"}[kernel]
+
+
+for _d in HEAD_DIM_ARCHS:
+    for _i, _dt in enumerate(("bfloat16", "float32")):
+        _kw = dict(d=_d, dtype=_dt, seed=20 + _d + _i)
+        DECODE_CASES.append((head_dim_case("paged_decode", _d, _dt), dict(
+            b=8, hq=32, hkv=32, ps=128, n_kv=16, **_kw)))
+        PREFILL_CASES.append((head_dim_case("paged_prefill", _d, _dt), dict(
+            hq=32, hkv=32, ps=128, n_kv=16, chunk=512,
+            starts=[0, 512, 1024, 0], nvalid=[512, 300, 512, 0], **_kw)))
+        FWD_CASES.append((head_dim_case("fastattn_fwd", _d, _dt), dict(
+            b=4, hq=32, hkv=32, sq=2048, skv=2048, **_kw)))
+        for _lay in ("bshd", "bhsd"):
+            DENSE_DECODE_CASES.append((
+                f"{_hd_tag(_d, _dt)} B=8 H=32/32 {_lay} S=161 kv_len=159",
+                dict(b=8, hq=32, hkv=32, s=161, layout=_lay, lens=[159] * 8,
+                     **_kw)))
+    PREFILL_CASES.append((
+        f"{_hd_tag(_d, 'bfloat16')} ragged chunk=100 H=32/32 ps=128",
+        dict(hq=32, hkv=32, d=_d, ps=128, n_kv=4, chunk=100,
+             dtype="bfloat16", starts=[128, 3, 0], nvalid=[100, 77, 0],
+             seed=_d)))
+    FWD_CASES.append((
+        f"{_hd_tag(_d, 'float32')} B=2 H=8/2 Sq=1000 Skv=1500 q_offset=300 "
+        "kv_valid=1400", dict(b=2, hq=8, hkv=2, sq=1000, skv=1500, d=_d,
+                              dtype="float32", q_offset=300, kv_valid=1400,
+                              seed=_d)))
+    DENSE_DECODE_CASES.append((head_dim_case("flash_decode", _d), dict(
+        b=1, hq=32, hkv=32, s=65536, d=_d, dtype="bfloat16", layout="bshd",
+        seed=_d)))
+DECODE_CASES += [
+    ("stablelm-3b D=80 bf16 split edges B=4 H=32/32 ps=128 kv_len "
+     "split-1/split/split+1/1",
+     dict(b=4, hq=32, hkv=32, d=80, ps=128, n_kv=16, dtype="bfloat16",
+          seed=81, lens=lambda sk: [sk - 1, sk, sk + 1, 1])),
+    ("D=96 bf16 GQA B=4 H=32/8 ps=128 (4-row tile)",
+     dict(b=4, hq=32, hkv=8, d=96, ps=128, n_kv=16, dtype="bfloat16",
+          seed=97)),
+]
+
 # phase 2's mLSTM cases: xlstm-125m's training shape first (the kernels
 # line's numbers); then a ragged f32 case, S below the chunk, 16 chunks of
 # state recurrence at a small dk/dv, a ragged S over eight chunks, and a
@@ -968,18 +1056,24 @@ MLSTM_CASES = [
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  Returns the main-path
     numbers of each kernel."""
-    fwd = [fwd_case(name, **kw) for name, kw in FWD_CASES][0]
-    dec = [decode_case(name, **kw) for name, kw in DECODE_CASES][0]
+    fwds = {name: fwd_case(name, **kw) for name, kw in FWD_CASES}
+    decs = {name: decode_case(name, **kw) for name, kw in DECODE_CASES}
     pres = {name: prefill_case(name, **kw) for name, kw in PREFILL_CASES}
-    pre = pres[PREFILL_CASES[0][0]]
     dense = {name: dense_decode_case(name, **kw)
              for name, kw in DENSE_DECODE_CASES}
     mls = [mlstm_case(name, **kw) for name, kw in MLSTM_CASES][0]
     # flash_decode's numbers for the kernels line are taken at the main
-    # path's own shape, in phase 3b; its long_* keys at LONG_DECODE
-    return {"paged_decode": dec, "paged_prefill": pre, "fastattn_fwd": fwd,
+    # path's own shape, in phase 3b (D = 128) and 7 (b) (D = 80, 96); its
+    # long_* keys at LONG_DECODE and its head-dim cases
+    every = {"paged_decode": decs, "paged_prefill": pres,
+             "fastattn_fwd": fwds, "flash_decode": dense}
+    return {"paged_decode": decs[DECODE_CASES[0][0]],
+            "paged_prefill": pres[PREFILL_CASES[0][0]],
+            "fastattn_fwd": fwds[FWD_CASES[0][0]],
             "mlstm_chunkwise": mls, "flash_decode_long": dense[LONG_DECODE],
-            "paged_prefill_verify": pres[VERIFY_CASE]}
+            "paged_prefill_verify": pres[VERIFY_CASE],
+            "head_dims": {(k, d): every[k][head_dim_case(k, d)]
+                          for k in every for d in HEAD_DIM_ARCHS}}
 
 
 # ---------------------------------------------------------------------------
@@ -988,10 +1082,16 @@ def phase_kernels() -> dict:
 
 def build_llama():
     """llama2-7b at full width and depth, random weights from seed 0."""
+    return build_full("llama2-7b")
+
+
+def build_full(arch: str):
+    """``arch`` at full width and depth, random weights from a CUDA
+    generator seeded with 0."""
     import torch
     from repro_torch.config import get_model_config
     from repro_torch.models import build_model
-    cfg = get_model_config("llama2-7b")
+    cfg = get_model_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
     params = model.init(model.generator(0))
@@ -3205,6 +3305,105 @@ def phase_xlstm() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: head dims 80 and 96 -- stablelm-3b and phi3-mini-3.8b served
+# ---------------------------------------------------------------------------
+
+APPLY_TOKENS = 2048           # (c): LM.apply on 1 x APPLY_TOKENS
+
+
+def phase_head_dims() -> dict:
+    """Phase 7: each model of HEAD_DIM_ARCHS at full width and depth (bf16,
+    random weights from a seeded CUDA generator, freed before the next):
+    (a) phase 3's paged serving (``phase_serving``: 12 requests, no page
+    left, first chunk and a decode step within LOGIT_TOL of the plain
+    path), each paged kernel exactly one launch a layer a prefill launch
+    or decode step; (b) phase 3b's dense generation (``phase_dense``:
+    flash_decode exactly layers x 159 launches, greedy tokens equal the
+    paged engine's under the margin rule, decode_step logits within
+    LOGIT_TOL); (c) ``LM.apply`` on 1 x APPLY_TOKENS tokens, exactly one
+    fastattn_fwd launch a layer, logits within LOGIT_TOL of the plain
+    path's.  Returns per head dim the launches of each kernel, and (b)'s
+    flash_decode numbers at generate's own caches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    t0 = time.perf_counter()
+    out = {}
+    for d, arch in sorted(HEAD_DIM_ARCHS.items()):
+        t1 = time.perf_counter()
+        model, params = build_full(arch)
+        cfg = model.cfg
+        if cfg.head_dim != d:
+            raise AssertionError(f"{arch}: head_dim {cfg.head_dim} != {d}")
+        layers = cfg.num_layers
+        log(f"[head_dims] {arch}: head_dim {d}, {layers} layers, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads, norm "
+            f"{cfg.norm_type}")
+        served = phase_serving(model, params)
+        want = {"paged_prefill": layers * served["prefill_launches"],
+                "paged_decode": layers * served["decode_launches"]}
+        if served["launches"] != want:
+            raise AssertionError(f"{arch}: paged launches "
+                                 f"{served['launches']}, expected {want}")
+        dense = phase_dense(model, params)
+
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, size=(1, APPLY_TOKENS)).astype(np.int32)
+        ).cuda()
+        with torch.no_grad():
+            fastattn_fwd.launches = 0
+            logits = model.apply(params, toks)
+            torch.cuda.synchronize()
+            launches = fastattn_fwd.launches
+            ref = model.apply(params, toks, impl="reference")
+        log(f"[head_dims] {arch}: LM.apply 1 x {APPLY_TOKENS}, fastattn_fwd "
+            f"launches {launches} (expected {layers})")
+        if launches != layers:
+            raise AssertionError(f"{arch}: fastattn_fwd launched {launches} "
+                                 f"times, expected {layers}")
+        _compare_logits(f"[head_dims] {arch}: LM.apply logits, kernel vs "
+                        "plain", logits[0], ref[0])
+        out[d] = {"arch": arch, "launches": {
+            **served["launches"], "flash_decode": dense["launches"],
+            "fastattn_fwd": launches}, "flash_decode": dense["kernel"],
+            "serve": {k: served[k] for k in (
+                "wall_s", "prefill_tok_s", "decode_tok_s", "steps",
+                "peak_mem_gb")},
+            "generate_tok_s": dense["tokens_per_s_generate"],
+            "seconds": time.perf_counter() - t1}
+        log(f"[head_dims] {arch}: {json.dumps(out[d])}")
+        del model, params, logits, ref, dense, served
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[head_dims] phase 7 in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def add_head_dim_entries(kernels: list, cases: dict, runs: dict) -> None:
+    """Each attention kernel's entry of the kernels line also at head dims
+    80 and 96 (``d80_*`` / ``d96_*``): phase 2's bf16 case at the main
+    path's shape (``cases[(name, d)]``; flash_decode's from phase 7 (b)'s
+    caches, and its ``d{d}_long_*`` from phase 2's B=1 on 65536 tokens),
+    and the kernel's launches in phase 7 (``runs[d]``)."""
+    keys = ("err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    for k in kernels:
+        name = k["name"]
+        if name == "mlstm_chunkwise":
+            continue
+        for d, run in runs.items():
+            res = (run["flash_decode"] if name == "flash_decode"
+                   else cases[(name, d)])
+            k.update({f"d{d}_{'max_abs_err' if x == 'err' else x}": res[x]
+                      for x in keys})
+            k[f"d{d}_launches"] = run["launches"][name]
+            if name == "flash_decode":
+                long = cases[(name, d)]
+                k.update({f"d{d}_long_{x}": long[x] for x in (
+                    "device_ms", "bound_ms", "library_device_ms")})
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -3238,6 +3437,9 @@ def main() -> int:
     gc.collect()                  # phase 5's host engine and caches
     torch.cuda.empty_cache()
     xlstm = phase_xlstm()
+    gc.collect()                  # phase 6's model and optimizer state
+    torch.cuda.empty_cache()
+    head_dims = phase_head_dims()
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
                 "mlstm_chunkwise": xlstm["launches"]}
@@ -3294,6 +3496,7 @@ def main() -> int:
             k["tp_launches"] = {m: [r[k["name"]] for r in
                                     tp[f"a_{m}"]["launches"]]
                                 for m in TP_MODES}
+    add_head_dim_entries(line["kernels"], kern["head_dims"], head_dims)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

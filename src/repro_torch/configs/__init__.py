@@ -6,6 +6,8 @@ package's ``repro.configs`` does (copies of the same numbers).
 from repro_torch.configs import (  # noqa: F401
     gemma2_2b,
     paper_models,
+    phi3_mini_3p8b,
     qwen25_32b,
+    stablelm_3b,
     xlstm_125m,
 )

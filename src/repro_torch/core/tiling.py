@@ -10,7 +10,9 @@ that an input dtype actually launches in ``csrc/fastattn_fwd.cu``:
   Level 2, ``block_kv2`` = 64 keys, is the width N of one ``wgmma``
   m64n64k16 sub-tile; ``block_q`` is 64 rows per consumer warpgroup, two
   warpgroups (128 rows) for head_dim <= 128 and one (64) for head_dim
-  256, whose f32 accumulator alone is 128 registers a thread.  Level 1,
+  256, whose f32 accumulator alone is 128 registers a thread.  Its tiles
+  hold ``padded_head_dim`` columns a row (whole 64-column blocks of the
+  128-byte swizzle: 128 for head dims 80 and 96, zero-filled past D).  Level 1,
   ``block_kv1``, is one stage of the K/V ring (``stages`` = 3 slots: the
   next stage loads while one is computed and the previous one's last P V
   may still run; one mbarrier wait a stage): the largest power of two
@@ -65,28 +67,36 @@ class TilingPlan:
         return SMEM_PER_SM // (self.smem_bytes + SMEM_RESERVED)
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """Columns a row of the bf16 kernel's shared-memory tiles: head_dim
+    rounded up to whole 64-column (128-byte) swizzle blocks."""
+    return _round_up(head_dim, 64)
+
+
 def block_q_for(head_dim: int, dtype_bytes: int) -> int:
     """Query rows per CTA of the kernel that ``dtype_bytes`` inputs
     launch."""
     if dtype_bytes == 4:
         return FMA_BLOCK_Q
-    return 2 * WG_ROWS if head_dim <= 128 else WG_ROWS
+    return 2 * WG_ROWS if padded_head_dim(head_dim) <= 128 else WG_ROWS
 
 
 def smem_working_set(block_q: int, block_kv1: int, head_dim: int,
                      dtype_bytes: int = 2) -> int:
     """Dynamic shared memory of one fastattn_fwd CTA, exactly as the
     kernel lays it out.  2-byte inputs: alignment slack, the bf16 Q tile,
-    the ring's STAGES slots of K and V, and their mbarriers.  4-byte
-    inputs: the float32 Q tile transposed, the K macro-block transposed
-    and the V macro-block (one stage)."""
+    the ring's STAGES slots of K and V (rows ``padded_head_dim`` columns
+    wide), and their mbarriers.  4-byte inputs: the float32 Q tile
+    transposed, the K macro-block transposed and the V macro-block (one
+    stage)."""
     if dtype_bytes == 4:
         q = 4 * head_dim * (block_q + PAD)
         k = 4 * head_dim * (block_kv1 + PAD)
         v = 4 * block_kv1 * head_dim
         return q + k + v
-    return (SMEM_ALIGN + dtype_bytes * block_q * head_dim
-            + STAGES * 2 * dtype_bytes * block_kv1 * head_dim
+    dp = padded_head_dim(head_dim)
+    return (SMEM_ALIGN + dtype_bytes * block_q * dp
+            + STAGES * 2 * dtype_bytes * block_kv1 * dp
             + STAGES * 2 * MBARRIER_BYTES)
 
 

@@ -14,7 +14,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # too) and "reference" (plain PyTorch); None or "auto" = the kernel for
 # CUDA tensors, the plain version for CPU tensors.
 IMPLS = ("kernel", "reference")
-HEAD_DIMS = (64, 128, 256)
+# head dims the attention kernels are built for (csrc dispatch_d); a CUDA
+# tensor with any other raises, it never falls back to the plain version
+HEAD_DIMS = (64, 80, 96, 128, 256)
 
 P = ctypes.c_void_p
 I = ctypes.c_int

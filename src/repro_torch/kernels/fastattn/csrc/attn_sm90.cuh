@@ -9,23 +9,31 @@
 // accumulator alone is 128 registers a thread.
 //
 //  * Shared memory.  Every tile is stored K-major in 128-byte rows with the
-//    128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), a
-//    head_dim wider than 64 split into 64-column blocks: Q [D/64][BQ][64]
-//    once per CTA, in bf16 as it is; each stage K and V [D/64][kv1][64].
-//    The tiles start on 1024-byte boundaries (the swizzle atom).
+//    128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), in
+//    DP = ceil(D / 64) * 64 columns split into 64-column blocks: Q
+//    [DP/64][BQ][64] once per CTA, in bf16 as it is; each stage K and V
+//    [DP/64][kv1][64].  A head_dim that is no multiple of 64 (80, 96)
+//    fills its last block only in part: the copies zero-fill the columns
+//    at and past D, so no padded column ever holds garbage.  The tiles
+//    start on 1024-byte boundaries (the swizzle atom).
 //  * S = Q K^T: `wgmma m64n64k16`, both operands read from shared memory
 //    through descriptors (K-major, 128-byte swizzle), 16 columns of D a
-//    step, 64 keys wide (level 2).  Scale, softcap and mask run on the f32
+//    step (D / 16 steps: the padded columns are never multiplied), 64
+//    keys wide (level 2).  Scale, softcap and mask run on the f32
 //    accumulator fragment: thread t of warp w holds rows 16w + t/4 and
 //    16w + t/4 + 8 and columns 8j + 2(t%4) + {0, 1}, so a row's max is
 //    reduced over the 4 lanes that share it (xor 1, 2) and its sum once at
 //    the end.  exp(x - m) is computed as ex2(x * sl - m * sl), one FFMA
 //    and one SFU op, with sl = scale * log2(e) folded in.
-//  * O += P V: `wgmma m64nDk16` with P from registers (the S fragment's
+//  * O += P V: `wgmma m64nDPk16` with P from registers (the S fragment's
 //    pairs are the A fragment's, rounded to bf16 as the JAX kernel rounds
 //    P to V's dtype) and V from shared memory as stored, keys as rows and
 //    D contiguous: MN-major for this product, read with the descriptor's
 //    transpose bit (LBO = the stride of a 64-column block, SBO = 8 keys).
+//    Head dims 80 and 96 take the n128 product over V's zero-filled
+//    columns (the MN-major 128-byte-swizzled layout reads N in whole
+//    64-column atoms, so n80 / n96 would need another V layout): the
+//    accumulator's columns past D stay exactly 0 and are not stored.
 //  * Ordering (within a warpgroup): sub-tile j's S and sub-tile j-1's P V
 //    are issued together (wgmma.fence, two commit groups); wait 1 retires
 //    S, whose softmax then runs while the P V is still on the tensor cores;
@@ -77,19 +85,24 @@ constexpr int TURN = 1;       // named barriers TURN, TURN + 1 (0: syncthreads)
 
 template <int D>
 struct Cfg {
-  static constexpr int NWG = D <= 128 ? 2 : 1;   // consumer warpgroups
+  static_assert(D % 16 == 0 && D >= 16 && D <= 256,
+                "head_dim must be a multiple of 16 (one k16 step), <= 256");
+  static constexpr int DP = (D + 63) / 64 * 64;  // columns a row in SMEM
+  static constexpr int NWG = DP <= 128 ? 2 : 1;  // consumer warpgroups
   static constexpr int BQ = 64 * NWG;            // query rows per CTA
   static constexpr int NT = 128 * NWG;           // threads per CTA
-  static constexpr int CH = D / 8;               // 16-byte chunks a row
+  static constexpr int CH = DP / 8;              // 16-byte chunks a row
+  static constexpr int CHD = D / 8;              // of them holding data
 };
 
 // Dynamic shared memory of one CTA for kv1 keys a stage (alignment slack,
-// Q, the ring, its full and empty mbarriers); core/tiling.py:
-// smem_working_set computes the same number.
+// Q, the ring, its full and empty mbarriers), rows DP columns wide;
+// core/tiling.py:smem_working_set computes the same number.
 template <int D>
 constexpr size_t smem_bytes(int kv1) {
-  return (size_t)ALIGN + (size_t)Cfg<D>::BQ * D * 2 +
-         (size_t)STAGES * 2 * kv1 * D * 2 + (size_t)STAGES * 2 * 8;
+  constexpr int DP = Cfg<D>::DP;
+  return (size_t)ALIGN + (size_t)Cfg<D>::BQ * DP * 2 +
+         (size_t)STAGES * 2 * kv1 * DP * 2 + (size_t)STAGES * 2 * 8;
 }
 
 // ---- PTX wrappers ----------------------------------------------------------
@@ -193,7 +206,7 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// byte offset of 16-byte chunk c (of D/8) of row r in a [D/64][rows][64]
+// byte offset of 16-byte chunk c (of DP/8) of row r in a [DP/64][rows][64]
 // swizzled tile
 __device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
   return (uint32_t)((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
@@ -359,12 +372,12 @@ __device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
 // ---- the mainloop ----------------------------------------------------------
 //
 // One CTA: rows [0, q_rows) of the BQ-row block at `qh` (row-major, D
-// contiguous), global position of row 0 `q_start`, against the keys whose
-// rows lie at kbase/vbase + row_off(key); writes the rows that exist to
-// `oh`.  Masks: key < kv_valid, causal (q_start + row >= key), window
-// (q_start + row - key < window); softcap after the scale.  A row with no
-// visible key is exactly 0.  kv1: keys a stage, a multiple of 64;
-// dynamic shared memory smem_bytes<D>(kv1).
+// contiguous, rows D apart), global position of row 0 `q_start`, against
+// the keys whose rows lie at kbase/vbase + row_off(key); writes the rows
+// that exist, D columns each, to `oh`.  Masks: key < kv_valid, causal
+// (q_start + row >= key), window (q_start + row - key < window); softcap
+// after the scale.  A row with no visible key is exactly 0.  kv1: keys a
+// stage, a multiple of 64; dynamic shared memory smem_bytes<D>(kv1).
 template <int D, class RowOff>
 __device__ __forceinline__ void attn_fwd_tile(
     const bf16* __restrict__ qh, int q_rows, const bf16* __restrict__ kbase,
@@ -374,8 +387,8 @@ __device__ __forceinline__ void attn_fwd_tile(
   using C = Cfg<D>;
   extern __shared__ __align__(1024) uint8_t attn_smem[];
   const uint32_t sQ = (smem_u32(attn_smem) + ALIGN - 1) & ~(uint32_t)(ALIGN - 1);
-  const uint32_t sRing = sQ + C::BQ * D * 2;
-  const uint32_t op_bytes = (uint32_t)kv1 * D * 2;   // K or V of one stage
+  const uint32_t sRing = sQ + C::BQ * C::DP * 2;
+  const uint32_t op_bytes = (uint32_t)kv1 * C::DP * 2;   // K or V a stage
   const int tid = threadIdx.x;
   // the warpgroup index read from lane 0 is warp-uniform to the compiler,
   // so the branches around the wgmmas are not divergent paths to it
@@ -398,9 +411,11 @@ __device__ __forceinline__ void attn_fwd_tile(
   const float sl = softcap > 0.f ? LOG2E : scale * LOG2E;
   const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
 
-  float o[D / 2];
+  // O: column 8g + 2(t%4) + {0, 1} in o[4g + {0, 1}] (row r0) and
+  // o[4g + 2 + {0, 1}] (row r1); past D / 2 the padded columns, always 0
+  float o[C::DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < C::DP / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF};
   float l[2] = {0.f, 0.f};      // this thread's share of the row sums
   uint32_t p[4][4];             // P as the A fragment of 4 k16 steps
@@ -421,6 +436,7 @@ __device__ __forceinline__ void attn_fwd_tile(
     const uint32_t sV = sK + op_bytes;
     constexpr int ROWS = C::NT / C::CH;    // key rows one pass covers
     const int c = tid % C::CH;             // this thread's 16-byte chunk
+    const bool data = c < C::CHD;          // false: a padded column, zeros
     for (int s = 0; s < kv1 / BKV2; ++s) {
       const int ks = mb * kv1 + s * BKV2;
       if (skipped(ks, q_start, C::BQ)) continue;
@@ -428,8 +444,8 @@ __device__ __forceinline__ void attn_fwd_tile(
       for (int it = 0; it < BKV2 / ROWS; ++it) {
         const int j = tid / C::CH + it * ROWS;
         const int key = ks + j;
-        const bool ok = key < kv_valid;
-        const size_t off = (ok ? row_off(key) : 0) + (size_t)c * 8;
+        const bool ok = key < kv_valid && data;
+        const size_t off = ok ? row_off(key) + (size_t)c * 8 : 0;
         const uint32_t dst = swz(s * BKV2 + j, c, kv1);
         cp_async16(sK + dst, kbase + off, ok);
         cp_async16(sV + dst, vbase + off, ok);
@@ -447,8 +463,8 @@ __device__ __forceinline__ void attn_fwd_tile(
   auto issue_pv = [&]() {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(o, p[kk], desc_sw128(pv_v + kk * 16 * 128,
-                                       (uint32_t)kv1 * 128, 1024));
+      wgmma_pv<C::DP>(o, p[kk], desc_sw128(pv_v + kk * 16 * 128,
+                                           (uint32_t)kv1 * 128, 1024));
     wgmma_commit();
   };
 
@@ -464,12 +480,13 @@ __device__ __forceinline__ void attn_fwd_tile(
       }
     }
     __syncthreads();
-    // Q once per CTA, bf16 as it is; rows past the end zero-filled
+    // Q once per CTA, bf16 as it is; rows past the end and padded columns
+    // zero-filled
     for (int idx = tid; idx < C::BQ * C::CH; idx += C::NT) {
       const int r = idx / C::CH;
       const int c = idx % C::CH;
-      const bool ok = r < q_rows;
-      cp_async16(sQ + swz(r, c, C::BQ), qh + (ok ? (size_t)r * D : 0) + c * 8,
+      const bool ok = r < q_rows && c < C::CHD;
+      cp_async16(sQ + swz(r, c, C::BQ), qh + (ok ? (size_t)r * D + c * 8 : 0),
                  ok);
     }
     const int mb_first = first_key / kv1;

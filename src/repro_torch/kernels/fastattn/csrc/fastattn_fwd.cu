@@ -55,11 +55,12 @@
 //    carried over, the SKIP/FULL/PARTIAL classification -- the saving the
 //    paper claims -- is.
 //  * Register tiles.  Each thread computes 4 query rows x 4 keys of S and
-//    owns 4 output rows x D/8 columns of the accumulator, so both products
-//    issue 16 FMAs per pair of shared-memory loads.  P goes from the S
-//    layout to the PV layout through warp shuffles (the 8 lanes of a row
-//    group are one warp quarter), not through shared memory, so a sub-tile
-//    needs no barrier at all.
+//    owns 4 output rows x D/8 columns of the accumulator (float4 chunks
+//    32 apart; at D = 80 lanes tx < 4 own 12 columns, the others 8), so
+//    both products issue 16 FMAs per pair of shared-memory loads.  P goes
+//    from the S layout to the PV layout through warp shuffles (the 8 lanes
+//    of a row group are one warp quarter), not through shared memory, so
+//    a sub-tile needs no barrier at all.
 #include "attn_sm90.cuh"
 
 #include <cuda_bf16.h>
@@ -136,8 +137,12 @@ fastattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out, int hq,
                     int hkv, int sq, int skv, int kv1, int causal, int window,
                     float softcap, float scale, int q_offset, int kv_valid) {
+  static_assert(D % VEC == 0 && D <= 256,
+                "head_dim must be a multiple of 8, at most 256");
   constexpr int DC = D / VEC;        // 8-element chunks per row
-  constexpr int DJ = D / 32;         // float4 column chunks per thread
+  // float4 column chunks a thread: columns 32 jc + 4 tx .. + 3; where D is
+  // no multiple of 32 (80) the last chunk exists only for tx < (D % 32) / 4
+  constexpr int DJ = (D + 31) / 32;
   const int KP = kv1 + PAD;          // row length of the transposed K tile
   extern __shared__ float4 smem_f4[];
   float* sQ = reinterpret_cast<float*>(smem_f4);   // [D][QPAD]  Q^T, f32
@@ -321,6 +326,7 @@ fastattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* vr = sV + (size_t)(j * TK + 4 * src + jj) * D + 4 * tx;
 #pragma unroll
           for (int jc = 0; jc < DJ; ++jc) {
+            if (D % 32 != 0 && jc * 32 + 4 * tx >= D) continue;
             const float4 vv = ld4(vr + jc * 32);
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
@@ -344,6 +350,7 @@ fastattn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int jc = 0; jc < DJ; ++jc) {
+      if (D % 32 != 0 && jc * 32 + 4 * tx >= D) continue;
       store4(oh + (size_t)r * D + jc * 32 + 4 * tx,
              acc[i][4 * jc + 0] * inv, acc[i][4 * jc + 1] * inv,
              acc[i][4 * jc + 2] * inv, acc[i][4 * jc + 3] * inv);
@@ -457,6 +464,12 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
   switch (d) {
     case 64:
       return launch<T, 64>(q, k, v, out, B, hq, hkv, sq, skv, kv1, causal,
+                           window, softcap, scale, q_offset, kv_valid, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, out, B, hq, hkv, sq, skv, kv1, causal,
+                           window, softcap, scale, q_offset, kv_valid, stream);
+    case 96:
+      return launch<T, 96>(q, k, v, out, B, hq, hkv, sq, skv, kv1, causal,
                            window, softcap, scale, q_offset, kv_valid, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, B, hq, hkv, sq, skv, kv1, causal,

@@ -38,7 +38,8 @@
 //    K/V are staged through shared memory in sub-tiles of at most 32 keys,
 //    those outside the valid range skipped; each thread computes a 4 x 4
 //    register tile of scores and owns 4 output rows x D/8 columns of the
-//    f32 accumulator.
+//    f32 accumulator (float4 chunks 32 apart; at D = 80 lanes tx < 4 own
+//    12 columns, the others 8).
 #include "attn_sm90.cuh"
 
 #include <cuda_bf16.h>
@@ -86,8 +87,12 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                      const int* __restrict__ kv_lens, T* __restrict__ out,
                      int hq, int sq, int hkv, int num_pages, int page_size,
                      int n_kv, int window, float softcap, float scale) {
+  static_assert(D % VEC == 0 && D <= 256,
+                "head_dim must be a multiple of 8, at most 256");
   constexpr int DC = D / VEC;        // 8-element chunks per row
-  constexpr int DJ = D / 32;         // float4 column chunks per thread
+  // float4 column chunks a thread: columns 32 jc + 4 tx .. + 3; where D is
+  // no multiple of 32 (80) the last chunk exists only for tx < (D % 32) / 4
+  constexpr int DJ = (D + 31) / 32;
   extern __shared__ float4 smem_f4[];
   float* sQ = reinterpret_cast<float*>(smem_f4);   // [D][QPAD]  (Q^T)
   float* sK = sQ + D * QPAD;                       // [D][KPAD]  (K^T)
@@ -246,6 +251,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
           for (int i = 0; i < 4; ++i) pv[i] = sP[(4 * ty + i) * PPAD + kk];
 #pragma unroll
           for (int jc = 0; jc < DJ; ++jc) {
+            if (D % 32 != 0 && jc * 32 + 4 * tx >= D) continue;
             const float4 vv = *reinterpret_cast<const float4*>(
                 sV + kk * D + jc * 32 + 4 * tx);
 #pragma unroll
@@ -270,6 +276,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
 #pragma unroll
     for (int jc = 0; jc < DJ; ++jc) {
+      if (D % 32 != 0 && jc * 32 + 4 * tx >= D) continue;
       store4(oh + (size_t)r * D + jc * 32 + 4 * tx,
              acc[i][4 * jc + 0] * inv, acc[i][4 * jc + 1] * inv,
              acc[i][4 * jc + 2] * inv, acc[i][4 * jc + 3] * inv);
@@ -402,6 +409,14 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
   switch (d) {
     case 64:
       return launch<T, 64>(q, k, v, table, starts, lens, out, B, hq, sq, hkv,
+                           num_pages, page_size, n_kv, kv1, window, softcap,
+                           scale, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, table, starts, lens, out, B, hq, sq, hkv,
+                           num_pages, page_size, n_kv, kv1, window, softcap,
+                           scale, stream);
+    case 96:
+      return launch<T, 96>(q, k, v, table, starts, lens, out, B, hq, sq, hkv,
                            num_pages, page_size, n_kv, kv1, window, softcap,
                            scale, stream);
     case 128:

@@ -29,7 +29,11 @@
 //  * a "thread group" of D/8 threads owns one key at a time, each thread
 //    loading 16 bytes of bf16 (8 values) of the K and V rows, so a group
 //    reads a whole row in one coalesced transaction; every table index is
-//    clamped to [0, n_kv - 1] and every page to [0, P - 1];
+//    clamped to [0, n_kv - 1] and every page to [0, P - 1].  The group is
+//    D/8 rounded up to a power of two lanes, so it sits in one warp and its
+//    shuffles are a butterfly: at D = 80 and 96 (10 and 12 lanes of 16)
+//    the lanes past D/8 load and store nothing and hold zeros, which add
+//    nothing to the group's sums;
 //  * a register double buffer: a group's next U keys are loaded while its
 //    current U are folded into its online softmax (one rescale per U), so
 //    each iteration no longer waits out a whole load latency;
@@ -51,6 +55,14 @@ constexpr int VEC = 8;      // elements of a row per thread (16 B of bf16)
 template <typename T>
 __host__ __device__ constexpr int words() {
   return (int)sizeof(T) * VEC / 16;
+}
+
+// threads a key row: D / VEC rounded up to a power of two
+template <int D>
+__host__ __device__ constexpr int group_threads() {
+  int t = 1;
+  while (t < D / VEC) t *= 2;
+  return t;
 }
 
 template <typename T, int W>
@@ -95,8 +107,9 @@ struct Args {
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(NUM_THREADS)
 paged_decode_kernel(const Args a) {
-  constexpr int TG = D / VEC;            // threads per key row
-  constexpr int NG = NUM_THREADS / TG;   // thread groups per CTA
+  static_assert(D % VEC == 0, "head_dim must be a multiple of 8");
+  constexpr int TG = group_threads<D>();   // threads per key row
+  constexpr int NG = NUM_THREADS / TG;     // thread groups per CTA
   constexpr int W = words<T>();
   // keys of a group per buffer: 4 for bf16, 2 for f32 and 8-row tiles
   // (their registers hold 8 query rows)
@@ -136,11 +149,13 @@ paged_decode_kernel(const Args a) {
   const int gi = threadIdx.x / TG;
   const int li = threadIdx.x % TG;
   const int d0 = li * VEC;
+  // false in the lanes past D / VEC: they load nothing and hold zeros
+  const bool cols = TG * VEC == D || d0 < D;
   const T* const q = static_cast<const T*>(a.q);
   float qr[G][VEC];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
-    if (r < nrows) {
+    if (r < nrows && cols) {
       uint4 raw[W];
       load_raw(q + (size_t)(row0 + r) * D + d0, raw);
       to_float(raw, qr[r]);
@@ -164,8 +179,14 @@ paged_decode_kernel(const Args a) {
       const int lp = min(p / a.page_size, a.n_kv - 1);
       const int page = min(max(table[lp], 0), a.num_pages - 1);
       const size_t off = ((size_t)page * a.page_size + p % a.page_size) * D;
-      load_raw(kp + off, kr[u]);
-      load_raw(vp + off, vr[u]);
+      if (cols) {
+        load_raw(kp + off, kr[u]);
+        load_raw(vp + off, vr[u]);
+      } else {
+#pragma unroll
+        for (int w = 0; w < W; ++w)
+          kr[u][w] = vr[u][w] = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   };
 
@@ -243,8 +264,10 @@ paged_decode_kernel(const Args a) {
       sm_m[gi][r] = m[r];
       sm_l[gi][r] = l[r];
     }
+    if (cols) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) sm_acc[gi][r][d0 + e] = acc[r][e];
+      for (int e = 0; e < VEC; ++e) sm_acc[gi][r][d0 + e] = acc[r][e];
+    }
   }
   __syncthreads();
 
@@ -306,6 +329,10 @@ cudaError_t dispatch_d(int d, const Args& a, int B, cudaStream_t stream) {
   switch (d) {
     case 64:
       return dispatch_g<T, 64>(a, B, stream);
+    case 80:
+      return dispatch_g<T, 80>(a, B, stream);
+    case 96:
+      return dispatch_g<T, 96>(a, B, stream);
     case 128:
       return dispatch_g<T, 128>(a, B, stream);
     case 256:

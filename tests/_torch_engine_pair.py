@@ -11,6 +11,8 @@ tokens (drafts, prefix hits on generated blocks) is compared only when
 every stream is equal, which ``streams_match`` reports.
 """
 import contextlib
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,11 +43,16 @@ MARGIN = 1e-4
 
 class Pair:
     """The JAX model and its port on the same weights, and engines of
-    both packages on them."""
+    both packages on them.  ``head_dim`` replaces the reduced config's
+    (16) on both sides."""
 
-    def __init__(self, arch: str = "gemma2-2b"):
+    def __init__(self, arch: str = "gemma2-2b",
+                 head_dim: Optional[int] = None):
         self.jcfg = reduce_for_smoke(get_model_config(arch))
         self.tcfg = t_reduce(t_get(arch))
+        if head_dim is not None:
+            self.jcfg = dataclasses.replace(self.jcfg, head_dim=head_dim)
+            self.tcfg = dataclasses.replace(self.tcfg, head_dim=head_dim)
         self.jm = j_build(self.jcfg, ParallelConfig(remat="none"))
         self.jp = self.jm.init(jax.random.PRNGKey(0))
         self.tp = params_from_jax(jax.tree.map(np.asarray, self.jp),
@@ -77,14 +84,15 @@ class Pair:
 
 
 @contextlib.contextmanager
-def pair_on_one_thread():
+def pair_on_one_thread(arch: str = "gemma2-2b",
+                       head_dim: Optional[int] = None):
     """A Pair with torch on one intra-op thread while a test module uses
     it: the reduced model's ops are too small to gain from threads, and
     idle pool threads would spin on cores the other test workers need."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        yield Pair()
+        yield Pair(arch, head_dim)
     finally:
         torch.set_num_threads(n)
 

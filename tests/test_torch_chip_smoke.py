@@ -129,6 +129,104 @@ def test_decode_and_mlstm_cases_reach_the_split_edges(cs):
         assert kw["dtype"] in cs.TOL
 
 
+@pytest.mark.parametrize("d", [80, 96])
+def test_phase2_holds_every_attention_kernel_at_head_dims_80_and_96(cs, d):
+    """Each of the four attention kernels at D = 80 and 96, in bf16 and
+    float32, its bf16 case at the main path's shape (the kernels line's
+    d80_* / d96_* numbers): paged decode B=8 at 32/32 heads on 16 pages of
+    128, a chunk-512 prefill with a ragged and a padded row, the causal
+    forward at B=4, S=2048, dense decode at B=1 on 65536 tokens, and
+    dense decode at generate's kv_len 159 in both layouts."""
+    lists = {"paged_decode": cs.DECODE_CASES,
+             "paged_prefill": cs.PREFILL_CASES,
+             "fastattn_fwd": cs.FWD_CASES,
+             "flash_decode": cs.DENSE_DECODE_CASES}
+    for kernel, cases in lists.items():
+        assert {kw["dtype"] for _, kw in cases if kw["d"] == d} == {
+            "bfloat16", "float32"}, kernel
+        main = dict(cases)[cs.head_dim_case(kernel, d)]
+        assert (main["d"], main["dtype"]) == (d, "bfloat16")
+        assert cs.head_dim_case(kernel, d, "float32") in dict(cases) or \
+            kernel == "flash_decode"
+    dec = dict(cs.DECODE_CASES)[cs.head_dim_case("paged_decode", d)]
+    assert (dec["b"], dec["hq"], dec["hkv"], dec["ps"], dec["n_kv"]) == (
+        8, 32, 32, 128, 16)
+    pre = dict(cs.PREFILL_CASES)[cs.head_dim_case("paged_prefill", d)]
+    assert pre["chunk"] == 512 and 0 in pre["nvalid"] and any(
+        0 < n < 512 for n in pre["nvalid"])
+    fwd = dict(cs.FWD_CASES)[cs.head_dim_case("fastattn_fwd", d)]
+    assert (fwd["b"], fwd["hq"], fwd["sq"], fwd["skv"]) == (4, 32, 2048, 2048)
+    assert fwd.get("causal", True)
+    long = dict(cs.DENSE_DECODE_CASES)[cs.head_dim_case("flash_decode", d)]
+    assert (long["b"], long["s"], long["layout"]) == (1, 65536, "bshd")
+    gen = {(kw["layout"], kw["dtype"]) for _, kw in cs.DENSE_DECODE_CASES
+           if kw["d"] == d and kw["s"] == 161 and kw["lens"] == [159] * 8}
+    assert gen == {(lay, dt) for lay in ("bshd", "bhsd")
+                   for dt in ("bfloat16", "float32")}
+
+
+def test_phase2_head_dim_cases_reach_the_edges(cs):
+    """At D = 80 paged decode's split edges; at D = 96 a GQA group of 4
+    (the 16-lane thread group against the 4-row tile); at each a ragged
+    prefill chunk with a padded row and a ragged float32 forward with a
+    q_offset and a kv_valid tail."""
+    dec = [kw for _, kw in cs.DECODE_CASES if kw["d"] in (80, 96)]
+    assert any(kw["d"] == 80 and callable(kw.get("lens"))
+               and kw["lens"](256) == [255, 256, 257, 1] for kw in dec)
+    assert any(kw["d"] == 96 and kw["hq"] // kw["hkv"] == 4 for kw in dec)
+    for d in (80, 96):
+        assert any(kw["d"] == d and kw["chunk"] % 64 and 0 in kw["nvalid"]
+                   for _, kw in cs.PREFILL_CASES)
+        assert any(kw["d"] == d and kw["dtype"] == "float32"
+                   and kw.get("q_offset") and kw.get("kv_valid")
+                   for _, kw in cs.FWD_CASES)
+
+
+def test_phase7_serves_both_head_dim_models(cs):
+    """Phase 7 runs after phase 6 on stablelm-3b (D = 80) and
+    phi3-mini-3.8b (D = 96), each a head dim the kernels are built for."""
+    import inspect
+    from repro_torch.config import get_model_config
+    from repro_torch.kernels._launch import HEAD_DIMS
+    assert cs.HEAD_DIM_ARCHS == {80: "stablelm-3b", 96: "phi3-mini-3.8b"}
+    for d, arch in cs.HEAD_DIM_ARCHS.items():
+        cfg = get_model_config(arch)
+        assert cfg.head_dim == d and d in HEAD_DIMS
+        assert cfg.num_layers == 32
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_xlstm()") < main.index("phase_head_dims()")
+    assert cs.APPLY_TOKENS == 2048
+
+
+def test_kernels_line_gains_head_dim_entries(cs):
+    """Each attention kernel's entry gets d80_* and d96_* numbers (phase
+    2's bf16 main-shape case; flash_decode's from phase 7 (b), with its
+    long shape beside them) and its phase 7 launches; the mLSTM's none."""
+    def res(tag):
+        return {"err": 1e-3, "ms": tag, "device_ms": tag / 2,
+                "plain_ms": 9.0, "bound_ms": 0.01, "bound_by": "bytes",
+                "library_ms": None, "library_device_ms": 0.5}
+    attn = ("paged_prefill", "paged_decode", "fastattn_fwd", "flash_decode")
+    kernels = [{"name": n} for n in attn + ("mlstm_chunkwise",)]
+    cases = {(n, d): res(float(d)) for n in attn for d in (80, 96)}
+    runs = {d: {"launches": {"paged_decode": 2272, "paged_prefill": 576,
+                             "flash_decode": 5088, "fastattn_fwd": 32},
+                "flash_decode": res(d + 0.5)} for d in (80, 96)}
+    cs.add_head_dim_entries(kernels, cases, runs)
+    by = {k["name"]: k for k in kernels}
+    assert by["mlstm_chunkwise"] == {"name": "mlstm_chunkwise"}
+    for d in (80, 96):
+        assert by["paged_decode"][f"d{d}_ms"] == d
+        assert by["paged_decode"][f"d{d}_launches"] == 2272
+        assert by["fastattn_fwd"][f"d{d}_launches"] == 32
+        assert by["flash_decode"][f"d{d}_ms"] == d + 0.5
+        assert by["flash_decode"][f"d{d}_long_device_ms"] == d / 2
+        for n in attn:
+            assert {f"d{d}_{x}" for x in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "launches")} <= set(by[n])
+
+
 def test_phase2_holds_the_paged_kernels_at_a_tp2_rank_shape(cs):
     """Phase 3e (a) runs both paged kernels on each rank of llama2-7b at
     tp=2 (16 of the 32 heads): phase 2 holds them to their plain versions

@@ -39,7 +39,9 @@ from repro_torch.kernels.mlstm.ops import (  # noqa: E402
 # edges.  After the first four: kv_len one below, at and one above a
 # split, a window narrower than the table (its range starts mid-page and
 # ends in a part split), one sequence of 4096 keys over many splits, and
-# only idle rows.
+# only idle rows.  Then head dims 80 and 96 (16-lane thread groups, 10
+# and 12 lanes holding columns): GQA groups of 1, 4 (D = 96) and 8, split
+# edges, a window and a softcap.
 DECODE_CASES = [
     (3, 4, 4, 16, 5, 64, [80, 33, 1], None, None),
     (3, 8, 4, 16, 6, 128, [17, 96, 1], 40, 30.0),
@@ -51,13 +53,19 @@ DECODE_CASES = [
     (3, 8, 2, 16, 64, 256, [1000, 301, 1], 100, 50.0),
     (1, 8, 8, 128, 32, 128, [4096], None, None),
     (2, 4, 4, 16, 8, 64, [1, 1], 20, None),
+    (3, 8, 8, 16, 6, 80, [96, 33, 1], None, None),
+    (3, 16, 4, 16, 6, 96, [80, 17, 1], 40, 30.0),
+    (4, 8, 1, 16, 64, 96, lambda sk: [sk - 1, sk, sk + 1, 1], None, None),
+    (4, 8, 8, 16, 64, 80, lambda sk: [2 * sk + 1, sk, 3 * sk - 1, 1],
+     None, 30.0),
 ]
 # (hq, hkv, ps, n_kv, d, chunk, starts, nvalid, window, softcap); a row
 # with n_valid 0 is a padded batch row: all-scratch table, kv_len 0.
 # Beside the first four: a chunk of 1 row and one of 129 (across the
 # bf16 kernel's 128-row block), fewer keys than one 64-key sub-tile,
-# head_dim 256 with a window, and 64-key sub-tiles straddling 16-key
-# pages from an unaligned start
+# head_dim 256 with a window, 64-key sub-tiles straddling 16-key
+# pages from an unaligned start, and head dims 80 and 96 (the bf16 tiles
+# padded to 128 columns) with GQA, a window and a softcap
 PREFILL_CASES = [
     (4, 4, 16, 6, 64, 32, [0, 32, 0], [32, 20, 0], None, None),
     (4, 2, 16, 6, 128, 32, [16, 50, 0], [32, 11, 0], 24, 30.0),
@@ -68,6 +76,9 @@ PREFILL_CASES = [
     (4, 2, 16, 3, 128, 32, [0, 10, 0], [32, 20, 0], None, None),
     (4, 2, 128, 3, 256, 128, [100, 0, 0], [128, 60, 0], 64, None),
     (8, 2, 16, 16, 128, 96, [37, 150, 0], [96, 70, 0], None, None),
+    (4, 4, 16, 6, 80, 32, [0, 32, 0], [32, 20, 0], None, None),
+    (4, 2, 16, 12, 96, 129, [0, 50, 0], [129, 100, 0], 24, 30.0),
+    (8, 2, 128, 3, 80, 100, [128, 3, 0], [100, 77, 0], None, 50.0),
 ]
 
 
@@ -159,8 +170,8 @@ def test_cuda_paged_prefill_matches_plain(cuda_device, case, dtype, tol):
 # SKIP sub-tiles, a q_offset past 0, kv_valid tails; rows with no visible
 # key are 0 on both sides.  Beside the first six: Sq = 1 and Sq = 129
 # (across the bf16 kernel's 128-row block), Skv below one 64-key
-# sub-tile, head_dim 256 with a window, and kv_valid = 0 (every row
-# exactly 0)
+# sub-tile, head_dim 256 with a window, kv_valid = 0 (every row
+# exactly 0), and head dims 80 and 96
 FWD_CASES = [
     (2, 4, 4, 200, 200, 64, True, None, None, 0, None),
     (1, 8, 2, 300, 257, 128, True, 100, 30.0, 0, None),
@@ -174,6 +185,10 @@ FWD_CASES = [
     (1, 4, 2, 100, 40, 128, False, None, None, 0, None),
     (1, 4, 2, 300, 300, 256, True, 100, None, 0, None),
     (1, 2, 1, 129, 100, 64, False, None, None, 0, 0),
+    (2, 4, 4, 200, 200, 80, True, None, None, 0, None),
+    (1, 8, 2, 300, 257, 96, True, 100, 30.0, 0, None),
+    (1, 4, 2, 129, 500, 80, True, None, None, 371, 450),
+    (2, 4, 1, 96, 160, 96, False, None, None, 0, 140),
 ]
 
 
@@ -229,7 +244,7 @@ def test_cuda_fastattn_autograd_matches_plain(cuda_device, causal, window,
 
 @pytest.mark.cuda
 def test_cuda_fastattn_fwd_rejects_bad_arguments(cuda_device):
-    q = torch.zeros((1, 2, 8, 96), device=cuda_device)
+    q = torch.zeros((1, 2, 8, 72), device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         fastattn_fwd(q, q, q)
     q = torch.zeros((1, 2, 8, 64), device=cuda_device)
@@ -239,12 +254,15 @@ def test_cuda_fastattn_fwd_rejects_bad_arguments(cuda_device):
 
 # (b, hq, hkv, s, d, lens, window, softcap): ragged kv_len with a length-1
 # row, a cache length no multiple of the tiles, GQA groups of 1, 2, 4 and
-# 10 (two row tiles), window and softcap
+# 10 (two row tiles), window and softcap; head dims 80 and 96
 DENSE_DECODE_CASES = [
     (3, 4, 4, 300, 64, [300, 77, 1], None, None),
     (2, 8, 4, 1000, 128, [999, 400], 256, 30.0),
     (2, 8, 2, 512, 256, [512, 3], None, 50.0),
     (2, 20, 2, 777, 128, [700, 129], 100, None),
+    (3, 4, 4, 300, 80, [300, 77, 1], None, None),
+    (2, 8, 2, 1000, 96, [999, 400], 256, 30.0),
+    (2, 20, 4, 777, 96, [700, 129], None, None),
 ]
 
 
@@ -296,6 +314,8 @@ DENSE_SPLIT_CASES = [
     (2, 16, 2, 5000, 256, lambda sk: [5000, sk + 1], 777, None),
     (4, 8, 2, 1024, 128, [1024, 21, 20, 1], 20, None),
     (1, 32, 32, 20000, 128, [20000], None, None),
+    (4, 32, 8, 2048, 96, lambda sk: [sk - 1, sk, sk + 1, 1], None, None),
+    (1, 32, 32, 20000, 80, [20000], None, None),
 ]
 
 
@@ -380,8 +400,8 @@ def test_cuda_dense_and_paged_decode_share_the_split_workspace(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_flash_decode_rejects_bad_arguments(cuda_device):
-    q = torch.zeros((1, 2, 96), device=cuda_device)
-    k = torch.zeros((1, 8, 2, 96), device=cuda_device)
+    q = torch.zeros((1, 2, 72), device=cuda_device)
+    k = torch.zeros((1, 8, 2, 72), device=cuda_device)
     lens = torch.ones(1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         flash_decode(q, k, k, lens, layout="bshd")
@@ -394,6 +414,23 @@ def test_cuda_flash_decode_rejects_bad_arguments(cuda_device):
         flash_decode(q, k, k, lens.long(), layout="bshd")
     with pytest.raises(ValueError, match="bfloat16"):
         flash_decode(q, k.bfloat16(), k.bfloat16(), lens, layout="bshd")
+
+
+@pytest.mark.cuda
+def test_cuda_paged_kernels_reject_a_head_dim_they_are_not_built_for(
+        cuda_device):
+    """D = 72 is no instance of paged_decode.cu or paged_prefill.cu: a
+    CUDA tensor raises, it never falls back to the plain version."""
+    pages = torch.zeros((2, 4, 16, 72), device=cuda_device)
+    table = torch.ones((1, 2), dtype=torch.int32, device=cuda_device)
+    lens = torch.full((1,), 5, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_flash_decode(torch.zeros((1, 2, 72), device=cuda_device),
+                           pages, pages, table, lens)
+    with pytest.raises(ValueError, match="head_dim"):
+        fastattn_paged_prefill(
+            torch.zeros((1, 2, 5, 72), device=cuda_device), pages, pages,
+            table, torch.zeros_like(lens), lens)
 
 
 # (b, h, s, dk, dv, chunk, layout, forget bias): ragged S, S below the

@@ -1,6 +1,7 @@
 """Host-side plans of the port's CUDA kernels, checked without a card:
-the split-KV planner of ``paged_decode.cu`` and ``flash_decode.cu`` and
-the workspace of the bfloat16 ``mlstm_chunkwise.cu``."""
+the split-KV planner of ``paged_decode.cu`` and ``flash_decode.cu``, the
+two-level tiling of the attention kernels at head dims 80 and 96, and the
+workspace of the bfloat16 ``mlstm_chunkwise.cu``."""
 import itertools
 import math
 
@@ -8,6 +9,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from repro_torch.config import get_model_config  # noqa: E402
+from repro_torch.core import tiling  # noqa: E402
 from repro_torch.kernels.flash_decode.ops import (  # noqa: E402
     SPLIT_STEP, plan_dense_splits, plan_splits, rows_per_cta)
 from repro_torch.kernels.mlstm.ops import workspace_floats  # noqa: E402
@@ -100,6 +103,52 @@ def test_split_plan_of_the_dense_decode_shapes():
     assert plan_dense_splits(4, 8, 2, 2048, 20, 132) == (32, 1)
     # the dense aim leaves the paged plans as they were
     assert plan_splits(8, 32, 1, 16, 128, None, 132) == (704, 3)
+
+
+@pytest.mark.parametrize("d", [80, 96])
+def test_bf16_plan_at_head_dims_80_and_96_counts_the_padded_width(d):
+    """The wgmma kernel's tiles hold whole 64-column swizzle blocks: 128
+    columns a row at D = 80 and 96, zero-filled past D.  The plan counts
+    them, so it is head_dim 128's: 128 query rows, a ring of three
+    128-key stages in 230,448 of the 232,448 bytes a CTA may use."""
+    assert tiling.padded_head_dim(d) == 128
+    plan = tiling.plan_two_level_tiling(2048, 2048, d, dtype_bytes=2)
+    assert (plan.block_q, plan.block_kv2, plan.stages) == (128, 64, 3)
+    assert plan.smem_bytes == (1024 + 2 * 128 * 128
+                               + 3 * 2 * 2 * plan.block_kv1 * 128 + 3 * 2 * 8)
+    assert plan.smem_bytes <= tiling.SMEM_PER_BLOCK
+    assert tiling.smem_working_set(128, 2 * plan.block_kv1, d, 2) > \
+        tiling.SMEM_PER_BLOCK
+    assert plan == tiling.plan_two_level_tiling(2048, 2048, 128,
+                                                dtype_bytes=2)
+    # float32: the FMA kernel stages D columns as they are, two CTAs an SM
+    f32 = tiling.plan_two_level_tiling(2048, 2048, d, dtype_bytes=4)
+    kv1 = f32.block_kv1
+    assert f32.smem_bytes == 4 * d * (64 + 4) + 4 * d * (kv1 + 4) \
+        + 4 * kv1 * d
+    assert f32.ctas_per_sm >= 2 and kv1 % 32 == 0
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "stablelm-3b"])
+def test_split_plans_of_the_head_dim_80_and_96_models(arch):
+    """The decode planners read shapes but no head dim: phi3-mini-3.8b
+    and stablelm-3b (32/32 heads, D = 96 and 80) get llama2-7b's plans at
+    the serving shape (8 slots, 16 pages of 128) and generate's caches
+    (8 x 161), and every key of a row lies in one split."""
+    cfg = get_model_config(arch)
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    paged = plan_splits(8, hkv, hq // hkv, 16, 128, None, 132)
+    assert paged == plan_splits(8, 32, 1, 16, 128, None, 132) == (704, 3)
+    split_keys, n_split = paged
+    for kv_len in (1, 703, 704, 705, 1409, 2048):
+        owners = [o // split_keys for o in range(kv_len)]
+        assert owners[-1] < n_split
+    dense = plan_dense_splits(8, hq, hkv, 161, None, 132)
+    assert dense == (192, 1)
+    for kv_len in (1, 128, 159, 161):
+        keys = [k for r in _dense_splits(kv_len, 161, None, dense[0])
+                for k in r]
+        assert keys == list(range(kv_len))
 
 
 def test_rows_per_cta_follows_the_kernel_dispatch():
