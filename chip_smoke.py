@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, serve, train,
-offload, xLSTM, head dims 80 and 96.
+"""Smoke run of the PyTorch port on one GPU: build, check, serve, train
+(on one device and on a (data, model) mesh), offload, xLSTM, head dims
+80 and 96.
 
     python3 chip_smoke.py
 
@@ -28,7 +29,10 @@ which raises on failure (the script then exits non-zero):
    split, a window narrower than the table, 4096 keys in one sequence,
    only idle rows); ``fastattn_fwd`` at llama2-7b's training shape, a
    gemma2-2b band (GQA, window, softcap), a ragged case with a q_offset
-   and a kv_valid tail in float32 and in bf16, and a non-causal case;
+   and a kv_valid tail in float32 and in bf16, a non-causal case, and
+   phase 4b's context-parallel shape (``CONTEXT_CASES``: a rank's
+   2 x 1024 query rows against 2048 keys at q_offset 0 and 1024, SDPA
+   with ``causal_lower_right`` for m=1);
    ``flash_decode`` on dense caches (``DENSE_DECODE_CASES``, every
    (batch, head) row to its own scale) at llama2-7b's decode shape in both
    layouts, a gemma2-2b window/softcap case, a float32 case, llama2-7b
@@ -134,6 +138,30 @@ which raises on failure (the script then exits non-zero):
    and gradient norm must agree with the plain attention path's within
    1% and 5%.  One more step is traced with ``torch.profiler`` for the
    share of the step's device time in ``fastattn_fwd``.
+4b. Data- and model-parallel training (``phase_dist_training``), after
+   phase 4: phase 4's model, seed, batches and TrainConfig at
+   ``ParallelConfig(data=2, model=2, remat="selective")``, four ranks of
+   ``launch.mesh.spawn_ranks`` on the one card over gloo (NCCL with a GPU
+   a rank where there are four), each drawing the whole tree and keeping
+   its pieces under the logical-axis rules, for the first ``DIST_STEPS``
+   (3) of phase 4's steps.  Gates: the ranks' loss, grad norm and lr
+   equal; each step's loss within 1% and grad norm within 2% of phase
+   4's, lr exact; each leaf's update within 15% of phase 4's (norm of
+   the difference over the norm of one device's; leaves one device left
+   unchanged unchanged); ``fastattn_fwd.cu`` 4 layers x 2 x 3 launches a
+   rank, all at its q_offset (0, 1024); each rank's initial pieces phase
+   4's slices for its coordinate, a sharded leaf half the whole; the
+   (2, 2) checkpoint, gathered whole and written by rank 0, the
+   one-rank save of the same gathered state file for file; restored at
+   (1, 2), each rank's every leaf (params, AdamW's moments, step) its
+   slice of that checkpoint and the next step's loss within 1e-3 of
+   (2, 2)'s; and
+   ``python -m repro_torch.launch.train --arch llama2-7b --smoke --steps 2
+   --data 2 --model-axis 2`` (run beside the restore) ends cleanly.
+   Prints each rank's step wall, collectives a step and their bytes,
+   peak memory, backend and device, and the leaves whose step-0 gradient
+   norms differ most from phase 4's.  gloo stages every collective
+   through the host: no number of it is a parallel speed.
 5. Cooperative offload (paper §4.4), after phase 4: ``plan_offload`` and
    ``max_context_length`` for llama2-7b on one 80 GB card, then one
    layer's decode attention at B=1, S=65536 with the KV on the host
@@ -188,7 +216,9 @@ with its launches in phase 3d (c); both paged kernels also
 all-reduce mode; each attention kernel also ``d80_*`` and ``d96_*``, its
 phase 2 bf16 case at the main path's shape -- flash_decode's from phase 7
 (b), its ``d80_long_*`` / ``d96_long_*`` at B=1 on 65536 tokens -- and
-its launches in phase 7); the last line is ``{"ok": true,
+its launches in phase 7; ``fastattn_fwd`` also ``context_*``, phase 2's
+context-parallel case of rank m=1, ``context_m0_*`` of m=0, and each
+phase 4b rank's launches); the last line is ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -197,6 +227,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -554,6 +585,16 @@ def prefill_case(name, *, hq, hkv, d, ps, n_kv, chunk, dtype, starts,
     return res
 
 
+def fwd_bytes(mask, *, b, hq, hkv, d, esize) -> int:
+    """The bytes an attention forward must move for a (Sq, Skv) ``mask``
+    of visible pairs: Q read and O written once, and K and V read once
+    for each key column some query row sees (a context-parallel rank at
+    q_offset 0 sees only the first Sq of its keys)."""
+    sq = mask.shape[0]
+    kv_needed = int(mask.any(0).sum().item())
+    return (2 * b * hq * sq * d + 2 * b * hkv * kv_needed * d) * esize
+
+
 def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
              window=None, softcap=None, q_offset=0, kv_valid=None, seed=0):
     """fastattn_fwd vs flash_reference on one shape.  Rows with no visible
@@ -586,14 +627,14 @@ def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
                              ref.reshape(-1, d), dtype)
 
     # work this data needs: the visible (row, key) pairs of every head;
-    # every input read once, the output written once
+    # Q read and O written once, K and V read once where a row sees them
     mask = dense_mask(sq, skv, causal=causal, window=window,
                       q_offset=q_offset, device="cuda")
     if kv_valid is not None:
         mask[:, kv_valid:] = False
     pairs = int(mask.sum().item())
-    esize = q.element_size()
-    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * esize
+    n_bytes = fwd_bytes(mask, b=b, hq=hq, hkv=hkv, d=d,
+                        esize=q.element_size())
     n_ops = 4.0 * b * hq * pairs * d
     bnd, by = bound_ms(n_bytes, n_ops, dtype)
     res = {"err": err, "rel_err": rel, "ms": time_ms(kernel),
@@ -601,16 +642,23 @@ def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
            "bound_by": by, "library_ms": None, "pairs": pairs}
     res["device_ms"] = device_ms(kernel)
     if softcap is None:
+        from torch.nn.attention.bias import causal_lower_right
         ke = k.repeat_interleave(hq // hkv, dim=1)      # GQA expanded
         ve = v.repeat_interleave(hq // hkv, dim=1)      # outside the time
-        plain_causal = (causal and q_offset == 0 and sq == skv
-                        and window is None and kv_valid in (None, skv))
+        # SDPA's causal masks: is_causal aligns the diagonal top left
+        # (q_offset 0), causal_lower_right bottom right (q_offset = the
+        # keys beyond the queries, a context-parallel rank's last rows)
+        plain = causal and window is None and kv_valid in (None, skv)
+        lib_mask = (True if plain and q_offset == 0 else
+                    causal_lower_right(sq, skv)
+                    if plain and q_offset == skv - sq else mask)
 
         def lib():
-            if plain_causal:
+            if lib_mask is True:
                 return F.scaled_dot_product_attention(q, ke, ve,
                                                       is_causal=True)
-            return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+            return F.scaled_dot_product_attention(q, ke, ve,
+                                                  attn_mask=lib_mask)
         res["library_ms"] = time_ms(lib)
         res["library_device_ms"] = device_ms(lib)
     lib_s = ("n/a (no single PyTorch call applies a softcap)"
@@ -854,6 +902,15 @@ FWD_CASES = [
      dict(b=2, hq=8, hkv=2, sq=1000, skv=1500, d=128, dtype="bfloat16",
           q_offset=300, kv_valid=1400, seed=4)),
 ]
+# phase 4b's shape: a (data=2, model=2) rank's 2 x 1024 query rows of
+# llama2-7b against all 2048 keys, q_offset = the rank's first row (m=1
+# is the kernels line's context_* entry: three times m=0's work)
+CONTEXT_CASES = {
+    m: (f"llama2-7b context rank m={m} B=2 H=32/32 Sq=1024 Skv=2048 D=128 "
+        f"bf16 q_offset={m * 1024}",
+        dict(b=2, hq=32, hkv=32, sq=1024, skv=2048, d=128,
+             dtype="bfloat16", q_offset=m * 1024, seed=5 + m))
+    for m in (0, 1)}
 PREFILL_CASES = [
     ("llama2-7b B=4 chunk=512 H=32/32 D=128 bf16 ps=128",
      dict(hq=32, hkv=32, d=128, ps=128, n_kv=16, chunk=512,
@@ -1056,7 +1113,8 @@ MLSTM_CASES = [
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  Returns the main-path
     numbers of each kernel."""
-    fwds = {name: fwd_case(name, **kw) for name, kw in FWD_CASES}
+    fwds = {name: fwd_case(name, **kw)
+            for name, kw in FWD_CASES + list(CONTEXT_CASES.values())}
     decs = {name: decode_case(name, **kw) for name, kw in DECODE_CASES}
     pres = {name: prefill_case(name, **kw) for name, kw in PREFILL_CASES}
     dense = {name: dense_decode_case(name, **kw)
@@ -1072,6 +1130,8 @@ def phase_kernels() -> dict:
             "fastattn_fwd": fwds[FWD_CASES[0][0]],
             "mlstm_chunkwise": mls, "flash_decode_long": dense[LONG_DECODE],
             "paged_prefill_verify": pres[VERIFY_CASE],
+            "fastattn_context": {m: fwds[name] for m, (name, _) in
+                                 CONTEXT_CASES.items()},
             "head_dims": {(k, d): every[k][head_dim_case(k, d)]
                           for k in every for d in HEAD_DIM_ARCHS}}
 
@@ -2540,6 +2600,19 @@ def phase_training() -> dict:
                                     seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH))
 
+    # phase 4b's reference: the initial parameters and those after
+    # DIST_STEPS steps (host copies, tree order), and every step's loss,
+    # grad norm and lr
+    ref = {"init": [t.cpu() for t in tree.leaves(state.params)],
+           "loss": [], "grad_norm": [], "lr": [],
+           "paths": [p for p, _ in tree.leaves_with_paths(state.params)]}
+    # step 0's gradient norm leaf by leaf (phase 4b's against it), on the
+    # first batch of a pipeline of its own
+    first = to_device(TokenPipeline(data.cfg).next(), model.device)
+    ref["leaf_gnorm"] = leaf_grad_norms(model, cfg, state.params, first)
+    ref["embed_gnorm_f32"] = embed_f32_grad_norm(model, cfg, state.params,
+                                                 first)
+    del first
     fastattn_fwd.launches = 0
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
@@ -2551,6 +2624,10 @@ def phase_training() -> dict:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t1)
         losses.append(float(metrics["loss"]))
+        for k in ("loss", "grad_norm", "lr"):
+            ref[k].append(float(metrics[k]))
+        if i + 1 == DIST_STEPS:
+            ref["snapshot"] = [t.cpu() for t in tree.leaves(state.params)]
         log(f"[train] step {i} loss {losses[-1]:.4f} lr "
             f"{float(metrics['lr']):.2e} gnorm "
             f"{float(metrics['grad_norm']):.4f} {step_s[-1] * 1e3:.1f} ms")
@@ -2664,6 +2741,540 @@ def phase_training() -> dict:
         log(f"[train]   {_device_us(e) / 1e6:9.4f}s {e.count:6d}x "
             f"{e.key[:90]}")
     log("[train] " + json.dumps(out))
+    out["reference"] = ref
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: data- and model-parallel training at (data=2, model=2)
+# ---------------------------------------------------------------------------
+
+DIST_MESH = dict(data=2, model=2)
+# phase 4b takes the first DIST_STEPS of phase 4's TRAIN_STEPS steps,
+# against phase 4's snapshot there: a step through gloo on one card
+# costs ~9 s (5.6 GB of collectives a rank), and the script keeps to
+# about 800 s
+DIST_STEPS = 3
+DIST_INIT_TIMEOUT_S = 300.0       # every collective of a rank
+DIST_DEADLINE_S = 900.0           # a spawned group as a whole
+# Bounds against phase 4's one-device run of the same weights and batches,
+# fixed before this phase first ran on the card (PERF.md, the phase 4b
+# prediction) from the same comparison in bf16 on CPU ranks at a reduced
+# width (held to them by tests/test_torch_chip_smoke.py): each leaf's
+# update within a few percent -- bf16 gradients summed over four ranks
+# in another order flip the sign of some of Adam's first updates.
+# Leaves whose one-device update is 0 (norm scales: their updates round
+# away at 1.0) must not move either.
+DIST_LOSS_RTOL = 0.01
+DIST_GNORM_RTOL = 0.02
+DIST_DELTA_RTOL = 0.15
+# the step after the checkpoint at (data=1, model=2) from the restored
+# state against the (2, 2) run's own: the same parameters, another layout
+DIST_RESUME_RTOL = 1e-3
+LAUNCHER = ["-m", "repro_torch.launch.train", "--arch", "llama2-7b",
+            "--smoke", "--steps", "2", "--data", "2", "--model-axis", "2"]
+
+
+def bits_key(t) -> tuple:
+    """An exact fingerprint of a tensor's bits (order-independent sums of
+    its words, plain and weighted by position), to compare tensors held
+    in other processes without moving them."""
+    import torch
+    word = torch.int16 if t.element_size() == 2 else torch.int32
+    w = t.detach().contiguous().reshape(-1).view(word).long()
+    idx = torch.arange(w.numel(), device=w.device) % 1009 + 1
+    return (int(w.sum()), int((w * idx).sum()))
+
+
+def same_checkpoint(dir_a: str, dir_b: str, step: int) -> list:
+    """The files of step ``step`` that differ between two checkpoint
+    directories (every array file byte for byte, the manifests but for
+    their write time); [] when they are the same."""
+    a = os.path.join(dir_a, f"step_{step:08d}")
+    b = os.path.join(dir_b, f"step_{step:08d}")
+    names = sorted(os.listdir(a))
+    bad = [n for n in sorted(set(names) ^ set(os.listdir(b)))]
+    for n in names:
+        if n not in os.listdir(b):
+            continue
+        with open(os.path.join(a, n), "rb") as fa, \
+                open(os.path.join(b, n), "rb") as fb:
+            da, db = fa.read(), fb.read()
+        if n == "manifest.json":
+            ma, mb = json.loads(da), json.loads(db)
+            ma.pop("time"), mb.pop("time")
+            if ma != mb:
+                bad.append(n)
+        elif da != db:
+            bad.append(n)
+    return bad
+
+
+def _dist_rank(rank: int, cfg, mesh_kw: dict, ckpt_dir: str,
+               mode: str) -> dict:
+    """One rank of phase 4b.  ``mode`` "train": phase 4's run (``cfg``,
+    weights, batches, TrainConfig) on this rank's share of the mesh, every
+    step's numbers and the collectives it issued, a checkpoint of the
+    final state (and, on rank 0, the same gathered state saved on one
+    rank, compared file for file), then one more step.  "resume": that
+    checkpoint restored into this rank's pieces and the one more step.
+    The rank runs on its CUDA device (on the CPU only where there is
+    none: a rehearsal of the phase's host code)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.fastattn import ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import axis_rules
+    from repro_torch.training import tree
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step,
+                                                 state_specs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel = ParallelConfig(remat="selective", **mesh_kw)
+    mesh = make_mesh_for(parallel, timeout=DIST_INIT_TIMEOUT_S)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() else torch.device("cpu"))
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=TRAIN_STEPS)        # phase 4's schedule
+    model = build_model(cfg, dev, parallel)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    kernel = ops.fastattn_fwd
+    offsets = set()
+
+    def recorded(*args, **kw):            # every launch's q_offset
+        offsets.add(kw.get("q_offset", 0))
+        return kernel(*args, **kw)
+    # the wrapper counts its launches on the module's name: here
+    recorded.launches = 0
+
+    out = {"rank": rank, "coords": mesh.coords, "device": str(dev),
+           "backend": str(dist.get_backend()), "loss": [], "grad_norm": [],
+           "lr": [], "step_s": [], "collectives": [], "coll_bytes": []}
+    ops.fastattn_fwd = recorded
+    try:
+        with axis_rules(mesh=mesh):
+            t0 = time.perf_counter()
+            state = init_train_state(model, model.generator(tcfg.seed))
+            synchronize(dev)
+            out["init_s"] = time.perf_counter() - t0
+            mgr = CheckpointManager(ckpt_dir, mesh=mesh, specs=state_specs(
+                model.param_specs(mesh)))
+            step_fn = make_train_step(model, cfg, parallel, tcfg)
+            pieces = tree.leaves(state.params)
+            out["numel"] = [t.numel() for t in pieces]
+            if mode == "resume":
+                state, manifest = mgr.restore(state)
+                data.restore(manifest["extras"]["data"])
+                out["restored_keys"] = [bits_key(t)
+                                        for t in tree.leaves(state)]
+            else:
+                out["init_keys"] = [bits_key(t) for t in pieces]
+                # step 0's gradient, leaf by leaf, on phase 4's first
+                # batch (a pipeline of its own: ``data`` stays at 0)
+                first = TokenPipeline(data.cfg).next()
+                out["leaf_gnorm"] = leaf_grad_norms(
+                    model, cfg, state.params, to_device(first, dev))
+            del pieces
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        recorded.launches = 0
+        for _ in range(DIST_STEPS if mode == "train" else 0):
+            batch = to_device(data.next(), dev)
+            C.COUNTS.update(all_gather=0, reduce_scatter=0, all_reduce=0,
+                            bytes=0)
+            synchronize(dev)
+            t1 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            synchronize(dev)
+            out["step_s"].append(time.perf_counter() - t1)
+            for k in ("loss", "grad_norm", "lr"):
+                out[k].append(float(metrics[k]))
+            out["collectives"].append({k: C.COUNTS[k] for k in (
+                "all_gather", "reduce_scatter", "all_reduce")})
+            out["coll_bytes"].append(C.COUNTS["bytes"])
+        out["launches"] = recorded.launches
+        out["q_offsets"] = sorted(offsets)
+        out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if dev.type == "cuda" else None)
+        if mode == "train":
+            t1 = time.perf_counter()
+            mgr.save(DIST_STEPS, state, extras={"data": data.state()})
+            out["save_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            host = mgr.gather_host(state)
+            if host is not None:
+                one = os.path.join(ckpt_dir, "one_rank")
+                CheckpointManager(one).save(
+                    DIST_STEPS, tree.unflatten(state, [t for _, t in host]),
+                    extras={"data": data.state()})
+                del host
+                out["ckpt_differs"] = same_checkpoint(ckpt_dir, one,
+                                                      DIST_STEPS)
+                out["ckpt_files"] = len(os.listdir(os.path.join(
+                    one, f"step_{DIST_STEPS:08d}")))
+            out["ckpt_check_s"] = time.perf_counter() - t1
+        state, metrics = step_fn(state, to_device(data.next(), dev))
+        out["next_loss"] = float(metrics["loss"])
+    finally:
+        ops.fastattn_fwd = kernel
+    return out
+
+
+def dist_gate(what, ranks: list, ref: dict, keys: list, specs: list,
+              seq: int, model: int) -> None:
+    """Phase 4b's gates on the (2, 2) run: every rank's loss, grad norm
+    and lr equal the others' and, step by step, phase 4's within
+    DIST_LOSS_RTOL / DIST_GNORM_RTOL (lr exactly); each rank launched
+    fastattn_fwd TRAIN_LAYERS x 2 (remat) x DIST_STEPS times, all at its
+    q_offset; its initial pieces are the rule table's slices of phase 4's
+    draw (``keys``: per rank, the fingerprints of those slices); a leaf
+    sharded over the model axis holds 1/model of the whole; rank 0's
+    checkpoint equals the one-rank save of the same gathered state."""
+    from repro_torch.sharding.rules import spec_axes
+    first = ranks[0]
+    for r, res in enumerate(ranks):
+        for k in ("loss", "grad_norm", "lr"):
+            if res[k] != first[k]:
+                raise AssertionError(f"{what}: rank {r}'s {k} {res[k]} "
+                                     f"differs from rank 0's {first[k]}")
+        m = res["coords"]["model"]
+        want = TRAIN_LAYERS * 2 * DIST_STEPS
+        if res["launches"] != want or res["q_offsets"] != [m * seq // model]:
+            raise AssertionError(
+                f"{what}: rank {r} launched fastattn_fwd {res['launches']} "
+                f"times at q_offsets {res['q_offsets']}, not {want} at "
+                f"[{m * seq // model}]")
+        if res["init_keys"] != keys[r]:
+            raise AssertionError(f"{what}: rank {r}'s initial pieces are "
+                                 "not its slices of phase 4's parameters")
+        sharded = [i for i, s in enumerate(specs) if spec_axes(s)]
+        whole = [int(t.numel()) for t in ref["init"]]
+        bad = [i for i in sharded if res["numel"][i] * model != whole[i]]
+        if not sharded or bad:
+            raise AssertionError(f"{what}: rank {r}: sharded leaves {bad} "
+                                 f"do not hold 1/{model} of the whole")
+    if len(first["loss"]) != DIST_STEPS:
+        raise AssertionError(f"{what}: {len(first['loss'])} steps, not "
+                             f"{DIST_STEPS}")
+    for i in range(DIST_STEPS):
+        l1, g1, lr1 = (ref[k][i] for k in ("loss", "grad_norm", "lr"))
+        l2, g2, lr2 = (first[k][i] for k in ("loss", "grad_norm", "lr"))
+        if not (abs(l2 - l1) <= DIST_LOSS_RTOL * abs(l1)
+                and abs(g2 - g1) <= DIST_GNORM_RTOL * abs(g1)
+                and lr2 == lr1):
+            raise AssertionError(
+                f"{what}: step {i}: loss {l2} / grad norm {g2} / lr {lr2} "
+                f"against one device's {l1} / {g1} / {lr1} (rtol "
+                f"{DIST_LOSS_RTOL} / {DIST_GNORM_RTOL}, lr exact)")
+    if first["ckpt_differs"] or not first["ckpt_files"]:
+        raise AssertionError(f"{what}: the checkpoint differs from the "
+                             f"one-rank save in {first['ckpt_differs']}")
+
+
+def leaf_grad_norms(model, cfg, params, batch) -> list:
+    """Each parameter leaf's gradient norm (f32) at ``params`` on a global
+    ``batch`` of one microbatch: on one device, or -- under a mesh -- from
+    this rank's rows, each gradient summed over the axes its leaf is not
+    sharded over and its square over those it is, as the train step
+    does.  Phase 4b reads it at step 0 beside phase 4's, to see which
+    leaves make the grad norms differ."""
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import (current_mesh, flatten, is_spec,
+                                            spec_axes)
+    from repro_torch.training.train_step import (_value_and_grad,
+                                                 make_loss_fn, rank_rows)
+    mesh = current_mesh()
+    if mesh is None:
+        _, grads = _value_and_grad(make_loss_fn(model, cfg), params, batch)
+        return [g.float().norm().item() for g in grads]
+    _, grads = _value_and_grad(make_loss_fn(model, cfg), params,
+                               rank_rows(batch, mesh, 1)[0])
+    out = []
+    for g, s in zip(grads, flatten(model.param_specs(mesh), is_spec),
+                    strict=True):
+        g = C.all_reduce(g, mesh.group(tuple(
+            a for a in mesh.axis_names if a not in spec_axes(s))))
+        sq = C.all_reduce(g.float().square().sum(), mesh.group(spec_axes(s)))
+        out.append(sq.sqrt().item())
+    return out
+
+
+def embed_f32_grad_norm(model, cfg, params, batch) -> float:
+    """The embed's gradient norm on one device with each row's sum over
+    its tokens' positions taken in f32: the lookup indexes an f32 copy of
+    the table (the same forward values; no embed scale in phase 4's
+    llama2-7b), so the backward's scatter-add runs in f32 and is rounded
+    once.  Beside phase 4's bf16 scatter-add, whose rows of frequent
+    tokens sum thousands of positions in bf16, and the mesh's, whose
+    ranks sum a quarter of them each."""
+    import repro_torch.models.lm as lm
+    from repro_torch.training import tree
+    from repro_torch.training.train_step import (_value_and_grad,
+                                                 make_loss_fn)
+    lookup = lm.embed_tokens
+
+    def f32_rows(p, tokens, c):
+        return lookup({**p, "embed": p["embed"].float()}, tokens,
+                      c).to(p["embed"].dtype)
+    lm.embed_tokens = f32_rows
+    try:
+        _, grads = _value_and_grad(make_loss_fn(model, cfg), params, batch)
+    finally:
+        lm.embed_tokens = lookup
+    i = [p for p, _ in tree.leaves_with_paths(params)].index(
+        "/embedding/embed")
+    return grads[i].float().norm().item()
+
+
+def leaf_gnorm_report(paths: list, one: list, mesh: list,
+                      top: int = 3) -> list:
+    """[(path, relative difference of the leaf's gradient norm, its share
+    of the squared total's difference)] of the ``top`` leaves by share:
+    where the mesh's step-0 grad norm departs from one device's."""
+    total = sum(x * x for x in one)
+    rows = [(p, abs(b - a) / a if a > 0 else math.inf, (b * b - a * a) / total)
+            for p, a, b in zip(paths, one, mesh, strict=True)]
+    return sorted(rows, key=lambda r: -abs(r[2]))[:top]
+
+
+def resume_gate(what, resumed: list, keys: list, base: float) -> None:
+    """The (data=1, model=2) restore of phase 4b's checkpoint: every
+    restored leaf of every rank (params, AdamW's moments, its step) is
+    that rank's slice of the saved whole (``keys``: per rank, the
+    fingerprints of those slices), and the next step's loss is the same
+    on every rank and within DIST_RESUME_RTOL of the (2, 2) run's."""
+    for r, res in enumerate(resumed):
+        if len(res["restored_keys"]) != len(keys[r]):
+            raise AssertionError(f"{what}: rank {r} restored "
+                                 f"{len(res['restored_keys'])} leaves, the "
+                                 f"checkpoint holds {len(keys[r])}")
+        bad = [i for i, (a, b) in enumerate(zip(res["restored_keys"],
+                                                keys[r])) if a != b]
+        if bad:
+            raise AssertionError(f"{what}: rank {r}'s restored leaves {bad} "
+                                 "are not its slices of the checkpoint")
+    nxt = [r["next_loss"] for r in resumed]
+    if len(set(nxt)) != 1 or not abs(nxt[0] - base) <= \
+            DIST_RESUME_RTOL * abs(base):
+        raise AssertionError(f"{what}: next losses {nxt} against (2,2)'s "
+                             f"{base} (rtol {DIST_RESUME_RTOL})")
+
+
+def delta_gate(what, paths: list, init: list, final_one: list,
+               final_dist: list) -> dict:
+    """Each leaf's update at the mesh against one device's, as
+    ||d_dist - d_one|| / ||d_one|| with d = final - init (Adam flips the
+    sign of near-zero updates, so no elementwise bound holds): within
+    DIST_DELTA_RTOL; a leaf one device left unchanged must stay
+    unchanged.  Returns path -> that ratio (0 for unchanged leaves)."""
+    import torch
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    rel = {}
+    for path, a, b, c in zip(paths, init, final_one, final_dist,
+                             strict=True):
+        a = a.to(dev).float()
+        d1, dd = b.to(dev).float() - a, c.to(dev).float() - a
+        n1, nd = d1.norm().item(), (dd - d1).norm().item()
+        rel[path] = nd / n1 if n1 > 0 else (0.0 if nd == 0 else math.inf)
+        if not rel[path] <= DIST_DELTA_RTOL:
+            raise AssertionError(f"{what}: leaf {path}: update off by "
+                                 f"{rel[path]:.3e} of one device's "
+                                 f"(bound {DIST_DELTA_RTOL})")
+    return rel
+
+
+def checkpoint_leaves(ckpt_dir: str, step: int):
+    """(path, tensor) of every leaf a checkpoint holds, in its order, one
+    at a time, each in its stored dtype and shape (on the host)."""
+    import numpy as np
+    import torch
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    for i, m in enumerate(leaves):
+        a = np.load(os.path.join(d, f"arr_{i}.npy"))
+        if m["dtype"] == "bfloat16":
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a).to(getattr(torch, m["dtype"]))
+        yield m["path"], t.reshape(m["shape"])
+
+
+def phase_dist_training(trained: dict, cfg=None) -> dict:
+    """Phase 4b: phase 4's training (llama2-7b cut to TRAIN_LAYERS, or
+    ``cfg``) at (data=2, model=2), four ranks over gloo sharing the card
+    (NCCL where there is a GPU a rank), held to phase 4's run; its
+    checkpoint restored at (data=1, model=2) for the next step; the
+    launcher at --data 2 --model-axis 2."""
+    import torch
+    from repro_torch.config import ParallelConfig, get_model_config
+    from repro_torch.launch.mesh import make_mesh, spawn_ranks
+    from repro_torch.launch.train import train_backend
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import flatten, is_spec, shard_of
+    from repro_torch.training.train_step import state_specs
+
+    ref = trained["reference"]
+    t0 = time.perf_counter()
+    on_card = torch.cuda.is_available()
+    kind = torch.device("cuda" if on_card else "cpu")
+    parallel = ParallelConfig(**DIST_MESH)
+    world = parallel.pods * parallel.data * parallel.model
+    cfg = cfg or dataclasses.replace(get_model_config("llama2-7b"),
+                                     num_layers=TRAIN_LAYERS)
+    # the rule table's layout of phase 4's tree, and each rank's slices
+    # of phase 4's draw (fingerprints), without a device
+    meta = build_model(cfg, "cpu", parallel)
+    specs = flatten(meta.param_specs(make_mesh(parallel.mesh_shape(),
+                                               parallel.mesh_axes())),
+                    is_spec)
+    meshes = [make_mesh(parallel.mesh_shape(), parallel.mesh_axes(), r)
+              for r in range(world)]
+    keys = [[] for _ in range(world)]
+    for t, s in zip(ref["init"], specs, strict=True):
+        t = t.cuda() if on_card else t
+        for r, mesh in enumerate(meshes):
+            keys[r].append(bits_key(shard_of(t, s, mesh)))
+        del t
+    # the launcher's choice for each world: NCCL with a GPU a rank where
+    # there are as many, else gloo, the ranks sharing cuda:0
+    backend = train_backend(kind, world)[0]
+    out = {"backend": backend, "mesh": DIST_MESH}
+
+    def spawn(tmp, tag, n, *args):
+        backend, dev_of = train_backend(kind, n)
+        devs = [dev_of(r) for r in range(n)]
+        log(f"[4b] {tag}: {n} ranks over {backend} on {devs}")
+        return spawn_ranks(_dist_rank, n, args=(cfg,) + args,
+                           device_of_rank=dev_of, backend=backend,
+                           init_method=f"file://{tmp}/pg-{tag}",
+                           timeout_s=DIST_DEADLINE_S,
+                           init_timeout_s=DIST_INIT_TIMEOUT_S)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        ranks = spawn(tmp, "(2,2)", world, DIST_MESH, ckpt, "train")
+        what = "llama2-7b (data=2, model=2)"
+        dist_gate(what, ranks, ref, keys, specs, TRAIN_SEQ, parallel.model)
+        params = [(p, t) for p, t in checkpoint_leaves(ckpt, DIST_STEPS)
+                  if p.startswith("/params/")]
+        rel = delta_gate(what, [p for p, _ in params], ref["init"],
+                         ref["snapshot"], [t for _, t in params])
+        del params
+        gn = leaf_gnorm_report(ref["paths"], ref["leaf_gnorm"],
+                               ranks[0]["leaf_gnorm"])
+        log(f"[4b] step 0's gradient, leaves whose norms move the grad "
+            "norm most against one device's (path, relative difference, "
+            "share of the squared total's difference): " + ", ".join(
+                f"{p} {r:.3e} {c:+.3e}" for p, r, c in gn))
+        e = ref["paths"].index("/embedding/embed")
+        embed_gn = {"one_bf16": ref["leaf_gnorm"][e],
+                    "one_f32_rows": ref["embed_gnorm_f32"],
+                    "mesh": ranks[0]["leaf_gnorm"][e]}
+        log("[4b] step 0's embed gradient norm: one device {one_bf16:.5f} "
+            "(bf16 scatter-add), {one_f32_rows:.5f} (rows summed in f32), "
+            "mesh {mesh:.5f}".format(**embed_gn))
+        for r, res in enumerate(ranks):
+            steps = len(res["step_s"])
+            per = {k: sum(c[k] for c in res["collectives"]) / steps
+                   for k in res["collectives"][0]}
+            log(f"[4b] rank {r} {res['coords']} on {res['device']} "
+                f"({res['backend']}): step wall "
+                f"{[round(x, 3) for x in res['step_s']]} s, collectives a "
+                f"step {per} ({sum(res['coll_bytes']) / steps / 1e9:.3f} GB"
+                f"), peak memory {res['peak_mem_gb'] or 0:.2f} GB, fastattn_fwd "
+                f"{res['launches']} launches at q_offset {res['q_offsets']}")
+        first = ranks[0]
+        for i in range(DIST_STEPS):
+            log(f"[4b] step {i}: loss {first['loss'][i]:.5f} vs one "
+                f"device's {ref['loss'][i]:.5f}, grad norm "
+                f"{first['grad_norm'][i]:.5f} vs {ref['grad_norm'][i]:.5f}, "
+                f"lr {first['lr'][i]:.3e}")
+        worst = max(rel, key=rel.get)
+        log(f"[4b] updates against one device's: worst {worst} "
+            f"{rel[worst]:.3e} (bound {DIST_DELTA_RTOL}); checkpoint of "
+            f"{first['ckpt_files']} files equals the one-rank save; saved "
+            f"in {first['save_s']:.1f}s, checked in "
+            f"{first['ckpt_check_s']:.1f}s; ranks initialised in "
+            f"{[round(r['init_s'], 1) for r in ranks]} s")
+
+        # the launcher, as a user runs it, beside the resume at
+        # (data=1, model=2), whose time nothing reports
+        t1 = time.perf_counter()
+        cmd = [sys.executable] + LAUNCHER + ["--ckpt-dir",
+                                             os.path.join(tmp, "cli")]
+        if not on_card:
+            cmd += ["--device", "cpu"]
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        with open(os.path.join(tmp, "cli.out"), "w+") as fo, \
+                open(os.path.join(tmp, "cli.err"), "w+") as fe:
+            cli = subprocess.Popen(cmd, env=env, stdout=fo, stderr=fe)
+            try:
+                resumed = spawn(tmp, "(1,2)", 2, dict(data=1, model=2),
+                                ckpt, "resume")
+                rc = cli.wait(timeout=DIST_DEADLINE_S)
+            finally:
+                if cli.poll() is None:
+                    cli.kill()
+                    cli.wait()
+            cli_s = time.perf_counter() - t1
+            fo.seek(0)
+            fe.seek(0)
+            cli_out, cli_err = fo.read(), fe.read()
+        for line in cli_out.splitlines():
+            log(f"[4b] launcher: {line}")
+        if rc != 0 or "done" not in cli_out:
+            raise AssertionError(f"[4b] launcher failed ({rc}):\n"
+                                 f"{cli_err[-3000:]}")
+        # each (1, 2) rank's slices of every saved leaf, fingerprinted
+        par12 = ParallelConfig(data=1, model=2)
+        meshes12 = [make_mesh(par12.mesh_shape(), par12.mesh_axes(), r)
+                    for r in range(2)]
+        specs12 = flatten(state_specs(meta.param_specs(meshes12[0])),
+                          is_spec)
+        keys12 = [[] for _ in meshes12]
+        for (_, t), s in zip(checkpoint_leaves(ckpt, DIST_STEPS), specs12,
+                             strict=True):
+            t = t.cuda() if on_card else t
+            for r, mesh in enumerate(meshes12):
+                keys12[r].append(bits_key(shard_of(t, s, mesh)))
+            del t
+        nxt = [r["next_loss"] for r in resumed]
+        base = first["next_loss"]
+        log(f"[4b] next step after the checkpoint: (2,2) {base:.6f}, "
+            f"restored at (1,2) {nxt}")
+        resume_gate("[4b] restored at (1,2)", resumed, keys12, base)
+        log(f"[4b] restored at (1,2): each rank's {len(keys12[0])} leaves "
+            "(params, moments, step) are its slices of the checkpoint")
+
+    out.update({
+        "loss": first["loss"], "grad_norm": first["grad_norm"],
+        "lr": first["lr"], "ref_loss": ref["loss"],
+        "ref_grad_norm": ref["grad_norm"],
+        "delta_rel": rel, "worst_delta": [worst, rel[worst]],
+        "leaf_gnorm_step0": gn, "embed_gnorm_step0": embed_gn,
+        "next_loss": base, "resumed_next_loss": nxt,
+        "launches": [r["launches"] for r in ranks],
+        "q_offsets": [r["q_offsets"] for r in ranks],
+        "step_s": [r["step_s"] for r in ranks],
+        "collectives": [r["collectives"][-1] for r in ranks],
+        "coll_bytes": [r["coll_bytes"][-1] for r in ranks],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+        "save_s": first["save_s"],
+        "launcher_s": cli_s, "seconds": time.perf_counter() - t0,
+        "card": _card() if on_card else "cpu"})
+    log(f"[4b] {out['card']}: all gates passed in {out['seconds']:.1f}s "
+        f"({GLOO_NOTE if backend == 'gloo' else 'nccl, one GPU a rank'})")
+    log("[4b] " + json.dumps(out))
     return out
 
 
@@ -3404,6 +4015,23 @@ def add_head_dim_entries(kernels: list, cases: dict, runs: dict) -> None:
                     "device_ms", "bound_ms", "library_device_ms")})
 
 
+def add_context_entries(kernels: list, cases: dict, dist_run: dict) -> None:
+    """``fastattn_fwd``'s entry gains phase 2's context-parallel cases
+    (``CONTEXT_CASES``: ``context_*`` from rank m=1's shape,
+    ``context_m0_*`` from m=0's) and each phase 4b rank's launches."""
+    k = next(k for k in kernels if k["name"] == "fastattn_fwd")
+    one, zero = cases[1], cases[0]
+    k.update({f"context_{x}": one[x] for x in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "library_device_ms")})
+    k["context_max_abs_err"] = one["err"]
+    k.update({f"context_m0_{x}": zero[x] for x in (
+        "device_ms", "bound_ms", "library_device_ms")})
+    k["context_m0_max_abs_err"] = zero["err"]
+    k["context_launches"] = dist_run["launches"]
+    k["context_q_offsets"] = dist_run["q_offsets"]
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script",
@@ -3433,6 +4061,9 @@ def main() -> int:
     trained = phase_training()
     gc.collect()                  # phase 4's model and optimizer state
     torch.cuda.empty_cache()
+    dist_run = phase_dist_training(trained)
+    del trained["reference"]      # phase 4's host copies
+    gc.collect()
     phase_offload()
     gc.collect()                  # phase 5's host engine and caches
     torch.cuda.empty_cache()
@@ -3497,6 +4128,7 @@ def main() -> int:
                                     tp[f"a_{m}"]["launches"]]
                                 for m in TP_MODES}
     add_head_dim_entries(line["kernels"], kern["head_dims"], head_dims)
+    add_context_entries(line["kernels"], kern["fastattn_context"], dist_run)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Configuration for the PyTorch port: model, parallel, train and serving
 configs.
 
-A copy of the JAX package's ``ModelConfig``, ``TrainConfig``,
-``ServeConfig``, registry and ``reduce_for_smoke`` (the port imports
-nothing of that package), field for field, so one set of keyword
-arguments configures both; ``ParallelConfig`` keeps the part the trainer
-and the offload planner read.  Fields of subsystems not ported yet (MoE,
+A copy of the JAX package's ``ModelConfig``, ``ParallelConfig``,
+``ShapeConfig``/``SHAPES``, ``TrainConfig``, ``ServeConfig``,
+``RunConfig``, registry, ``reduce_for_smoke`` and ``describe`` (the port
+imports nothing of that package), field for field, so one set of keyword
+arguments configures both.  Fields of subsystems not ported yet (MoE,
 SSM, M-RoPE, preemption/swap, prefix cache, speculation, tensor
 parallelism) are kept for that reason; the model, the trainer and the
 engine refuse the settings that would need them.  Configs are plain
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import os
 import tempfile
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Callable, Optional, Sequence
 
 # ---------------------------------------------------------------------------
@@ -111,22 +111,52 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
-# Parallel / memory configuration (the part the trainer and the offload
-# planner read)
+# Parallel / distribution configuration
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    # Mesh shape.  The port trains on one device: data or model above 1
-    # raise NotImplementedError (tensor parallelism is a later slice).
+    """Every field of the JAX package's ``ParallelConfig``, with its
+    defaults, except the hardware ones (``device_memory_gb``,
+    ``pcie_gbps``), which take one H100 SXM's.
+
+    The trainer runs the ``(pod, data, model)`` mesh as one process a
+    rank (``launch/mesh.py``, ``training/train_step.py``): DP over
+    ``dp_axes()``, the model axis under the logical-axis rules of
+    ``sharding/rules.py``.  Read nowhere in either package, accepted and
+    ignored: ``attn_mode``, ``tiled_allreduce``, ``ar_chunks``,
+    ``first_chunk_frac`` (serving's tiling-AllReduce reads
+    ``ServeConfig.tp_*``), ``seq_shard_activations`` and ``pcie_gbps``;
+    ``scan_layers`` shapes only the JAX parameter tree (the port keeps a
+    list of layers either way).  Raised as NotImplementedError, since no
+    port path serves them: ``grad_compression="int8_ef"``,
+    ``pipeline_stages > 1`` and ``offload_kv=True``.
+    """
+    # Mesh shape.  pods * data * model == number of ranks.
+    pods: int = 1
     data: int = 1
     model: int = 1
+
+    # Attention distribution mode on the `model` axis (read by neither
+    # package; the trainer is context-parallel: Q sharded along seq, K/V
+    # gathered)
+    attn_mode: str = "context"
+
+    # --- paper T3: tiling-AllReduce (training reads none of these) ------
+    tiled_allreduce: bool = False
+    ar_chunks: int = 4
+    first_chunk_frac: float = 0.5
+
+    # --- memory/perf knobs ---------------------------------------------------
     # none | full | selective.  "full" recomputes each block in the
     # backward (torch.utils.checkpoint, non-reentrant); "selective" runs
     # as "full" -- the same numbers with more recompute (the JAX policy
     # keeps the matmul outputs, which torch's checkpoint cannot select).
     remat: str = "selective"
+    scan_layers: bool = True            # the JAX tree's layout only
+    grad_compression: str = "none"      # none (int8_ef is not ported)
     microbatches: int = 1               # gradient accumulation steps
+    seq_shard_activations: bool = True  # read by neither package
 
     # --- paper T4: CPU-GPU cooperative offload (core/offload.py) ---------
     # offload_kv=True raises NotImplementedError: no decode path routes
@@ -134,18 +164,68 @@ class ParallelConfig:
     offload_kv: bool = False
     host_memory_gb: float = 512.0
     device_memory_gb: float = 80.0      # one H100 SXM's HBM3
+    pcie_gbps: float = 64.0             # PCIe Gen5 x16, each direction
+
+    # pipeline parallelism over the pod axis (not ported: must be 1)
+    pipeline_stages: int = 1
 
     def __post_init__(self):
-        if self.data != 1 or self.model != 1:
+        for name in ("pods", "data", "model", "microbatches"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name}={getattr(self, name)} must be "
+                                 ">= 1")
+        if self.remat not in ("none", "full", "selective"):
+            raise ValueError(f"unknown remat {self.remat!r}")
+        if self.grad_compression != "none":
             raise NotImplementedError(
-                f"data={self.data}, model={self.model}: the port trains on "
-                "one device (tensor/data parallelism is not ported yet)")
+                f"grad_compression={self.grad_compression!r}: the int8 "
+                "error-feedback all-reduce is not ported yet")
+        if self.pipeline_stages != 1:
+            raise NotImplementedError(
+                f"pipeline_stages={self.pipeline_stages}: pipeline "
+                "parallelism is not ported yet")
         if self.offload_kv:
             raise NotImplementedError(
                 "offload_kv: no decode path reads host KV yet; drive "
                 "core.offload.HostOffloadEngine directly")
-        if self.remat not in ("none", "full", "selective"):
-            raise ValueError(f"unknown remat {self.remat!r}")
+
+    @property
+    def dp(self) -> int:
+        return self.pods * self.data
+
+    def mesh_shape(self):
+        if self.pods > 1:
+            return (self.pods, self.data, self.model)
+        return (self.data, self.model)
+
+    def mesh_axes(self):
+        if self.pods > 1:
+            return ("pod", "data", "model")
+        return ("data", "model")
+
+    def dp_axes(self):
+        return ("pod", "data") if self.pods > 1 else ("data",)
+
+
+# ---------------------------------------------------------------------------
+# Workload shapes (assigned input-shape set)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+    gen_tokens: int = 1            # decode steps per serve_step call
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -351,6 +431,17 @@ class ServeConfig:
         return self.max_batch * self.max_pages_per_seq + 1
 
 
+@dataclass(frozen=True)
+class RunConfig:
+    # default_factory everywhere: class-level default *instances* would be
+    # shared across every RunConfig (harmless only while the configs stay
+    # frozen -- don't rely on it).
+    model: ModelConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    shape: ShapeConfig = field(default_factory=lambda: SHAPES["train_4k"])
+    train: TrainConfig = field(default_factory=TrainConfig)
+    serve: ServeConfig = field(default_factory=ServeConfig)
+
 
 # ---------------------------------------------------------------------------
 # Registry + CLI
@@ -420,3 +511,11 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         updates.update(mrope_sections=(2, 3, 3))
     return replace(cfg, **updates)
 
+
+
+def describe(cfg: ModelConfig) -> str:
+    from repro_torch.analysis.flops import param_count
+    n = param_count(cfg)
+    return (f"{cfg.name}: {cfg.family} {cfg.num_layers}L d={cfg.d_model} "
+            f"H={cfg.num_heads}/{cfg.num_kv_heads} ff={cfg.d_ff} "
+            f"V={cfg.vocab_size} params={n/1e9:.2f}B")

@@ -1,6 +1,13 @@
-"""GQA attention layer: the dense training/full-forward path, the
-dense-cache decode path and the paged KV-pool paths, the latter also
-tensor-parallel.
+"""GQA attention layer: the dense training/full-forward path (also
+context-parallel under a training mesh), the dense-cache decode path and
+the paged KV-pool paths, the latter also tensor-parallel.
+
+Under a training mesh with a model axis (``sharding/rules.axis_rules``)
+each rank holds its rows of the sequence: it projects Q, K and V on
+them, all-gathers K and V along the sequence over the model axis
+(reduce-scatter in the backward) and attends its queries to every key
+with ``q_offset`` = its first row, as the JAX package's rules lay it out
+(Q sharded along seq, K/V replicated, heads local).
 
 Caches and pools are updated IN PLACE (slice assignment, ``index_put_``
 through a flat view): the JAX package wrote them functionally
@@ -36,6 +43,8 @@ from repro_torch.core.fastattention import (fast_attention,
                                             fast_attention_prefill_paged)
 from repro_torch.core.tiled_allreduce import matmul_allreduce
 from repro_torch.layers import common, rotary
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import current_mesh
 from repro_torch.sharding.tp import current_tp, local_pool_shape
 
 
@@ -66,6 +75,21 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def attention_logical(cfg: ModelConfig) -> dict:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {
+        "wq": (("attn_row", "heads"), (d, qd)),
+        "wk": (("attn_row", "heads"), (d, kvd)),
+        "wv": (("attn_row", "heads"), (d, kvd)),
+        "wo": (("attn_row", "d_model"), (qd, d)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = (("heads",), (qd,))
+        p["bk"] = (("heads",), (kvd,))
+        p["bv"] = (("heads",), (kvd,))
+    return p
+
+
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
     b, s, _ = x.shape
@@ -90,11 +114,21 @@ def apply_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     causal: bool = True,
                     impl: Optional[str] = None) -> torch.Tensor:
     """Training / full-forward attention.  x: (B, S, D); positions (B, S).
-    ``impl`` (default ``cfg.attention_impl``) as in ``fast_attention``."""
+    ``impl`` (default ``cfg.attention_impl``) as in ``fast_attention``.
+    Under a mesh with a model axis, x holds this rank's S rows of the
+    sequence (context parallelism, above)."""
     impl = impl or cfg.attention_impl
     q, k, v = _project_qkv(params, x, cfg, positions)
+    mesh = current_mesh()
+    group = mesh.group(("model",)) if mesh is not None and \
+        "model" in mesh.axis_names else None
+    q_offset = 0
+    if group is not None:
+        k, v = C.gather(k, 1, group), C.gather(v, 1, group)
+        q_offset = mesh.coords["model"] * x.shape[1]
     out = fast_attention(q, k, v, causal=causal, window=window,
-                         softcap=cfg.attn_logit_softcap, impl=impl)
+                         softcap=cfg.attn_logit_softcap, q_offset=q_offset,
+                         impl=impl)
     b, s = x.shape[:2]
     out = out.reshape(b, s, cfg.q_dim)
     return common.dense(out, params["wo"])

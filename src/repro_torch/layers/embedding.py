@@ -20,6 +20,14 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def embedding_logical(cfg: ModelConfig) -> dict:
+    p = {"embed": (("vocab", "d_model"), (cfg.vocab_size, cfg.d_model))}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = (("d_model", "vocab"),
+                        (cfg.d_model, cfg.vocab_size))
+    return p
+
+
 def embed_tokens(params: dict, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     x = params["embed"][tokens]

@@ -22,6 +22,14 @@ def init_mlp(gen: torch.Generator, d: int, f: int, mlp_type: str,
     return p
 
 
+def mlp_logical(d: int, f: int, mlp_type: str) -> dict:
+    p = {"w_up": (("d_model", "ff"), (d, f)),
+         "w_down": (("ff", "d_model"), (f, d))}
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = (("d_model", "ff"), (d, f))
+    return p
+
+
 def apply_mlp(params: dict, x: torch.Tensor,
               mlp_type: str = "swiglu") -> torch.Tensor:
     """Under an active tensor-parallel context whose plan shards the MLP

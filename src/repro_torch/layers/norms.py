@@ -12,6 +12,13 @@ def init_norm(d: int, norm_type: str, dtype: torch.dtype,
     return p
 
 
+def norm_logical(d: int, norm_type: str) -> dict:
+    p = {"scale": (("d_model",), (d,))}
+    if norm_type == "layernorm":
+        p["bias"] = (("d_model",), (d,))
+    return p
+
+
 def apply_norm(params: dict, x: torch.Tensor, norm_type: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()

@@ -5,8 +5,10 @@ mLSTM trains and prefills through the chunkwise kernel
 (``kernels/mlstm``: the CUDA ``mlstm_chunkwise_fwd`` on the card, the plain
 version on the CPU) and decodes through the plain recurrent cell; the
 sLSTM runs a Python loop over time steps where the JAX package runs
-``lax.scan``.  The ``*_logical`` sharding trees are not ported (the port
-runs on one device), and Mamba (hymba's block) is not ported yet.
+``lax.scan``.  The ``*_logical`` sharding trees are the JAX package's;
+the trainer shards these blocks over the data axis only (their
+``channels -> model`` layout is not ported: ``models/lm.py`` refuses a
+model axis above 1).  Mamba (hymba's block) is not ported yet.
 """
 from __future__ import annotations
 
@@ -49,6 +51,20 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig,
         "w_if": dense_init(gen, di, 2 * nh, dtype),
         "b_if": b_if.to(device=gen.device, dtype=dtype),
         "w_down": dense_init(gen, di, d, dtype, scale=di ** -0.5),
+    }
+
+
+def mlstm_logical(cfg: ModelConfig) -> dict:
+    d, di, h = cfg.d_model, _di(cfg), cfg.num_heads
+    return {
+        "w_up": (("d_model", "channels"), (d, di)),
+        "w_gate": (("d_model", "channels"), (d, di)),
+        "wq": ((None, "channels"), (di, di)),
+        "wk": ((None, "channels"), (di, di)),
+        "wv": ((None, "channels"), (di, di)),
+        "w_if": (("channels", None), (di, 2 * h)),
+        "b_if": ((None,), (2 * h,)),
+        "w_down": (("channels", "d_model"), (di, d)),
     }
 
 
@@ -119,6 +135,18 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig,
                     * hd ** -0.5).to(dtype),
         "b_gates": torch.zeros((4 * di,), dtype=dtype, device=dev),
         "w_down": dense_init(gen, di, d, dtype, scale=di ** -0.5),
+    }
+
+
+def slstm_logical(cfg: ModelConfig) -> dict:
+    d, di, nh = cfg.d_model, _di(cfg), cfg.num_heads
+    hd = di // nh
+    return {
+        "w_up": (("d_model", "channels"), (d, di)),
+        "w_gates": (("channels", None), (di, 4 * di)),
+        "r_gates": ((None, "heads", None, None), (4, nh, hd, hd)),
+        "b_gates": ((None,), (4 * di,)),
+        "w_down": (("channels", "d_model"), (di, d)),
     }
 
 

@@ -16,7 +16,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.layers import attention as attn_mod
 from repro_torch.layers import mlp as mlp_mod
 from repro_torch.layers import ssm as ssm_mod
-from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 
 ATTN_KINDS = ("attn", "attn_local")
 PORTED_KINDS = ATTN_KINDS + ("mlstm", "slstm")
@@ -63,6 +63,49 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
         p["ln1_post"] = init_norm(d, cfg.norm_type, dtype, dev)
         p["ln2_post"] = init_norm(d, cfg.norm_type, dtype, dev)
     return p
+
+
+def block_logical(cfg: ModelConfig, kind: str) -> dict:
+    """Logical axes of every leaf of ``init_block``'s tree."""
+    check_kind(kind)
+    d = cfg.d_model
+    p: dict = {"ln1": norm_logical(d, cfg.norm_type)}
+    if kind == "mlstm":
+        p["cell"] = ssm_mod.mlstm_logical(cfg)
+        return p
+    if kind == "slstm":
+        p["cell"] = ssm_mod.slstm_logical(cfg)
+        return p
+    p["attn"] = attn_mod.attention_logical(cfg)
+    p["ln2"] = norm_logical(d, cfg.norm_type)
+    if cfg.d_ff:
+        p["mlp"] = mlp_mod.mlp_logical(d, cfg.d_ff, cfg.mlp_type)
+    if cfg.post_norm:
+        p["ln1_post"] = norm_logical(d, cfg.norm_type)
+        p["ln2_post"] = norm_logical(d, cfg.norm_type)
+    return p
+
+
+def block_cache_logical(cfg: ModelConfig, kind: str, batch: int,
+                        max_seq: int):
+    """Logical axes of every leaf of ``init_block_cache``'s tree."""
+    check_kind(kind)
+    if kind == "mlstm":
+        di = ssm_mod._di(cfg)
+        nh = cfg.num_heads
+        hd = di // nh
+        return ssm_mod.MLSTMState(
+            c=(("batch", None, None, "channels"), (batch, nh, hd, hd)),
+            n=(("batch", None, None), (batch, nh, hd)),
+            m=(("batch", None), (batch, nh)),
+            conv=((None,), (0,)))
+    if kind == "slstm":
+        s2 = (("batch", "channels"), (batch, ssm_mod._di(cfg)))
+        return ssm_mod.SLSTMState(c=s2, n=s2, h=s2, m=s2)
+    # attn_mod.KV_CACHE_LAYOUT == "bshd"
+    kvshape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    axes = ("batch", "kv_seq", "heads", None)
+    return attn_mod.KVCache(k=(axes, kvshape), v=(axes, kvshape))
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,

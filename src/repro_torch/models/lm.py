@@ -13,6 +13,16 @@ The model lives on ``device`` -- ``"cuda"`` unless the caller passes
 another (the tests pass ``"cpu"``).  ``parallel.remat`` "full" (and
 "selective", which runs as "full") recomputes each block in the backward
 through ``torch.utils.checkpoint``.
+
+Under an active training mesh (``sharding.rules.axis_rules(mesh=...)``,
+entered by the train step) ``apply`` and ``loss`` run one rank's share:
+its rows of the batch and of the sequence, against its pieces of every
+parameter (``param_specs``: the JAX rule table's layout).  Each block
+gathers its sharded weights over the model axis before use (again in
+the backward's recompute under remat), the embedding and LM head are
+gathered once, and attention is context-parallel
+(``layers/attention.py``).  The gathers' gradients come back to each
+rank as its piece of the sum over the model axis.
 """
 from __future__ import annotations
 
@@ -23,10 +33,25 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device, torch_dtype
-from repro_torch.layers.embedding import (embed_tokens, init_embedding,
-                                          lm_logits)
-from repro_torch.layers.norms import apply_norm, init_norm
+from repro_torch.layers.embedding import (embed_tokens, embedding_logical,
+                                          init_embedding, lm_logits)
+from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 from repro_torch.models import blocks as B
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import (axis_rules, current_mesh,
+                                        current_rules, param_sharding_tree)
+
+RECURRENT_KINDS = ("mlstm", "slstm")
+
+
+def check_model_axis(cfg: ModelConfig, model: int) -> None:
+    """The model axis shards attention blocks only: the mLSTM / sLSTM
+    cells' ``channels -> model`` layout is not ported."""
+    if model > 1 and any(k in RECURRENT_KINDS for k in cfg.blocks()):
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {model} over mlstm/slstm blocks "
+            "(their channels -> model layout) is not ported; use data "
+            "parallelism")
 
 
 class LM:
@@ -40,7 +65,9 @@ class LM:
             B.check_kind(kind)
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
+        check_model_axis(cfg, self.parallel.model)
         self.device = resolve_device(device)
+        self._specs: dict = {}
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on the model's device seeded with ``seed``."""
@@ -66,6 +93,39 @@ class LM:
         }
 
     # ------------------------------------------------------------------
+    # logical axes and the rank's layout
+    # ------------------------------------------------------------------
+    def logical(self) -> dict:
+        """Logical axes of every leaf of ``init``'s tree (the port's
+        layout: a list of per-layer trees where JAX stacks segments)."""
+        cfg = self.cfg
+        return {"embedding": embedding_logical(cfg),
+                "final_norm": norm_logical(cfg.d_model, cfg.norm_type),
+                "layers": [B.block_logical(cfg, kind)
+                           for kind in cfg.blocks()]}
+
+    def cache_logical(self, batch: int, max_seq: int) -> List:
+        """Logical axes of every leaf of ``init_cache``'s list."""
+        return [B.block_cache_logical(self.cfg, kind, batch, max_seq)
+                for kind in self.cfg.blocks()]
+
+    def param_specs(self, mesh) -> dict:
+        """``param_sharding_tree`` of ``logical()`` on ``mesh`` (cached
+        per mesh shape)."""
+        key = (mesh.axis_names, tuple(mesh.shape.values()))
+        if key not in self._specs:
+            self._specs[key] = param_sharding_tree(self.logical(), mesh)
+        return self._specs[key]
+
+    def _mesh(self):
+        """The active training mesh of more than one rank, or None."""
+        mesh = current_mesh()
+        if mesh is None or mesh.world == 1:
+            return None
+        check_model_axis(self.cfg, mesh.shape.get("model", 1))
+        return mesh
+
+    # ------------------------------------------------------------------
     # training / full forward
     # ------------------------------------------------------------------
     def hidden_states(self, params: dict, x: torch.Tensor, *,
@@ -73,13 +133,23 @@ class LM:
                       impl: Optional[str] = None) -> torch.Tensor:
         """Backbone forward: embedded input (B, S, D) -> final-norm hidden
         states.  Under remat each block is recomputed in the backward, so
-        its attention or mLSTM kernel launches twice per step."""
+        its attention or mLSTM kernel launches twice per step.  Under a
+        mesh each block first gathers its sharded weights."""
         cfg = self.cfg
+        mesh = self._mesh()
+        specs = self.param_specs(mesh)["layers"] if mesh else None
         remat = self.parallel.remat != "none" and torch.is_grad_enabled()
-        for kind, bp in zip(cfg.blocks(), params["layers"]):
-            def run(h, bp=bp, kind=kind):
-                return B.apply_block(bp, h, cfg, kind, positions=positions,
-                                     impl=impl)
+        for i, (kind, bp) in enumerate(zip(cfg.blocks(), params["layers"])):
+            def run(h, bp=bp, kind=kind, i=i):
+                if mesh is None:
+                    return B.apply_block(bp, h, cfg, kind,
+                                         positions=positions, impl=impl)
+                # entered here again: the backward's recompute may run on
+                # autograd's device thread, which has no context of ours
+                with axis_rules(current_rules(), mesh):
+                    return B.apply_block(C.gather_tree(bp, specs[i], mesh),
+                                         h, cfg, kind, positions=positions,
+                                         impl=impl)
             x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
         return apply_norm(params["final_norm"], x, cfg.norm_type,
                           cfg.norm_eps)
@@ -87,24 +157,40 @@ class LM:
     def apply(self, params: dict, tokens: torch.Tensor, *,
               positions: Optional[torch.Tensor] = None,
               impl: Optional[str] = None) -> torch.Tensor:
-        """Forward to logits.  tokens: (B, S) int; returns (B, S, V)."""
-        x = embed_tokens(params["embedding"], tokens, self.cfg)
+        """Forward to logits.  tokens: (B, S) int; returns (B, S, V).
+        Under a mesh: this rank's rows of the batch and of the sequence,
+        positions (by default) their global ones."""
+        mesh = self._mesh()
+        emb = params["embedding"]
+        if mesh is not None:
+            emb = C.gather_tree(emb, self.param_specs(mesh)["embedding"],
+                                mesh)
+        x = embed_tokens(emb, tokens, self.cfg)
         if positions is None:
             b, s = tokens.shape
-            positions = torch.arange(s, device=tokens.device).expand(b, s)
+            s0 = mesh.coords.get("model", 0) * s if mesh else 0
+            positions = torch.arange(s0, s0 + s,
+                                     device=tokens.device).expand(b, s)
         x = self.hidden_states(params, x, positions=positions, impl=impl)
-        return lm_logits(params["embedding"], x, self.cfg)
+        return lm_logits(emb, x, self.cfg)
 
     def loss(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
              *, impl: Optional[str] = None) -> torch.Tensor:
-        """Mean next-token cross entropy; labels < 0 are masked."""
+        """Mean next-token cross entropy; labels < 0 are masked.  Under a
+        mesh: this rank's share of the global batch's mean -- its summed
+        nll over the masked count of every rank -- so that the ranks'
+        shares (and their gradients) sum to the mean."""
         logits = self.apply(params, tokens, impl=impl).float()
         mask = labels >= 0
         lab = torch.clamp(labels, min=0).long()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lab[..., None])[..., 0]
         nll = (logz - gold) * mask
-        return nll.sum() / torch.clamp(mask.sum(), min=1)
+        count = mask.sum()
+        mesh = self._mesh()
+        if mesh is not None:
+            C.all_reduce(count, mesh.group(mesh.axis_names))
+        return nll.sum() / torch.clamp(count, min=1)
 
     # ------------------------------------------------------------------
     # serving

@@ -14,6 +14,14 @@ an atomic rename, so a failure mid-save never corrupts the restore point.
 Leaves are copied to the host before ``save`` returns, so the caller may
 update them in place at once; async saves then write from a daemon
 thread, and ``wait()`` joins it.
+
+On a training mesh (``mesh`` and the state's ``specs``, as
+``training/train_step.state_specs`` gives them) every rank holds pieces:
+``save`` gathers each leaf whole over its mesh axes, as JAX's
+``np.asarray`` of a sharded array does, and rank 0 writes the files the
+one-device run writes for the same values; ``restore`` reads the whole
+leaves and keeps this rank's pieces, so a run saved at one mesh resumes
+at another.  Every rank calls both, at the same point.
 """
 from __future__ import annotations
 
@@ -26,7 +34,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import entry_axes, flatten, is_spec, shard_of
 from repro_torch.training import tree
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -44,17 +55,56 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, mesh=None,
+                 specs: Any = None):
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.specs = specs
+        if self.mesh is not None and specs is None:
+            raise ValueError("a checkpoint on a mesh needs the state's "
+                             "specs")
+
+    def _specs(self, state) -> list:
+        specs = flatten(self.specs, is_spec)
+        if len(specs) != len(tree.leaves(state)):
+            raise ValueError(f"{len(specs)} specs for "
+                             f"{len(tree.leaves(state))} leaves")
+        return specs
 
     # -- save -----------------------------------------------------------
+    def gather_host(self, state: Any) -> Optional[list]:
+        """[(path, whole leaf on the host)] of a state of pieces, on rank
+        0 (None on the others): what ``save`` writes."""
+        host = []
+        for (path, t), spec in zip(tree.leaves_with_paths(state),
+                                   self._specs(state)):
+            whole = C.gather_leaf(t.detach(), spec, self.mesh,
+                                  differentiable=False)
+            if self.mesh.rank == 0:     # one leaf whole at a time
+                host.append((path, whole.to("cpu", copy=True)))
+            del whole
+        return host if self.mesh.rank == 0 else None
+
     def save(self, step: int, state: Any, extras: Optional[dict] = None,
              async_: bool = False):
-        flat = tree.leaves_with_paths(state)
-        host = [(path, t.detach().to("cpu", copy=True)) for path, t in flat]
+        if self.mesh is not None:
+            self.wait()
+            host = self.gather_host(state)
+            if self.mesh.rank == 0 and async_:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, host, extras),
+                    daemon=True)
+                self._thread.start()
+            elif self.mesh.rank == 0:
+                self._write(step, host, extras)
+            if not async_:
+                self.wait()
+            return
+        host = [(path, t.detach().to("cpu", copy=True))
+                for path, t in tree.leaves_with_paths(state)]
         if async_:
             self.wait()
             self._thread = threading.Thread(
@@ -95,9 +145,13 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.dir, d), ignore_errors=True)
 
     def wait(self):
+        """Join an async write; on a mesh also wait for every rank, so a
+        save is on disk for all of them when this returns."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group(self.mesh.axis_names))
 
     # -- restore ---------------------------------------------------------
     def latest_step(self) -> Optional[int]:
@@ -113,7 +167,9 @@ class CheckpointManager:
     def restore(self, template: Any, step: Optional[int] = None):
         """Restore into the structure of ``template``: each leaf comes
         back with the template leaf's device and the stored dtype and
-        shape, which must match the template's."""
+        shape, which must match the template's (on a mesh: this rank's
+        pieces of the stored whole, whose shape must be the template's
+        pieces put together)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -123,19 +179,25 @@ class CheckpointManager:
         flat = tree.leaves_with_paths(template)
         if [m["path"] for m in manifest["leaves"]] != [p for p, _ in flat]:
             raise ValueError(f"{d}: the tree structure changed")
+        specs = (self._specs(template) if self.mesh is not None
+                 else [()] * len(flat))
         out = []
-        for i, ((path, ref), meta) in enumerate(zip(flat,
-                                                    manifest["leaves"])):
-            if meta["dtype"] != _dtype_name(ref) or \
-                    meta["shape"] != list(ref.shape):
+        for i, ((path, ref), meta, spec) in enumerate(zip(
+                flat, manifest["leaves"], specs)):
+            whole = list(ref.shape)
+            for dim, entry in enumerate(spec):
+                whole[dim] *= self.mesh.size(entry_axes(entry))
+            if meta["dtype"] != _dtype_name(ref) or meta["shape"] != whole:
                 raise ValueError(f"{d}: leaf {path} is {meta['dtype']} "
                                  f"{meta['shape']}, the template's "
-                                 f"{_dtype_name(ref)} {list(ref.shape)}")
+                                 f"{_dtype_name(ref)} {whole}")
             a = np.load(os.path.join(d, f"arr_{i}.npy"))
             if meta["dtype"] == "bfloat16":
                 t = torch.from_numpy(a.view(np.int16).reshape(
                     meta["shape"])).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(a).to(_DTYPES[meta["dtype"]])
+            if self.mesh is not None:
+                t = shard_of(t, spec, self.mesh)
             out.append(t.to(ref.device))
         return tree.unflatten(template, out), manifest

@@ -11,11 +11,12 @@ f32 moments would cost 8.6 GB.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.config import TrainConfig
+from repro_torch.sharding.collectives import all_reduce
 from repro_torch.training import tree
 
 
@@ -43,22 +44,42 @@ def lr_schedule(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
     return cfg.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, groups: Optional[Sequence] = None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``grads``.  On a mesh each rank holds
+    pieces of the sharded leaves: ``groups`` names, per leaf in tree
+    order, the process group its pieces are spread over (None where the
+    rank holds it whole).  Each group's squared sums are all-reduced over
+    it once, so a replicated leaf counts once, not once a rank."""
     sums = [torch.sum(torch.square(g.float())) for g in tree.leaves(grads)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    if groups is None:
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    buckets: dict = {}                 # group -> squared sums, first seen
+    for s, group in zip(sums, groups, strict=True):
+        buckets.setdefault(group, []).append(s)
+    total = []
+    for group, part in buckets.items():
+        t = torch.sum(torch.stack(part))
+        if group is not None:
+            all_reduce(t, group)
+        total.append(t)
+    return torch.sqrt(torch.sum(torch.stack(total)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        groups: Optional[Sequence] = None):
+    norm = global_norm(grads, groups)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 @torch.no_grad()
-def adamw_update(grads, state: AdamWState, params, cfg: TrainConfig):
+def adamw_update(grads, state: AdamWState, params, cfg: TrainConfig,
+                 groups: Optional[Sequence] = None):
     """One AdamW step; ``params``, ``state.mu`` and ``state.nu`` are
-    updated in place and returned.  Returns (params, state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    updated in place and returned.  Returns (params, state, metrics).
+    ``groups``: the sharded leaves' groups, as ``global_norm`` takes them
+    (AdamW itself is elementwise: it runs on each rank's pieces)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, groups)
     step = state.step + 1
     lr = lr_schedule(step, cfg)
     b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay

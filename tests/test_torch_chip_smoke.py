@@ -544,3 +544,291 @@ def test_tp_phase_b_traffic_preempts_on_its_pool(cs):
                for _, p, n in w)
     assert serve["preempt_policy"] == "swap"
     assert need > serve["num_pages"] - 1
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: (data=2, model=2) training against phase 4
+# ---------------------------------------------------------------------------
+
+def _dist_ref():
+    torch = pytest.importorskip("torch")
+    return {"loss": [10.0, 9.0, 8.0, 7.0, 6.0],
+            "grad_norm": [5.0, 4.0, 3.0, 2.0, 1.0],
+            "lr": [3e-4, 2e-4, 1e-4, 5e-5, 3e-5],
+            "init": [torch.zeros(8, 2), torch.zeros(3)]}
+
+
+def _dist_rank_result(cs, r, **kw):
+    n = cs.DIST_STEPS
+    res = {"coords": {"data": r // 2, "model": r % 2},
+           "loss": [10.0, 9.05, 8.0][:n], "grad_norm": [5.05, 4.0, 3.0][:n],
+           "lr": [3e-4, 2e-4, 1e-4][:n],
+           "launches": cs.TRAIN_LAYERS * 2 * n,
+           "q_offsets": [(r % 2) * 1024], "init_keys": [(r, 1), (7, 7)],
+           "numel": [8, 3], "ckpt_differs": [], "ckpt_files": 9}
+    res.update(kw)
+    return res
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(loss=[10.2, 9.05, 8.0]), "step 0"),
+    (dict(grad_norm=[5.05, 4.1, 3.0]), "step 1"),
+    (dict(lr=[3e-4, 2e-4, 1.01e-4]), "step 2"),
+    (dict(launches=23), "launched fastattn_fwd 23"),
+    (dict(q_offsets=[0, 1024]), "q_offsets"),
+    (dict(q_offsets=[512]), "q_offsets"),
+    (dict(init_keys=[(9, 9), (7, 7)]), "initial pieces"),
+    (dict(numel=[16, 3]), "1/2 of the whole"),
+    (dict(ckpt_differs=["arr_3.npy"]), "checkpoint differs"),
+])
+def test_dist_gate_rejects_faked_failures(cs, bad, match):
+    """Phase 4b's gate: the ranks agree, each step's loss and grad norm
+    within DIST_LOSS_RTOL / DIST_GNORM_RTOL of phase 4's and lr exact,
+    fastattn_fwd TRAIN_LAYERS x 2 x DIST_STEPS launches at the rank's
+    q_offset, the initial pieces phase 4's slices, a sharded leaf half
+    the whole, the checkpoint the one-rank file."""
+    assert cs.DIST_STEPS <= 3 and cs.DIST_MESH == {"data": 2, "model": 2}
+    ref, specs = _dist_ref(), [("model",), ()]
+    keys = [[(r, 1), (7, 7)] for r in range(4)]
+    ok = [_dist_rank_result(cs, r) for r in range(4)]
+    cs.dist_gate("ok", ok, ref, keys, specs, 2048, 2)
+    # rank 1 is the one at fault: every rank's results are gated
+    ranks = [_dist_rank_result(cs, r) for r in range(4)]
+    for k, v in bad.items():
+        for res in ranks if k in ("loss", "grad_norm", "lr",
+                                  "ckpt_differs") else ranks[1:2]:
+            res[k] = v[:cs.DIST_STEPS] if k in ("loss", "grad_norm",
+                                                "lr") else v
+    with pytest.raises(AssertionError, match=match):
+        cs.dist_gate("bad", ranks, ref, keys, specs, 2048, 2)
+    ranks = [_dist_rank_result(cs, r) for r in range(4)]
+    ranks[2]["loss"] = [10.0, 9.05, 8.01][:cs.DIST_STEPS]
+    with pytest.raises(AssertionError, match="differs from rank 0"):
+        cs.dist_gate("disagree", ranks, ref, keys, specs, 2048, 2)
+
+
+def test_delta_gate_holds_each_leaf_update(cs):
+    torch = pytest.importorskip("torch")
+    init = [torch.zeros(1000), torch.ones(10)]
+    one = [torch.linspace(-1, 1, 1000), torch.ones(10)]
+    near = [one[0] * 1.05, torch.ones(10)]
+    rel = cs.delta_gate("ok", ["a", "scale"], init, one, near)
+    assert rel["scale"] == 0.0 and 0.04 < rel["a"] < 0.06
+    with pytest.raises(AssertionError, match="leaf a"):
+        cs.delta_gate("far", ["a", "scale"], init, one,
+                      [one[0] * 1.2, torch.ones(10)])
+    flipped = one[0].clone()
+    flipped[:300] *= -1                 # 30% of the updates flip sign
+    with pytest.raises(AssertionError, match="leaf a"):
+        cs.delta_gate("flip", ["a", "scale"], init, one,
+                      [flipped, torch.ones(10)])
+    with pytest.raises(AssertionError, match="leaf scale"):
+        cs.delta_gate("moved", ["a", "scale"], init, one,
+                      [one[0], torch.ones(10) * 1.01])
+
+
+def test_same_checkpoint_and_bits_key(cs, tmp_path):
+    torch = pytest.importorskip("torch")
+    import json
+    for name, t in (("a", 1.0), ("b", 2.0)):
+        d = tmp_path / name / "step_00000003"
+        d.mkdir(parents=True)
+        (d / "arr_0.npy").write_bytes(b"\x00\x01\x02")
+        (d / "manifest.json").write_text(json.dumps({"step": 3,
+                                                     "time": t}))
+    assert cs.same_checkpoint(tmp_path / "a", tmp_path / "b", 3) == []
+    (tmp_path / "b" / "step_00000003" / "arr_0.npy").write_bytes(b"\x00\x01")
+    assert cs.same_checkpoint(tmp_path / "a", tmp_path / "b", 3) == \
+        ["arr_0.npy"]
+    x = torch.randn(64).to(torch.bfloat16)
+    assert cs.bits_key(x) == cs.bits_key(x.clone())
+    assert cs.bits_key(x) != cs.bits_key(x.flip(0))
+    y = x.clone()
+    y[5] = -y[5]
+    assert cs.bits_key(x) != cs.bits_key(y)
+
+
+def test_kernels_line_gains_context_entries(cs):
+    """fastattn_fwd's entry gets phase 2's context-parallel cases (m=1 as
+    context_*, m=0 as context_m0_*) and phase 4b's launches a rank; the
+    cases are a (2, 2) rank's shape of phase 4's batches."""
+    def res(tag):
+        return {"err": 1e-3, "ms": tag, "device_ms": tag / 2,
+                "plain_ms": 9.0, "bound_ms": 0.05, "bound_by": "operations",
+                "library_ms": 0.3, "library_device_ms": 0.2}
+    kernels = [{"name": n} for n in ("paged_prefill", "fastattn_fwd")]
+    run = {"launches": [24, 24, 24, 24], "q_offsets": [[0], [1024]] * 2}
+    cs.add_context_entries(kernels, {0: res(0.1), 1: res(0.2)}, run)
+    k = kernels[1]
+    assert kernels[0] == {"name": "paged_prefill"}
+    assert k["context_ms"] == 0.2 and k["context_m0_device_ms"] == 0.05
+    assert k["context_launches"] == [24] * 4
+    assert {f"context_{x}" for x in (
+        "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms", "launches")} <= set(k)
+    for m, (name, kw) in cs.CONTEXT_CASES.items():
+        assert kw["q_offset"] == m * cs.TRAIN_SEQ // 2
+        assert kw["sq"] == cs.TRAIN_SEQ // 2 and kw["skv"] == cs.TRAIN_SEQ
+        assert kw["b"] == cs.TRAIN_BATCH // 2 and f"m={m}" in name
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_training()") < \
+        main.index("phase_dist_training(") < main.index("phase_offload()")
+    assert cs.LAUNCHER[-4:] == ["--data", "2", "--model-axis", "2"]
+
+
+# llama2-7b's block shapes at a width the CPU trains in seconds
+BF16_CFG = dict(d_model=256, num_heads=4, num_kv_heads=4, head_dim=64,
+                d_ff=688, vocab_size=4000)
+
+
+def test_phase4b_bounds_hold_for_bf16_training_on_cpu_ranks(cs, tmp_path):
+    """Phase 4b's comparison on the CPU before the card: llama2-7b's
+    block shapes at d_model 256 in bf16, phase 4's TrainConfig, the first
+    DIST_STEPS steps on one device and on a (2, 2) mesh of gloo ranks
+    from the same seeded draw and batches, held by phase 4b's own bounds
+    and ``delta_gate``: each step's loss and grad norm within
+    DIST_LOSS_RTOL / DIST_GNORM_RTOL, lr equal, each leaf's update
+    within DIST_DELTA_RTOL and the unchanged leaves unchanged."""
+    pytest.importorskip("torch")
+    import sys
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_train_ranks import bf16_train, spawn
+    args = (BF16_CFG, dict(seq_len=256, global_batch=cs.TRAIN_BATCH),
+            dict(learning_rate=3e-4, warmup_steps=1,
+                 total_steps=cs.TRAIN_STEPS), cs.DIST_STEPS)
+    one = bf16_train(0, *args, str(tmp_path / "one"))
+    mesh = spawn(bf16_train, 4, tmp_path, *args, str(tmp_path / "mesh"),
+                 cs.DIST_MESH)[0]
+    for i, (a, b) in enumerate(zip(one, mesh, strict=True)):
+        dl = abs(b["loss"] - a["loss"]) / a["loss"]
+        dg = abs(b["grad_norm"] - a["grad_norm"]) / a["grad_norm"]
+        print(f"step {i}: loss rel {dl:.2e}, grad norm rel {dg:.2e}")
+        assert dl <= cs.DIST_LOSS_RTOL and dg <= cs.DIST_GNORM_RTOL
+        assert b["lr"] == a["lr"]
+
+    def params(d, step):
+        return [(p, t) for p, t in cs.checkpoint_leaves(str(tmp_path / d),
+                                                        step)
+                if p.startswith("/params/")]
+    init, final_one, final_mesh = (params("one", 0),
+                                   params("one", cs.DIST_STEPS),
+                                   params("mesh", cs.DIST_STEPS))
+    rel = cs.delta_gate("bf16 (2,2)", [p for p, _ in init],
+                        [t for _, t in init], [t for _, t in final_one],
+                        [t for _, t in final_mesh])
+    worst = max(rel, key=rel.get)
+    print(f"worst update ratio {worst} {rel[worst]:.3e}")
+    assert any(v == 0.0 for v in rel.values()) and rel[worst] > 0
+
+
+def test_fwd_bound_counts_only_the_keys_a_row_sees(cs):
+    """The bytes of fastattn_fwd's bound: Q and O once, K and V once for
+    each key column some row sees -- at a context rank's q_offset 0 the
+    first Sq of its 2Sq keys, at q_offset Sq all of them."""
+    pytest.importorskip("torch")
+    from repro_torch.core.tiling_mask import dense_mask
+    b, h, sq, d = 2, 32, 1024, 128
+    q_o = 2 * b * h * sq * d * 2
+    for m, kv in ((0, sq), (1, 2 * sq)):
+        mask = dense_mask(sq, 2 * sq, causal=True, q_offset=m * sq)
+        assert cs.fwd_bytes(mask, b=b, hq=h, hkv=h, d=d, esize=2) == \
+            q_o + 2 * b * h * kv * d * 2
+    # the m=0 bound of phase 2's context case: 67.1 MB over 3.35 TB/s
+    mask = dense_mask(sq, 2 * sq, causal=True)
+    n = cs.fwd_bytes(mask, b=b, hq=h, hkv=h, d=d, esize=2)
+    ops = 4.0 * b * h * int(mask.sum()) * d
+    bnd, by = cs.bound_ms(n, ops, "bfloat16")
+    assert by == "bytes" and abs(bnd - n / cs.H100_BYTES_PER_S * 1e3) < 1e-12
+    assert 0.019 < bnd < 0.021
+    # keys past kv_valid are never read; GQA reads hkv heads of K and V
+    mask[:, 1000:] = False
+    assert cs.fwd_bytes(mask, b=1, hq=8, hkv=2, d=64, esize=4) == \
+        (2 * 8 * sq * 64 + 2 * 2 * 1000 * 64) * 4
+
+
+def _resumed(keys, loss=13.8):
+    return {"restored_keys": list(keys), "next_loss": loss}
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("moment", "restored leaves \\[2\\]"),
+    ("dropped", "restored 2 leaves"),
+    ("loss", "next losses"),
+    ("disagree", "next losses"),
+])
+def test_resume_gate_rejects_faked_failures(cs, fault, match):
+    """Phase 4b's restore at (1, 2): every restored leaf of every rank --
+    params, AdamW's moments, its step -- is its slice of the checkpoint,
+    and the next loss is the (2, 2) run's."""
+    keys = [[(r, 1), (r, 2), (r, 3)] for r in range(2)]
+    ok = [_resumed(k) for k in keys]
+    cs.resume_gate("ok", ok, keys, 13.8)
+    bad = [_resumed(k) for k in keys]
+    if fault == "moment":          # a moment sliced wrong on rank 1
+        bad[1]["restored_keys"][2] = (0, 0)
+    elif fault == "dropped":
+        bad[0]["restored_keys"] = bad[0]["restored_keys"][:2]
+    elif fault == "loss":
+        bad = [_resumed(k, 13.9) for k in keys]
+    else:
+        bad[1]["next_loss"] = 13.80001
+    with pytest.raises(AssertionError, match=match):
+        cs.resume_gate("bad", bad, keys, 13.8)
+
+
+def test_leaf_gnorm_report_names_the_leaves_that_move_the_norm(cs):
+    one, mesh = [3.0, 4.0, 0.1], [3.0, 4.2, 0.2]
+    rows = cs.leaf_gnorm_report(["a", "embed", "scale"], one, mesh, top=2)
+    assert [r[0] for r in rows] == ["embed", "scale"]
+    assert rows[0][1] == pytest.approx(0.05)
+    assert rows[0][2] == pytest.approx((4.2 ** 2 - 16) / (9 + 16 + 0.01))
+
+
+def test_phase4b_picks_its_backend_for_each_world(cs, monkeypatch):
+    """Phase 4b asks the launcher's ``train_backend`` for each spawned
+    world: NCCL only where there is a GPU a rank (four for (2, 2), two
+    for the (1, 2) restore), else gloo with every rank on cuda:0."""
+    torch = pytest.importorskip("torch")
+    import inspect
+    from repro_torch.launch.train import train_backend
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cuda = torch.device("cuda")
+    backend, dev_of = train_backend(cuda, 4)
+    assert backend == "gloo" and {dev_of(r) for r in range(4)} == {"cuda:0"}
+    backend, dev_of = train_backend(cuda, 2)
+    assert backend == "nccl" and [dev_of(r) for r in range(2)] == \
+        ["cuda:0", "cuda:1"]
+    src = inspect.getsource(cs.phase_dist_training)
+    assert "train_backend(kind, n)" in src and "tp_backend" not in src
+
+
+def test_step0_gradient_readings_on_one_device(cs):
+    """Phase 4's step-0 readings beside phase 4b's: the leaves' gradient
+    norms make up the step's grad norm, and in f32 the embed's norm with
+    rows summed in f32 is the plain one (the lookup is restored after)."""
+    torch = pytest.importorskip("torch")
+    import repro_torch.models.lm as lm
+    from repro_torch.config import (ParallelConfig, TrainConfig,
+                                    get_model_config, reduce_for_smoke)
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.training import tree
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    cfg = reduce_for_smoke(get_model_config("llama2-7b"))
+    model = build_model(cfg, "cpu", ParallelConfig())
+    state = init_train_state(model, model.generator(0))
+    batch = {k: torch.from_numpy(v) for k, v in TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=32, global_batch=2)).next().items()}
+    norms = cs.leaf_grad_norms(model, cfg, state.params, batch)
+    lookup = lm.embed_tokens
+    f32 = cs.embed_f32_grad_norm(model, cfg, state.params, batch)
+    assert lm.embed_tokens is lookup
+    paths = [p for p, _ in tree.leaves_with_paths(state.params)]
+    assert f32 == pytest.approx(norms[paths.index("/embedding/embed")],
+                                rel=1e-6)
+    _, m = make_train_step(model, cfg, ParallelConfig(), TrainConfig())(
+        state, batch)
+    assert sum(x * x for x in norms) ** 0.5 == pytest.approx(
+        float(m["grad_norm"]), rel=1e-5)
