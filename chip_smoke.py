@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build, check, serve, train
 (on one device and on a (data, model) mesh), offload, xLSTM, head dims
-80 and 96.
+80 and 96, the mixture-of-experts block.
 
     python3 chip_smoke.py
 
@@ -52,7 +52,12 @@ which raises on failure (the script then exits non-zero):
    of 4 (D=96); paged prefill at chunk 512 and a ragged 100-token chunk
    with a padded row; ``fastattn_fwd`` at B=4, S=2048 causal and a ragged
    float32 case with a q_offset and a kv_valid tail; ``flash_decode`` at
-   B=8, kv_len 159 in both layouts and at B=1 on 65536 tokens.  Each is
+   B=8, kv_len 159 in both layouts and at B=1 on 65536 tokens; and the
+   four in bf16 at qwen3-moe-30b-a3b's 32/4 heads of 128, phase 8's
+   model (``gqa8_case``: a GQA group of 8, every row of the kernels'
+   8-row instances): paged decode at B=8 on 16 pages of 128, paged
+   prefill of 8 rows of 512 with ragged and padded rows, ``fastattn_fwd``
+   at 1 x 2048 causal, ``flash_decode`` at B=8, kv_len 159.  Each is
    timed (median of 20 launches, CUDA events
    around each: the wrapper's host work included) and on the device
    alone (``device_ms``: 20 launches queued behind a spin kernel) beside
@@ -206,6 +211,30 @@ which raises on failure (the script then exits non-zero):
    to its plain version on generate's caches; (c) ``LM.apply`` on
    1 x 2048 tokens: exactly 32 ``fastattn_fwd`` launches, logits within
    the phase 3 tolerance of the plain path's.
+8. The mixture-of-experts block, after phase 7 (``phase_moe``):
+   qwen3-moe-30b-a3b (48 MoE blocks of 128 experts top-8, 32/4 heads of
+   128; 30.53 B parameters, 61 GB) at full width and depth, bf16, random
+   weights from a seeded CUDA generator.  Gate G bounds every logits
+   comparison: LOGIT_TOL or twice the plain path's own change when one
+   ulp moves 1% of the first block's router inputs, whichever is larger
+   (``gate_g``, ``router_sensitivity``).  (a) Phase 3's serving: each
+   paged kernel exactly one launch a layer a prefill launch or decode
+   step, no page left, the first chunk and a decode step within G, the
+   share of valid assignments each prefill launch drops by capacity;
+   (b) phase 3b's generate: ``flash_decode`` exactly 48 x 159 launches,
+   no assignment dropped in generate or in the paged engine (the same
+   weights at capacity factor ``NO_DROP_CF``), greedy tokens equal under
+   the margin rule with G's bound, decode_step logits within G; (c)
+   ``LM.apply`` on 1 x 2048: exactly 48 ``fastattn_fwd`` launches, logits
+   within G; (d) one prefill launch of 8 x 512 twice on the same pools,
+   every valid row's logits the same bits; (e) each block on (c)'s own
+   inputs through the kernels and the plain path: the rows whose top-8
+   set and kept experts agree held to it, each row within twice what one
+   ulp on half the plain attention output does or the unbounded bf16
+   gate, the share of tokens routed otherwise recorded per layer; (f) a
+   B=8 decode step and the 8 x 512 prefill launch timed (wall, one
+   profiled run's device time, idle share, largest kernels) against
+   their bounds.  Peak memory below 80 GB.
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -216,7 +245,10 @@ with its launches in phase 3d (c); both paged kernels also
 all-reduce mode; each attention kernel also ``d80_*`` and ``d96_*``, its
 phase 2 bf16 case at the main path's shape -- flash_decode's from phase 7
 (b), its ``d80_long_*`` / ``d96_long_*`` at B=1 on 65536 tokens -- and
-its launches in phase 7; ``fastattn_fwd`` also ``context_*``, phase 2's
+its launches in phase 7; each attention kernel also ``g8_*``, its phase 2
+case at qwen3-moe's GQA 32/4 -- flash_decode's from phase 8 (b)'s caches,
+its phase-2 case as ``g8_case_*`` -- and ``moe_launches``, its launches in
+phase 8; ``fastattn_fwd`` also ``context_*``, phase 2's
 context-parallel case of rank m=1, ``context_m0_*`` of m=0, and each
 phase 4b rank's launches); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -1086,6 +1118,36 @@ DECODE_CASES += [
           seed=97)),
 ]
 
+# GQA group 8 (qwen3-moe-30b-a3b's 32/4 heads of 128, phase 8's model):
+# each attention kernel in bf16 at its main path's shape there, every row
+# of the 8-row GQA instances used (the kernels line's g8_* numbers;
+# flash_decode's from phase 8 (b)'s own caches, its phase-2 case at the
+# same shape on N(0, 1) inputs): paged decode at B=8 on 16 pages of 128,
+# a chunk-512 prefill of 8 rows (ragged and padded rows), the causal
+# forward at 1 x 2048, dense decode at B=8, kv_len 159
+MOE_ARCH = "qwen3-moe-30b-a3b"
+
+
+def gqa8_case(kernel: str) -> str:
+    """The name of ``kernel``'s phase-2 case at qwen3-moe's GQA 32/4."""
+    tag = "qwen3-moe H=32/4 D=128 bf16"
+    return {"paged_decode": f"{tag} B=8 ps=128",
+            "paged_prefill": f"{tag} B=8 chunk=512 ps=128",
+            "fastattn_fwd": f"{tag} B=1 S=2048 causal",
+            "flash_decode": f"{tag} B=8 bshd S=161 kv_len=159"}[kernel]
+
+
+_G8 = dict(hq=32, hkv=4, d=128, dtype="bfloat16")
+DECODE_CASES.append((gqa8_case("paged_decode"), dict(
+    b=8, ps=128, n_kv=16, seed=41, **_G8)))
+PREFILL_CASES.append((gqa8_case("paged_prefill"), dict(
+    ps=128, n_kv=16, chunk=512, starts=[0, 512, 1024, 1536, 0, 512, 0, 0],
+    nvalid=[512, 300, 512, 512, 37, 512, 0, 0], seed=42, **_G8)))
+FWD_CASES.append((gqa8_case("fastattn_fwd"), dict(
+    b=1, sq=2048, skv=2048, seed=43, **_G8)))
+DENSE_DECODE_CASES.append((gqa8_case("flash_decode"), dict(
+    b=8, s=161, layout="bshd", lens=[159] * 8, seed=44, **_G8)))
+
 # phase 2's mLSTM cases: xlstm-125m's training shape first (the kernels
 # line's numbers); then a ragged f32 case, S below the chunk, 16 chunks of
 # state recurrence at a small dk/dv, a ragged S over eight chunks, and a
@@ -1133,7 +1195,8 @@ def phase_kernels() -> dict:
             "fastattn_context": {m: fwds[name] for m, (name, _) in
                                  CONTEXT_CASES.items()},
             "head_dims": {(k, d): every[k][head_dim_case(k, d)]
-                          for k in every for d in HEAD_DIM_ARCHS}}
+                          for k in every for d in HEAD_DIM_ARCHS},
+            "gqa8": {k: every[k][gqa8_case(k)] for k in every}}
 
 
 # ---------------------------------------------------------------------------
@@ -1170,7 +1233,13 @@ SERVE_3_NEW = 32                # new tokens a request
 
 
 def phase_serving(model, params, n_requests: int = 12,
-                  new_tokens: int = SERVE_3_NEW) -> dict:
+                  new_tokens: int = SERVE_3_NEW,
+                  rel_tol: float = None) -> dict:
+    """Phase 3's 12 requests on ``model``; the first chunk and one decode
+    step then within ``rel_tol`` (LOGIT_TOL by default) of the plain
+    attention path (``check_against_plain``).  On a MoE model each
+    prefill launch's share of (valid token, expert) assignments dropped
+    by capacity is recorded (``moe_drops``)."""
     import torch
     from repro_torch.config import ServeConfig
     from repro_torch.kernels.fastattn.ops import fastattn_paged_prefill
@@ -1186,16 +1255,17 @@ def phase_serving(model, params, n_requests: int = 12,
     paged_flash_decode.launches = 0
     fastattn_paged_prefill.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    ids = [core.add_request(p, greedy) for p in prompts]
-    tokens = {i: [] for i in ids}
-    while core.has_work:
-        for ev in core.step():
-            if ev.kind != "token":
-                raise AssertionError(f"request {ev.request_id}: {ev}")
-            tokens[ev.request_id].append(ev.token)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counting_drops(model) as drops:
+        t0 = time.perf_counter()
+        ids = [core.add_request(p, greedy) for p in prompts]
+        tokens = {i: [] for i in ids}
+        while core.has_work:
+            for ev in core.step():
+                if ev.kind != "token":
+                    raise AssertionError(f"request {ev.request_id}: {ev}")
+                tokens[ev.request_id].append(ev.token)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {"paged_decode": paged_flash_decode.launches,
                 "paged_prefill": fastattn_paged_prefill.launches}
     stats = core.stats()
@@ -1227,6 +1297,12 @@ def phase_serving(model, params, n_requests: int = 12,
            "decode_tok_s": n_decode / dec_s,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches}
+    if drops.active:
+        out["moe_drops"] = drops.shares()
+        out["moe_drops_by_layer"] = drops.layer_shares()
+        log(f"[serve] MoE assignments dropped by capacity, each prefill "
+            f"launch (valid tokens): {out['moe_drops']}; each layer over "
+            f"the launches: {out['moe_drops_by_layer']}")
     log(f"[serve] {n_requests} requests ({n_prompt} prompt tokens, "
         f"{n_decode} decode tokens) in {stats['steps']} steps, "
         f"{wall:.2f}s wall; prefill {out['prefill_tok_s']:.0f} tok/s "
@@ -1234,7 +1310,8 @@ def phase_serving(model, params, n_requests: int = 12,
         f"({dec_s:.3f}s device); peak pages {stats['pages_peak']}/"
         f"{serve.pool_pages() - 1}; peak memory {out['peak_mem_gb']:.1f} GB")
     log("[serve] " + json.dumps({k: v for k, v in out.items()}))
-    check_against_plain(model, params, prompts[0], tokens[ids[0]][0])
+    check_against_plain(model, params, prompts[0], tokens[ids[0]][0],
+                        rel_tol=rel_tol)
     return out
 
 
@@ -1309,43 +1386,53 @@ def _make_timed_core():
     return TimedCore
 
 
-def check_against_plain(model, params, prompt, first_token) -> None:
-    """The first request's first chunk, then one decode step, through the
-    kernels and through the plain attention path on fresh pools: the
-    last-row logits must agree within LOGIT_TOL of the logits' scale, and
-    the greedy tokens wherever the plain path's top-1 margin exceeds that
-    tolerance."""
+def first_chunk_and_step(model, params, prompt, impl):
+    """The first chunk (512 tokens at most) of ``prompt`` on fresh pools,
+    then one decode step of its greedy token, through ``impl``: (last
+    valid row's logits, the step's logits), float32."""
     import torch
     ps, chunk, n_kv = 128, 512, 16
     n = min(len(prompt), chunk)
-    toks = torch.zeros((1, chunk), dtype=torch.int32, device="cuda")
-    toks[0, :n] = torch.from_numpy(prompt[:n]).cuda()
-    table = torch.zeros((1, n_kv), dtype=torch.int32, device="cuda")
+    i32 = dict(dtype=torch.int32, device=model.device)
+    toks = torch.zeros((1, chunk), **i32)
+    toks[0, :n] = torch.from_numpy(prompt[:n]).to(model.device)
+    table = torch.zeros((1, n_kv), **i32)
     table[0, :8] = torch.arange(1, 9, dtype=torch.int32)
-    z = torch.zeros((1,), dtype=torch.int32, device="cuda")
-    nv = torch.full((1,), n, dtype=torch.int32, device="cuda")
-    res = {}
-    for impl in ("paged", "paged_reference"):
-        pools = model.init_paged_cache(9, ps)
-        logits, pools = model.prefill_chunk_paged(
-            params, toks, pools, table, z, nv, impl=impl)
-        last = logits[0, n - 1].float()
-        tok = torch.argmax(last).to(torch.int32).reshape(1)
-        dl, _ = model.decode_step_paged(params, tok, pools, table, nv,
-                                        impl=impl)
-        res[impl] = (last, dl[0].float())
+    z = torch.zeros((1,), **i32)
+    nv = torch.full((1,), n, **i32)
+    pools = model.init_paged_cache(9, ps)
+    logits, pools = model.prefill_chunk_paged(
+        params, toks, pools, table, z, nv, impl=impl)
+    last = logits[0, n - 1].float()
+    tok = torch.argmax(last).to(torch.int32).reshape(1)
+    dl, _ = model.decode_step_paged(params, tok, pools, table, nv, impl=impl)
+    return last, dl[0].float()
+
+
+def check_against_plain(model, params, prompt, first_token,
+                        rel_tol: float = None) -> None:
+    """The first request's first chunk, then one decode step, through the
+    kernels and through the plain attention path on fresh pools: the
+    last-row logits must agree within ``rel_tol`` (LOGIT_TOL by default)
+    of the logits' scale, and the greedy tokens wherever the plain path's
+    top-1 margin exceeds that tolerance."""
+    import torch
+    rel_tol = rel_tol or LOGIT_TOL
+    n = min(len(prompt), 512)
+    res = {impl: first_chunk_and_step(model, params, prompt, impl)
+           for impl in ("paged", "paged_reference")}
     for what, i in (("prefill last row", 0), ("decode step", 1)):
         got, ref = res["paged"][i], res["paged_reference"][i]
         if not torch.isfinite(got).all():
             raise AssertionError(f"{what}: non-finite logits")
         scale = ref.abs().max().item()
         err = (got - ref).abs().max().item()
-        tol = LOGIT_TOL * scale
+        tol = rel_tol * scale
         top2 = torch.topk(ref, 2).values
         margin = (top2[0] - top2[1]).item()
         same = int(torch.argmax(got)) == int(torch.argmax(ref))
         log(f"[serve] kernels vs plain, {what}: max_abs_err {err:.4f} "
-            f"(tol {tol:.4f} = {LOGIT_TOL} x max|logit| {scale:.3f}), "
+            f"(tol {tol:.4f} = {rel_tol:.4g} x max|logit| {scale:.3f}), "
             f"top-1 margin {margin:.4f}, same greedy token {same}")
         if not err <= tol:
             raise AssertionError(f"{what}: logits differ by {err} > {tol}")
@@ -1369,17 +1456,18 @@ DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 8, 128, 32
 DENSE_CHECK_POS = (0, 1, 2, 3, 36, 37, 38, 39)
 
 
-def _compare_logits(what, got, ref) -> None:
-    """Hold kernel-path logits ``got`` (B, V) to ``ref``: within LOGIT_TOL
-    of ``ref``'s scale, and the same greedy token in every row whose top-1
-    margin exceeds that tolerance."""
+def _compare_logits(what, got, ref, rel_tol: float = None) -> None:
+    """Hold kernel-path logits ``got`` (B, V) to ``ref``: within
+    ``rel_tol`` (LOGIT_TOL by default) of ``ref``'s scale, and the same
+    greedy token in every row whose top-1 margin exceeds that
+    tolerance."""
     import torch
     got, ref = got.float(), ref.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite logits")
     scale = ref.abs().max().item()
     err = (got - ref).abs().max().item()
-    tol = LOGIT_TOL * scale
+    tol = (rel_tol or LOGIT_TOL) * scale
     if not err <= tol:
         raise AssertionError(f"{what}: logits differ by {err} > {tol}")
     top2 = torch.topk(ref, 2, dim=-1).values
@@ -1391,9 +1479,17 @@ def _compare_logits(what, got, ref) -> None:
         f"tokens equal in {int(clear.sum())} rows with a clear margin")
 
 
-def phase_dense(model, params) -> dict:
+def phase_dense(model, params, rel_tol: float = None,
+                paged_model=None) -> dict:
     """ServeEngine.generate on phase 3's llama2-7b: B=8 prompts of 128
-    tokens, 32 greedy new tokens, dense caches through flash_decode."""
+    tokens, 32 greedy new tokens, dense caches through flash_decode.
+    ``rel_tol`` (LOGIT_TOL by default) bounds the kernel-vs-plain logits
+    and the margin rule.  On a MoE model no valid token's assignment may
+    drop in generate or in the paged engine's run (``drop_gate``): the
+    two then route the same tokens alike, or their tokens could not be
+    compared.  ``paged_model`` (default ``model``) is the model the
+    paged engine runs on ``params``."""
+    rel_tol = rel_tol or LOGIT_TOL
     import numpy as np
     import torch
     from repro_torch.config import ServeConfig
@@ -1426,10 +1522,11 @@ def phase_dense(model, params) -> dict:
 
     torch.cuda.synchronize()
     flash_decode.launches = 0
-    t0 = time.perf_counter()
-    out = engine.generate(prompts, n_new)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counting_drops(model) as gen_drops:
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = flash_decode.launches
     engine._decode = decode
     expected = cfg.num_layers * (s + n_new - 1)
@@ -1482,21 +1579,26 @@ def phase_dense(model, params) -> dict:
     # the same prompts through the paged EngineCore: equal greedy tokens
     # wherever the dense path's top-1 margin exceeds the tolerance; the
     # streams may fork only at a near-tie, after which contexts differ
-    core = EngineCore(model, params, cfg, ServeConfig(
+    paged_model = paged_model or model
+    core = EngineCore(paged_model, params, paged_model.cfg, ServeConfig(
         max_batch=b, max_seq_len=s + n_new + 128, page_size=128,
         prefill_chunk=512), device="cuda")
     ids = [core.add_request(p, SamplingParams(max_new_tokens=n_new))
            for p in prompts]
     paged = {i: [] for i in ids}
-    while core.has_work:
-        for ev in core.step():
-            if ev.kind != "token":
-                raise AssertionError(f"request {ev.request_id}: {ev}")
-            paged[ev.request_id].append(ev.token)
+    with counting_drops(paged_model) as paged_drops:
+        while core.has_work:
+            for ev in core.step():
+                if ev.kind != "token":
+                    raise AssertionError(f"request {ev.request_id}: {ev}")
+                paged[ev.request_id].append(ev.token)
+    if paged_drops.active:
+        drop_gate("[dense] generate's decode steps", gen_drops)
+        drop_gate("[dense] the paged engine's prefill", paged_drops)
     logits = torch.stack(seen, dim=1)                 # (B, n_new, V)
     top2 = torch.topk(logits, 2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
-    tol = LOGIT_TOL * logits.abs().amax(dim=-1).cpu().numpy()
+    tol = rel_tol * logits.abs().amax(dim=-1).cpu().numpy()
     compared = equal = 0
     for row, rid in enumerate(ids):
         for t in range(n_new):
@@ -1529,7 +1631,7 @@ def phase_dense(model, params) -> dict:
         if pos in DENSE_CHECK_POS:
             _compare_logits(f"[dense] decode_step pos {pos}, kernel vs "
                             "plain",
-                            res["kernel"], res["reference"])
+                            res["kernel"], res["reference"], rel_tol)
     del caches
     tok_s = engine.throughput_tokens_per_s(b, s, n_new=8)
     res = {"batch": b, "prompt": s, "new_tokens": n_new,
@@ -3923,6 +4025,40 @@ def phase_xlstm() -> dict:
 APPLY_TOKENS = 2048           # (c): LM.apply on 1 x APPLY_TOKENS
 
 
+def apply_tokens(model):
+    """(c)'s 1 x APPLY_TOKENS tokens (numpy seed 0), on the model's
+    device."""
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, size=(1, APPLY_TOKENS)).astype(np.int32)
+    ).to(model.device)
+
+
+def apply_check(model, params, tag: str, rel_tol: float = None) -> int:
+    """``LM.apply`` on 1 x APPLY_TOKENS tokens through the kernels: exactly
+    one fastattn_fwd launch a layer, logits within ``rel_tol`` (LOGIT_TOL
+    by default) of the plain path's.  Returns the launches."""
+    import torch
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    layers = model.cfg.num_layers
+    toks = apply_tokens(model)
+    with torch.no_grad():
+        fastattn_fwd.launches = 0
+        logits = model.apply(params, toks)
+        torch.cuda.synchronize()
+        launches = fastattn_fwd.launches
+        ref = model.apply(params, toks, impl="reference")
+    log(f"{tag}: LM.apply 1 x {APPLY_TOKENS}, fastattn_fwd launches "
+        f"{launches} (expected {layers})")
+    if launches != layers:
+        raise AssertionError(f"{tag}: fastattn_fwd launched {launches} "
+                             f"times, expected {layers}")
+    _compare_logits(f"{tag}: LM.apply logits, kernel vs plain", logits[0],
+                    ref[0], rel_tol)
+    return launches
+
+
 def phase_head_dims() -> dict:
     """Phase 7: each model of HEAD_DIM_ARCHS at full width and depth (bf16,
     random weights from a seeded CUDA generator, freed before the next):
@@ -3936,9 +4072,7 @@ def phase_head_dims() -> dict:
     fastattn_fwd launch a layer, logits within LOGIT_TOL of the plain
     path's.  Returns per head dim the launches of each kernel, and (b)'s
     flash_decode numbers at generate's own caches."""
-    import numpy as np
     import torch
-    from repro_torch.kernels.fastattn.ops import fastattn_fwd
     t0 = time.perf_counter()
     out = {}
     for d, arch in sorted(HEAD_DIM_ARCHS.items()):
@@ -3959,22 +4093,7 @@ def phase_head_dims() -> dict:
                                  f"{served['launches']}, expected {want}")
         dense = phase_dense(model, params)
 
-        toks = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, size=(1, APPLY_TOKENS)).astype(np.int32)
-        ).cuda()
-        with torch.no_grad():
-            fastattn_fwd.launches = 0
-            logits = model.apply(params, toks)
-            torch.cuda.synchronize()
-            launches = fastattn_fwd.launches
-            ref = model.apply(params, toks, impl="reference")
-        log(f"[head_dims] {arch}: LM.apply 1 x {APPLY_TOKENS}, fastattn_fwd "
-            f"launches {launches} (expected {layers})")
-        if launches != layers:
-            raise AssertionError(f"{arch}: fastattn_fwd launched {launches} "
-                                 f"times, expected {layers}")
-        _compare_logits(f"[head_dims] {arch}: LM.apply logits, kernel vs "
-                        "plain", logits[0], ref[0])
+        launches = apply_check(model, params, f"[head_dims] {arch}")
         out[d] = {"arch": arch, "launches": {
             **served["launches"], "flash_decode": dense["launches"],
             "fastattn_fwd": launches}, "flash_decode": dense["kernel"],
@@ -3984,11 +4103,538 @@ def phase_head_dims() -> dict:
             "generate_tok_s": dense["tokens_per_s_generate"],
             "seconds": time.perf_counter() - t1}
         log(f"[head_dims] {arch}: {json.dumps(out[d])}")
-        del model, params, logits, ref, dense, served
+        del model, params, dense, served
         gc.collect()
         torch.cuda.empty_cache()
     log(f"[head_dims] phase 7 in {time.perf_counter() - t0:.1f}s")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the mixture-of-experts block -- qwen3-moe-30b-a3b served
+# ---------------------------------------------------------------------------
+
+ROUTER_FLIP = 0.01            # G: the share of router inputs moved 1 ulp
+# (b) compares dense generate (one token a launch: cap 1, no drop) with
+# the paged engine on the same weights at this capacity factor, the JAX
+# package's own for its decode-vs-prefill comparison: cap 256 of a
+# 512-token chunk's slots an expert holds a 128-token prompt's every
+# assignment, however skewed the routing (random weights route most
+# tokens of a chunk alike: at 1.25, (a) drops most assignments)
+NO_DROP_CF = 8.0
+
+
+class DropLog:
+    """Capacity drops of a MoE model's blocks: each prefill launch's
+    (dropped, total) assignments of its valid tokens summed over its
+    blocks (``launches``), and those of every other forward
+    (``other``: decode steps, whose rows are all valid)."""
+
+    def __init__(self, active: bool):
+        self.active = active
+        self.launches: list = []
+        self.other = [0, 0]
+        self.layers: list = []      # prefill launches' drops per block
+        self.n_valid = None         # set while a prefill launch runs
+        self._block = 0
+
+    def start_launch(self, n_valid) -> None:
+        self.n_valid, self._block = n_valid, 0
+        self.launches.append([0, 0])
+
+    def add(self, dropped: int, total: int) -> None:
+        if self.n_valid is None:
+            acc = self.other
+        else:
+            if self._block == len(self.layers):
+                self.layers.append([0, 0])
+            acc = self.launches[-1]
+            self.layers[self._block][0] += dropped
+            self.layers[self._block][1] += total
+            self._block += 1
+        acc[0] += dropped
+        acc[1] += total
+
+    def shares(self) -> list:
+        return [d / t for d, t in self.launches]
+
+    def layer_shares(self) -> list:
+        return [d / t for d, t in self.layers]
+
+
+@contextlib.contextmanager
+def _wrapped(owner, name: str, wrap):
+    """Within the block, ``owner.name`` is ``wrap(<the original>)``."""
+    orig, own = getattr(owner, name), name in vars(owner)
+    setattr(owner, name, wrap(orig))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(owner, name, orig)
+        else:
+            delattr(owner, name)
+
+
+@contextlib.contextmanager
+def counting_drops(model):
+    """Within the block, every MoE block of ``model`` also counts the
+    assignments that its capacity drops, with the plain routing helper
+    (``layers/moe.routing``: the router runs once more a block, inside
+    the walls measured meanwhile); a prefill launch counts only each
+    row's first n_valid tokens.  A model without MoE blocks counts
+    nothing."""
+    from repro_torch.layers import moe
+    log = DropLog("moe" in model.cfg.blocks())
+    if not log.active:
+        yield log
+        return
+
+    def counting(apply):
+        def run(params, x, cfg, **kw):
+            r = moe.routing(params, x, cfg, **kw)
+            log.add(*moe.assignments_dropped(r, log.n_valid))
+            return apply(params, x, cfg, **kw)
+        return run
+
+    def prefill(chunk):
+        def run(params, tokens, cache, table, pos_start, n_valid, **kw):
+            log.start_launch(n_valid)
+            try:
+                return chunk(params, tokens, cache, table, pos_start,
+                             n_valid, **kw)
+            finally:
+                log.n_valid = None
+        return run
+    with _wrapped(moe, "apply_moe", counting), \
+            _wrapped(model, "prefill_chunk_paged", prefill):
+        yield log
+
+
+def drop_gate(what, drops: DropLog) -> None:
+    """No valid token's assignment dropped by capacity in any launch."""
+    dropped = [d for d, _ in drops.launches] + [drops.other[0]]
+    total = sum(t for _, t in drops.launches) + drops.other[1]
+    log(f"{what}: {sum(dropped)} of {total} (token, expert) assignments "
+        "dropped by capacity")
+    if any(dropped):
+        raise AssertionError(f"{what}: {sum(dropped)} assignments dropped "
+                             "by capacity; the runs compared would route "
+                             "differently")
+
+
+def one_ulp_up(x, flip):
+    """``x`` with the magnitude of the elements under ``flip`` raised by
+    one ulp of x's dtype (the next representable value away from 0)."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    return torch.where(flip, (x.view(ints) + 1).view(x.dtype), x)
+
+
+def _ulp_noise(seed: int, frac: float):
+    """A function moving a seeded ``frac`` of a tensor's elements by one
+    ulp (``one_ulp_up``), from a generator per device."""
+    import torch
+    gens = {}
+
+    def noisy(x):
+        gen = gens.get(x.device)
+        if gen is None:
+            gen = gens[x.device] = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+        return one_ulp_up(x, torch.rand(x.shape, generator=gen,
+                                        device=x.device) < frac)
+    return noisy
+
+
+def perturbed_router(model, seed: int = 9, frac: float = ROUTER_FLIP):
+    """Within the block, the first MoE block of every forward of
+    ``model`` sees its input -- the router's -- with a seeded ``frac`` of
+    the elements moved by one ulp: what rounding alone does to a routing
+    decision upstream of every other block."""
+    from repro_torch.layers import moe
+    n_moe = sum(k == "moe" for k in model.cfg.blocks())
+    calls, noisy = [0], _ulp_noise(seed, frac)
+
+    def wrap(apply):
+        def run(params, x, cfg, **kw):
+            if calls[0] % n_moe == 0:
+                x = noisy(x)
+            calls[0] += 1
+            return apply(params, x, cfg, **kw)
+        return run
+    return _wrapped(moe, "apply_moe", wrap)
+
+
+def gate_g(base: float) -> float:
+    """Gate G: the logits of the kernel and plain paths of a MoE model
+    within LOGIT_TOL of their scale, or twice ``base`` -- the largest
+    relative change of the plain path's logits under perturbed_router --
+    whichever is larger.  Each attention kernel rounds at other points
+    than its plain version, so a few tokens route to another expert set,
+    each swapping a whole expert's contribution; with random weights that
+    can move the logits by more than LOGIT_TOL (the kernels themselves are
+    held one by one in phase 2, the blocks in (e))."""
+    return max(LOGIT_TOL, 2 * base)
+
+
+def _rel_change(got, ref) -> float:
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def router_sensitivity(model, params, prompt) -> dict:
+    """The plain path's relative logits change under perturbed_router on
+    phase 8's own inputs: the first chunk's last row and one decode step
+    (``first_chunk_and_step``), and LM.apply on 1 x APPLY_TOKENS."""
+    import torch
+    base = first_chunk_and_step(model, params, prompt, "paged_reference")
+    with perturbed_router(model):
+        moved = first_chunk_and_step(model, params, prompt,
+                                     "paged_reference")
+    toks = apply_tokens(model)
+    with torch.no_grad():
+        ref = model.apply(params, toks, impl="reference")
+        with perturbed_router(model):
+            out = _rel_change(model.apply(params, toks, impl="reference"),
+                              ref)
+    return {"prefill": _rel_change(moved[0], base[0]),
+            "decode": _rel_change(moved[1], base[1]), "apply": out}
+
+
+def capturing_block_inputs(model, inputs: list):
+    """Within the block, the first num_layers blocks that ``model``'s
+    full forward runs append their inputs to ``inputs``."""
+    from repro_torch.models import blocks
+
+    def wrap(apply):
+        def run(params, x, *a, **kw):
+            if len(inputs) < model.cfg.num_layers:
+                inputs.append(x)
+            return apply(params, x, *a, **kw)
+        return run
+    return _wrapped(blocks, "apply_block", wrap)
+
+
+def recording_routes(routes: list):
+    """Within the block, every MoE block appends its routing
+    (``layers/moe.routing``) to ``routes``."""
+    from repro_torch.layers import moe
+
+    def wrap(apply):
+        def run(params, x, cfg, **kw):
+            routes.append(moe.routing(params, x, cfg, **kw))
+            return apply(params, x, cfg, **kw)
+        return run
+    return _wrapped(moe, "apply_moe", wrap)
+
+
+def kept_experts(r, num_experts: int):
+    """(B, S, E) bool: the experts each token's kept assignments reach."""
+    import torch
+    b, s, k = r.idx.shape
+    keep = torch.empty_like(r.plan.keep).scatter_(1, r.plan.order,
+                                                  r.plan.keep)
+    return torch.zeros((b, s, num_experts), dtype=torch.bool,
+                       device=r.idx.device).scatter_(
+        2, r.idx, keep.reshape(b, s, k))
+
+
+def perturbed_attention(seed: int, frac: float = 0.5):
+    """Within the block, every block's attention output has a seeded
+    ``frac`` of its elements moved by one ulp: what rounding the
+    attention output elsewhere alone does downstream."""
+    from repro_torch.models import blocks
+    noisy = _ulp_noise(seed, frac)
+    return _wrapped(blocks.attn_mod, "apply_attention",
+                    lambda apply: lambda *a, **kw: noisy(apply(*a, **kw)))
+
+
+def _routed_alike(ra, rb, num_experts: int):
+    """(B, S) bool: tokens with the same top-k set and kept experts."""
+    import torch
+    same_top = (torch.sort(ra.idx, dim=-1).values
+                == torch.sort(rb.idx, dim=-1).values).all(-1)
+    same_kept = (kept_experts(ra, num_experts)
+                 == kept_experts(rb, num_experts)).all(-1)
+    return same_top, same_top & same_kept
+
+
+def _row_errors(got, ref):
+    """Each row's max abs error, and that over the row's largest |ref|."""
+    diff = (got.float() - ref.float()).abs().amax(-1)
+    return diff, diff / ref.float().abs().amax(-1).clamp_min(1e-30)
+
+
+def moe_block_check(model, params, inputs: list) -> dict:
+    """(e): each block on the kernel path's own input (``inputs[i]``, from
+    (c)'s LM.apply) through the kernels and through the plain attention
+    path, and the plain path once more with one ulp on half its attention
+    output's elements (``perturbed_attention``).  The rows that route
+    alike (the same top-k set and kept experts) in the kernel and plain
+    runs are held to the plain run, each row's max error within twice
+    what the perturbation alone does to rows routed alike (its largest
+    absolute and row-relative error), or within the unbounded bf16 gate
+    (``held_to_plain``'s TOL and REL_TOL), whichever is larger: the
+    rounding of the attention output is amplified downstream by the
+    norm and the gated expert products.  The share of tokens whose top-k
+    set differs, and whose kept experts differ, is recorded per layer."""
+    import torch
+    from repro_torch.models import blocks
+    cfg = model.cfg
+    dt = cfg.dtype
+    res = {"top_set_differs": [], "kept_differs": [], "max_rel_err": [],
+           "base_rel_err": []}
+    with torch.no_grad():
+        for i, (kind, bp) in enumerate(zip(cfg.blocks(), params["layers"])):
+            x = inputs[i]
+            pos = torch.arange(x.shape[1], device=x.device).expand(
+                x.shape[0], -1)
+            routes = []
+            with recording_routes(routes):
+                got = blocks.apply_block(bp, x, cfg, kind, positions=pos)
+                ref = blocks.apply_block(bp, x, cfg, kind, positions=pos,
+                                         impl="reference")
+                with perturbed_attention(seed=100 + i):
+                    moved = blocks.apply_block(bp, x, cfg, kind,
+                                               positions=pos,
+                                               impl="reference")
+            rk, rp, rm = routes
+            same_top, alike = _routed_alike(rk, rp, cfg.num_experts)
+            base_alike = _routed_alike(rm, rp, cfg.num_experts)[1]
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"(e) block {i}: non-finite output")
+            err, rel = _row_errors(got[alike], ref[alike])
+            b_err, b_rel = _row_errors(moved[base_alike], ref[base_alike])
+            scale = ref.float().abs().max().item()
+            tol = max(TOL[dt] * max(1.0, scale / 2),
+                      2 * b_err.max().item())
+            rtol = max(REL_TOL[dt], 2 * b_rel.max().item())
+            worst, worst_rel = err.max().item(), rel.max().item()
+            log(f"[moe] (e) block {i}: {int(alike.sum())} of "
+                f"{alike.numel()} rows routed alike, max_abs_err "
+                f"{worst:.3e} (tol {tol:.3e}), max error / row scale "
+                f"{worst_rel:.3e} (tol {rtol:.3e}; one ulp on half the "
+                f"attention output: {b_rel.max().item():.3e})")
+            if not (worst <= tol and worst_rel <= rtol):
+                raise AssertionError(
+                    f"(e) block {i}: rows routed alike differ by "
+                    f"{worst} (tol {tol}), relative {worst_rel} (tol "
+                    f"{rtol})")
+            res["top_set_differs"].append(
+                1 - same_top.float().mean().item())
+            res["kept_differs"].append(1 - alike.float().mean().item())
+            res["max_rel_err"].append(worst_rel)
+            res["base_rel_err"].append(b_rel.max().item())
+    log(f"[moe] (e) tokens whose top-{cfg.num_experts_per_tok} set differs "
+        f"between the kernel and plain runs, per layer: "
+        f"{[round(v, 5) for v in res['top_set_differs']]}; whose top-k "
+        f"set or kept experts differ: "
+        f"{[round(v, 5) for v in res['kept_differs']]}")
+    return res
+
+
+PREFILL_ROWS, PREFILL_CHUNK = 8, 512     # (d), (f): one full prefill launch
+
+
+def prefill_launch(model, params, prompts):
+    """The first chunks of the first PREFILL_ROWS prompts as one prefill
+    launch of PREFILL_ROWS x PREFILL_CHUNK on fresh pools: (a function
+    running the launch and returning its logits, n_valid)."""
+    import numpy as np
+    import torch
+    b, chunk, ps = PREFILL_ROWS, PREFILL_CHUNK, 128
+    n_valid = np.array([min(len(p), chunk) for p in prompts[:b]], np.int32)
+    toks = np.zeros((b, chunk), np.int32)
+    for i, p in enumerate(prompts[:b]):
+        toks[i, :n_valid[i]] = p[:n_valid[i]]
+    pages = chunk // ps
+    table = (1 + np.arange(b * pages, dtype=np.int32)).reshape(b, pages)
+    pools = model.init_paged_cache(b * pages + 1, ps)
+    args = [torch.from_numpy(a).to(model.device) for a in (
+        toks, table, np.zeros(b, np.int32), n_valid)]
+
+    def run():
+        with torch.no_grad():
+            return model.prefill_chunk_paged(params, args[0], pools,
+                                             *args[1:])[0]
+    return run, n_valid
+
+
+def deterministic_prefill(model, params, prompts) -> int:
+    """(d): ``prefill_launch`` run twice on the same pools: every valid
+    row's logits the same bits.  Returns the rows compared."""
+    import torch
+    run, n_valid = prefill_launch(model, params, prompts)
+    first, second = run(), run()
+    for i, n in enumerate(n_valid):
+        if not torch.equal(first[i, :n], second[i, :n]):
+            raise AssertionError(f"(d) prefill row {i}: the second launch's "
+                                 "logits differ from the first's")
+    log(f"[moe] (d) one prefill launch of {PREFILL_ROWS} x {PREFILL_CHUNK} "
+        f"run twice on the same pools: logits of all {int(n_valid.sum())} "
+        "valid rows bit-identical")
+    return int(n_valid.sum())
+
+
+def moe_step_profile(model, params, prompts) -> dict:
+    """(f): a B=8 decode step (``LM.decode_step`` at position 0 of a dense
+    cache) and ``prefill_launch``: wall (median of 5, synchronised),
+    device time of one profiled run, its idle share and its largest
+    kernels, beside the step's byte bound (every weight read once, of
+    the embedding table only the tokens' rows) and the launch's operation
+    bound (the expert products over every (expert, slot) as the function
+    computes them, the projections and LM head over every chunk row, and
+    causal attention over the valid rows)."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    b, d, e = PREFILL_ROWS, cfg.d_model, cfg.num_experts
+    cache = model.init_cache(b, 8)
+    tok = torch.from_numpy(np.array([p[0] for p in prompts[:b]],
+                                    np.int32)).to(model.device)
+    prefill, n_valid = prefill_launch(model, params, prompts)
+    emb = params["embedding"]["embed"].numel()
+    n_params = sum(t.numel() for t in _leaves(params))
+    step_bytes = (n_params - emb + b * d) * 2
+    tokens = b * PREFILL_CHUNK
+    cap = max(1, int(PREFILL_CHUNK * cfg.num_experts_per_tok / e
+                     * cfg.moe_capacity_factor))
+    per_layer = (2 * 3 * d * cfg.expert_dff * e * cap * b
+                 + 2 * tokens * (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+                                 + d * e)
+                 + 4 * cfg.num_heads * cfg.head_dim
+                 * int((n_valid * (n_valid + 1) // 2).sum()))
+    ops = cfg.num_layers * per_layer + 2 * tokens * d * cfg.vocab_size
+    runs = (("decode step B=8", lambda: model.decode_step(
+        params, tok, cache, 0), step_bytes / H100_BYTES_PER_S * 1e3,
+        "bytes"), (f"prefill launch {b} x {PREFILL_CHUNK}", prefill,
+                   ops / PEAK_FLOPS["bfloat16"] * 1e3, "operations"))
+    out = {}
+    with torch.no_grad():
+        for name, fn, bnd, by in runs:
+            wall, _ = _wall_ms(fn, reps=5)
+            kernels, dev_s = _profile_kernels(fn)
+            top = sorted(kernels, key=_device_us, reverse=True)[:4]
+            res = {"wall_ms": wall, "device_ms": dev_s * 1e3,
+                   "idle_share": 1 - dev_s * 1e3 / wall, "bound_ms": bnd,
+                   "bound_by": by, "kernel_launches": sum(
+                       k.count for k in kernels),
+                   "top": [(k.key[:48], _device_us(k) / 1e3, k.count)
+                           for k in top]}
+            log(f"[moe] (f) {name}: {wall:.2f} ms wall, {dev_s * 1e3:.2f} "
+                f"ms of kernels in one profiled run ({res['kernel_launches']}"
+                f" launches, idle share {res['idle_share']:.3f}), bound "
+                f"{bnd:.2f} ms ({by}); largest kernels (name, device ms, "
+                f"launches): {res['top']}")
+            out[name] = res
+    return out
+
+
+def phase_moe() -> dict:
+    """Phase 8: qwen3-moe-30b-a3b (48 MoE blocks of 128 experts top-8,
+    32/4 heads of 128: every row of the kernels' GQA-8 instances) at full
+    width and depth, bf16, random weights from a seeded CUDA generator,
+    after every earlier model is freed.  Gate G (``gate_g``) on the plain
+    path's own sensitivity (``router_sensitivity``) bounds every logits
+    comparison.  (a) phase 3's serving: each paged kernel exactly one
+    launch a layer a prefill launch or decode step, no page left, the
+    share of assignments dropped by capacity in each prefill launch; (b)
+    phase 3b's dense generation: flash_decode exactly layers x 159
+    launches, greedy tokens equal those of the paged engine -- on the
+    same weights at capacity factor NO_DROP_CF -- under the margin rule,
+    no assignment dropped in either; (c) LM.apply on 1 x 2048, exactly one
+    fastattn_fwd launch a layer; (d) one prefill launch twice, the same
+    bits; (e) each block on (c)'s inputs against its plain run; (f) a
+    decode step and a prefill launch profiled.  Peak memory below 80
+    GB."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    left = torch.cuda.memory_allocated() / 1e9
+    model, params = build_full(MOE_ARCH)
+    cfg = model.cfg
+    layers = cfg.num_layers
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[moe] {cfg.name}: {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok} (expert_dff {cfg.expert_dff}, "
+        f"capacity factor {cfg.moe_capacity_factor}), "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}; "
+        f"{left:.2f} GB allocated before the build (earlier phases), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after, init peak "
+        f"{init_peak:.2f} GB")
+    prompts, _ = serve_traffic(cfg.vocab_size)
+    sens = router_sensitivity(model, params, prompts[0])
+    g = gate_g(max(sens.values()))
+    log(f"[moe] gate G = {g:.4g} = max(LOGIT_TOL {LOGIT_TOL}, 2 x the plain "
+        f"path's change with one ulp on {ROUTER_FLIP:.0%} of the first "
+        f"block's router inputs: {json.dumps(sens)})")
+
+    served = phase_serving(model, params, rel_tol=g)
+    want = {"paged_prefill": layers * served["prefill_launches"],
+            "paged_decode": layers * served["decode_launches"]}
+    if served["launches"] != want:
+        raise AssertionError(f"{cfg.name}: paged launches "
+                             f"{served['launches']}, expected {want}")
+    from repro_torch.models import build_model
+    paged_model = build_model(dataclasses.replace(
+        cfg, moe_capacity_factor=NO_DROP_CF), device=model.device)
+    dense = phase_dense(model, params, rel_tol=g, paged_model=paged_model)
+    inputs = []
+    with capturing_block_inputs(model, inputs):
+        launches = apply_check(model, params, f"[moe] {cfg.name}",
+                               rel_tol=g)
+    blocks = moe_block_check(model, params, inputs)
+    del inputs
+    rows = deterministic_prefill(model, params, prompts)
+    profile = moe_step_profile(model, params, prompts)
+    peak = max(init_peak, torch.cuda.max_memory_allocated() / 1e9)
+    if not peak < 80:
+        raise AssertionError(f"{cfg.name}: peak memory {peak:.2f} GB")
+    out = {"arch": cfg.name, "gate_g": g, "sensitivity": sens,
+           "launches": {**served["launches"],
+                        "flash_decode": dense["launches"],
+                        "fastattn_fwd": launches},
+           "flash_decode": dense["kernel"],
+           "moe_drops": served["moe_drops"],
+           "moe_drops_by_layer": served["moe_drops_by_layer"],
+           "serve": {k: served[k] for k in (
+               "wall_s", "prefill_tok_s", "decode_tok_s", "steps",
+               "prefill_launches", "decode_launches", "prefill_device_s",
+               "decode_device_s", "peak_mem_gb")},
+           "generate_tok_s": dense["tokens_per_s_generate"],
+           "tokens_equal": dense["tokens_equal"],
+           "tokens_clear": dense["tokens_clear"], "blocks": blocks,
+           "deterministic_rows": rows, "profile": profile,
+           "peak_mem_gb": peak, "allocated_before_gb": left,
+           "seconds": time.perf_counter() - t0}
+    log(f"[moe] {_card()}: phase 8 passed in {out['seconds']:.1f}s")
+    log(f"[moe] {json.dumps(out)}")
+    del model, params, dense, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def add_moe_entries(kernels: list, cases: dict, run: dict) -> None:
+    """Each attention kernel's entry of the kernels line also at GQA
+    group 8 (``g8_*``): phase 2's case at qwen3-moe's shape
+    (``cases[name]``; flash_decode's from phase 8 (b)'s caches, its
+    phase-2 case as ``g8_case_*``), and its launches in phase 8
+    (``moe_launches``)."""
+    keys = ("err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
+    for k in kernels:
+        name = k["name"]
+        if name == "mlstm_chunkwise":
+            continue
+        res = run["flash_decode"] if name == "flash_decode" else cases[name]
+        k.update({f"g8_{'max_abs_err' if x == 'err' else x}": res.get(x)
+                  for x in keys})
+        k["moe_launches"] = run["launches"][name]
+        if name == "flash_decode":
+            case = cases[name]
+            k.update({f"g8_case_{x}": case.get(x) for x in (
+                "err", "device_ms", "bound_ms", "library_device_ms")})
 
 
 def add_head_dim_entries(kernels: list, cases: dict, runs: dict) -> None:
@@ -4055,6 +4701,7 @@ def main() -> int:
     tp = phase_tp(model, params)
     del model, params
     gc.collect()                  # phase 3's model, pools and engines
+    torch.cuda.ipc_collect()      # what phase 3e's ranks held by IPC
     torch.cuda.empty_cache()
     log(f"[train] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
         "allocated after serving")
@@ -4071,6 +4718,9 @@ def main() -> int:
     gc.collect()                  # phase 6's model and optimizer state
     torch.cuda.empty_cache()
     head_dims = phase_head_dims()
+    gc.collect()                  # phase 7's models
+    torch.cuda.empty_cache()
+    moe = phase_moe()
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
                 "mlstm_chunkwise": xlstm["launches"]}
@@ -4129,6 +4779,7 @@ def main() -> int:
                                 for m in TP_MODES}
     add_head_dim_entries(line["kernels"], kern["head_dims"], head_dims)
     add_context_entries(line["kernels"], kern["fastattn_context"], dist_run)
+    add_moe_entries(line["kernels"], kern["gqa8"], moe)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

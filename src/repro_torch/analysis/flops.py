@@ -32,7 +32,7 @@ def _block_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
             mult = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
             n += mult * d * f
     if kind == "moe":
-        f = cfg.moe_dff or cfg.d_ff               # the JAX expert_dff
+        f = cfg.expert_dff
         mult = 3 if cfg.mlp_type in ("swiglu", "geglu") else 2
         n += d * cfg.num_experts                  # router
         e = cfg.num_experts_per_tok if active_only else cfg.num_experts

@@ -5,12 +5,11 @@ A copy of the JAX package's ``ModelConfig``, ``ParallelConfig``,
 ``ShapeConfig``/``SHAPES``, ``TrainConfig``, ``ServeConfig``,
 ``RunConfig``, registry, ``reduce_for_smoke`` and ``describe`` (the port
 imports nothing of that package), field for field, so one set of keyword
-arguments configures both.  Fields of subsystems not ported yet (MoE,
-SSM, M-RoPE, preemption/swap, prefix cache, speculation, tensor
-parallelism) are kept for that reason; the model, the trainer and the
-engine refuse the settings that would need them.  Configs are plain
-frozen dataclasses; ``repro_torch.configs`` registers the architectures
-the port runs.
+arguments configures both.  Fields of subsystems not ported yet (the
+mamba SSM, M-RoPE, the encoder-decoder) are kept for that reason; the
+model, the trainer and the engine refuse the settings that would need
+them.  Configs are plain frozen dataclasses; ``repro_torch.configs``
+registers the architectures the port runs.
 """
 from __future__ import annotations
 
@@ -32,7 +31,8 @@ from typing import Callable, Optional, Sequence
 #   slstm       -- xLSTM scalar-LSTM block
 #   hymba       -- parallel attention + mamba heads sharing one residual
 #   hymba_local -- hymba with sliding-window attention heads
-# (the port serves attn and attn_local; models/blocks.py refuses the rest)
+# (the port serves attn, attn_local, moe, mlstm and slstm;
+# models/blocks.py refuses hymba)
 
 
 @dataclass(frozen=True)
@@ -108,6 +108,10 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    @property
+    def expert_dff(self) -> int:
+        return self.moe_dff or self.d_ff
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ rank.
 from __future__ import annotations
 
 import datetime
+import gc
 import itertools
 import math
 import queue
@@ -164,13 +165,21 @@ def init_tp_group(tp: int, rank: int, *, backend: str, init_method: str,
 
 
 def _rank_main(fn, rank, tp, device, backend, init_method, init_timeout,
-               args, results) -> None:
+               box, results) -> None:
     try:
         if device is not None and torch.device(device).type == "cuda":
             torch.cuda.set_device(torch.device(device))
         init_tp_group(tp, rank, backend=backend, init_method=init_method,
                       timeout=init_timeout)
-        results.put((rank, True, fn(rank, *args)))
+        # ``box`` is the only holder of the arguments here: a spawned
+        # process ends without freeing its objects, and a CUDA tensor
+        # received by IPC stays allocated in the sender until the
+        # receiver frees it, so drop them before reporting
+        args = box.pop()
+        out = fn(rank, *args)
+        del args
+        gc.collect()
+        results.put((rank, True, out))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -188,7 +197,9 @@ def spawn_ranks(fn: Callable, tp: int, *, args: Sequence = (),
 
     ``fn`` must be importable by name (a module-level function) and
     return something picklable; ``args`` may hold CUDA tensors, which
-    reach the ranks by CUDA IPC (the caller keeps them alive).  Each rank
+    reach the ranks by CUDA IPC (the caller keeps them alive; each rank
+    frees its handles before it reports, so ``torch.cuda.ipc_collect()``
+    after this returns gives their memory back).  Each rank
     first pins ``device_of_rank(rank)`` when it is a CUDA device.  A rank
     that raises makes this raise RuntimeError with its traceback; past
     ``timeout_s`` every rank is killed and this raises TimeoutError.
@@ -198,7 +209,7 @@ def spawn_ranks(fn: Callable, tp: int, *, args: Sequence = (),
     procs = [ctx.Process(
         target=_rank_main, daemon=True,
         args=(fn, r, tp, device_of_rank(r) if device_of_rank else None,
-              backend, init_method, init_timeout_s, tuple(args), results))
+              backend, init_method, init_timeout_s, [tuple(args)], results))
         for r in range(tp)]
     for p in procs:
         p.start()

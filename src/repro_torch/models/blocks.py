@@ -1,10 +1,10 @@
-"""Per-layer blocks: attention (kinds ``attn`` and ``attn_local``) and the
-xLSTM recurrent kinds ``mlstm`` and ``slstm``; the training / full
-forward, the dense-cache decode and (attention kinds only, as in the JAX
+"""Per-layer blocks: attention (kinds ``attn`` and ``attn_local``),
+attention with a mixture-of-experts FFN (``moe``) and the xLSTM
+recurrent kinds ``mlstm`` and ``slstm``; the training / full forward,
+the dense-cache decode and (attention-cache kinds only, as in the JAX
 package) the paged serving paths.
 
-``moe`` and ``hymba`` blocks are not ported yet and raise
-``NotImplementedError``.
+``hymba`` blocks are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,10 +15,12 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.layers import attention as attn_mod
 from repro_torch.layers import mlp as mlp_mod
+from repro_torch.layers import moe as moe_mod
 from repro_torch.layers import ssm as ssm_mod
 from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 
-ATTN_KINDS = ("attn", "attn_local")
+# the kinds whose cache is a KV cache: they serve paged
+ATTN_KINDS = ("attn", "attn_local", "moe")
 PORTED_KINDS = ATTN_KINDS + ("mlstm", "slstm")
 
 
@@ -57,7 +59,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
         return p
     p["attn"] = attn_mod.init_attention(gen, cfg, dtype)
     p["ln2"] = init_norm(d, cfg.norm_type, dtype, dev)
-    if cfg.d_ff:
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype)
+    elif cfg.d_ff:
         p["mlp"] = mlp_mod.init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dtype)
     if cfg.post_norm:
         p["ln1_post"] = init_norm(d, cfg.norm_type, dtype, dev)
@@ -78,7 +82,9 @@ def block_logical(cfg: ModelConfig, kind: str) -> dict:
         return p
     p["attn"] = attn_mod.attention_logical(cfg)
     p["ln2"] = norm_logical(d, cfg.norm_type)
-    if cfg.d_ff:
+    if kind == "moe":
+        p["moe"] = moe_mod.moe_logical(cfg)
+    elif cfg.d_ff:
         p["mlp"] = mlp_mod.mlp_logical(d, cfg.d_ff, cfg.mlp_type)
     if cfg.post_norm:
         p["ln1_post"] = norm_logical(d, cfg.norm_type)
@@ -141,14 +147,17 @@ def init_block_pages(cfg: ModelConfig, kind: str, num_pages: int,
 
 
 def _attn_block_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, kind: str) -> torch.Tensor:
     """Residual + FFN half of an attention block, shared by the training,
     prefill and decode paths so they cannot diverge."""
     if cfg.post_norm:
         a = apply_norm(params["ln1_post"], a, cfg.norm_type, cfg.norm_eps)
     x = x + a
     h2 = apply_norm(params["ln2"], x, cfg.norm_type, cfg.norm_eps)
-    f = mlp_mod.apply_mlp(params["mlp"], h2, cfg.mlp_type)
+    if kind == "moe":
+        f = moe_mod.apply_moe(params["moe"], h2, cfg)
+    else:
+        f = mlp_mod.apply_mlp(params["mlp"], h2, cfg.mlp_type)
     if cfg.post_norm:
         f = apply_norm(params["ln2_post"], f, cfg.norm_type, cfg.norm_eps)
     return x + f
@@ -166,7 +175,7 @@ def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         return x + ssm_mod.apply_slstm(params["cell"], h, cfg)
     a = attn_mod.apply_attention(params["attn"], h, cfg, positions=positions,
                                  window=_window(cfg, kind), impl=impl)
-    return _attn_block_tail(params, x, a, cfg)
+    return _attn_block_tail(params, x, a, cfg, kind)
 
 
 def apply_block_prefill_paged(params: dict, x: torch.Tensor,
@@ -185,7 +194,7 @@ def apply_block_prefill_paged(params: dict, x: torch.Tensor,
         params["attn"], h, cfg, cache, page_table=page_table,
         pos_start=pos_start, n_valid=n_valid, window=_window(cfg, kind),
         impl=impl)
-    return _attn_block_tail(params, x, a, cfg), cache
+    return _attn_block_tail(params, x, a, cfg, kind), cache
 
 
 def apply_block_decode_paged(params: dict, x: torch.Tensor,
@@ -199,7 +208,7 @@ def apply_block_decode_paged(params: dict, x: torch.Tensor,
     a, cache = attn_mod.apply_attention_decode_paged(
         params["attn"], h, cfg, cache, page_table=page_table, pos=pos,
         window=_window(cfg, kind), impl=impl)
-    return _attn_block_tail(params, x, a, cfg), cache
+    return _attn_block_tail(params, x, a, cfg, kind), cache
 
 
 def apply_block_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -221,4 +230,4 @@ def apply_block_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     a, cache = attn_mod.apply_attention_decode(
         params["attn"], h, cfg, cache, pos=pos, window=_window(cfg, kind),
         impl=impl)
-    return _attn_block_tail(params, x, a, cfg), cache
+    return _attn_block_tail(params, x, a, cfg, kind), cache

@@ -1,6 +1,6 @@
 """Decoder-only language model: training forward, dense-cache decode and
-paged serving (attention models; the xLSTM blocks decode from their
-recurrent state and have no paged path).
+paged serving (attention and mixture-of-experts models; the xLSTM blocks
+decode from their recurrent state and have no paged path).
 
 Layers are a plain Python list (the JAX package stacked repeating units
 and ran them under ``lax.scan``; eager PyTorch needs neither).  Parameters
@@ -46,11 +46,20 @@ RECURRENT_KINDS = ("mlstm", "slstm")
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
     """The model axis shards attention blocks only: the mLSTM / sLSTM
-    cells' ``channels -> model`` layout is not ported."""
-    if model > 1 and any(k in RECURRENT_KINDS for k in cfg.blocks()):
+    cells' ``channels -> model`` layout and the experts' ``expert ->
+    model`` (expert parallelism) are not ported."""
+    if model <= 1:
+        return
+    kinds = set(cfg.blocks())
+    if kinds & set(RECURRENT_KINDS):
         raise NotImplementedError(
             f"{cfg.name}: a model axis of {model} over mlstm/slstm blocks "
             "(their channels -> model layout) is not ported; use data "
+            "parallelism")
+    if "moe" in kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: a model axis of {model} over moe blocks (expert "
+            "parallelism, expert -> model) is not ported; use data "
             "parallelism")
 
 

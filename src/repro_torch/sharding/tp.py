@@ -58,9 +58,15 @@ def plan_tp(cfg: ModelConfig, tp: int, page_size: int, *,
             first_chunk_frac: float = 0.5) -> TPPlan:
     """Factor ``tp`` into (kv-head groups) x (page-row sub-shards) and
     validate the shapes divide.  Raises ValueError on impossible
-    combinations rather than silently mis-sharding."""
+    combinations rather than silently mis-sharding, NotImplementedError
+    for moe blocks at tp > 1."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
+    if tp > 1 and "moe" in cfg.blocks():
+        raise NotImplementedError(
+            f"{cfg.name}: tp={tp} over moe blocks is not ported (the JAX "
+            "package runs the expert FFN replicated on every rank; the "
+            "port slices each rank's weights)")
     if collectives not in ("tiled", "single"):
         raise ValueError(f"tp_collectives must be 'tiled' or 'single', "
                          f"got {collectives!r}")

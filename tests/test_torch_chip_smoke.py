@@ -832,3 +832,216 @@ def test_step0_gradient_readings_on_one_device(cs):
         state, batch)
     assert sum(x * x for x in norms) ** 0.5 == pytest.approx(
         float(m["grad_norm"]), rel=1e-5)
+
+
+def test_phase2_holds_every_attention_kernel_at_gqa_8(cs):
+    """Each of the four attention kernels at qwen3-moe's 32/4 heads of
+    128 (a GQA group of 8: every row of the 8-row instances), bf16, at
+    phase 8's main-path shapes: paged decode B=8 on 16 pages of 128, a
+    prefill of 8 rows of 512 with ragged and padded rows, the causal
+    forward at 1 x 2048, dense decode B=8 at generate's kv_len 159."""
+    from repro_torch.config import get_model_config
+    cfg = get_model_config(cs.MOE_ARCH)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (32, 4, 128)
+    lists = {"paged_decode": cs.DECODE_CASES,
+             "paged_prefill": cs.PREFILL_CASES,
+             "fastattn_fwd": cs.FWD_CASES,
+             "flash_decode": cs.DENSE_DECODE_CASES}
+    for kernel, cases in lists.items():
+        kw = dict(cases)[cs.gqa8_case(kernel)]
+        assert (kw["hq"], kw["hkv"], kw["d"], kw["dtype"]) == (
+            32, 4, 128, "bfloat16"), kernel
+    dec = dict(cs.DECODE_CASES)[cs.gqa8_case("paged_decode")]
+    assert (dec["b"], dec["ps"], dec["n_kv"]) == (8, 128, 16)
+    pre = dict(cs.PREFILL_CASES)[cs.gqa8_case("paged_prefill")]
+    assert pre["chunk"] == 512 and len(pre["starts"]) == 8
+    assert 0 in pre["nvalid"] and any(0 < n < 512 for n in pre["nvalid"])
+    fwd = dict(cs.FWD_CASES)[cs.gqa8_case("fastattn_fwd")]
+    assert (fwd["b"], fwd["sq"], fwd["skv"]) == (1, 2048, 2048)
+    assert fwd.get("causal", True)
+    dense = dict(cs.DENSE_DECODE_CASES)[cs.gqa8_case("flash_decode")]
+    assert (dense["b"], dense["s"], dense["lens"]) == (8, 161, [159] * 8)
+
+
+def test_gate_g_rejects_a_faked_logits_gap(cs):
+    """Gate G is LOGIT_TOL or twice the plain path's own sensitivity,
+    whichever is larger; a kernel-path gap above it fails."""
+    import torch
+    assert cs.gate_g(0.001) == cs.LOGIT_TOL
+    assert cs.gate_g(0.2) == 0.4
+    g = cs.gate_g(0.1)
+    ref = torch.tensor([[4.0, 1.0, -2.0]])
+    cs._compare_logits("ok", ref + 0.19 * 4.0 * torch.tensor([[0, 1, 0]]),
+                       ref, g)
+    with pytest.raises(AssertionError, match="differ by"):
+        cs._compare_logits("faked", ref + 0.21 * 4.0 * torch.tensor(
+            [[0, 1, 0]]), ref, g)
+
+
+def test_drop_gate_rejects_a_faked_drop(cs):
+    log = cs.DropLog(active=True)
+    log.launches = [[0, 4096], [0, 1024]]
+    log.other = [0, 8192]
+    cs.drop_gate("clean", log)
+    log.launches[1][0] = 1
+    with pytest.raises(AssertionError, match="dropped by capacity"):
+        cs.drop_gate("faked prefill drop", log)
+    log.launches[1][0] = 0
+    log.other[0] = 3
+    with pytest.raises(AssertionError, match="dropped by capacity"):
+        cs.drop_gate("faked decode drop", log)
+
+
+def test_one_ulp_up_moves_one_ulp(cs):
+    import torch
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.tensor([1.0, -3.0, 0.5, 7.0], dtype=dt)
+        flip = torch.tensor([True, True, False, True])
+        y = cs.one_ulp_up(x, flip)
+        eps = torch.finfo(dt).eps               # the ulp at 1
+        assert y.tolist() == [1.0 + eps, -3.0 - 2 * eps, 0.5, 7.0 + 4 * eps]
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    """Reduced qwen3-moe-30b-a3b (2 layers, 4 experts top-2) in bf16 on
+    the CPU, with the seeded draw of ``LM.init``."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    from repro_torch.models import build_model
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
+        "qwen3-moe-30b-a3b")), dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg, "cpu")
+    yield model, model.init(model.generator(0))
+    torch.set_num_threads(n)
+
+
+def test_phase8_counts_drops_in_each_prefill_launch(cs, moe_model):
+    """``counting_drops`` around a paged engine: one (dropped, total)
+    pair of valid assignments a prefill launch, decode steps apart, none
+    dropped there (cap 1, a token's experts distinct); a model without
+    MoE blocks counts nothing."""
+    import numpy as np
+    from repro_torch.config import ServeConfig
+    from repro_torch.serving.core import EngineCore
+    from repro_torch.serving.scheduler import SamplingParams
+    model, params = moe_model
+    core = EngineCore(model, params, model.cfg, ServeConfig(
+        max_batch=4, max_seq_len=128, page_size=16, prefill_chunk=64),
+        device="cpu")
+    rng = np.random.default_rng(0)
+    lens = [64, 30, 100, 7]
+    for n in lens:
+        core.add_request(rng.integers(0, 256, size=n),
+                         SamplingParams(max_new_tokens=3))
+    with cs.counting_drops(model) as drops:
+        while core.has_work:
+            core.step()
+    assert drops.active and core.prefill_launches == len(drops.launches)
+    k = model.cfg.num_experts_per_tok
+    assert sum(t for _, t in drops.launches) == \
+        sum(lens) * k * model.cfg.num_layers
+    assert any(d > 0 for d, _ in drops.launches)
+    assert drops.other[0] == 0 and drops.other[1] > 0
+    assert "prefill_chunk_paged" not in vars(model)
+    assert len(drops.shares()) == len(drops.launches)
+    assert len(drops.layer_shares()) == model.cfg.num_layers
+    assert sum(d for d, _ in drops.layers) == sum(
+        d for d, _ in drops.launches)
+
+
+def test_phase8_gate_and_checks_on_a_reduced_moe_model(cs, moe_model,
+                                                       monkeypatch):
+    """Phase 8's helpers on the CPU: ``perturbed_router`` moves only the
+    first MoE block's input of each forward; ``router_sensitivity`` gives
+    a positive change for each of its three runs; (e)'s
+    ``moe_block_check`` passes on the blocks' own inputs (both paths
+    plain here: nothing routes differently); (d)'s two launches are the
+    same bits."""
+    import torch
+    from repro_torch.layers import moe
+    model, params = moe_model
+    monkeypatch.setattr(cs, "APPLY_TOKENS", 96)
+    seen = []
+    apply = moe.apply_moe
+
+    def spy(p, x, cfg, **kw):
+        seen.append(x.clone())
+        return apply(p, x, cfg, **kw)
+    monkeypatch.setattr(moe, "apply_moe", spy)
+    toks = cs.apply_tokens(model)
+    model.apply(params, toks)
+    clean = list(seen)
+    seen.clear()
+    with cs.perturbed_router(model):
+        model.apply(params, toks)
+        model.apply(params, toks)
+    assert moe.apply_moe is spy
+    assert len(seen) == 2 * model.cfg.num_layers
+    moved = (seen[0] != clean[0]).float().mean().item()
+    assert 0.002 < moved < 0.03
+    assert not torch.equal(seen[2], clean[0])         # the second forward
+    monkeypatch.setattr(moe, "apply_moe", apply)
+    sens = cs.router_sensitivity(model, params,
+                                 torch.arange(40).numpy() % 256)
+    assert set(sens) == {"prefill", "decode", "apply"}
+    assert all(v >= 0 for v in sens.values()) and sens["apply"] > 0
+    inputs = []
+    with cs.capturing_block_inputs(model, inputs):
+        model.apply(params, toks)
+        model.apply(params, toks, impl="reference")
+    assert len(inputs) == model.cfg.num_layers
+    res = cs.moe_block_check(model, params, inputs)
+    assert res["top_set_differs"] == [0.0] * model.cfg.num_layers
+    # a faked kernel path 5% off on every attention output fails (e)
+    from repro_torch.models import blocks
+    attn = blocks.attn_mod.apply_attention
+
+    def off(*a, impl=None, **kw):
+        out = attn(*a, impl=impl, **kw)
+        return out if impl == "reference" else out * 1.05
+    monkeypatch.setattr(blocks.attn_mod, "apply_attention", off)
+    with pytest.raises(AssertionError, match="routed alike differ"):
+        cs.moe_block_check(model, params, inputs)
+    monkeypatch.setattr(blocks.attn_mod, "apply_attention", attn)
+    prompts = [torch.arange(n).numpy() % 256 for n in
+               (600, 37, 512, 100, 700, 5, 64, 513)]
+    assert cs.deterministic_prefill(model, params, prompts) == \
+        512 + 37 + 512 + 100 + 512 + 5 + 64 + 512
+
+
+def test_kernels_line_gains_gqa8_entries(cs):
+    """Each attention kernel's entry gets g8_* numbers (phase 2's
+    qwen3-moe case; flash_decode's from phase 8 (b), with its phase-2
+    case as g8_case_*) and its phase 8 launches; the mLSTM's none."""
+    def res(tag):
+        return {"err": 1e-3, "ms": tag, "device_ms": tag / 2,
+                "plain_ms": 9.0, "bound_ms": 0.01, "bound_by": "bytes",
+                "library_ms": 1.0, "library_device_ms": 0.5}
+    attn = ("paged_prefill", "paged_decode", "fastattn_fwd", "flash_decode")
+    kernels = [{"name": n} for n in attn + ("mlstm_chunkwise",)]
+    cases = {n: res(1.0) for n in attn}
+    run = {"launches": {"paged_decode": 3408, "paged_prefill": 864,
+                        "flash_decode": 7632, "fastattn_fwd": 48},
+           "flash_decode": res(2.0)}
+    cs.add_moe_entries(kernels, cases, run)
+    by = {k["name"]: k for k in kernels}
+    assert by["mlstm_chunkwise"] == {"name": "mlstm_chunkwise"}
+    assert by["fastattn_fwd"]["moe_launches"] == 48
+    assert by["flash_decode"]["g8_ms"] == 2.0
+    assert by["flash_decode"]["g8_case_device_ms"] == 0.5
+    for n in attn:
+        assert {f"g8_{x}" for x in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")} <= set(by[n])
+
+
+def test_phase8_serves_qwen3_moe_last(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_head_dims()") < main.index("phase_moe()") \
+        < main.index("print(json.dumps(line))")
+    assert "add_moe_entries" in main

@@ -128,11 +128,10 @@ def _as_port_config(arch):
 
 
 @pytest.mark.parametrize("arch", list(available_archs())
-                         + ["xlstm-125m", "qwen3-moe-30b-a3b",
-                            "hymba-1.5b", "whisper-small"])
+                         + ["xlstm-125m", "hymba-1.5b", "whisper-small"])
 def test_param_count_matches_jax(arch):
-    """Every config the port registers, and the block kinds it keeps
-    fields for but does not run yet (mLSTM/sLSTM, MoE, hymba, the
+    """Every config the port registers (MoE among them), and the block
+    kinds it keeps fields for but does not run yet (hymba, the
     encoder-decoder)."""
     jcfg = get_model_config(arch)
     tcfg = t_get(arch) if arch in available_archs() else _as_port_config(

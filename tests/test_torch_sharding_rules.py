@@ -33,7 +33,7 @@ from repro_torch.sharding import rules as tr  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["llama2-7b", "gemma2-2b", "qwen2.5-32b", "stablelm-3b",
-         "phi3-mini-3.8b", "xlstm-125m"]
+         "phi3-mini-3.8b", "xlstm-125m", "qwen3-moe-30b-a3b", "grok-1-314b"]
 MESHES = {(1, 1): ("data", "model"), (2, 2): ("data", "model"),
           (4, 2): ("data", "model"), (2, 3): ("data", "model"),
           (2, 16, 16): ("pod", "data", "model")}
