@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build, check, serve, train
 (on one device and on a (data, model) mesh), offload, xLSTM, head dims
-80 and 96, the mixture-of-experts block.
+80 and 96, the mixture-of-experts block, the Mamba layer (hymba).
 
     python3 chip_smoke.py
 
@@ -57,7 +57,12 @@ which raises on failure (the script then exits non-zero):
    model (``gqa8_case``: a GQA group of 8, every row of the kernels'
    8-row instances): paged decode at B=8 on 16 pages of 128, paged
    prefill of 8 rows of 512 with ragged and padded rows, ``fastattn_fwd``
-   at 1 x 2048 causal, ``flash_decode`` at B=8, kv_len 159.  Each is
+   at 1 x 2048 causal, ``flash_decode`` at B=8, kv_len 159; and
+   ``fastattn_fwd`` and ``flash_decode`` at hymba-1.5b's 25/5 heads of
+   64 with its window of 1024, phase 9's model (``hymba_case``): the
+   forward at 8 x 2048 causal with and without the window and a ragged
+   float32 case with the window, dense decode at B=8, kv_len 159 in both
+   layouts and at B=1 on 4096 keys with the window.  Each is
    timed (median of 20 launches, CUDA events
    around each: the wrapper's host work included) and on the device
    alone (``device_ms``: 20 launches queued behind a spin kernel) beside
@@ -235,6 +240,31 @@ which raises on failure (the script then exits non-zero):
    B=8 decode step and the 8 x 512 prefill launch timed (wall, one
    profiled run's device time, idle share, largest kernels) against
    their bounds.  Peak memory below 80 GB.
+9. The Mamba layer, after phase 8 (``phase_hymba``): hymba-1.5b (32
+   blocks of parallel attention and Mamba heads, 25/5 heads of 64,
+   window 1024 on 29 layers, 1.42 B parameters) at full width and depth,
+   bf16, random weights from a seeded CUDA generator; the formula's and
+   the tensors' parameter counts logged.  The logits gate comes from
+   the plain path's own change with one ulp on 1% of block 0's inputs:
+   LOGIT_TOL where that is at most half of it, else gate G's rule
+   (``hymba_gate``).  (a) ``LM.apply`` on 8 x 2048 through
+   ``fastattn_fwd``, exactly 32 launches, logits held to the plain path
+   (under G, if even G fails, each block to its plain version on its
+   own inputs); (b) ``ServeEngine.generate`` of (a)'s first 128 tokens
+   of each row, 32 greedy new tokens through ``flash_decode``, exactly
+   32 x 159 launches, the decode logits at DENSE_CHECK_POS held to (a)'s
+   (the recurrence against the chunked scan), those at the generated
+   positions and the greedy tokens (the margin rule) to the plain path's
+   LM.apply on the same tokens and to its decode_step teacher-forced on
+   them from the prompt's caches, no kernel launched in either; (c) one
+   sequence of 1100 tokens and 8 new, decode past the window, exactly
+   32 x 1107 launches,
+   the decode logits from position 1024 held to LM.apply's on the 1108
+   tokens; (e) a B=8 decode step and LM.apply on 2 of (a)'s rows
+   profiled: wall, device time, idle share, the Mamba scan's share; (d)
+   3 AdamW steps at
+   2 x 2048 (remat), finite, exactly 32 x 2 x 3 launches, step 0's loss
+   and grad norm within LOSS_RTOL and GNORM_RTOL of the plain path's.
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -248,7 +278,11 @@ phase 2 bf16 case at the main path's shape -- flash_decode's from phase 7
 its launches in phase 7; each attention kernel also ``g8_*``, its phase 2
 case at qwen3-moe's GQA 32/4 -- flash_decode's from phase 8 (b)'s caches,
 its phase-2 case as ``g8_case_*`` -- and ``moe_launches``, its launches in
-phase 8; ``fastattn_fwd`` also ``context_*``, phase 2's
+phase 8; ``fastattn_fwd`` and ``flash_decode`` also ``hymba_*``, phase
+2's case at hymba-1.5b's main-path shape, ``fastattn_fwd``'s
+``hymba_global_*`` without the window, ``flash_decode``'s
+``hymba_window_*`` on 4096 keys, and ``hymba_launches``, each run's
+launches in phase 9; ``fastattn_fwd`` also ``context_*``, phase 2's
 context-parallel case of rank m=1, ``context_m0_*`` of m=0, and each
 phase 4b rank's launches); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -783,14 +817,18 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
            "bound_by": by, "library_ms": None, "split_keys": split_keys,
            "n_split": n_split}
     res["device_ms"] = device_ms(kernel)
-    lib_note = "n/a (no single PyTorch call applies a softcap or window)"
-    if window is None and softcap is None:
+    lib_note = "n/a (no single PyTorch call applies a softcap)"
+    if softcap is None:
         # SDPA takes (B, H, S, D): a "bshd" cache is copied to that layout
-        # outside the timed region
+        # outside the timed region; the boolean mask applies the window
         kd = k.transpose(1, 2).contiguous() if layout == "bshd" else k
         vd = v.transpose(1, 2).contiguous() if layout == "bshd" else v
         pos = torch.arange(s, device="cuda")
-        mask = (pos[None, :] < lens_t[:, None].long())[:, None, None, :]
+        lens_l = lens_t[:, None].long()
+        mask = pos[None, :] < lens_l
+        if window is not None:
+            mask &= pos[None, :] >= lens_l - window
+        mask = mask[:, None, None, :]
 
         def lib():
             return F.scaled_dot_product_attention(
@@ -1148,6 +1186,51 @@ FWD_CASES.append((gqa8_case("fastattn_fwd"), dict(
 DENSE_DECODE_CASES.append((gqa8_case("flash_decode"), dict(
     b=8, s=161, layout="bshd", lens=[159] * 8, seed=44, **_G8)))
 
+# hymba-1.5b's 25/5 heads of 64 (GQA 5: 5 of the 8 rows of the kernels'
+# 8-row instances), phase 9's model, window 1024 on 29 of its 32 layers:
+# fastattn_fwd at (a)'s 8 x 2048 with the window (the kernels line's
+# hymba_* numbers) and without (the 3 global layers), a ragged float32
+# case with a q_offset, a kv_valid tail and the window; flash_decode at
+# (b)'s B=8, kv_len 159 in both layouts (bshd: the kernels line's), and
+# at B=1 on 4096 keys with the window narrower than the cache
+HYMBA_ARCH = "hymba-1.5b"
+
+
+def hymba_case(kernel: str, variant: str = "main") -> str:
+    """The name of ``kernel``'s phase-2 case at hymba-1.5b's shape:
+    ``variant`` "main" (its main path's), "global" (fastattn_fwd without
+    the window) or "window" (flash_decode on 4096 keys)."""
+    tag = "hymba H=25/5 D=64"
+    return {("fastattn_fwd", "main"): f"{tag} bf16 B=8 S=2048 causal "
+            "window=1024",
+            ("fastattn_fwd", "global"): f"{tag} bf16 B=8 S=2048 causal",
+            ("flash_decode", "main"): f"{tag} bf16 B=8 bshd S=161 "
+            "kv_len=159",
+            ("flash_decode", "window"): f"{tag} bf16 B=1 bshd S=4096 "
+            "window=1024"}[(kernel, variant)]
+
+
+_HY = dict(hq=25, hkv=5, d=64)
+FWD_CASES += [
+    (hymba_case("fastattn_fwd"), dict(b=8, sq=2048, skv=2048, window=1024,
+                                      dtype="bfloat16", seed=51, **_HY)),
+    (hymba_case("fastattn_fwd", "global"), dict(
+        b=8, sq=2048, skv=2048, dtype="bfloat16", seed=52, **_HY)),
+    ("hymba H=25/5 D=64 f32 B=2 Sq=1000 Skv=1500 q_offset=300 "
+     "kv_valid=1400 window=1024", dict(
+         b=2, sq=1000, skv=1500, q_offset=300, kv_valid=1400, window=1024,
+         dtype="float32", seed=53, **_HY))]
+DENSE_DECODE_CASES += [
+    (hymba_case("flash_decode"), dict(
+        b=8, s=161, layout="bshd", lens=[159] * 8, dtype="bfloat16",
+        seed=54, **_HY)),
+    ("hymba H=25/5 D=64 bf16 B=8 bhsd S=161 kv_len=159", dict(
+        b=8, s=161, layout="bhsd", lens=[159] * 8, dtype="bfloat16",
+        seed=55, **_HY)),
+    (hymba_case("flash_decode", "window"), dict(
+        b=1, s=4096, layout="bshd", window=1024, dtype="bfloat16", seed=56,
+        **_HY))]
+
 # phase 2's mLSTM cases: xlstm-125m's training shape first (the kernels
 # line's numbers); then a ragged f32 case, S below the chunk, 16 chunks of
 # state recurrence at a small dk/dv, a ragged S over eight chunks, and a
@@ -1196,7 +1279,10 @@ def phase_kernels() -> dict:
                                  CONTEXT_CASES.items()},
             "head_dims": {(k, d): every[k][head_dim_case(k, d)]
                           for k in every for d in HEAD_DIM_ARCHS},
-            "gqa8": {k: every[k][gqa8_case(k)] for k in every}}
+            "gqa8": {k: every[k][gqa8_case(k)] for k in every},
+            "hymba": {(k, v): every[k][hymba_case(k, v)] for k, v in (
+                ("fastattn_fwd", "main"), ("fastattn_fwd", "global"),
+                ("flash_decode", "main"), ("flash_decode", "window"))}}
 
 
 # ---------------------------------------------------------------------------
@@ -4615,6 +4701,506 @@ def phase_moe() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the Mamba layer -- hymba-1.5b at full width and depth
+# ---------------------------------------------------------------------------
+
+HYMBA_BATCH, HYMBA_SEQ = 8, 2048          # (a): LM.apply
+HYMBA_LONG_PROMPT, HYMBA_LONG_NEW = 1100, 8   # (c): decode past the window
+HYMBA_LONG_FROM = 1024                    # (c): positions held from here on
+HYMBA_TRAIN_BATCH, HYMBA_TRAIN_STEPS = 2, 3   # (d)
+HYMBA_PROFILE_ROWS = 2        # (e): LM.apply profiled on (a)'s first rows
+BLOCK_FLIP = 0.01             # the share of block 0's inputs moved one ulp
+
+
+def hymba_gate(change: float) -> tuple:
+    """Phase 9's logits gate from ``change``, the plain path's own largest
+    relative logits change under ``perturbed_first_block``: LOGIT_TOL
+    where the model is well conditioned (a change of at most half of
+    it), else gate G's rule, max(LOGIT_TOL, 2 x change).  Returns (gate,
+    the rule's name)."""
+    if change <= LOGIT_TOL / 2:
+        return LOGIT_TOL, "LOGIT_TOL"
+    return gate_g(change), "G"
+
+
+def perturbed_first_block(model, seed: int = 9, frac: float = BLOCK_FLIP):
+    """Within the block, the first block of every full forward of
+    ``model`` sees its input with a seeded ``frac`` of the elements moved
+    by one ulp: what rounding alone does upstream of every other
+    block."""
+    from repro_torch.models import blocks
+    n, calls, noisy = model.cfg.num_layers, [0], _ulp_noise(seed, frac)
+
+    def wrap(apply):
+        def run(params, x, *a, **kw):
+            if calls[0] % n == 0:
+                x = noisy(x)
+            calls[0] += 1
+            return apply(params, x, *a, **kw)
+        return run
+    return _wrapped(blocks, "apply_block", wrap)
+
+
+def hymba_sensitivity(model, params, toks) -> tuple:
+    """The plain path's logits on ``toks`` and their largest relative
+    change under ``perturbed_first_block``: (logits, change)."""
+    import torch
+    with torch.no_grad():
+        ref = model.apply(params, toks, impl="reference")
+        with perturbed_first_block(model):
+            change = _rel_change(model.apply(params, toks,
+                                             impl="reference").float(),
+                                 ref.float())
+    return ref, change
+
+
+def exact_launches(what, got: dict, want: dict) -> None:
+    """Every kernel of ``want`` launched exactly that many times."""
+    for name, n in want.items():
+        if got.get(name) != n:
+            raise AssertionError(f"{what}: {name} launched {got.get(name)} "
+                                 f"times, expected {n}")
+
+
+def hymba_block_check(model, params, toks) -> list:
+    """The fallback when even gate G fails end to end: each block on the
+    inputs the kernel path's LM.apply gave it, through the kernels and
+    through the plain path, held under the unbounded bf16 rule.  Returns
+    each block's (max abs error, largest error over its row's scale)."""
+    import torch
+    from repro_torch.models import blocks as B
+    inputs = []
+    with torch.no_grad(), capturing_block_inputs(model, inputs):
+        model.apply(params, toks)
+    b, s = toks.shape
+    pos = torch.arange(s, device=toks.device).expand(b, s)
+    errs = []
+    with torch.no_grad():
+        for i, (kind, bp, x) in enumerate(zip(model.cfg.blocks(),
+                                              params["layers"], inputs)):
+            got, ref = (B.apply_block(bp, x, model.cfg, kind, positions=pos,
+                                      impl=impl)
+                        for impl in (None, "reference"))
+            errs.append(held_to_plain("hymba", f"block {i} ({kind}) output, "
+                                      "kernel vs plain", got.flatten(0, 1),
+                                      ref.flatten(0, 1), "bfloat16",
+                                      unbounded=True))
+    return errs
+
+
+def hymba_apply(model, params, toks, ref, gate: float, rule: str) -> dict:
+    """(a): LM.apply on ``toks`` through the kernels (fastattn_fwd's
+    launches counted), its logits held to the plain path's ``ref`` under
+    ``gate``; where the rule is G and even that fails, each block is held
+    to its plain version instead (``hymba_block_check``)."""
+    import torch
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    b, s = toks.shape
+    with torch.no_grad():
+        fastattn_fwd.launches = 0
+        wall, logits = _wall_s(lambda: model.apply(params, toks))
+        launches = fastattn_fwd.launches
+    if logits.shape != (b, s, model.cfg.vocab_size):
+        raise AssertionError(f"(a) logits {tuple(logits.shape)}")
+    err = _logit_err(logits, ref)
+    log(f"[hymba] (a) LM.apply {b} x {s}: {wall:.2f}s wall, fastattn_fwd "
+        f"launches {launches}; kernel vs plain logits {err[0]:.4f}, "
+        f"{err[1]:.4f} of their scale (median position {err[2]:.4f})")
+    out = {"wall_s": wall, "launches": launches, "logit_err": err,
+           "rule": rule, "logits": logits}
+    try:
+        _compare_logits("[hymba] (a) LM.apply logits, kernel vs plain",
+                        logits.flatten(0, 1), ref.flatten(0, 1), gate)
+    except AssertionError:
+        if rule != "G":
+            raise
+        log(f"[hymba] (a) the logits miss gate G ({gate:.4g}): each block "
+            "is held to its plain version on its own inputs")
+        out["blocks"] = hymba_block_check(model, params, toks)
+        out["rule"] = "blocks"
+    return out
+
+
+def _recording_engine(model, params, serve, keep, snap_at=None):
+    """A ServeEngine on ``model`` whose decode steps record, at every
+    position ``keep(pos)`` admits, the logits (float32), the last caches
+    and a copy of the caches as the step at ``snap_at`` left them:
+    (engine, {pos: logits}, {"last": cache, "snap": cache})."""
+    import torch
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.training.tree import tree_map
+    engine = ServeEngine(model=model, params=params, cfg=model.cfg,
+                         serve=serve)
+    seen, caches = {}, {}
+    decode = engine._decode
+
+    def recording(tok, cache, pos):
+        logits, cache = decode(tok, cache, pos)
+        if keep(pos):
+            seen[pos] = logits.float()
+        if pos == snap_at:        # later steps write K/V rows in place
+            caches["snap"] = tree_map(torch.clone, cache)
+        caches["last"] = cache
+        return logits, cache
+    engine._decode = recording
+    return engine, seen, caches
+
+
+def hymba_generate(model, plain_model, params, prompts, apply_logits,
+                   gate: float) -> dict:
+    """(b): ServeEngine.generate of ``prompts`` (B, DENSE_PROMPT), DENSE_NEW
+    greedy tokens, through flash_decode (its launches counted); its
+    decode logits at DENSE_CHECK_POS held to ``apply_logits`` -- (a)'s
+    LM.apply on the same tokens -- under ``gate``.  Then the plain
+    attention path (``plain_model``), with no kernel launched: its
+    LM.apply on the generated sequence, against generate's logits at
+    every generated position, and its ``decode_step`` teacher-forced on
+    generate's tokens from the caches generate held after the prompt,
+    against generate's logits at the positions after it -- each under
+    ``gate``, the greedy tokens under the margin rule.  (The plain
+    decode_step starts from the prompt's caches: its own 128 prompt steps
+    would cost the script ~15 s of its time limit.)  Also returns the
+    run's last caches for (e)."""
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    b, s = prompts.shape
+    n_new = DENSE_NEW
+    serve = ServeConfig(max_seq_len=s + n_new + 1, top_k=1)
+    engine, seen, caches = _recording_engine(
+        model, params, serve, lambda p: p in DENSE_CHECK_POS or p >= s - 1,
+        snap_at=s - 1)
+    torch.cuda.synchronize()
+    flash_decode.launches = 0
+    wall, out = _wall_s(lambda: engine.generate(prompts, n_new))
+    launches = flash_decode.launches
+    del engine
+    log(f"[hymba] (b) generate B={b} x {s} + {n_new}: {wall:.2f}s wall "
+        f"through flash_decode ({launches} launches)")
+    if out.shape != (b, n_new) or not bool(((0 <= out) & (
+            out < model.cfg.vocab_size)).all()):
+        raise AssertionError(f"(b) bad generated tokens {tuple(out.shape)}")
+    for pos in DENSE_CHECK_POS:
+        _compare_logits(f"[hymba] (b) decode_step logits at position {pos} "
+                        "vs (a)'s LM.apply", seen[pos], apply_logits[:, pos],
+                        gate)
+    seq = torch.cat([torch.as_tensor(prompts, device=out.device).long(),
+                     out[:, :-1].long()], dim=1).to(torch.int32)
+    fastattn_fwd.launches = flash_decode.launches = 0
+    with torch.no_grad():
+        plain = plain_model.apply(params, seq)[:, s - 1:].float()
+        cache, stepped = caches.pop("snap"), []
+        for j in range(n_new - 1):
+            logits, cache = plain_model.decode_step(params, out[:, j],
+                                                    cache, s + j)
+            stepped.append(logits.float())
+    del cache
+    plain_launches = {"fastattn_fwd": fastattn_fwd.launches,
+                      "flash_decode": flash_decode.launches}
+    exact_launches("[hymba] (b) the plain runs", plain_launches,
+                   {"fastattn_fwd": 0, "flash_decode": 0})
+    got = torch.stack([seen[p] for p in range(s - 1, s + n_new - 1)], dim=1)
+    _compare_logits("[hymba] (b) generate's logits at the generated "
+                    "positions vs the plain LM.apply on its tokens",
+                    got.flatten(0, 1), plain.flatten(0, 1), gate)
+    _compare_logits(f"[hymba] (b) generate's logits at positions {s}-"
+                    f"{s + n_new - 2} vs the plain decode_step teacher-forced "
+                    "on its tokens from the prompt's caches",
+                    got[:, 1:].flatten(0, 1),
+                    torch.stack(stepped, dim=1).flatten(0, 1), gate)
+    return {"wall_s": wall, "launches": launches,
+            "plain_launches": plain_launches,
+            "new_tok_s": b * n_new / wall, "cache": caches["last"]}
+
+
+def hymba_long(model, params, prompt, gate: float) -> dict:
+    """(c): one sequence of len(prompt) tokens and HYMBA_LONG_NEW new ones
+    through ServeEngine.generate, decode passing the window (flash_decode's
+    launches counted); the decode logits from HYMBA_LONG_FROM on held to
+    LM.apply's on the whole sequence under ``gate``."""
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    p, n_new = len(prompt), HYMBA_LONG_NEW
+    serve = ServeConfig(max_seq_len=p + n_new + 1, top_k=1)
+    engine, seen, _ = _recording_engine(model, params, serve,
+                                        lambda q: q >= HYMBA_LONG_FROM)
+    torch.cuda.synchronize()
+    flash_decode.launches = 0
+    wall, out = _wall_s(lambda: engine.generate(prompt[None], n_new))
+    launches = flash_decode.launches
+    del engine
+    seq = torch.cat([torch.as_tensor(prompt, device=model.device)[None]
+                     .long(), out.long()], dim=1).to(torch.int32)
+    with torch.no_grad():
+        full = model.apply(params, seq)[0].float()
+    steps = p + n_new - 1
+    got = torch.cat([seen[q] for q in range(HYMBA_LONG_FROM, steps)])
+    _compare_logits(f"[hymba] (c) decode_step logits at positions "
+                    f"{HYMBA_LONG_FROM}-{steps - 1} vs LM.apply on the "
+                    f"{seq.shape[1]} tokens", got,
+                    full[HYMBA_LONG_FROM:steps], gate)
+    log(f"[hymba] (c) generate 1 x {p} + {n_new}: {wall:.2f}s wall, "
+        f"flash_decode launches {launches} ({steps} decode steps)")
+    return {"wall_s": wall, "launches": launches, "steps": steps,
+            "ms_per_step": wall / steps * 1e3}
+
+
+@contextlib.contextmanager
+def counting_scans(calls: list):
+    """Within the block, each call of ``layers/ssm.mamba_scan_chunk``
+    appends an entry to ``calls``: the first its arguments, the others
+    None (a long forward's chunk inputs would fill gigabytes)."""
+    from repro_torch.layers import ssm
+
+    def wrap(scan):
+        def run(*a, **kw):
+            calls.append(None if calls else (a, kw))
+            return scan(*a, **kw)
+        return run
+    with _wrapped(ssm, "mamba_scan_chunk", wrap):
+        yield
+
+
+def scan_device_s(calls: list) -> float:
+    """The device time of the Mamba scans ``calls`` recorded (one run's,
+    by ``counting_scans``), seconds: their number times one call's
+    device time (``device_ms``) on the first call's inputs -- every call
+    of one of phase 9's runs has the same shapes."""
+    from repro_torch.layers import ssm
+    a, kw = calls[0]
+    return len(calls) * device_ms(lambda: ssm.mamba_scan_chunk(*a, **kw)) \
+        / 1e3
+
+
+def hymba_profile(model, params, toks, cache, pos: int) -> dict:
+    """(e): one B=8 decode step (``LM.decode_step`` at ``pos`` of (b)'s
+    caches) and LM.apply on the first HYMBA_PROFILE_ROWS rows of
+    ``toks``: wall (median of 5 and of 2), the kernels' device time in
+    one profiled run, the idle share, and the Mamba scan's share of that
+    device time (``scan_device_s`` on the profiled run's calls)."""
+    import torch
+    b = toks.shape[0]
+    tok = toks[:, 0].contiguous()
+    rows = toks[:HYMBA_PROFILE_ROWS]
+
+    def step():
+        return model.decode_step(params, tok, cache, pos)
+
+    def apply():
+        return model.apply(params, rows)
+    out = {}
+    with torch.no_grad():
+        for name, fn, reps in (
+                (f"decode step B={b}", step, 5),
+                ("LM.apply %d x %d" % tuple(rows.shape), apply, 2)):
+            wall, _ = _wall_ms(fn, reps=reps)
+            calls = []
+            with counting_scans(calls):
+                kernels, dev_s = _profile_kernels(fn)
+            scan_s, n_scans = scan_device_s(calls), len(calls)
+            del calls
+            top = sorted(kernels, key=_device_us, reverse=True)[:4]
+            res = {"wall_ms": wall, "device_ms": dev_s * 1e3,
+                   "idle_share": 1 - dev_s * 1e3 / wall,
+                   "kernel_launches": sum(k.count for k in kernels),
+                   "scan_device_ms": scan_s * 1e3, "scan_calls": n_scans,
+                   "scan_share": scan_s / dev_s,
+                   "top": [(k.key[:48], _device_us(k) / 1e3, k.count)
+                           for k in top]}
+            log(f"[hymba] (e) {name}: {wall:.2f} ms wall, {dev_s * 1e3:.2f} "
+                f"ms of kernels in one profiled run ({res['kernel_launches']}"
+                f" launches, idle share {res['idle_share']:.3f}); the Mamba "
+                f"scan {scan_s * 1e3:.2f} ms ({n_scans} calls), "
+                f"{res['scan_share']:.1%} of the device time; largest "
+                f"kernels (name, device ms, launches): {res['top']}")
+            out[name] = res
+    return out
+
+
+def hymba_train(cfg) -> dict:
+    """(d): HYMBA_TRAIN_STEPS AdamW steps at HYMBA_TRAIN_BATCH x HYMBA_SEQ
+    through the trainer's functions (remat "selective", as
+    launch/train.py; phase 4's TrainConfig), fastattn_fwd's launches
+    counted; before them, step 0's batch through the plain attention
+    path: the first step's loss and grad norm within LOSS_RTOL and
+    GNORM_RTOL of its."""
+    import math
+
+    import torch
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    parallel = ParallelConfig(remat="selective")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=HYMBA_TRAIN_STEPS)
+    model = build_model(cfg, "cuda", parallel)
+    state = init_train_state(model, model.generator(tcfg.seed))
+    step_fn = make_train_step(model, cfg, parallel, tcfg)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=HYMBA_SEQ,
+                                    global_batch=HYMBA_TRAIN_BATCH))
+    first = to_device(TokenPipeline(data.cfg).next(), model.device)
+    p_loss, p_gn = _loss_and_gnorm(model, state.params, first, "reference")
+    del first
+    torch.cuda.reset_peak_memory_stats()
+    fastattn_fwd.launches = 0
+    losses, gnorms, step_s = [], [], []
+    for i in range(HYMBA_TRAIN_STEPS):
+        batch = to_device(data.next(), model.device)
+        dt, (state, metrics) = _wall_s(lambda: step_fn(state, batch))
+        step_s.append(dt)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        log(f"[hymba] (d) step {i} loss {losses[-1]:.4f} gnorm "
+            f"{gnorms[-1]:.4f} {dt * 1e3:.1f} ms")
+    launches = fastattn_fwd.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"(d) non-finite loss or grad norm: {losses}, "
+                             f"{gnorms}")
+    loss_rel = abs(losses[0] - p_loss) / abs(p_loss)
+    gn_rel = abs(gnorms[0] - p_gn) / abs(p_gn)
+    log(f"[hymba] (d) step 0 vs the plain path on its batch: loss "
+        f"{losses[0]:.5f} vs {p_loss:.5f} (rel {loss_rel:.2e}, tol "
+        f"{LOSS_RTOL}), grad norm {gnorms[0]:.5f} vs {p_gn:.5f} (rel "
+        f"{gn_rel:.2e}, tol {GNORM_RTOL}); peak memory {peak:.2f} GB")
+    if not (loss_rel <= LOSS_RTOL and gn_rel <= GNORM_RTOL):
+        raise AssertionError("(d) kernel and plain training paths disagree")
+    del state, step_fn
+    return {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
+            "plain_loss_gnorm": [p_loss, p_gn], "loss_rel": loss_rel,
+            "gnorm_rel": gn_rel, "launches": launches, "peak_mem_gb": peak,
+            "tok_s": HYMBA_TRAIN_BATCH * HYMBA_SEQ / statistics.median(
+                step_s[1:])}
+
+
+def phase_hymba() -> dict:
+    """Phase 9: hymba-1.5b (32 blocks of parallel attention and Mamba
+    heads, 25/5 heads of 64, window 1024 on 29 layers) at full width and
+    depth, bf16, random weights from a seeded CUDA generator, after every
+    earlier model is freed.  The gate (``hymba_gate``) comes from the
+    plain path's own change under one ulp on 1% of block 0's inputs.
+    (a) LM.apply on 8 x 2048 through fastattn_fwd, exactly 32 launches,
+    logits held to the plain path; (b) generate 8 x (128 + 32) through
+    flash_decode, exactly 32 x 159 launches, decode logits at
+    DENSE_CHECK_POS held to (a)'s LM.apply, the generated positions'
+    logits and greedy tokens to the plain path's LM.apply and
+    decode_step teacher-forced; (c) 1 x (1100 + 8), decode past the
+    window, exactly 32 x 1107 launches, logits from position 1024 held to
+    LM.apply's; (e) a decode step and LM.apply profiled, the Mamba scan's
+    share; (d) 3 AdamW steps at 2 x 2048 (remat), finite, step 0 held to
+    the plain path, exactly 32 x 2 x 3 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis.flops import param_count
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    left = torch.cuda.memory_allocated() / 1e9
+    model, params = build_full(HYMBA_ARCH)
+    cfg = model.cfg
+    layers = cfg.num_layers
+    n_real = sum(t.numel() for t in _leaves(params))
+    log(f"[hymba] {cfg.name}: {layers} layers ({cfg.blocks().count('hymba')} "
+        f"global), {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, window {cfg.window_size}, ssm state "
+        f"{cfg.ssm_state_size}; parameters {n_real:,} in the tensors, "
+        f"{param_count(cfg):,} by the reference's formula "
+        f"(analysis/flops.param_count); {left:.2f} GB allocated before the "
+        f"build, {torch.cuda.memory_allocated() / 1e9:.2f} GB after")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(HYMBA_BATCH, HYMBA_SEQ)).astype(np.int32)
+    ).cuda()
+    t_parts = {"build": time.perf_counter()}
+    ref, change = hymba_sensitivity(model, params, toks)
+    t_parts["gate"] = time.perf_counter()
+    gate, rule = hymba_gate(change)
+    log(f"[hymba] gate {gate:.4g} ({rule}): the plain path's logits move by "
+        f"{change:.4g} of their scale with one ulp on {BLOCK_FLIP:.0%} of "
+        f"block 0's inputs (LOGIT_TOL {LOGIT_TOL} where that is at most "
+        "half of it, else max(LOGIT_TOL, twice it))")
+    applied = hymba_apply(model, params, toks, ref, gate, rule)
+    t_parts["a"] = time.perf_counter()
+    del ref
+    apply_logits = applied.pop("logits")[:, :DENSE_PROMPT].float()
+    plain_model = build_model(dataclasses.replace(
+        cfg, attention_impl="reference"), device=model.device)
+    gen = hymba_generate(model, plain_model, params,
+                         toks[:, :DENSE_PROMPT].cpu().numpy(), apply_logits,
+                         gate)
+    del apply_logits
+    t_parts["b"] = time.perf_counter()
+    long_prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=HYMBA_LONG_PROMPT).astype(np.int32)
+    long_run = hymba_long(model, params, long_prompt, gate)
+    t_parts["c"] = time.perf_counter()
+    profile = hymba_profile(model, params, toks, gen.pop("cache"),
+                            DENSE_PROMPT + DENSE_NEW - 1)
+    t_parts["e"] = time.perf_counter()
+    launches = {"fastattn_fwd": {"apply": applied["launches"]},
+                "flash_decode": {"generate": gen["launches"],
+                                 "long": long_run["launches"]}}
+    exact_launches("[hymba] (a), (b), (c)", {
+        "fastattn_fwd": applied["launches"], "flash_decode": gen["launches"],
+        "flash_decode (c)": long_run["launches"]}, {
+        "fastattn_fwd": layers,
+        "flash_decode": layers * (DENSE_PROMPT + DENSE_NEW - 1),
+        "flash_decode (c)": layers * long_run["steps"]})
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, plain_model, params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = hymba_train(cfg)
+    t_parts["d"] = time.perf_counter()
+    launches["fastattn_fwd"]["train"] = train["launches"]
+    exact_launches("[hymba] (d)", {"fastattn_fwd": train["launches"]},
+                   {"fastattn_fwd": layers * 2 * HYMBA_TRAIN_STEPS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "params_real": n_real,
+           "params_formula": param_count(cfg), "gate": gate, "rule":
+           applied["rule"], "sensitivity": change, "launches": launches,
+           "apply": applied, "generate": gen, "long": long_run,
+           "profile": profile, "train": train, "serve_peak_mem_gb":
+           serve_peak, "allocated_before_gb": left,
+           "seconds": time.perf_counter() - t0, "card": _card()}
+    prev, out["part_seconds"] = t0, {}
+    for part, t in t_parts.items():
+        out["part_seconds"][part], prev = t - prev, t
+    log(f"[hymba] {out['card']}: phase 9 passed in {out['seconds']:.1f}s")
+    log(f"[hymba] {json.dumps(out)}")
+    return out
+
+
+def add_hymba_entries(kernels: list, cases: dict, run: dict) -> None:
+    """``fastattn_fwd``'s and ``flash_decode``'s entries of the kernels
+    line also at hymba-1.5b's shape (``hymba_*``: phase 2's case at its
+    main path's shape, ``cases[(name, "main")]``), fastattn_fwd's without
+    the window (``hymba_global_*``), flash_decode's with the window
+    narrower than the cache (``hymba_window_*``), and each one's launches
+    in phase 9 (``hymba_launches``, by run)."""
+    keys = ("err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
+    extra = {"fastattn_fwd": "global", "flash_decode": "window"}
+    for k in kernels:
+        name = k["name"]
+        if name not in extra:
+            continue
+        for variant, pre in (("main", "hymba"),
+                             (extra[name], f"hymba_{extra[name]}")):
+            res = cases[(name, variant)]
+            k.update({f"{pre}_{'max_abs_err' if x == 'err' else x}":
+                      res.get(x) for x in keys})
+        k["hymba_launches"] = run["launches"][name]
+
+
 def add_moe_entries(kernels: list, cases: dict, run: dict) -> None:
     """Each attention kernel's entry of the kernels line also at GQA
     group 8 (``g8_*``): phase 2's case at qwen3-moe's shape
@@ -4691,14 +5277,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        log(f"[time] {phase} done at {time.perf_counter() - t0:.1f}s")
     phase_card_and_build()
+    done("1")
     kern = phase_kernels()
+    done("2")
     model, params = build_llama()
     served = phase_serving(model, params)
+    done("3")
     dense = phase_dense(model, params)
+    done("3b")
     long_step = phase_long_decode(model, params, dense["kv_rms"])
+    done("3c")
     features = phase_features(model, params)
+    done("3d")
     tp = phase_tp(model, params)
+    done("3e")
     del model, params
     gc.collect()                  # phase 3's model, pools and engines
     torch.cuda.ipc_collect()      # what phase 3e's ranks held by IPC
@@ -4706,21 +5302,31 @@ def main() -> int:
     log(f"[train] {torch.cuda.memory_allocated() / 1e9:.2f} GB still "
         "allocated after serving")
     trained = phase_training()
+    done("4")
     gc.collect()                  # phase 4's model and optimizer state
     torch.cuda.empty_cache()
     dist_run = phase_dist_training(trained)
+    done("4b")
     del trained["reference"]      # phase 4's host copies
     gc.collect()
     phase_offload()
+    done("5")
     gc.collect()                  # phase 5's host engine and caches
     torch.cuda.empty_cache()
     xlstm = phase_xlstm()
+    done("6")
     gc.collect()                  # phase 6's model and optimizer state
     torch.cuda.empty_cache()
     head_dims = phase_head_dims()
+    done("7")
     gc.collect()                  # phase 7's models
     torch.cuda.empty_cache()
     moe = phase_moe()
+    done("8")
+    gc.collect()                  # phase 8's model
+    torch.cuda.empty_cache()
+    hymba = phase_hymba()
+    done("9")
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
                 "mlstm_chunkwise": xlstm["launches"]}
@@ -4780,6 +5386,7 @@ def main() -> int:
     add_head_dim_entries(line["kernels"], kern["head_dims"], head_dims)
     add_context_entries(line["kernels"], kern["fastattn_context"], dist_run)
     add_moe_entries(line["kernels"], kern["gqa8"], moe)
+    add_hymba_entries(line["kernels"], kern["hymba"], hymba)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -5,10 +5,9 @@ A copy of the JAX package's ``ModelConfig``, ``ParallelConfig``,
 ``ShapeConfig``/``SHAPES``, ``TrainConfig``, ``ServeConfig``,
 ``RunConfig``, registry, ``reduce_for_smoke`` and ``describe`` (the port
 imports nothing of that package), field for field, so one set of keyword
-arguments configures both.  Fields of subsystems not ported yet (the
-mamba SSM, M-RoPE, the encoder-decoder) are kept for that reason; the
-model, the trainer and the engine refuse the settings that would need
-them.  Configs are plain frozen dataclasses; ``repro_torch.configs``
+arguments configures both.  Fields of subsystems not ported yet (M-RoPE,
+the encoder-decoder) are kept for that reason; the model, the trainer
+and the engine refuse the settings that would need them.  Configs are plain frozen dataclasses; ``repro_torch.configs``
 registers the architectures the port runs.
 """
 from __future__ import annotations
@@ -31,8 +30,7 @@ from typing import Callable, Optional, Sequence
 #   slstm       -- xLSTM scalar-LSTM block
 #   hymba       -- parallel attention + mamba heads sharing one residual
 #   hymba_local -- hymba with sliding-window attention heads
-# (the port serves attn, attn_local, moe, mlstm and slstm;
-# models/blocks.py refuses hymba)
+# (the port serves all seven)
 
 
 @dataclass(frozen=True)

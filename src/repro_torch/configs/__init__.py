@@ -6,6 +6,7 @@ package's ``repro.configs`` does (copies of the same numbers).
 from repro_torch.configs import (  # noqa: F401
     gemma2_2b,
     grok1_314b,
+    hymba_1p5b,
     paper_models,
     phi3_mini_3p8b,
     qwen3_moe_30b_a3b,

@@ -1,6 +1,10 @@
-"""Recurrent layers: the xLSTM mLSTM and sLSTM blocks.
+"""Recurrent layers: Mamba (S6, hymba's parallel head) and the xLSTM
+mLSTM and sLSTM blocks.
 
-A copy of the xLSTM half of the JAX package's ``layers/ssm.py``.  The
+A copy of the JAX package's ``layers/ssm.py``.  Mamba's selective scan is
+plain PyTorch, as the JAX package computes it outside any kernel: within
+a chunk a log-depth (Hillis-Steele) scan with JAX's combine over the
+per-step (decay, drive) pairs, chunks in order carrying the state.  The
 mLSTM trains and prefills through the chunkwise kernel
 (``kernels/mlstm``: the CUDA ``mlstm_chunkwise_fwd`` on the card, the plain
 version on the CPU) and decodes through the plain recurrent cell; the
@@ -8,7 +12,7 @@ sLSTM runs a Python loop over time steps where the JAX package runs
 ``lax.scan``.  The ``*_logical`` sharding trees are the JAX package's;
 the trainer shards these blocks over the data axis only (their
 ``channels -> model`` layout is not ported: ``models/lm.py`` refuses a
-model axis above 1).  Mamba (hymba's block) is not ported yet.
+model axis above 1).
 """
 from __future__ import annotations
 
@@ -21,6 +25,152 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.mlstm import ref as mref
 from repro_torch.kernels.mlstm.ops import mlstm_chunkwise
 from repro_torch.layers.common import dense, dense_init
+
+
+# ===========================================================================
+# Mamba (S6) -- used by the hymba parallel-head block
+# ===========================================================================
+
+class MambaState(NamedTuple):
+    h: torch.Tensor          # (B, DI, N) ssm state, float32
+    conv: torch.Tensor       # (B, K-1, DI) rolling conv inputs
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig,
+               dtype: torch.dtype) -> dict:
+    """The JAX package's ``init_mamba``: its distributions from ``gen``,
+    its deterministic leaves exactly (``a_log`` stays float32)."""
+    d, di = cfg.d_model, cfg.q_dim          # channels mirror attention heads
+    n, kconv = cfg.ssm_state_size, cfg.conv_kernel
+    dev = gen.device
+    w_in = dense_init(gen, d, 2 * di, dtype)
+    conv_w = (torch.randn((kconv, di), generator=gen, device=dev,
+                          dtype=torch.float32) * kconv ** -0.5).to(dtype)
+    w_bc = dense_init(gen, di, 2 * n, dtype)
+    w_dt = dense_init(gen, di, di, dtype, scale=di ** -0.5)
+    w_out = dense_init(gen, di, d, dtype, scale=di ** -0.5)
+    # log(1..N) rounded once from float64: the same bits on every device
+    # (XLA's float32 log on the CPU is one ulp off at 7)
+    log_n = torch.log(torch.arange(1, n + 1, dtype=torch.float64)).float()
+    return {
+        "w_in": w_in,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "w_bc": w_bc,
+        "w_dt": w_dt,
+        "dt_bias": torch.full((di,), -4.0, dtype=dtype, device=dev),
+        "a_log": log_n.to(dev).expand(di, n).clone(),
+        "d_skip": torch.ones((di,), dtype=dtype, device=dev),
+        "w_out": w_out,
+    }
+
+
+def mamba_logical(cfg: ModelConfig) -> dict:
+    d, di, n, kconv = (cfg.d_model, cfg.q_dim, cfg.ssm_state_size,
+                       cfg.conv_kernel)
+    return {
+        "w_in": (("d_model", "channels"), (d, 2 * di)),
+        "conv_w": ((None, "channels"), (kconv, di)),
+        "conv_b": (("channels",), (di,)),
+        "w_bc": (("channels", None), (di, 2 * n)),
+        "w_dt": (("channels", None), (di, di)),
+        "dt_bias": (("channels",), (di,)),
+        "a_log": (("channels", None), (di, n)),
+        "d_skip": (("channels",), (di,)),
+        "w_out": (("channels", "d_model"), (di, d)),
+    }
+
+
+def _scan(decay: torch.Tensor, drive: torch.Tensor):
+    """Inclusive scan along dim 1 of the pairs (decay, drive) under JAX's
+    combine ``(a1, b1), (a2, b2) -> (a1 a2, b1 a2 + b2)`` (element 1 the
+    earlier): ceil(log2 L) rounds, each combining every position with the
+    one ``d`` before it (Hillis-Steele)."""
+    length, d = decay.shape[1], 1
+    while d < length:
+        a_prev, b_prev = decay[:, :-d], drive[:, :-d]
+        a_cur, b_cur = decay[:, d:], drive[:, d:]
+        drive = torch.cat([drive[:, :d], b_prev * a_cur + b_cur], dim=1)
+        decay = torch.cat([decay[:, :d], a_prev * a_cur], dim=1)
+        d *= 2
+    return decay, drive
+
+
+def mamba_scan_chunk(h0: torch.Tensor, xc: torch.Tensor, dtc: torch.Tensor,
+                     bc: torch.Tensor, cc: torch.Tensor, a: torch.Tensor):
+    """The selective scan within one chunk, float32.
+
+    xc, dtc: (B, L, DI); bc, cc: (B, L, N); a: (DI, N); h0: (B, DI, N).
+    h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t;  y_t = h_t C_t.  As JAX: the
+    pairs scanned from zero, then ``h = dec * h0 + drv``.  Returns
+    (y (B, L, DI), h at the chunk's last step)."""
+    decay = torch.exp(dtc[..., None] * a)                   # (B, L, DI, N)
+    drive = (dtc * xc)[..., None] * bc[:, :, None, :]       # (B, L, DI, N)
+    dec, drv = _scan(decay, drive)
+    h = dec * h0[:, None] + drv
+    y = torch.einsum("bldn,bln->bld", h, cc)
+    return y, h[:, -1]
+
+
+def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                chunk: int = 256, state: Optional[MambaState] = None,
+                decode: bool = False):
+    """x: (B, S, D) -> (B, S, D), and with ``decode`` also the new state.
+
+    In-projection, a causal depthwise conv over [history | x] in x's
+    dtype (the taps summed in order, as JAX), dt / B / C projections, the
+    float32 selective scan -- one chunk when ``decode`` or S == 1, else
+    chunks of ``chunk`` steps with S zero-padded to a multiple (a padded
+    step has decay 1 and drive 0) -- the skip, the SiLU gate and the
+    out-projection."""
+    b, s, _ = x.shape
+    di, n = cfg.q_dim, cfg.ssm_state_size
+    kconv = cfg.conv_kernel
+    xz = dense(x, params["w_in"])
+    xin, z = torch.split(xz, di, dim=-1)                    # (B, S, DI)
+
+    if state is None:
+        conv_hist = torch.zeros((b, kconv - 1, di), dtype=xin.dtype,
+                                device=x.device)
+        h0 = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    else:
+        conv_hist, h0 = state.conv, state.h
+
+    xin_ext = torch.cat([conv_hist, xin], dim=1)
+    conv_w = params["conv_w"].to(xin.dtype)                 # (K, DI)
+    xc = sum(xin_ext[:, i:i + s] * conv_w[i] for i in range(kconv))
+    xc = F.silu(xc + params["conv_b"].to(xin.dtype))
+    new_hist = xin_ext[:, s:]
+
+    dt = F.softplus(dense(xc, params["w_dt"])
+                    + params["dt_bias"].to(xc.dtype))
+    bc_cc = dense(xc, params["w_bc"]).float()
+    bmat, cmat = torch.split(bc_cc, n, dim=-1)
+    a = -torch.exp(params["a_log"].float())                 # (DI, N)
+    xcf, dtf = xc.float(), dt.float()
+
+    if decode or s == 1:
+        y, h = mamba_scan_chunk(h0, xcf, dtf, bmat, cmat, a)
+    else:
+        chunk = min(chunk, s)
+        pad = (-s) % chunk
+        if pad:
+            xcf, dtf, bmat, cmat = (F.pad(t, (0, 0, 0, pad))
+                                    for t in (xcf, dtf, bmat, cmat))
+        h, ys = h0, []
+        for j in range(0, s + pad, chunk):
+            cut = slice(j, j + chunk)
+            y, h = mamba_scan_chunk(h, xcf[:, cut], dtf[:, cut],
+                                    bmat[:, cut], cmat[:, cut], a)
+            ys.append(y)
+        y = torch.cat(ys, dim=1)[:, :s]
+
+    y = y.to(x.dtype) + xc * params["d_skip"].to(x.dtype)
+    y = y * F.silu(z)
+    out = dense(y, params["w_out"])
+    if decode:
+        return out, MambaState(h=h, conv=new_hist)
+    return out
 
 
 # ===========================================================================

@@ -1,10 +1,9 @@
 """Per-layer blocks: attention (kinds ``attn`` and ``attn_local``),
-attention with a mixture-of-experts FFN (``moe``) and the xLSTM
+attention with a mixture-of-experts FFN (``moe``), hymba's parallel
+attention and Mamba heads (``hymba``, ``hymba_local``) and the xLSTM
 recurrent kinds ``mlstm`` and ``slstm``; the training / full forward,
 the dense-cache decode and (attention-cache kinds only, as in the JAX
 package) the paged serving paths.
-
-``hymba`` blocks are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,7 +20,8 @@ from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 
 # the kinds whose cache is a KV cache: they serve paged
 ATTN_KINDS = ("attn", "attn_local", "moe")
-PORTED_KINDS = ATTN_KINDS + ("mlstm", "slstm")
+HYMBA_KINDS = ("hymba", "hymba_local")
+PORTED_KINDS = ATTN_KINDS + HYMBA_KINDS + ("mlstm", "slstm")
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -66,6 +66,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
     if cfg.post_norm:
         p["ln1_post"] = init_norm(d, cfg.norm_type, dtype, dev)
         p["ln2_post"] = init_norm(d, cfg.norm_type, dtype, dev)
+    if kind in HYMBA_KINDS:
+        p["mamba"] = ssm_mod.init_mamba(gen, cfg, dtype)
+        p["norm_attn"] = init_norm(d, cfg.norm_type, dtype, dev)
+        p["norm_mamba"] = init_norm(d, cfg.norm_type, dtype, dev)
     return p
 
 
@@ -89,6 +93,10 @@ def block_logical(cfg: ModelConfig, kind: str) -> dict:
     if cfg.post_norm:
         p["ln1_post"] = norm_logical(d, cfg.norm_type)
         p["ln2_post"] = norm_logical(d, cfg.norm_type)
+    if kind in HYMBA_KINDS:
+        p["mamba"] = ssm_mod.mamba_logical(cfg)
+        p["norm_attn"] = norm_logical(d, cfg.norm_type)
+        p["norm_mamba"] = norm_logical(d, cfg.norm_type)
     return p
 
 
@@ -111,13 +119,22 @@ def block_cache_logical(cfg: ModelConfig, kind: str, batch: int,
     # attn_mod.KV_CACHE_LAYOUT == "bshd"
     kvshape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     axes = ("batch", "kv_seq", "heads", None)
-    return attn_mod.KVCache(k=(axes, kvshape), v=(axes, kvshape))
+    kv = attn_mod.KVCache(k=(axes, kvshape), v=(axes, kvshape))
+    if kind in HYMBA_KINDS:
+        di, n = cfg.q_dim, cfg.ssm_state_size
+        return {"kv": kv, "mamba": ssm_mod.MambaState(
+            h=(("batch", "channels", None), (batch, di, n)),
+            conv=(("batch", None, "channels"),
+                  (batch, cfg.conv_kernel - 1, di)))}
+    return kv
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      dtype: torch.dtype, device: torch.device):
     """A block's dense decode cache: a KVCache for attention kinds, the
-    float32 recurrent state for mlstm / slstm (``max_seq`` unused)."""
+    float32 recurrent state for mlstm / slstm (``max_seq`` unused), and
+    ``{"kv": KVCache, "mamba": MambaState}`` for hymba kinds (the Mamba
+    state's h float32, its conv history in ``dtype``)."""
     check_kind(kind)
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "mlstm":
@@ -136,7 +153,14 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
             n=torch.zeros((batch, di), **f32),
             h=torch.zeros((batch, di), **f32),
             m=torch.full((batch, di), -1e30, **f32))
-    return attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, device)
+    kv = attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, device)
+    if kind in HYMBA_KINDS:
+        di = cfg.q_dim
+        return {"kv": kv, "mamba": ssm_mod.MambaState(
+            h=torch.zeros((batch, di, cfg.ssm_state_size), **f32),
+            conv=torch.zeros((batch, cfg.conv_kernel - 1, di), dtype=dtype,
+                             device=device))}
+    return kv
 
 
 def init_block_pages(cfg: ModelConfig, kind: str, num_pages: int,
@@ -163,6 +187,19 @@ def _attn_block_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
     return x + f
 
 
+def _hymba_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
+                m: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """hymba's fusion of its attention and Mamba heads (each normed, then
+    averaged) onto the residual, then the MLP half; shared by the
+    training and decode paths."""
+    fused = 0.5 * (
+        apply_norm(params["norm_attn"], a, cfg.norm_type, cfg.norm_eps)
+        + apply_norm(params["norm_mamba"], m, cfg.norm_type, cfg.norm_eps))
+    x = x + fused
+    h2 = apply_norm(params["ln2"], x, cfg.norm_type, cfg.norm_eps)
+    return x + mlp_mod.apply_mlp(params["mlp"], h2, cfg.mlp_type)
+
+
 def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 *, positions: torch.Tensor,
                 impl: Optional[str] = None) -> torch.Tensor:
@@ -175,6 +212,9 @@ def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         return x + ssm_mod.apply_slstm(params["cell"], h, cfg)
     a = attn_mod.apply_attention(params["attn"], h, cfg, positions=positions,
                                  window=_window(cfg, kind), impl=impl)
+    if kind in HYMBA_KINDS:
+        m = ssm_mod.apply_mamba(params["mamba"], h, cfg)
+        return _hymba_tail(params, x, a, m, cfg)
     return _attn_block_tail(params, x, a, cfg, kind)
 
 
@@ -227,6 +267,14 @@ def apply_block_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
         y, cache = ssm_mod.apply_slstm(params["cell"], h, cfg, state=cache,
                                        decode=True)
         return x + y, cache
+    if kind in HYMBA_KINDS:
+        a, kv = attn_mod.apply_attention_decode(
+            params["attn"], h, cfg, cache["kv"], pos=pos,
+            window=_window(cfg, kind), impl=impl)
+        m, mstate = ssm_mod.apply_mamba(params["mamba"], h, cfg,
+                                        state=cache["mamba"], decode=True)
+        return _hymba_tail(params, x, a, m, cfg), {"kv": kv,
+                                                   "mamba": mstate}
     a, cache = attn_mod.apply_attention_decode(
         params["attn"], h, cfg, cache, pos=pos, window=_window(cfg, kind),
         impl=impl)

@@ -1,6 +1,7 @@
 """Decoder-only language model: training forward, dense-cache decode and
-paged serving (attention and mixture-of-experts models; the xLSTM blocks
-decode from their recurrent state and have no paged path).
+paged serving (attention and mixture-of-experts models; the xLSTM and
+hymba blocks decode from their recurrent state -- hymba's beside its KV
+cache -- and have no paged path).
 
 Layers are a plain Python list (the JAX package stacked repeating units
 and ran them under ``lax.scan``; eager PyTorch needs neither).  Parameters
@@ -41,20 +42,22 @@ from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import (axis_rules, current_mesh,
                                         current_rules, param_sharding_tree)
 
-RECURRENT_KINDS = ("mlstm", "slstm")
+RECURRENT_KINDS = ("mlstm", "slstm", "hymba", "hymba_local")
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """The model axis shards attention blocks only: the mLSTM / sLSTM
-    cells' ``channels -> model`` layout and the experts' ``expert ->
-    model`` (expert parallelism) are not ported."""
+    """The model axis shards attention blocks only: the recurrent cells'
+    ``channels -> model`` layout (mLSTM / sLSTM, hymba's Mamba heads) and
+    the experts' ``expert -> model`` (expert parallelism) are not
+    ported."""
     if model <= 1:
         return
     kinds = set(cfg.blocks())
     if kinds & set(RECURRENT_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: a model axis of {model} over mlstm/slstm blocks "
-            "(their channels -> model layout) is not ported; use data "
+            f"{cfg.name}: a model axis of {model} over recurrent blocks "
+            f"({', '.join(sorted(kinds & set(RECURRENT_KINDS)))}: their "
+            "channels -> model layout) is not ported; use data "
             "parallelism")
     if "moe" in kinds:
         raise NotImplementedError(
@@ -207,7 +210,8 @@ class LM:
     def init_cache(self, batch: int, max_seq: int) -> List:
         """Per-layer dense decode caches on the model's device: KV caches
         (``layers/attention.KV_CACHE_LAYOUT``) for attention blocks, the
-        float32 recurrent state for mlstm / slstm blocks."""
+        float32 recurrent state for mlstm / slstm blocks, and for hymba
+        blocks ``{"kv": KV cache, "mamba": MambaState}``."""
         dtype = torch_dtype(self.cfg.dtype)
         return [B.init_block_cache(self.cfg, kind, batch, max_seq, dtype,
                                    self.device)
@@ -217,7 +221,8 @@ class LM:
         """Per-layer KV page pools (no batch dim -- the serving page
         manager owns the page table that carves the pools into
         per-sequence caches).  Raises NotImplementedError for models with
-        recurrent (mlstm / slstm) blocks, as the JAX package does.  Under
+        recurrent (mlstm / slstm / hymba) blocks, as the JAX package
+        does.  Under
         an active tensor-parallel context each pool is this rank's share,
         (Hkv/g, P, page_size/s, D) (``sharding/tp.local_pool_shape``)."""
         dtype = torch_dtype(self.cfg.dtype)

@@ -1045,3 +1045,272 @@ def test_phase8_serves_qwen3_moe_last(cs):
     assert main.index("phase_head_dims()") < main.index("phase_moe()") \
         < main.index("print(json.dumps(line))")
     assert "add_moe_entries" in main
+
+
+def test_phase2_holds_both_kernels_at_hymba_shapes(cs):
+    """Phase 2's cases at hymba-1.5b's 25/5 heads of 64 (5 of the 8 rows
+    of the GQA instances) and its window of 1024: fastattn_fwd at (a)'s
+    8 x 2048 with and without the window and a ragged float32 case with
+    the window; flash_decode at (b)'s B=8, kv_len 159 in both layouts,
+    and at B=1 on 4096 keys with the window narrower than the cache."""
+    from repro_torch.config import get_model_config
+    cfg = get_model_config(cs.HYMBA_ARCH)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.window_size) == (25, 5, 64, 1024)
+    fwd, dense = dict(cs.FWD_CASES), dict(cs.DENSE_DECODE_CASES)
+    hy = [kw for kw in list(fwd.values()) + list(dense.values())
+          if (kw["hq"], kw["hkv"], kw["d"]) == (25, 5, 64)]
+    assert len(hy) == 6
+    main = fwd[cs.hymba_case("fastattn_fwd")]
+    assert (main["b"], main["sq"], main["skv"], main["window"],
+            main["dtype"]) == (8, 2048, 2048, 1024, "bfloat16")
+    glob = fwd[cs.hymba_case("fastattn_fwd", "global")]
+    assert glob.get("window") is None and glob["sq"] == 2048
+    ragged = [kw for kw in hy if kw["dtype"] == "float32"]
+    assert len(ragged) == 1 and ragged[0]["window"] == 1024
+    assert ragged[0]["q_offset"] > 0 and ragged[0]["kv_valid"] < \
+        ragged[0]["skv"]
+    dec = dense[cs.hymba_case("flash_decode")]
+    assert (dec["b"], dec["s"], dec["lens"], dec["layout"]) == (
+        8, 161, [159] * 8, "bshd")
+    assert sorted(kw["layout"] for kw in hy if kw.get("lens") == [159] * 8) \
+        == ["bhsd", "bshd"]
+    win = dense[cs.hymba_case("flash_decode", "window")]
+    assert (win["b"], win["s"], win["window"]) == (1, 4096, 1024)
+    assert win["window"] < win["s"]
+
+
+def test_hymba_gate_follows_the_plain_paths_own_change(cs, monkeypatch,
+                                                       hymba_model):
+    """LOGIT_TOL while one ulp moves the plain logits by at most half of
+    it, else gate G's max(LOGIT_TOL, twice the change); the change comes
+    from ``hymba_sensitivity``, here under faked perturbations of block
+    0's input below and above half of LOGIT_TOL."""
+    import torch
+    assert cs.hymba_gate(0.0) == (cs.LOGIT_TOL, "LOGIT_TOL")
+    assert cs.hymba_gate(cs.LOGIT_TOL / 2) == (cs.LOGIT_TOL, "LOGIT_TOL")
+    assert cs.hymba_gate(0.03) == (0.06, "G")
+    assert cs.hymba_gate(0.2) == (0.4, "G")
+    model, params = hymba_model
+    toks = torch.arange(2 * 40).reshape(2, 40) % model.cfg.vocab_size
+    for fake, rule in ((lambda x: x, "LOGIT_TOL"),
+                       (lambda x: x * 1.001, "LOGIT_TOL"),
+                       (lambda x: -x, "G")):
+        monkeypatch.setattr(cs, "_ulp_noise", lambda seed, frac: fake)
+        ref, change = cs.hymba_sensitivity(model, params, toks)
+        assert cs.hymba_gate(change)[1] == rule, change
+    assert torch.equal(ref, model.apply(params, toks, impl="reference"))
+
+
+def test_exact_launches_rejects_faked_counts(cs):
+    want = {"fastattn_fwd": 32, "flash_decode": 32 * 159}
+    cs.exact_launches("ok", dict(want), want)
+    for bad in ({"fastattn_fwd": 31, "flash_decode": 32 * 159},
+                {"fastattn_fwd": 32, "flash_decode": 32 * 159 + 1},
+                {"fastattn_fwd": 32}):
+        with pytest.raises(AssertionError, match="launched"):
+            cs.exact_launches("faked", bad, want)
+
+
+@pytest.fixture(scope="module")
+def hymba_model():
+    """Reduced hymba-1.5b (2 layers: hymba, hymba_local; window 32) in
+    bf16 on the CPU, with the seeded draw of ``LM.init``."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    from repro_torch.models import build_model
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
+        "hymba-1.5b")), dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg, "cpu")
+    yield model, model.init(model.generator(0))
+    torch.set_num_threads(n)
+
+
+def test_phase9_helpers_on_a_reduced_hymba_model(cs, hymba_model,
+                                                 monkeypatch):
+    """Phase 9's (a), (b) and (c) on the CPU, where both paths are plain
+    and launch nothing: ``perturbed_first_block`` moves about 1% of the
+    first block's input of each forward and nothing else; (a) holds the
+    logits and falls back to the block check only under rule G, which a
+    faked kernel path fails; (b)'s decode logits hold to LM.apply's and
+    to the plain path's LM.apply and decode_step teacher-forced on its
+    tokens; (c) holds decode past the window."""
+    import numpy as np
+    import torch
+    from repro_torch.models import blocks
+    model, params = hymba_model
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, size=(2, cs.DENSE_PROMPT)).astype(np.int32))
+    seen = []
+    apply = blocks.apply_block
+
+    def spy(p, x, *a, **kw):
+        seen.append(x.clone())
+        return apply(p, x, *a, **kw)
+    monkeypatch.setattr(blocks, "apply_block", spy)
+    with torch.no_grad():
+        model.apply(params, toks)
+        clean = list(seen)
+        seen.clear()
+        with cs.perturbed_first_block(model):
+            model.apply(params, toks)
+            model.apply(params, toks)
+    assert blocks.apply_block is spy
+    moved = (seen[0] != clean[0]).float().mean().item()
+    assert 0.002 < moved < 0.03
+    assert len(seen) == 2 * model.cfg.num_layers
+    assert not torch.equal(seen[2], clean[0])          # the second forward
+    monkeypatch.setattr(blocks, "apply_block", apply)
+
+    ref, change = cs.hymba_sensitivity(model, params, toks)
+    gate, rule = cs.hymba_gate(change)
+    res = cs.hymba_apply(model, params, toks, ref, gate, rule)
+    assert res["launches"] == 0 and res["rule"] == rule
+    # the fallback: a miss under G holds each block instead
+    compare = cs._compare_logits
+
+    def missing(*a, **kw):
+        raise AssertionError("faked miss")
+    monkeypatch.setattr(cs, "_compare_logits", missing)
+    with pytest.raises(AssertionError, match="faked miss"):
+        cs.hymba_apply(model, params, toks, ref, gate, "LOGIT_TOL")
+    res = cs.hymba_apply(model, params, toks, ref, gate, "G")
+    assert res["rule"] == "blocks"
+    assert len(res["blocks"]) == model.cfg.num_layers
+    attn = blocks.attn_mod.apply_attention
+
+    def off(*a, impl=None, **kw):
+        out = attn(*a, impl=impl, **kw)
+        return out if impl == "reference" else -out
+    monkeypatch.setattr(blocks.attn_mod, "apply_attention", off)
+    with pytest.raises(AssertionError, match="max_abs_err"):
+        cs.hymba_apply(model, params, toks, ref, gate, "G")
+    monkeypatch.setattr(blocks.attn_mod, "apply_attention", attn)
+    monkeypatch.setattr(cs, "_compare_logits", compare)
+
+    with torch.no_grad():
+        apply_logits = model.apply(params, toks).float()
+    gen = cs.hymba_generate(model, model, params, toks.numpy(),
+                            apply_logits, gate)
+    assert gen["launches"] == 0
+    assert gen["plain_launches"] == {"fastattn_fwd": 0, "flash_decode": 0}
+    assert gen["cache"][0]["mamba"].h.dtype == torch.float32
+    monkeypatch.setattr(cs, "HYMBA_LONG_FROM", 40)
+    long_run = cs.hymba_long(model, params, toks[0, :50].numpy(), gate)
+    assert long_run["steps"] == 50 + cs.HYMBA_LONG_NEW - 1
+    assert long_run["launches"] == 0
+
+
+class _Launching:
+    """A plain model whose ``method`` also bumps ``kernel``'s launch
+    count: a plain run that reached a kernel."""
+
+    def __init__(self, model, method, kernel):
+        self.model, self.method, self.kernel = model, method, kernel
+
+    def __getattr__(self, name):
+        fn = getattr(self.model, name)
+        if name != self.method:
+            return fn
+
+        def launching(*a, **kw):
+            self.kernel.launches += 1
+            return fn(*a, **kw)
+        return launching
+
+
+@pytest.mark.parametrize("method, kernel", [("apply", "fastattn_fwd"),
+                                            ("decode_step", "flash_decode")])
+def test_hymba_generate_fails_a_plain_run_that_launches(cs, hymba_model,
+                                                        monkeypatch, method,
+                                                        kernel):
+    """(b)'s plain runs -- LM.apply on the generated tokens and the
+    decode_step teacher-forced on them -- must launch neither kernel: a
+    plain model whose apply launches fastattn_fwd, or whose decode_step
+    launches flash_decode, fails the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    model, params = hymba_model
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "DENSE_NEW", 4)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, size=(2, cs.DENSE_PROMPT)).astype(np.int32))
+    with torch.no_grad():
+        apply_logits = model.apply(params, toks).float()
+    plain = _Launching(model, method, {"fastattn_fwd": fastattn_fwd,
+                                       "flash_decode": flash_decode}[kernel])
+    with pytest.raises(AssertionError, match=f"{kernel} launched [1-9]"):
+        cs.hymba_generate(model, plain, params, toks.numpy(), apply_logits,
+                          cs.LOGIT_TOL)
+
+
+def test_counting_scans_sees_each_scan_call(cs, hymba_model):
+    """(e)'s scan count: ``counting_scans`` sees one ``mamba_scan_chunk``
+    call a chunk a layer (the first call's inputs kept), and restores
+    the function after."""
+    import torch
+    from repro_torch.layers import ssm
+    model, params = hymba_model
+    scan = ssm.mamba_scan_chunk
+    calls = []
+    with cs.counting_scans(calls):
+        assert ssm.mamba_scan_chunk is not scan
+        with torch.no_grad():
+            model.apply(params, torch.zeros((1, 40), dtype=torch.int32))
+    assert ssm.mamba_scan_chunk is scan
+    assert len(calls) == model.cfg.num_layers     # one chunk of 40 a layer
+    assert calls[1:] == [None] * (len(calls) - 1)
+    (h0, xc, dt, bc, cc, a), kw = calls[0]
+    assert xc.shape == (1, 40, model.cfg.q_dim) and not kw
+    assert h0.dtype == xc.dtype == torch.float32
+
+
+def test_kernels_line_gains_hymba_entries(cs):
+    """fastattn_fwd's and flash_decode's entries get hymba_* numbers
+    (phase 2's case at hymba's main-path shape), fastattn_fwd's also
+    hymba_global_*, flash_decode's hymba_window_*, and their phase 9
+    launches; the other kernels' entries nothing."""
+    def res(tag):
+        return {"err": 1e-3, "ms": tag, "device_ms": tag / 2,
+                "plain_ms": 9.0, "bound_ms": 0.01, "bound_by": "bytes",
+                "library_ms": 1.0, "library_device_ms": 0.5}
+    names = ("paged_prefill", "paged_decode", "fastattn_fwd",
+             "flash_decode", "mlstm_chunkwise")
+    kernels = [{"name": n} for n in names]
+    cases = {("fastattn_fwd", "main"): res(1.0),
+             ("fastattn_fwd", "global"): res(2.0),
+             ("flash_decode", "main"): res(3.0),
+             ("flash_decode", "window"): res(4.0)}
+    run = {"launches": {"fastattn_fwd": {"apply": 32, "train": 192},
+                        "flash_decode": {"generate": 5088,
+                                         "long": 35424}}}
+    cs.add_hymba_entries(kernels, cases, run)
+    by = {k["name"]: k for k in kernels}
+    for n in ("paged_prefill", "paged_decode", "mlstm_chunkwise"):
+        assert by[n] == {"name": n}
+    assert by["fastattn_fwd"]["hymba_ms"] == 1.0
+    assert by["fastattn_fwd"]["hymba_global_ms"] == 2.0
+    assert by["flash_decode"]["hymba_ms"] == 3.0
+    assert by["flash_decode"]["hymba_window_device_ms"] == 2.0
+    assert by["fastattn_fwd"]["hymba_launches"] == {"apply": 32,
+                                                    "train": 192}
+    for n, extra in (("fastattn_fwd", "global"), ("flash_decode", "window")):
+        for pre in ("hymba", f"hymba_{extra}"):
+            assert {f"{pre}_{x}" for x in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")} <= \
+                set(by[n])
+
+
+def test_phase9_runs_hymba_last(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_moe()") < main.index("phase_hymba()") \
+        < main.index("print(json.dumps(line))")
+    assert "add_hymba_entries" in main

@@ -139,12 +139,15 @@ def test_model_device_defaults_to_cuda():
         params_from_jax({}, cfg)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-72b"])
 def test_unported_block_kinds_raise(arch):
+    """The models the port still refuses: the encoder-decoder and the
+    vision-stub modality."""
     from repro_torch.config import ModelConfig
     jcfg = reduce_for_smoke(get_model_config(arch))
     cfg = ModelConfig(**jcfg.__dict__)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError,
+                       match="only text decoder-only models are ported"):
         build_model(cfg, "cpu")
 
 

@@ -128,11 +128,13 @@ def _as_port_config(arch):
 
 
 @pytest.mark.parametrize("arch", list(available_archs())
-                         + ["xlstm-125m", "hymba-1.5b", "whisper-small"])
+                         + ["xlstm-125m", "whisper-small"])
 def test_param_count_matches_jax(arch):
-    """Every config the port registers (MoE among them), and the block
-    kinds it keeps fields for but does not run yet (hymba, the
-    encoder-decoder)."""
+    """Every config the port registers (MoE and hymba among them), and
+    the encoder-decoder, which it keeps fields for but does not run yet.
+    The formula is the reference's: it counts hymba's dt projection as
+    DI x 1 and A as DI, where ``init_mamba`` makes DI x DI and DI x N, and
+    leaves out conv_b, dt_bias and d_skip."""
     jcfg = get_model_config(arch)
     tcfg = t_get(arch) if arch in available_archs() else _as_port_config(
         arch)

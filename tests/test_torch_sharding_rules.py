@@ -33,7 +33,8 @@ from repro_torch.sharding import rules as tr  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["llama2-7b", "gemma2-2b", "qwen2.5-32b", "stablelm-3b",
-         "phi3-mini-3.8b", "xlstm-125m", "qwen3-moe-30b-a3b", "grok-1-314b"]
+         "phi3-mini-3.8b", "xlstm-125m", "qwen3-moe-30b-a3b", "grok-1-314b",
+         "hymba-1.5b"]
 MESHES = {(1, 1): ("data", "model"), (2, 2): ("data", "model"),
           (4, 2): ("data", "model"), (2, 3): ("data", "model"),
           (2, 16, 16): ("pod", "data", "model")}
@@ -167,8 +168,13 @@ def test_logical_trees_equal_jax(arch, size):
     jcache = _per_layer(jm.cache_logical(*CACHE), jc, lambda nt, st: (
         type(nt).__name__, nt._fields,
         [_unstack_logical(f, st) for f in nt]))
+
+    def node(nt):       # a NamedTuple, or hymba's {"kv", "mamba"} of them
+        if isinstance(nt, dict):
+            return {k: node(v) for k, v in nt.items()}
+        return (type(nt).__name__, nt._fields, list(nt))
     for got, want in zip(tm.cache_logical(*CACHE), jcache, strict=True):
-        assert (type(got).__name__, got._fields, list(got)) == want
+        assert node(got) == want
 
 
 @pytest.mark.parametrize("shape", list(MESHES))
@@ -192,7 +198,9 @@ def test_param_and_cache_specs_equal_jax(jax_specs, shape):
             jcache = _per_layer(js["cache"], jc, lambda fields, st: [
                 _unstack_spec(x, st) for x in fields])
             tcache = tr.param_sharding_tree(tm.cache_logical(*CACHE), mesh)
-            assert [list(g) for g in tcache] == jcache
+            assert [{k: list(v) for k, v in g.items()}
+                    if isinstance(g, dict) else list(g)
+                    for g in tcache] == jcache
             # leaves whose rule names a mesh axis that does not divide
             logical = tr.flatten(tm.logical(), tr.is_logical_leaf)
             specs = tr.flatten(got, tr.is_spec)
