@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build, check, serve, train
 (on one device and on a (data, model) mesh), offload, xLSTM, head dims
-80 and 96, the mixture-of-experts block, the Mamba layer (hymba).
+80 and 96, the mixture-of-experts block, the Mamba layer (hymba), the
+encoder-decoder (whisper).
 
     python3 chip_smoke.py
 
@@ -62,14 +63,21 @@ which raises on failure (the script then exits non-zero):
    64 with its window of 1024, phase 9's model (``hymba_case``): the
    forward at 8 x 2048 causal with and without the window and a ragged
    float32 case with the window, dense decode at B=8, kv_len 159 in both
-   layouts and at B=1 on 4096 keys with the window.  Each is
+   layouts and at B=1 on 4096 keys with the window; and both at
+   whisper-small's 12/12 heads of 64, phase 10's model
+   (``whisper_case``): ``fastattn_fwd`` non-causal at B=8 on 1500 keys
+   with 1500 (the encoder), 448 (the decoder's cross-attention) and 1
+   (a decode step's) query rows, ``flash_decode`` at B=8 on a 512-slot
+   cache at kv_len 64 and at a ragged kv_len a row.  Each is
    timed (median of 20 launches, CUDA events
    around each: the wrapper's host work included) and on the device
    alone (``device_ms``: 20 launches queued behind a spin kernel) beside
    the least time the card could take (its bound), the plain version's
    time and, where one PyTorch call computes the same function, that
    call's time (``library_ms``: ``scaled_dot_product_attention``, with a
-   gather, GQA expansion or layout copy excluded from the time; the port
+   gather, GQA expansion or layout copy excluded from the time -- with no
+   mask where every key is visible, and for whisper's decode cases on
+   the first kv_len keys or a jagged batch of each row's keys; the port
    never calls it), its achieved TFLOP/s on this data's useful operations
    and its time over ``library_ms``.
 3. Serving: an ``EngineCore`` on llama2-7b at full width and depth (bf16,
@@ -257,14 +265,37 @@ which raises on failure (the script then exits non-zero):
    positions and the greedy tokens (the margin rule) to the plain path's
    LM.apply on the same tokens and to its decode_step teacher-forced on
    them from the prompt's caches, no kernel launched in either; (c) one
-   sequence of 1100 tokens and 8 new, decode past the window, exactly
-   32 x 1107 launches,
-   the decode logits from position 1024 held to LM.apply's on the 1108
-   tokens; (e) a B=8 decode step and LM.apply on 2 of (a)'s rows
+   sequence of 1100 tokens and 8 new on the first 4 layers (layer 0
+   global, 1-3 with the window), decode past the window, exactly 4 x 1107
+   launches, the decode logits from position 1024 held to LM.apply's on
+   the 1108 tokens; (e) a B=8 decode step and LM.apply on 2 of (a)'s rows
    profiled: wall, device time, idle share, the Mamba scan's share; (d)
    3 AdamW steps at
    2 x 2048 (remat), finite, exactly 32 x 2 x 3 launches, step 0's loss
    and grad norm within LOSS_RTOL and GNORM_RTOL of the plain path's.
+10. The encoder-decoder, after phase 9 (``phase_whisper``):
+   whisper-small (12 encoder and 12 decoder layers, d_model 768, 12/12
+   heads of 64, d_ff 3072, vocab 51,865, 1500 frames; 239,850,240
+   parameters in the tensors, the formula's count logged beside) at full
+   width and depth, bf16, random weights from a seeded CUDA generator,
+   N(0, 1) float32 frames from a seeded generator, 448 decoder tokens
+   (whisper's text context).  The logits gate comes from the plain
+   path's own change with one ulp on 1% of the encoder's inputs, by
+   phase 9's rule.  (a) ``EncDec.apply`` on 8 x (1500, 448): exactly 36
+   ``fastattn_fwd`` launches (12 encoder, 12 causal self-attention, 12
+   cross), logits held to the plain path, ``encode`` timed alone; (b) the
+   transcription loop (``encode``, ``init_cache`` with the encoder
+   states, 4 prompt tokens teacher-forced and 60 greedy ones through
+   ``decode_step``): ``flash_decode`` exactly 12 x 64, ``fastattn_fwd``
+   12 + 12 x 64, each step's logits held to ``EncDec.apply`` on the same
+   tokens, the greedy tokens to a plain run under the margin rule; (c)
+   ``ServeEngine.generate`` of 8 x (4 + 16) over the zero cross cache,
+   each kernel exactly 12 x 19, the tokens held to the plain engine's;
+   (e) an ``encode`` and a B=8 decode step profiled: wall, device time,
+   idle share, each kernel's device time and launches; (d) 3 AdamW steps
+   at 8 x (1500, 448) (remat): finite, exactly 36 x 2 x 3 launches, step
+   0's loss and grad norm within LOSS_RTOL and GNORM_RTOL of the plain
+   path's, peak memory.  Every plain run launches neither kernel.
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -282,8 +313,12 @@ phase 8; ``fastattn_fwd`` and ``flash_decode`` also ``hymba_*``, phase
 2's case at hymba-1.5b's main-path shape, ``fastattn_fwd``'s
 ``hymba_global_*`` without the window, ``flash_decode``'s
 ``hymba_window_*`` on 4096 keys, and ``hymba_launches``, each run's
-launches in phase 9; ``fastattn_fwd`` also ``context_*``, phase 2's
-context-parallel case of rank m=1, ``context_m0_*`` of m=0, and each
+launches in phase 9; ``fastattn_fwd`` also ``whisper_enc_*``,
+``whisper_cross_*`` and ``whisper_step_*``, ``flash_decode``
+``whisper_*`` and ``whisper_ragged_*``, phase 2's cases at whisper's
+shapes, and both ``whisper_launches``, each run's launches in phase
+10; ``fastattn_fwd`` also ``context_*``, phase 2's context-parallel
+case of rank m=1, ``context_m0_*`` of m=0, and each
 phase 4b rank's launches); the last line is ``{"ok": true,
 "device": {...}}``.
 """
@@ -714,10 +749,14 @@ def fwd_case(name, *, b, hq, hkv, sq, skv, d, dtype, causal=True,
         # SDPA's causal masks: is_causal aligns the diagonal top left
         # (q_offset 0), causal_lower_right bottom right (q_offset = the
         # keys beyond the queries, a context-parallel rank's last rows)
-        plain = causal and window is None and kv_valid in (None, skv)
+        # and with neither (non-causal, every key valid) no mask at all:
+        # SDPA's plain flash path
+        every = window is None and kv_valid in (None, skv)
+        plain = causal and every
         lib_mask = (True if plain and q_offset == 0 else
                     causal_lower_right(sq, skv)
-                    if plain and q_offset == skv - sq else mask)
+                    if plain and q_offset == skv - sq else
+                    None if every and not causal else mask)
 
         def lib():
             if lib_mask is True:
@@ -771,11 +810,40 @@ def held_to_plain(tag, name, out, ref, dtype, unbounded=False) -> tuple:
     return err, rel
 
 
+def _jagged(values, lens):
+    """(sum lens, H, D) ``values`` as a jagged nested tensor (B, H, j, D)
+    of rows ``lens`` long, its shortest and longest row length cached:
+    SDPA would otherwise read them back from the card, a host sync a
+    call."""
+    import torch
+    offsets = torch.zeros(len(lens) + 1, dtype=torch.int64,
+                          device=values.device)
+    offsets[1:] = torch.as_tensor(lens, device=values.device).cumsum(0)
+    return torch.nested.nested_tensor_from_jagged(
+        values, offsets, min_seqlen=int(min(lens)),
+        max_seqlen=int(max(lens))).transpose(1, 2)
+
+
+def _jagged_rows(t, lens, layout):
+    """Each row's first ``lens[i]`` keys of a cache ``t`` as one jagged
+    nested tensor (B, H, j, D) (a copy, made outside any timed region)."""
+    import torch
+    rows = [(t[i, :n] if layout == "bshd" else t[i, :, :n].transpose(0, 1))
+            for i, n in enumerate(lens.tolist())]
+    return _jagged(torch.cat(rows), lens.tolist())
+
+
 def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
-                         window=None, softcap=None) -> dict:
+                         window=None, softcap=None, lib="mask") -> dict:
     """flash_decode vs decode_reference on given cache tensors (read in
     place in ``layout``) and host kv_len ``lens``; then the kernel, the
-    plain version and SDPA timed, and the bound of this data's work."""
+    plain version and SDPA timed, and the bound of this data's work.
+    SDPA (``lib``): "mask" over the whole cache with a boolean mask of
+    each row's keys (and the window); "flash" (no window, no GQA) its
+    flash path with no mask -- over the first kv_len keys where every
+    row has the same, else over each row's keys as one jagged nested
+    batch (which syncs the host twice a call, so its device time is one
+    profiled call's kernels, not ``device_ms``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -818,7 +886,30 @@ def dense_decode_measure(name, q, k, v, lens, *, dtype, layout,
            "n_split": n_split}
     res["device_ms"] = device_ms(kernel)
     lib_note = "n/a (no single PyTorch call applies a softcap)"
-    if softcap is None:
+    if softcap is None and lib == "flash":
+        if window is not None or hq != hkv:
+            raise ValueError(f"{name}: SDPA's flash path takes no window "
+                             "or GQA here")
+        n = int(lens[0])
+        if (lens == n).all():
+            kf, vf = ((t[:, :n].transpose(1, 2) if layout == "bshd"
+                       else t[:, :, :n]).contiguous() for t in (k, v))
+            qf = q[:, :, None]
+            how = f"its first {n} keys, layout copy excluded"
+        else:
+            qf = _jagged(q, [1] * b)
+            kf, vf = _jagged_rows(k, lens, layout), _jagged_rows(v, lens,
+                                                                 layout)
+            how = "a jagged batch of each row's keys, the copy excluded"
+
+        def lib_call():
+            return F.scaled_dot_product_attention(qf, kf, vf)
+        res["library_ms"] = time_ms(lib_call)
+        res["library_device_ms"] = (_profile_kernels(lib_call)[1] * 1e3
+                                    if qf.is_nested else device_ms(lib_call))
+        lib_note = (f"{res['library_ms']:.4f} ms (scaled_dot_product_"
+                    f"attention's flash path, no mask, on {how})")
+    elif softcap is None:
         # SDPA takes (B, H, S, D): a "bshd" cache is copied to that layout
         # outside the timed region; the boolean mask applies the window
         kd = k.transpose(1, 2).contiguous() if layout == "bshd" else k
@@ -857,7 +948,8 @@ def _dense_plan(b, hq, hkv, s, window):
 
 
 def dense_decode_case(name, *, b, hq, hkv, s, d, dtype, layout,
-                      window=None, softcap=None, seed=0, lens=None):
+                      window=None, softcap=None, seed=0, lens=None,
+                      lib="mask"):
     """flash_decode vs decode_reference on random N(0, 1) inputs of one
     shape, the cache in ``layout``.  kv_len: ``lens`` -- a list, or a
     function of the launch's split_keys (the split-KV edges) -- or else
@@ -881,7 +973,7 @@ def dense_decode_case(name, *, b, hq, hkv, s, d, dtype, layout,
         lens = lens(_dense_plan(b, hq, hkv, s, window)[0])
     return dense_decode_measure(name, q, k, v, np.asarray(lens, np.int32),
                                 dtype=dtype, layout=layout, window=window,
-                                softcap=softcap)
+                                softcap=softcap, lib=lib)
 
 
 MLSTM_STATE_RTOL = 1e-3     # C, n, m: float32 on both sides
@@ -1231,6 +1323,44 @@ DENSE_DECODE_CASES += [
         b=1, s=4096, layout="bshd", window=1024, dtype="bfloat16", seed=56,
         **_HY))]
 
+# whisper-small's 12/12 heads of 64 (GQA 1), phase 10's model, bf16:
+# fastattn_fwd non-causal at its three main-path shapes -- the encoder's
+# 1500 x 1500, the teacher-forced decoder's cross-attention 448 x 1500,
+# a decode step's 1 x 1500 (1500 = 23 x 64 + 28: a ragged last key
+# sub-tile) -- and flash_decode at B=8 on a 512-slot cache at kv_len 64
+# and at a ragged kv_len a row; SDPA's flash path with no mask on each
+# (ragged kv_len: a jagged batch of each row's keys).
+# The kernels line's whisper_* numbers.
+WHISPER_ARCH = "whisper-small"
+
+
+def whisper_case(kernel: str, variant: str) -> str:
+    """The name of ``kernel``'s phase-2 case at whisper-small's shape:
+    fastattn_fwd's "enc", "cross" or "step", flash_decode's "main"
+    (kv_len 64) or "ragged"."""
+    tag = "whisper H=12/12 D=64 bf16 B=8"
+    return {("fastattn_fwd", "enc"): f"{tag} Sq=1500 Skv=1500 non-causal",
+            ("fastattn_fwd", "cross"): f"{tag} Sq=448 Skv=1500 non-causal",
+            ("fastattn_fwd", "step"): f"{tag} Sq=1 Skv=1500 non-causal",
+            ("flash_decode", "main"): f"{tag} bshd S=512 kv_len=64",
+            ("flash_decode", "ragged"): f"{tag} bshd S=512 ragged kv_len"}[
+        (kernel, variant)]
+
+
+WHISPER_CASES = (("fastattn_fwd", "enc"), ("fastattn_fwd", "cross"),
+                 ("fastattn_fwd", "step"), ("flash_decode", "main"),
+                 ("flash_decode", "ragged"))
+_WH = dict(b=8, hq=12, hkv=12, d=64, dtype="bfloat16")
+FWD_CASES += [(whisper_case("fastattn_fwd", v), dict(
+    sq=sq, skv=1500, causal=False, seed=61 + i, **_WH))
+    for i, (v, sq) in enumerate((("enc", 1500), ("cross", 448),
+                                 ("step", 1)))]
+DENSE_DECODE_CASES += [
+    (whisper_case("flash_decode", "main"), dict(
+        s=512, layout="bshd", lens=[64] * 8, lib="flash", seed=64, **_WH)),
+    (whisper_case("flash_decode", "ragged"), dict(
+        s=512, layout="bshd", lib="flash", seed=65, **_WH))]
+
 # phase 2's mLSTM cases: xlstm-125m's training shape first (the kernels
 # line's numbers); then a ragged f32 case, S below the chunk, 16 chunks of
 # state recurrence at a small dk/dv, a ragged S over eight chunks, and a
@@ -1282,7 +1412,9 @@ def phase_kernels() -> dict:
             "gqa8": {k: every[k][gqa8_case(k)] for k in every},
             "hymba": {(k, v): every[k][hymba_case(k, v)] for k, v in (
                 ("fastattn_fwd", "main"), ("fastattn_fwd", "global"),
-                ("flash_decode", "main"), ("flash_decode", "window"))}}
+                ("flash_decode", "main"), ("flash_decode", "window"))},
+            "whisper": {(k, v): every[k][whisper_case(k, v)]
+                        for k, v in WHISPER_CASES}}
 
 
 # ---------------------------------------------------------------------------
@@ -3727,15 +3859,18 @@ def _end_to_end_gate(what, err, base, rtol) -> None:
 
 
 def _loss_and_gnorm(model, params, batch, impl):
+    """The loss and gradient norm of ``batch`` ({"tokens", "labels"}, and
+    for an encoder-decoder "enc_embeds") through attention ``impl``."""
     import torch
     from repro_torch.training import tree
     from repro_torch.training.optimizer import global_norm
+    keys = (("enc_embeds",) if model.cfg.is_encoder_decoder else ()) + (
+        "tokens", "labels")
     leaves = tree.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss = model.loss(params, batch["tokens"], batch["labels"],
-                          impl=impl)
+        loss = model.loss(params, *(batch[k] for k in keys), impl=impl)
         grads = torch.autograd.grad(loss, leaves)
     finally:
         for p in leaves:
@@ -4708,6 +4843,10 @@ def phase_moe() -> dict:
 HYMBA_BATCH, HYMBA_SEQ = 8, 2048          # (a): LM.apply
 HYMBA_LONG_PROMPT, HYMBA_LONG_NEW = 1100, 8   # (c): decode past the window
 HYMBA_LONG_FROM = 1024                    # (c): positions held from here on
+# (c) runs the first 4 layers of the pattern (layer 0 global, 1-3 with
+# the window): decoding past the window is a per-layer mechanism, and 32
+# host-bound layers x 1107 steps took ~80 s of the script's time limit
+HYMBA_LONG_LAYERS = 4
 HYMBA_TRAIN_BATCH, HYMBA_TRAIN_STEPS = 2, 3   # (d)
 HYMBA_PROFILE_ROWS = 2        # (e): LM.apply profiled on (a)'s first rows
 BLOCK_FLIP = 0.01             # the share of block 0's inputs moved one ulp
@@ -4917,12 +5056,19 @@ def hymba_generate(model, plain_model, params, prompts, apply_logits,
 
 def hymba_long(model, params, prompt, gate: float) -> dict:
     """(c): one sequence of len(prompt) tokens and HYMBA_LONG_NEW new ones
-    through ServeEngine.generate, decode passing the window (flash_decode's
-    launches counted); the decode logits from HYMBA_LONG_FROM on held to
-    LM.apply's on the whole sequence under ``gate``."""
+    through ServeEngine.generate on the first HYMBA_LONG_LAYERS layers of
+    ``model`` (its weights, its final norm and head), decode passing the
+    window (flash_decode's launches counted); the decode logits from
+    HYMBA_LONG_FROM on held to LM.apply's on the whole sequence under
+    ``gate``."""
     import torch
     from repro_torch.config import ServeConfig
     from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.models import build_model
+    n = min(HYMBA_LONG_LAYERS, model.cfg.num_layers)
+    model = build_model(dataclasses.replace(model.cfg, num_layers=n),
+                        device=model.device)
+    params = {**params, "layers": params["layers"][:n]}
     p, n_new = len(prompt), HYMBA_LONG_NEW
     serve = ServeConfig(max_seq_len=p + n_new + 1, top_k=1)
     engine, seen, _ = _recording_engine(model, params, serve,
@@ -4942,10 +5088,11 @@ def hymba_long(model, params, prompt, gate: float) -> dict:
                     f"{HYMBA_LONG_FROM}-{steps - 1} vs LM.apply on the "
                     f"{seq.shape[1]} tokens", got,
                     full[HYMBA_LONG_FROM:steps], gate)
-    log(f"[hymba] (c) generate 1 x {p} + {n_new}: {wall:.2f}s wall, "
-        f"flash_decode launches {launches} ({steps} decode steps)")
+    log(f"[hymba] (c) generate 1 x {p} + {n_new} on the first {n} "
+        f"layers: {wall:.2f}s wall, flash_decode launches {launches} "
+        f"({steps} decode steps)")
     return {"wall_s": wall, "launches": launches, "steps": steps,
-            "ms_per_step": wall / steps * 1e3}
+            "layers": n, "ms_per_step": wall / steps * 1e3}
 
 
 @contextlib.contextmanager
@@ -5092,10 +5239,10 @@ def phase_hymba() -> dict:
     flash_decode, exactly 32 x 159 launches, decode logits at
     DENSE_CHECK_POS held to (a)'s LM.apply, the generated positions'
     logits and greedy tokens to the plain path's LM.apply and
-    decode_step teacher-forced; (c) 1 x (1100 + 8), decode past the
-    window, exactly 32 x 1107 launches, logits from position 1024 held to
-    LM.apply's; (e) a decode step and LM.apply profiled, the Mamba scan's
-    share; (d) 3 AdamW steps at 2 x 2048 (remat), finite, step 0 held to
+    decode_step teacher-forced; (c) 1 x (1100 + 8) on the first 4 layers
+    (global, then 3 windowed), decode past the window, exactly 4 x 1107
+    launches, logits from position 1024 held to LM.apply's; (e) a
+    decode step and LM.apply profiled, the Mamba scan's share; (d) 3 AdamW steps at 2 x 2048 (remat), finite, step 0 held to
     the plain path, exactly 32 x 2 x 3 launches."""
     import numpy as np
     import torch
@@ -5152,7 +5299,7 @@ def phase_hymba() -> dict:
         "flash_decode (c)": long_run["launches"]}, {
         "fastattn_fwd": layers,
         "flash_decode": layers * (DENSE_PROMPT + DENSE_NEW - 1),
-        "flash_decode (c)": layers * long_run["steps"]})
+        "flash_decode (c)": HYMBA_LONG_LAYERS * long_run["steps"]})
     serve_peak = torch.cuda.max_memory_allocated() / 1e9
     del model, plain_model, params, toks
     gc.collect()
@@ -5179,6 +5326,441 @@ def phase_hymba() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the encoder-decoder -- whisper-small at full width and depth
+# ---------------------------------------------------------------------------
+
+WHISPER_BATCH = 8
+# the decoder's length: whisper's text context (n_text_ctx of
+# openai/whisper's ModelDimensions)
+WHISPER_TEXT = 448
+WHISPER_PROMPT, WHISPER_NEW = 4, 60       # (b): transcription decode
+WHISPER_GEN_NEW = 16                      # (c): dense generate
+WHISPER_TRAIN_STEPS = 3                   # (d)
+FRAME_FLIP = 0.01             # the share of the encoder's inputs moved 1 ulp
+
+
+def whisper_inputs(model, b: int, s: int, seed: int = 0) -> tuple:
+    """N(0, 1) float32 frames (b, encoder_seq, d_model) from a generator
+    on the model's device seeded with ``seed``, and (b, s) int32 tokens
+    from numpy's generator seeded with ``seed``."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device=model.device)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=(b, s)).astype(np.int32)).to(model.device)
+    return frames, toks
+
+
+def perturbed_frames(seed: int = 9, frac: float = FRAME_FLIP):
+    """Within the block, every encode sees its input -- the frames in the
+    model's dtype, entering the frontend -- with a seeded ``frac`` of the
+    elements moved by one ulp: what rounding alone does upstream of the
+    whole model."""
+    from repro_torch.models import encdec
+    noisy = _ulp_noise(seed, frac)
+
+    def wrap(frontend):
+        def run(params, embeds, cfg):
+            return frontend(params, noisy(embeds), cfg)
+        return run
+    return _wrapped(encdec, "apply_frontend", wrap)
+
+
+def whisper_sensitivity(model, params, frames, toks) -> tuple:
+    """The plain path's ``EncDec.apply`` logits and their largest relative
+    change under ``perturbed_frames``: (logits, change)."""
+    import torch
+    with torch.no_grad():
+        ref = model.apply(params, frames, toks, impl="reference")
+        with perturbed_frames():
+            change = _rel_change(model.apply(params, frames, toks,
+                                             impl="reference").float(),
+                                 ref.float())
+    return ref, change
+
+
+def whisper_apply(model, params, frames, toks, ref, gate: float) -> dict:
+    """(a): ``EncDec.apply`` through the kernels (fastattn_fwd's launches
+    counted), its logits held to the plain path's ``ref`` under ``gate``;
+    ``encode`` alone timed too (median of 3)."""
+    import torch
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    b, s = toks.shape
+    with torch.no_grad():
+        fastattn_fwd.launches = 0
+        wall, logits = _wall_s(lambda: model.apply(params, frames, toks))
+        launches = fastattn_fwd.launches
+        enc_ms, _ = _wall_ms(lambda: model.encode(params, frames), reps=3)
+    if tuple(logits.shape) != (b, s, model.cfg.vocab_size):
+        raise AssertionError(f"(a) logits {tuple(logits.shape)}")
+    err = _logit_err(logits, ref)
+    log(f"[whisper] (a) EncDec.apply {b} x ({frames.shape[1]} frames, {s} "
+        f"tokens): {wall:.3f}s wall, encode alone {enc_ms:.1f} ms; "
+        f"fastattn_fwd launches {launches}; kernel vs plain logits "
+        f"{err[0]:.4f}, {err[1]:.4f} of their scale (median position "
+        f"{err[2]:.4f})")
+    _compare_logits("[whisper] (a) EncDec.apply logits, kernel vs plain",
+                    logits.flatten(0, 1), ref.flatten(0, 1), gate)
+    return {"wall_s": wall, "encode_ms": enc_ms, "launches": launches,
+            "logit_err": err}
+
+
+def transcribe(model, params, frames, prompt, n_new: int) -> tuple:
+    """The JAX package's transcription loop: ``encode``, ``init_cache``
+    with the encoder states (each layer's cross K/V projected once), then
+    ``decode_step`` over ``prompt`` (B, P) teacher-forced and ``n_new``
+    greedy tokens fed back.  Returns (the fed greedy tokens (B, n_new),
+    every step's logits in float32 (B, P + n_new, V), the cache)."""
+    import torch
+    b, p = prompt.shape
+    with torch.no_grad():
+        enc = model.encode(params, frames)
+        cache = model.init_cache(b, p + n_new + 1, enc_out=enc,
+                                 params=params)
+        del enc
+        steps, toks = [], []
+        for t in range(p + n_new):
+            tok = prompt[:, t] if t < p else toks[t - p]
+            logits, cache = model.decode_step(params, tok, cache, t)
+            steps.append(logits.float())
+            if p - 1 <= t < p + n_new - 1:
+                toks.append(torch.argmax(logits, -1).to(prompt.dtype))
+    return torch.stack(toks, 1), torch.stack(steps, 1), cache
+
+
+def _margins(logits, gate: float) -> dict:
+    """{(row, j): (top-1 margin, ``gate`` x the largest |logit|)} of
+    logits (B, N, V): tokens_gate's reference margins."""
+    import torch
+    top2 = torch.topk(logits.float(), 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    tol = gate * logits.float().abs().amax(-1).cpu().numpy()
+    return {(r, j): (float(margin[r, j]), float(tol[r, j]))
+            for r in range(margin.shape[0]) for j in range(margin.shape[1])}
+
+
+def _counts() -> dict:
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    return {"fastattn_fwd": fastattn_fwd.launches,
+            "flash_decode": flash_decode.launches}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    fastattn_fwd.launches = flash_decode.launches = 0
+
+
+def whisper_transcribe(model, plain_model, params, frames, prompt,
+                       gate: float) -> dict:
+    """(b): ``transcribe`` through the kernels, WHISPER_PROMPT prompt
+    tokens and WHISPER_NEW greedy ones, both kernels' launches counted
+    (the phase holds them); every step's logits held under ``gate`` to
+    ``EncDec.apply`` on the same tokens; then ``plain_model``'s run, no
+    kernel launched, its greedy tokens the kernel run's under the margin
+    rule.  Also returns the kernel run's cache for (e)."""
+    import torch
+    b, p = prompt.shape
+    n_new = WHISPER_NEW
+    torch.cuda.synchronize()
+    _zero_counts()
+    wall, (toks, steps, cache) = _wall_s(
+        lambda: transcribe(model, params, frames, prompt, n_new))
+    launches = _counts()
+    n = p + n_new
+    log(f"[whisper] (b) transcription decode B={b}: encode, {p} prompt "
+        f"tokens and {n_new} greedy ones, {wall:.2f}s wall "
+        f"({wall / n * 1e3:.1f} ms a step); launches {launches}")
+    seq = torch.cat([prompt, toks], dim=1)
+    with torch.no_grad():
+        full = model.apply(params, frames, seq).float()
+    _compare_logits(f"[whisper] (b) decode_step logits at positions 0-"
+                    f"{n - 1} vs EncDec.apply on the same tokens",
+                    steps.flatten(0, 1), full.flatten(0, 1), gate)
+    del full
+    _zero_counts()
+    plain_toks, plain_steps, _ = transcribe(plain_model, params, frames,
+                                            prompt, n_new)
+    plain_launches = _counts()
+    exact_launches("[whisper] (b) the plain run", plain_launches,
+                   {"fastattn_fwd": 0, "flash_decode": 0})
+    equal, total = tokens_gate(
+        "[whisper] (b) greedy tokens, kernel vs plain",
+        {r: toks[r].tolist() for r in range(b)},
+        {r: plain_toks[r].tolist() for r in range(b)},
+        _margins(plain_steps[:, p - 1:n - 1], gate))
+    log(f"[whisper] (b) {equal} of {total} greedy tokens equal to the plain "
+        "run's before a fork at a near-tie")
+    return {"wall_s": wall, "steps": n, "ms_per_step": wall / n * 1e3,
+            "launches": launches, "plain_launches": plain_launches,
+            "tokens_equal": equal, "tokens": total, "cache": cache}
+
+
+def whisper_generate(model, plain_model, params, prompt,
+                     gate: float) -> dict:
+    """(c): ``ServeEngine.generate`` of ``prompt`` (B, P) and
+    WHISPER_GEN_NEW greedy tokens over the zero cross cache (JAX's dense
+    engine passes no encoder states), both kernels' launches counted (the
+    phase holds them); ``plain_model``'s engine on the same prompt, no
+    kernel launched, its greedy tokens the kernel run's under the margin
+    rule."""
+    import torch
+    from repro_torch.config import ServeConfig
+    b, p = prompt.shape
+    n_new = WHISPER_GEN_NEW
+    serve = ServeConfig(max_seq_len=p + n_new + 1, top_k=1)
+    runs = {}
+    for name, m in (("kernel", model), ("plain", plain_model)):
+        engine, seen, _ = _recording_engine(m, params, serve,
+                                            lambda q: q >= p - 1)
+        torch.cuda.synchronize()
+        _zero_counts()
+        wall, out = _wall_s(lambda: engine.generate(prompt, n_new))
+        runs[name] = {"wall_s": wall, "launches": _counts(), "out": out,
+                      "logits": torch.stack([seen[q] for q in range(
+                          p - 1, p - 1 + n_new)], dim=1)}
+        del engine, seen
+    exact_launches("[whisper] (c) the plain generate",
+                   runs["plain"]["launches"],
+                   {"fastattn_fwd": 0, "flash_decode": 0})
+    out, ref = runs["kernel"]["out"], runs["plain"]["out"]
+    if tuple(out.shape) != (b, n_new):
+        raise AssertionError(f"(c) bad generated tokens {tuple(out.shape)}")
+    equal, total = tokens_gate(
+        "[whisper] (c) generate's greedy tokens, kernel vs plain",
+        {r: out[r].tolist() for r in range(b)},
+        {r: ref[r].tolist() for r in range(b)},
+        _margins(runs["plain"]["logits"], gate))
+    wall = runs["kernel"]["wall_s"]
+    log(f"[whisper] (c) generate B={b} x {p} + {n_new}: {wall:.2f}s wall, "
+        f"launches {runs['kernel']['launches']}; {equal} of {total} greedy "
+        "tokens equal to the plain engine's before a fork at a near-tie")
+    return {"wall_s": wall, "plain_wall_s": runs["plain"]["wall_s"],
+            "launches": runs["kernel"]["launches"],
+            "plain_launches": runs["plain"]["launches"],
+            "tokens_equal": equal, "tokens": total,
+            "new_tok_s": b * n_new / wall}
+
+
+def whisper_profile(model, params, frames, cache, pos: int) -> dict:
+    """(e): one ``encode`` of the frames and one decode step at ``pos`` of
+    (b)'s cache: wall (median of 3 and 5), the kernels' device time in one
+    profiled run, the idle share, the launches, and fastattn_fwd's and
+    flash_decode's device time and launches in it."""
+    import torch
+    b = frames.shape[0]
+    tok = torch.zeros((b,), dtype=torch.int32, device=frames.device)
+
+    def encode():
+        return model.encode(params, frames)
+
+    def step():
+        return model.decode_step(params, tok, cache, pos)
+    out = {}
+    with torch.no_grad():
+        for name, fn, reps in ((f"encode B={b}", encode, 3),
+                               (f"decode step B={b}", step, 5)):
+            wall, _ = _wall_ms(fn, reps=reps)
+            kernels, dev_s = _profile_kernels(fn)
+            res = {"wall_ms": wall, "device_ms": dev_s * 1e3,
+                   "idle_share": 1 - dev_s * 1e3 / wall,
+                   "kernel_launches": sum(k.count for k in kernels)}
+            for k in ("fastattn_fwd", "flash_decode"):
+                ours = [e for e in kernels if f"{k}_" in e.key]
+                res[f"{k}_device_ms"] = sum(_device_us(e) for e in ours) / 1e3
+                res[f"{k}_launches"] = sum(e.count for e in ours)
+            top = sorted(kernels, key=_device_us, reverse=True)[:4]
+            res["top"] = [(k.key[:48], _device_us(k) / 1e3, k.count)
+                          for k in top]
+            log(f"[whisper] (e) {name}: {wall:.2f} ms wall, "
+                f"{res['device_ms']:.2f} ms of kernels in one profiled run "
+                f"({res['kernel_launches']} launches, idle share "
+                f"{res['idle_share']:.3f}); fastattn_fwd "
+                f"{res['fastattn_fwd_device_ms']:.3f} ms "
+                f"({res['fastattn_fwd_launches']}), flash_decode "
+                f"{res['flash_decode_device_ms']:.3f} ms "
+                f"({res['flash_decode_launches']}); largest kernels (name, "
+                f"device ms, launches): {res['top']}")
+            out[name] = res
+    return out
+
+
+def whisper_train(cfg, device: str = "cuda") -> dict:
+    """(d): WHISPER_TRAIN_STEPS AdamW steps at WHISPER_BATCH x
+    (encoder_seq frames, WHISPER_TEXT tokens) through the trainer's
+    functions (remat "selective", as launch/train.py), fastattn_fwd's
+    launches counted; batches of TokenPipeline's tokens and labels and
+    N(0, 1) frames from a seeded generator.  Before them, step 0's batch
+    through the plain attention path: the first step's loss and grad norm
+    within LOSS_RTOL and GNORM_RTOL of its."""
+    import math
+
+    import torch
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    parallel = ParallelConfig(remat="selective")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=WHISPER_TRAIN_STEPS)
+    model = build_model(cfg, device, parallel)
+    state = init_train_state(model, model.generator(tcfg.seed))
+    step_fn = make_train_step(model, cfg, parallel, tcfg)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=WHISPER_TEXT,
+                                    global_batch=WHISPER_BATCH))
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(2)
+    batches = []
+    for _ in range(WHISPER_TRAIN_STEPS):
+        batch = to_device(data.next(), model.device)
+        batch["enc_embeds"] = torch.randn(
+            (WHISPER_BATCH, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=model.device)
+        batches.append(batch)
+    p_loss, p_gn = _loss_and_gnorm(model, state.params, batches[0],
+                                   "reference")
+    torch.cuda.reset_peak_memory_stats()
+    fastattn_fwd.launches = 0
+    losses, gnorms, step_s = [], [], []
+    for i, batch in enumerate(batches):
+        dt, (state, metrics) = _wall_s(lambda: step_fn(state, batch))
+        step_s.append(dt)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        log(f"[whisper] (d) step {i} loss {losses[-1]:.4f} gnorm "
+            f"{gnorms[-1]:.4f} {dt * 1e3:.1f} ms")
+    launches = fastattn_fwd.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"(d) non-finite loss or grad norm: {losses}, "
+                             f"{gnorms}")
+    loss_rel = abs(losses[0] - p_loss) / abs(p_loss)
+    gn_rel = abs(gnorms[0] - p_gn) / abs(p_gn)
+    log(f"[whisper] (d) step 0 vs the plain path on its batch: loss "
+        f"{losses[0]:.5f} vs {p_loss:.5f} (rel {loss_rel:.2e}, tol "
+        f"{LOSS_RTOL}), grad norm {gnorms[0]:.5f} vs {p_gn:.5f} (rel "
+        f"{gn_rel:.2e}, tol {GNORM_RTOL}); peak memory {peak:.2f} GB")
+    if not (loss_rel <= LOSS_RTOL and gn_rel <= GNORM_RTOL):
+        raise AssertionError("(d) kernel and plain training paths disagree")
+    return {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
+            "plain_loss_gnorm": [p_loss, p_gn], "loss_rel": loss_rel,
+            "gnorm_rel": gn_rel, "launches": launches, "peak_mem_gb": peak,
+            "tok_s": WHISPER_BATCH * WHISPER_TEXT / statistics.median(
+                step_s[1:])}
+
+
+def phase_whisper() -> dict:
+    """Phase 10: whisper-small (12 encoder and 12 decoder layers, d_model
+    768, 12/12 heads of 64, vocab 51,865, encoder_seq 1500) at full width
+    and depth, bf16, random weights from a seeded CUDA generator, after
+    every earlier model is freed; the tensors' and the formula's parameter
+    counts logged.  The gate (``hymba_gate``'s rule) comes from the plain
+    path's own change under one ulp on 1% of the encoder's inputs.  (a)
+    EncDec.apply on 8 x (1500 frames, 448 tokens), exactly 36
+    fastattn_fwd launches, logits held to the plain path; (b) the
+    transcription loop, 4 prompt and 60 greedy tokens (``transcribe``):
+    fastattn_fwd exactly 12 + 12 x 64, flash_decode 12 x 64, each step's
+    logits held to EncDec.apply on the same tokens, the greedy tokens to
+    a plain run under the margin rule; (c) ServeEngine.generate 8 x (4 +
+    16) over the zero cross cache, each kernel exactly 12 x 19, tokens
+    held to the plain engine's; (e) an encode and a decode step profiled;
+    (d) 3 AdamW steps at 8 x (1500, 448) (remat), finite, exactly 36 x 2
+    x 3 launches, step 0's loss and grad norm held to the plain path's.
+    Every plain run launches no kernel."""
+    import torch
+    from repro_torch.analysis.flops import param_count
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    left = torch.cuda.memory_allocated() / 1e9
+    model, params = build_full(WHISPER_ARCH)
+    cfg = model.cfg
+    n_real = sum(t.numel() for t in _leaves(params))
+    log(f"[whisper] {cfg.name}: {cfg.encoder_layers} encoder and "
+        f"{cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"encoder_seq {cfg.encoder_seq}, vocab {cfg.vocab_size}; parameters "
+        f"{n_real:,} in the tensors, {param_count(cfg):,} by the "
+        f"reference's formula (analysis/flops.param_count); {left:.2f} GB "
+        f"allocated before the build")
+    frames, toks = whisper_inputs(model, WHISPER_BATCH, WHISPER_TEXT)
+    t_parts = {"build": time.perf_counter()}
+    ref, change = whisper_sensitivity(model, params, frames, toks)
+    gate, rule = hymba_gate(change)
+    t_parts["gate"] = time.perf_counter()
+    log(f"[whisper] gate {gate:.4g} ({rule}): the plain path's logits move "
+        f"by {change:.4g} of their scale with one ulp on {FRAME_FLIP:.0%} "
+        "of the encoder's inputs (LOGIT_TOL where that is at most half of "
+        "it, else max(LOGIT_TOL, twice it))")
+    applied = whisper_apply(model, params, frames, toks, ref, gate)
+    t_parts["a"] = time.perf_counter()
+    del ref
+    plain_model = build_model(dataclasses.replace(
+        cfg, attention_impl="reference"), device=model.device)
+    prompt = toks[:, :WHISPER_PROMPT].contiguous()
+    trans = whisper_transcribe(model, plain_model, params, frames, prompt,
+                               gate)
+    t_parts["b"] = time.perf_counter()
+    gen = whisper_generate(model, plain_model, params, prompt, gate)
+    t_parts["c"] = time.perf_counter()
+    profile = whisper_profile(model, params, frames, trans.pop("cache"),
+                              WHISPER_PROMPT + WHISPER_NEW)
+    t_parts["e"] = time.perf_counter()
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, plain_model, params, frames, toks, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = whisper_train(cfg)
+    t_parts["d"] = time.perf_counter()
+    # (a), (d): the encoder's, the decoder's self- and cross-attention
+    attn = cfg.encoder_layers + 2 * cfg.num_layers
+    n_b = WHISPER_PROMPT + WHISPER_NEW              # (b)'s decode steps
+    n_c = WHISPER_PROMPT + WHISPER_GEN_NEW - 1      # (c)'s
+    launches = {"fastattn_fwd": {
+        "apply": applied["launches"],
+        "transcribe": trans["launches"]["fastattn_fwd"],
+        "generate": gen["launches"]["fastattn_fwd"],
+        "train": train["launches"]}, "flash_decode": {
+        "transcribe": trans["launches"]["flash_decode"],
+        "generate": gen["launches"]["flash_decode"]}}
+    exact_launches("[whisper] (a)-(d) fastattn_fwd",
+                   launches["fastattn_fwd"], {
+                       "apply": attn,
+                       "transcribe": cfg.encoder_layers + cfg.num_layers
+                       * n_b,
+                       "generate": cfg.num_layers * n_c,
+                       "train": attn * 2 * WHISPER_TRAIN_STEPS})
+    exact_launches("[whisper] (b), (c) flash_decode",
+                   launches["flash_decode"], {
+                       "transcribe": cfg.num_layers * n_b,
+                       "generate": cfg.num_layers * n_c})
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "params_real": n_real,
+           "params_formula": param_count(cfg), "gate": gate, "rule": rule,
+           "sensitivity": change, "launches": launches, "apply": applied,
+           "transcribe": trans, "generate": gen, "profile": profile,
+           "train": train, "serve_peak_mem_gb": serve_peak,
+           "allocated_before_gb": left,
+           "seconds": time.perf_counter() - t0, "card": _card()}
+    prev, out["part_seconds"] = t0, {}
+    for part, t in t_parts.items():
+        out["part_seconds"][part], prev = t - prev, t
+    log(f"[whisper] {out['card']}: phase 10 passed in {out['seconds']:.1f}s")
+    log(f"[whisper] {json.dumps(out)}")
+    return out
+
+
 def add_hymba_entries(kernels: list, cases: dict, run: dict) -> None:
     """``fastattn_fwd``'s and ``flash_decode``'s entries of the kernels
     line also at hymba-1.5b's shape (``hymba_*``: phase 2's case at its
@@ -5199,6 +5781,29 @@ def add_hymba_entries(kernels: list, cases: dict, run: dict) -> None:
             k.update({f"{pre}_{'max_abs_err' if x == 'err' else x}":
                       res.get(x) for x in keys})
         k["hymba_launches"] = run["launches"][name]
+
+
+def add_whisper_entries(kernels: list, cases: dict, run: dict) -> None:
+    """``fastattn_fwd``'s and ``flash_decode``'s entries of the kernels
+    line also at whisper-small's shapes: phase 2's cases (``cases[(name,
+    variant)]``, WHISPER_CASES) -- fastattn_fwd's ``whisper_enc_*``,
+    ``whisper_cross_*`` and ``whisper_step_*``, flash_decode's
+    ``whisper_*`` (kv_len 64) and ``whisper_ragged_*`` -- and each one's
+    launches in phase 10 (``whisper_launches``, by run)."""
+    keys = ("err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
+    for k in kernels:
+        name = k["name"]
+        if name not in run["launches"]:
+            continue
+        for kernel, variant in WHISPER_CASES:
+            if kernel != name:
+                continue
+            pre = "whisper" if variant == "main" else f"whisper_{variant}"
+            res = cases[(kernel, variant)]
+            k.update({f"{pre}_{'max_abs_err' if x == 'err' else x}":
+                      res.get(x) for x in keys})
+        k["whisper_launches"] = run["launches"][name]
 
 
 def add_moe_entries(kernels: list, cases: dict, run: dict) -> None:
@@ -5327,6 +5932,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     hymba = phase_hymba()
     done("9")
+    gc.collect()                  # phase 9's model
+    torch.cuda.empty_cache()
+    whisper = phase_whisper()
+    done("10")
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
                 "mlstm_chunkwise": xlstm["launches"]}
@@ -5387,6 +5996,7 @@ def main() -> int:
     add_context_entries(line["kernels"], kern["fastattn_context"], dist_run)
     add_moe_entries(line["kernels"], kern["gqa8"], moe)
     add_hymba_entries(line["kernels"], kern["hymba"], hymba)
+    add_whisper_entries(line["kernels"], kern["whisper"], whisper)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

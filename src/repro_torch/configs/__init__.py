@@ -12,5 +12,6 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_moe_30b_a3b,
     qwen25_32b,
     stablelm_3b,
+    whisper_small,
     xlstm_125m,
 )

@@ -8,6 +8,10 @@ leaves carry a leading repeat axis when the unit repeats more than once.
 Layer ``rep * len(unit) + i`` of the port is unit member ``u{i}`` at
 repeat ``rep``.  ``periodic_segments`` below copies the JAX package's rule
 for finding the unit (``models/lm.py``), so both sides agree on it.
+
+For an encoder-decoder config the tree is the JAX ``EncDec.init``'s:
+``enc_blocks`` and ``dec_blocks`` stack every layer along a leading axis
+(one layer included), which becomes the port's per-layer lists.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.training.tree import leaves as tree_leaves
 
 
 def _segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -61,13 +66,16 @@ def _map(tree, fn):
 def params_from_jax(tree: dict, cfg: ModelConfig,
                     device: Optional[Union[str, torch.device]] = None, *,
                     scan_layers: bool = True) -> dict:
-    """The port's parameters from a numpy copy of a JAX ``LM.init`` tree.
+    """The port's parameters from a numpy copy of a JAX ``LM.init`` (or,
+    for an encoder-decoder config, ``EncDec.init``) tree.
 
     ``scan_layers`` must match the JAX model's
     ``ParallelConfig.scan_layers`` (the default, True, stacks repeating
-    units).
+    units); the encoder-decoder stacks its layers either way.
     """
     dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        return _encdec_from_jax(tree, cfg, dev)
     segs = (periodic_segments(cfg) if scan_layers
             else [((k,), 1) for k in cfg.blocks()])
     layers = []
@@ -84,3 +92,20 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
             "final_norm": _map(tree["final_norm"],
                                lambda a: _tensor(a, dev)),
             "layers": layers}
+
+
+def _encdec_from_jax(tree: dict, cfg: ModelConfig,
+                     dev: torch.device) -> dict:
+    def unstack(stacked: dict, n: int) -> list:
+        for a in tree_leaves(stacked):
+            if np.shape(a)[0] != n:
+                raise ValueError(f"{np.shape(a)[0]} layers in the tree, "
+                                 f"config has {n}")
+        return [_map(stacked, lambda a: _tensor(a[i], dev))
+                for i in range(n)]
+
+    out = {k: _map(tree[k], lambda a: _tensor(a, dev)) for k in (
+        "frontend", "embedding", "enc_norm", "final_norm")}
+    out["enc_blocks"] = unstack(tree["enc_blocks"], cfg.encoder_layers)
+    out["dec_blocks"] = unstack(tree["dec_blocks"], cfg.num_layers)
+    return out

@@ -14,6 +14,10 @@ default), or the persistent paged EngineCore (``--stream``).
     # the paper's cooperative-offload plan (Eq. 15-20) for the run's shape
     PYTHONPATH=src python -m repro_torch.launch.serve --offload-report ...
 
+An encoder-decoder arch (``--arch whisper-small``) runs the dense
+generate over zero cross K/V, as the JAX launcher does; ``--stream``
+refuses it (``EngineCore``).
+
 ``--device`` defaults to ``cuda`` and the run fails without a GPU;
 ``--device cpu`` runs the plain PyTorch path (with ``--smoke`` for the
 reduced configs).  With ``--stream``, ``--spec-mode lookup`` turns on

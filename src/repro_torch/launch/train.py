@@ -9,7 +9,8 @@ The JAX package's ``launch/train.py``: data pipeline -> train step
 checkpointing -> fault-tolerance hooks.  ``--smoke`` shrinks the arch to
 the reduced config (``smoke_config``).  ``--device`` defaults to ``cuda``
 and the run fails without a GPU; ``--device cpu`` runs the plain PyTorch
-path.
+path.  An encoder-decoder arch (whisper-small) is refused
+(``check_trainable``): the pipeline makes no frame embeddings.
 
 ``--data`` / ``--model-axis`` above 1 spawn ``data x model`` ranks
 (``launch/mesh.spawn_ranks``), each training its piece of the
@@ -77,6 +78,19 @@ def train_backend(device: torch.device, world: int) -> tuple:
     if device.type == "cuda":
         return "gloo", (lambda r: "cuda:0")
     return "gloo", (lambda r: "cpu")
+
+
+def check_trainable(cfg) -> None:
+    """The launcher feeds ``TokenPipeline`` batches ({"tokens",
+    "labels"}); an encoder-decoder also needs "enc_embeds", which no
+    pipeline of either package makes (the JAX launcher cannot train it
+    either): raise NotImplementedError naming the missing input."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder-decoder trains on batches of "
+            "enc_embeds, tokens and labels, and TokenPipeline has no "
+            "enc_embeds (frame embeddings); drive training.train_step "
+            "with such batches directly")
 
 
 def run(args, mesh=None) -> None:
@@ -173,6 +187,7 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    check_trainable(get_model_config(args.arch))
     world = args.data * args.model_axis
     if world == 1:
         run(args)

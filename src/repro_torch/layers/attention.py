@@ -1,6 +1,7 @@
 """GQA attention layer: the dense training/full-forward path (also
-context-parallel under a training mesh), the dense-cache decode path and
-the paged KV-pool paths, the latter also tensor-parallel.
+context-parallel under a training mesh), the encoder-decoder's
+cross-attention, the dense-cache decode path and the paged KV-pool paths,
+the latter also tensor-parallel.
 
 Under a training mesh with a model axis (``sharding/rules.axis_rules``)
 each rank holds its rows of the sequence: it projects Q, K and V on
@@ -132,6 +133,35 @@ def apply_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s = x.shape[:2]
     out = out.reshape(b, s, cfg.q_dim)
     return common.dense(out, params["wo"])
+
+
+def apply_cross_attention(params: dict, x: torch.Tensor,
+                          enc_k: torch.Tensor, enc_v: torch.Tensor,
+                          cfg: ModelConfig, *,
+                          impl: Optional[str] = None) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (B, S_enc,
+    Hkv, D): non-causal, no window, the config's softcap.  x: (B, S, D)
+    decoder states (S = 1 in a decode step).  ``impl`` as in
+    ``apply_attention``."""
+    impl = impl or cfg.attention_impl
+    b, s, _ = x.shape
+    q = common.dense(x, params["wq"], params.get("bq"))
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    out = fast_attention(q, enc_k, enc_v, causal=False,
+                         softcap=cfg.attn_logit_softcap, impl=impl)
+    out = out.reshape(b, s, cfg.q_dim)
+    return common.dense(out, params["wo"])
+
+
+def project_cross_kv(params: dict, enc_states: torch.Tensor,
+                     cfg: ModelConfig):
+    """A cross-attention block's K and V of the encoder output
+    (B, S_enc, D): each (B, S_enc, Hkv, D), the JAX package's layout."""
+    b, s, _ = enc_states.shape
+    k = common.dense(enc_states, params["wk"], params.get("bk"))
+    v = common.dense(enc_states, params["wv"], params.get("bv"))
+    return (k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,

@@ -1,0 +1,48 @@
+"""Modality frontend stubs: a linear adapter from precomputed frame (or
+patch) embeddings into d_model, the JAX package's ``layers/frontend.py``.
+
+The adapter is a bias-free d_model x d_model dense; ``pos_embed`` holds
+``encoder_seq`` rows for the audio stub (1 otherwise), drawn N(0, 1) x
+0.02 in float32 and cast, and is added only to an input with exactly
+that many rows -- an input of any other length gets no positions, as in
+JAX.  A text model has no frontend (``{}``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.layers import common
+
+
+def _rows(cfg: ModelConfig) -> int:
+    return cfg.encoder_seq if cfg.modality == "audio_stub" else 1
+
+
+def init_frontend(gen: torch.Generator, cfg: ModelConfig,
+                  dtype: torch.dtype) -> dict:
+    if cfg.modality == "text":
+        return {}
+    d = cfg.d_model
+    pos = torch.randn((_rows(cfg), d), generator=gen, device=gen.device,
+                      dtype=torch.float32) * 0.02
+    return {"adapter": common.dense_init(gen, d, d, dtype),
+            "pos_embed": pos.to(dtype)}
+
+
+def frontend_logical(cfg: ModelConfig) -> dict:
+    if cfg.modality == "text":
+        return {}
+    d = cfg.d_model
+    return {"adapter": (("d_model", None), (d, d)),
+            "pos_embed": ((None, "d_model"), (_rows(cfg), d))}
+
+
+def apply_frontend(params: dict, embeds: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """embeds: precomputed (B, S, D) frame/patch embeddings."""
+    x = common.dense(embeds, params["adapter"])
+    pe = params["pos_embed"]
+    if pe.shape[0] == x.shape[1]:
+        x = x + pe[None].to(x.dtype)
+    return x

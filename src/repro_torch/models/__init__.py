@@ -1,2 +1,3 @@
-"""Decoder-only language model: training forward and paged serving."""
+"""The models: the decoder-only LM (training, dense and paged serving)
+and the encoder-decoder EncDec (training and dense serving)."""
 from repro_torch.models.registry import build_model  # noqa: F401

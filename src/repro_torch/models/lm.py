@@ -72,7 +72,9 @@ class LM:
                  parallel: Optional[ParallelConfig] = None):
         if cfg.modality != "text" or cfg.is_encoder_decoder:
             raise NotImplementedError(
-                f"{cfg.name}: only text decoder-only models are ported")
+                f"{cfg.name}: only text decoder-only models are ported as "
+                "an LM (an encoder-decoder config builds an EncDec; the "
+                "vision stub is not ported)")
         for kind in set(cfg.blocks()):
             B.check_kind(kind)
         self.cfg = cfg

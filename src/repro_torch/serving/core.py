@@ -145,6 +145,12 @@ class EngineCore:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
+        if cfg.is_encoder_decoder:
+            # the JAX package's EncDec has no paged prefill or decode step
+            raise NotImplementedError(
+                f"{cfg.name}: EngineCore (paged serving) over an "
+                "encoder-decoder (EncDec) is not ported, as the JAX package "
+                "has no paged path for it; use ServeEngine.generate")
         self.model = model
         self.cfg = cfg
         self.serve = serve = serve or ServeConfig()

@@ -5,6 +5,9 @@ The port of the JAX package's ``serving/engine.py``.  The dense path
 ``LM.decode_step`` one position at a time, against dense per-layer KV
 caches written in place (the decode attention is the CUDA ``flash_decode``
 kernel on the card); it is the oracle the paged path is tested against.
+An encoder-decoder (``EncDec``) runs it as the JAX engine does: its
+``init_cache`` without encoder states holds zero cross K/V, and its
+paged path is refused (``EngineCore``).
 
 ``generate_stream`` is the compatibility wrapper over the persistent
 paged ``EngineCore`` (``ServeEngine.core``): it submits a batch of

@@ -1,7 +1,7 @@
 """Train step: loss -> grads (with microbatch accumulation) -> AdamW.
 
 A copy of the JAX package's ``training/train_step.py`` for the text
-decoder.  ``make_train_step`` returns a function
+decoder and the encoder-decoder.  ``make_train_step`` returns a function
 ``(state, batch) -> (state, metrics)`` like the JAX one; the state is
 updated in place (see ``training/optimizer.py``).
 
@@ -69,9 +69,13 @@ def init_train_state(model, gen: torch.Generator) -> TrainState:
 
 
 def make_loss_fn(model, cfg: ModelConfig) -> Callable:
-    """Mean next-token cross entropy of a {"tokens", "labels"} batch (the
-    text path; the model refuses encoder-decoder and vision configs)."""
+    """Mean next-token cross entropy of a {"tokens", "labels"} batch, or
+    for an encoder-decoder of an {"enc_embeds", "tokens", "labels"} batch
+    (the vision stub is not ported: its model refuses the config)."""
     def loss_fn(params, batch):
+        if cfg.is_encoder_decoder:
+            return model.loss(params, batch["enc_embeds"], batch["tokens"],
+                              batch["labels"])
         return model.loss(params, batch["tokens"], batch["labels"])
     return loss_fn
 

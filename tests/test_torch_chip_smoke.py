@@ -1314,3 +1314,254 @@ def test_phase9_runs_hymba_last(cs):
     assert main.index("phase_moe()") < main.index("phase_hymba()") \
         < main.index("print(json.dumps(line))")
     assert "add_hymba_entries" in main
+
+
+def test_phase9_long_run_keeps_four_layers_of_the_pattern(cs):
+    """(c) decodes past the window on the first HYMBA_LONG_LAYERS layers:
+    hymba's layer 0 (global) and layers 1-3 (window 1024)."""
+    from repro_torch.config import get_model_config
+    cfg = get_model_config(cs.HYMBA_ARCH)
+    assert cs.HYMBA_LONG_LAYERS == 4
+    assert cfg.blocks()[:4] == ("hymba",) + ("hymba_local",) * 3
+
+
+def test_hymba_long_runs_its_first_layers(cs, hymba_model, monkeypatch):
+    """(c) on a one-layer cut of the reduced model: decode past the
+    window, its logits held to that cut's LM.apply."""
+    import numpy as np
+    import torch
+    model, params = hymba_model
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "HYMBA_LONG_LAYERS", 1)
+    monkeypatch.setattr(cs, "HYMBA_LONG_FROM", 40)
+    toks = np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, size=50).astype(np.int32)
+    run = cs.hymba_long(model, params, toks, cs.LOGIT_TOL)
+    assert run["layers"] == 1
+    assert run["steps"] == 50 + cs.HYMBA_LONG_NEW - 1
+    assert run["launches"] == 0
+
+
+def test_phase2_holds_both_kernels_at_whisper_shapes(cs):
+    """Phase 2's bf16 cases at whisper-small's 12/12 heads of 64:
+    fastattn_fwd non-causal on 1500 keys with 1500, 448 and 1 query rows;
+    flash_decode at B=8 on a 512-slot cache at kv_len 64 and ragged, SDPA
+    on its flash path (no mask)."""
+    from repro_torch.config import get_model_config
+    cfg = get_model_config(cs.WHISPER_ARCH)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.encoder_seq) == (12, 12, 64, 1500)
+    fwd, dense = dict(cs.FWD_CASES), dict(cs.DENSE_DECODE_CASES)
+    for variant, sq in (("enc", 1500), ("cross", cs.WHISPER_TEXT),
+                        ("step", 1)):
+        kw = fwd[cs.whisper_case("fastattn_fwd", variant)]
+        assert (kw["b"], kw["hq"], kw["hkv"], kw["d"], kw["sq"], kw["skv"],
+                kw["causal"], kw["dtype"]) == (8, 12, 12, 64, sq, 1500,
+                                               False, "bfloat16")
+    main = dense[cs.whisper_case("flash_decode", "main")]
+    assert (main["b"], main["s"], main["lens"], main["lib"]) == (
+        8, 512, [64] * 8, "flash")
+    ragged = dense[cs.whisper_case("flash_decode", "ragged")]
+    assert ragged.get("lens") is None and ragged["lib"] == "flash"
+    assert {(k, v) for k, v in cs.WHISPER_CASES} == {
+        ("fastattn_fwd", "enc"), ("fastattn_fwd", "cross"),
+        ("fastattn_fwd", "step"), ("flash_decode", "main"),
+        ("flash_decode", "ragged")}
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_jagged_rows_hold_each_rows_keys(cs, layout):
+    """The jagged SDPA's keys: row i's first kv_len[i] keys, (B, H, j,
+    D), from either cache layout; SDPA on them equals attention over each
+    row's keys alone."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator()
+    g.manual_seed(0)
+    b, h, s, d = 3, 2, 9, 8
+    lens = np.array([9, 4, 1], np.int32)
+    shape = (b, s, h, d) if layout == "bshd" else (b, h, s, d)
+    k, v = torch.randn(shape, generator=g), torch.randn(shape, generator=g)
+    q = torch.randn((b, h, d), generator=g)
+    kj, vj = cs._jagged_rows(k, lens, layout), cs._jagged_rows(v, lens,
+                                                               layout)
+    qj = cs._jagged(q, [1] * b)
+    out = F.scaled_dot_product_attention(qj, kj, vj).transpose(1, 2)
+    for i, n in enumerate(lens.tolist()):
+        ki = k[i, :n].transpose(0, 1) if layout == "bshd" else k[i, :, :n]
+        vi = v[i, :n].transpose(0, 1) if layout == "bshd" else v[i, :, :n]
+        want = torch.softmax(q[i][:, None] @ ki.transpose(1, 2) * d ** -0.5,
+                             -1) @ vi
+        torch.testing.assert_close(out[i][0], want[:, 0], rtol=1e-5,
+                                   atol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def whisper_model():
+    """Reduced whisper-small (2 + 2 layers, 16 frames) in bf16 on the
+    CPU, with the seeded draw of ``EncDec.init``."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    from repro_torch.models import build_model
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
+        "whisper-small")), dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg, "cpu")
+    yield model, model.init(model.generator(0))
+    torch.set_num_threads(n)
+
+
+def test_phase10_helpers_on_a_reduced_whisper(cs, whisper_model,
+                                              monkeypatch):
+    """Phase 10's gate, (a), (b) and (c) on the CPU, where both paths are
+    plain and launch nothing: ``perturbed_frames`` moves about 1% of the
+    frontend's input at every encode and nothing else; (a) holds the
+    logits; (b)'s decode logits hold to EncDec.apply on its tokens and
+    its greedy tokens to the plain run's; (c) generates over the zero
+    cross cache; the launches are returned for the phase to hold."""
+    import torch
+    from repro_torch.models import encdec
+    model, params = whisper_model
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "WHISPER_NEW", 6)
+    frames, toks = cs.whisper_inputs(model, 2, 10)
+    assert frames.dtype == torch.float32 and tuple(frames.shape) == (
+        2, model.cfg.encoder_seq, model.cfg.d_model)
+    seen = []
+    front = encdec.apply_frontend
+
+    def spy(p, x, cfg):
+        seen.append(x.clone())
+        return front(p, x, cfg)
+    monkeypatch.setattr(encdec, "apply_frontend", spy)
+    with torch.no_grad():
+        model.encode(params, frames)
+        with cs.perturbed_frames():
+            model.encode(params, frames)
+            model.encode(params, frames)
+    assert encdec.apply_frontend is spy
+    moved = (seen[1] != seen[0]).float().mean().item()
+    assert 0.002 < moved < 0.03
+    assert not torch.equal(seen[2], seen[1])     # a fresh draw each encode
+    monkeypatch.setattr(encdec, "apply_frontend", front)
+
+    ref, change = cs.whisper_sensitivity(model, params, frames, toks)
+    assert change > 0
+    gate, rule = cs.hymba_gate(change)
+    res = cs.whisper_apply(model, params, frames, toks, ref, gate)
+    assert res["launches"] == 0 and res["encode_ms"] > 0
+    prompt = toks[:, :cs.WHISPER_PROMPT].contiguous()
+    trans = cs.whisper_transcribe(model, model, params, frames, prompt, gate)
+    assert trans["steps"] == cs.WHISPER_PROMPT + 6
+    assert trans["launches"] == trans["plain_launches"] == {
+        "fastattn_fwd": 0, "flash_decode": 0}
+    assert trans["tokens_equal"] == trans["tokens"] == 2 * 6
+    assert len(trans["cache"]["self"]) == model.cfg.num_layers
+    gen = cs.whisper_generate(model, model, params, prompt, gate)
+    assert gen["launches"] == gen["plain_launches"] == {
+        "fastattn_fwd": 0, "flash_decode": 0}
+    assert gen["tokens_equal"] == gen["tokens"] == 2 * cs.WHISPER_GEN_NEW
+
+
+@pytest.mark.parametrize("method, kernel", [
+    ("encode", "fastattn_fwd"), ("decode_step", "fastattn_fwd"),
+    ("decode_step", "flash_decode")])
+def test_whisper_transcribe_fails_a_plain_run_that_launches(
+        cs, whisper_model, monkeypatch, method, kernel):
+    """(b)'s plain run must launch neither kernel: a plain model whose
+    encode launches fastattn_fwd, or whose decode_step launches either
+    kernel, fails the phase."""
+    import torch
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    model, params = whisper_model
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "WHISPER_NEW", 3)
+    frames, toks = cs.whisper_inputs(model, 2, 4)
+    plain = _Launching(model, method, {"fastattn_fwd": fastattn_fwd,
+                                       "flash_decode": flash_decode}[kernel])
+    with pytest.raises(AssertionError, match=f"{kernel} launched [1-9]"):
+        cs.whisper_transcribe(model, plain, params, frames, toks,
+                              cs.LOGIT_TOL)
+
+
+def test_whisper_generate_fails_a_plain_run_that_launches(
+        cs, whisper_model, monkeypatch):
+    import torch
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    model, params = whisper_model
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "WHISPER_GEN_NEW", 3)
+    _, toks = cs.whisper_inputs(model, 2, 4)
+    plain = _Launching(model, "decode_step", flash_decode)
+    with pytest.raises(AssertionError, match="flash_decode launched [1-9]"):
+        cs.whisper_generate(model, plain, params, toks, cs.LOGIT_TOL)
+
+
+def test_whisper_train_on_a_reduced_whisper(cs, monkeypatch):
+    """(d) through the trainer's functions at a tiny batch on the CPU
+    (float32): finite losses, step 0 on the plain path's loss and grad
+    norm, the frames in every batch."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "WHISPER_BATCH", 2)
+    monkeypatch.setattr(cs, "WHISPER_TEXT", 8)
+    cfg = reduce_for_smoke(get_model_config("whisper-small"))
+    try:
+        res = cs.whisper_train(dataclasses.replace(cfg), device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert len(res["losses"]) == cs.WHISPER_TRAIN_STEPS
+    assert res["launches"] == 0
+    assert res["loss_rel"] < 1e-6 and res["gnorm_rel"] < 1e-5
+
+
+def test_kernels_line_gains_whisper_entries(cs):
+    """fastattn_fwd's entry gets whisper_enc_*, whisper_cross_* and
+    whisper_step_*, flash_decode's whisper_* and whisper_ragged_*, both
+    their phase 10 launches by run; the other kernels' entries nothing."""
+    def res(tag):
+        return {"err": 1e-3, "ms": tag, "device_ms": tag / 2,
+                "plain_ms": 9.0, "bound_ms": 0.01, "bound_by": "bytes",
+                "library_ms": 1.0, "library_device_ms": 0.5}
+    names = ("paged_prefill", "paged_decode", "fastattn_fwd",
+             "flash_decode", "mlstm_chunkwise")
+    kernels = [{"name": n} for n in names]
+    cases = {c: res(float(i + 1)) for i, c in enumerate(cs.WHISPER_CASES)}
+    run = {"launches": {
+        "fastattn_fwd": {"apply": 36, "transcribe": 780, "generate": 228,
+                         "train": 216},
+        "flash_decode": {"transcribe": 768, "generate": 228}}}
+    cs.add_whisper_entries(kernels, cases, run)
+    by = {k["name"]: k for k in kernels}
+    for n in ("paged_prefill", "paged_decode", "mlstm_chunkwise"):
+        assert by[n] == {"name": n}
+    fa, fd = by["fastattn_fwd"], by["flash_decode"]
+    assert (fa["whisper_enc_ms"], fa["whisper_cross_ms"],
+            fa["whisper_step_ms"]) == (1.0, 2.0, 3.0)
+    assert (fd["whisper_ms"], fd["whisper_ragged_device_ms"]) == (4.0, 2.5)
+    assert fa["whisper_launches"]["transcribe"] == 780
+    assert fd["whisper_launches"] == {"transcribe": 768, "generate": 228}
+    for k, pres in ((fa, ("whisper_enc", "whisper_cross", "whisper_step")),
+                    (fd, ("whisper", "whisper_ragged"))):
+        for pre in pres:
+            assert {f"{pre}_{x}" for x in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "library_device_ms")} <= set(k)
+
+
+def test_phase10_runs_whisper_after_hymba(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_hymba()") < main.index("phase_whisper()") \
+        < main.index("print(json.dumps(line))")
+    assert "add_whisper_entries" in main
