@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one GPU: build, check, serve, train
 (on one device and on a (data, model) mesh), offload, xLSTM, head dims
 80 and 96, the mixture-of-experts block, the Mamba layer (hymba), the
-encoder-decoder (whisper).
+encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl).
 
     python3 chip_smoke.py
 
@@ -68,7 +68,11 @@ which raises on failure (the script then exits non-zero):
    (``whisper_case``): ``fastattn_fwd`` non-causal at B=8 on 1500 keys
    with 1500 (the encoder), 448 (the decoder's cross-attention) and 1
    (a decode step's) query rows, ``flash_decode`` at B=8 on a 512-slot
-   cache at kv_len 64 and at a ragged kv_len a row.  Each is
+   cache at kv_len 64 and at a ragged kv_len a row; and the four in bf16
+   at qwen2-vl-72b's 64/8 heads of 128, phase 11's model (``vl_case``:
+   GQA 8 at twice qwen3-moe's heads): paged decode at B=8 on 16 pages of
+   128, paged prefill of 8 rows of 512, ``fastattn_fwd`` at 1 x 2048
+   causal, ``flash_decode`` at B=8, kv_len 159.  Each is
    timed (median of 20 launches, CUDA events
    around each: the wrapper's host work included) and on the device
    alone (``device_ms``: 20 launches queued behind a spin kernel) beside
@@ -206,7 +210,9 @@ which raises on failure (the script then exits non-zero):
    recurrent cells (no kernel launch), its teacher-forced logits at the
    last prompt position held to (a)'s the same way, and one profiled
    decode step.  (b) The trainer's functions take 5 AdamW steps of
-   8 x 2048 tokens: finite losses, exactly 10 x 2 (remat) x 5 launches, a
+   8 x 2048 tokens on the first 3 layers (mlstm, mlstm, slstm:
+   ``XLSTM_TRAIN_LAYERS``, a cut that pays for phase 11 in the time
+   limit): finite losses, exactly 2 x 2 (remat) x 5 launches, a
    bit-exact checkpoint; on one batch the kernel path's loss within 1% of
    the plain path's and its gradient norm within a factor of 2 (both
    paths also measured under two perturbations of h); one profiled step
@@ -296,6 +302,28 @@ which raises on failure (the script then exits non-zero):
    at 8 x (1500, 448) (remat): finite, exactly 36 x 2 x 3 launches, step
    0's loss and grad norm within LOSS_RTOL and GNORM_RTOL of the plain
    path's, peak memory.  Every plain run launches neither kernel.
+11. M-RoPE and the vision stub, after phase 10 (``phase_vl``):
+   qwen2-vl-72b (64/8 heads of 128, d_model 8192, d_ff 29568, vocab
+   152,064, qkv bias, M-RoPE sections (16, 24, 24)) at full width cut to
+   its first 16 of 80 layers (``VL_LAYERS``: 16,601,497,600 parameters,
+   33.2 GB), bf16, random weights from a seeded CUDA generator; on cuda
+   or the phase fails.  The gate comes from the plain path's own change
+   with one ulp on 1% of block 0's inputs, by phase 9's rule.  (a) The
+   vision ``LM.apply`` on 1 x 2048 N(0, 1) patch and token embeddings
+   through the frontend: 64 text tokens, a 32 x 48 image (1536 patches at
+   t = 64, h = 64 + r, w = 64 + c), 448 text tokens from 112
+   (``vl_positions``, Qwen2-VL's layout): exactly 16 ``fastattn_fwd``
+   launches, logits held to the plain path; how far they move at
+   t = h = w = index positions logged.  (b) Phase 3's serving: each paged
+   kernel exactly 16 launches a prefill launch or decode step, no page
+   left (``serve_gate``).  (c) Phase 3b's generate 8 x (128 + 32):
+   ``flash_decode`` exactly 16 x 159, tokens equal (b)'s engine's under
+   the margin rule.  (e) A B=8 decode step profiled: device time, idle
+   share, launches, beside its byte bound.  (d) Three AdamW steps on the
+   first 2 layers (4,313,911,296 parameters) at 1 x 2048 on vision
+   batches with the image's labels masked (``vl_batch``): 2 x 2 x 3
+   ``fastattn_fwd`` launches, step 0's loss and grad norm within
+   LOSS_RTOL and GNORM_RTOL of the plain path's, peak memory under 80 GB.
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -317,7 +345,10 @@ launches in phase 9; ``fastattn_fwd`` also ``whisper_enc_*``,
 ``whisper_cross_*`` and ``whisper_step_*``, ``flash_decode``
 ``whisper_*`` and ``whisper_ragged_*``, phase 2's cases at whisper's
 shapes, and both ``whisper_launches``, each run's launches in phase
-10; ``fastattn_fwd`` also ``context_*``, phase 2's context-parallel
+10; each attention kernel also ``vl_*``, its phase 2 case at
+qwen2-vl's 64/8 heads -- flash_decode's from phase 11 (c)'s caches, its
+phase-2 case as ``vl_case_*`` -- and ``vl_launches``, its launches in
+phase 11; ``fastattn_fwd`` also ``context_*``, phase 2's context-parallel
 case of rank m=1, ``context_m0_*`` of m=0, and each
 phase 4b rank's launches); the last line is ``{"ok": true,
 "device": {...}}``.
@@ -1361,6 +1392,36 @@ DENSE_DECODE_CASES += [
     (whisper_case("flash_decode", "ragged"), dict(
         s=512, layout="bshd", lib="flash", seed=65, **_WH))]
 
+# qwen2-vl-72b's 64/8 heads of 128 (GQA 8, twice qwen3-moe's heads: twice
+# each launch's grid), phase 11's model, bf16: each attention kernel at its
+# main path's shape there (the kernels line's vl_* numbers; flash_decode's
+# from phase 11 (c)'s own caches, its phase-2 case as vl_case_*): paged
+# decode at B=8 on 16 pages of 128, a chunk-512 prefill of 8 rows (ragged
+# and padded rows), the causal forward at 1 x 2048, dense decode at B=8,
+# kv_len 159
+VL_ARCH = "qwen2-vl-72b"
+
+
+def vl_case(kernel: str) -> str:
+    """The name of ``kernel``'s phase-2 case at qwen2-vl's 64/8 heads."""
+    tag = "qwen2-vl H=64/8 D=128 bf16"
+    return {"paged_decode": f"{tag} B=8 ps=128",
+            "paged_prefill": f"{tag} B=8 chunk=512 ps=128",
+            "fastattn_fwd": f"{tag} B=1 S=2048 causal",
+            "flash_decode": f"{tag} B=8 bshd S=161 kv_len=159"}[kernel]
+
+
+_VL = dict(hq=64, hkv=8, d=128, dtype="bfloat16")
+DECODE_CASES.append((vl_case("paged_decode"), dict(
+    b=8, ps=128, n_kv=16, seed=71, **_VL)))
+PREFILL_CASES.append((vl_case("paged_prefill"), dict(
+    ps=128, n_kv=16, chunk=512, starts=[0, 512, 1024, 1536, 0, 512, 0, 0],
+    nvalid=[512, 300, 512, 512, 37, 512, 0, 0], seed=72, **_VL)))
+FWD_CASES.append((vl_case("fastattn_fwd"), dict(
+    b=1, sq=2048, skv=2048, seed=73, **_VL)))
+DENSE_DECODE_CASES.append((vl_case("flash_decode"), dict(
+    b=8, s=161, layout="bshd", lens=[159] * 8, seed=74, **_VL)))
+
 # phase 2's mLSTM cases: xlstm-125m's training shape first (the kernels
 # line's numbers); then a ragged f32 case, S below the chunk, 16 chunks of
 # state recurrence at a small dk/dv, a ragged S over eight chunks, and a
@@ -1414,7 +1475,8 @@ def phase_kernels() -> dict:
                 ("fastattn_fwd", "main"), ("fastattn_fwd", "global"),
                 ("flash_decode", "main"), ("flash_decode", "window"))},
             "whisper": {(k, v): every[k][whisper_case(k, v)]
-                        for k, v in WHISPER_CASES}}
+                        for k, v in WHISPER_CASES},
+            "vl": {k: every[k][vl_case(k)] for k in every}}
 
 
 # ---------------------------------------------------------------------------
@@ -1508,7 +1570,8 @@ def phase_serving(model, params, n_requests: int = 12,
            "decode_tokens": n_decode, "steps": stats["steps"],
            "prefill_launches": stats["prefill_launches"],
            "decode_launches": stats["decode_launches"],
-           "pages_peak": stats["pages_peak"], "pool_pages":
+           "pages_peak": stats["pages_peak"],
+           "pages_used": stats["pages_used"], "pool_pages":
            serve.pool_pages(), "wall_s": wall,
            "prefill_device_s": pre_s, "decode_device_s": dec_s,
            "prefill_tok_s": n_prompt / pre_s,
@@ -3779,6 +3842,10 @@ def phase_offload() -> dict:
 
 XLSTM_BATCH, XLSTM_SEQ, XLSTM_STEPS = 8, 2048, 5
 XLSTM_PROMPT, XLSTM_NEW = 128, 32
+# (b) trains the first 3 of the 12 layers (mlstm, mlstm, slstm: both block
+# kinds and the kernel): the two sLSTM time loops were about half of a
+# 12-layer step, and the script's time limit pays for phase 11 with them
+XLSTM_TRAIN_LAYERS = 3
 
 
 def _profile_kernels(fn):
@@ -3860,30 +3927,41 @@ def _end_to_end_gate(what, err, base, rtol) -> None:
 
 def _loss_and_gnorm(model, params, batch, impl):
     """The loss and gradient norm of ``batch`` ({"tokens", "labels"}, and
-    for an encoder-decoder "enc_embeds") through attention ``impl``."""
+    for an encoder-decoder "enc_embeds"; for the vision stub
+    {"inputs_embeds", "positions", "labels"}) through attention
+    ``impl``."""
     import torch
     from repro_torch.training import tree
     from repro_torch.training.optimizer import global_norm
-    keys = (("enc_embeds",) if model.cfg.is_encoder_decoder else ()) + (
-        "tokens", "labels")
+    if "inputs_embeds" in batch:
+        args, kw = (None, batch["labels"]), {
+            "inputs_embeds": batch["inputs_embeds"],
+            "positions": batch.get("positions")}
+    else:
+        keys = (("enc_embeds",) if model.cfg.is_encoder_decoder else ()) \
+            + ("tokens", "labels")
+        args, kw = tuple(batch[k] for k in keys), {}
     leaves = tree.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss = model.loss(params, *(batch[k] for k in keys), impl=impl)
-        grads = torch.autograd.grad(loss, leaves)
+        loss = model.loss(params, *args, impl=impl, **kw)
+        # a vision batch never reads the token table: no gradient there
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    return loss.item(), global_norm(list(grads)).item()
+    return loss.item(), global_norm([g for g in grads
+                                     if g is not None]).item()
 
 
 def phase_xlstm() -> dict:
     """xlstm-125m (12 layers: 10 mLSTM blocks through mlstm_chunkwise.cu,
     2 sLSTM blocks) at full width and depth, random weights from a seeded
     CUDA generator: (a) LM.apply on 8 x 2048 tokens, kernel vs plain; (b)
-    5 AdamW steps through the trainer's functions; (c)
-    ServeEngine.generate through the recurrent cells, held to (a)."""
+    5 AdamW steps through the trainer's functions on the first
+    XLSTM_TRAIN_LAYERS layers; (c) ServeEngine.generate through the
+    recurrent cells, held to (a)."""
     import math
 
     import numpy as np
@@ -4066,7 +4144,17 @@ def phase_xlstm() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- (b) training -------------------------------------------------------
+    # ---- (b) training, on the first XLSTM_TRAIN_LAYERS layers --------------
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_layers = cfg.num_layers
+    cfg = dataclasses.replace(cfg, num_layers=XLSTM_TRAIN_LAYERS)
+    kinds = cfg.blocks()
+    n_mlstm = kinds.count("mlstm")
+    model = build_model(cfg, "cuda", parallel)
+    log(f"[xlstm] (b) trains the first {cfg.num_layers} layers "
+        f"({', '.join(kinds)})")
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
                        total_steps=XLSTM_STEPS)
     state = init_train_state(model, model.generator(tcfg.seed))
@@ -4181,7 +4269,8 @@ def phase_xlstm() -> dict:
     sl_dev = n_sl * (sl_fwd_dev + sl_fb_dev)
     del x, g
 
-    out = {"layers": cfg.num_layers, "params": n_params, "batch": b,
+    out = {"layers": full_layers, "train_layers": cfg.num_layers,
+           "params": n_params, "batch": b,
            "seq": s, "forward_s": fwd_s, "forward_plain_s": ref_s,
            "forward_launches": fwd_launches,
            "forward_logit_err": fwd_err, "perturbed_plain_logit_err": base_err,
@@ -4307,11 +4396,7 @@ def phase_head_dims() -> dict:
             f"{cfg.num_heads}/{cfg.num_kv_heads} heads, norm "
             f"{cfg.norm_type}")
         served = phase_serving(model, params)
-        want = {"paged_prefill": layers * served["prefill_launches"],
-                "paged_decode": layers * served["decode_launches"]}
-        if served["launches"] != want:
-            raise AssertionError(f"{arch}: paged launches "
-                                 f"{served['launches']}, expected {want}")
+        serve_gate(f"[head_dims] {arch}", served, layers)
         dense = phase_dense(model, params)
 
         launches = apply_check(model, params, f"[head_dims] {arch}")
@@ -4791,11 +4876,7 @@ def phase_moe() -> dict:
         f"block's router inputs: {json.dumps(sens)})")
 
     served = phase_serving(model, params, rel_tol=g)
-    want = {"paged_prefill": layers * served["prefill_launches"],
-            "paged_decode": layers * served["decode_launches"]}
-    if served["launches"] != want:
-        raise AssertionError(f"{cfg.name}: paged launches "
-                             f"{served['launches']}, expected {want}")
+    serve_gate(f"[moe] {cfg.name}", served, layers)
     from repro_torch.models import build_model
     paged_model = build_model(dataclasses.replace(
         cfg, moe_capacity_factor=NO_DROP_CF), device=model.device)
@@ -5761,6 +5842,325 @@ def phase_whisper() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: M-RoPE and the vision stub -- qwen2-vl-72b at full width
+# ---------------------------------------------------------------------------
+
+# the first 16 of qwen2-vl-72b's 80 layers: 16.6 B parameters, 33.2 GB of
+# bf16 (full depth is 145.5 GB); the script's time limit, not the card's
+# memory (~30 layers would fit), sets the cut
+VL_LAYERS = 16
+VL_SEQ = 2048                 # (a), (d): one row of 2048 positions
+VL_TEXT = 64                  # (a), (d): text tokens before the image
+VL_GRID = (32, 48)            # (a), (d): the image's patch rows x columns
+VL_TRAIN_LAYERS, VL_TRAIN_STEPS = 2, 3        # (d)
+
+
+def vl_positions(b: int, s: int, n_text: int = None, grid=None,
+                 device="cuda") -> tuple:
+    """Qwen2-VL's M-RoPE positions (Hugging Face
+    ``Qwen2VLForConditionalGeneration.get_rope_index``) of rows of
+    ``n_text`` text tokens, one image of ``grid`` patches and text to
+    ``s``: text at t = h = w = i, patch (r, c) at (n_text, n_text + r,
+    n_text + c), the text after the image from n_text + max(grid)
+    (VL_TEXT and VL_GRID by default).  Returns ((3, b, s) int64
+    positions, (b, s) mask of the patches)."""
+    import torch
+    n_text = VL_TEXT if n_text is None else n_text
+    grid = VL_GRID if grid is None else grid
+    gh, gw = grid
+    n_img = gh * gw
+    if n_text + n_img > s:
+        raise ValueError(f"{n_text} text tokens and {n_img} patches do not "
+                         f"fit in {s} positions")
+    i = torch.arange(s, device=device)
+    img = (i >= n_text) & (i < n_text + n_img)
+    j = (i - n_text).clamp(0, n_img - 1)
+    t = torch.where(i < n_text, i, torch.where(
+        img, n_text, i - n_img + max(grid)))
+    h = torch.where(img, n_text + j // gw, t)
+    w = torch.where(img, n_text + j % gw, t)
+    return torch.stack([t, h, w])[:, None].expand(3, b, s), img.expand(b, s)
+
+
+def vl_inputs(model, b: int, s: int, seed: int = 0) -> tuple:
+    """N(0, 1) float32 patch and token embeddings (b, s, d_model) from a
+    generator on the model's device seeded with ``seed``, and
+    ``vl_positions``'s positions and patch mask."""
+    import torch
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    emb = torch.randn((b, s, model.cfg.d_model), generator=gen,
+                      device=model.device)
+    return (emb, *vl_positions(b, s, device=model.device))
+
+
+def vl_batch(model, b: int, s: int, seed: int) -> dict:
+    """A vision training batch: ``vl_inputs``'s embeddings and positions,
+    seeded random labels masked (-1) on the image's patches."""
+    import torch
+    emb, pos, image = vl_inputs(model, b, s, seed)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed + 1000)
+    labels = torch.randint(0, model.cfg.vocab_size, (b, s), generator=gen,
+                           device=model.device)
+    return {"inputs_embeds": emb, "positions": pos,
+            "labels": torch.where(image, -1, labels)}
+
+
+def serve_gate(what, served: dict, layers: int) -> None:
+    """Phase 3's serving run ``served`` on a model of ``layers`` layers:
+    each paged kernel exactly one launch a layer a prefill launch or
+    decode step, and no page left in use."""
+    exact_launches(what, served["launches"], {
+        "paged_prefill": layers * served["prefill_launches"],
+        "paged_decode": layers * served["decode_launches"]})
+    if served["pages_used"] != 0:
+        raise AssertionError(f"{what}: {served['pages_used']} pages leaked")
+
+
+def vl_sensitivity(model, params, emb, pos) -> tuple:
+    """The plain path's vision logits and their largest relative change
+    under ``perturbed_first_block``: (logits, change)."""
+    import torch
+    with torch.no_grad():
+        ref = model.apply(params, inputs_embeds=emb, positions=pos,
+                          impl="reference")
+        with perturbed_first_block(model):
+            change = _rel_change(model.apply(
+                params, inputs_embeds=emb, positions=pos,
+                impl="reference").float(), ref.float())
+    return ref, change
+
+
+def vl_apply(model, params, emb, pos, ref, gate: float) -> dict:
+    """(a): the vision LM.apply through the kernels (fastattn_fwd's
+    launches counted), its logits held to the plain path's ``ref`` under
+    ``gate``.  Then, with no gate, how far the logits move when the same
+    embeddings get t = h = w = index positions, over every row and over
+    the text rows before the image (whose positions are the same)."""
+    import torch
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    b, s = emb.shape[:2]
+    with torch.no_grad():
+        fastattn_fwd.launches = 0
+        wall, logits = _wall_s(lambda: model.apply(
+            params, inputs_embeds=emb, positions=pos))
+        launches = fastattn_fwd.launches
+        if logits.shape != (b, s, model.cfg.vocab_size):
+            raise AssertionError(f"(a) logits {tuple(logits.shape)}")
+        err = _logit_err(logits, ref)
+        log(f"[vl] (a) LM.apply {b} x {s} (patch embeddings, M-RoPE "
+            f"positions): {wall:.3f}s wall, fastattn_fwd launches "
+            f"{launches}; kernel vs plain logits {err[0]:.4f}, {err[1]:.4f} "
+            f"of their scale (median position {err[2]:.4f})")
+        _compare_logits("[vl] (a) LM.apply logits, kernel vs plain",
+                        logits.flatten(0, 1), ref.flatten(0, 1), gate)
+        flat = model.apply(params, inputs_embeds=emb)
+    moved = _rel_change(flat.float(), logits.float())
+    before = (flat[:, :VL_TEXT].float() - logits[:, :VL_TEXT].float()
+              ).abs().max().item()
+    log(f"[vl] (a) the same embeddings at t = h = w = index positions (no "
+        f"gate): the logits move by {moved:.4f} of their scale; the "
+        f"{VL_TEXT} text rows before the image, whose positions are the "
+        f"same, by {before:.3g}")
+    return {"wall_s": wall, "launches": launches, "logit_err": err,
+            "index_positions_change": moved,
+            "index_positions_text_rows_change": before}
+
+
+def vl_profile(model, params) -> dict:
+    """(e): a B=8 decode step (``LM.decode_step`` at position 0 of a dense
+    cache): wall (median of 5), device time of one profiled run, its
+    idle share, its launches and largest kernels, beside its byte bound
+    (every weight a decode step reads once: not the frontend, of the
+    embedding table only the tokens' rows)."""
+    import torch
+    cfg = model.cfg
+    b = DENSE_BATCH
+    cache = model.init_cache(b, 8)
+    tok = torch.arange(b, dtype=torch.int32, device=model.device)
+    unread = params["embedding"]["embed"].numel() + sum(
+        t.numel() for t in _leaves(params["frontend"]))
+    n_read = sum(t.numel() for t in _leaves(params)) - unread + b * cfg.d_model
+    bound = n_read * 2 / H100_BYTES_PER_S * 1e3
+
+    def step():
+        return model.decode_step(params, tok, cache, 0)
+    with torch.no_grad():
+        wall, _ = _wall_ms(step, reps=5)
+        kernels, dev_s = _profile_kernels(step)
+    top = sorted(kernels, key=_device_us, reverse=True)[:4]
+    res = {"wall_ms": wall, "device_ms": dev_s * 1e3,
+           "idle_share": 1 - dev_s * 1e3 / wall, "bound_ms": bound,
+           "bound_by": "bytes", "bytes_gb": n_read * 2 / 1e9,
+           "kernel_launches": sum(k.count for k in kernels),
+           "top": [(k.key[:48], _device_us(k) / 1e3, k.count) for k in top]}
+    log(f"[vl] (e) decode step B={b}: {wall:.2f} ms wall, {dev_s * 1e3:.2f} "
+        f"ms of kernels in one profiled run ({res['kernel_launches']} "
+        f"launches, idle share {res['idle_share']:.3f}), bound {bound:.2f} "
+        f"ms ({res['bytes_gb']:.2f} GB of weights); largest kernels (name, "
+        f"device ms, launches): {res['top']}")
+    return res
+
+
+def vl_train(cfg, device: str = "cuda") -> dict:
+    """(d): VL_TRAIN_STEPS AdamW steps of ``cfg`` cut to its first
+    VL_TRAIN_LAYERS layers at 1 x VL_SEQ through the trainer's functions
+    (remat "selective", as launch/train.py), fastattn_fwd's launches
+    counted, on vision batches (``vl_batch``: the image's labels masked).
+    Before them, step 0's batch through the plain attention path: the
+    first step's loss and grad norm within LOSS_RTOL and GNORM_RTOL of
+    its.  Peak memory logged."""
+    import math
+
+    import torch
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    cfg = dataclasses.replace(cfg, num_layers=VL_TRAIN_LAYERS)
+    parallel = ParallelConfig(remat="selective")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=VL_TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device, parallel)
+    state = init_train_state(model, model.generator(tcfg.seed))
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    step_fn = make_train_step(model, cfg, parallel, tcfg)
+    batches = [vl_batch(model, 1, VL_SEQ, seed=10 + i)
+               for i in range(VL_TRAIN_STEPS)]
+    p_loss, p_gn = _loss_and_gnorm(model, state.params, batches[0],
+                                   "reference")
+    fastattn_fwd.launches = 0
+    losses, gnorms, step_s = [], [], []
+    for i, batch in enumerate(batches):
+        dt, (state, metrics) = _wall_s(lambda: step_fn(state, batch))
+        step_s.append(dt)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        log(f"[vl] (d) step {i} loss {losses[-1]:.4f} gnorm "
+            f"{gnorms[-1]:.4f} {dt * 1e3:.1f} ms")
+    launches = fastattn_fwd.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"(d) non-finite loss or grad norm: {losses}, "
+                             f"{gnorms}")
+    loss_rel = abs(losses[0] - p_loss) / abs(p_loss)
+    gn_rel = abs(gnorms[0] - p_gn) / abs(p_gn)
+    log(f"[vl] (d) {cfg.num_layers} layers, {n_params:,} parameters; step 0 "
+        f"vs the plain path on its batch: loss {losses[0]:.5f} vs "
+        f"{p_loss:.5f} (rel {loss_rel:.2e}, tol {LOSS_RTOL}), grad norm "
+        f"{gnorms[0]:.5f} vs {p_gn:.5f} (rel {gn_rel:.2e}, tol "
+        f"{GNORM_RTOL}); peak memory {peak:.2f} GB")
+    if not (loss_rel <= LOSS_RTOL and gn_rel <= GNORM_RTOL):
+        raise AssertionError("(d) kernel and plain training paths disagree")
+    if not peak < 80:
+        raise AssertionError(f"(d) peak memory {peak:.2f} GB")
+    return {"layers": cfg.num_layers, "params": n_params, "losses": losses,
+            "grad_norms": gnorms, "step_s": step_s,
+            "plain_loss_gnorm": [p_loss, p_gn], "loss_rel": loss_rel,
+            "gnorm_rel": gn_rel, "launches": launches, "peak_mem_gb": peak,
+            "tok_s": VL_SEQ / statistics.median(step_s[1:])}
+
+
+def phase_vl() -> dict:
+    """Phase 11: qwen2-vl-72b (M-RoPE, the vision stub; 64/8 heads of 128)
+    at full width, cut to its first VL_LAYERS of 80 layers, bf16, random
+    weights from a seeded CUDA generator, after every earlier model is
+    freed; the tensors' and the formula's parameter counts logged.  The
+    gate (``hymba_gate``'s rule) comes from the plain path's own change
+    under one ulp on 1% of block 0's inputs.  (a) the vision LM.apply on
+    1 x 2048 (64 text tokens, a 32 x 48 image, 448 text tokens; Qwen2-VL's
+    positions), exactly one fastattn_fwd launch a layer, logits held to
+    the plain path, the move under index positions logged; (b) phase 3's
+    serving: each paged kernel exactly one launch a layer a prefill
+    launch or decode step, no page left; (c) phase 3b's generate:
+    flash_decode exactly layers x 159 launches, greedy tokens equal the
+    paged engine's under the margin rule; (e) a B=8 decode step profiled;
+    (d) VL_TRAIN_STEPS AdamW steps on the first VL_TRAIN_LAYERS layers at
+    1 x 2048 on vision batches, exactly layers x 2 x steps launches, step
+    0 held to the plain path, peak memory under 80 GB.  Runs on cuda or
+    fails."""
+    import torch
+    from repro_torch.analysis.flops import param_count
+    from repro_torch.config import get_model_config
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    left = torch.cuda.memory_allocated() / 1e9
+    cfg = dataclasses.replace(get_model_config(VL_ARCH),
+                              num_layers=VL_LAYERS)
+    model = build_model(cfg, device="cuda")
+    params = model.init(model.generator(0))
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    n_real = sum(t.numel() for t in _leaves(params))
+    log(f"[vl] {cfg.name}: the first {layers} of "
+        f"{get_model_config(VL_ARCH).num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, M-RoPE sections {cfg.mrope_sections}, vocab "
+        f"{cfg.vocab_size}; parameters {n_real:,} in the tensors "
+        f"({n_real * 2 / 1e9:.1f} GB), {param_count(cfg):,} by the "
+        f"reference's formula (no frontend); {left:.2f} GB allocated before "
+        f"the build, {torch.cuda.memory_allocated() / 1e9:.2f} GB after")
+    emb, pos, _ = vl_inputs(model, 1, VL_SEQ)
+    t_parts = {"build": time.perf_counter()}
+    ref, change = vl_sensitivity(model, params, emb, pos)
+    gate, rule = hymba_gate(change)
+    t_parts["gate"] = time.perf_counter()
+    log(f"[vl] gate {gate:.4g} ({rule}): the plain path's logits move by "
+        f"{change:.4g} of their scale with one ulp on {BLOCK_FLIP:.0%} of "
+        "block 0's inputs (LOGIT_TOL where that is at most half of it, "
+        "else max(LOGIT_TOL, twice it))")
+    applied = vl_apply(model, params, emb, pos, ref, gate)
+    del ref, emb, pos
+    t_parts["a"] = time.perf_counter()
+    served = phase_serving(model, params, rel_tol=gate)
+    serve_gate("[vl] (b)", served, layers)
+    t_parts["b"] = time.perf_counter()
+    dense = phase_dense(model, params, rel_tol=gate)
+    exact_launches("[vl] (c)", {"flash_decode": dense["launches"]}, {
+        "flash_decode": layers * (DENSE_PROMPT + DENSE_NEW - 1)})
+    t_parts["c"] = time.perf_counter()
+    profile = vl_profile(model, params)
+    t_parts["e"] = time.perf_counter()
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = vl_train(cfg)
+    t_parts["d"] = time.perf_counter()
+    exact_launches("[vl] (d)", {"fastattn_fwd": train["launches"]}, {
+        "fastattn_fwd": VL_TRAIN_LAYERS * 2 * VL_TRAIN_STEPS})
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"arch": cfg.name, "layers": layers, "params_real": n_real,
+           "params_formula": param_count(cfg), "gate": gate, "rule": rule,
+           "sensitivity": change, "launches": {
+               **served["launches"], "flash_decode": dense["launches"],
+               "fastattn_fwd": {"apply": applied["launches"],
+                                "train": train["launches"]}},
+           "flash_decode": dense["kernel"], "apply": applied,
+           "serve": {k: served[k] for k in (
+               "wall_s", "prefill_tok_s", "decode_tok_s", "steps",
+               "prefill_launches", "decode_launches", "prefill_device_s",
+               "decode_device_s", "peak_mem_gb")},
+           "generate_tok_s": dense["tokens_per_s_generate"],
+           "tokens_equal": dense["tokens_equal"],
+           "tokens_clear": dense["tokens_clear"], "profile": profile,
+           "train": train, "serve_peak_mem_gb": serve_peak,
+           "allocated_before_gb": left,
+           "seconds": time.perf_counter() - t0, "card": _card()}
+    prev, out["part_seconds"] = t0, {}
+    for part, t in t_parts.items():
+        out["part_seconds"][part], prev = t - prev, t
+    log(f"[vl] {out['card']}: phase 11 passed in {out['seconds']:.1f}s")
+    log(f"[vl] {json.dumps(out)}")
+    return out
+
+
 def add_hymba_entries(kernels: list, cases: dict, run: dict) -> None:
     """``fastattn_fwd``'s and ``flash_decode``'s entries of the kernels
     line also at hymba-1.5b's shape (``hymba_*``: phase 2's case at its
@@ -5804,6 +6204,28 @@ def add_whisper_entries(kernels: list, cases: dict, run: dict) -> None:
             k.update({f"{pre}_{'max_abs_err' if x == 'err' else x}":
                       res.get(x) for x in keys})
         k["whisper_launches"] = run["launches"][name]
+
+
+def add_vl_entries(kernels: list, cases: dict, run: dict) -> None:
+    """Each attention kernel's entry of the kernels line also at
+    qwen2-vl's 64/8 heads of 128 (``vl_*``): phase 2's case at its main
+    path's shape (``cases[name]``; flash_decode's from phase 11 (c)'s
+    caches, its phase-2 case as ``vl_case_*``), and its launches in phase
+    11 (``vl_launches``; fastattn_fwd's by run)."""
+    keys = ("err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
+    for k in kernels:
+        name = k["name"]
+        if name not in run["launches"]:
+            continue
+        res = run["flash_decode"] if name == "flash_decode" else cases[name]
+        k.update({f"vl_{'max_abs_err' if x == 'err' else x}": res.get(x)
+                  for x in keys})
+        k["vl_launches"] = run["launches"][name]
+        if name == "flash_decode":
+            case = cases[name]
+            k.update({f"vl_case_{x}": case.get(x) for x in (
+                "err", "device_ms", "bound_ms", "library_device_ms")})
 
 
 def add_moe_entries(kernels: list, cases: dict, run: dict) -> None:
@@ -5936,6 +6358,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper = phase_whisper()
     done("10")
+    gc.collect()                  # phase 10's model
+    torch.cuda.empty_cache()
+    vl = phase_vl()
+    done("11")
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
                 "mlstm_chunkwise": xlstm["launches"]}
@@ -5997,6 +6423,7 @@ def main() -> int:
     add_moe_entries(line["kernels"], kern["gqa8"], moe)
     add_hymba_entries(line["kernels"], kern["hymba"], hymba)
     add_whisper_entries(line["kernels"], kern["whisper"], whisper)
+    add_vl_entries(line["kernels"], kern["vl"], vl)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

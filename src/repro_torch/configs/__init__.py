@@ -9,6 +9,7 @@ from repro_torch.configs import (  # noqa: F401
     hymba_1p5b,
     paper_models,
     phi3_mini_3p8b,
+    qwen2_vl_72b,
     qwen3_moe_30b_a3b,
     qwen25_32b,
     stablelm_3b,

@@ -88,10 +88,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig,
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{len(layers)} layers in the tree, config has "
                          f"{cfg.num_layers}")
-    return {"embedding": _map(tree["embedding"], lambda a: _tensor(a, dev)),
-            "final_norm": _map(tree["final_norm"],
-                               lambda a: _tensor(a, dev)),
-            "layers": layers}
+    out = {k: _map(tree[k], lambda a: _tensor(a, dev)) for k in (
+        "embedding", "final_norm", "frontend") if k in tree}
+    out["layers"] = layers
+    return out
 
 
 def _encdec_from_jax(tree: dict, cfg: ModelConfig,

@@ -82,15 +82,24 @@ def train_backend(device: torch.device, world: int) -> tuple:
 
 def check_trainable(cfg) -> None:
     """The launcher feeds ``TokenPipeline`` batches ({"tokens",
-    "labels"}); an encoder-decoder also needs "enc_embeds", which no
-    pipeline of either package makes (the JAX launcher cannot train it
-    either): raise NotImplementedError naming the missing input."""
+    "labels"}); an encoder-decoder also needs "enc_embeds", and the vision
+    stub trains on "inputs_embeds" and "positions" instead of tokens,
+    which no pipeline of either package makes (the JAX launcher cannot
+    train them either): raise NotImplementedError naming the missing
+    inputs."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: an encoder-decoder trains on batches of "
             "enc_embeds, tokens and labels, and TokenPipeline has no "
             "enc_embeds (frame embeddings); drive training.train_step "
             "with such batches directly")
+    if cfg.modality == "vision_stub":
+        raise NotImplementedError(
+            f"{cfg.name}: the vision stub trains on batches of "
+            "inputs_embeds, positions and labels, and TokenPipeline has "
+            "no inputs_embeds (patch embeddings) or positions (M-RoPE's "
+            "t, h, w); drive training.train_step with such batches "
+            "directly")
 
 
 def run(args, mesh=None) -> None:

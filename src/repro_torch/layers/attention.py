@@ -103,20 +103,31 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if cfg.rope_type == "rope":
         q = rotary.apply_rope(q, positions, theta=cfg.rope_theta)
         k = rotary.apply_rope(k, positions, theta=cfg.rope_theta)
-    elif cfg.rope_type != "none":
-        raise NotImplementedError(
-            f"rope_type {cfg.rope_type!r} is not ported yet (M-RoPE comes "
-            "with the qwen2-vl slice)")
+    elif cfg.rope_type == "mrope":
+        q = rotary.apply_mrope(q, positions, sections=cfg.mrope_sections,
+                               theta=cfg.rope_theta)
+        k = rotary.apply_mrope(k, positions, sections=cfg.mrope_sections,
+                               theta=cfg.rope_theta)
     return q, k, v
+
+
+def rope_positions(positions: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The rotary positions of text tokens at sequence ``positions``
+    (B, S): themselves, or for M-RoPE their (3, B, S) broadcast (t = h =
+    w = pos), as every JAX serving site treats a request."""
+    if cfg.rope_type == "mrope":
+        return positions.expand(3, *positions.shape)
+    return positions
 
 
 def apply_attention(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, window: Optional[int] = None,
                     causal: bool = True,
                     impl: Optional[str] = None) -> torch.Tensor:
-    """Training / full-forward attention.  x: (B, S, D); positions (B, S).
-    ``impl`` (default ``cfg.attention_impl``) as in ``fast_attention``.
-    Under a mesh with a model axis, x holds this rank's S rows of the
+    """Training / full-forward attention.  x: (B, S, D); positions (B, S),
+    or (3, B, S) for M-RoPE (used as given).  ``impl`` (default
+    ``cfg.attention_impl``) as in ``fast_attention``.  Under a mesh with a model axis, x holds this rank's S rows of the
     sequence (context parallelism, above)."""
     impl = impl or cfg.attention_impl
     q, k, v = _project_qkv(params, x, cfg, positions)
@@ -185,7 +196,8 @@ def apply_attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     b = x.shape[0]
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(params, x, cfg,
+                                   rope_positions(positions, cfg))
     for buf, new in ((cache.k, k_new), (cache.v, v_new)):
         buf[:, pos] = new[:, 0].to(buf.dtype)
     kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
@@ -328,7 +340,8 @@ def apply_attention_prefill_paged(params: dict, x: torch.Tensor,
     b, s, _ = x.shape
     positions = pos_start.long()[:, None] + \
         torch.arange(s, device=x.device)[None]
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(params, x, cfg,
+                                   rope_positions(positions, cfg))
     cache = scatter_kv_pages(cache, k_new, v_new, page_table, positions,
                              n_valid)
     kv_len = (pos_start + n_valid).to(torch.int32)
@@ -360,7 +373,8 @@ def apply_attention_decode_paged(params: dict, x: torch.Tensor,
     """
     b = x.shape[0]
     positions = pos.long()[:, None]
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(params, x, cfg,
+                                   rope_positions(positions, cfg))
     hkv, npages, psl, d = cache.k.shape
     flat = _row_slots(cache.k, page_table, positions)[:, 0]
     for pool, new in ((cache.k, k_new), (cache.v, v_new)):

@@ -9,6 +9,8 @@ JAX.  A text model has no frontend (``{}``).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.config import ModelConfig
@@ -38,11 +40,14 @@ def frontend_logical(cfg: ModelConfig) -> dict:
             "pos_embed": ((None, "d_model"), (_rows(cfg), d))}
 
 
-def apply_frontend(params: dict, embeds: torch.Tensor,
-                   cfg: ModelConfig) -> torch.Tensor:
-    """embeds: precomputed (B, S, D) frame/patch embeddings."""
+def apply_frontend(params: dict, embeds: torch.Tensor, cfg: ModelConfig,
+                   seq_len: Optional[int] = None) -> torch.Tensor:
+    """embeds: precomputed (B, S, D) frame/patch embeddings.  ``seq_len``
+    (default S) is the whole input's length where ``embeds`` holds one
+    rank's rows of the sequence: it decides whether the position rows
+    apply."""
     x = common.dense(embeds, params["adapter"])
     pe = params["pos_embed"]
-    if pe.shape[0] == x.shape[1]:
+    if pe.shape[0] == (x.shape[1] if seq_len is None else seq_len):
         x = x + pe[None].to(x.dtype)
     return x

@@ -1,14 +1,16 @@
 """Decoder-only language model: training forward, dense-cache decode and
 paged serving (attention and mixture-of-experts models; the xLSTM and
 hymba blocks decode from their recurrent state -- hymba's beside its KV
-cache -- and have no paged path).
+cache -- and have no paged path).  A vision-stub model (qwen2-vl) also
+takes precomputed patch embeddings through its frontend, with M-RoPE's
+(3, B, S) positions; serving treats its requests as text.
 
 Layers are a plain Python list (the JAX package stacked repeating units
 and ran them under ``lax.scan``; eager PyTorch needs neither).  Parameters
 are nested dicts of tensors:
 
     {"embedding": {"embed", ["lm_head"]}, "final_norm": {...},
-     "layers": [block params, ...]}
+     ["frontend": {"adapter", "pos_embed"}], "layers": [block params, ...]}
 
 The model lives on ``device`` -- ``"cuda"`` unless the caller passes
 another (the tests pass ``"cpu"``).  ``parallel.remat`` "full" (and
@@ -20,9 +22,9 @@ entered by the train step) ``apply`` and ``loss`` run one rank's share:
 its rows of the batch and of the sequence, against its pieces of every
 parameter (``param_specs``: the JAX rule table's layout).  Each block
 gathers its sharded weights over the model axis before use (again in
-the backward's recompute under remat), the embedding and LM head are
-gathered once, and attention is context-parallel
-(``layers/attention.py``).  The gathers' gradients come back to each
+the backward's recompute under remat), the embedding and LM head (and a
+vision model's frontend) are gathered once, and attention is
+context-parallel (``layers/attention.py``).  The gathers' gradients come back to each
 rank as its piece of the sum over the model axis.
 """
 from __future__ import annotations
@@ -36,6 +38,8 @@ from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.layers.embedding import (embed_tokens, embedding_logical,
                                           init_embedding, lm_logits)
+from repro_torch.layers.frontend import (apply_frontend, frontend_logical,
+                                         init_frontend)
 from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 from repro_torch.models import blocks as B
 from repro_torch.sharding import collectives as C
@@ -70,11 +74,10 @@ class LM:
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  parallel: Optional[ParallelConfig] = None):
-        if cfg.modality != "text" or cfg.is_encoder_decoder:
+        if cfg.is_encoder_decoder:
             raise NotImplementedError(
-                f"{cfg.name}: only text decoder-only models are ported as "
-                "an LM (an encoder-decoder config builds an EncDec; the "
-                "vision stub is not ported)")
+                f"{cfg.name}: only decoder-only models are an LM (an "
+                "encoder-decoder config builds an EncDec)")
         for kind in set(cfg.blocks()):
             B.check_kind(kind)
         self.cfg = cfg
@@ -98,13 +101,14 @@ class LM:
                              f"{self.device}")
         cfg = self.cfg
         dtype = torch_dtype(cfg.param_dtype)
-        return {
-            "embedding": init_embedding(gen, cfg, dtype),
-            "final_norm": init_norm(cfg.d_model, cfg.norm_type, dtype,
-                                    self.device),
-            "layers": [B.init_block(gen, cfg, kind, dtype)
-                       for kind in cfg.blocks()],
-        }
+        params = {"embedding": init_embedding(gen, cfg, dtype),
+                  "final_norm": init_norm(cfg.d_model, cfg.norm_type, dtype,
+                                          self.device)}
+        if cfg.modality != "text":
+            params["frontend"] = init_frontend(gen, cfg, dtype)
+        params["layers"] = [B.init_block(gen, cfg, kind, dtype)
+                            for kind in cfg.blocks()]
+        return params
 
     # ------------------------------------------------------------------
     # logical axes and the rank's layout
@@ -113,10 +117,13 @@ class LM:
         """Logical axes of every leaf of ``init``'s tree (the port's
         layout: a list of per-layer trees where JAX stacks segments)."""
         cfg = self.cfg
-        return {"embedding": embedding_logical(cfg),
-                "final_norm": norm_logical(cfg.d_model, cfg.norm_type),
-                "layers": [B.block_logical(cfg, kind)
-                           for kind in cfg.blocks()]}
+        tree = {"embedding": embedding_logical(cfg),
+                "final_norm": norm_logical(cfg.d_model, cfg.norm_type)}
+        if cfg.modality != "text":
+            tree["frontend"] = frontend_logical(cfg)
+        tree["layers"] = [B.block_logical(cfg, kind)
+                          for kind in cfg.blocks()]
+        return tree
 
     def cache_logical(self, batch: int, max_seq: int) -> List:
         """Logical axes of every leaf of ``init_cache``'s list."""
@@ -168,33 +175,55 @@ class LM:
         return apply_norm(params["final_norm"], x, cfg.norm_type,
                           cfg.norm_eps)
 
-    def apply(self, params: dict, tokens: torch.Tensor, *,
+    def apply(self, params: dict, tokens: Optional[torch.Tensor] = None, *,
+              inputs_embeds: Optional[torch.Tensor] = None,
               positions: Optional[torch.Tensor] = None,
               impl: Optional[str] = None) -> torch.Tensor:
-        """Forward to logits.  tokens: (B, S) int; returns (B, S, V).
+        """Forward to logits.  tokens: (B, S) int, or inputs_embeds
+        (B, S, D) precomputed patch embeddings for the vision stub (through
+        the frontend); returns (B, S, V).  positions: (B, S), or (3, B, S)
+        for M-RoPE; by default each row's index (t = h = w for M-RoPE).
         Under a mesh: this rank's rows of the batch and of the sequence,
         positions (by default) their global ones."""
+        cfg = self.cfg
         mesh = self._mesh()
+        specs = self.param_specs(mesh) if mesh is not None else None
         emb = params["embedding"]
         if mesh is not None:
-            emb = C.gather_tree(emb, self.param_specs(mesh)["embedding"],
-                                mesh)
-        x = embed_tokens(emb, tokens, self.cfg)
+            emb = C.gather_tree(emb, specs["embedding"], mesh)
+        if inputs_embeds is not None:
+            x = inputs_embeds.to(torch_dtype(cfg.dtype))
+            if "frontend" in params:
+                front = params["frontend"]
+                if mesh is not None:
+                    front = C.gather_tree(front, specs["frontend"], mesh)
+                n_model = mesh.shape.get("model", 1) if mesh else 1
+                x = apply_frontend(front, x, cfg,
+                                   seq_len=x.shape[1] * n_model)
+        else:
+            x = embed_tokens(emb, tokens, cfg)
         if positions is None:
-            b, s = tokens.shape
+            b, s = x.shape[:2]
             s0 = mesh.coords.get("model", 0) * s if mesh else 0
             positions = torch.arange(s0, s0 + s,
-                                     device=tokens.device).expand(b, s)
+                                     device=x.device).expand(b, s)
+            if cfg.rope_type == "mrope":
+                positions = positions.expand(3, b, s)
         x = self.hidden_states(params, x, positions=positions, impl=impl)
-        return lm_logits(emb, x, self.cfg)
+        return lm_logits(emb, x, cfg)
 
-    def loss(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
-             *, impl: Optional[str] = None) -> torch.Tensor:
-        """Mean next-token cross entropy; labels < 0 are masked.  Under a
-        mesh: this rank's share of the global batch's mean -- its summed
-        nll over the masked count of every rank -- so that the ranks'
-        shares (and their gradients) sum to the mean."""
-        logits = self.apply(params, tokens, impl=impl).float()
+    def loss(self, params: dict, tokens: Optional[torch.Tensor],
+             labels: torch.Tensor, *,
+             inputs_embeds: Optional[torch.Tensor] = None,
+             positions: Optional[torch.Tensor] = None,
+             impl: Optional[str] = None) -> torch.Tensor:
+        """Mean next-token cross entropy; labels < 0 are masked.  The
+        input is ``tokens``, or ``inputs_embeds`` and ``positions`` as in
+        ``apply``.  Under a mesh: this rank's share of the global batch's
+        mean -- its summed nll over the masked count of every rank -- so
+        that the ranks' shares (and their gradients) sum to the mean."""
+        logits = self.apply(params, tokens, inputs_embeds=inputs_embeds,
+                            positions=positions, impl=impl).float()
         mask = labels >= 0
         lab = torch.clamp(labels, min=0).long()
         logz = torch.logsumexp(logits, dim=-1)

@@ -65,11 +65,28 @@ def global_norm(grads, groups: Optional[Sequence] = None) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(total)))
 
 
-def clip_by_global_norm(grads, max_norm: float,
-                        groups: Optional[Sequence] = None):
+def clip_scale(grads, max_norm: float,
+               groups: Optional[Sequence] = None):
+    """(the factor ``clip_by_global_norm`` scales every gradient by, the
+    global norm)."""
     norm = global_norm(grads, groups)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree.tree_map(lambda g: g * scale.to(g.dtype), grads), norm
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
+
+
+# AdamW is elementwise: a leaf of more elements updates in pieces of this
+# many, so that its float32 temporaries stay small (a 152064 x 8192
+# embedding table's would take ~25 GB at once)
+UPDATE_CHUNK = 1 << 26
+
+
+def _pieces(*leaves) -> list:
+    """Matching flat pieces of same-shaped leaves, each viewing its leaf
+    (in-place writes land in it); the leaves whole where one is not
+    contiguous."""
+    if leaves[0].numel() <= UPDATE_CHUNK or not all(
+            t.is_contiguous() for t in leaves):
+        return [leaves]
+    return list(zip(*(t.view(-1).split(UPDATE_CHUNK) for t in leaves)))
 
 
 @torch.no_grad()
@@ -79,19 +96,21 @@ def adamw_update(grads, state: AdamWState, params, cfg: TrainConfig,
     updated in place and returned.  Returns (params, state, metrics).
     ``groups``: the sharded leaves' groups, as ``global_norm`` takes them
     (AdamW itself is elementwise: it runs on each rank's pieces)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, groups)
+    scale, gnorm = clip_scale(grads, cfg.grad_clip, groups)
     step = state.step + 1
     lr = lr_schedule(step, cfg)
     b1, b2, eps, wd = cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
-    for p, g, mu, nu in zip(*(tree.leaves(t) for t in
-                              (params, grads, state.mu, state.nu))):
-        gf = g.float()
-        mu.mul_(b1).add_((1 - b1) * gf)
-        nu.mul_(b2).add_((1 - b2) * gf * gf)
-        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-        upd = upd + wd * p.float()
-        p.copy_((p.float() - lr * upd).to(p.dtype))
+    for leaf in zip(*(tree.leaves(t) for t in
+                      (params, grads, state.mu, state.nu))):
+        for p, g, mu, nu in _pieces(*leaf):
+            # clip_by_global_norm's g * scale in g's dtype, then float32
+            gf = (g * scale.to(g.dtype)).float()
+            mu.mul_(b1).add_((1 - b1) * gf)
+            nu.mul_(b2).add_((1 - b2) * gf * gf)
+            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            upd = upd + wd * p.float()
+            p.copy_((p.float() - lr * upd).to(p.dtype))
     return params, AdamWState(step=step, mu=state.mu, nu=state.nu), \
         {"lr": lr, "grad_norm": gnorm}

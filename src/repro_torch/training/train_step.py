@@ -1,9 +1,9 @@
 """Train step: loss -> grads (with microbatch accumulation) -> AdamW.
 
 A copy of the JAX package's ``training/train_step.py`` for the text
-decoder and the encoder-decoder.  ``make_train_step`` returns a function
-``(state, batch) -> (state, metrics)`` like the JAX one; the state is
-updated in place (see ``training/optimizer.py``).
+decoder, the encoder-decoder and the vision stub.  ``make_train_step``
+returns a function ``(state, batch) -> (state, metrics)`` like the JAX
+one; the state is updated in place (see ``training/optimizer.py``).
 
 On one device the step is the JAX step's arithmetic.  Under a training
 mesh (``sharding.rules.axis_rules(mesh=...)`` active when the step is
@@ -15,7 +15,9 @@ one process a rank (``launch/mesh.py``):
 * every rank receives the same global batch; microbatch ``i`` is global
   rows ``[i*mb, (i+1)*mb)`` (``mb = B / microbatches``), of which DP rank
   ``d`` takes ``[i*mb + d*mb/dp, i*mb + (d+1)*mb/dp)`` and model rank
-  ``m`` sequence rows ``[m*S/model, (m+1)*S/model)``;
+  ``m`` sequence rows ``[m*S/model, (m+1)*S/model)`` -- along dims 1 and
+  2 of M-RoPE's (3, B, S) positions (JAX's reshape splits their t/h/w
+  axis instead: ROADMAP Queue 3);
 * each rank's loss is its share of the microbatch's global mean
   (``LM.loss``); the gathers' backward sums the model axis into each
   rank's pieces, and every gradient is then summed over the mesh axes its
@@ -69,28 +71,37 @@ def init_train_state(model, gen: torch.Generator) -> TrainState:
 
 
 def make_loss_fn(model, cfg: ModelConfig) -> Callable:
-    """Mean next-token cross entropy of a {"tokens", "labels"} batch, or
-    for an encoder-decoder of an {"enc_embeds", "tokens", "labels"} batch
-    (the vision stub is not ported: its model refuses the config)."""
+    """Mean next-token cross entropy of a {"tokens", "labels"} batch; for
+    an encoder-decoder of an {"enc_embeds", "tokens", "labels"} batch, for
+    the vision stub of an {"inputs_embeds", "positions", "labels"} batch
+    (positions optional: by default each row's index)."""
     def loss_fn(params, batch):
         if cfg.is_encoder_decoder:
             return model.loss(params, batch["enc_embeds"], batch["tokens"],
                               batch["labels"])
+        if cfg.modality == "vision_stub":
+            return model.loss(params, None, batch["labels"],
+                              inputs_embeds=batch["inputs_embeds"],
+                              positions=batch.get("positions"))
         return model.loss(params, batch["tokens"], batch["labels"])
     return loss_fn
 
 
 def _value_and_grad(loss_fn, params, batch):
+    """(loss, the gradient of every leaf); a leaf the loss never reads
+    (a vision batch's token table) gets zeros, as ``jax.grad`` gives
+    it."""
     leaves = tree.leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
         loss = loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    return loss.detach(), grads
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
 
 
 def _accumulate(loss_fn, params, micro, device):
@@ -108,11 +119,34 @@ def _accumulate(loss_fn, params, micro, device):
     return loss / len(micro), [g / len(micro) for g in grads]
 
 
+def _axes(key: str) -> tuple:
+    """The (batch, sequence) dims of a batch array: M-RoPE's positions
+    are (3, B, S), every other array (B, S, ...)."""
+    return (1, 2) if key == "positions" else (0, 1)
+
+
+def _rows(x: torch.Tensor, key: str, rows: slice,
+          cols: slice = slice(None)) -> torch.Tensor:
+    """``x``'s batch rows ``rows`` and sequence positions ``cols``."""
+    bd, sd = _axes(key)
+    return x.narrow(bd, rows.start, rows.stop - rows.start)[
+        (slice(None),) * sd + (cols,)]
+
+
+def microbatches(batch: dict, n_micro: int) -> list:
+    """Microbatch i: rows [i*mb, (i+1)*mb) of every batch array along its
+    batch dim (``_axes``), the JAX package's reshape((n_micro, B //
+    n_micro) + ...) for (B, ...) arrays."""
+    mb = batch["labels"].shape[0] // n_micro
+    return [{k: _rows(x, k, slice(i * mb, (i + 1) * mb))
+             for k, x in batch.items()} for i in range(n_micro)]
+
+
 def rank_rows(batch: dict, mesh, n_micro: int) -> list:
     """This rank's pieces of every microbatch of a global batch (rows as
     the module docstring says).  Raises ValueError naming the shapes when
     the batch, its microbatches or the sequence do not split evenly."""
-    b, s = next(iter(batch.values())).shape[:2]
+    b, s = batch["labels"].shape[:2]
     dp_axes = tuple(a for a in mesh.axis_names if a != "model")
     d, dp = shard_index(dp_axes, mesh, mesh.coords)
     m, n_model = shard_index(("model",) if "model" in mesh.axis_names
@@ -125,7 +159,8 @@ def rank_rows(batch: dict, mesh, n_micro: int) -> list:
             "the sequence of model")
     mb, sl = b // n_micro, s // n_model
     rows, cols = mb // dp, slice(m * sl, (m + 1) * sl)
-    return [{k: x[i * mb + d * rows:i * mb + (d + 1) * rows, cols]
+    return [{k: _rows(x, k, slice(i * mb + d * rows, i * mb + (d + 1) * rows),
+                      cols)
              for k, x in batch.items()} for i in range(n_micro)]
 
 
@@ -138,11 +173,7 @@ def make_train_step(model, cfg: ModelConfig, parallel: ParallelConfig,
     mesh = current_mesh()
     if mesh is None or mesh.world == 1:
         def train_step(state: TrainState, batch: dict):
-            # microbatch i is rows [i*mb, (i+1)*mb) of every batch array,
-            # the JAX package's reshape((n_micro, B // n_micro) + ...)
-            mb = next(iter(batch.values())).shape[0] // n_micro
-            micro = [{k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
-                     for i in range(n_micro)]
+            micro = microbatches(batch, n_micro)
             loss, grads = _accumulate(loss_fn, state.params, micro,
                                       model.device)
             grads = tree.unflatten(state.params, list(grads))

@@ -1565,3 +1565,203 @@ def test_phase10_runs_whisper_after_hymba(cs):
     assert main.index("phase_hymba()") < main.index("phase_whisper()") \
         < main.index("print(json.dumps(line))")
     assert "add_whisper_entries" in main
+
+
+def test_phase2_holds_every_attention_kernel_at_qwen2_vl_heads(cs):
+    """Phase 2's bf16 cases at qwen2-vl-72b's 64/8 heads of 128, phase
+    11's model: paged decode at B=8 on 16 pages of 128, paged prefill of
+    8 rows of a 512 chunk (ragged and padded rows), the causal forward
+    at 1 x 2048, dense decode at B=8, kv_len 159."""
+    from repro_torch.config import get_model_config
+    cfg = get_model_config(cs.VL_ARCH)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) == (64, 8, 128)
+    cases = {k: dict(v) for k, v in (
+        ("paged_decode", cs.DECODE_CASES), ("paged_prefill",
+                                            cs.PREFILL_CASES),
+        ("fastattn_fwd", cs.FWD_CASES),
+        ("flash_decode", cs.DENSE_DECODE_CASES))}
+    for kernel, by_name in cases.items():
+        kw = by_name[cs.vl_case(kernel)]
+        assert (kw["hq"], kw["hkv"], kw["d"], kw["dtype"]) == (
+            64, 8, 128, "bfloat16"), kernel
+        vl = [k for k in by_name.values()
+              if (k["hq"], k["hkv"], k.get("d")) == (64, 8, 128)]
+        assert len(vl) == 1, kernel
+    assert (cases["paged_decode"][cs.vl_case("paged_decode")]["b"],
+            cases["paged_decode"][cs.vl_case("paged_decode")]["n_kv"]) == (
+        8, 16)
+    pre = cases["paged_prefill"][cs.vl_case("paged_prefill")]
+    assert len(pre["starts"]) == 8 and pre["chunk"] == 512
+    assert 0 in pre["nvalid"] and any(0 < n < 512 for n in pre["nvalid"])
+    fwd = cases["fastattn_fwd"][cs.vl_case("fastattn_fwd")]
+    assert (fwd["b"], fwd["sq"], fwd["skv"], fwd.get("causal", True)) == (
+        1, 2048, 2048, True)
+    dec = cases["flash_decode"][cs.vl_case("flash_decode")]
+    assert (dec["b"], dec["s"], dec["lens"], dec["layout"]) == (
+        8, 161, [159] * 8, "bshd")
+
+
+def test_vl_positions_follow_qwen2_vl_layout(cs):
+    """Text at t = h = w = i, patch (r, c) at (n, n + r, n + c), text
+    after the image from n + max(grid): phase 11's 64 + 32 x 48 + 448 at
+    2048 positions, and a small case checked element by element."""
+    import torch
+    pos, img = cs.vl_positions(2, cs.VL_SEQ, device="cpu")
+    assert tuple(pos.shape) == (3, 2, 2048) and int(img[0].sum()) == 1536
+    t, h, w = pos[:, 0]
+    assert torch.equal(t[:64], torch.arange(64)) and torch.equal(t[:64],
+                                                                 h[:64])
+    assert (t[64:1600] == 64).all()
+    assert int(h[64:1600].max()) == 64 + 31 and int(w[64:1600].max()) == \
+        64 + 47
+    assert torch.equal(t[1600:], torch.arange(112, 112 + 448))
+    assert torch.equal(t[1600:], h[1600:]) and torch.equal(t[1600:],
+                                                           w[1600:])
+    pos, img = cs.vl_positions(1, 12, n_text=2, grid=(2, 3), device="cpu")
+    assert pos[:, 0].tolist() == [
+        [0, 1, 2, 2, 2, 2, 2, 2, 5, 6, 7, 8],
+        [0, 1, 2, 2, 2, 3, 3, 3, 5, 6, 7, 8],
+        [0, 1, 2, 3, 4, 2, 3, 4, 5, 6, 7, 8]]
+    assert img[0].tolist() == [False] * 2 + [True] * 6 + [False] * 4
+    with pytest.raises(ValueError, match="do not fit"):
+        cs.vl_positions(1, 7, n_text=2, grid=(2, 3), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def vl_model():
+    """Reduced qwen2-vl-72b (2 layers, 16/2 heads of 16, sections
+    (2, 3, 3)) in bf16 on the CPU, with the seeded draw of ``LM.init``."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    from repro_torch.models import build_model
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
+        "qwen2-vl-72b")), dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg, "cpu")
+    yield model, model.init(model.generator(0))
+    torch.set_num_threads(n)
+
+
+def _small_vl(cs, monkeypatch):
+    import torch
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "VL_SEQ", 24)
+    monkeypatch.setattr(cs, "VL_TEXT", 3)
+    monkeypatch.setattr(cs, "VL_GRID", (3, 4))
+
+
+def test_phase11_helpers_on_a_reduced_qwen2_vl(cs, vl_model, monkeypatch):
+    """Phase 11's inputs, gate and (a) on the CPU, where both paths are
+    plain and launch nothing: the vision batch masks exactly the image's
+    labels; the plain path's sensitivity moves the logits; (a) holds the
+    logits, and the text rows before the image do not move under index
+    positions (they are the same positions)."""
+    import torch
+    _small_vl(cs, monkeypatch)
+    model, params = vl_model
+    emb, pos, img = cs.vl_inputs(model, 2, cs.VL_SEQ)
+    assert emb.dtype == torch.float32 and tuple(emb.shape) == (
+        2, 24, model.cfg.d_model)
+    assert tuple(pos.shape) == (3, 2, 24) and int(img.sum()) == 2 * 12
+    batch = cs.vl_batch(model, 2, cs.VL_SEQ, seed=3)
+    assert torch.equal(batch["labels"] < 0, img)
+    assert torch.equal(batch["positions"], pos)
+    assert not torch.equal(batch["inputs_embeds"], emb)
+    ref, change = cs.vl_sensitivity(model, params, emb, pos)
+    assert change > 0 and tuple(ref.shape) == (2, 24, model.cfg.vocab_size)
+    gate, _ = cs.hymba_gate(change)
+    res = cs.vl_apply(model, params, emb, pos, ref, gate)
+    assert res["launches"] == 0 and res["logit_err"][0] == 0
+    assert res["index_positions_text_rows_change"] == 0
+    assert res["index_positions_change"] > 0
+    with pytest.raises(AssertionError, match="logits differ"):
+        cs.vl_apply(model, params, emb, pos, -ref, gate)
+
+
+def test_vl_train_on_a_reduced_qwen2_vl(cs, monkeypatch):
+    """(d) through the trainer's functions at a tiny batch on the CPU
+    (float32): finite losses, step 0 on the plain path's loss and grad
+    norm, the layer cut, no launch."""
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    _small_vl(cs, monkeypatch)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    for name in ("reset_peak_memory_stats",):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "VL_TRAIN_LAYERS", 1)
+    try:
+        res = cs.vl_train(reduce_for_smoke(get_model_config(
+            "qwen2-vl-72b")), device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert res["layers"] == 1 and len(res["losses"]) == cs.VL_TRAIN_STEPS
+    assert res["launches"] == 0
+    assert res["loss_rel"] < 1e-6 and res["gnorm_rel"] < 1e-5
+
+
+def test_serve_gate_rejects_faked_launches_and_leaks(cs):
+    ok = {"launches": {"paged_prefill": 16 * 9, "paged_decode": 16 * 40},
+          "prefill_launches": 9, "decode_launches": 40, "pages_used": 0}
+    cs.serve_gate("ok", ok, 16)
+    for bad, match in (
+            (dict(ok, launches={"paged_prefill": 16 * 9 - 1,
+                                "paged_decode": 16 * 40}), "launched"),
+            (dict(ok, launches={"paged_prefill": 16 * 9,
+                                "paged_decode": 16 * 40 + 1}), "launched"),
+            (dict(ok, pages_used=3), "3 pages leaked")):
+        with pytest.raises(AssertionError, match=match):
+            cs.serve_gate("faked", bad, 16)
+
+
+def test_kernels_line_gains_vl_entries(cs):
+    """Each attention kernel's entry gets vl_* (flash_decode's from phase
+    11 (c)'s caches, its phase-2 case as vl_case_*) and vl_launches;
+    mlstm_chunkwise's entry nothing."""
+    def res(tag):
+        return {"err": 1e-3, "ms": tag, "device_ms": tag / 2,
+                "plain_ms": 9.0, "bound_ms": 0.01, "bound_by": "bytes",
+                "library_ms": 1.0, "library_device_ms": 0.5}
+    names = ("paged_prefill", "paged_decode", "fastattn_fwd",
+             "flash_decode", "mlstm_chunkwise")
+    kernels = [{"name": n} for n in names]
+    cases = {n: res(float(i + 1)) for i, n in enumerate(names[:4])}
+    run = {"flash_decode": res(7.0), "launches": {
+        "paged_prefill": 144, "paged_decode": 640, "flash_decode": 2544,
+        "fastattn_fwd": {"apply": 16, "train": 12}}}
+    cs.add_vl_entries(kernels, cases, run)
+    by = {k["name"]: k for k in kernels}
+    assert by["mlstm_chunkwise"] == {"name": "mlstm_chunkwise"}
+    assert by["paged_prefill"]["vl_ms"] == 1.0
+    assert by["fastattn_fwd"]["vl_launches"] == {"apply": 16, "train": 12}
+    assert by["flash_decode"]["vl_ms"] == 7.0
+    assert by["flash_decode"]["vl_case_device_ms"] == 2.0
+    for n in names[:4]:
+        assert {f"vl_{x}" for x in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")} <= set(by[n])
+
+
+def test_phase11_runs_qwen2_vl_after_whisper(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_whisper()") < main.index("phase_vl()") \
+        < main.index("print(json.dumps(line))")
+    assert "add_vl_entries" in main
+    assert cs.VL_LAYERS == 16 and cs.VL_TRAIN_LAYERS == 2
+    assert cs.VL_TEXT + cs.VL_GRID[0] * cs.VL_GRID[1] + 448 == cs.VL_SEQ
+
+
+def test_phase6_trains_the_first_layers_of_both_kinds(cs):
+    """Phase 6 (b) trains xlstm-125m's first XLSTM_TRAIN_LAYERS layers:
+    mlstm, mlstm, slstm -- both block kinds and the kernel, 2 x 2 x 5
+    launches."""
+    import dataclasses
+    from repro_torch.config import get_model_config
+    cfg = dataclasses.replace(get_model_config("xlstm-125m"),
+                              num_layers=cs.XLSTM_TRAIN_LAYERS)
+    assert cfg.blocks() == ("mlstm", "mlstm", "slstm")
+    assert cfg.blocks().count("mlstm") * 2 * cs.XLSTM_STEPS == 20

@@ -139,18 +139,6 @@ def test_model_device_defaults_to_cuda():
         params_from_jax({}, cfg)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-72b"])
-def test_unported_block_kinds_raise(arch):
-    """The model the port still refuses: the vision-stub modality (the
-    encoder-decoder runs: tests/test_torch_whisper.py)."""
-    from repro_torch.config import ModelConfig
-    jcfg = reduce_for_smoke(get_model_config(arch))
-    cfg = ModelConfig(**jcfg.__dict__)
-    with pytest.raises(NotImplementedError,
-                       match="only text decoder-only models are ported"):
-        build_model(cfg, "cpu")
-
-
 def test_init_matches_jax_shapes_and_scale():
     cfg = t_reduce(t_get("gemma2-2b"))
     jcfg = reduce_for_smoke(get_model_config("gemma2-2b"))
