@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one GPU: build, check, serve, train
 (on one device and on a (data, model) mesh), offload, xLSTM, head dims
-80 and 96, the mixture-of-experts block, the Mamba layer (hymba), the
+80 and 96, the mixture-of-experts block (served, trained,
+expert-parallel and at tp=2), the Mamba layer (hymba), the
 encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl).
 
     python3 chip_smoke.py
@@ -106,8 +107,10 @@ which raises on failure (the script then exits non-zero):
    path, logits within the phase 3 tolerance; the step's wall time
    (median of 10), its device time and ``flash_decode``'s share of it
    (one profiled step).
-3d. The rest of the paged engine, on phase 3's model after 3c freed its
-   cache (``phase_features``), each run against the same traffic with
+3d. The rest of the paged engine, on phase 3's model cut to its first
+   16 of 32 layers (``FEATURE_LAYERS``, the cut that pays for phase 8
+   (g)-(i)) after 3c freed its cache (``phase_features``), each run
+   against the same traffic with
    the feature off (the reference run records the top-1 margin of every
    token it takes; tokens must be equal up to the first position whose
    margin is under the phase 3 tolerance), with both paged kernels'
@@ -253,7 +256,29 @@ which raises on failure (the script then exits non-zero):
    gate, the share of tokens routed otherwise recorded per layer; (f) a
    B=8 decode step and the 8 x 512 prefill launch timed (wall, one
    profiled run's device time, idle share, largest kernels) against
-   their bounds.  Peak memory below 80 GB.
+   their bounds.  Peak memory below 80 GB.  Then, with the 48-layer
+   model freed (``phase_moe_parallel``), on random weights from seed 0
+   at full width: (g) 3 AdamW steps of its first 2 layers
+   (``MOE_TRAIN_LAYERS``, 1.87 B parameters) at 2 x 2048, remat full,
+   capacity factor 1.25, each step's drop share printed: step 0's loss
+   within LOSS_RTOL and grad norm within GNORM_RTOL of the plain path's,
+   ``fastattn_fwd`` exactly 2 x 2 x 3 launches, finite losses, peak
+   memory below 80 GB; (h) (g)'s weights and first 2 steps at (data=2,
+   model=2), four gloo ranks on the card, the experts sharded over the
+   model axis (expert parallelism): each rank's expert leaves its 64
+   experts and every piece its rule-table slice of (g)'s draw, the
+   ranks' loss, grad norm and lr equal, each step within phase 4b's
+   DIST_LOSS_RTOL / DIST_GNORM_RTOL of (g)'s, each leaf's update within
+   DIST_DELTA_RTOL of (g)'s (summed over the ranks' pieces),
+   ``fastattn_fwd`` 2 x 2 x 2 a rank at its q_offset, the collectives'
+   counts and bytes printed (correctness only: gloo stages every
+   collective through the host); (i) its first 4 layers (3.1 B
+   parameters) serving phase 3's 12 requests at tp=2 (g=2, s=1) through
+   phase 3e's harness, tiled: the ranks' streams exactly equal, equal to
+   a tp=1 run of the same model on the card under the margin rule, each
+   paged kernel exactly 4 launches a prefill launch or decode step on
+   every rank, every rank holding all 128 experts of every layer, no
+   page left.
 9. The Mamba layer, after phase 8 (``phase_hymba``): hymba-1.5b (32
    blocks of parallel attention and Mamba heads, 25/5 heads of 64,
    window 1024 on 29 layers, 1.42 B parameters) at full width and depth,
@@ -337,7 +362,10 @@ phase 2 bf16 case at the main path's shape -- flash_decode's from phase 7
 its launches in phase 7; each attention kernel also ``g8_*``, its phase 2
 case at qwen3-moe's GQA 32/4 -- flash_decode's from phase 8 (b)'s caches,
 its phase-2 case as ``g8_case_*`` -- and ``moe_launches``, its launches in
-phase 8; ``fastattn_fwd`` and ``flash_decode`` also ``hymba_*``, phase
+phase 8; ``fastattn_fwd`` also ``moe_train_launches`` and
+``moe_ep_launches`` / ``moe_ep_q_offsets`` (phase 8 (g), each rank of
+(h)), the paged kernels ``moe_tp_launches`` (each rank of (i));
+``fastattn_fwd`` and ``flash_decode`` also ``hymba_*``, phase
 2's case at hymba-1.5b's main-path shape, ``fastattn_fwd``'s
 ``hymba_global_*`` without the window, ``flash_decode``'s
 ``hymba_window_*`` on 4096 keys, and ``hymba_launches``, each run's
@@ -2391,15 +2419,35 @@ def _held(what, run, ref) -> None:
         "feature-off run's before any fork at a near-tie")
 
 
+def first_layers(model, params, n: int):
+    """``model`` and ``params`` cut to their first ``n`` layers (at most
+    all of them; the weights shared)."""
+    from repro_torch.models import build_model
+    n = min(n, model.cfg.num_layers)
+    cfg = dataclasses.replace(model.cfg, num_layers=n)
+    return (build_model(cfg, device=model.device, parallel=model.parallel),
+            {**params, "layers": params["layers"][:n]})
+
+
+# phase 3d runs llama2-7b's first FEATURE_LAYERS of 32 layers, each run
+# gated against its own feature-off run at the same depth: the cut that
+# pays for phase 8 (g)-(i) in the script's time limit
+FEATURE_LAYERS = 16
+
+
 def phase_features(model, params) -> dict:
-    """Phase 3d on phase 3's llama2-7b: the prefix cache, preemption and
-    swap, speculative decoding, fault injection and the scan prefill
-    oracle, each against the same traffic with the feature off."""
+    """Phase 3d on phase 3's llama2-7b cut to its first FEATURE_LAYERS
+    layers: the prefix cache, preemption and swap, speculative decoding,
+    fault injection and the scan prefill oracle, each against the same
+    traffic with the feature off."""
     import torch
     from repro_torch.serving.faults import FaultInjector
 
     gc.collect()                  # phase 3c's dense cache
     torch.cuda.empty_cache()
+    model, params = first_layers(model, params, FEATURE_LAYERS)
+    log(f"[3d] {model.cfg.name} cut to its first {model.cfg.num_layers} "
+        "layers")
     t0 = time.perf_counter()
     traffic = feature_traffic(model.cfg.vocab_size)
     both = ("paged_prefill", "paged_decode")
@@ -2606,22 +2654,20 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-def _tp_rank(rank: int, arch: str, params, runs) -> dict:
-    """One rank of phase 3e: for each (name, ServeConfig keywords, waves)
-    of ``runs`` a fresh EngineCore on this rank's slices of ``params``
-    (shared with the parent by CUDA IPC; copied over first where the rank
-    has a GPU of its own), driven over the waves."""
+def _tp_rank(rank: int, cfg, params, runs) -> dict:
+    """One rank of phase 3e (and of phase 8 (i)): for each (name,
+    ServeConfig keywords, waves) of ``runs`` a fresh EngineCore on this
+    rank's slices of ``params`` (shared with the parent by CUDA IPC;
+    copied over first where the rank has a GPU of its own) of the model
+    ``cfg``, driven over the waves; with each run, the experts of every
+    MoE layer the core holds."""
     import torch
-    from repro_torch.config import ServeConfig, get_model_config
-    from repro_torch.config import reduce_for_smoke
+    from repro_torch.config import ServeConfig
     from repro_torch.kernels.fastattn.ops import fastattn_paged_prefill
     from repro_torch.kernels.flash_decode.ops import paged_flash_decode
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_model_config(arch.removesuffix(" reduced"))
-    if arch.endswith(" reduced"):
-        cfg = reduce_for_smoke(cfg)
     model = build_model(cfg, device=dev)
     if next(_leaves(params)).device != dev:
         params = _tree_to(params, dev)
@@ -2632,6 +2678,9 @@ def _tp_rank(rank: int, arch: str, params, runs) -> dict:
         core = _make_feature_core()(model, params, cfg, ServeConfig(**serve),
                                     device=dev, record=True)
         out[name] = _tp_drive(core, waves, counts)
+        out[name]["experts"] = [bp["moe"]["w_up"].shape[0]
+                                for bp in core.params["layers"]
+                                if "moe" in bp]
         del core
         gc.collect()
         torch.cuda.empty_cache()
@@ -2801,7 +2850,7 @@ def phase_tp(model, params) -> dict:
         out["a_tp1"] = {k: tp1[k] for k in ("wall_s", "steps",
                                             "device_tok_s", "peak_mem_gb")}
         _tp_memory(params, cfg, SERVE_3, 2)
-        ranks = spawn(tmp, "a", 2, "llama2-7b", params, [
+        ranks = spawn(tmp, "a", 2, cfg, params, [
             (m, dict(SERVE_3, tp=2, tp_collectives=m), waves)
             for m in TP_MODES])
         for m in TP_MODES:
@@ -2838,7 +2887,7 @@ def phase_tp(model, params) -> dict:
                 device="cuda", record=True)
             refs[name] = _tp_drive(core, w, {})
             del core
-        ranks = spawn(tmp, "b", 4, "gemma2-2b reduced", rparams, [
+        ranks = spawn(tmp, "b", 4, rcfg, rparams, [
             (name, dict(serve, tp=4, tp_collectives=(
                 "single" if name == "single" else "tiled")), w)
             for name, (serve, w) in traffic.items()])
@@ -3193,16 +3242,26 @@ def same_checkpoint(dir_a: str, dir_b: str, step: int) -> list:
     return bad
 
 
-def _dist_rank(rank: int, cfg, mesh_kw: dict, ckpt_dir: str,
-               mode: str) -> dict:
-    """One rank of phase 4b.  ``mode`` "train": phase 4's run (``cfg``,
-    weights, batches, TrainConfig) on this rank's share of the mesh, every
-    step's numbers and the collectives it issued, a checkpoint of the
-    final state (and, on rank 0, the same gathered state saved on one
-    rank, compared file for file), then one more step.  "resume": that
-    checkpoint restored into this rank's pieces and the one more step.
-    The rank runs on its CUDA device (on the CPU only where there is
-    none: a rehearsal of the phase's host code)."""
+def _dist_rank(rank: int, cfg, mesh_kw: dict, run: dict) -> dict:
+    """One rank of a training run on a mesh (phase 4b; phase 8 (h)): the
+    one-device run's model (``cfg``), seed, batches and schedule at
+    ``ParallelConfig(remat=run["remat"], **mesh_kw)``, drawing the whole
+    tree and keeping its pieces.  ``run``: the one-device run's "batch"
+    x "seq" batches and its "steps" (the schedule), the "dist_steps" to
+    take, "mode" and "ckpt_dir" (None: no checkpoint), the one-device
+    parameters after dist_steps ("snapshot", in tree order) or None, and
+    whether to read step 0's "leaf_gnorm".  Mode "train": every step's
+    numbers and the collectives it issued, the initial pieces'
+    fingerprints and sizes, the expert count of each expert leaf,
+    fastattn_fwd's launches and q_offsets; given a snapshot, for each
+    leaf the squared norms on this rank's piece of the one-device update
+    and of the updates' difference (``delta_gate``); given a ckpt_dir, a
+    checkpoint of the final state (and, on rank 0, the same gathered
+    state saved on one rank, compared file for file), then one more
+    step.  "resume": that checkpoint restored into this rank's pieces
+    and the one more step.  The rank runs on its CUDA device (on the CPU
+    only where there is none: a rehearsal of the phase's host code, on
+    one thread a rank)."""
     import torch
     import torch.distributed as dist
     from repro_torch.config import ParallelConfig, TrainConfig
@@ -3213,23 +3272,26 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, ckpt_dir: str,
     from repro_torch.launch.train import to_device
     from repro_torch.models import build_model
     from repro_torch.sharding import collectives as C
-    from repro_torch.sharding.rules import axis_rules
+    from repro_torch.sharding.rules import (axis_rules, flatten, is_spec,
+                                            shard_of)
     from repro_torch.training import tree
     from repro_torch.training.checkpoint import CheckpointManager
     from repro_torch.training.train_step import (init_train_state,
                                                  make_train_step,
                                                  state_specs)
     torch.backends.cuda.matmul.allow_tf32 = False
-    parallel = ParallelConfig(remat="selective", **mesh_kw)
+    parallel = ParallelConfig(remat=run["remat"], **mesh_kw)
     mesh = make_mesh_for(parallel, timeout=DIST_INIT_TIMEOUT_S)
     dev = (torch.device("cuda", torch.cuda.current_device())
            if torch.cuda.is_available() else torch.device("cpu"))
+    if dev.type == "cpu":
+        torch.set_num_threads(1)        # a rehearsal: ranks share the cores
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
-                       total_steps=TRAIN_STEPS)        # phase 4's schedule
+                       total_steps=run["steps"])   # the one-device schedule
     model = build_model(cfg, dev, parallel)
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=TRAIN_SEQ,
-                                    global_batch=TRAIN_BATCH))
+                                    seq_len=run["seq"],
+                                    global_batch=run["batch"]))
     kernel = ops.fastattn_fwd
     offsets = set()
 
@@ -3239,6 +3301,7 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, ckpt_dir: str,
     # the wrapper counts its launches on the module's name: here
     recorded.launches = 0
 
+    ckpt_dir, snapshot = run["ckpt_dir"], run["snapshot"]
     out = {"rank": rank, "coords": mesh.coords, "device": str(dev),
            "backend": str(dist.get_backend()), "loss": [], "grad_norm": [],
            "lr": [], "step_s": [], "collectives": [], "coll_bytes": []}
@@ -3249,28 +3312,41 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, ckpt_dir: str,
             state = init_train_state(model, model.generator(tcfg.seed))
             synchronize(dev)
             out["init_s"] = time.perf_counter() - t0
-            mgr = CheckpointManager(ckpt_dir, mesh=mesh, specs=state_specs(
-                model.param_specs(mesh)))
+            pspecs = model.param_specs(mesh)
+            specs = flatten(pspecs, is_spec)
+            mgr = (CheckpointManager(ckpt_dir, mesh=mesh,
+                                     specs=state_specs(pspecs))
+                   if ckpt_dir else None)
             step_fn = make_train_step(model, cfg, parallel, tcfg)
-            pieces = tree.leaves(state.params)
-            out["numel"] = [t.numel() for t in pieces]
-            if mode == "resume":
+            paths = tree.leaves_with_paths(state.params)
+            out["numel"] = [t.numel() for _, t in paths]
+            out["experts"] = [t.shape[0] for p, t in paths
+                              if "/moe/w_" in p]
+            if run["mode"] == "resume":
                 state, manifest = mgr.restore(state)
                 data.restore(manifest["extras"]["data"])
                 out["restored_keys"] = [bits_key(t)
                                         for t in tree.leaves(state)]
             else:
-                out["init_keys"] = [bits_key(t) for t in pieces]
-                # step 0's gradient, leaf by leaf, on phase 4's first
-                # batch (a pipeline of its own: ``data`` stays at 0)
+                out["init_keys"] = [bits_key(t) for _, t in paths]
+            if run["leaf_gnorm"]:
+                # step 0's gradient, leaf by leaf, on the first batch (a
+                # pipeline of its own: ``data`` stays at 0)
                 first = TokenPipeline(data.cfg).next()
                 out["leaf_gnorm"] = leaf_grad_norms(
                     model, cfg, state.params, to_device(first, dev))
-            del pieces
+
+        def snap(i):                      # the one-device piece of leaf i
+            return shard_of(snapshot[i].to(dev), specs[i], mesh).float()
+        # the one-device update's squared norm on each piece, before the
+        # steps update the pieces in place
+        one = [(snap(i) - t.float()).square().sum().item()
+               for i, (_, t) in enumerate(paths)] if snapshot else None
+        del paths
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         recorded.launches = 0
-        for _ in range(DIST_STEPS if mode == "train" else 0):
+        for _ in range(run["dist_steps"] if run["mode"] == "train" else 0):
             batch = to_device(data.next(), dev)
             C.COUNTS.update(all_gather=0, reduce_scatter=0, all_reduce=0,
                             bytes=0)
@@ -3288,22 +3364,31 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, ckpt_dir: str,
         out["q_offsets"] = sorted(offsets)
         out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                               if dev.type == "cuda" else None)
-        if mode == "train":
+        if one is not None:
+            # the updates' difference: final - snapshot (the init cancels)
+            out["delta"] = [((t.float() - snap(i)).square().sum().item(),
+                             one[i])
+                            for i, t in enumerate(tree.leaves(state.params))]
+        if ckpt_dir is None:
+            return out
+        if run["mode"] == "train":
             t1 = time.perf_counter()
-            mgr.save(DIST_STEPS, state, extras={"data": data.state()})
+            mgr.save(run["dist_steps"], state,
+                     extras={"data": data.state()})
             out["save_s"] = time.perf_counter() - t1
             t1 = time.perf_counter()
             host = mgr.gather_host(state)
             if host is not None:
-                one = os.path.join(ckpt_dir, "one_rank")
-                CheckpointManager(one).save(
-                    DIST_STEPS, tree.unflatten(state, [t for _, t in host]),
+                one_rank = os.path.join(ckpt_dir, "one_rank")
+                CheckpointManager(one_rank).save(
+                    run["dist_steps"],
+                    tree.unflatten(state, [t for _, t in host]),
                     extras={"data": data.state()})
                 del host
-                out["ckpt_differs"] = same_checkpoint(ckpt_dir, one,
-                                                      DIST_STEPS)
+                out["ckpt_differs"] = same_checkpoint(
+                    ckpt_dir, one_rank, run["dist_steps"])
                 out["ckpt_files"] = len(os.listdir(os.path.join(
-                    one, f"step_{DIST_STEPS:08d}")))
+                    one_rank, f"step_{run['dist_steps']:08d}")))
             out["ckpt_check_s"] = time.perf_counter() - t1
         state, metrics = step_fn(state, to_device(data.next(), dev))
         out["next_loss"] = float(metrics["loss"])
@@ -3313,15 +3398,20 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, ckpt_dir: str,
 
 
 def dist_gate(what, ranks: list, ref: dict, keys: list, specs: list,
-              seq: int, model: int) -> None:
-    """Phase 4b's gates on the (2, 2) run: every rank's loss, grad norm
-    and lr equal the others' and, step by step, phase 4's within
+              seq: int, model: int, *, layers: int = TRAIN_LAYERS,
+              steps: int = DIST_STEPS, experts: int = None,
+              checkpoint: bool = True) -> None:
+    """The gates of a training run on a mesh against its one-device run
+    (``ref``; phase 4b, phase 8 (h)): every rank's loss, grad norm and lr
+    equal the others' and, step by step, the one device's within
     DIST_LOSS_RTOL / DIST_GNORM_RTOL (lr exactly); each rank launched
-    fastattn_fwd TRAIN_LAYERS x 2 (remat) x DIST_STEPS times, all at its
-    q_offset; its initial pieces are the rule table's slices of phase 4's
-    draw (``keys``: per rank, the fingerprints of those slices); a leaf
-    sharded over the model axis holds 1/model of the whole; rank 0's
-    checkpoint equals the one-rank save of the same gathered state."""
+    fastattn_fwd ``layers`` x 2 (remat) x ``steps`` times, all at its
+    q_offset; its initial pieces are the rule table's slices of the one
+    device's draw (``keys``: per rank, the fingerprints of those slices);
+    a leaf sharded over the model axis holds 1/model of the whole; given
+    ``experts``, each expert leaf holds that many experts (its slice of
+    the expert dim); with ``checkpoint``, rank 0's checkpoint equals the
+    one-rank save of the same gathered state."""
     from repro_torch.sharding.rules import spec_axes
     first = ranks[0]
     for r, res in enumerate(ranks):
@@ -3330,7 +3420,7 @@ def dist_gate(what, ranks: list, ref: dict, keys: list, specs: list,
                 raise AssertionError(f"{what}: rank {r}'s {k} {res[k]} "
                                      f"differs from rank 0's {first[k]}")
         m = res["coords"]["model"]
-        want = TRAIN_LAYERS * 2 * DIST_STEPS
+        want = layers * 2 * steps
         if res["launches"] != want or res["q_offsets"] != [m * seq // model]:
             raise AssertionError(
                 f"{what}: rank {r} launched fastattn_fwd {res['launches']} "
@@ -3338,17 +3428,22 @@ def dist_gate(what, ranks: list, ref: dict, keys: list, specs: list,
                 f"[{m * seq // model}]")
         if res["init_keys"] != keys[r]:
             raise AssertionError(f"{what}: rank {r}'s initial pieces are "
-                                 "not its slices of phase 4's parameters")
+                                 "not its slices of the one device's "
+                                 "parameters")
         sharded = [i for i, s in enumerate(specs) if spec_axes(s)]
         whole = [int(t.numel()) for t in ref["init"]]
         bad = [i for i in sharded if res["numel"][i] * model != whole[i]]
         if not sharded or bad:
             raise AssertionError(f"{what}: rank {r}: sharded leaves {bad} "
                                  f"do not hold 1/{model} of the whole")
-    if len(first["loss"]) != DIST_STEPS:
+        if experts is not None and (not res["experts"]
+                                    or set(res["experts"]) != {experts}):
+            raise AssertionError(f"{what}: rank {r}'s expert leaves hold "
+                                 f"{res['experts']} experts, not {experts}")
+    if len(first["loss"]) != steps:
         raise AssertionError(f"{what}: {len(first['loss'])} steps, not "
-                             f"{DIST_STEPS}")
-    for i in range(DIST_STEPS):
+                             f"{steps}")
+    for i in range(steps):
         l1, g1, lr1 = (ref[k][i] for k in ("loss", "grad_norm", "lr"))
         l2, g2, lr2 = (first[k][i] for k in ("loss", "grad_norm", "lr"))
         if not (abs(l2 - l1) <= DIST_LOSS_RTOL * abs(l1)
@@ -3358,7 +3453,7 @@ def dist_gate(what, ranks: list, ref: dict, keys: list, specs: list,
                 f"{what}: step {i}: loss {l2} / grad norm {g2} / lr {lr2} "
                 f"against one device's {l1} / {g1} / {lr1} (rtol "
                 f"{DIST_LOSS_RTOL} / {DIST_GNORM_RTOL}, lr exact)")
-    if first["ckpt_differs"] or not first["ckpt_files"]:
+    if checkpoint and (first["ckpt_differs"] or not first["ckpt_files"]):
         raise AssertionError(f"{what}: the checkpoint differs from the "
                              f"one-rank save in {first['ckpt_differs']}")
 
@@ -3452,26 +3547,33 @@ def resume_gate(what, resumed: list, keys: list, base: float) -> None:
                              f"{base} (rtol {DIST_RESUME_RTOL})")
 
 
-def delta_gate(what, paths: list, init: list, final_one: list,
-               final_dist: list) -> dict:
+def delta_gate(what, paths: list, ranks: list, specs: list,
+               moe_bound: float = None) -> dict:
     """Each leaf's update at the mesh against one device's, as
-    ||d_dist - d_one|| / ||d_one|| with d = final - init (Adam flips the
-    sign of near-zero updates, so no elementwise bound holds): within
-    DIST_DELTA_RTOL; a leaf one device left unchanged must stay
-    unchanged.  Returns path -> that ratio (0 for unchanged leaves)."""
-    import torch
-    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    ||d_mesh - d_one|| / ||d_one|| with d = final - init (Adam flips the
+    sign of near-zero updates, so no elementwise bound holds), from the
+    ranks' pieces (``_dist_rank``'s "delta": per leaf the two squared
+    norms on its piece) summed over the leaf's distinct pieces -- those
+    of the ranks at coordinate 0 on every axis it is not sharded over:
+    within DIST_DELTA_RTOL (a MoE block's leaves within ``moe_bound``
+    where given); a leaf one device left unchanged must stay unchanged.
+    Returns path -> that ratio (0 for unchanged leaves)."""
+    from repro_torch.sharding.rules import spec_axes
     rel = {}
-    for path, a, b, c in zip(paths, init, final_one, final_dist,
-                             strict=True):
-        a = a.to(dev).float()
-        d1, dd = b.to(dev).float() - a, c.to(dev).float() - a
-        n1, nd = d1.norm().item(), (dd - d1).norm().item()
-        rel[path] = nd / n1 if n1 > 0 else (0.0 if nd == 0 else math.inf)
-        if not rel[path] <= DIST_DELTA_RTOL:
+    for i, (path, spec) in enumerate(zip(paths, specs, strict=True)):
+        bound = (moe_bound if moe_bound is not None and "/moe/" in path
+                 else DIST_DELTA_RTOL)
+        axes = spec_axes(spec)
+        held = [r for r in ranks if all(
+            c == 0 for a, c in r["coords"].items() if a not in axes)]
+        num = sum(r["delta"][i][0] for r in held)
+        den = sum(r["delta"][i][1] for r in held)
+        rel[path] = (math.sqrt(num / den) if den > 0 else
+                     0.0 if num == 0 else math.inf)
+        if not rel[path] <= bound:
             raise AssertionError(f"{what}: leaf {path}: update off by "
                                  f"{rel[path]:.3e} of one device's "
-                                 f"(bound {DIST_DELTA_RTOL})")
+                                 f"(bound {bound})")
     return rel
 
 
@@ -3492,21 +3594,31 @@ def checkpoint_leaves(ckpt_dir: str, step: int):
         yield m["path"], t.reshape(m["shape"])
 
 
-def phase_dist_training(trained: dict, cfg=None) -> dict:
+def phase_dist_training(trained: dict, cfg=None, run: dict = None,
+                        tag: str = "[4b]", experts: int = None) -> dict:
     """Phase 4b: phase 4's training (llama2-7b cut to TRAIN_LAYERS, or
     ``cfg``) at (data=2, model=2), four ranks over gloo sharing the card
-    (NCCL where there is a GPU a rank), held to phase 4's run; its
-    checkpoint restored at (data=1, model=2) for the next step; the
-    launcher at --data 2 --model-axis 2."""
+    (NCCL where there is a GPU a rank), held to phase 4's run
+    (``dist_gate``, ``delta_gate``); its checkpoint restored at (data=1,
+    model=2) for the next step; the launcher at --data 2 --model-axis 2.
+    ``run`` (phase 8 (h) gives its own) sets the one-device run's
+    "remat", "batch" x "seq" batches, "steps" and "layers", the
+    "dist_steps" taken, whether to "checkpoint" (and then restore and
+    run the launcher) and to read step 0's "leaf_gnorm"; ``experts``,
+    the expert count each rank's expert leaves must hold."""
     import torch
     from repro_torch.config import ParallelConfig, get_model_config
     from repro_torch.launch.mesh import make_mesh, spawn_ranks
-    from repro_torch.launch.train import train_backend
+    from repro_torch.launch.mesh import train_backend
     from repro_torch.models import build_model
     from repro_torch.sharding.rules import flatten, is_spec, shard_of
-    from repro_torch.training.train_step import state_specs
 
     ref = trained["reference"]
+    run = run or dict(remat="selective", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                      steps=TRAIN_STEPS, layers=TRAIN_LAYERS,
+                      dist_steps=DIST_STEPS, checkpoint=True,
+                      leaf_gnorm=True)
+    steps = run["dist_steps"]
     t0 = time.perf_counter()
     on_card = torch.cuda.is_available()
     kind = torch.device("cuda" if on_card else "cpu")
@@ -3514,8 +3626,8 @@ def phase_dist_training(trained: dict, cfg=None) -> dict:
     world = parallel.pods * parallel.data * parallel.model
     cfg = cfg or dataclasses.replace(get_model_config("llama2-7b"),
                                      num_layers=TRAIN_LAYERS)
-    # the rule table's layout of phase 4's tree, and each rank's slices
-    # of phase 4's draw (fingerprints), without a device
+    # the rule table's layout of the one-device tree, and each rank's
+    # slices of its draw (fingerprints), without a device
     meta = build_model(cfg, "cpu", parallel)
     specs = flatten(meta.param_specs(make_mesh(parallel.mesh_shape(),
                                                parallel.mesh_axes())),
@@ -3524,141 +3636,168 @@ def phase_dist_training(trained: dict, cfg=None) -> dict:
               for r in range(world)]
     keys = [[] for _ in range(world)]
     for t, s in zip(ref["init"], specs, strict=True):
-        t = t.cuda() if on_card else t
+        t = t.to(kind)
         for r, mesh in enumerate(meshes):
             keys[r].append(bits_key(shard_of(t, s, mesh)))
         del t
+    # the one device's parameters after ``steps``, on the card: the ranks
+    # read them through CUDA IPC
+    snapshot = [t.to(kind) for t in ref["snapshot"]]
     # the launcher's choice for each world: NCCL with a GPU a rank where
     # there are as many, else gloo, the ranks sharing cuda:0
     backend = train_backend(kind, world)[0]
     out = {"backend": backend, "mesh": DIST_MESH}
 
-    def spawn(tmp, tag, n, *args):
+    def spawn(tmp, name, n, mesh_kw, **kw):
         backend, dev_of = train_backend(kind, n)
         devs = [dev_of(r) for r in range(n)]
-        log(f"[4b] {tag}: {n} ranks over {backend} on {devs}")
-        return spawn_ranks(_dist_rank, n, args=(cfg,) + args,
-                           device_of_rank=dev_of, backend=backend,
-                           init_method=f"file://{tmp}/pg-{tag}",
-                           timeout_s=DIST_DEADLINE_S,
-                           init_timeout_s=DIST_INIT_TIMEOUT_S)
+        log(f"{tag} {name}: {n} ranks over {backend} on {devs}")
+        res = spawn_ranks(_dist_rank, n, args=(cfg, mesh_kw, dict(
+            run, **kw)), device_of_rank=dev_of, backend=backend,
+            init_method=f"file://{tmp}/pg-{name}",
+            timeout_s=DIST_DEADLINE_S, init_timeout_s=DIST_INIT_TIMEOUT_S)
+        if on_card:
+            torch.cuda.ipc_collect()  # the ranks' handles on our tensors
+        return res
 
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "ckpt")
-        ranks = spawn(tmp, "(2,2)", world, DIST_MESH, ckpt, "train")
-        what = "llama2-7b (data=2, model=2)"
-        dist_gate(what, ranks, ref, keys, specs, TRAIN_SEQ, parallel.model)
-        params = [(p, t) for p, t in checkpoint_leaves(ckpt, DIST_STEPS)
-                  if p.startswith("/params/")]
-        rel = delta_gate(what, [p for p, _ in params], ref["init"],
-                         ref["snapshot"], [t for _, t in params])
-        del params
-        gn = leaf_gnorm_report(ref["paths"], ref["leaf_gnorm"],
-                               ranks[0]["leaf_gnorm"])
-        log(f"[4b] step 0's gradient, leaves whose norms move the grad "
-            "norm most against one device's (path, relative difference, "
-            "share of the squared total's difference): " + ", ".join(
-                f"{p} {r:.3e} {c:+.3e}" for p, r, c in gn))
-        e = ref["paths"].index("/embedding/embed")
-        embed_gn = {"one_bf16": ref["leaf_gnorm"][e],
-                    "one_f32_rows": ref["embed_gnorm_f32"],
-                    "mesh": ranks[0]["leaf_gnorm"][e]}
-        log("[4b] step 0's embed gradient norm: one device {one_bf16:.5f} "
-            "(bf16 scatter-add), {one_f32_rows:.5f} (rows summed in f32), "
-            "mesh {mesh:.5f}".format(**embed_gn))
+        ckpt = os.path.join(tmp, "ckpt") if run["checkpoint"] else None
+        ranks = spawn(tmp, "(2,2)", world, DIST_MESH, mode="train",
+                      ckpt_dir=ckpt, snapshot=snapshot)
+        del snapshot
+        what = f"{tag} {cfg.name} (data=2, model=2)"
+        dist_gate(what, ranks, ref, keys, specs, run["seq"],
+                  parallel.model, layers=run["layers"], steps=steps,
+                  experts=experts, checkpoint=run["checkpoint"])
+        rel = delta_gate(what, ref["paths"], ranks, specs,
+                         MOE_DELTA_RTOL if experts is not None else None)
+        worst = max(rel, key=rel.get)
+        first = ranks[0]
         for r, res in enumerate(ranks):
-            steps = len(res["step_s"])
             per = {k: sum(c[k] for c in res["collectives"]) / steps
                    for k in res["collectives"][0]}
-            log(f"[4b] rank {r} {res['coords']} on {res['device']} "
-                f"({res['backend']}): step wall "
+            held = (f"{res['experts'][0]} experts a leaf, "
+                    if res["experts"] else "")
+            log(f"{tag} rank {r} {res['coords']} on {res['device']} "
+                f"({res['backend']}): {held}step wall "
                 f"{[round(x, 3) for x in res['step_s']]} s, collectives a "
                 f"step {per} ({sum(res['coll_bytes']) / steps / 1e9:.3f} GB"
-                f"), peak memory {res['peak_mem_gb'] or 0:.2f} GB, fastattn_fwd "
-                f"{res['launches']} launches at q_offset {res['q_offsets']}")
-        first = ranks[0]
-        for i in range(DIST_STEPS):
-            log(f"[4b] step {i}: loss {first['loss'][i]:.5f} vs one "
+                f"), peak memory {res['peak_mem_gb'] or 0:.2f} GB, "
+                f"fastattn_fwd {res['launches']} launches at q_offset "
+                f"{res['q_offsets']}")
+        for i in range(steps):
+            log(f"{tag} step {i}: loss {first['loss'][i]:.5f} vs one "
                 f"device's {ref['loss'][i]:.5f}, grad norm "
                 f"{first['grad_norm'][i]:.5f} vs {ref['grad_norm'][i]:.5f}, "
                 f"lr {first['lr'][i]:.3e}")
-        worst = max(rel, key=rel.get)
-        log(f"[4b] updates against one device's: worst {worst} "
-            f"{rel[worst]:.3e} (bound {DIST_DELTA_RTOL}); checkpoint of "
-            f"{first['ckpt_files']} files equals the one-rank save; saved "
-            f"in {first['save_s']:.1f}s, checked in "
-            f"{first['ckpt_check_s']:.1f}s; ranks initialised in "
+        rest = max((v, p) for p, v in rel.items() if "/moe/" not in p)
+        moe = ""
+        if experts is not None:
+            moe = max(v for p, v in rel.items() if "/moe/" in p)
+            moe = f", of the MoE leaves {moe:.3e} (bound {MOE_DELTA_RTOL})"
+        log(f"{tag} updates against one device's: worst {worst} "
+            f"{rel[worst]:.3e}; of the other leaves {rest[1]} {rest[0]:.3e} "
+            f"(bound {DIST_DELTA_RTOL}){moe}; ranks initialised in "
             f"{[round(r['init_s'], 1) for r in ranks]} s")
-
-        # the launcher, as a user runs it, beside the resume at
-        # (data=1, model=2), whose time nothing reports
-        t1 = time.perf_counter()
-        cmd = [sys.executable] + LAUNCHER + ["--ckpt-dir",
-                                             os.path.join(tmp, "cli")]
-        if not on_card:
-            cmd += ["--device", "cpu"]
-        env = dict(os.environ, PYTHONPATH=str(SRC))
-        with open(os.path.join(tmp, "cli.out"), "w+") as fo, \
-                open(os.path.join(tmp, "cli.err"), "w+") as fe:
-            cli = subprocess.Popen(cmd, env=env, stdout=fo, stderr=fe)
-            try:
-                resumed = spawn(tmp, "(1,2)", 2, dict(data=1, model=2),
-                                ckpt, "resume")
-                rc = cli.wait(timeout=DIST_DEADLINE_S)
-            finally:
-                if cli.poll() is None:
-                    cli.kill()
-                    cli.wait()
-            cli_s = time.perf_counter() - t1
-            fo.seek(0)
-            fe.seek(0)
-            cli_out, cli_err = fo.read(), fe.read()
-        for line in cli_out.splitlines():
-            log(f"[4b] launcher: {line}")
-        if rc != 0 or "done" not in cli_out:
-            raise AssertionError(f"[4b] launcher failed ({rc}):\n"
-                                 f"{cli_err[-3000:]}")
-        # each (1, 2) rank's slices of every saved leaf, fingerprinted
-        par12 = ParallelConfig(data=1, model=2)
-        meshes12 = [make_mesh(par12.mesh_shape(), par12.mesh_axes(), r)
-                    for r in range(2)]
-        specs12 = flatten(state_specs(meta.param_specs(meshes12[0])),
-                          is_spec)
-        keys12 = [[] for _ in meshes12]
-        for (_, t), s in zip(checkpoint_leaves(ckpt, DIST_STEPS), specs12,
-                             strict=True):
-            t = t.cuda() if on_card else t
-            for r, mesh in enumerate(meshes12):
-                keys12[r].append(bits_key(shard_of(t, s, mesh)))
-            del t
-        nxt = [r["next_loss"] for r in resumed]
-        base = first["next_loss"]
-        log(f"[4b] next step after the checkpoint: (2,2) {base:.6f}, "
-            f"restored at (1,2) {nxt}")
-        resume_gate("[4b] restored at (1,2)", resumed, keys12, base)
-        log(f"[4b] restored at (1,2): each rank's {len(keys12[0])} leaves "
-            "(params, moments, step) are its slices of the checkpoint")
-
-    out.update({
-        "loss": first["loss"], "grad_norm": first["grad_norm"],
-        "lr": first["lr"], "ref_loss": ref["loss"],
-        "ref_grad_norm": ref["grad_norm"],
-        "delta_rel": rel, "worst_delta": [worst, rel[worst]],
-        "leaf_gnorm_step0": gn, "embed_gnorm_step0": embed_gn,
-        "next_loss": base, "resumed_next_loss": nxt,
-        "launches": [r["launches"] for r in ranks],
-        "q_offsets": [r["q_offsets"] for r in ranks],
-        "step_s": [r["step_s"] for r in ranks],
-        "collectives": [r["collectives"][-1] for r in ranks],
-        "coll_bytes": [r["coll_bytes"][-1] for r in ranks],
-        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
-        "save_s": first["save_s"],
-        "launcher_s": cli_s, "seconds": time.perf_counter() - t0,
-        "card": _card() if on_card else "cpu"})
-    log(f"[4b] {out['card']}: all gates passed in {out['seconds']:.1f}s "
+        out.update({
+            "loss": first["loss"], "grad_norm": first["grad_norm"],
+            "lr": first["lr"], "ref_loss": ref["loss"][:steps],
+            "ref_grad_norm": ref["grad_norm"][:steps],
+            "delta_rel": rel, "worst_delta": [worst, rel[worst]],
+            "launches": [r["launches"] for r in ranks],
+            "q_offsets": [r["q_offsets"] for r in ranks],
+            "step_s": [r["step_s"] for r in ranks],
+            "collectives": [r["collectives"][-1] for r in ranks],
+            "coll_bytes": [r["coll_bytes"][-1] for r in ranks],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in ranks]})
+        if experts is not None:
+            out["experts"] = [r["experts"][0] for r in ranks]
+        if run["leaf_gnorm"]:
+            gn = leaf_gnorm_report(ref["paths"], ref["leaf_gnorm"],
+                                   first["leaf_gnorm"])
+            log(f"{tag} step 0's gradient, leaves whose norms move the "
+                "grad norm most against one device's (path, relative "
+                "difference, share of the squared total's difference): "
+                + ", ".join(f"{p} {r:.3e} {c:+.3e}" for p, r, c in gn))
+            e = ref["paths"].index("/embedding/embed")
+            embed_gn = {"one_bf16": ref["leaf_gnorm"][e],
+                        "one_f32_rows": ref["embed_gnorm_f32"],
+                        "mesh": first["leaf_gnorm"][e]}
+            log(f"{tag} step 0's embed gradient norm: one device "
+                "{one_bf16:.5f} (bf16 scatter-add), {one_f32_rows:.5f} "
+                "(rows summed in f32), mesh {mesh:.5f}".format(**embed_gn))
+            out.update(leaf_gnorm_step0=gn, embed_gnorm_step0=embed_gn)
+        if ckpt:
+            out.update(_dist_resume(tmp, tag, spawn, meta, first, ckpt,
+                                    steps, on_card))
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = _card() if on_card else "cpu"
+    log(f"{tag} {out['card']}: all gates passed in {out['seconds']:.1f}s "
         f"({GLOO_NOTE if backend == 'gloo' else 'nccl, one GPU a rank'})")
-    log("[4b] " + json.dumps(out))
+    log(f"{tag} " + json.dumps(out))
     return out
+
+
+def _dist_resume(tmp, tag, spawn, meta, first, ckpt, steps,
+                 on_card) -> dict:
+    """Phase 4b's checkpoint part: the (2, 2) checkpoint restored at
+    (data=1, model=2) for the next step (``resume_gate``), beside the
+    launcher at --data 2 --model-axis 2, as a user runs it."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import flatten, is_spec, shard_of
+    from repro_torch.training.train_step import state_specs
+    log(f"{tag} checkpoint of {first['ckpt_files']} files equals the "
+        f"one-rank save; saved in {first['save_s']:.1f}s, checked in "
+        f"{first['ckpt_check_s']:.1f}s")
+    t1 = time.perf_counter()
+    cmd = [sys.executable] + LAUNCHER + ["--ckpt-dir",
+                                         os.path.join(tmp, "cli")]
+    if not on_card:
+        cmd += ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with open(os.path.join(tmp, "cli.out"), "w+") as fo, \
+            open(os.path.join(tmp, "cli.err"), "w+") as fe:
+        cli = subprocess.Popen(cmd, env=env, stdout=fo, stderr=fe)
+        try:
+            resumed = spawn(tmp, "(1,2)", 2, dict(data=1, model=2),
+                            mode="resume", ckpt_dir=ckpt, snapshot=None,
+                            leaf_gnorm=False)
+            rc = cli.wait(timeout=DIST_DEADLINE_S)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+        cli_s = time.perf_counter() - t1
+        fo.seek(0)
+        fe.seek(0)
+        cli_out, cli_err = fo.read(), fe.read()
+    for line in cli_out.splitlines():
+        log(f"{tag} launcher: {line}")
+    if rc != 0 or "done" not in cli_out:
+        raise AssertionError(f"{tag} launcher failed ({rc}):\n"
+                             f"{cli_err[-3000:]}")
+    # each (1, 2) rank's slices of every saved leaf, fingerprinted
+    par12 = ParallelConfig(data=1, model=2)
+    meshes12 = [make_mesh(par12.mesh_shape(), par12.mesh_axes(), r)
+                for r in range(2)]
+    specs12 = flatten(state_specs(meta.param_specs(meshes12[0])), is_spec)
+    keys12 = [[] for _ in meshes12]
+    for (_, t), s in zip(checkpoint_leaves(ckpt, steps), specs12,
+                         strict=True):
+        t = t.cuda() if on_card else t
+        for r, mesh in enumerate(meshes12):
+            keys12[r].append(bits_key(shard_of(t, s, mesh)))
+        del t
+    nxt = [r["next_loss"] for r in resumed]
+    base = first["next_loss"]
+    log(f"{tag} next step after the checkpoint: (2,2) {base:.6f}, "
+        f"restored at (1,2) {nxt}")
+    resume_gate(f"{tag} restored at (1,2)", resumed, keys12, base)
+    log(f"{tag} restored at (1,2): each rank's {len(keys12[0])} leaves "
+        "(params, moments, step) are its slices of the checkpoint")
+    return {"next_loss": base, "resumed_next_loss": nxt,
+            "save_s": first["save_s"], "launcher_s": cli_s}
 
 
 # ---------------------------------------------------------------------------
@@ -4498,7 +4637,8 @@ def counting_drops(model):
 
     def counting(apply):
         def run(params, x, cfg, **kw):
-            r = moe.routing(params, x, cfg, **kw)
+            r = moe.routing(params, x, cfg,
+                            capacity_factor=kw.get("capacity_factor"))
             log.add(*moe.assignments_dropped(r, log.n_valid))
             return apply(params, x, cfg, **kw)
         return run
@@ -4628,7 +4768,8 @@ def recording_routes(routes: list):
 
     def wrap(apply):
         def run(params, x, cfg, **kw):
-            routes.append(moe.routing(params, x, cfg, **kw))
+            routes.append(moe.routing(
+                params, x, cfg, capacity_factor=kw.get("capacity_factor")))
             return apply(params, x, cfg, **kw)
         return run
     return _wrapped(moe, "apply_moe", wrap)
@@ -4914,6 +5055,227 @@ def phase_moe() -> dict:
     del model, params, dense, served
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8 (g)-(i): qwen3-moe-30b-a3b trained, expert-parallel, served at tp=2
+# ---------------------------------------------------------------------------
+
+# (g), (h): the first 2 of 48 layers at full width (1.87 B parameters with
+# the untied embed and head: bf16 weights and gradients and f32 AdamW
+# moments take about 23 GB); (i): the first 4 (3.1 B parameters)
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 2048
+MOE_DIST_STEPS = 2            # (h): (g)'s first 2 steps and batches
+MOE_TP_LAYERS = 4
+# (h): a MoE block's leaves' updates against (g)'s.  At 72-84% of the
+# assignments dropped, a rounding that moves one token's top-8 set moves
+# which later tokens keep their slots, so layer 1's router and experts
+# differ from one device's far more than phase 4b's leaves do (sound runs
+# on the card: 0.138, 0.195, 0.243 and 0.170 at seeds 0 to 3, 0.100 at
+# seed 0 with the combine in f32; a block that dispatches each rank's
+# rows on their own, the capacity error it must not make: 0.60, while
+# its loss and grad norm pass their bounds).  Every other leaf keeps
+# DIST_DELTA_RTOL (at most 0.066 in those runs).
+MOE_DELTA_RTOL = 0.3
+
+
+def moe_train(cfg, device: str = "cuda") -> dict:
+    """(g): MOE_TRAIN_STEPS AdamW steps of ``cfg`` cut to its first
+    MOE_TRAIN_LAYERS layers on MOE_TRAIN_BATCH x MOE_TRAIN_SEQ batches of
+    the data pipeline through the trainer's functions (remat "full",
+    capacity factor cfg's: the random router drops), fastattn_fwd's
+    launches counted and each step's share of (token, expert) assignments
+    dropped by capacity.  Before them, step 0's batch through the plain
+    attention path: the first step's loss and grad norm within LOSS_RTOL
+    and GNORM_RTOL of its.  Returns the numbers and, under "reference",
+    (h)'s: the initial parameters and those after MOE_DIST_STEPS steps
+    (host copies in tree order) and every step's loss, grad norm and
+    lr."""
+    import torch
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.training import tree
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    cfg = dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+    parallel = ParallelConfig(remat="full")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=MOE_TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device, parallel)
+    state = init_train_state(model, model.generator(tcfg.seed))
+    n_params = sum(t.numel() for t in tree.leaves(state.params))
+    # host copies (a copy on the CPU too: the steps update in place)
+    ref = {"init": [t.to("cpu", copy=True)
+                    for t in tree.leaves(state.params)],
+           "paths": [p for p, _ in tree.leaves_with_paths(state.params)],
+           "loss": [], "grad_norm": [], "lr": []}
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=MOE_TRAIN_SEQ,
+                                    global_batch=MOE_TRAIN_BATCH))
+    batches = [to_device(data.next(), model.device)
+               for _ in range(MOE_TRAIN_STEPS)]
+    p_loss, p_gn = _loss_and_gnorm(model, state.params, batches[0],
+                                   "reference")
+    step_fn = make_train_step(model, cfg, parallel, tcfg)
+    fastattn_fwd.launches = 0
+    step_s, drop_share = [], []
+    with counting_drops(model) as drops:
+        for i, batch in enumerate(batches):
+            drops.other = [0, 0]
+            dt, (state, metrics) = _wall_s(lambda: step_fn(state, batch))
+            step_s.append(dt)
+            for k in ("loss", "grad_norm", "lr"):
+                ref[k].append(float(metrics[k]))
+            drop_share.append(drops.other[0] / drops.other[1])
+            if i + 1 == MOE_DIST_STEPS:
+                ref["snapshot"] = [t.to("cpu", copy=True) for t in
+                                   tree.leaves(state.params)]
+            log(f"[moe] (g) step {i} loss {ref['loss'][-1]:.4f} gnorm "
+                f"{ref['grad_norm'][-1]:.4f} {dt * 1e3:.1f} ms, "
+                f"{drop_share[-1]:.3f} of the assignments dropped by "
+                "capacity")
+    launches = fastattn_fwd.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, gnorms = ref["loss"], ref["grad_norm"]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"(g) non-finite loss or grad norm: {losses}, "
+                             f"{gnorms}")
+    loss_rel = abs(losses[0] - p_loss) / abs(p_loss)
+    gn_rel = abs(gnorms[0] - p_gn) / abs(p_gn)
+    log(f"[moe] (g) {cfg.num_layers} layers, {n_params:,} parameters; "
+        f"step 0 vs the plain path on its batch: loss {losses[0]:.5f} vs "
+        f"{p_loss:.5f} (rel {loss_rel:.2e}, tol {LOSS_RTOL}), grad norm "
+        f"{gnorms[0]:.5f} vs {p_gn:.5f} (rel {gn_rel:.2e}, tol "
+        f"{GNORM_RTOL}); fastattn_fwd {launches} launches; peak memory "
+        f"{peak:.2f} GB")
+    if not (loss_rel <= LOSS_RTOL and gn_rel <= GNORM_RTOL):
+        raise AssertionError("(g) kernel and plain training paths disagree")
+    if not peak < 80:
+        raise AssertionError(f"(g) peak memory {peak:.2f} GB")
+    return {"layers": cfg.num_layers, "params": n_params,
+            "losses": losses, "grad_norms": gnorms, "step_s": step_s,
+            "drop_share": drop_share, "plain_loss_gnorm": [p_loss, p_gn],
+            "loss_rel": loss_rel, "gnorm_rel": gn_rel,
+            "launches": launches, "peak_mem_gb": peak,
+            "tok_s": MOE_TRAIN_BATCH * MOE_TRAIN_SEQ
+            / statistics.median(step_s[1:]), "reference": ref}
+
+
+def moe_dist(trained: dict, cfg) -> dict:
+    """(h): (g)'s training (``cfg`` cut to MOE_TRAIN_LAYERS) at
+    DIST_MESH on phase 4b's harness (``phase_dist_training``) for (g)'s
+    first MOE_DIST_STEPS steps, without the checkpoint: each rank's
+    expert leaves its E / model experts.  Correctness only: gloo stages
+    every collective through the host."""
+    return phase_dist_training(
+        trained, dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS),
+        run=dict(remat="full", batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
+                 steps=MOE_TRAIN_STEPS, layers=MOE_TRAIN_LAYERS,
+                 dist_steps=MOE_DIST_STEPS, checkpoint=False,
+                 leaf_gnorm=False),
+        tag="[moe] (h)", experts=cfg.num_experts // DIST_MESH["model"])
+
+
+def whole_experts_gate(what, ranks: list, experts: int, layers: int) -> None:
+    """(i): every rank's core holds all ``experts`` experts of each of its
+    ``layers`` MoE layers (tensor parallelism leaves the experts
+    whole)."""
+    for r, res in enumerate(ranks):
+        if res["experts"] != [experts] * layers:
+            raise AssertionError(f"{what}: rank {r} holds {res['experts']} "
+                                 f"experts a layer, not {experts} in each "
+                                 f"of {layers}")
+
+
+def moe_tp(cfg) -> dict:
+    """(i): ``cfg`` cut to its first MOE_TP_LAYERS layers (bf16, random
+    weights from a CUDA generator seeded with 0) serving phase 3's 12
+    requests at tp=2 (g=2, s=1) under the tiled all-reduce, two ranks of
+    phase 3e's harness, against a tp=1 run of the same model on the card
+    that records its margins: ``tp_gate`` (streams, launches, pages,
+    plan), and every rank holding every expert of every layer whole."""
+    import torch
+    from repro_torch.config import ServeConfig
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, num_layers=MOE_TP_LAYERS)
+    model = build_model(cfg, device="cuda")
+    params = model.init(model.generator(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts, _ = serve_traffic(cfg.vocab_size)
+    waves = [[(i, p, SERVE_3_NEW) for i, p in enumerate(prompts)]]
+    core = _make_feature_core()(model, params, cfg, ServeConfig(**SERVE_3),
+                                device="cuda", record=True)
+    tp1 = _tp_drive(core, waves, {})
+    del core
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend, dev_of = tp_backend()
+    log(f"[moe] (i) {cfg.name} cut to {cfg.num_layers} layers "
+        f"({n_params:,} parameters): tp=1 reference {tp1['wall_s']:.2f}s "
+        f"wall, {tp1['steps']} steps; 2 ranks over {backend} on "
+        f"{[dev_of(r) for r in range(2)]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(_tp_rank, 2, args=(cfg, params, [
+            ("tiled", dict(SERVE_3, tp=2, tp_collectives="tiled"), waves)]),
+            device_of_rank=dev_of, backend=backend,
+            init_method=f"file://{tmp}/pg-moe-tp", timeout_s=TP_DEADLINE_S,
+            init_timeout_s=TP_INIT_TIMEOUT_S)
+    torch.cuda.ipc_collect()
+    rr = [r["tiled"] for r in ranks]
+    what = f"[moe] (i) {cfg.name} tp=2 tiled"
+    eq, tot = tp_gate(what, rr, tp1["tokens"], tp1["margins"],
+                      {"tp": 2, "g": 2, "s": 1, "collectives": "tiled"},
+                      cfg.num_layers, ("paged_prefill", "paged_decode"))
+    whole_experts_gate(what, rr, cfg.num_experts, cfg.num_layers)
+    out = {**_tp_report(what, rr, backend), "tokens_equal": eq,
+           "tokens_compared": tot, "params": n_params,
+           "experts": [res["experts"] for res in rr],
+           "seconds": time.perf_counter() - t0}
+    log(f"{what}: {eq} of {tot} greedy tokens equal tp=1's "
+        f"before any fork at a near-tie; every rank holds all "
+        f"{cfg.num_experts} experts of its {cfg.num_layers} layers")
+    del model, params
+    return out
+
+
+def phase_moe_parallel(done=lambda phase: None) -> dict:
+    """Phase 8 (g)-(i), after phase 8's 48-layer model is freed:
+    qwen3-moe-30b-a3b at full width trained on one device (g), at
+    (data=2, model=2) with its experts sharded over the model axis (h),
+    and served at tp=2 (i).  ``done`` is called after each part."""
+    import torch
+    from repro_torch.config import get_model_config
+    cfg = get_model_config(MOE_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"train": moe_train(cfg)}
+    exact_launches("[moe] (g)", {"fastattn_fwd": out["train"]["launches"]},
+                   {"fastattn_fwd": MOE_TRAIN_LAYERS * 2 * MOE_TRAIN_STEPS})
+    done("8g")
+    trained = out["train"]
+    gc.collect()                  # (g)'s model and optimizer state
+    torch.cuda.empty_cache()
+    out["dist"] = moe_dist(trained, cfg)
+    del trained["reference"]
+    done("8h")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tp"] = moe_tp(cfg)
+    done("8i")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["card"] = _card()
+    log(f"[moe] {out['card']}: phase 8 (g)-(i) passed")
+    log(f"[moe] (g)-(i) {json.dumps(out)}")
     return out
 
 
@@ -6250,6 +6612,22 @@ def add_moe_entries(kernels: list, cases: dict, run: dict) -> None:
                 "err", "device_ms", "bound_ms", "library_device_ms")})
 
 
+def add_moe_parallel_entries(kernels: list, run: dict) -> None:
+    """``fastattn_fwd``'s entry gains its launches in phase 8 (g)
+    (``moe_train_launches``) and on each rank of (h)
+    (``moe_ep_launches``, at ``moe_ep_q_offsets``); the paged kernels'
+    entries their launches on each rank of (i) (``moe_tp_launches``)."""
+    for k in kernels:
+        name = k["name"]
+        if name == "fastattn_fwd":
+            k["moe_train_launches"] = run["train"]["launches"]
+            k["moe_ep_launches"] = run["dist"]["launches"]
+            k["moe_ep_q_offsets"] = run["dist"]["q_offsets"]
+        elif name in ("paged_prefill", "paged_decode"):
+            k["moe_tp_launches"] = [r[name] for r in
+                                    run["tp"]["launches"]]
+
+
 def add_head_dim_entries(kernels: list, cases: dict, runs: dict) -> None:
     """Each attention kernel's entry of the kernels line also at head dims
     80 and 96 (``d80_*`` / ``d96_*``): phase 2's bf16 case at the main
@@ -6352,6 +6730,9 @@ def main() -> int:
     done("8")
     gc.collect()                  # phase 8's model
     torch.cuda.empty_cache()
+    moe_par = phase_moe_parallel(done)
+    gc.collect()
+    torch.cuda.empty_cache()
     hymba = phase_hymba()
     done("9")
     gc.collect()                  # phase 9's model
@@ -6421,6 +6802,7 @@ def main() -> int:
     add_head_dim_entries(line["kernels"], kern["head_dims"], head_dims)
     add_context_entries(line["kernels"], kern["fastattn_context"], dist_run)
     add_moe_entries(line["kernels"], kern["gqa8"], moe)
+    add_moe_parallel_entries(line["kernels"], moe_par)
     add_hymba_entries(line["kernels"], kern["hymba"], hymba)
     add_whisper_entries(line["kernels"], kern["whisper"], whisper)
     add_vl_entries(line["kernels"], kern["vl"], vl)

@@ -31,6 +31,7 @@ import datetime
 import gc
 import itertools
 import math
+import os
 import queue
 import time
 import traceback
@@ -186,6 +187,20 @@ def _rank_main(fn, rank, tp, device, backend, init_method, init_timeout,
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def train_backend(device: torch.device, world: int) -> tuple:
+    """(backend, device of each rank) for ``world`` ranks of the
+    launchers (training, or serving at tp > 1) on ``device``'s type: NCCL
+    with one GPU a rank where there are as many, else gloo (the ranks
+    share cuda:0, or run on the CPU)."""
+    if device.type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl", (lambda r: f"cuda:{r}")
+    # every rank is on this host: gloo's sockets on the loopback device
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if device.type == "cuda":
+        return "gloo", (lambda r: "cuda:0")
+    return "gloo", (lambda r: "cpu")
 
 
 def spawn_ranks(fn: Callable, tp: int, *, args: Sequence = (),

@@ -23,12 +23,18 @@ refuses it (``EngineCore``).
 reduced configs).  With ``--stream``, ``--spec-mode lookup`` turns on
 speculative decoding (prompt-lookup drafts of up to ``--spec-tokens``
 tokens, verified in one paged-prefill launch); the prompts are then a
-tiled motif, so the drafts are accepted.
+tiled motif, so the drafts are accepted.  With ``--stream``, ``--tp N``
+serves tensor-parallel: N ranks (``launch.mesh.spawn_ranks``; NCCL with
+a GPU a rank where there are as many, else gloo), each an EngineCore at
+``ServeConfig(tp=N)`` on its slices of the same weights; rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +43,7 @@ from repro_torch.config import (ParallelConfig, ServeConfig,
                                 get_model_config, reduce_for_smoke)
 from repro_torch.core.offload import max_context_length, plan_offload
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.launch.mesh import spawn_ranks, train_backend
 from repro_torch.models import build_model
 from repro_torch.serving.core import EngineCore
 from repro_torch.serving.engine import ServeEngine
@@ -56,7 +63,8 @@ def _run_stream(model, params, cfg, args) -> None:
         max_waiting=args.max_waiting,
         queue_policy=args.queue_policy,
         spec_mode=args.spec_mode,
-        spec_tokens=args.spec_tokens if args.spec_tokens > 0 else 4)
+        spec_tokens=args.spec_tokens if args.spec_tokens > 0 else 4,
+        tp=args.tp)
     core = EngineCore(model, params, cfg, serve, device=model.device)
     rng = np.random.default_rng(0)
     # --top-k 1 (the dense-path greedy default) would make the "sampled"
@@ -134,6 +142,32 @@ def _run_stream(model, params, cfg, args) -> None:
                   f"written to {args.metrics}")
 
 
+def _build(args, device):
+    cfg = get_model_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    parallel = ParallelConfig(remat="none")
+    return cfg, parallel, build_model(cfg, device, parallel)
+
+
+def stream_rank(rank: int, args) -> None:
+    """One spawned rank of ``--stream --tp N``: the whole model drawn from
+    the launcher's seed, served by this rank's EngineCore (which keeps
+    its slices); only rank 0 prints."""
+    import torch
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        torch.set_num_threads(1)
+    cfg, _, model = _build(args, device)
+    params = model.init(model.generator(0))
+    quiet = (contextlib.nullcontext() if rank == 0
+             else contextlib.redirect_stdout(io.StringIO()))
+    with quiet:
+        _run_stream(model, params, cfg, args)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b")
@@ -175,14 +209,27 @@ def main(argv=None):
                          "exposition at end of run; with a path, also "
                          "write the flight recorder's Chrome trace_event "
                          "JSON there (load in chrome://tracing)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="with --stream: tensor-parallel ranks, one "
+                         "process each")
     args = ap.parse_args(argv)
+    if args.tp > 1:
+        if not args.stream:
+            ap.error("--tp needs --stream: dense generate runs on one "
+                     "device")
+        device = resolve_device(args.device)
+        backend, dev_of = train_backend(device, args.tp)
+        print(f"{args.tp} ranks over {backend} on "
+              f"{[dev_of(r) for r in range(args.tp)]}", flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            spawn_ranks(stream_rank, args.tp, args=(args,),
+                        device_of_rank=dev_of, backend=backend,
+                        init_method=f"file://{tmp}/pg", timeout_s=3600.0,
+                        init_timeout_s=600.0)
+        return
 
-    cfg = get_model_config(args.arch)
-    if args.smoke:
-        cfg = reduce_for_smoke(cfg)
-    parallel = ParallelConfig(remat="none")
     device = resolve_device(args.device)
-    model = build_model(cfg, device, parallel)
+    cfg, parallel, model = _build(args, device)
 
     if args.offload_report:
         plan = plan_offload(cfg, batch=args.batch,

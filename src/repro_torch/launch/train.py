@@ -35,7 +35,7 @@ from repro_torch.config import (ParallelConfig, TrainConfig,
                                 get_model_config, reduce_for_smoke)
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_mesh_for, spawn_ranks
+from repro_torch.launch.mesh import make_mesh_for, spawn_ranks, train_backend
 from repro_torch.models import build_model
 from repro_torch.sharding.rules import axis_rules
 from repro_torch.training.checkpoint import CheckpointManager
@@ -65,19 +65,6 @@ def smoke_config(cfg, device: torch.device):
     d = small.num_heads * CARD_SMOKE_HEAD_DIM
     return dataclasses.replace(small, head_dim=CARD_SMOKE_HEAD_DIM,
                                d_model=d, d_ff=4 * d if small.d_ff else 0)
-
-
-def train_backend(device: torch.device, world: int) -> tuple:
-    """(backend, device of each rank) for ``world`` training ranks on
-    ``device``'s type: NCCL with one GPU a rank where there are as many,
-    else gloo (the ranks share cuda:0, or run on the CPU)."""
-    if device.type == "cuda" and torch.cuda.device_count() >= world:
-        return "nccl", (lambda r: f"cuda:{r}")
-    # every rank is on this host: gloo's sockets on the loopback device
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    if device.type == "cuda":
-        return "gloo", (lambda r: "cuda:0")
-    return "gloo", (lambda r: "cpu")
 
 
 def check_trainable(cfg) -> None:

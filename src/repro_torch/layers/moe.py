@@ -2,8 +2,12 @@
 package's ``layers/moe.py`` with its exact semantics.
 
 Top-k routing (``route``) -> per-row stable argsort by expert id and a
-static capacity (``dispatch``) -> gather into (E, B * cap, D) ->
-batched expert products (``torch.bmm``) -> weighted combine.  Each batch
+static capacity (``dispatch``) -> gather into (E, B * cap, D)
+(``expert_inputs``) -> batched expert products (``expert_ffn``,
+``torch.bmm``) -> weighted combine (``combine``).  The last three take
+a contiguous range of experts: under expert parallelism each rank runs
+its own experts' slots of the whole rows and the ranks' partial combines
+are summed (``models/blocks.py``).  Each batch
 row is its own group: capacity ``max(1, int(s * k / e * cf))`` counts
 one row's assignments in one launch, so a decode step (s = 1) never
 drops an assignment and a long prefill chunk may.  Assignments past an
@@ -16,7 +20,8 @@ Where JAX's results depend on an order, the port keeps JAX's:
 does (``torch.topk`` does not); the argsort is stable; and the combine
 sums each token's k weighted slot outputs in the order JAX's scatter-add
 visits them (expert id ascending), in the activations' dtype, as a
-gather -- no atomics, so a CUDA run is bit-identical run to run.
+gather -- no atomics, so a CUDA run is bit-identical run to run, its
+backward too.
 
 No kernel: JAX computes the block in plain code outside any Pallas call.
 The expert products run over every (expert, slot), occupied or not, as
@@ -132,27 +137,33 @@ def assignments_dropped(r: Routing, n_valid=None) -> tuple:
     return (int((counted & ~plan.keep).sum()), int(counted.sum()))
 
 
-def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              capacity_factor: Optional[float] = None) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D)."""
+def expert_inputs(x: torch.Tensor, r: Routing, num_experts: int,
+                  experts: tuple) -> torch.Tensor:
+    """The tokens of experts ``[e0, e1)``'s slots, (e1 - e0, B * cap, D):
+    slot (e, b, c) reads row b's token ``inv[b, e * cap + c]`` of x padded
+    with a zero row (token s, the dummy: an empty slot)."""
     b, s, d = x.shape
-    e = cfg.num_experts
-    r = routing(params, x, cfg, capacity_factor=capacity_factor)
     plan, cap = r.plan, r.plan.cap
     k = r.idx.shape[-1]
-    dev, dt = x.device, x.dtype
-    rows = torch.arange(b, device=dev)[:, None]
-
-    # gather tokens into (E, B*cap, D): slot (e, b, c) reads row b's token
-    # inv[b, e*cap + c] of x padded with a zero row (token s, the dummy)
-    inv = torch.full((b, e * cap + 1), s, dtype=torch.long, device=dev)
+    e0, e1 = experts
+    rows = torch.arange(b, device=x.device)[:, None]
+    inv = torch.full((b, num_experts * cap + 1), s, dtype=torch.long,
+                     device=x.device)
     inv.scatter_(1, plan.dest, plan.order // k)
-    inv = inv[:, :e * cap] + rows * (s + 1)
+    inv = inv[:, e0 * cap:e1 * cap] + rows * (s + 1)
     x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1).reshape(-1, d)
-    src = inv.reshape(b, e, cap).transpose(0, 1).reshape(-1)
-    xe = x_pad.index_select(0, src).reshape(e, b * cap, d)
+    src = inv.reshape(b, e1 - e0, cap).transpose(0, 1).reshape(-1)
+    # indexing, not index_select: its backward accumulates a token's slot
+    # gradients by index_put's sorted sum, not index_add's atomics, so a
+    # CUDA training step is bit-identical run to run
+    return x_pad[src].reshape(e1 - e0, b * cap, d)
 
-    # ---- expert FFN (every slot, occupied or not, as JAX) ---------------
+
+def expert_ffn(params: dict, xe: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The experts' FFN over every slot, occupied or not, as JAX's:
+    (E', B * cap, D) -> (E', B * cap, D) against ``params``' E' experts."""
+    dt = xe.dtype
     h = torch.bmm(xe, params["w_up"].to(dt))
     if "w_gate" in params:
         g = torch.bmm(xe, params["w_gate"].to(dt))
@@ -161,25 +172,58 @@ def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         h = act * h
     else:
         h = F.gelu(h, approximate="tanh")
-    ye = torch.bmm(h, params["w_down"].to(dt))          # (E, B*cap, D)
+    return torch.bmm(h, params["w_down"].to(dt))
 
-    # ---- combine --------------------------------------------------------
-    # each slot's gate (f32, cast to x's dtype before the multiply)
+
+def combine(ye: torch.Tensor, r: Routing, num_experts: int,
+            experts: tuple) -> torch.Tensor:
+    """The partial combine of experts ``[e0, e1)``: each token's weighted
+    outputs from the slots of those experts (``ye``, (e1 - e0, B * cap,
+    D)) summed in expert order, (B, S, D); zero for a token with none.
+    Over every expert it is the block's output; the partials of disjoint
+    ranges sum to it (JAX's combine plan: only (B, S, D) crosses
+    shards)."""
+    el, _, d = ye.shape
+    b, s, k = r.idx.shape
+    plan, cap = r.plan, r.plan.cap
+    e0, e1 = experts
+    rows = torch.arange(b, device=ye.device)[:, None]
+    # each slot's gate (f32, cast to the activations' dtype before the
+    # multiply)
     gate_sorted = torch.gather(r.gates.reshape(b, s * k), 1, plan.order)
-    slot_gate = torch.zeros((b, e * cap + 1), dtype=torch.float32,
-                            device=dev)
+    slot_gate = torch.zeros((b, num_experts * cap + 1), dtype=torch.float32,
+                            device=ye.device)
     slot_gate.scatter_(1, plan.dest, gate_sorted)
-    slot_gate = slot_gate[:, :e * cap].reshape(b, e, cap).transpose(0, 1)
-    weighted = (ye * slot_gate.reshape(e, b * cap, 1).to(dt)).reshape(-1, d)
+    slot_gate = slot_gate[:, e0 * cap:e1 * cap].reshape(
+        b, el, cap).transpose(0, 1)
+    weighted = (ye * slot_gate.reshape(el, b * cap, 1).to(ye.dtype)
+                ).reshape(-1, d)
     weighted = torch.cat([weighted, weighted.new_zeros((1, d))])
-    # each assignment's row of ``weighted`` (the zero row when dropped),
-    # in assignment order, then each token's k sorted by expert id
+    # each assignment's row of ``weighted`` -- the zero row when dropped
+    # (expert id e) or another range's -- in assignment order, then each
+    # token's k sorted by expert id
     dest = torch.empty_like(plan.dest).scatter_(1, plan.order, plan.dest)
     ex, c = dest // cap, dest % cap
-    src = torch.where(dest < e * cap, (ex * b + rows) * cap + c, e * b * cap)
+    mine = (ex >= e0) & (ex < e1)
+    src = torch.where(mine, ((ex - e0) * b + rows) * cap + c, el * b * cap)
     by_expert = torch.argsort(r.idx, dim=-1)
     src = torch.gather(src.reshape(b, s, k), 2, by_expert)
     y = weighted[src[..., 0]]
     for j in range(1, k):
         y = y + weighted[src[..., j]]
     return y
+
+
+def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              capacity_factor: Optional[float] = None,
+              experts: Optional[tuple] = None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D).  Routing and dispatch of whole rows,
+    then the expert FFN and the combine over experts ``[e0, e1)``
+    (``experts``; by default every expert): ``params``' expert leaves
+    then hold those e1 - e0 experts (the router is whole), and the result
+    is their partial combine (``combine``)."""
+    e = cfg.num_experts
+    experts = experts or (0, e)
+    r = routing(params, x, cfg, capacity_factor=capacity_factor)
+    ye = expert_ffn(params, expert_inputs(x, r, e, experts), cfg)
+    return combine(ye, r, e, experts)

@@ -17,6 +17,8 @@ from repro_torch.layers import mlp as mlp_mod
 from repro_torch.layers import moe as moe_mod
 from repro_torch.layers import ssm as ssm_mod
 from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import current_mesh
 
 # the kinds whose cache is a KV cache: they serve paged
 ATTN_KINDS = ("attn", "attn_local", "moe")
@@ -179,12 +181,41 @@ def _attn_block_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
     x = x + a
     h2 = apply_norm(params["ln2"], x, cfg.norm_type, cfg.norm_eps)
     if kind == "moe":
-        f = moe_mod.apply_moe(params["moe"], h2, cfg)
+        f = _moe_ffn(params["moe"], h2, cfg)
     else:
         f = mlp_mod.apply_mlp(params["mlp"], h2, cfg.mlp_type)
     if cfg.post_norm:
         f = apply_norm(params["ln2_post"], f, cfg.norm_type, cfg.norm_eps)
     return x + f
+
+
+def _moe_ffn(params: dict, h2: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """The MoE FFN of a block.  Under a training mesh with a model axis
+    the rank holds S / model rows of each batch row, and JAX's capacity
+    counts a whole row: ``h2`` is gathered along the sequence so that
+    every model rank routes and dispatches whole rows as one device does.
+    With the experts sharded over the model axis (``expert -> model``,
+    ``params`` holding this rank's E / model of them) the rank runs its
+    own experts' slots and the partial combines are reduce-scattered
+    back to each rank's rows; the router's gradient on a rank then comes
+    from its own experts' slots only, and the train step sums it over the
+    mesh like every replicated leaf's.  Where E % model != 0 the rule
+    table keeps the experts whole (gathered with the block): every rank
+    runs every expert and keeps its rows."""
+    mesh = current_mesh()
+    n = mesh.shape.get("model", 1) if mesh is not None else 1
+    if n == 1:
+        return moe_mod.apply_moe(params, h2, cfg)
+    group = mesh.group(("model",))
+    m, s = mesh.coords["model"], h2.shape[1]
+    whole = C.gather(h2, 1, group)
+    el = params["w_up"].shape[0]
+    if el == cfg.num_experts:
+        return moe_mod.apply_moe(params, whole, cfg)[:, m * s:(m + 1) * s]
+    part = moe_mod.apply_moe(params, whole, cfg,
+                             experts=(m * el, (m + 1) * el))
+    return C.scatter(part, 1, group)
 
 
 def _hymba_tail(params: dict, x: torch.Tensor, a: torch.Tensor,

@@ -22,7 +22,9 @@ entered by the train step) ``apply`` and ``loss`` run one rank's share:
 its rows of the batch and of the sequence, against its pieces of every
 parameter (``param_specs``: the JAX rule table's layout).  Each block
 gathers its sharded weights over the model axis before use (again in
-the backward's recompute under remat), the embedding and LM head (and a
+the backward's recompute under remat) -- but for a MoE block's experts
+sharded over the model axis, which each rank runs as its own (expert
+parallelism, ``blocks._moe_ffn``) -- the embedding and LM head (and a
 vision model's frontend) are gathered once, and attention is
 context-parallel (``layers/attention.py``).  The gathers' gradients come back to each
 rank as its piece of the sum over the model axis.
@@ -50,10 +52,9 @@ RECURRENT_KINDS = ("mlstm", "slstm", "hymba", "hymba_local")
 
 
 def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """The model axis shards attention blocks only: the recurrent cells'
-    ``channels -> model`` layout (mLSTM / sLSTM, hymba's Mamba heads) and
-    the experts' ``expert -> model`` (expert parallelism) are not
-    ported."""
+    """The model axis shards attention and moe blocks: the recurrent
+    cells' ``channels -> model`` layout (mLSTM / sLSTM, hymba's Mamba
+    heads) is not ported."""
     if model <= 1:
         return
     kinds = set(cfg.blocks())
@@ -63,11 +64,21 @@ def check_model_axis(cfg: ModelConfig, model: int) -> None:
             f"({', '.join(sorted(kinds & set(RECURRENT_KINDS)))}: their "
             "channels -> model layout) is not ported; use data "
             "parallelism")
-    if "moe" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {model} over moe blocks (expert "
-            "parallelism, expert -> model) is not ported; use data "
-            "parallelism")
+
+
+def _block_leaves(bp: dict, spec: dict, mesh) -> dict:
+    """A block's weights as it runs them under ``mesh``: every sharded
+    leaf gathered whole, but a MoE block's experts sharded over the model
+    axis (``expert -> model``: dim 0) stay this rank's, expert
+    parallelism (``blocks._moe_ffn``)."""
+    if "moe" not in bp:
+        return C.gather_tree(bp, spec, mesh)
+    out = C.gather_tree({k: v for k, v in bp.items() if k != "moe"}, spec,
+                        mesh)
+    out["moe"] = {k: v if spec["moe"][k][:1] == ("model",)
+                  else C.gather_leaf(v, spec["moe"][k], mesh)
+                  for k, v in bp["moe"].items()}
+    return out
 
 
 class LM:
@@ -168,7 +179,7 @@ class LM:
                 # entered here again: the backward's recompute may run on
                 # autograd's device thread, which has no context of ours
                 with axis_rules(current_rules(), mesh):
-                    return B.apply_block(C.gather_tree(bp, specs[i], mesh),
+                    return B.apply_block(_block_leaves(bp, specs[i], mesh),
                                          h, cfg, kind, positions=positions,
                                          impl=impl)
             x = checkpoint(run, x, use_reentrant=False) if remat else run(x)

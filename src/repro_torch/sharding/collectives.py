@@ -5,8 +5,11 @@ autograd function the layout needs.
 reduce-scatter (sum) in the backward, so a tensor gathered before use
 gets back, as its gradient, this rank's piece of the sum of every rank's
 gradient of the whole.  The model gathers its sharded weights before a
-block (``models/lm.py``) and K/V along the sequence in context-parallel
-attention (``layers/attention.py``) through it.
+block (``models/lm.py``), K/V along the sequence in context-parallel
+attention (``layers/attention.py``) and a MoE block's input under
+expert parallelism (``models/blocks.py``) through it.  ``scatter`` is
+its transpose: reduce-scatter forward, all-gather backward (the expert
+shards' partial outputs summed back to each rank's rows).
 
 gloo runs ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` on
 CPU tensors (``tests/test_torch_dist_train.py``) and on CUDA tensors
@@ -91,6 +94,27 @@ def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if group_size(group) == 1:
         return x
     return _Gather.apply(x, dim, group)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group), None, None
+
+
+def scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Reduce-scatter (sum) along ``dim`` with all-gather as its gradient
+    (the identity for a group of one): each rank's piece of the ranks'
+    summed partials, whose gradient is every rank's gradient of its
+    piece, gathered."""
+    if group_size(group) == 1:
+        return x
+    return _Scatter.apply(x, dim, group)
 
 
 def gather_leaf(x: torch.Tensor, spec: tuple, mesh,

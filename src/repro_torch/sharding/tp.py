@@ -23,7 +23,7 @@ Model code discovers the active rank through a contextvar
 calls, so the same layer code serves the single-device and the sharded
 engine.  The weights are sliced once, at construction
 (``shard_params``): each rank keeps its projection columns and rows and
-the replicated embeddings, norms and LM head.
+the replicated embeddings, norms, LM head and MoE experts.
 """
 from __future__ import annotations
 
@@ -58,15 +58,11 @@ def plan_tp(cfg: ModelConfig, tp: int, page_size: int, *,
             first_chunk_frac: float = 0.5) -> TPPlan:
     """Factor ``tp`` into (kv-head groups) x (page-row sub-shards) and
     validate the shapes divide.  Raises ValueError on impossible
-    combinations rather than silently mis-sharding, NotImplementedError
-    for moe blocks at tp > 1."""
+    combinations rather than silently mis-sharding.  A moe block's FFN
+    takes no part in the factoring: it runs whole on every rank
+    (``shard_params``)."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    if tp > 1 and "moe" in cfg.blocks():
-        raise NotImplementedError(
-            f"{cfg.name}: tp={tp} over moe blocks is not ported (the JAX "
-            "package runs the expert FFN replicated on every rank; the "
-            "port slices each rank's weights)")
     if collectives not in ("tiled", "single"):
         raise ValueError(f"tp_collectives must be 'tiled' or 'single', "
                          f"got {collectives!r}")
@@ -187,8 +183,10 @@ def shard_params(params: dict, cfg: ModelConfig, plan: TPPlan,
     every query head); the O-proj is row-parallel over the rank's 1/s
     query-head slice of its group; the MLP's up/gate columns and down
     rows are the rank's 1/tp of d_ff when it divides (``mlp_sharded``).
-    Embeddings, norms and the LM head stay whole, as tensors shared with
-    ``params``."""
+    Embeddings, norms, the LM head and a moe block's router and experts
+    stay whole, as tensors shared with ``params``: the expert FFN runs
+    replicated on the hidden state after the O-proj all-reduce, with no
+    collective of its own, as in the JAX package."""
     gi, si = divmod(rank, plan.s)
     dh = cfg.head_dim
     kvl = cfg.num_kv_heads // plan.g       # kv heads per group

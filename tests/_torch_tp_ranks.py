@@ -179,8 +179,8 @@ def serve_rank(rank: int, arch: str, params, runs: dict,
     """The port's EngineCore on this rank for every run of ``runs``
     (name -> (ServeConfig keywords, waves of (id, prompt, sampling
     keywords))), the pressure manager on the ``latency`` constants.
-    Returns name -> streams, stats()["tp"], host state and the rank's
-    local pool shape."""
+    Returns name -> streams, stats()["tp"], host state, the rank's local
+    pool shape and the shapes of every MoE leaf it holds."""
     from repro_torch.config import ServeConfig, get_model_config
     from repro_torch.config import reduce_for_smoke
     from repro_torch.core.offload import OffloadLatencyModel
@@ -200,7 +200,9 @@ def serve_rank(rank: int, arch: str, params, runs: dict,
                      "host": host_state(core),
                      "host_all": host_state(core, tokens_equal=False),
                      "pool": tuple(core.pools[0].k.shape),
-                     "stash": len(core.pressure.host_pool)}
+                     "stash": len(core.pressure.host_pool),
+                     "moe": [{k: tuple(v.shape) for k, v in bp["moe"].items()}
+                             for bp in core.params["layers"] if "moe" in bp]}
     return out
 
 

@@ -212,3 +212,47 @@ def remat_thread_rank(rank: int, arch: str, params: dict,
             t.start()
             t.join(timeout=60)
     return {k: [g.numpy() for g in v] for k, v in grads.items()}
+
+
+def moe_routes_rank(rank: int, arch: str, par_kw: dict, params: dict,
+                    batch: dict) -> dict:
+    """The loss forward of this rank's share of ``batch`` on the mesh of
+    ``par_kw`` (no gradient), recording for every MoE block the input its
+    routing saw (whole rows under a model axis), each assignment's kept
+    flag in (token, j) order and this rank's rows of the block's
+    output."""
+    from repro_torch.layers import moe
+    from repro_torch.models import blocks
+    from repro_torch.training.train_step import rank_rows
+    parallel, mesh, cfg, model = _setup(arch, par_kw)
+    whole = tree.tree_map(torch.from_numpy, params)
+    seen = []
+    apply, ffn = moe.apply_moe, blocks._moe_ffn
+
+    def recording_apply(p, x, c, **kw):
+        r = moe.routing(p, x, c)
+        keep = torch.empty_like(r.plan.keep).scatter_(1, r.plan.order,
+                                                      r.plan.keep)
+        seen.append({"x": x.numpy().copy(), "keep": keep.numpy(),
+                     "experts": kw.get("experts"),
+                     "w_up": tuple(p["w_up"].shape)})
+        return apply(p, x, c, **kw)
+
+    def recording_ffn(p, h2, c):
+        y = ffn(p, h2, c)
+        seen[-1]["y"] = y.numpy().copy()
+        return y
+    moe.apply_moe, blocks._moe_ffn = recording_apply, recording_ffn
+    try:
+        with axis_rules(mesh=mesh), torch.no_grad():
+            specs = model.param_specs(mesh)
+            pieces = tree.unflatten(whole, [
+                shard_of(t, s, mesh) for t, s in zip(
+                    tree.leaves(whole), flatten(specs, is_spec),
+                    strict=True)])
+            mb = rank_rows({k: torch.from_numpy(v) for k, v in
+                            batch.items()}, mesh, 1)[0]
+            model.loss(pieces, mb["tokens"], mb["labels"])
+    finally:
+        moe.apply_moe, blocks._moe_ffn = apply, ffn
+    return {"coords": mesh.coords, "blocks": seen}

@@ -607,24 +607,36 @@ def test_dist_gate_rejects_faked_failures(cs, bad, match):
         cs.dist_gate("disagree", ranks, ref, keys, specs, 2048, 2)
 
 
+def _whole_leaves(init, final_one, final_dist) -> list:
+    """One rank holding every leaf whole, in ``delta_gate``'s terms: per
+    leaf the squared norms of the updates' difference and of one
+    device's update."""
+    return [{"coords": {}, "delta": [
+        ((c.float() - b.float()).square().sum().item(),
+         (b.float() - a.float()).square().sum().item())
+        for a, b, c in zip(init, final_one, final_dist, strict=True)]}]
+
+
 def test_delta_gate_holds_each_leaf_update(cs):
     torch = pytest.importorskip("torch")
     init = [torch.zeros(1000), torch.ones(10)]
     one = [torch.linspace(-1, 1, 1000), torch.ones(10)]
     near = [one[0] * 1.05, torch.ones(10)]
-    rel = cs.delta_gate("ok", ["a", "scale"], init, one, near)
+    whole = [(), ()]
+    rel = cs.delta_gate("ok", ["a", "scale"], _whole_leaves(init, one, near),
+                        whole)
     assert rel["scale"] == 0.0 and 0.04 < rel["a"] < 0.06
     with pytest.raises(AssertionError, match="leaf a"):
-        cs.delta_gate("far", ["a", "scale"], init, one,
-                      [one[0] * 1.2, torch.ones(10)])
+        cs.delta_gate("far", ["a", "scale"], _whole_leaves(
+            init, one, [one[0] * 1.2, torch.ones(10)]), whole)
     flipped = one[0].clone()
     flipped[:300] *= -1                 # 30% of the updates flip sign
     with pytest.raises(AssertionError, match="leaf a"):
-        cs.delta_gate("flip", ["a", "scale"], init, one,
-                      [flipped, torch.ones(10)])
+        cs.delta_gate("flip", ["a", "scale"], _whole_leaves(
+            init, one, [flipped, torch.ones(10)]), whole)
     with pytest.raises(AssertionError, match="leaf scale"):
-        cs.delta_gate("moved", ["a", "scale"], init, one,
-                      [one[0], torch.ones(10) * 1.01])
+        cs.delta_gate("moved", ["a", "scale"], _whole_leaves(
+            init, one, [one[0], torch.ones(10) * 1.01]), whole)
 
 
 def test_same_checkpoint_and_bits_key(cs, tmp_path):
@@ -714,9 +726,9 @@ def test_phase4b_bounds_hold_for_bf16_training_on_cpu_ranks(cs, tmp_path):
     init, final_one, final_mesh = (params("one", 0),
                                    params("one", cs.DIST_STEPS),
                                    params("mesh", cs.DIST_STEPS))
-    rel = cs.delta_gate("bf16 (2,2)", [p for p, _ in init],
-                        [t for _, t in init], [t for _, t in final_one],
-                        [t for _, t in final_mesh])
+    rel = cs.delta_gate("bf16 (2,2)", [p for p, _ in init], _whole_leaves(
+        [t for _, t in init], [t for _, t in final_one],
+        [t for _, t in final_mesh]), [()] * len(init))
     worst = max(rel, key=rel.get)
     print(f"worst update ratio {worst} {rel[worst]:.3e}")
     assert any(v == 0.0 for v in rel.values()) and rel[worst] > 0
@@ -1765,3 +1777,230 @@ def test_phase6_trains_the_first_layers_of_both_kinds(cs):
                               num_layers=cs.XLSTM_TRAIN_LAYERS)
     assert cfg.blocks() == ("mlstm", "mlstm", "slstm")
     assert cfg.blocks().count("mlstm") * 2 * cs.XLSTM_STEPS == 20
+
+
+# ---------------------------------------------------------------------------
+# phase 8 (g)-(i): qwen3-moe trained, expert-parallel and served at tp=2
+# ---------------------------------------------------------------------------
+
+def _moe_rank_result(cs, r, **kw):
+    n = cs.MOE_DIST_STEPS
+    res = {"coords": {"data": r // 2, "model": r % 2},
+           "loss": [10.0, 9.05][:n], "grad_norm": [5.05, 4.0][:n],
+           "lr": [3e-4, 1.65e-4][:n],
+           "launches": cs.MOE_TRAIN_LAYERS * 2 * n,
+           "q_offsets": [(r % 2) * 1024], "init_keys": [(r, 1), (7, 7)],
+           "numel": [64 * 8, 3], "experts": [64] * 6}
+    res.update(kw)
+    return res
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(loss=[10.2, 9.05]), "step 0"),
+    (dict(grad_norm=[5.05, 4.1]), "step 1"),
+    (dict(lr=[3e-4, 1.66e-4]), "step 1"),
+    (dict(launches=7), "launched fastattn_fwd 7"),
+    (dict(q_offsets=[0, 1024]), "q_offsets"),
+    (dict(init_keys=[(9, 9), (7, 7)]), "initial pieces"),
+    (dict(experts=[128] * 6), "expert leaves"),
+    (dict(numel=[128 * 8, 3]), "1/2 of the whole"),
+])
+def test_moe_dist_gate_rejects_faked_failures(cs, bad, match):
+    """(h)'s gate, phase 4b's ``dist_gate`` at (h)'s layers and steps
+    without the checkpoint: the ranks agree, each step within phase 4b's
+    bounds of (g)'s and lr exact, fastattn_fwd MOE_TRAIN_LAYERS x 2 x
+    MOE_DIST_STEPS launches at the rank's q_offset, the initial pieces
+    (g)'s slices, each expert leaf the rank's 64 experts, half of it."""
+    torch = pytest.importorskip("torch")
+    assert cs.MOE_DIST_STEPS == 2 and cs.MOE_TRAIN_LAYERS == 2
+    ref = {"loss": [10.0, 9.0, 8.0], "grad_norm": [5.0, 4.0, 3.0],
+           "lr": [3e-4, 1.65e-4, 3e-5],
+           "init": [torch.zeros(128, 8), torch.zeros(3)]}
+    keys = [[(r, 1), (7, 7)] for r in range(4)]
+    kw = dict(layers=cs.MOE_TRAIN_LAYERS, steps=cs.MOE_DIST_STEPS,
+              experts=64, checkpoint=False)
+    specs = [("model", None), ()]
+    cs.dist_gate("ok", [_moe_rank_result(cs, r) for r in range(4)],
+                 ref, keys, specs, 2048, 2, **kw)
+    ranks = [_moe_rank_result(cs, r) for r in range(4)]
+    for k, v in bad.items():
+        for res in ranks if k in ("loss", "grad_norm", "lr") else \
+                ranks[1:2]:
+            res[k] = v
+    with pytest.raises(AssertionError, match=match):
+        cs.dist_gate("bad", ranks, ref, keys, specs, 2048, 2, **kw)
+    ranks = [_moe_rank_result(cs, r) for r in range(4)]
+    ranks[3]["grad_norm"] = [5.05, 4.01]
+    with pytest.raises(AssertionError, match="differs from rank 0"):
+        cs.dist_gate("disagree", ranks, ref, keys, specs, 2048, 2, **kw)
+
+
+def test_delta_gate_sums_each_leafs_distinct_pieces(cs):
+    """A leaf sharded over model is summed over the model ranks of data
+    coordinate 0, a replicated leaf read once; a leaf one device left
+    unchanged must stay so."""
+    coords = [{"data": r // 2, "model": r % 2} for r in range(4)]
+    # leaf 0 sharded over model: pieces 0.3^2 + 0.4^2 of 10^2 (the data
+    # replicas' pieces read once); leaf 1 whole
+    ranks = [{"coords": c, "delta": [((0.3 if c["model"] == 0 else 0.4)
+                                      ** 2, 50.0), (0.01, 4.0),
+                                     (0.0, 0.0)]}
+             for c in coords]
+    rel = cs.delta_gate("ok", ["/a", "/b", "/c"], ranks,
+                        [("model",), (), ()])
+    assert rel == pytest.approx({"/a": 0.05, "/b": 0.05, "/c": 0.0})
+    ranks[1]["delta"][0] = (4.0, 50.0)      # model rank 1's piece
+    with pytest.raises(AssertionError, match="/a"):
+        cs.delta_gate("bad", ["/a", "/b", "/c"], ranks,
+                      [("model",), (), ()])
+    ranks[1]["delta"][0] = (0.16, 50.0)
+    ranks[0]["delta"][2] = (1e-6, 0.0)
+    with pytest.raises(AssertionError, match="/c"):
+        cs.delta_gate("bad", ["/a", "/b", "/c"], ranks,
+                      [("model",), (), ()])
+
+
+def test_delta_gate_holds_moe_leaves_to_their_own_bound(cs):
+    """(h)'s MoE leaves (a path through /moe/) within MOE_DELTA_RTOL,
+    every other leaf still within DIST_DELTA_RTOL."""
+    assert cs.DIST_DELTA_RTOL < cs.MOE_DELTA_RTOL < 0.6
+    paths = ["/layers/1/moe/router", "/layers/1/attn/wq"]
+
+    def ranks(moe, attn):
+        return [{"coords": {}, "delta": [(moe ** 2, 1.0), (attn ** 2, 1.0)]}]
+    rel = cs.delta_gate("ok", paths, ranks(0.25, 0.1), [(), ()],
+                        cs.MOE_DELTA_RTOL)
+    assert rel[paths[0]] == pytest.approx(0.25)
+    with pytest.raises(AssertionError, match="moe/router"):
+        cs.delta_gate("phase 4b's bound", paths, ranks(0.25, 0.1), [(), ()])
+    with pytest.raises(AssertionError, match="moe/router"):
+        cs.delta_gate("control", paths, ranks(0.6, 0.1), [(), ()],
+                      cs.MOE_DELTA_RTOL)
+    with pytest.raises(AssertionError, match="attn/wq"):
+        cs.delta_gate("attention", paths, ranks(0.1, 0.2), [(), ()],
+                      cs.MOE_DELTA_RTOL)
+
+
+def test_whole_experts_gate_rejects_a_sliced_rank(cs):
+    ok = [{"experts": [128] * 4} for _ in range(2)]
+    cs.whole_experts_gate("ok", ok, 128, 4)
+    bad = [{"experts": [128] * 4}, {"experts": [64] * 4}]
+    with pytest.raises(AssertionError, match="rank 1 holds"):
+        cs.whole_experts_gate("bad", bad, 128, 4)
+    with pytest.raises(AssertionError, match="rank 0 holds"):
+        cs.whole_experts_gate("short", [{"experts": [128] * 3}], 128, 4)
+
+
+def test_phase8g_h_on_a_reduced_bf16_moe_and_cpu_ranks(cs, monkeypatch):
+    """(g) and (h) on the CPU before the card: reduced qwen3-moe in bf16
+    at 2 x 64 (the random router drops at capacity factor 1.25), (g)'s
+    steps through the trainer's functions with their drop shares, then
+    (h)'s four gloo ranks from the same draw and batches held by its
+    gates -- phase 4b's bounds against (g), each leaf's update from the
+    ranks' pieces, the rule table's 2 of 4 experts a rank -- with the
+    launch and q_offset check fed the card's counts (the CPU runs the
+    plain attention, which counts no launches)."""
+    import dataclasses
+    import sys
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    # the ranks unpickle chip_smoke's rank body by its module's name
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(ROOT))
+    for name in ("reset_peak_memory_stats", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "MOE_TRAIN_SEQ", 64)
+    gate = cs.dist_gate
+
+    def card_counts(what, ranks, ref, keys, specs, seq, model, **kw):
+        for r in ranks:
+            assert r["launches"] == 0
+            r["launches"] = cs.MOE_TRAIN_LAYERS * 2 * cs.MOE_DIST_STEPS
+            r["q_offsets"] = [r["coords"]["model"] * seq // model]
+        return gate(what, ranks, ref, keys, specs, seq, model, **kw)
+    monkeypatch.setattr(cs, "dist_gate", card_counts)
+    cfg = dataclasses.replace(
+        reduce_for_smoke(get_model_config("qwen3-moe-30b-a3b")),
+        dtype="bfloat16", param_dtype="bfloat16")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        g = cs.moe_train(cfg, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert g["layers"] == cs.MOE_TRAIN_LAYERS and g["launches"] == 0
+    assert len(g["losses"]) == cs.MOE_TRAIN_STEPS
+    assert all(0 < x < 1 for x in g["drop_share"])
+    assert g["loss_rel"] <= cs.LOSS_RTOL and g["gnorm_rel"] <= cs.GNORM_RTOL
+    h = cs.moe_dist(g, cfg)
+    print(f"(h) worst update {h['worst_delta']}, loss {h['loss']} vs "
+          f"{h['ref_loss']}, grad norm {h['grad_norm']} vs "
+          f"{h['ref_grad_norm']}")
+    assert h["experts"] == [2] * 4
+    assert h["worst_delta"][1] <= cs.DIST_DELTA_RTOL
+
+
+def test_phase8_parallel_runs_after_phase8_and_feeds_the_kernels_line(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_moe()") < main.index("phase_moe_parallel(") \
+        < main.index("phase_hymba()")
+    assert "add_moe_parallel_entries" in main
+    kernels = [{"name": n} for n in ("paged_prefill", "paged_decode",
+                                     "fastattn_fwd", "flash_decode")]
+    cs.add_moe_parallel_entries(kernels, {
+        "train": {"launches": 12},
+        "dist": {"launches": [8] * 4, "q_offsets": [[0], [1024]] * 2},
+        "tp": {"launches": [{"paged_prefill": 40, "paged_decode": 124}] * 2}})
+    k = {e["name"]: e for e in kernels}
+    assert k["fastattn_fwd"]["moe_train_launches"] == 12
+    assert k["fastattn_fwd"]["moe_ep_launches"] == [8] * 4
+    assert k["paged_prefill"]["moe_tp_launches"] == [40, 40]
+    assert k["paged_decode"]["moe_tp_launches"] == [124, 124]
+    assert "moe_tp_launches" not in k["flash_decode"]
+
+
+def test_phase3d_runs_the_first_16_layers(cs):
+    """Phase 3d's cut: llama2-7b's first FEATURE_LAYERS = 16 of 32
+    layers, the weights shared; a model with fewer layers runs whole."""
+    pytest.importorskip("torch")
+    import inspect
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    from repro_torch.models import build_model
+    assert cs.FEATURE_LAYERS == 16
+    assert "first_layers(model, params, FEATURE_LAYERS)" in \
+        inspect.getsource(cs.phase_features)
+    cfg = reduce_for_smoke(get_model_config("llama2-7b"))
+    model = build_model(cfg, "cpu")
+    params = model.init(model.generator(0))
+    cut, cut_params = cs.first_layers(model, params, 1)
+    assert cut.cfg.num_layers == 1 and len(cut_params["layers"]) == 1
+    assert cut_params["layers"][0] is params["layers"][0]
+    assert cut_params["embedding"] is params["embedding"]
+    whole, _ = cs.first_layers(model, params, cs.FEATURE_LAYERS)
+    assert whole.cfg.num_layers == cfg.num_layers
+
+
+def test_moe_checks_variants_still_apply():
+    """``moe_checks.py ep``'s variants are text changes to a copy of this
+    checkout: each text they replace is still there, as often as when
+    they were measured (the seeds' in every TrainConfig and DataConfig
+    of chip_smoke.py that (g) and (h) build)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("moe_checks",
+                                                  ROOT / "moe_checks.py")
+    mc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mc)
+    counts = {}
+    for variant in ("f32", "ctrl", "seed1"):
+        for rel, old, new in mc._patches(variant):
+            text = (ROOT / rel).read_text()
+            counts[(variant, old)] = text.count(old)
+            assert old in text and new not in text, (variant, rel, old)
+    assert counts[("seed1", "TrainConfig(learning_rate=3e-4, ")] == 7
+    assert counts[("seed1", "DataConfig(vocab_size=cfg.vocab_size,")] == 5
+    assert all(n == 1 for (v, _), n in counts.items() if v != "seed1")
+    assert mc._patches("seed0") == []
+    with pytest.raises(SystemExit):
+        mc._patches("bf17")

@@ -10,8 +10,9 @@ decode steps, all within 1e-4; the paged ``EngineCore``'s greedy streams
 under the margin rule of ``tests/_torch_engine_pair.py``, its host state,
 pages and steps exactly; dense ``ServeEngine.generate`` under the same
 rule.  Capacity is per batch row and per launch in both packages, so
-these runs chunk the prompts identically.  Expert parallelism is not
-ported: tp > 1 and a model axis above 1 over moe blocks raise.
+these runs chunk the prompts identically.  The parallel plans over moe
+blocks are JAX's (their runs: ``test_torch_moe_tp.py``,
+``test_torch_moe_ep.py``, ``test_torch_moe_ep_edges.py``).
 """
 import dataclasses
 
@@ -30,9 +31,10 @@ from repro.config import ServeConfig as JServe  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro.serving.engine import ServeEngine as JEngine  # noqa: E402
 from repro_torch.config import ParallelConfig, ServeConfig  # noqa: E402
+from repro_torch.config import get_model_config as t_get  # noqa: E402
+from repro_torch.config import reduce_for_smoke as t_reduce  # noqa: E402
 from repro_torch.layers import moe  # noqa: E402
 from repro_torch.models import blocks, build_model  # noqa: E402
-from repro_torch.serving.core import EngineCore  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.sharding.tp import plan_tp  # noqa: E402
 
@@ -201,21 +203,23 @@ def test_dense_generate_matches_jax(pair):
             assert int(got[row, t]) == int(want[row, t]), (row, t)
 
 
-def test_expert_parallelism_is_refused(pair):
-    """tp > 1 (the engine's plan) and a model axis above 1 (training)
-    over moe blocks raise NotImplementedError; tp = 1 and data
-    parallelism stand."""
+def test_moe_parallel_plans_match_jax(pair):
+    """tp 2 and 4 over moe blocks factor as JAX's ``plan_tp`` does (the
+    experts run whole on every rank), and a model axis of 2 builds
+    (expert parallelism); the recurrent kinds still refuse a model
+    axis."""
+    from repro.sharding.tp import plan_tp as j_plan_tp
     cfg = pair.tcfg
-    assert plan_tp(cfg, 1, 16).tp == 1
-    for tp in (2, 4):
-        with pytest.raises(NotImplementedError, match="moe"):
-            plan_tp(cfg, tp, 16)
-    with pytest.raises(NotImplementedError, match="moe"):
-        EngineCore(pair.tm, pair.tp, cfg, ServeConfig(**SERVE, tp=2),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(cfg, "cpu", parallel=ParallelConfig(model=2))
-    build_model(cfg, "cpu", parallel=ParallelConfig(data=2))
+    for tp in (1, 2, 4):
+        got, want = plan_tp(cfg, tp, 16), j_plan_tp(pair.jcfg, tp, 16)
+        assert (got.g, got.s, got.tp) == (want.g, want.s, tp)
+    assert (plan_tp(cfg, 4, 16).g, plan_tp(cfg, 4, 16).s) == (2, 2)
+    build_model(cfg, "cpu", parallel=ParallelConfig(model=2))
+    build_model(cfg, "cpu", parallel=ParallelConfig(data=2, model=2))
+    for arch in ("xlstm-125m", "hymba-1.5b"):
+        with pytest.raises(NotImplementedError, match="recurrent"):
+            build_model(t_reduce(t_get(arch)), "cpu",
+                        parallel=ParallelConfig(model=2))
 
 
 @pytest.mark.parametrize("mode,expect", [
