@@ -3,7 +3,9 @@
 (on one device and on a (data, model) mesh), offload, xLSTM, head dims
 80 and 96, the mixture-of-experts block (served, trained,
 expert-parallel and at tp=2), the Mamba layer (hymba), the
-encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl).
+encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl), and
+the recurrent cells and the encoder-decoder trained on a (data, model)
+mesh.
 
     python3 chip_smoke.py
 
@@ -73,7 +75,10 @@ which raises on failure (the script then exits non-zero):
    at qwen2-vl-72b's 64/8 heads of 128, phase 11's model (``vl_case``:
    GQA 8 at twice qwen3-moe's heads): paged decode at B=8 on 16 pages of
    128, paged prefill of 8 rows of 512, ``fastattn_fwd`` at 1 x 2048
-   causal, ``flash_decode`` at B=8, kv_len 159.  Each is
+   causal, ``flash_decode`` at B=8, kv_len 159; and at a phase 12
+   rank's shapes, ``mlstm_chunkwise_fwd`` at B=2, 2 heads, S=1024,
+   dk=dv=384 and ``fastattn_fwd`` non-causal at B=2, 12/12 heads, 750
+   query rows at q_offset 750 against 1500 keys.  Each is
    timed (median of 20 launches, CUDA events
    around each: the wrapper's host work included) and on the device
    alone (``device_ms``: 20 launches queued behind a spin kernel) beside
@@ -134,18 +139,20 @@ which raises on failure (the script then exits non-zero):
    (e) one 128-token prompt through the scan prefill oracle (a decode
    step a prompt token, no prefill launch) against the chunked prefill.
 3e. Tensor-parallel serving (``phase_tp``), after 3d: (a) phase 3's 12
-   requests on phase 3's llama2-7b at tp=2 (g=2, s=1) as two ranks of
-   ``launch.mesh.spawn_ranks``, the weights shared by CUDA IPC and each
+   requests on phase 3's llama2-7b cut to its first 16 of 32 layers
+   (``TP_LAYERS``, the cut that pays for phase 12) at tp=2 (g=2, s=1) as
+   two ranks of ``launch.mesh.spawn_ranks``, the weights shared by CUDA
+   IPC and each
    rank keeping its slices, under the tiled and the single all-reduce;
    with one GPU both ranks share cuda:0 over gloo, which stages every
    collective through the host (its times are no TP speed), with
    several one GPU a rank over NCCL.  Its reference is phase 3's engine
-   on the same traffic at tp=1, run again here to record its top-1
-   margins and first prefill logits (phase 3's timed run records
-   nothing).  Gates: every rank's streams equal, equal to the reference's
-   under its margins, the first prefill launch's logits within the
-   phase 3 tolerance of the reference's, both paged
-   kernels launched on every rank exactly 32 times a prefill or decode
+   on the same traffic at tp=1 at the same depth, run again here to
+   record its top-1 margins and first prefill logits (phase 3's timed
+   run records nothing).  Gates: every rank's streams equal, equal to the
+   reference's under its margins, the first prefill launch's logits
+   within the phase 3 tolerance of the reference's, both paged
+   kernels launched on every rank exactly 16 times a prefill or decode
    launch, no page left, ``stats()["tp"]`` the plan.  (b) Reduced
    gemma2-2b at tp=4 (g=2, s=2: the LSE merge over page-row sub-shards on
    CUDA tensors) against its own tp=1 run (plain paged attention: the
@@ -212,10 +219,10 @@ which raises on failure (the script then exits non-zero):
    tokens (the first 128 of (a)'s), 32 greedy new tokens through the
    recurrent cells (no kernel launch), its teacher-forced logits at the
    last prompt position held to (a)'s the same way, and one profiled
-   decode step.  (b) The trainer's functions take 5 AdamW steps of
-   8 x 2048 tokens on the first 3 layers (mlstm, mlstm, slstm:
-   ``XLSTM_TRAIN_LAYERS``, a cut that pays for phase 11 in the time
-   limit): finite losses, exactly 2 x 2 (remat) x 5 launches, a
+   decode step.  (b) The trainer's functions take 3 AdamW steps of
+   8 x 512 tokens (``XLSTM_TRAIN_SEQ``) on the first 3 layers (mlstm,
+   mlstm, slstm: ``XLSTM_TRAIN_LAYERS``; both are cuts for the time
+   limit): finite losses, exactly 2 x 2 (remat) x 3 launches, a
    bit-exact checkpoint; on one batch the kernel path's loss within 1% of
    the plain path's and its gradient norm within a factor of 2 (both
    paths also measured under two perturbations of h); one profiled step
@@ -223,19 +230,21 @@ which raises on failure (the script then exits non-zero):
 
 7. Head dims 80 and 96, after phase 6 (``phase_head_dims``):
    stablelm-3b (D=80, LayerNorm) and phi3-mini-3.8b (D=96) at full width
-   and depth, bf16, random weights from a seeded CUDA generator, each
+   and their first 16 of 32 layers (``HEAD_DIM_LAYERS``, a cut for the
+   time limit), bf16, random weights from a seeded CUDA generator, each
    freed before the next.  (a) Phase 3's serving on phase 3's engine and
    traffic: each paged kernel exactly one launch a layer a prefill launch
    or decode step, no page left, the first chunk and one decode step
    within the phase 3 tolerance of the plain path; (b) phase 3b's dense
-   generation: ``flash_decode`` exactly 32 x 159 launches, greedy tokens
+   generation: ``flash_decode`` exactly 16 x 159 launches, greedy tokens
    equal the paged engine's under the margin rule, ``flash_decode`` held
    to its plain version on generate's caches; (c) ``LM.apply`` on
-   1 x 2048 tokens: exactly 32 ``fastattn_fwd`` launches, logits within
+   1 x 2048 tokens: exactly 16 ``fastattn_fwd`` launches, logits within
    the phase 3 tolerance of the plain path's.
 8. The mixture-of-experts block, after phase 7 (``phase_moe``):
    qwen3-moe-30b-a3b (48 MoE blocks of 128 experts top-8, 32/4 heads of
-   128; 30.53 B parameters, 61 GB) at full width and depth, bf16, random
+   128; 30.53 B parameters, 61 GB) at full width, its first 16 of 48
+   layers (``MOE_LAYERS``, a cut for the time limit), bf16, random
    weights from a seeded CUDA generator.  Gate G bounds every logits
    comparison: LOGIT_TOL or twice the plain path's own change when one
    ulp moves 1% of the first block's router inputs, whichever is larger
@@ -243,11 +252,11 @@ which raises on failure (the script then exits non-zero):
    paged kernel exactly one launch a layer a prefill launch or decode
    step, no page left, the first chunk and a decode step within G, the
    share of valid assignments each prefill launch drops by capacity;
-   (b) phase 3b's generate: ``flash_decode`` exactly 48 x 159 launches,
+   (b) phase 3b's generate: ``flash_decode`` exactly 16 x 159 launches,
    no assignment dropped in generate or in the paged engine (the same
    weights at capacity factor ``NO_DROP_CF``), greedy tokens equal under
    the margin rule with G's bound, decode_step logits within G; (c)
-   ``LM.apply`` on 1 x 2048: exactly 48 ``fastattn_fwd`` launches, logits
+   ``LM.apply`` on 1 x 2048: exactly 16 ``fastattn_fwd`` launches, logits
    within G; (d) one prefill launch of 8 x 512 twice on the same pools,
    every valid row's logits the same bits; (e) each block on (c)'s own
    inputs through the kernels and the plain path: the rows whose top-8
@@ -256,7 +265,7 @@ which raises on failure (the script then exits non-zero):
    gate, the share of tokens routed otherwise recorded per layer; (f) a
    B=8 decode step and the 8 x 512 prefill launch timed (wall, one
    profiled run's device time, idle share, largest kernels) against
-   their bounds.  Peak memory below 80 GB.  Then, with the 48-layer
+   their bounds.  Peak memory below 80 GB.  Then, with the 16-layer
    model freed (``phase_moe_parallel``), on random weights from seed 0
    at full width: (g) 3 AdamW steps of its first 2 layers
    (``MOE_TRAIN_LAYERS``, 1.87 B parameters) at 2 x 2048, remat full,
@@ -281,17 +290,18 @@ which raises on failure (the script then exits non-zero):
    page left.
 9. The Mamba layer, after phase 8 (``phase_hymba``): hymba-1.5b (32
    blocks of parallel attention and Mamba heads, 25/5 heads of 64,
-   window 1024 on 29 layers, 1.42 B parameters) at full width and depth,
-   bf16, random weights from a seeded CUDA generator; the formula's and
+   window 1024 on 29 layers, 1.42 B parameters) at full width, its first
+   16 layers (``HYMBA_LAYERS``: global at 0 and 15; a cut for the time
+   limit), bf16, random weights from a seeded CUDA generator; the formula's and
    the tensors' parameter counts logged.  The logits gate comes from
    the plain path's own change with one ulp on 1% of block 0's inputs:
    LOGIT_TOL where that is at most half of it, else gate G's rule
    (``hymba_gate``).  (a) ``LM.apply`` on 8 x 2048 through
-   ``fastattn_fwd``, exactly 32 launches, logits held to the plain path
+   ``fastattn_fwd``, exactly 16 launches, logits held to the plain path
    (under G, if even G fails, each block to its plain version on its
    own inputs); (b) ``ServeEngine.generate`` of (a)'s first 128 tokens
    of each row, 32 greedy new tokens through ``flash_decode``, exactly
-   32 x 159 launches, the decode logits at DENSE_CHECK_POS held to (a)'s
+   16 x 159 launches, the decode logits at DENSE_CHECK_POS held to (a)'s
    (the recurrence against the chunked scan), those at the generated
    positions and the greedy tokens (the margin rule) to the plain path's
    LM.apply on the same tokens and to its decode_step teacher-forced on
@@ -302,7 +312,7 @@ which raises on failure (the script then exits non-zero):
    the 1108 tokens; (e) a B=8 decode step and LM.apply on 2 of (a)'s rows
    profiled: wall, device time, idle share, the Mamba scan's share; (d)
    3 AdamW steps at
-   2 x 2048 (remat), finite, exactly 32 x 2 x 3 launches, step 0's loss
+   2 x 2048 (remat), finite, exactly 16 x 2 x 3 launches, step 0's loss
    and grad norm within LOSS_RTOL and GNORM_RTOL of the plain path's.
 10. The encoder-decoder, after phase 9 (``phase_whisper``):
    whisper-small (12 encoder and 12 decoder layers, d_model 768, 12/12
@@ -349,6 +359,30 @@ which raises on failure (the script then exits non-zero):
    batches with the image's labels masked (``vl_batch``): 2 x 2 x 3
    ``fastattn_fwd`` launches, step 0's loss and grad norm within
    LOSS_RTOL and GNORM_RTOL of the plain path's, peak memory under 80 GB.
+12. The model axis over the recurrent cells and the encoder-decoder,
+   after phase 11 (``phase_mesh``): xlstm-125m's first 3 layers (mlstm,
+   mlstm, slstm) and hymba-1.5b's first 2 (global, windowed) at 4 x
+   1024, whisper-small's 2 encoder and 2 decoder layers at 4 x (1500
+   frames, 448 tokens), full width, bf16, random weights from seed 0
+   (``MESH_MODELS``): each model's 2 AdamW steps (remat) on one device
+   (``mesh_reference``), then one spawn of four gloo ranks at (data=2,
+   model=2) on the card runs the three in turn (``_mesh_models_rank``):
+   the mLSTM and sLSTM heads and hymba's Mamba channels over the model
+   axis (a rank's 2 of 4 heads, 800 of 1600 channels), whisper's frames
+   and tokens split over it.  Phase 4b's gates against each one-device
+   run (the ranks' loss, grad norm and lr equal, each step within 1% /
+   2%, lr exact, each leaf's update within 0.15, the initial pieces the
+   rule table's slices, the sharded leaves half the whole) and each
+   leaf's step-0 gradient within MESH_GRAD_RTOL = 0.15 of one device's
+   (a dropped leaf reads 1.0); xlstm-125m's bounds past step 0's loss
+   and grad norm twice what one bf16 ulp on 1% of every mlstm h does to
+   its one-device run where that is larger, printed beside them, its
+   gradient bound under MESH_GRAD_CAP = 0.75; and each rank's launches
+   exactly: ``mlstm_chunkwise`` 2 x 2 x 2 at 2 heads,
+   ``fastattn_fwd`` hymba 2 x 2 x 2 at the rank's first row, whisper
+   (2 + 2 + 2) x 2 x 2 at the rank's first frame, first token and 0
+   (cross-attention) (``mesh_expected``).  Correctness only: gloo stages
+   every collective through the host.
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -378,8 +412,12 @@ qwen2-vl's 64/8 heads -- flash_decode's from phase 11 (c)'s caches, its
 phase-2 case as ``vl_case_*`` -- and ``vl_launches``, its launches in
 phase 11; ``fastattn_fwd`` also ``context_*``, phase 2's context-parallel
 case of rank m=1, ``context_m0_*`` of m=0, and each
-phase 4b rank's launches); the last line is ``{"ok": true,
-"device": {...}}``.
+phase 4b rank's launches; ``mlstm_chunkwise`` and ``fastattn_fwd`` also
+``mesh_*``, phase 2's case at a phase 12 rank's shape (``MESH_MLSTM_CASE``,
+whisper's encoder), ``fastattn_fwd`` also ``mesh_hymba_*``, ``mesh_dec_*``
+and ``mesh_cross_*`` at its other shapes there (``MESH_FWD_CASES``), and
+``mesh_launches``, each rank's launches in phase 12); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1315,6 +1353,10 @@ DECODE_CASES += [
 # a chunk-512 prefill of 8 rows (ragged and padded rows), the causal
 # forward at 1 x 2048, dense decode at B=8, kv_len 159
 MOE_ARCH = "qwen3-moe-30b-a3b"
+# phase 8 (a)-(f) run its first MOE_LAYERS of 48 layers, every gate at
+# that depth: a host-bound decode step of 48 MoE blocks took ~0.2 s, and
+# (a)-(f) 117 s of the script's time limit
+MOE_LAYERS = 16
 
 
 def gqa8_case(kernel: str) -> str:
@@ -1345,6 +1387,10 @@ DENSE_DECODE_CASES.append((gqa8_case("flash_decode"), dict(
 # (b)'s B=8, kv_len 159 in both layouts (bshd: the kernels line's), and
 # at B=1 on 4096 keys with the window narrower than the cache
 HYMBA_ARCH = "hymba-1.5b"
+# phase 9 runs its first HYMBA_LAYERS of 32 layers (global attention at 0
+# and 15, the window on the rest), every gate at that depth: a cut for
+# the script's time limit
+HYMBA_LAYERS = 16
 
 
 def hymba_case(kernel: str, variant: str = "main") -> str:
@@ -1474,6 +1520,39 @@ MLSTM_CASES = [
 ]
 
 
+# phase 12's (data=2, model=2) rank shapes, each at model rank 1 and a
+# rank's 2 batch rows: xlstm-125m's mLSTM at 2 of 4 heads on the gathered
+# 1024 rows; fastattn_fwd at each shape phase 12 launches it -- whisper's
+# encoder, 750 of 1500 frames against all 1500 (non-causal: the offset
+# does not mask), hymba's context-parallel rows, 512 at q_offset 512
+# against 1024 keys with hymba_local's window 1024, whisper's decoder,
+# 224 causal rows at q_offset 224 against 448 keys, and its
+# cross-attention, 224 rows against 1500 frames (the kernels line's
+# mesh_*, mesh_hymba_*, mesh_dec_*, mesh_cross_*)
+MESH_MLSTM_CASE = ("xlstm-125m (2,2) rank B=2 H=2 S=1024 dk=dv=384 bf16 "
+                   "chunk=128 bshd")
+MLSTM_CASES.append((MESH_MLSTM_CASE, dict(b=2, h=2, s=1024, dk=384, dv=384,
+                                          dtype="bfloat16", layout="bshd",
+                                          seed=6)))
+_MW = dict(b=2, hq=12, hkv=12, d=64, dtype="bfloat16")
+MESH_FWD_CASES = {
+    "mesh": ("whisper (2,2) rank H=12/12 D=64 bf16 B=2 Sq=750 Skv=1500 "
+             "non-causal q_offset=750", dict(
+                 sq=750, skv=1500, causal=False, q_offset=750, seed=81,
+                 **_MW)),
+    "mesh_hymba": ("hymba (2,2) rank H=25/5 D=64 bf16 B=2 Sq=512 Skv=1024 "
+                   "causal q_offset=512 window=1024", dict(
+                       b=2, sq=512, skv=1024, q_offset=512, window=1024,
+                       dtype="bfloat16", seed=82, **_HY)),
+    "mesh_dec": ("whisper (2,2) rank H=12/12 D=64 bf16 B=2 Sq=224 Skv=448 "
+                 "causal q_offset=224", dict(
+                     sq=224, skv=448, q_offset=224, seed=83, **_MW)),
+    "mesh_cross": ("whisper (2,2) rank H=12/12 D=64 bf16 B=2 Sq=224 "
+                   "Skv=1500 non-causal", dict(
+                       sq=224, skv=1500, causal=False, seed=84, **_MW))}
+FWD_CASES += list(MESH_FWD_CASES.values())
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version.  Returns the main-path
     numbers of each kernel."""
@@ -1483,7 +1562,7 @@ def phase_kernels() -> dict:
     pres = {name: prefill_case(name, **kw) for name, kw in PREFILL_CASES}
     dense = {name: dense_decode_case(name, **kw)
              for name, kw in DENSE_DECODE_CASES}
-    mls = [mlstm_case(name, **kw) for name, kw in MLSTM_CASES][0]
+    mls = {name: mlstm_case(name, **kw) for name, kw in MLSTM_CASES}
     # flash_decode's numbers for the kernels line are taken at the main
     # path's own shape, in phase 3b (D = 128) and 7 (b) (D = 80, 96); its
     # long_* keys at LONG_DECODE and its head-dim cases
@@ -1492,7 +1571,11 @@ def phase_kernels() -> dict:
     return {"paged_decode": decs[DECODE_CASES[0][0]],
             "paged_prefill": pres[PREFILL_CASES[0][0]],
             "fastattn_fwd": fwds[FWD_CASES[0][0]],
-            "mlstm_chunkwise": mls, "flash_decode_long": dense[LONG_DECODE],
+            "mlstm_chunkwise": mls[MLSTM_CASES[0][0]],
+            "mesh": {"mlstm_chunkwise": {"mesh": mls[MESH_MLSTM_CASE]},
+                     "fastattn_fwd": {pre: fwds[name] for pre, (name, _)
+                                      in MESH_FWD_CASES.items()}},
+            "flash_decode_long": dense[LONG_DECODE],
             "paged_prefill_verify": pres[VERIFY_CASE],
             "fastattn_context": {m: fwds[name] for m, (name, _) in
                                  CONTEXT_CASES.items()},
@@ -1516,13 +1599,15 @@ def build_llama():
     return build_full("llama2-7b")
 
 
-def build_full(arch: str):
-    """``arch`` at full width and depth, random weights from a CUDA
-    generator seeded with 0."""
+def build_full(arch: str, layers: int = None):
+    """``arch`` at full width and depth (or its first ``layers``), random
+    weights from a CUDA generator seeded with 0."""
     import torch
     from repro_torch.config import get_model_config
     from repro_torch.models import build_model
     cfg = get_model_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=min(layers, cfg.num_layers))
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda")
     params = model.init(model.generator(0))
@@ -2801,11 +2886,17 @@ def _tp_nccl_collectives(rank: int) -> dict:
                 ref[k].abs().max().item()) for k in got}
 
 
+# phase 3e (a) runs llama2-7b's first TP_LAYERS of 32 layers at tp=2,
+# against a tp=1 run at the same depth: the cut that pays for phase 12
+TP_LAYERS = 16
+
+
 def phase_tp(model, params) -> dict:
-    """Phase 3e: (a) phase 3's traffic on phase 3's llama2-7b at tp=2
-    (g=2, s=1), two ranks, under each collective mode, against a tp=1 run
-    of phase 3's engine on the same traffic that records its margins (a
-    run of its own, so that phase 3's timed run stays as it was); (b)
+    """Phase 3e: (a) phase 3's traffic on phase 3's llama2-7b cut to its
+    first TP_LAYERS layers at tp=2 (g=2, s=1), two ranks, under each
+    collective mode, against a tp=1 run of phase 3's engine at that depth
+    on the same traffic that records its margins (a run of its own, so
+    that phase 3's timed run stays as it was); (b)
     reduced gemma2-2b at tp=4 (g=2, s=2) against its own tp=1 run; the
     ring and reduce-scatter variants where NCCL runs."""
     import torch
@@ -2833,8 +2924,12 @@ def phase_tp(model, params) -> dict:
         return res
 
     with tempfile.TemporaryDirectory() as tmp:
-        # (a) the slice: llama2-7b at full width and depth, tp=2, against
-        # phase 3's engine and traffic at tp=1, margins recorded
+        # (a) the slice: llama2-7b at full width cut to its first
+        # TP_LAYERS layers, tp=2, against phase 3's engine and traffic at
+        # tp=1 at that depth, margins recorded
+        model, params = first_layers(model, params, TP_LAYERS)
+        cfg = model.cfg
+        log(f"[3e] (a) {cfg.name} cut to its first {cfg.num_layers} layers")
         prompts, _ = serve_traffic(cfg.vocab_size)
         waves = [[(i, p, SERVE_3_NEW) for i, p in enumerate(prompts)]]
         core = _make_feature_core()(model, params, cfg,
@@ -2844,7 +2939,8 @@ def phase_tp(model, params) -> dict:
         del core
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"[3e] (a) llama2-7b tp=1 reference: {tp1['wall_s']:.2f}s "
+        log(f"[3e] (a) {cfg.name} ({cfg.num_layers} layers) tp=1 "
+            f"reference: {tp1['wall_s']:.2f}s "
             f"wall, {tp1['steps']} steps, {tp1['device_tok_s']:.0f} "
             "device-time tok/s")
         out["a_tp1"] = {k: tp1[k] for k in ("wall_s", "steps",
@@ -2943,12 +3039,15 @@ def phase_tp(model, params) -> dict:
 
 # Depth cut for memory: at 32 layers bf16 params + bf16 grads + two f32
 # AdamW moments take about 13.5 + 13.5 + 54 GB, over one 80 GB card; 4
-# layers keep every width (1.07 B params, about 13 GB of state).
+# layers keep every width (1.07 B params, about 13 GB of state).  (At 2
+# layers phase 4b's step 0 read its grad norm 2.03% above phase 4's, over
+# DIST_GNORM_RTOL: the embed's share of the norm, where phase 4's bf16
+# scatter-add loses most, doubles.)
 TRAIN_LAYERS = 4
 TRAIN_STEPS = 5
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 # kernel path vs plain attention path on one 1 x 2048 batch: bf16
-# activations through 4 layers, rounded at different points by the two
+# activations through the layers, rounded at different points by the two
 # attention paths (the kernel rounds its output once; the plain path's
 # backward recomputes in f32), move the loss by well under 1% and the
 # gradient norm by a few percent at most.
@@ -3183,9 +3282,8 @@ def phase_training() -> dict:
 
 DIST_MESH = dict(data=2, model=2)
 # phase 4b takes the first DIST_STEPS of phase 4's TRAIN_STEPS steps,
-# against phase 4's snapshot there: a step through gloo on one card
-# costs ~9 s (5.6 GB of collectives a rank), and the script keeps to
-# about 800 s
+# against phase 4's snapshot there: a step through gloo on one card costs
+# 8-12 s (5.6 GB of collectives a rank)
 DIST_STEPS = 3
 DIST_INIT_TIMEOUT_S = 300.0       # every collective of a rank
 DIST_DEADLINE_S = 900.0           # a spawned group as a whole
@@ -3245,17 +3343,33 @@ def same_checkpoint(dir_a: str, dir_b: str, step: int) -> list:
 def _dist_rank(rank: int, cfg, mesh_kw: dict, run: dict) -> dict:
     """One rank of a training run on a mesh (phase 4b; phase 8 (h)): the
     one-device run's model (``cfg``), seed, batches and schedule at
-    ``ParallelConfig(remat=run["remat"], **mesh_kw)``, drawing the whole
-    tree and keeping its pieces.  ``run``: the one-device run's "batch"
-    x "seq" batches and its "steps" (the schedule), the "dist_steps" to
+    ``ParallelConfig(remat=run["remat"], **mesh_kw)`` (``_dist_job``)."""
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.mesh import make_mesh_for
+    mesh = make_mesh_for(ParallelConfig(remat=run["remat"], **mesh_kw),
+                         timeout=DIST_INIT_TIMEOUT_S)
+    return _dist_job(rank, mesh, cfg, mesh_kw, run)
+
+
+def _dist_job(rank: int, mesh, cfg, mesh_kw: dict, run: dict) -> dict:
+    """This rank's share of one training run on ``mesh``, drawing the
+    whole tree and keeping its pieces.  ``run``: the one-device run's
+    "batch" x "seq" batches (with "frames": an encoder-decoder's N(0, 1)
+    frames from a generator on the device seeded with 2, drawn after each
+    batch's tokens) and its "steps" (the schedule), the "dist_steps" to
     take, "mode" and "ckpt_dir" (None: no checkpoint), the one-device
-    parameters after dist_steps ("snapshot", in tree order) or None, and
-    whether to read step 0's "leaf_gnorm".  Mode "train": every step's
-    numbers and the collectives it issued, the initial pieces'
+    parameters after dist_steps ("snapshot", in tree order), or a queue
+    that hands them over after the steps ("feed"; the one-device run
+    goes on beside the ranks) beside its step-0 gradients, or neither,
+    whether to read step 0's "leaf_gnorm" and, with a feed, whether to
+    hold step 0's gradients to one device's ("grad0").  Mode "train":
+    every step's numbers and the collectives it issued, the initial pieces'
     fingerprints and sizes, the expert count of each expert leaf,
-    fastattn_fwd's launches and q_offsets; given a snapshot, for each
-    leaf the squared norms on this rank's piece of the one-device update
-    and of the updates' difference (``delta_gate``); given a ckpt_dir, a
+    fastattn_fwd's launches and q_offsets, mlstm_chunkwise's launches
+    and the head counts it ran at; given a snapshot, for each leaf the
+    squared norms on this rank's piece of the one-device update and of
+    the updates' difference (``delta_gate``), and with "grad0" the same
+    of step 0's gradients (``first_step_grads``); given a ckpt_dir, a
     checkpoint of the final state (and, on rank 0, the same gathered
     state saved on one rank, compared file for file), then one more
     step.  "resume": that checkpoint restored into this rank's pieces
@@ -3268,7 +3382,7 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, run: dict) -> dict:
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.device import synchronize
     from repro_torch.kernels.fastattn import ops
-    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.kernels.mlstm import ops as mops
     from repro_torch.launch.train import to_device
     from repro_torch.models import build_model
     from repro_torch.sharding import collectives as C
@@ -3281,7 +3395,6 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, run: dict) -> dict:
                                                  state_specs)
     torch.backends.cuda.matmul.allow_tf32 = False
     parallel = ParallelConfig(remat=run["remat"], **mesh_kw)
-    mesh = make_mesh_for(parallel, timeout=DIST_INIT_TIMEOUT_S)
     dev = (torch.device("cuda", torch.cuda.current_device())
            if torch.cuda.is_available() else torch.device("cpu"))
     if dev.type == "cpu":
@@ -3292,20 +3405,29 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, run: dict) -> dict:
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=run["seq"],
                                     global_batch=run["batch"]))
-    kernel = ops.fastattn_fwd
-    offsets = set()
+    frames = None
+    if run.get("frames"):
+        frames = torch.Generator(device=dev)
+        frames.manual_seed(2)
+    kernel, mkernel = ops.fastattn_fwd, mops.mlstm_chunkwise_fwd
+    offsets, heads = set(), set()
 
     def recorded(*args, **kw):            # every launch's q_offset
         offsets.add(kw.get("q_offset", 0))
         return kernel(*args, **kw)
-    # the wrapper counts its launches on the module's name: here
-    recorded.launches = 0
+
+    def mrecorded(q, *args, **kw):        # every launch's head count
+        if q.is_cuda:
+            heads.add(q.shape[1])
+        return mkernel(q, *args, **kw)
+    # each wrapper counts its launches on the module's name: here
+    recorded.launches = mrecorded.launches = 0
 
     ckpt_dir, snapshot = run["ckpt_dir"], run["snapshot"]
     out = {"rank": rank, "coords": mesh.coords, "device": str(dev),
            "backend": str(dist.get_backend()), "loss": [], "grad_norm": [],
            "lr": [], "step_s": [], "collectives": [], "coll_bytes": []}
-    ops.fastattn_fwd = recorded
+    ops.fastattn_fwd, mops.mlstm_chunkwise_fwd = recorded, mrecorded
     try:
         with axis_rules(mesh=mesh):
             t0 = time.perf_counter()
@@ -3339,31 +3461,61 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, run: dict) -> dict:
         def snap(i):                      # the one-device piece of leaf i
             return shard_of(snapshot[i].to(dev), specs[i], mesh).float()
         # the one-device update's squared norm on each piece, before the
-        # steps update the pieces in place
+        # steps update the pieces in place; with the snapshot still to
+        # come ("feed"), a copy of the initial pieces for after the steps
         one = [(snap(i) - t.float()).square().sum().item()
                for i, (_, t) in enumerate(paths)] if snapshot else None
+        start = ([t.clone() for _, t in paths] if run.get("feed")
+                 else None)
         del paths
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        recorded.launches = 0
-        for _ in range(run["dist_steps"] if run["mode"] == "train" else 0):
-            batch = to_device(data.next(), dev)
-            C.COUNTS.update(all_gather=0, reduce_scatter=0, all_reduce=0,
-                            bytes=0)
-            synchronize(dev)
-            t1 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            synchronize(dev)
-            out["step_s"].append(time.perf_counter() - t1)
-            for k in ("loss", "grad_norm", "lr"):
-                out[k].append(float(metrics[k]))
-            out["collectives"].append({k: C.COUNTS[k] for k in (
-                "all_gather", "reduce_scatter", "all_reduce")})
-            out["coll_bytes"].append(C.COUNTS["bytes"])
+        recorded.launches = mrecorded.launches = 0
+        grads: list = []
+        with (first_step_grads(grads) if run.get("grad0")
+              else contextlib.nullcontext()):
+            for _ in range(run["dist_steps"] if run["mode"] == "train"
+                           else 0):
+                batch = to_device(data.next(), dev)
+                if frames is not None:
+                    batch["enc_embeds"] = torch.randn(
+                        (run["batch"], cfg.encoder_seq, cfg.d_model),
+                        generator=frames, device=dev)
+                C.COUNTS.update(all_gather=0, reduce_scatter=0,
+                                all_reduce=0, bytes=0)
+                synchronize(dev)
+                t1 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                synchronize(dev)
+                out["step_s"].append(time.perf_counter() - t1)
+                for k in ("loss", "grad_norm", "lr"):
+                    out[k].append(float(metrics[k]))
+                out["collectives"].append({k: C.COUNTS[k] for k in (
+                    "all_gather", "reduce_scatter", "all_reduce")})
+                out["coll_bytes"].append(C.COUNTS["bytes"])
         out["launches"] = recorded.launches
         out["q_offsets"] = sorted(offsets)
+        out["mlstm_launches"] = mrecorded.launches
+        out["mlstm_heads"] = sorted(heads)
         out["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
                               if dev.type == "cuda" else None)
+        if start is not None:
+            got = run["feed"].get(timeout=DIST_DEADLINE_S)
+            if got is None:
+                raise RuntimeError(f"{cfg.name}: no one-device run to hold "
+                                   "the mesh's updates to")
+            snapshot, grad_one = got
+            one = [(snap(i) - t.float()).square().sum().item()
+                   for i, t in enumerate(start)]
+            del start
+            if grads:
+                # step 0's gradient: the same squared norms on this piece
+                out["grad0"] = []
+                for i, g in enumerate(grads):
+                    w = shard_of(grad_one[i].to(dev), specs[i], mesh).float()
+                    out["grad0"].append(((g.float() - w).square().sum().item(),
+                                         w.square().sum().item()))
+                del grads, grad_one
         if one is not None:
             # the updates' difference: final - snapshot (the init cancels)
             out["delta"] = [((t.float() - snap(i)).square().sum().item(),
@@ -3393,39 +3545,46 @@ def _dist_rank(rank: int, cfg, mesh_kw: dict, run: dict) -> dict:
         state, metrics = step_fn(state, to_device(data.next(), dev))
         out["next_loss"] = float(metrics["loss"])
     finally:
-        ops.fastattn_fwd = kernel
+        ops.fastattn_fwd, mops.mlstm_chunkwise_fwd = kernel, mkernel
     return out
 
 
 def dist_gate(what, ranks: list, ref: dict, keys: list, specs: list,
               seq: int, model: int, *, layers: int = TRAIN_LAYERS,
               steps: int = DIST_STEPS, experts: int = None,
-              checkpoint: bool = True) -> None:
+              checkpoint: bool = True, launches: int = None,
+              offsets=None, loss_rtol: float = DIST_LOSS_RTOL,
+              gnorm_rtol: float = DIST_GNORM_RTOL) -> None:
     """The gates of a training run on a mesh against its one-device run
-    (``ref``; phase 4b, phase 8 (h)): every rank's loss, grad norm and lr
-    equal the others' and, step by step, the one device's within
-    DIST_LOSS_RTOL / DIST_GNORM_RTOL (lr exactly); each rank launched
-    fastattn_fwd ``layers`` x 2 (remat) x ``steps`` times, all at its
-    q_offset; its initial pieces are the rule table's slices of the one
-    device's draw (``keys``: per rank, the fingerprints of those slices);
-    a leaf sharded over the model axis holds 1/model of the whole; given
-    ``experts``, each expert leaf holds that many experts (its slice of
-    the expert dim); with ``checkpoint``, rank 0's checkpoint equals the
-    one-rank save of the same gathered state."""
+    (``ref``; phase 4b, phase 8 (h), phase 12): every rank's loss, grad
+    norm and lr equal the others' and, step by step, the one device's
+    within ``loss_rtol`` / ``gnorm_rtol`` (DIST_LOSS_RTOL /
+    DIST_GNORM_RTOL, or a list of a bound a step; lr exactly); each rank
+    launched fastattn_fwd ``launches`` (``layers`` x 2 (remat) x
+    ``steps``) times, at the q_offsets ``offsets(m)`` of model
+    coordinate m (its first row, m x seq / model); its initial pieces
+    are the rule table's slices of the one device's draw (``keys``: per
+    rank, the fingerprints of those slices); a leaf sharded over the
+    model axis holds 1/model of the whole; given ``experts``, each
+    expert leaf holds that many experts (its slice of the expert dim);
+    with ``checkpoint``, rank 0's checkpoint equals the one-rank save of
+    the same gathered state."""
     from repro_torch.sharding.rules import spec_axes
     first = ranks[0]
+    want = layers * 2 * steps if launches is None else launches
+    offsets = offsets or (lambda m: [m * seq // model])
     for r, res in enumerate(ranks):
         for k in ("loss", "grad_norm", "lr"):
             if res[k] != first[k]:
                 raise AssertionError(f"{what}: rank {r}'s {k} {res[k]} "
                                      f"differs from rank 0's {first[k]}")
         m = res["coords"]["model"]
-        want = layers * 2 * steps
-        if res["launches"] != want or res["q_offsets"] != [m * seq // model]:
+        at = offsets(m) if want else []
+        if res["launches"] != want or res["q_offsets"] != at:
             raise AssertionError(
                 f"{what}: rank {r} launched fastattn_fwd {res['launches']} "
                 f"times at q_offsets {res['q_offsets']}, not {want} at "
-                f"[{m * seq // model}]")
+                f"{at}")
         if res["init_keys"] != keys[r]:
             raise AssertionError(f"{what}: rank {r}'s initial pieces are "
                                  "not its slices of the one device's "
@@ -3446,13 +3605,14 @@ def dist_gate(what, ranks: list, ref: dict, keys: list, specs: list,
     for i in range(steps):
         l1, g1, lr1 = (ref[k][i] for k in ("loss", "grad_norm", "lr"))
         l2, g2, lr2 = (first[k][i] for k in ("loss", "grad_norm", "lr"))
-        if not (abs(l2 - l1) <= DIST_LOSS_RTOL * abs(l1)
-                and abs(g2 - g1) <= DIST_GNORM_RTOL * abs(g1)
+        lt, gt = (t[i] if isinstance(t, list) else t
+                  for t in (loss_rtol, gnorm_rtol))
+        if not (abs(l2 - l1) <= lt * abs(l1) and abs(g2 - g1) <= gt * abs(g1)
                 and lr2 == lr1):
             raise AssertionError(
                 f"{what}: step {i}: loss {l2} / grad norm {g2} / lr {lr2} "
                 f"against one device's {l1} / {g1} / {lr1} (rtol "
-                f"{DIST_LOSS_RTOL} / {DIST_GNORM_RTOL}, lr exact)")
+                f"{lt} / {gt}, lr exact)")
     if checkpoint and (first["ckpt_differs"] or not first["ckpt_files"]):
         raise AssertionError(f"{what}: the checkpoint differs from the "
                              f"one-rank save in {first['ckpt_differs']}")
@@ -3548,32 +3708,36 @@ def resume_gate(what, resumed: list, keys: list, base: float) -> None:
 
 
 def delta_gate(what, paths: list, ranks: list, specs: list,
-               moe_bound: float = None) -> dict:
+               moe_bound: float = None, bound: float = DIST_DELTA_RTOL,
+               key: str = "delta") -> dict:
     """Each leaf's update at the mesh against one device's, as
     ||d_mesh - d_one|| / ||d_one|| with d = final - init (Adam flips the
     sign of near-zero updates, so no elementwise bound holds), from the
     ranks' pieces (``_dist_rank``'s "delta": per leaf the two squared
     norms on its piece) summed over the leaf's distinct pieces -- those
     of the ranks at coordinate 0 on every axis it is not sharded over:
-    within DIST_DELTA_RTOL (a MoE block's leaves within ``moe_bound``
-    where given); a leaf one device left unchanged must stay unchanged.
-    Returns path -> that ratio (0 for unchanged leaves)."""
+    within ``bound`` (DIST_DELTA_RTOL; a MoE block's leaves within
+    ``moe_bound`` where given); a leaf one device left unchanged must
+    stay unchanged.  ``key`` "grad0" holds each
+    leaf's step-0 gradient so (``_dist_job``'s "grad0").  Returns path
+    -> that ratio (0 for unchanged leaves)."""
     from repro_torch.sharding.rules import spec_axes
     rel = {}
+    name = "update" if key == "delta" else "step-0 gradient"
     for i, (path, spec) in enumerate(zip(paths, specs, strict=True)):
-        bound = (moe_bound if moe_bound is not None and "/moe/" in path
-                 else DIST_DELTA_RTOL)
+        b = moe_bound if moe_bound is not None and "/moe/" in path \
+            else bound
         axes = spec_axes(spec)
         held = [r for r in ranks if all(
             c == 0 for a, c in r["coords"].items() if a not in axes)]
-        num = sum(r["delta"][i][0] for r in held)
-        den = sum(r["delta"][i][1] for r in held)
+        num = sum(r[key][i][0] for r in held)
+        den = sum(r[key][i][1] for r in held)
         rel[path] = (math.sqrt(num / den) if den > 0 else
                      0.0 if num == 0 else math.inf)
-        if not rel[path] <= bound:
-            raise AssertionError(f"{what}: leaf {path}: update off by "
+        if not rel[path] <= b:
+            raise AssertionError(f"{what}: leaf {path}: {name} off by "
                                  f"{rel[path]:.3e} of one device's "
-                                 f"(bound {bound})")
+                                 f"(bound {b})")
     return rel
 
 
@@ -3979,12 +4143,16 @@ def phase_offload() -> dict:
 # phase 6: xlstm-125m at full width and depth
 # ---------------------------------------------------------------------------
 
-XLSTM_BATCH, XLSTM_SEQ, XLSTM_STEPS = 8, 2048, 5
+XLSTM_BATCH, XLSTM_SEQ, XLSTM_STEPS = 8, 2048, 3
 XLSTM_PROMPT, XLSTM_NEW = 128, 32
 # (b) trains the first 3 of the 12 layers (mlstm, mlstm, slstm: both block
 # kinds and the kernel): the two sLSTM time loops were about half of a
-# 12-layer step, and the script's time limit pays for phase 11 with them
+# 12-layer step, and the script's time limit pays for phase 11 with them.
+# (b) runs at 8 x XLSTM_TRAIN_SEQ: the sLSTM time loop, 70% of a step,
+# walks the sequence one position at a time, and (b)'s profiled step and
+# timed loop took 103 s of the time limit at 2048 (45 s at 1024)
 XLSTM_TRAIN_LAYERS = 3
+XLSTM_TRAIN_SEQ = 512
 
 
 def _profile_kernels(fn):
@@ -4024,7 +4192,8 @@ def _logit_err(got, ref) -> tuple:
 
 
 @contextlib.contextmanager
-def _perturbed_h(seed: int = 9, path: str = "reference"):
+def _perturbed_h(seed: int = 9, path: str = "reference",
+                 device: str = "cuda"):
     """Within the block, every mlstm block runs ``path`` (the plain version
     or the kernel, whatever impl the model passes) with one bf16 ulp added to a seeded 1% of the elements
     of its h: what rounding alone does downstream.  (The mLSTM output h = q C / max(|q.n|,
@@ -4035,14 +4204,14 @@ def _perturbed_h(seed: int = 9, path: str = "reference"):
     norms by far more than 5%.)"""
     import torch
     from repro_torch.layers import ssm
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     chunkwise = ssm.mlstm_chunkwise
 
     def perturbed(q, k, v, ig, fg, chunk=128, impl=None):
         h = chunkwise(q, k, v, ig, fg, chunk, impl=path)
         hb = h.to(torch.bfloat16).float()
-        flip = torch.rand(h.shape, generator=gen, device="cuda") < 0.01
+        flip = torch.rand(h.shape, generator=gen, device=device) < 0.01
         return torch.where(flip, hb + hb.abs() * 2 ** -7, hb)
     ssm.mlstm_chunkwise = perturbed
     try:
@@ -4098,8 +4267,8 @@ def phase_xlstm() -> dict:
     """xlstm-125m (12 layers: 10 mLSTM blocks through mlstm_chunkwise.cu,
     2 sLSTM blocks) at full width and depth, random weights from a seeded
     CUDA generator: (a) LM.apply on 8 x 2048 tokens, kernel vs plain; (b)
-    5 AdamW steps through the trainer's functions on the first
-    XLSTM_TRAIN_LAYERS layers; (c) ServeEngine.generate through the
+    XLSTM_STEPS AdamW steps through the trainer's functions on the first
+    XLSTM_TRAIN_LAYERS layers at 8 x XLSTM_TRAIN_SEQ; (c) ServeEngine.generate through the
     recurrent cells, held to (a)."""
     import math
 
@@ -4291,9 +4460,10 @@ def phase_xlstm() -> dict:
     cfg = dataclasses.replace(cfg, num_layers=XLSTM_TRAIN_LAYERS)
     kinds = cfg.blocks()
     n_mlstm = kinds.count("mlstm")
+    s = XLSTM_TRAIN_SEQ
     model = build_model(cfg, "cuda", parallel)
     log(f"[xlstm] (b) trains the first {cfg.num_layers} layers "
-        f"({', '.join(kinds)})")
+        f"({', '.join(kinds)}) on {b} x {s} tokens")
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
                        total_steps=XLSTM_STEPS)
     state = init_train_state(model, model.generator(tcfg.seed))
@@ -4409,8 +4579,8 @@ def phase_xlstm() -> dict:
     del x, g
 
     out = {"layers": full_layers, "train_layers": cfg.num_layers,
-           "params": n_params, "batch": b,
-           "seq": s, "forward_s": fwd_s, "forward_plain_s": ref_s,
+           "params": n_params, "batch": b, "seq": XLSTM_SEQ,
+           "train_seq": s, "forward_s": fwd_s, "forward_plain_s": ref_s,
            "forward_launches": fwd_launches,
            "forward_logit_err": fwd_err, "perturbed_plain_logit_err": base_err,
            "block_kernel_vs_plain": blk["kernel_vs_plain"],
@@ -4472,6 +4642,9 @@ def phase_xlstm() -> dict:
 # ---------------------------------------------------------------------------
 
 APPLY_TOKENS = 2048           # (c): LM.apply on 1 x APPLY_TOKENS
+# each model runs its first HEAD_DIM_LAYERS of 32 layers, every gate at
+# that depth: the cut that pays, with phase 8's, for the time limit
+HEAD_DIM_LAYERS = 16
 
 
 def apply_tokens(model):
@@ -4509,8 +4682,9 @@ def apply_check(model, params, tag: str, rel_tol: float = None) -> int:
 
 
 def phase_head_dims() -> dict:
-    """Phase 7: each model of HEAD_DIM_ARCHS at full width and depth (bf16,
-    random weights from a seeded CUDA generator, freed before the next):
+    """Phase 7: each model of HEAD_DIM_ARCHS at full width, its first
+    HEAD_DIM_LAYERS layers (bf16, random weights from a seeded CUDA
+    generator, freed before the next):
     (a) phase 3's paged serving (``phase_serving``: 12 requests, no page
     left, first chunk and a decode step within LOGIT_TOL of the plain
     path), each paged kernel exactly one launch a layer a prefill launch
@@ -4526,7 +4700,7 @@ def phase_head_dims() -> dict:
     out = {}
     for d, arch in sorted(HEAD_DIM_ARCHS.items()):
         t1 = time.perf_counter()
-        model, params = build_full(arch)
+        model, params = build_full(arch, HEAD_DIM_LAYERS)
         cfg = model.cfg
         if cfg.head_dim != d:
             raise AssertionError(f"{arch}: head_dim {cfg.head_dim} != {d}")
@@ -4978,9 +5152,9 @@ def moe_step_profile(model, params, prompts) -> dict:
 
 
 def phase_moe() -> dict:
-    """Phase 8: qwen3-moe-30b-a3b (48 MoE blocks of 128 experts top-8,
-    32/4 heads of 128: every row of the kernels' GQA-8 instances) at full
-    width and depth, bf16, random weights from a seeded CUDA generator,
+    """Phase 8: qwen3-moe-30b-a3b (128 experts top-8, 32/4 heads of 128:
+    every row of the kernels' GQA-8 instances) at full width, its first
+    MOE_LAYERS of 48 MoE blocks, bf16, random weights from a seeded CUDA generator,
     after every earlier model is freed.  Gate G (``gate_g``) on the plain
     path's own sensitivity (``router_sensitivity``) bounds every logits
     comparison.  (a) phase 3's serving: each paged kernel exactly one
@@ -4998,7 +5172,7 @@ def phase_moe() -> dict:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     left = torch.cuda.memory_allocated() / 1e9
-    model, params = build_full(MOE_ARCH)
+    model, params = build_full(MOE_ARCH, MOE_LAYERS)
     cfg = model.cfg
     layers = cfg.num_layers
     init_peak = torch.cuda.max_memory_allocated() / 1e9
@@ -5673,20 +5847,20 @@ def hymba_train(cfg) -> dict:
 
 def phase_hymba() -> dict:
     """Phase 9: hymba-1.5b (32 blocks of parallel attention and Mamba
-    heads, 25/5 heads of 64, window 1024 on 29 layers) at full width and
-    depth, bf16, random weights from a seeded CUDA generator, after every
+    heads, 25/5 heads of 64, window 1024 on 29 layers) at full width, its
+    first HYMBA_LAYERS blocks, bf16, random weights from a seeded CUDA generator, after every
     earlier model is freed.  The gate (``hymba_gate``) comes from the
     plain path's own change under one ulp on 1% of block 0's inputs.
-    (a) LM.apply on 8 x 2048 through fastattn_fwd, exactly 32 launches,
+    (a) LM.apply on 8 x 2048 through fastattn_fwd, one launch a layer,
     logits held to the plain path; (b) generate 8 x (128 + 32) through
-    flash_decode, exactly 32 x 159 launches, decode logits at
+    flash_decode, exactly layers x 159 launches, decode logits at
     DENSE_CHECK_POS held to (a)'s LM.apply, the generated positions'
     logits and greedy tokens to the plain path's LM.apply and
     decode_step teacher-forced; (c) 1 x (1100 + 8) on the first 4 layers
     (global, then 3 windowed), decode past the window, exactly 4 x 1107
     launches, logits from position 1024 held to LM.apply's; (e) a
     decode step and LM.apply profiled, the Mamba scan's share; (d) 3 AdamW steps at 2 x 2048 (remat), finite, step 0 held to
-    the plain path, exactly 32 x 2 x 3 launches."""
+    the plain path, exactly layers x 2 x 3 launches."""
     import numpy as np
     import torch
     from repro_torch.analysis.flops import param_count
@@ -5694,7 +5868,7 @@ def phase_hymba() -> dict:
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     left = torch.cuda.memory_allocated() / 1e9
-    model, params = build_full(HYMBA_ARCH)
+    model, params = build_full(HYMBA_ARCH, HYMBA_LAYERS)
     cfg = model.cfg
     layers = cfg.num_layers
     n_real = sum(t.numel() for t in _leaves(params))
@@ -5808,8 +5982,8 @@ def perturbed_frames(seed: int = 9, frac: float = FRAME_FLIP):
     noisy = _ulp_noise(seed, frac)
 
     def wrap(frontend):
-        def run(params, embeds, cfg):
-            return frontend(params, noisy(embeds), cfg)
+        def run(params, embeds, cfg, **kw):
+            return frontend(params, noisy(embeds), cfg, **kw)
         return run
     return _wrapped(encdec, "apply_frontend", wrap)
 
@@ -6523,6 +6697,495 @@ def phase_vl() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model axis over the recurrent cells and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+# each model at full width, cut in depth, and its sequence: xlstm-125m's
+# first 3 layers (mlstm, mlstm, slstm: both recurrent kinds), hymba-1.5b's
+# first 2 (one global, one windowed), whisper-small's 2 encoder and 2
+# decoder layers on 448 tokens and its 1500 frames
+MESH_MODELS = {"xlstm-125m": (dict(num_layers=3), 1024),
+               "hymba-1.5b": (dict(num_layers=2), 1024),
+               "whisper-small": (dict(encoder_layers=2, num_layers=2), 448)}
+MESH_BATCH = 4
+MESH_STEPS = 2
+# the measured gate of xlstm-125m (phase 6's rule for its bf16
+# ill-conditioning): its one-device run again with one bf16 ulp on 1% of
+# every mlstm h, and each bound past step 0's loss and grad norm twice
+# that change where that is larger (``measured_mesh_gate``)
+MESH_MEASURED = ("xlstm-125m",)
+# each leaf's step-0 gradient (the one the first AdamW update is handed,
+# on the same weights and batch on both sides) within this of one
+# device's, as ||g_mesh - g_one|| / ||g_one||: a leaf the mesh dropped
+# reads 1.0, one of the right size in a random direction about 1.41.  A
+# measured bound must stay under MESH_GRAD_CAP, or the gate could not
+# tell such a leaf from a sound one.
+MESH_GRAD_RTOL = 0.15
+MESH_GRAD_CAP = 0.75
+
+
+def mesh_batches(cfg, b: int, s: int, steps: int, device) -> list:
+    """``steps`` global batches of b x s from the data pipeline; an
+    encoder-decoder's with N(0, 1) frames from a generator on ``device``
+    seeded with 2, drawn after each batch's tokens (as ``_dist_job``
+    draws them on every rank)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import to_device
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=s,
+                                    global_batch=b))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    out = []
+    for _ in range(steps):
+        batch = to_device(data.next(), torch.device(device))
+        if cfg.is_encoder_decoder:
+            batch["enc_embeds"] = torch.randn(
+                (b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                device=device)
+        out.append(batch)
+    return out
+
+
+def mesh_reference(cfg, s: int, device: str = "cuda",
+                   perturb=None) -> dict:
+    """Phase 12's one-device run of ``cfg``: MESH_STEPS AdamW steps at
+    MESH_BATCH x ``s`` through the trainer's functions (remat "full",
+    phase 4's TrainConfig over MESH_STEPS), under the context
+    ``perturb()`` where given.  Returns phase 4b's reference: host copies
+    of the initial and final parameters in tree order, their paths, each
+    step's loss, grad norm and lr; host copies of step 0's gradients
+    ("grad0", ``first_step_grads``); and the steps' walls, each kernel's
+    launches and the peak memory."""
+    import torch
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.kernels.mlstm.ops import mlstm_chunkwise_fwd
+    from repro_torch.models import build_model
+    from repro_torch.training import tree
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    parallel = ParallelConfig(remat="full")
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=MESH_STEPS)
+    model = build_model(cfg, device, parallel)
+    state = init_train_state(model, model.generator(tcfg.seed))
+    ref = {"init": [t.to("cpu", copy=True)
+                    for t in tree.leaves(state.params)],
+           "paths": [p for p, _ in tree.leaves_with_paths(state.params)],
+           "loss": [], "grad_norm": [], "lr": [], "step_s": []}
+    step_fn = make_train_step(model, cfg, parallel, tcfg)
+    batches = mesh_batches(cfg, MESH_BATCH, s, MESH_STEPS, device)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    fastattn_fwd.launches = mlstm_chunkwise_fwd.launches = 0
+    grads: list = []
+    with perturb() if perturb else contextlib.nullcontext(), \
+            first_step_grads(grads):
+        for batch in batches:
+            dt, (state, metrics) = _wall_s(lambda: step_fn(state, batch))
+            ref["step_s"].append(dt)
+            for k in ("loss", "grad_norm", "lr"):
+                ref[k].append(float(metrics[k]))
+    ref["grad0"] = [g.to("cpu") for g in grads]
+    del grads
+    ref["launches"] = {"fastattn_fwd": fastattn_fwd.launches,
+                       "mlstm_chunkwise": mlstm_chunkwise_fwd.launches}
+    ref["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                          if torch.cuda.is_available() else None)
+    ref["snapshot"] = [t.to("cpu", copy=True)
+                       for t in tree.leaves(state.params)]
+    if not all(math.isfinite(x) for x in ref["loss"] + ref["grad_norm"]):
+        raise AssertionError(f"[12] {cfg.name}: non-finite loss or grad "
+                             f"norm on one device: {ref['loss']}, "
+                             f"{ref['grad_norm']}")
+    return ref
+
+
+def first_step_grads(out: list):
+    """A context in which the first train step's gradients, as it hands
+    them to AdamW (under a mesh: this rank's piece of each leaf's
+    gradient summed over the mesh), are copied into ``out`` in tree
+    order."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import tree
+    update = opt.adamw_update
+
+    def recording(grads, *args, **kw):
+        if not out:
+            out.extend(g.detach().clone() for g in tree.leaves(grads))
+        return update(grads, *args, **kw)
+
+    @contextlib.contextmanager
+    def patched():
+        opt.adamw_update = recording
+        try:
+            yield out
+        finally:
+            opt.adamw_update = update
+    return patched()
+
+
+def leaf_rel(paths: list, base: list, a: list, b: list = None) -> dict:
+    """path -> ||b - a|| / ||a - base|| of each leaf in float32 (with
+    ``b`` None: ||a - base|| / ||base||, a change against the leaf's own
+    size); 0 where both norms are 0."""
+    out = {}
+    for i, path in enumerate(paths):
+        x0, x1 = base[i].float(), a[i].float()
+        if b is None:
+            num, den = (x1 - x0).norm().item(), x0.norm().item()
+        else:
+            num, den = (b[i].float() - x1).norm().item(), \
+                (x1 - x0).norm().item()
+        out[path] = num / den if den > 0 else 0.0 if num == 0 else math.inf
+    return out
+
+
+def measured_mesh_gate(ref: dict, pert: dict) -> dict:
+    """Phase 6's rule on phase 12's bounds: what one bf16 ulp on 1% of
+    every mlstm h does to the one-device run (``pert`` against ``ref``) --
+    each step's loss and grad norm, and the leaf whose update (as
+    ``delta_gate`` measures it) and whose step-0 gradient change most --
+    and the bounds: step 0's loss and grad norm phase 4b's (the same
+    weights and batch on both sides, the step's gradients held leaf by
+    leaf), a later step's the larger of phase 4b's and twice the largest
+    change over the steps; every leaf's update and step-0 gradient the
+    larger of phase 4b's (MESH_GRAD_RTOL for a gradient) and twice the
+    largest leaf's change.  Raises where the gradient bound reaches
+    MESH_GRAD_CAP: the gate could not see a leaf dropped."""
+    def rel(k):
+        return [abs(b - a) / abs(a) for a, b in zip(ref[k], pert[k])]
+
+    def steps(k, floor):
+        return [floor] + [max(floor, 2 * max(measured[k]))] * (
+            len(measured[k]) - 1)
+
+    def worst(changes):
+        path = max(changes, key=changes.get)
+        return [path, changes[path]]
+    paths = ref["paths"]
+    measured = {"loss": rel("loss"), "grad_norm": rel("grad_norm"),
+                "delta": worst(leaf_rel(paths, ref["init"], ref["snapshot"],
+                                        pert["snapshot"])),
+                "grad0": worst(leaf_rel(paths, ref["grad0"], pert["grad0"]))}
+    gates = {"measured": measured,
+             "loss": steps("loss", DIST_LOSS_RTOL),
+             "grad_norm": steps("grad_norm", DIST_GNORM_RTOL),
+             "delta": max(DIST_DELTA_RTOL, 2 * measured["delta"][1]),
+             "grad0": max(MESH_GRAD_RTOL, 2 * measured["grad0"][1])}
+    if gates["grad0"] >= MESH_GRAD_CAP:
+        raise AssertionError(f"measured step-0 gradient bound "
+                             f"{gates['grad0']} ({measured['grad0']}) reaches "
+                             f"MESH_GRAD_CAP = {MESH_GRAD_CAP}: such a gate "
+                             "passes a leaf the mesh dropped")
+    return gates
+
+
+def mesh_expected(cfg, s: int, model: int) -> dict:
+    """The launches each rank of phase 12 must make at a model axis of
+    ``model`` (remat: two forward passes a step): fastattn_fwd once an
+    attention a pass -- an LM's attention blocks at the rank's first row;
+    an encoder-decoder's encoder (non-causal, its first frame), decoder
+    (causal, its first token) and cross-attention (offset 0) -- and
+    mlstm_chunkwise once an mLSTM block a pass at H / model heads (H where
+    the model axis does not split them, ``ssm.channel_shards``)."""
+    from repro_torch.layers.ssm import channel_shards
+    passes = 2 * MESH_STEPS
+    kinds = [] if cfg.is_encoder_decoder else list(cfg.blocks())
+    if cfg.is_encoder_decoder:
+        attn = cfg.encoder_layers + 2 * cfg.num_layers
+
+        def offsets(m):
+            return sorted({0, m * cfg.encoder_seq // model, m * s // model})
+    else:
+        attn = sum(k not in ("mlstm", "slstm") for k in kinds)
+
+        def offsets(m):
+            return [m * s // model]
+    split = model if channel_shards(cfg, "mlstm", model) else 1
+    return {"fastattn_fwd": attn * passes, "offsets": offsets,
+            "mlstm_chunkwise": kinds.count("mlstm") * passes,
+            "mlstm_heads": ([cfg.num_heads // split]
+                            if "mlstm" in kinds else [])}
+
+
+def mesh_launch_gate(what, ranks: list, want: dict) -> None:
+    """Each rank launched mlstm_chunkwise exactly ``want``'s count, at
+    its heads only (fastattn_fwd's count and offsets: ``dist_gate``)."""
+    for r, res in enumerate(ranks):
+        got = (res["mlstm_launches"], res["mlstm_heads"])
+        if got != (want["mlstm_chunkwise"], want["mlstm_heads"]):
+            raise AssertionError(
+                f"{what}: rank {r} launched mlstm_chunkwise "
+                f"{got[0]} times at {got[1]} heads, not "
+                f"{want['mlstm_chunkwise']} at {want['mlstm_heads']}")
+
+
+def _mesh_models_rank(rank: int, mesh_kw: dict, jobs: list) -> list:
+    """One rank of phase 12: its mesh once, then each (cfg, run) of
+    ``jobs`` through ``_dist_job`` in turn, the last's memory freed
+    before the next."""
+    import torch
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.mesh import make_mesh_for
+    mesh = make_mesh_for(ParallelConfig(**mesh_kw),
+                         timeout=DIST_INIT_TIMEOUT_S)
+    out = []
+    for cfg, run in jobs:
+        t0 = time.perf_counter()
+        res = _dist_job(rank, mesh, cfg, mesh_kw, run)
+        res["job_s"] = time.perf_counter() - t0
+        out.append(res)
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_one_device(arch: str, cfg, seq: int, device: str, parallel,
+                     meshes: list) -> dict:
+    """Phase 12's one-device side of ``arch``: its reference run, its
+    gates (xlstm-125m's measured, ``measured_mesh_gate``), the rule
+    table's specs and each rank's fingerprints of its initial pieces."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import flatten, is_spec, shard_of
+    t1 = time.perf_counter()
+    ref = mesh_reference(cfg, seq, device)
+    gates = {"loss": DIST_LOSS_RTOL, "grad_norm": DIST_GNORM_RTOL,
+             "delta": DIST_DELTA_RTOL, "grad0": MESH_GRAD_RTOL}
+    if arch in MESH_MEASURED:
+        pert = mesh_reference(cfg, seq, device, perturb=lambda: (
+            _perturbed_h(9, "kernel", device)))
+        gates = measured_mesh_gate(ref, pert)
+        del pert
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    specs = flatten(build_model(cfg, "cpu", parallel).param_specs(
+        meshes[0]), is_spec)
+    keys = [[] for _ in meshes]
+    for t, sp in zip(ref["init"], specs, strict=True):
+        t = t.to(device)
+        for r, mesh in enumerate(meshes):
+            keys[r].append(bits_key(shard_of(t, sp, mesh)))
+        del t
+    n_params = sum(t.numel() for t in ref["init"])
+    layers = (f"{cfg.encoder_layers} + {cfg.num_layers} layers"
+              if cfg.is_encoder_decoder else ", ".join(cfg.blocks()))
+    log(f"[12] {arch} ({layers}), {n_params:,} parameters, {MESH_BATCH} x "
+        f"{seq}: one device losses {[round(x, 5) for x in ref['loss']]}, "
+        f"grad norms {[round(x, 5) for x in ref['grad_norm']]}, steps "
+        f"{[round(x, 3) for x in ref['step_s']]} s, launches "
+        f"{ref['launches']}, peak memory {ref['peak_mem_gb'] or 0:.2f} GB "
+        f"({time.perf_counter() - t1:.1f}s, beside the ranks)")
+    return dict(cfg=cfg, seq=seq, ref=ref, gates=gates, keys=keys,
+                specs=specs, params=n_params)
+
+
+def phase_mesh(device: str = "cuda", configs: dict = None) -> dict:
+    """Phase 12: xlstm-125m, hymba-1.5b and whisper-small at full width
+    (``MESH_MODELS``' cuts), bf16, random weights from seed 0, each
+    trained MESH_STEPS AdamW steps on one device (``mesh_reference``) and,
+    beside those runs, at (data=2, model=2) by one spawn of four ranks
+    that runs the three in turn (``_mesh_models_rank``; each takes a
+    one-device snapshot after its steps): the mLSTM and sLSTM heads and
+    the Mamba channels over the model axis, whisper's frames and tokens
+    split over it.  Each model is held by phase 4b's gates
+    (``dist_gate``, ``delta_gate``: the ranks equal, each step within 1%
+    / 2% of one device, each leaf's update within 0.15, the initial
+    pieces the rule table's slices, the sharded leaves half the whole)
+    and each leaf's step-0 gradient within MESH_GRAD_RTOL of one
+    device's (``first_step_grads``, ``delta_gate``), xlstm-125m's by
+    its measured gate where larger (``measured_mesh_gate``), and each
+    rank's launches are exact
+    (``mesh_expected``).  ``configs`` (arch -> (cfg, seq); a rehearsal
+    on the CPU) replaces MESH_MODELS' cuts.  Correctness only: gloo
+    stages every collective through the host."""
+    import threading
+
+    import torch
+    import torch.multiprocessing  # noqa: F401  (CUDA tensors through queues)
+    from repro_torch.config import ParallelConfig, get_model_config
+    from repro_torch.launch.mesh import make_mesh, spawn_ranks
+    from repro_torch.launch.mesh import train_backend
+
+    t0 = time.perf_counter()
+    kind = torch.device(device)
+    on_card = kind.type == "cuda"
+    parallel = ParallelConfig(**DIST_MESH)
+    world = parallel.dp * parallel.model
+    meshes = [make_mesh(parallel.mesh_shape(), parallel.mesh_axes(), r)
+              for r in range(world)]
+    configs = configs or {
+        arch: (dataclasses.replace(get_model_config(arch), **keep), seq)
+        for arch, (keep, seq) in MESH_MODELS.items()}
+    # the ranks start and train while the one-device runs go on here: each
+    # rank takes a run's snapshot from its queue after its own steps
+    feeds = {arch: torch.multiprocessing.get_context("spawn").Queue()
+             for arch in configs}
+    # the ranks take the models in the reverse order: their first model's
+    # first step pays each process's one-time costs (slow where five
+    # processes share the card), and xlstm's long sLSTM loops then run
+    # once the one-device xlstm runs here are done
+    jobs = [(cfg, dict(remat="full", batch=MESH_BATCH, seq=seq,
+                       steps=MESH_STEPS, dist_steps=MESH_STEPS, mode="train",
+                       ckpt_dir=None, snapshot=None, feed=feeds[arch],
+                       leaf_gnorm=False, grad0=True,
+                       frames=cfg.is_encoder_decoder))
+            for arch, (cfg, seq) in reversed(configs.items())]
+    backend, dev_of = train_backend(kind, world)
+    log(f"[12] one spawn of {world} ranks over {backend} on "
+        f"{[dev_of(r) for r in range(world)]}, the three models in turn, "
+        "beside the one-device runs")
+    spawned: dict = {}
+    models, held = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        def run_ranks():
+            try:
+                spawned["ranks"] = spawn_ranks(
+                    _mesh_models_rank, world, args=(DIST_MESH, jobs),
+                    device_of_rank=dev_of, backend=backend,
+                    init_method=f"file://{tmp}/pg-mesh",
+                    timeout_s=DIST_DEADLINE_S,
+                    init_timeout_s=DIST_INIT_TIMEOUT_S)
+            except BaseException as e:          # raised below
+                spawned["error"] = e
+        thread = threading.Thread(target=run_ranks)
+        thread.start()
+        try:
+            for arch, (cfg, seq) in configs.items():
+                models[arch] = _mesh_one_device(arch, cfg, seq, device,
+                                                parallel, meshes)
+                ref = models[arch]["ref"]
+                snapshot = ([t.to(kind) for t in ref["snapshot"]],
+                            [t.to(kind) for t in ref["grad0"]])
+                held.append(snapshot)       # alive while ranks map it
+                for _ in range(world):
+                    feeds[arch].put(snapshot)
+        finally:
+            for arch, q in feeds.items():
+                if arch not in models:      # a failed run: release the ranks
+                    for _ in range(world):
+                        q.put(None)
+            thread.join()
+    if "error" in spawned:
+        raise spawned["error"]
+    ranks = spawned["ranks"]
+    del jobs, held
+    if on_card:
+        torch.cuda.ipc_collect()      # the ranks' handles on the snapshots
+    out = {"backend": backend, "mesh": DIST_MESH,
+           "spawn_s": time.perf_counter() - t0, "models": {}}
+    for i, (arch, mm) in enumerate(reversed(models.items())):
+        rr = [r[i] for r in ranks]
+        cfg, ref, gates = mm["cfg"], mm["ref"], mm["gates"]
+        want = mesh_expected(cfg, mm["seq"], parallel.model)
+        what = f"[12] {arch} (data=2, model=2)"
+        dist_gate(what, rr, ref, mm["keys"], mm["specs"], mm["seq"],
+                  parallel.model, steps=MESH_STEPS, checkpoint=False,
+                  launches=want["fastattn_fwd"], offsets=want["offsets"],
+                  loss_rtol=gates["loss"], gnorm_rtol=gates["grad_norm"])
+        mesh_launch_gate(what, rr, want)
+        rel = delta_gate(what, ref["paths"], rr, mm["specs"],
+                         bound=gates["delta"])
+        grel = delta_gate(what, ref["paths"], rr, mm["specs"],
+                          bound=gates["grad0"], key="grad0")
+        worst, gworst = max(rel, key=rel.get), max(grel, key=grel.get)
+        first = rr[0]
+        if "measured" in gates:
+            m = gates["measured"]
+            log(f"{what}: measured gate (one ulp on 1% of every mlstm h, "
+                f"one device): each step's loss {m['loss']}, grad norm "
+                f"{m['grad_norm']}, the leaf that changed most: update "
+                f"{m['delta']}, step-0 gradient {m['grad0']}; bounds a "
+                f"step loss {gates['loss']}, grad norm {gates['grad_norm']}"
+                f", a leaf update {gates['delta']:.3g}, step-0 gradient "
+                f"{gates['grad0']:.3g} (phase 4b's {DIST_LOSS_RTOL} / "
+                f"{DIST_GNORM_RTOL} / {DIST_DELTA_RTOL}, MESH_GRAD_RTOL "
+                f"{MESH_GRAD_RTOL}, MESH_GRAD_CAP {MESH_GRAD_CAP})")
+        for r, res in enumerate(rr):
+            per = {k: sum(c[k] for c in res["collectives"]) / MESH_STEPS
+                   for k in res["collectives"][0]}
+            log(f"{what} rank {r} {res['coords']} on {res['device']} "
+                f"({res['backend']}): step wall "
+                f"{[round(x, 3) for x in res['step_s']]} s, collectives a "
+                f"step {per} ({sum(res['coll_bytes']) / MESH_STEPS / 1e9:.3f}"
+                f" GB), peak memory {res['peak_mem_gb'] or 0:.2f} GB, "
+                f"fastattn_fwd {res['launches']} at q_offsets "
+                f"{res['q_offsets']}, mlstm_chunkwise "
+                f"{res['mlstm_launches']} at {res['mlstm_heads']} heads; "
+                f"{res['job_s']:.1f}s")
+        for j in range(MESH_STEPS):
+            log(f"{what} step {j}: loss {first['loss'][j]:.5f} vs one "
+                f"device's {ref['loss'][j]:.5f}, grad norm "
+                f"{first['grad_norm'][j]:.5f} vs {ref['grad_norm'][j]:.5f}, "
+                f"lr {first['lr'][j]:.3e}")
+        log(f"{what}: updates against one device's: worst {worst} "
+            f"{rel[worst]:.3e} (bound {gates['delta']:.3g})")
+        log(f"{what}: step-0 gradients against one device's: worst "
+            f"{gworst} {grel[gworst]:.3e} (bound {gates['grad0']:.3g}); by "
+            "leaf " + json.dumps({p: round(x, 5) for p, x in grel.items()}))
+        out["models"][arch] = {
+            "params": mm["params"], "seq": mm["seq"],
+            "loss": first["loss"], "grad_norm": first["grad_norm"],
+            "lr": first["lr"], "ref_loss": ref["loss"],
+            "ref_grad_norm": ref["grad_norm"],
+            "ref_step_s": ref["step_s"], "ref_peak_mem_gb":
+            ref["peak_mem_gb"], "gates": gates,
+            "worst_delta": [worst, rel[worst]],
+            "worst_grad0": [gworst, grel[gworst]],
+            "launches": [r["launches"] for r in rr],
+            "q_offsets": [r["q_offsets"] for r in rr],
+            "mlstm_launches": [r["mlstm_launches"] for r in rr],
+            "mlstm_heads": [r["mlstm_heads"] for r in rr],
+            "step_s": [r["step_s"] for r in rr],
+            "job_s": [r["job_s"] for r in rr],
+            "collectives": [r["collectives"][-1] for r in rr],
+            "coll_bytes": [r["coll_bytes"][-1] for r in rr],
+            "peak_mem_gb": [r["peak_mem_gb"] for r in rr]}
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = _card() if on_card else "cpu"
+    log(f"[12] {out['card']}: all gates passed in {out['seconds']:.1f}s "
+        f"(the ranks, beside the one-device runs, {out['spawn_s']:.1f}s; "
+        f"{GLOO_NOTE if backend == 'gloo' else 'nccl, one GPU a rank'})")
+    log("[12] " + json.dumps(out))
+    return out
+
+
+def add_mesh_entries(kernels: list, cases: dict, run: dict) -> None:
+    """``mlstm_chunkwise``'s and ``fastattn_fwd``'s entries of the
+    kernels line also at each (2, 2) rank's shape of phase 12 (``cases``:
+    kernel -> prefix -> phase 2's case; ``mesh_*``: xlstm-125m's 2 of 4
+    heads at B=2, S=1024 and whisper's encoder, 750 of 1500 frames
+    against all 1500, non-causal; ``mesh_hymba_*``, ``mesh_dec_*``,
+    ``mesh_cross_*``: fastattn_fwd's other shapes there,
+    ``MESH_FWD_CASES``), and their launches on each rank there
+    (``mesh_launches``: fastattn_fwd's by model, at
+    ``mesh_q_offsets``)."""
+    keys = ("err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")
+    models = run["models"]
+    for k in kernels:
+        name = k["name"]
+        if name not in cases:
+            continue
+        for pre, res in cases[name].items():
+            k.update({f"{pre}_{'max_abs_err' if x == 'err' else x}":
+                      res.get(x) for x in keys})
+        if name == "mlstm_chunkwise":
+            k["mesh_launches"] = models["xlstm-125m"]["mlstm_launches"]
+            k["mesh_heads"] = models["xlstm-125m"]["mlstm_heads"]
+        else:
+            k["mesh_launches"] = {a: m["launches"] for a, m in models.items()
+                                  if any(m["launches"])}
+            k["mesh_q_offsets"] = {a: m["q_offsets"]
+                                   for a, m in models.items()
+                                   if any(m["launches"])}
+
+
 def add_hymba_entries(kernels: list, cases: dict, run: dict) -> None:
     """``fastattn_fwd``'s and ``flash_decode``'s entries of the kernels
     line also at hymba-1.5b's shape (``hymba_*``: phase 2's case at its
@@ -6743,6 +7406,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     vl = phase_vl()
     done("11")
+    gc.collect()                  # phase 11's model
+    torch.cuda.empty_cache()
+    mesh = phase_mesh()
+    done("12")
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
                 "mlstm_chunkwise": xlstm["launches"]}
@@ -6806,7 +7473,9 @@ def main() -> int:
     add_hymba_entries(line["kernels"], kern["hymba"], hymba)
     add_whisper_entries(line["kernels"], kern["whisper"], whisper)
     add_vl_entries(line["kernels"], kern["vl"], vl)
-    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
+    add_mesh_entries(line["kernels"], kern["mesh"], mesh)
+    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s on "
+        f"{_card()}")
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

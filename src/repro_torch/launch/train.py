@@ -18,7 +18,9 @@ path.  An encoder-decoder arch (whisper-small) is refused
 GPU a rank where ``torch.cuda.device_count()`` covers them, else over
 gloo with the ranks sharing the card (or on the CPU).  Every rank draws
 the same global batch and keeps its rows; rank 0 prints the steps and
-writes the checkpoints.
+writes the checkpoints.  Every decoder-only family trains on such a
+mesh, the recurrent ones (xlstm-125m, hymba-1.5b) with their channels
+and heads over the model axis.
 """
 from __future__ import annotations
 

@@ -153,7 +153,9 @@ def apply_cross_attention(params: dict, x: torch.Tensor,
     """Decoder cross-attention over precomputed encoder K/V (B, S_enc,
     Hkv, D): non-causal, no window, the config's softcap.  x: (B, S, D)
     decoder states (S = 1 in a decode step).  ``impl`` as in
-    ``apply_attention``."""
+    ``apply_attention``.  Under a training mesh with a model axis x holds
+    the rank's own decoder rows and the K/V every encoder row
+    (``project_cross_kv`` gathers them): no row offset applies."""
     impl = impl or cfg.attention_impl
     b, s, _ = x.shape
     q = common.dense(x, params["wq"], params.get("bq"))
@@ -167,12 +169,21 @@ def apply_cross_attention(params: dict, x: torch.Tensor,
 def project_cross_kv(params: dict, enc_states: torch.Tensor,
                      cfg: ModelConfig):
     """A cross-attention block's K and V of the encoder output
-    (B, S_enc, D): each (B, S_enc, Hkv, D), the JAX package's layout."""
+    (B, S_enc, D): each (B, S_enc, Hkv, D), the JAX package's layout.
+    Under a training mesh with a model axis ``enc_states`` holds the
+    rank's S_enc / model rows: K and V are projected on them and
+    gathered whole along the sequence (reduce-scatter in the
+    backward)."""
     b, s, _ = enc_states.shape
     k = common.dense(enc_states, params["wk"], params.get("bk"))
     v = common.dense(enc_states, params["wv"], params.get("bv"))
-    return (k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    mesh = current_mesh()
+    if mesh is not None and "model" in mesh.axis_names:
+        group = mesh.group(("model",))
+        k, v = C.gather(k, 1, group), C.gather(v, 1, group)
+    return k, v
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,

@@ -41,13 +41,15 @@ def frontend_logical(cfg: ModelConfig) -> dict:
 
 
 def apply_frontend(params: dict, embeds: torch.Tensor, cfg: ModelConfig,
-                   seq_len: Optional[int] = None) -> torch.Tensor:
+                   seq_len: Optional[int] = None,
+                   offset: int = 0) -> torch.Tensor:
     """embeds: precomputed (B, S, D) frame/patch embeddings.  ``seq_len``
     (default S) is the whole input's length where ``embeds`` holds one
-    rank's rows of the sequence: it decides whether the position rows
-    apply."""
+    rank's rows of the sequence, from row ``offset`` on: the whole length
+    decides whether the position rows apply, and the rank's rows take
+    theirs at their global offset."""
     x = common.dense(embeds, params["adapter"])
     pe = params["pos_embed"]
     if pe.shape[0] == (x.shape[1] if seq_len is None else seq_len):
-        x = x + pe[None].to(x.dtype)
+        x = x + pe[offset:offset + x.shape[1]][None].to(x.dtype)
     return x

@@ -16,7 +16,7 @@ model axis above 1).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +25,30 @@ from repro_torch.config import ModelConfig
 from repro_torch.kernels.mlstm import ref as mref
 from repro_torch.kernels.mlstm.ops import mlstm_chunkwise
 from repro_torch.layers.common import dense, dense_init
+
+# the leaves a rank holds and uses as its own pieces of the channel dim
+# under ``part`` (each cell's other leaves arrive whole)
+LOCAL_LEAVES = {"mamba": ("dt_bias", "a_log", "d_skip", "w_out"),
+                "mlstm": ("w_gate", "wq", "wk", "wv", "w_down"),
+                "slstm": ("w_down",)}
+
+
+def channel_shards(cfg: ModelConfig, cell: str, n: int) -> bool:
+    """Whether ``n`` ranks split ``cell``'s recurrence: Mamba's channels
+    are independent (diagonal A), so n must divide DI; the mLSTM and
+    sLSTM mix within a head, so n must divide the heads.  Otherwise
+    every rank runs the whole cell."""
+    if cell == "mamba":
+        return cfg.q_dim % n == 0
+    return cfg.num_heads % n == 0
+
+
+def _span(part: Optional[Tuple[int, int]], width: int) -> slice:
+    """Rank m's contiguous share of ``width`` under ``part`` = (m, n)."""
+    if part is None:
+        return slice(0, width)
+    m, n = part
+    return slice(m * width // n, (m + 1) * width // n)
 
 
 # ===========================================================================
@@ -114,7 +138,8 @@ def mamba_scan_chunk(h0: torch.Tensor, xc: torch.Tensor, dtc: torch.Tensor,
 
 def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 chunk: int = 256, state: Optional[MambaState] = None,
-                decode: bool = False):
+                decode: bool = False,
+                part: Optional[Tuple[int, int]] = None):
     """x: (B, S, D) -> (B, S, D), and with ``decode`` also the new state.
 
     In-projection, a causal depthwise conv over [history | x] in x's
@@ -122,12 +147,21 @@ def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     float32 selective scan -- one chunk when ``decode`` or S == 1, else
     chunks of ``chunk`` steps with S zero-padded to a multiple (a padded
     step has decay 1 and drive 0) -- the skip, the SiLU gate and the
-    out-projection."""
+    out-projection.
+
+    ``part`` = (m, n) (training only): the scan, the skip and the gate
+    run over channels [m DI/n, (m+1) DI/n) -- of x, and of z at DI past
+    them in ``w_in``'s [x | z] columns -- and the float32 partial
+    out-projection is returned (module docstring).  The conv and the dt /
+    B / C projections read every channel of xc, so each rank computes
+    them whole."""
     b, s, _ = x.shape
     di, n = cfg.q_dim, cfg.ssm_state_size
     kconv = cfg.conv_kernel
+    own = _span(part, di)
     xz = dense(x, params["w_in"])
     xin, z = torch.split(xz, di, dim=-1)                    # (B, S, DI)
+    z = z[..., own]
 
     if state is None:
         conv_hist = torch.zeros((b, kconv - 1, di), dtype=xin.dtype,
@@ -135,6 +169,7 @@ def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         h0 = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
     else:
         conv_hist, h0 = state.conv, state.h
+    h0 = h0[:, own]
 
     xin_ext = torch.cat([conv_hist, xin], dim=1)
     conv_w = params["conv_w"].to(xin.dtype)                 # (K, DI)
@@ -142,10 +177,11 @@ def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     xc = F.silu(xc + params["conv_b"].to(xin.dtype))
     new_hist = xin_ext[:, s:]
 
-    dt = F.softplus(dense(xc, params["w_dt"])
+    dt = F.softplus(dense(xc, params["w_dt"][:, own])
                     + params["dt_bias"].to(xc.dtype))
     bc_cc = dense(xc, params["w_bc"]).float()
     bmat, cmat = torch.split(bc_cc, n, dim=-1)
+    xc = xc[..., own]
     a = -torch.exp(params["a_log"].float())                 # (DI, N)
     xcf, dtf = xc.float(), dt.float()
 
@@ -167,6 +203,8 @@ def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     y = y.to(x.dtype) + xc * params["d_skip"].to(x.dtype)
     y = y * F.silu(z)
+    if part is not None:
+        return dense(y, params["w_out"], dtype=torch.float32)
     out = dense(y, params["w_out"])
     if decode:
         return out, MambaState(h=h, conv=new_hist)
@@ -220,26 +258,36 @@ def mlstm_logical(cfg: ModelConfig) -> dict:
 
 def apply_mlstm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 chunk: int = 128, state: Optional[MLSTMState] = None,
-                decode: bool = False, impl: Optional[str] = None):
+                decode: bool = False, impl: Optional[str] = None,
+                part: Optional[Tuple[int, int]] = None):
     """xLSTM mLSTM block body (norm handled by the caller).  x: (B, S, D).
 
     Train/prefill (``decode=False``): the chunkwise form through
     ``mlstm_chunkwise`` (``impl`` as there, default ``cfg.attention_impl``)
     reading the (B, S, H, hd) projections in place; returns (B, S, D).
     Decode: the recurrent cell from ``state``; returns (out, new state).
-    """
+
+    ``part`` = (m, n) (training only): heads [m H/n, (m+1) H/n) go
+    through the kernel -- q, k, v and z from the rank's columns of
+    ``wq``, ``wk``, ``wv``, ``w_gate``, its heads' i and f gates from the
+    whole ``w_if`` (which mixes every channel of xin into each head) --
+    and the float32 partial out-projection over its rows of ``w_down``
+    is returned."""
     b, s, _ = x.shape
     di = _di(cfg)
     nh = cfg.num_heads
     hd = di // nh
+    heads = _span(part, nh)
+    nl = heads.stop - heads.start
     xin = dense(x, params["w_up"])
     z = dense(x, params["w_gate"])
-    q = dense(xin, params["wq"]).reshape(b, s, nh, hd)
-    k = dense(xin, params["wk"]).reshape(b, s, nh, hd)
-    v = dense(xin, params["wv"]).reshape(b, s, nh, hd)
+    q = dense(xin, params["wq"]).reshape(b, s, nl, hd)
+    k = dense(xin, params["wk"]).reshape(b, s, nl, hd)
+    v = dense(xin, params["wv"]).reshape(b, s, nl, hd)
     gif = (dense(xin, params["w_if"])
            + params["b_if"].to(x.dtype)).float()
     ig, fg = torch.split(gif, nh, dim=-1)                  # (B, S, H)
+    ig, fg = ig[..., heads], fg[..., heads]
     qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))    # (B, H, S, hd)
     igT, fgT = ig.transpose(1, 2), fg.transpose(1, 2)
 
@@ -253,7 +301,10 @@ def apply_mlstm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         h_out = mlstm_chunkwise(qT, kT, vT, igT, fgT, chunk,
                                 impl=impl or cfg.attention_impl)
-    h_out = h_out.transpose(1, 2).reshape(b, s, di).to(x.dtype)
+    h_out = h_out.transpose(1, 2).reshape(b, s, nl * hd).to(x.dtype)
+    if part is not None:
+        return dense(h_out * F.silu(z), params["w_down"],
+                     dtype=torch.float32)
     out = dense(h_out * F.silu(z), params["w_down"])
     if decode:
         return out, new_state
@@ -300,50 +351,73 @@ def slstm_logical(cfg: ModelConfig) -> dict:
     }
 
 
-def apply_slstm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                state: Optional[SLSTMState] = None, decode: bool = False):
-    """xLSTM sLSTM block body.  x: (B, S, D).  A loop over the S time
-    steps (each step's gates read the previous step's h through the
-    block-diagonal recurrent weights).  Returns (B, S, D), and with
-    ``decode`` also the new state."""
-    b = x.shape[0]
-    di = _di(cfg)
-    nh = cfg.num_heads
-    hd = di // nh
-    xin = dense(x, params["w_up"])
-    pre = (dense(xin, params["w_gates"])
-           + params["b_gates"].to(x.dtype)).float()       # (B, S, 4 DI)
-
+def slstm_recurrence(pre: torch.Tensor, r: torch.Tensor,
+                     state: Optional[SLSTMState] = None):
+    """The sLSTM's loop over time.  pre: (B, S, 4 C) float32 gate inputs
+    laid out [z | i | f | o], each C = NH x hd channels wide; r: (4, NH,
+    hd, hd) float32 block-diagonal recurrent weights.  Returns (h of every
+    step (B, S, C), the final state)."""
+    b, c = pre.shape[0], pre.shape[2] // 4
+    nh, hd = r.shape[1], r.shape[2]
     if state is None:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        c, n, h = (torch.zeros((b, di), **f32) for _ in range(3))
-        m = torch.full((b, di), -1e30, **f32)
+        f32 = dict(dtype=torch.float32, device=pre.device)
+        cs, n, h = (torch.zeros((b, c), **f32) for _ in range(3))
+        m = torch.full((b, c), -1e30, **f32)
     else:
-        c, n, h, m = state
+        cs, n, h, m = state
 
     # (4, NH, hd, hd) -> (NH, hd, 4 hd): one batched product a step gives
     # every head's four gate inputs, laid out (B, 4, NH, hd) like ``pre``
-    r = params["r_gates"].float().permute(1, 2, 0, 3).reshape(nh, hd, 4 * hd)
-    one = torch.ones((), dtype=torch.float32, device=x.device)
+    r = r.permute(1, 2, 0, 3).reshape(nh, hd, 4 * hd)
+    one = torch.ones((), dtype=torch.float32, device=pre.device)
     hs = []
     # unbind, not pre[:, t]: the backward of one slice a step would build
-    # and add a full (B, S, 4 DI) gradient every step
+    # and add a full (B, S, 4 C) gradient every step
     for pre_t in pre.unbind(1):
         rec = torch.bmm(h.reshape(b, nh, hd).transpose(0, 1), r)
-        rec = rec.reshape(nh, b, 4, hd).permute(1, 2, 0, 3).reshape(b, 4 * di)
-        zi, ii, fi, oi = torch.split(pre_t + rec, di, dim=-1)
+        rec = rec.reshape(nh, b, 4, hd).permute(1, 2, 0, 3).reshape(b, 4 * c)
+        zi, ii, fi, oi = torch.split(pre_t + rec, c, dim=-1)
         zt = torch.tanh(zi)
         o = torch.sigmoid(oi)
         logf = F.logsigmoid(fi)
         m_new = torch.maximum(logf + m, ii)
         i_p = torch.exp(ii - m_new)
         f_p = torch.exp(logf + m - m_new)
-        c = f_p * c + i_p * zt
+        cs = f_p * cs + i_p * zt
         n = f_p * n + i_p
-        h = o * c / torch.maximum(torch.abs(n), one)
+        h = o * cs / torch.maximum(torch.abs(n), one)
         m = m_new
         hs.append(h)
-    out = dense(torch.stack(hs, dim=1).to(x.dtype), params["w_down"])
+    return torch.stack(hs, dim=1), SLSTMState(c=cs, n=n, h=h, m=m)
+
+
+def apply_slstm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                state: Optional[SLSTMState] = None, decode: bool = False,
+                part: Optional[Tuple[int, int]] = None):
+    """xLSTM sLSTM block body.  x: (B, S, D).  A loop over the S time
+    steps (each step's gates read the previous step's h through the
+    block-diagonal recurrent weights).  Returns (B, S, D), and with
+    ``decode`` also the new state.
+
+    ``part`` = (m, n) (training only): the loop walks heads
+    [m NH/n, (m+1) NH/n) only, their four gate inputs from the rank's
+    four column slices of the whole ``w_gates`` (its [z | i | f | o] each
+    DI wide) and their blocks of ``r_gates``, and the float32 partial
+    out-projection over the rank's rows of ``w_down`` is returned."""
+    di = _di(cfg)
+    nh = cfg.num_heads
+    own, heads = _span(part, di), _span(part, nh)
+    xin = dense(x, params["w_up"])
+    w_gates, b_gates = params["w_gates"], params["b_gates"]
+    if part is not None:
+        w_gates = w_gates.reshape(di, 4, di)[..., own].reshape(di, -1)
+        b_gates = b_gates.reshape(4, di)[:, own].reshape(-1)
+    pre = (dense(xin, w_gates) + b_gates.to(x.dtype)).float()
+    hs, new_state = slstm_recurrence(
+        pre, params["r_gates"][:, heads].float(), state)
+    if part is not None:
+        return dense(hs.to(x.dtype), params["w_down"], dtype=torch.float32)
+    out = dense(hs.to(x.dtype), params["w_down"])
     if decode:
-        return out, SLSTMState(c=c, n=n, h=h, m=m)
+        return out, new_state
     return out

@@ -4,6 +4,12 @@ attention and Mamba heads (``hymba``, ``hymba_local``) and the xLSTM
 recurrent kinds ``mlstm`` and ``slstm``; the training / full forward,
 the dense-cache decode and (attention-cache kinds only, as in the JAX
 package) the paged serving paths.
+
+Under a training mesh with a model axis each block runs one rank's
+share of its rows (``models/lm.py``): attention is context-parallel,
+a MoE FFN runs the rank's experts on the gathered rows (``_moe_ffn``)
+and a recurrent cell its channels or heads on the gathered rows
+(``_channel_cell``).
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ from repro_torch.sharding.rules import current_mesh
 ATTN_KINDS = ("attn", "attn_local", "moe")
 HYMBA_KINDS = ("hymba", "hymba_local")
 PORTED_KINDS = ATTN_KINDS + HYMBA_KINDS + ("mlstm", "slstm")
+# a recurrent kind's cell: (its subtree in the block's params, the cell)
+CELLS = {"mlstm": ("cell", "mlstm"), "slstm": ("cell", "slstm"),
+         "hymba": ("mamba", "mamba"), "hymba_local": ("mamba", "mamba")}
 
 
 def _window(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -218,6 +227,49 @@ def _moe_ffn(params: dict, h2: torch.Tensor,
     return C.scatter(part, 1, group)
 
 
+def local_leaves(cfg: ModelConfig, kind: str, spec: dict,
+                 model: int) -> dict:
+    """The leaves of a block that a rank runs as its own pieces under a
+    model axis of ``model`` (subtree -> leaf names; every other leaf is
+    gathered whole): a MoE block's expert leaves sharded over the model
+    axis (``_moe_ffn``), a recurrent cell's ``ssm.LOCAL_LEAVES`` where
+    the model axis splits its recurrence (``_channel_cell``)."""
+    if kind == "moe":
+        return {"moe": {k for k, s in spec["moe"].items()
+                        if s[:1] == ("model",)}}
+    if kind in CELLS and model > 1:
+        sub, cell = CELLS[kind]
+        if ssm_mod.channel_shards(cfg, cell, model):
+            return {sub: set(ssm_mod.LOCAL_LEAVES[cell])}
+    return {}
+
+
+def _channel_cell(params: dict, h: torch.Tensor, cfg: ModelConfig,
+                  cell: str, **kw) -> torch.Tensor:
+    """The recurrent ``cell`` ("mamba", "mlstm" or "slstm": ``ssm``'s
+    ``apply_<cell>``) over the normed ``h``.  Under a training mesh with
+    a model axis the rank holds S / model rows of each batch row and the
+    recurrence needs them all: ``h`` is gathered along the sequence, and
+    where the model axis splits the cell (``ssm.channel_shards``;
+    ``params`` then holds the rank's pieces of the channel dim,
+    ``local_leaves``) the cell runs the rank's channels or heads and the
+    float32 partial out-projections are reduce-scattered back to each
+    rank's rows.  Otherwise every rank runs it whole on the gathered rows
+    and keeps its own."""
+    fn = getattr(ssm_mod, f"apply_{cell}")
+    mesh = current_mesh()
+    n = mesh.shape.get("model", 1) if mesh is not None else 1
+    if n == 1:
+        return fn(params, h, cfg, **kw)
+    group = mesh.group(("model",))
+    m, s = mesh.coords["model"], h.shape[1]
+    whole = C.gather(h, 1, group)
+    if not ssm_mod.channel_shards(cfg, cell, n):
+        return fn(params, whole, cfg, **kw)[:, m * s:(m + 1) * s]
+    part = fn(params, whole, cfg, part=(m, n), **kw)
+    return C.scatter(part, 1, group).to(h.dtype)
+
+
 def _hymba_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
                 m: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """hymba's fusion of its attention and Mamba heads (each normed, then
@@ -238,13 +290,13 @@ def apply_block(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     check_kind(kind)
     h = apply_norm(params["ln1"], x, cfg.norm_type, cfg.norm_eps)
     if kind == "mlstm":
-        return x + ssm_mod.apply_mlstm(params["cell"], h, cfg, impl=impl)
+        return x + _channel_cell(params["cell"], h, cfg, "mlstm", impl=impl)
     if kind == "slstm":
-        return x + ssm_mod.apply_slstm(params["cell"], h, cfg)
+        return x + _channel_cell(params["cell"], h, cfg, "slstm")
     a = attn_mod.apply_attention(params["attn"], h, cfg, positions=positions,
                                  window=_window(cfg, kind), impl=impl)
     if kind in HYMBA_KINDS:
-        m = ssm_mod.apply_mamba(params["mamba"], h, cfg)
+        m = _channel_cell(params["mamba"], h, cfg, "mamba")
         return _hymba_tail(params, x, a, m, cfg)
     return _attn_block_tail(params, x, a, cfg, kind)
 

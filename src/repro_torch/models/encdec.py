@@ -20,16 +20,26 @@ runs ``fastattn_fwd.cu`` and a decode step's self-attention
 ``parallel.remat`` "full" (and "selective", which runs as "full")
 recomputes each block in the backward through ``torch.utils.checkpoint``.
 
-Not ported: a training mesh of more than one rank (JAX runs this model
-under GSPMD; here it raises NotImplementedError), and the paged engine,
-which JAX cannot run on it either (``EngineCore`` refuses it).
+Under an active training mesh (``sharding.rules.axis_rules(mesh=...)``,
+entered by the train step) ``apply`` and ``loss`` run one rank's share,
+as ``LM``'s do: its rows of the batch, of the frames and of the decoder
+tokens, against its pieces of every parameter (``param_specs``).  Each
+block gathers its weights over the model axis (again in the backward's
+recompute under remat); the encoder's self-attention is context-parallel
+and non-causal (the rank's frames against every frame), the decoder's
+causal at the rank's q_offset; the frontend's position rows and the
+decoder's sinusoids start at the rank's global offset; each
+cross-attention gathers its K and V of every frame
+(``attention.project_cross_kv``) for the rank's decoder rows.
+
+Not ported: the paged engine, which JAX cannot run on this model either
+(``EngineCore`` refuses it).
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -40,7 +50,7 @@ from repro_torch.layers.embedding import (embed_tokens, embedding_logical,
 from repro_torch.layers.frontend import (apply_frontend, frontend_logical,
                                          init_frontend)
 from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
-from repro_torch.sharding.rules import current_mesh
+from repro_torch.models.sharded import MeshModel
 
 
 def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -93,14 +103,7 @@ def _block_logical_dec(cfg: ModelConfig) -> dict:
             "mlp": mlp_mod.mlp_logical(d, cfg.d_ff, cfg.mlp_type)}
 
 
-def _refuse_mesh(world: int) -> None:
-    if world > 1:
-        raise NotImplementedError(
-            f"EncDec on a training mesh of {world} ranks is not ported "
-            "(the JAX package runs it under GSPMD); train it on one device")
-
-
-class EncDec:
+class EncDec(MeshModel):
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  parallel: Optional[ParallelConfig] = None):
@@ -109,6 +112,7 @@ class EncDec:
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
         self.device = resolve_device(device)
+        self._specs: dict = {}
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on the model's device seeded with ``seed``."""
@@ -153,48 +157,35 @@ class EncDec:
             "final_norm": norm_logical(cfg.d_model, cfg.norm_type),
         }
 
-    def param_specs(self, mesh):
-        """Raises: no training mesh of more than one rank is ported for
-        this model (``init_train_state`` and ``make_train_step`` ask for
-        the specs only on such a mesh)."""
-        _refuse_mesh(mesh.world)
-
-    def _check_mesh(self) -> None:
-        mesh = current_mesh()
-        if mesh is not None:
-            _refuse_mesh(mesh.world)
-
-    # ------------------------------------------------------------------
-    def _stack(self, blocks: list, block_fn, x: torch.Tensor, *extra):
-        """x through ``block_fn(params, x, *extra)`` for each block's
-        params, each recomputed in the backward under remat."""
-        remat = self.parallel.remat != "none" and torch.is_grad_enabled()
-        for p in blocks:
-            def run(h, *e, p=p):
-                return block_fn(p, h, *e)
-            x = checkpoint(run, x, *extra, use_reentrant=False) if remat \
-                else run(x, *extra)
-        return x
-
     def encode(self, params: dict, enc_embeds: torch.Tensor, *,
                impl: Optional[str] = None) -> torch.Tensor:
         """enc_embeds (B, S_enc, D) frame embeddings -> encoder states
-        (B, S_enc, D) in ``cfg.dtype``."""
-        self._check_mesh()
-        cfg = self.cfg
-        x = apply_frontend(params["frontend"],
-                           enc_embeds.to(torch_dtype(cfg.dtype)), cfg)
-        b, s = x.shape[:2]
-        pos = torch.arange(s, device=x.device).expand(b, s)
+        (B, S_enc, D) in ``cfg.dtype``; under a mesh the rank's frames
+        and their states."""
+        return self._encode(self._whole(params, ("frontend", "enc_norm")),
+                            enc_embeds, impl)
 
-        def block(p, x):
+    def _encode(self, params: dict, enc_embeds: torch.Tensor,
+                impl: Optional[str]) -> torch.Tensor:
+        cfg = self.cfg
+        mesh = self._mesh()
+        b, s = enc_embeds.shape[:2]
+        s0 = self._offset(mesh, s)
+        # the rank's frames take the position rows at their global offset
+        kw = {} if mesh is None else dict(
+            seq_len=s * mesh.shape.get("model", 1), offset=s0)
+        x = apply_frontend(params["frontend"],
+                           enc_embeds.to(torch_dtype(cfg.dtype)), cfg, **kw)
+        pos = torch.arange(s0, s0 + s, device=x.device).expand(b, s)
+
+        def block(i, p, x):
             h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
             x = x + attn_mod.apply_attention(p["attn"], h, cfg, positions=pos,
                                              causal=False, impl=impl)
             h = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
             return x + mlp_mod.apply_mlp(p["mlp"], h, cfg.mlp_type)
 
-        x = self._stack(params["enc_blocks"], block, x)
+        x = self._run_blocks(params, "enc_blocks", block, x)
         return apply_norm(params["enc_norm"], x, cfg.norm_type, cfg.norm_eps)
 
     def decode_states(self, params: dict, tokens: torch.Tensor,
@@ -202,15 +193,25 @@ class EncDec:
                       impl: Optional[str] = None) -> torch.Tensor:
         """Teacher-forced decoder: tokens (B, S) against the encoder
         states -> final-norm hidden states (B, S, D).  Each block projects
-        its cross K/V from ``enc_out`` itself."""
-        self._check_mesh()
+        its cross K/V from ``enc_out`` itself.  Under a mesh the rank's
+        tokens (at their global positions) against its rows of the
+        encoder states."""
+        return self._decode_states(
+            self._whole(params, ("embedding", "final_norm")), tokens,
+            enc_out, impl)
+
+    def _decode_states(self, params: dict, tokens: torch.Tensor,
+                       enc_out: torch.Tensor,
+                       impl: Optional[str]) -> torch.Tensor:
         cfg = self.cfg
+        mesh = self._mesh()
         x = embed_tokens(params["embedding"], tokens, cfg)
         b, s = x.shape[:2]
-        pos = torch.arange(s, device=x.device).expand(b, s)
+        s0 = self._offset(mesh, s)
+        pos = torch.arange(s0, s0 + s, device=x.device).expand(b, s)
         x = x + sinusoid(pos, cfg.d_model).to(x.dtype)
 
-        def block(p, x, enc_out):
+        def block(i, p, x, enc_out):
             h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
             x = x + attn_mod.apply_attention(p["self_attn"], h, cfg,
                                              positions=pos, impl=impl)
@@ -221,28 +222,30 @@ class EncDec:
             h = apply_norm(p["ln2"], x, cfg.norm_type, cfg.norm_eps)
             return x + mlp_mod.apply_mlp(p["mlp"], h, cfg.mlp_type)
 
-        x = self._stack(params["dec_blocks"], block, x, enc_out)
+        x = self._run_blocks(params, "dec_blocks", block, x, enc_out)
         return apply_norm(params["final_norm"], x, cfg.norm_type,
                           cfg.norm_eps)
 
     def apply(self, params: dict, enc_embeds: torch.Tensor,
               dec_tokens: torch.Tensor, *,
               impl: Optional[str] = None) -> torch.Tensor:
-        """Encode, then decode teacher-forced: logits (B, S, V)."""
-        enc_out = self.encode(params, enc_embeds, impl=impl)
-        x = self.decode_states(params, dec_tokens, enc_out, impl=impl)
+        """Encode, then decode teacher-forced: logits (B, S, V).  Under a
+        mesh: the rank's rows of the batch, of the frames and of the
+        decoder tokens; its logits."""
+        params = self._whole(params, ("frontend", "embedding", "enc_norm",
+                                      "final_norm"))
+        enc_out = self._encode(params, enc_embeds, impl)
+        x = self._decode_states(params, dec_tokens, enc_out, impl)
         return lm_logits(params["embedding"], x, self.cfg)
 
     def loss(self, params: dict, enc_embeds: torch.Tensor,
              dec_tokens: torch.Tensor, labels: torch.Tensor, *,
              impl: Optional[str] = None) -> torch.Tensor:
-        """Mean next-token cross entropy; labels < 0 are masked."""
-        logits = self.apply(params, enc_embeds, dec_tokens, impl=impl).float()
-        mask = labels >= 0
-        lab = torch.clamp(labels, min=0).long()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
-        return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1)
+        """Mean next-token cross entropy; labels < 0 are masked.  Under a
+        mesh: this rank's share of the global batch's mean -- its summed
+        nll over the masked count of every rank (``MeshModel._mean_nll``)."""
+        return self._mean_nll(
+            self.apply(params, enc_embeds, dec_tokens, impl=impl), labels)
 
     # ------------------------------------------------------------------
     # serving: a self-attention KV cache and the cross K/V per layer

@@ -22,19 +22,22 @@ entered by the train step) ``apply`` and ``loss`` run one rank's share:
 its rows of the batch and of the sequence, against its pieces of every
 parameter (``param_specs``: the JAX rule table's layout).  Each block
 gathers its sharded weights over the model axis before use (again in
-the backward's recompute under remat) -- but for a MoE block's experts
-sharded over the model axis, which each rank runs as its own (expert
-parallelism, ``blocks._moe_ffn``) -- the embedding and LM head (and a
-vision model's frontend) are gathered once, and attention is
-context-parallel (``layers/attention.py``).  The gathers' gradients come back to each
-rank as its piece of the sum over the model axis.
+the backward's recompute under remat) -- but for the leaves a rank runs
+as its own pieces (``blocks.local_leaves``): a MoE block's experts
+sharded over the model axis (expert parallelism, ``blocks._moe_ffn``)
+and a recurrent cell's channel pieces, ``channels -> model`` (the
+mLSTM's and sLSTM's heads, hymba's Mamba channels: the cell runs the
+rank's share on the gathered rows, ``blocks._channel_cell``).  The
+embedding and LM head (and a vision model's frontend) are gathered
+once, and attention is context-parallel (``layers/attention.py``).
+The gathers' gradients come back to each rank as its piece of the sum
+over the model axis.
 """
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Union
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, ParallelConfig
 from repro_torch.device import resolve_device, torch_dtype
@@ -44,44 +47,26 @@ from repro_torch.layers.frontend import (apply_frontend, frontend_logical,
                                          init_frontend)
 from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 from repro_torch.models import blocks as B
+from repro_torch.models.sharded import MeshModel
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.rules import (axis_rules, current_mesh,
-                                        current_rules, param_sharding_tree)
-
-RECURRENT_KINDS = ("mlstm", "slstm", "hymba", "hymba_local")
 
 
-def check_model_axis(cfg: ModelConfig, model: int) -> None:
-    """The model axis shards attention and moe blocks: the recurrent
-    cells' ``channels -> model`` layout (mLSTM / sLSTM, hymba's Mamba
-    heads) is not ported."""
-    if model <= 1:
-        return
-    kinds = set(cfg.blocks())
-    if kinds & set(RECURRENT_KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: a model axis of {model} over recurrent blocks "
-            f"({', '.join(sorted(kinds & set(RECURRENT_KINDS)))}: their "
-            "channels -> model layout) is not ported; use data "
-            "parallelism")
-
-
-def _block_leaves(bp: dict, spec: dict, mesh) -> dict:
+def _block_leaves(bp: dict, spec: dict, mesh, cfg: ModelConfig,
+                  kind: str) -> dict:
     """A block's weights as it runs them under ``mesh``: every sharded
-    leaf gathered whole, but a MoE block's experts sharded over the model
-    axis (``expert -> model``: dim 0) stay this rank's, expert
-    parallelism (``blocks._moe_ffn``)."""
-    if "moe" not in bp:
-        return C.gather_tree(bp, spec, mesh)
-    out = C.gather_tree({k: v for k, v in bp.items() if k != "moe"}, spec,
-                        mesh)
-    out["moe"] = {k: v if spec["moe"][k][:1] == ("model",)
-                  else C.gather_leaf(v, spec["moe"][k], mesh)
-                  for k, v in bp["moe"].items()}
+    leaf gathered whole, but those it runs as this rank's pieces
+    (``blocks.local_leaves``: a MoE block's experts sharded over the
+    model axis, a recurrent cell's channel pieces) stay this rank's."""
+    local = B.local_leaves(cfg, kind, spec, mesh.shape.get("model", 1))
+    out = C.gather_tree({k: v for k, v in bp.items() if k not in local},
+                        spec, mesh)
+    for sub, keys in local.items():
+        out[sub] = {k: v if k in keys else C.gather_leaf(v, spec[sub][k], mesh)
+                    for k, v in bp[sub].items()}
     return out
 
 
-class LM:
+class LM(MeshModel):
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  parallel: Optional[ParallelConfig] = None):
@@ -93,7 +78,6 @@ class LM:
             B.check_kind(kind)
         self.cfg = cfg
         self.parallel = parallel or ParallelConfig()
-        check_model_axis(cfg, self.parallel.model)
         self.device = resolve_device(device)
         self._specs: dict = {}
 
@@ -141,22 +125,6 @@ class LM:
         return [B.block_cache_logical(self.cfg, kind, batch, max_seq)
                 for kind in self.cfg.blocks()]
 
-    def param_specs(self, mesh) -> dict:
-        """``param_sharding_tree`` of ``logical()`` on ``mesh`` (cached
-        per mesh shape)."""
-        key = (mesh.axis_names, tuple(mesh.shape.values()))
-        if key not in self._specs:
-            self._specs[key] = param_sharding_tree(self.logical(), mesh)
-        return self._specs[key]
-
-    def _mesh(self):
-        """The active training mesh of more than one rank, or None."""
-        mesh = current_mesh()
-        if mesh is None or mesh.world == 1:
-            return None
-        check_model_axis(self.cfg, mesh.shape.get("model", 1))
-        return mesh
-
     # ------------------------------------------------------------------
     # training / full forward
     # ------------------------------------------------------------------
@@ -168,21 +136,15 @@ class LM:
         its attention or mLSTM kernel launches twice per step.  Under a
         mesh each block first gathers its sharded weights."""
         cfg = self.cfg
-        mesh = self._mesh()
-        specs = self.param_specs(mesh)["layers"] if mesh else None
-        remat = self.parallel.remat != "none" and torch.is_grad_enabled()
-        for i, (kind, bp) in enumerate(zip(cfg.blocks(), params["layers"])):
-            def run(h, bp=bp, kind=kind, i=i):
-                if mesh is None:
-                    return B.apply_block(bp, h, cfg, kind,
-                                         positions=positions, impl=impl)
-                # entered here again: the backward's recompute may run on
-                # autograd's device thread, which has no context of ours
-                with axis_rules(current_rules(), mesh):
-                    return B.apply_block(_block_leaves(bp, specs[i], mesh),
-                                         h, cfg, kind, positions=positions,
-                                         impl=impl)
-            x = checkpoint(run, x, use_reentrant=False) if remat else run(x)
+        kinds = cfg.blocks()
+
+        def block(i, bp, h):
+            return B.apply_block(bp, h, cfg, kinds[i], positions=positions,
+                                 impl=impl)
+
+        def leaves(i, bp, spec, mesh):
+            return _block_leaves(bp, spec, mesh, cfg, kinds[i])
+        x = self._run_blocks(params, "layers", block, x, leaves=leaves)
         return apply_norm(params["final_norm"], x, cfg.norm_type,
                           cfg.norm_eps)
 
@@ -198,24 +160,21 @@ class LM:
         positions (by default) their global ones."""
         cfg = self.cfg
         mesh = self._mesh()
-        specs = self.param_specs(mesh) if mesh is not None else None
+        params = self._whole(params, ("embedding", "frontend"))
         emb = params["embedding"]
-        if mesh is not None:
-            emb = C.gather_tree(emb, specs["embedding"], mesh)
         if inputs_embeds is not None:
             x = inputs_embeds.to(torch_dtype(cfg.dtype))
             if "frontend" in params:
-                front = params["frontend"]
-                if mesh is not None:
-                    front = C.gather_tree(front, specs["frontend"], mesh)
+                s = x.shape[1]
                 n_model = mesh.shape.get("model", 1) if mesh else 1
-                x = apply_frontend(front, x, cfg,
-                                   seq_len=x.shape[1] * n_model)
+                x = apply_frontend(params["frontend"], x, cfg,
+                                   seq_len=s * n_model,
+                                   offset=self._offset(mesh, s))
         else:
             x = embed_tokens(emb, tokens, cfg)
         if positions is None:
             b, s = x.shape[:2]
-            s0 = mesh.coords.get("model", 0) * s if mesh else 0
+            s0 = self._offset(mesh, s)
             positions = torch.arange(s0, s0 + s,
                                      device=x.device).expand(b, s)
             if cfg.rope_type == "mrope":
@@ -233,18 +192,9 @@ class LM:
         ``apply``.  Under a mesh: this rank's share of the global batch's
         mean -- its summed nll over the masked count of every rank -- so
         that the ranks' shares (and their gradients) sum to the mean."""
-        logits = self.apply(params, tokens, inputs_embeds=inputs_embeds,
-                            positions=positions, impl=impl).float()
-        mask = labels >= 0
-        lab = torch.clamp(labels, min=0).long()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
-        nll = (logz - gold) * mask
-        count = mask.sum()
-        mesh = self._mesh()
-        if mesh is not None:
-            C.all_reduce(count, mesh.group(mesh.axis_names))
-        return nll.sum() / torch.clamp(count, min=1)
+        return self._mean_nll(self.apply(
+            params, tokens, inputs_embeds=inputs_embeds, positions=positions,
+            impl=impl), labels)
 
     # ------------------------------------------------------------------
     # serving

@@ -17,7 +17,8 @@ one process a rank (``launch/mesh.py``):
   ``d`` takes ``[i*mb + d*mb/dp, i*mb + (d+1)*mb/dp)`` and model rank
   ``m`` sequence rows ``[m*S/model, (m+1)*S/model)`` -- along dims 1 and
   2 of M-RoPE's (3, B, S) positions (JAX's reshape splits their t/h/w
-  axis instead: ROADMAP Queue 3);
+  axis instead: ROADMAP Queue 3), and frames ``[m*F/model,
+  (m+1)*F/model)`` of an encoder-decoder's (B, F, D) ``enc_embeds``;
 * each rank's loss is its share of the microbatch's global mean
   (``LM.loss``); the gathers' backward sums the model axis into each
   rank's pieces, and every gradient is then summed over the mesh axes its
@@ -144,8 +145,10 @@ def microbatches(batch: dict, n_micro: int) -> list:
 
 def rank_rows(batch: dict, mesh, n_micro: int) -> list:
     """This rank's pieces of every microbatch of a global batch (rows as
-    the module docstring says).  Raises ValueError naming the shapes when
-    the batch, its microbatches or the sequence do not split evenly."""
+    the module docstring says; an encoder-decoder's ``enc_embeds`` split
+    along its own frame dim over the model axis, beside the tokens).
+    Raises ValueError naming the shapes when the batch, its microbatches,
+    the sequence or the frames do not split evenly."""
     b, s = batch["labels"].shape[:2]
     dp_axes = tuple(a for a in mesh.axis_names if a != "model")
     d, dp = shard_index(dp_axes, mesh, mesh.coords)
@@ -157,10 +160,19 @@ def rank_rows(batch: dict, mesh, n_micro: int) -> list:
             f"microbatches x dp={dp} rows and model={n_model} sequence "
             "pieces: the batch must be a multiple of microbatches * dp and "
             "the sequence of model")
-    mb, sl = b // n_micro, s // n_model
-    rows, cols = mb // dp, slice(m * sl, (m + 1) * sl)
+    frames = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
+    if frames % n_model:
+        raise ValueError(
+            f"{frames} frames of enc_embeds and {s} tokens: both must "
+            f"split into model={n_model} sequence pieces")
+    mb = b // n_micro
+    rows = mb // dp
+
+    def cols(key: str) -> slice:
+        n = (frames if key == "enc_embeds" else s) // n_model
+        return slice(m * n, (m + 1) * n)
     return [{k: _rows(x, k, slice(i * mb + d * rows, i * mb + (d + 1) * rows),
-                      cols)
+                      cols(k))
              for k, x in batch.items()} for i in range(n_micro)]
 
 

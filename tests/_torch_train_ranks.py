@@ -39,25 +39,31 @@ def _np(tree_):
     return tree.tree_map(lambda t: t.detach().numpy().copy(), tree_)
 
 
-def _setup(arch: str, par_kw: dict):
+def _setup(arch: str, par_kw: dict, cfg_kw: dict = None):
+    """(parallel, mesh, the reduced config of ``arch`` with ``cfg_kw``,
+    its model on the CPU)."""
+    import dataclasses
     torch.set_num_threads(1)
     parallel = ParallelConfig(**par_kw)
     mesh = make_mesh_for(parallel, timeout=INIT_TIMEOUT_S)
-    cfg = reduce_for_smoke(get_model_config(arch))
+    cfg = dataclasses.replace(reduce_for_smoke(get_model_config(arch)),
+                              **(cfg_kw or {}))
     return parallel, mesh, cfg, build_model(cfg, "cpu", parallel)
 
 
 def train_rank(rank: int, arch: str, par_kw: dict, params: dict,
-               batches: list, train_kw: dict, ckpt: dict) -> dict:
+               batches: list, train_kw: dict, ckpt: dict,
+               cfg_kw: dict = None) -> dict:
     """This rank's share of ``len(batches)`` steps of the whole
-    ``params`` (numpy, the port's tree) on the mesh of ``par_kw``.
-    Returns every step's metrics, the rank's initial pieces, its step
-    counter and (rank 0) the final state gathered whole.  ``ckpt``:
-    "dir" -- the mesh's checkpoint directory; optional "save" -- save the
-    final state there, and (rank 0) "one" -- a directory where a
-    one-device manager saves the same gathered state; "next" -- one more
-    batch, stepped after the save."""
-    parallel, mesh, cfg, model = _setup(arch, par_kw)
+    ``params`` (numpy, the port's tree) on the mesh of ``par_kw``, the
+    reduced ``arch`` changed by ``cfg_kw``.  Returns every step's
+    metrics, the rank's initial pieces, its step counter and (rank 0)
+    the final state gathered whole.  ``ckpt``: "dir" -- the mesh's
+    checkpoint directory; optional "save" -- save the final state there,
+    and (rank 0) "one" -- a directory where a one-device manager saves
+    the same gathered state; "next" -- one more batch, stepped after the
+    save."""
+    parallel, mesh, cfg, model = _setup(arch, par_kw, cfg_kw)
     whole = tree.tree_map(torch.from_numpy, params)
     tcfg = TrainConfig(**train_kw)
     with axis_rules(mesh=mesh):
@@ -256,3 +262,96 @@ def moe_routes_rank(rank: int, arch: str, par_kw: dict, params: dict,
     finally:
         moe.apply_moe, blocks._moe_ffn = apply, ffn
     return {"coords": mesh.coords, "blocks": seen}
+
+
+def cells_rank(rank: int, model: int, cases: list) -> list:
+    """Each recurrent cell of ``cases`` on a (1, ``model``) mesh, as a
+    block runs
+    it (``lm._block_leaves``, ``blocks._channel_cell``): this rank's rows
+    of x and pieces of the cell's whole parameters, forward and the
+    gradients of sum(out * g) over the rank's rows.  A case: "kind" (a
+    block kind), "arch", "cfg_kw", "params" and "x", "g" (numpy), "kw"
+    (the cell's keywords).  Returns per case the rank's rows of the
+    output and of x's gradient, each leaf's gradient on the rank's piece
+    (the gathered leaves' summed by the gather's backward), the leaves'
+    specs and the shapes the scan, the mLSTM kernel and the sLSTM loop
+    were given."""
+    import dataclasses
+    from repro_torch.layers import ssm
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import _block_leaves
+    from repro_torch.sharding.rules import param_sharding_tree
+    torch.set_num_threads(1)
+    mesh = make_mesh_for(ParallelConfig(model=model),
+                         timeout=INIT_TIMEOUT_S)
+    m = mesh.coords["model"]
+    seen = []
+    wrapped = {name: getattr(ssm, name) for name in
+               ("mamba_scan_chunk", "mlstm_chunkwise", "slstm_recurrence")}
+
+    def recording(name):
+        def fn(*args, **kw):
+            seen.append((name, tuple(args[1 if name == "mamba_scan_chunk"
+                                          else 0].shape)))
+            return wrapped[name](*args, **kw)
+        return fn
+    out = []
+    try:
+        for name in wrapped:
+            setattr(ssm, name, recording(name))
+        for case in cases:
+            cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
+                case["arch"])), **case["cfg_kw"])
+            sub, cell = blocks.CELLS[case["kind"]]
+            logical = getattr(ssm, f"{cell}_logical")(cfg)
+            specs = param_sharding_tree(logical, mesh)
+            pieces = {k: shard_of(torch.from_numpy(v), specs[k], mesh)
+                      .requires_grad_(True)
+                      for k, v in case["params"].items()}
+            s = case["x"].shape[1] // model
+            x = torch.from_numpy(case["x"][:, m * s:(m + 1) * s]).clone()
+            x.requires_grad_(True)
+            del seen[:]
+            with axis_rules(mesh=mesh):
+                leaves = _block_leaves({sub: pieces}, {sub: specs}, mesh,
+                                       cfg, case["kind"])[sub]
+                y = blocks._channel_cell(leaves, x, cfg, cell, **case["kw"])
+                g = torch.from_numpy(case["g"][:, m * s:(m + 1) * s])
+                keys = sorted(pieces)
+                grads = torch.autograd.grad((y * g).sum(),
+                                            [x] + [pieces[k] for k in keys])
+            out.append({"y": y.detach().numpy(), "dx": grads[0].numpy(),
+                        "grads": {k: t.numpy() for k, t in
+                                  zip(keys, grads[1:])},
+                        "specs": specs, "shapes": list(seen),
+                        "local": sorted(
+                            k for k in keys if tuple(leaves[k].shape)
+                            != case["params"][k].shape)})
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ssm, name, fn)
+    return out
+
+
+def apply_rank(rank: int, arch: str, cfg_kw: dict, par_kw: dict,
+               params: dict, inputs: dict) -> dict:
+    """The model's forward on this rank's share of ``inputs`` (numpy:
+    "tokens", or "enc_embeds" and "tokens" for an encoder-decoder) on the
+    mesh of ``par_kw``, from its pieces of the whole ``params``: its
+    coordinates and its rows of the logits."""
+    from repro_torch.training.train_step import rank_rows
+    _, mesh, cfg, model = _setup(arch, par_kw, cfg_kw)
+    whole = tree.tree_map(torch.from_numpy, params)
+    with axis_rules(mesh=mesh), torch.no_grad():
+        specs = model.param_specs(mesh)
+        pieces = tree.unflatten(whole, [
+            shard_of(t, s, mesh) for t, s in zip(
+                tree.leaves(whole), flatten(specs, is_spec), strict=True)])
+        batch = {k: torch.from_numpy(v) for k, v in inputs.items()}
+        batch["labels"] = batch["tokens"]
+        mb = rank_rows(batch, mesh, 1)[0]
+        if cfg.is_encoder_decoder:
+            logits = model.apply(pieces, mb["enc_embeds"], mb["tokens"])
+        else:
+            logits = model.apply(pieces, mb["tokens"])
+    return {"coords": mesh.coords, "logits": logits.numpy()}

@@ -1070,8 +1070,11 @@ def test_phase2_holds_both_kernels_at_hymba_shapes(cs):
     assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
             cfg.window_size) == (25, 5, 64, 1024)
     fwd, dense = dict(cs.FWD_CASES), dict(cs.DENSE_DECODE_CASES)
-    hy = [kw for kw in list(fwd.values()) + list(dense.values())
-          if (kw["hq"], kw["hkv"], kw["d"]) == (25, 5, 64)]
+    # phase 12's rank shape at hymba's heads is held in its own test
+    mesh = {name for name, _ in cs.MESH_FWD_CASES.values()}
+    hy = [kw for name, kw in list(fwd.items()) + list(dense.items())
+          if (kw["hq"], kw["hkv"], kw["d"]) == (25, 5, 64)
+          and name not in mesh]
     assert len(hy) == 6
     main = fwd[cs.hymba_case("fastattn_fwd")]
     assert (main["b"], main["sq"], main["skv"], main["window"],
@@ -1769,14 +1772,15 @@ def test_phase11_runs_qwen2_vl_after_whisper(cs):
 
 def test_phase6_trains_the_first_layers_of_both_kinds(cs):
     """Phase 6 (b) trains xlstm-125m's first XLSTM_TRAIN_LAYERS layers:
-    mlstm, mlstm, slstm -- both block kinds and the kernel, 2 x 2 x 5
-    launches."""
+    mlstm, mlstm, slstm -- both block kinds and the kernel, 2 x 2 x 3
+    launches, at a quarter of (a)'s sequence."""
     import dataclasses
     from repro_torch.config import get_model_config
     cfg = dataclasses.replace(get_model_config("xlstm-125m"),
                               num_layers=cs.XLSTM_TRAIN_LAYERS)
     assert cfg.blocks() == ("mlstm", "mlstm", "slstm")
-    assert cfg.blocks().count("mlstm") * 2 * cs.XLSTM_STEPS == 20
+    assert cfg.blocks().count("mlstm") * 2 * cs.XLSTM_STEPS == 12
+    assert 4 * cs.XLSTM_TRAIN_SEQ == cs.XLSTM_SEQ == 2048
 
 
 # ---------------------------------------------------------------------------
@@ -1998,9 +2002,216 @@ def test_moe_checks_variants_still_apply():
             text = (ROOT / rel).read_text()
             counts[(variant, old)] = text.count(old)
             assert old in text and new not in text, (variant, rel, old)
-    assert counts[("seed1", "TrainConfig(learning_rate=3e-4, ")] == 7
-    assert counts[("seed1", "DataConfig(vocab_size=cfg.vocab_size,")] == 5
+    assert counts[("seed1", "TrainConfig(learning_rate=3e-4, ")] == 8
+    assert counts[("seed1", "DataConfig(vocab_size=cfg.vocab_size,")] == 6
     assert all(n == 1 for (v, _), n in counts.items() if v != "seed1")
     assert mc._patches("seed0") == []
     with pytest.raises(SystemExit):
         mc._patches("bf17")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent cells and the encoder-decoder on a (2, 2) mesh
+# ---------------------------------------------------------------------------
+
+def test_phase12_expects_each_ranks_launches(cs):
+    """Each model's cut and the launches a (2, 2) rank must make: two
+    mLSTM blocks at 2 of xlstm-125m's 4 heads and no attention; hymba's
+    2 attention layers at the rank's first row; whisper's 2 encoder, 2
+    self- and 2 cross-attentions at its first frame, first token and 0 --
+    each twice a step under remat, MESH_STEPS steps."""
+    import dataclasses
+    from repro_torch.config import get_model_config
+    cfgs = {a: dataclasses.replace(get_model_config(a), **keep)
+            for a, (keep, _) in cs.MESH_MODELS.items()}
+    assert cfgs["xlstm-125m"].blocks() == ("mlstm", "mlstm", "slstm")
+    assert cfgs["hymba-1.5b"].blocks() == ("hymba", "hymba_local")
+    assert (cfgs["whisper-small"].encoder_layers,
+            cfgs["whisper-small"].num_layers) == (2, 2)
+    n = 2 * cs.MESH_STEPS
+    x = cs.mesh_expected(cfgs["xlstm-125m"], 1024, 2)
+    assert (x["fastattn_fwd"], x["mlstm_chunkwise"], x["mlstm_heads"]) == \
+        (0, 2 * n, [2])
+    h = cs.mesh_expected(cfgs["hymba-1.5b"], 1024, 2)
+    assert (h["fastattn_fwd"], h["mlstm_chunkwise"]) == (2 * n, 0)
+    assert [h["offsets"](m) for m in (0, 1)] == [[0], [512]]
+    w = cs.mesh_expected(cfgs["whisper-small"], 448, 2)
+    assert w["fastattn_fwd"] == 6 * n
+    assert [w["offsets"](m) for m in (0, 1)] == [[0], [0, 224, 750]]
+    # reduced xlstm at a model axis of 4: its 2 heads run whole
+    from repro_torch.config import reduce_for_smoke
+    r = dataclasses.replace(reduce_for_smoke(get_model_config("xlstm-125m")),
+                            num_layers=3)
+    assert cs.mesh_expected(r, 64, 4)["mlstm_heads"] == [2]
+    name, kw = cs.MLSTM_CASES[-1]
+    assert name == cs.MESH_MLSTM_CASE and (kw["b"], kw["h"], kw["s"]) == (
+        cs.MESH_BATCH // 2, 2, 1024) and kw["dk"] == kw["dv"] == 384
+    # phase 2 holds fastattn_fwd at each shape a model rank 1 launches it
+    # with: whisper's encoder, hymba's rows, whisper's decoder and cross
+    fwd = dict(cs.FWD_CASES)
+    shapes = {pre: (kw["b"], kw["hq"], kw["hkv"], kw["sq"], kw["skv"],
+                    kw.get("causal", True), kw.get("q_offset", 0),
+                    kw.get("window"))
+              for pre, (name, kw) in cs.MESH_FWD_CASES.items()
+              if fwd[name] is kw}
+    b = cs.MESH_BATCH // 2
+    assert shapes == {"mesh": (b, 12, 12, 750, 1500, False, 750, None),
+                      "mesh_hymba": (b, 25, 5, 512, 1024, True, 512,
+                                     cfgs["hymba-1.5b"].window_size),
+                      "mesh_dec": (b, 12, 12, 224, 448, True, 224, None),
+                      "mesh_cross": (b, 12, 12, 224, 1500, False, 0, None)}
+    assert {v[6] for v in shapes.values()} <= set(
+        h["offsets"](1) + w["offsets"](1))
+
+
+def test_phase12_gates_reject_faked_failures(cs):
+    ok = [{"mlstm_launches": 8, "mlstm_heads": [2]} for _ in range(4)]
+    want = {"mlstm_chunkwise": 8, "mlstm_heads": [2]}
+    cs.mesh_launch_gate("ok", ok, want)
+    for bad in ({"mlstm_launches": 7}, {"mlstm_heads": [4]}):
+        ranks = [dict(r) for r in ok]
+        ranks[3].update(bad)
+        with pytest.raises(AssertionError, match="rank 3 launched"):
+            cs.mesh_launch_gate("bad", ranks, want)
+    torch = pytest.importorskip("torch")
+    init = [torch.zeros(4), torch.zeros(4)]
+    grad = torch.linspace(-1, 1, 1000)
+    ref = {"paths": ["/w", "/b"], "loss": [10.0, 9.0],
+           "grad_norm": [2.0, 1.0], "init": init,
+           "snapshot": [torch.ones(4), torch.ones(4)],
+           "grad0": [grad, grad]}
+    small = dict(ref, loss=[10.001, 9.0], grad_norm=[2.0, 1.001],
+                 snapshot=[torch.ones(4) * 1.01, torch.ones(4)],
+                 grad0=[grad * 1.01, grad])
+    g = cs.measured_mesh_gate(ref, small)
+    assert (g["loss"], g["grad_norm"], g["delta"], g["grad0"]) == (
+        [cs.DIST_LOSS_RTOL] * 2, [cs.DIST_GNORM_RTOL] * 2,
+        cs.DIST_DELTA_RTOL, cs.MESH_GRAD_RTOL)
+    # step 0 keeps phase 4b's bounds, a later step takes twice the largest
+    # change over the steps, every leaf twice the largest leaf's change
+    large = dict(ref, loss=[10.0, 9.9], grad_norm=[3.0, 1.0],
+                 snapshot=[torch.ones(4) * 1.5, torch.ones(4)],
+                 grad0=[grad, grad * 1.1])
+    g = cs.measured_mesh_gate(ref, large)
+    assert g["loss"] == [cs.DIST_LOSS_RTOL, pytest.approx(0.2)]
+    assert g["grad_norm"] == [cs.DIST_GNORM_RTOL, 1.0]
+    assert g["delta"] == pytest.approx(1.0)
+    assert g["measured"]["delta"] == ["/w", pytest.approx(0.5)]
+    assert g["grad0"] == pytest.approx(0.2)
+    assert g["measured"]["grad0"] == ["/b", pytest.approx(0.1)]
+    # a measured gradient bound at MESH_GRAD_CAP could pass a dropped leaf
+    with pytest.raises(AssertionError, match="MESH_GRAD_CAP"):
+        cs.measured_mesh_gate(ref, dict(large, grad0=[grad, grad * 1.4]))
+
+
+def test_phase12_gradient_gate_sees_a_dropped_or_scrambled_leaf(cs):
+    """Step 0's gradients from the ranks' pieces at the bound phase 12
+    gives a leaf: a leaf of the right gradient passes, one the mesh
+    dropped (1.0 of one device's) or scrambled -- the right size in
+    another direction (about 1.41) -- fails under MESH_GRAD_CAP, and one
+    piece of a leaf sharded over the model axis left at zero (about
+    0.71) under MESH_GRAD_RTOL."""
+    torch = pytest.importorskip("torch")
+    gen = torch.Generator().manual_seed(0)
+    one = torch.randn(2, 1000, generator=gen)
+    coords = [{"data": r // 2, "model": r % 2} for r in range(4)]
+
+    def ranks(rows):         # the leaf sharded over model by rows
+        return [{"coords": c, "grad0": [(
+            (rows[c["model"]] - one[c["model"]]).square().sum().item(),
+            one[c["model"]].square().sum().item())]} for c in coords]
+    near = one * 1.02
+    rel = cs.delta_gate("ok", ["/w"], ranks(near), [("model",)],
+                        bound=cs.MESH_GRAD_RTOL, key="grad0")
+    assert rel["/w"] == pytest.approx(0.02)
+    scrambled = torch.randn(2, 1000, generator=gen)
+    for bad, bound in ((torch.zeros_like(one), cs.MESH_GRAD_CAP),
+                       (scrambled, cs.MESH_GRAD_CAP),
+                       (torch.stack([one[0], torch.zeros(1000)]),
+                        cs.MESH_GRAD_RTOL)):
+        with pytest.raises(AssertionError, match="step-0 gradient off"):
+            cs.delta_gate("bad", ["/w"], ranks(bad), [("model",)],
+                          bound=bound, key="grad0")
+
+
+def test_phase12_on_reduced_bf16_models_and_cpu_ranks(cs, monkeypatch):
+    """Phase 12 on the CPU before the card: reduced xlstm-125m (3
+    layers), hymba-1.5b and whisper-small in bf16, each one-device run and
+    then one spawn of four gloo ranks that trains the three in turn, held
+    by the phase's gates -- with the launch counts fed the card's (the
+    CPU runs the plain attention and the plain mLSTM, which count no
+    launches)."""
+    import dataclasses
+    import sys
+    import torch
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(ROOT))
+    for name in ("reset_peak_memory_stats", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    gate, launch_gate = cs.dist_gate, cs.mesh_launch_gate
+
+    def card_counts(what, ranks, ref, keys, specs, seq, model, **kw):
+        for r in ranks:
+            assert r["launches"] == 0
+            r["launches"] = kw["launches"]
+            r["q_offsets"] = (kw["offsets"](r["coords"]["model"])
+                              if kw["launches"] else [])
+        return gate(what, ranks, ref, keys, specs, seq, model, **kw)
+
+    def card_mlstm(what, ranks, want):
+        for r in ranks:
+            assert r["mlstm_launches"] == 0
+            r["mlstm_launches"] = want["mlstm_chunkwise"]
+            r["mlstm_heads"] = want["mlstm_heads"]
+        return launch_gate(what, ranks, want)
+    monkeypatch.setattr(cs, "dist_gate", card_counts)
+    monkeypatch.setattr(cs, "mesh_launch_gate", card_mlstm)
+
+    def small(arch, **kw):
+        return dataclasses.replace(reduce_for_smoke(get_model_config(arch)),
+                                   dtype="bfloat16", param_dtype="bfloat16",
+                                   **kw)
+    configs = {"xlstm-125m": (small("xlstm-125m", num_layers=3), 32),
+               "hymba-1.5b": (small("hymba-1.5b"), 48),
+               "whisper-small": (small("whisper-small"), 16)}
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = cs.phase_mesh(device="cpu", configs=configs)
+    finally:
+        torch.set_num_threads(n)
+    for arch, res in out["models"].items():
+        print(f"{arch}: worst update {res['worst_delta']}, loss "
+              f"{res['loss']} vs {res['ref_loss']}, grad norm "
+              f"{res['grad_norm']} vs {res['ref_grad_norm']}, gates "
+              f"{res['gates']}")
+        assert len(res["loss"]) == cs.MESH_STEPS
+        assert res["worst_grad0"][1] <= cs.MESH_GRAD_RTOL
+    assert "measured" in out["models"]["xlstm-125m"]["gates"]
+    kernels = [{"name": k} for k in ("fastattn_fwd", "flash_decode",
+                                     "mlstm_chunkwise")]
+    case = {"err": 1e-3, "ms": 0.2, "device_ms": 0.1, "plain_ms": 9.0,
+            "bound_ms": 0.05, "bound_by": "operations", "library_ms": None}
+    cs.add_mesh_entries(kernels, {"mlstm_chunkwise": {"mesh": case},
+                                  "fastattn_fwd": {
+                                      pre: case for pre in
+                                      cs.MESH_FWD_CASES}}, out)
+    k = {e["name"]: e for e in kernels}
+    assert k["flash_decode"] == {"name": "flash_decode"}
+    assert k["fastattn_fwd"]["mesh_cross_bound_by"] == "operations"
+    assert k["mlstm_chunkwise"]["mesh_launches"] == [
+        2 * 2 * cs.MESH_STEPS] * 4
+    assert set(k["fastattn_fwd"]["mesh_launches"]) == {"hymba-1.5b",
+                                                       "whisper-small"}
+    assert k["fastattn_fwd"]["mesh_device_ms"] == 0.1
+
+
+def test_phase12_runs_last_and_phase3e_pays_for_it(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_vl()") < main.index("phase_mesh()") < \
+        main.index('done("12")') < main.index("add_mesh_entries")
+    assert cs.TP_LAYERS == 16
+    assert "first_layers(model, params, TP_LAYERS)" in inspect.getsource(
+        cs.phase_tp)

@@ -48,6 +48,7 @@ from repro_torch.training.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.training.train_step import state_specs  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_mesh_pair import JaxMesh, check_ranks  # noqa: E402
 from _torch_train_ranks import (collectives_rank,  # noqa: E402
                                 remat_thread_rank, resume_rank, spawn,
                                 train_rank)
@@ -101,31 +102,8 @@ def _jax_run(arch: str, micro: int, uneven: bool, steps: int = STEPS):
 
 
 def _check_ranks(ranks, arch, par_kw, init, metrics, final, jstep_n):
-    """Every rank's metrics equal rank 0's and JAX's; the gathered final
-    params JAX's; the step counter; each rank's initial pieces the rule
-    table's slices of the whole for its coordinate."""
-    parallel = ParallelConfig(**par_kw)
-    model = build_model(t_reduce(t_get(arch)), "cpu", parallel)
-    specs = flatten(model.param_specs(make_mesh(parallel.mesh_shape(),
-                                                parallel.mesh_axes())),
-                    is_spec)
-    whole = tree.leaves(tree.tree_map(torch.from_numpy, init))
-    for r, res in enumerate(ranks):
-        assert res["metrics"] == ranks[0]["metrics"], r
-        assert res["step"] == jstep_n == STEPS
-        mesh = make_mesh(parallel.mesh_shape(), parallel.mesh_axes(), r)
-        assert res["coords"] == mesh.coords
-        for t, s, got in zip(whole, specs, tree.leaves(res["init"]),
-                             strict=True):
-            np.testing.assert_array_equal(got, shard_of(t, s, mesh).numpy())
-    for got, want in zip(ranks[0]["metrics"], metrics, strict=True):
-        for k in ("loss", "grad_norm", "lr"):
-            np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
-    paths = [p for p in ranks[0]["paths"] if p.startswith("/params/")]
-    want = tree.leaves_with_paths(final)
-    assert paths == [f"/params{p}" for p, _ in want]
-    for got, (path, w) in zip(ranks[0]["final"], want):
-        np.testing.assert_allclose(got, w.numpy(), err_msg=path, **TOL)
+    """``_torch_mesh_pair.check_ranks`` on the reduced ``arch`` as it is."""
+    check_ranks(ranks, arch, {}, par_kw, init, metrics, final, jstep_n)
 
 
 CASES = {
@@ -166,73 +144,14 @@ def test_mesh_training_matches_jax(case, tmp_path):
                  final, n)
 
 
-JAX_MESH_CHILD = r"""
-import json, sys
-import jax, jax.numpy as jnp, numpy as np
-from jax.sharding import Mesh
-from repro.config import (get_model_config, reduce_for_smoke,
-                          ParallelConfig, TrainConfig)
-from repro.models import build_model
-from repro.sharding.rules import axis_rules, param_sharding_tree
-from repro.training import optimizer as opt
-from repro.training.train_step import (TrainState, init_train_state,
-                                       make_train_step)
-batches_path, train, out_path = sys.argv[1:]
-batches = list(np.load(batches_path, allow_pickle=True))
-cfg = reduce_for_smoke(get_model_config("llama2-7b"))
-par = ParallelConfig(data=2, model=2, remat="none")
-mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-model = build_model(cfg, par)
-with axis_rules(mesh=mesh):
-    state = init_train_state(model, jax.random.PRNGKey(0))
-    sh = param_sharding_tree(model.logical(), mesh)
-    state = TrainState(params=jax.device_put(state.params, sh),
-                       opt=opt.AdamWState(step=state.opt.step,
-                                          mu=jax.device_put(state.opt.mu, sh),
-                                          nu=jax.device_put(state.opt.nu, sh)))
-    step = jax.jit(make_train_step(model, cfg, par,
-                                   TrainConfig(**json.loads(train))))
-    metrics = []
-    with mesh:
-        for b in batches:
-            state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
-            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm",
-                                                     "lr")})
-leaves = jax.tree_util.tree_flatten_with_path(state.params)[0]
-np.savez(out_path, **{jax.tree_util.keystr(p): np.asarray(v)
-                      for p, v in leaves})
-print(json.dumps({"metrics": metrics, "step": int(state.opt.step)}))
-"""
-
-
 def test_mesh_training_matches_jax_own_2x2_mesh(tmp_path):
     """The port's (2, 2) ranks against JAX's own (2, 2) mesh (GSPMD over
     four forced host devices, in a subprocess): the same steps."""
-    cfg = t_reduce(t_get("llama2-7b"))
     batches, init, *_ = _jax_run("llama2-7b", 1, False)
-    np.save(tmp_path / "batches.npy", np.array(batches, dtype=object),
-            allow_pickle=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu")
-    res = subprocess.run(
-        [sys.executable, "-c", JAX_MESH_CHILD, str(tmp_path / "batches.npy"),
-         json.dumps(TRAIN), str(tmp_path / "jax.npz")], env=env,
-        capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-3000:]
-    child = json.loads(res.stdout.strip().splitlines()[-1])
-    with np.load(tmp_path / "jax.npz") as z:
-        jparams = {}
-        for key in z.files:            # "['seg0']['u0']['attn']['wq']"
-            node = jparams
-            parts = [p.strip("'") for p in key.strip("[]").split("][")]
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = z[key]
-    final = params_from_jax(jparams, cfg, "cpu")
+    metrics, final, step = JaxMesh("llama2-7b", {}, batches,
+                                   tmp_path).result()
     _check_ranks(_port_run("llama-2x2", tmp_path), "llama2-7b",
-                 CASES["llama-2x2"][1], init, child["metrics"], final,
-                 child["step"])
+                 CASES["llama-2x2"][1], init, metrics, final, step)
 
 
 def _same_files(a, b, step) -> None:

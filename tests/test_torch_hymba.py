@@ -62,6 +62,9 @@ from repro_torch.training import tree  # noqa: E402
 from repro_torch.training.train_step import (TrainState,  # noqa: E402
                                              make_train_step)
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_train_ranks import apply_rank, spawn  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "hymba-1.5b"
 RTOL = 1e-5                     # float32, with atol RTOL x the scale
@@ -589,13 +592,22 @@ def test_paged_serving_refuses_hymba(pair):
         core.step()
 
 
-def test_model_axis_refuses_hymba():
-    """The Mamba heads' ``channels -> model`` layout is not ported: a
-    model axis above 1 raises; a data axis builds."""
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="channels -> model"):
-        build_model(tcfg, "cpu", ParallelConfig(model=2))
-    build_model(tcfg, "cpu", ParallelConfig(data=2))
+def test_model_axis_refuses_hymba(pair, tmp_path):
+    """The Mamba heads' ``channels -> model`` layout is ported (the name
+    is the test's from when it was not): the model builds at a model axis
+    of 2, and two gloo ranks' forward, each over its half of the
+    sequence and its half of the Mamba channels, gives JAX's logits."""
+    jcfg, jm, jp, tcfg, tp = pair
+    build_model(tcfg, "cpu", ParallelConfig(model=2))
+    tokens, _ = _tokens(jcfg.vocab_size)
+    want = np.asarray(jm.apply(jp, jnp.asarray(tokens)))
+    params = tree.tree_map(lambda t: t.numpy().copy(), tp)
+    ranks = spawn(apply_rank, 2, tmp_path, ARCH, {}, dict(model=2), params,
+                  {"tokens": tokens})
+    assert [r["coords"] for r in ranks] == [{"data": 0, "model": m}
+                                            for m in range(2)]
+    _close(np.concatenate([r["logits"] for r in ranks], axis=1), want,
+           rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------

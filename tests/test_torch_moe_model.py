@@ -206,8 +206,8 @@ def test_dense_generate_matches_jax(pair):
 def test_moe_parallel_plans_match_jax(pair):
     """tp 2 and 4 over moe blocks factor as JAX's ``plan_tp`` does (the
     experts run whole on every rank), and a model axis of 2 builds
-    (expert parallelism); the recurrent kinds still refuse a model
-    axis."""
+    (expert parallelism), as it does for the recurrent kinds (their
+    channels -> model)."""
     from repro.sharding.tp import plan_tp as j_plan_tp
     cfg = pair.tcfg
     for tp in (1, 2, 4):
@@ -217,9 +217,8 @@ def test_moe_parallel_plans_match_jax(pair):
     build_model(cfg, "cpu", parallel=ParallelConfig(model=2))
     build_model(cfg, "cpu", parallel=ParallelConfig(data=2, model=2))
     for arch in ("xlstm-125m", "hymba-1.5b"):
-        with pytest.raises(NotImplementedError, match="recurrent"):
-            build_model(t_reduce(t_get(arch)), "cpu",
-                        parallel=ParallelConfig(model=2))
+        build_model(t_reduce(t_get(arch)), "cpu",
+                    parallel=ParallelConfig(model=2))
 
 
 @pytest.mark.parametrize("mode,expect", [

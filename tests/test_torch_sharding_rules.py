@@ -37,7 +37,10 @@ ARCHS = ["llama2-7b", "gemma2-2b", "qwen2.5-32b", "stablelm-3b",
          "hymba-1.5b"]
 MESHES = {(1, 1): ("data", "model"), (2, 2): ("data", "model"),
           (4, 2): ("data", "model"), (2, 3): ("data", "model"),
-          (2, 16, 16): ("pod", "data", "model")}
+          (2, 16, 16): ("pod", "data", "model"),
+          # the recurrent cells' channels -> model at a model axis of 2
+          # and of 4 (reduced xlstm: DI splits four ways, its heads do not)
+          (1, 2): ("data", "model"), (1, 4): ("data", "model")}
 CACHE = (4, 64)                       # batch, max_seq of the cache trees
 
 CHILD = r"""

@@ -301,14 +301,16 @@ def test_train_cli_smoke(tmp_path):
     assert out.returncode == 0, out.stderr[-2000:]
     assert "done" in out.stdout and "step     5 loss" in out.stdout
     assert CheckpointManager(str(tmp_path)).latest_step() == 6
-    # the model axis over xlstm's recurrent cells is not ported
+    # the model axis over xlstm's recurrent cells (channels -> model):
+    # two ranks, each running its heads of the mLSTM and sLSTM cells
     xcmd = [c if c != "llama2-7b" else "xlstm-125m" for c in cmd[:-2]]
-    refused = subprocess.run(xcmd + ["--model-axis", "2", "--ckpt-dir",
-                                     str(tmp_path / "x")], env=env,
-                             capture_output=True, text=True, timeout=300)
-    assert refused.returncode != 0
-    assert "NotImplementedError" in refused.stderr
-    assert "channels -> model" in refused.stderr
+    xcmd[xcmd.index("--steps") + 1] = "2"
+    ran = subprocess.run(xcmd + ["--model-axis", "2", "--ckpt-dir",
+                                 str(tmp_path / "x")], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert ran.returncode == 0, ran.stderr[-2000:]
+    assert "2 ranks (data=1, model=2) over gloo" in ran.stdout
+    assert "done" in ran.stdout
 
 
 def test_configs_refuse_what_is_not_ported():
@@ -316,9 +318,8 @@ def test_configs_refuse_what_is_not_ported():
         ParallelConfig(pipeline_stages=2)
     with pytest.raises(NotImplementedError, match="grad_compression"):
         ParallelConfig(grad_compression="int8_ef")
-    with pytest.raises(NotImplementedError, match="channels -> model"):
-        build_model(t_reduce(t_get("xlstm-125m")), "cpu",
-                    ParallelConfig(model=2))
+    # the recurrent cells' channels -> model is ported
+    build_model(t_reduce(t_get("xlstm-125m")), "cpu", ParallelConfig(model=2))
     ParallelConfig(data=2, model=2)     # accepted: the trainer's mesh
     build_model(t_reduce(t_get("xlstm-125m")), "cpu", ParallelConfig(data=2))
     with pytest.raises(ValueError, match="remat"):

@@ -64,6 +64,9 @@ from repro_torch.training.train_step import (TrainState,  # noqa: E402
                                              init_train_state,
                                              make_train_step)
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_train_ranks import apply_rank, spawn  # noqa: E402
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH = "whisper-small"
 RTOL = 1e-5                     # float32, with atol RTOL x the scale
@@ -636,25 +639,30 @@ def test_engine_core_refuses_an_encdec(pair):
         engine.core
 
 
-def test_a_mesh_of_more_than_one_rank_is_refused(pair):
-    """JAX trains this model under GSPMD; the port raises and names it
-    when it applies, initialises or makes a train step under an active
-    mesh of 4 ranks.  One rank runs."""
+def test_a_mesh_of_more_than_one_rank_is_refused(pair, tmp_path):
+    """A mesh of more than one rank is ported (the name is the test's
+    from when it was refused): the model's specs are the rule table's on
+    a (2, 2) mesh, and two gloo ranks at a model axis of 2, each over its
+    half of the frames and of the tokens, give JAX's logits.  One rank
+    runs as before."""
     jcfg, jm, jp, tcfg, tp = pair
     model = _model(tcfg)
-    frames = torch.from_numpy(_frames(tcfg))
-    tokens = torch.from_numpy(_tokens(tcfg.vocab_size)[0])
-    mesh = make_mesh((2, 2), ("data", "model"), rank=1)
-    with axis_rules(mesh=mesh):
-        with pytest.raises(NotImplementedError, match="EncDec"):
-            model.apply(tp, frames, tokens)
-        with pytest.raises(NotImplementedError, match="EncDec"):
-            init_train_state(model, model.generator(0))
-        with pytest.raises(NotImplementedError, match="EncDec"):
-            make_train_step(model, tcfg, model.parallel, TrainConfig())
+    frames = _frames(tcfg)
+    tokens = _tokens(tcfg.vocab_size, s=16)[0]
+    specs = model.param_specs(make_mesh((2, 2), ("data", "model"), rank=1))
+    assert specs["embedding"]["embed"] == ("model",)
+    want = np.asarray(jm.apply(jp, jnp.asarray(frames), jnp.asarray(tokens)))
+    params = tree.tree_map(lambda t: t.numpy().copy(), tp)
+    ranks = spawn(apply_rank, 2, tmp_path, ARCH, {}, dict(model=2), params,
+                  {"enc_embeds": frames, "tokens": tokens})
+    assert [r["coords"] for r in ranks] == [{"data": 0, "model": m}
+                                            for m in range(2)]
+    _close(np.concatenate([r["logits"] for r in ranks], axis=1), want,
+           rtol=1e-4)
     with axis_rules(mesh=make_mesh((1, 1), ("data", "model"))):
-        assert model.apply(tp, frames, tokens).shape == (B, S,
-                                                         tcfg.vocab_size)
+        assert model.apply(tp, torch.from_numpy(frames),
+                           torch.from_numpy(tokens)).shape == (
+                               B, 16, tcfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
