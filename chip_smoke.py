@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one GPU: build, check, serve, train
-(on one device and on a (data, model) mesh), offload, xLSTM, head dims
-80 and 96, the mixture-of-experts block (served, trained,
-expert-parallel and at tp=2), the Mamba layer (hymba), the
-encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl), and
-the recurrent cells and the encoder-decoder trained on a (data, model)
-mesh.
+"""Smoke run of the PyTorch port on one GPU: build, check, serve, int8
+weights, train (on one device and on a (data, model) mesh), offload,
+xLSTM, head dims 80 and 96, the mixture-of-experts block (served,
+trained, expert-parallel and at tp=2), the Mamba layer (hymba), the
+encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl), the
+recurrent cells and the encoder-decoder trained on a (data, model)
+mesh, the int8 error-feedback all-reduce, GPipe, and the first roofline
+readings.
 
     python3 chip_smoke.py
 
@@ -159,6 +160,18 @@ which raises on failure (the script then exits non-zero):
    kernels take no head dim 16), three requests under each mode and an
    oversubscribed pool under swap.  The ring and reduce-scatter variants
    run only under NCCL (gloo has no CUDA send/recv or reduce-scatter).
+3f. Int8 weights (``phase_int8``), on phase 3's llama2-7b at full width
+   and depth after 3e: ``quant.int8.quantize_tree`` on the card in both
+   of the JAX tree's layouts (``scan_layers`` True: one scale a channel
+   for the 32 stacked layers, norm scales quantized; False: a layer's
+   own), dequantized to bf16; ``LM.apply`` on 2 x 512 tokens with the
+   bf16 weights and with each dequantized tree, ``fastattn_fwd`` exactly
+   32 launches a run.  Gates, JAX's own (``tests/test_quant.py``): the
+   logits' drift under 0.15 of the bf16 logits' scale, the greedy tokens
+   equal at every decisive position (top-1 margin over twice the largest
+   error), agreement over 0.8, and ``quantized_size_bytes`` under 0.6 of
+   the bf16 tree's; JAX's share of decisive positions (> 0.1) is read,
+   not gated: random weights at full width have too few (``INT8_*``).
 4. Training: with phase 3's model freed, the trainer's own functions
    (``init_train_state``, ``make_train_step``, ``TokenPipeline``,
    ``CheckpointManager``, as ``repro_torch.launch.train`` calls them) take
@@ -183,8 +196,10 @@ which raises on failure (the script then exits non-zero):
    unchanged unchanged); ``fastattn_fwd.cu`` 4 layers x 2 x 3 launches a
    rank, all at its q_offset (0, 1024); each rank's initial pieces phase
    4's slices for its coordinate, a sharded leaf half the whole; the
-   (2, 2) checkpoint, gathered whole and written by rank 0, the
-   one-rank save of the same gathered state file for file; restored at
+   (2, 2) checkpoint, gathered whole and written by rank 0, holding
+   file for file what a one-rank save of the state gathered again writes
+   (each array bit for bit, the manifest but for its time; read back
+   and compared, no second file written); restored at
    (1, 2), each rank's every leaf (params, AdamW's moments, step) its
    slice of that checkpoint and the next step's loss within 1e-3 of
    (2, 2)'s; and
@@ -383,6 +398,33 @@ which raises on failure (the script then exits non-zero):
    (2 + 2 + 2) x 2 x 2 at the rank's first frame, first token and 0
    (cross-attention) (``mesh_expected``).  Correctness only: gloo stages
    every collective through the host.
+13. The int8 error-feedback all-reduce and GPipe, after phase 12
+   (``phase_compress_pipeline``), as one spawn of four gloo ranks on the
+   card: (a) each rank's gradient of llama2-7b's first 2 layers at full
+   width (667 M parameters), bf16, on its own 1 x 2048 batch through the
+   train step (``first_step_grads``; ``fastattn_fwd`` 2 x 2 launches a
+   rank), then 3 rounds of ``training.compression.compressed_psum`` with
+   the residuals carried.  Gates: every rank's reduced tree the same
+   bits; in the last round each leaf within COMPRESS_ULPS ulps of its
+   scale of the same arithmetic in float64 on rank 0 from the int8
+   values and scales gathered to its host (the f32 sum of the four
+   scales rounds up to 3 times, the product once); each new residual
+   v - q * scale rounded once, exactly;
+   the payload's bytes an f32 all-reduce's.  Prints each leaf's error
+   against the plain f32 mean and the bytes a round.  (b) GPipe
+   (``training.pipeline.make_pipeline``): four stages of one llama2-7b
+   layer each (layers 0-3 of a seeded draw, full width, bf16; the
+   stage's weights by CUDA IPC) on 8 microbatches of 1 x 512 embedded
+   tokens, stage_fn ``apply_block``.  Gates: every rank's output the
+   same bits, held to the four layers applied one after another here
+   within the bf16 bound, ``fastattn_fwd`` exactly 11 launches a rank
+   (one layer x 11 ticks), 11 ring sends a rank, the bubble exactly 3/11.
+   Prints each rank's wall and point-to-point bytes.  Correctness only.
+   Then the first roofline readings: phase 4's MFU (``model_flops`` of 4
+   layers at 4 x 2048 over the median step and the bf16 peak) and phase
+   3c's decode step against ``analysis.roofline.roofline_terms`` of an
+   analytic cost (``model_flops`` + ``attention_flops``, 3c's bytes):
+   either share above 1.05 fails the run (a count is wrong).
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -416,7 +458,9 @@ phase 4b rank's launches; ``mlstm_chunkwise`` and ``fastattn_fwd`` also
 ``mesh_*``, phase 2's case at a phase 12 rank's shape (``MESH_MLSTM_CASE``,
 whisper's encoder), ``fastattn_fwd`` also ``mesh_hymba_*``, ``mesh_dec_*``
 and ``mesh_cross_*`` at its other shapes there (``MESH_FWD_CASES``), and
-``mesh_launches``, each rank's launches in phase 12); the last line is
+``mesh_launches``, each rank's launches in phase 12; ``fastattn_fwd``
+also ``int8_launches``, each run's launches in phase 3f, and
+``pipeline_launches``, each rank's in phase 13 (b)); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2118,7 +2162,7 @@ def phase_long_decode(model, params, kv_rms) -> dict:
            "flash_decode_share_of_device": fd_s / dev_s,
            "idle_share": 1 - dev_s * 1e3 / wall_ms,
            "bound_ms": step_bytes / H100_BYTES_PER_S * 1e3,
-           "card": _card()}
+           "step_bytes": step_bytes, "card": _card()}
     log(f"[long] {res['card']}: step {wall_ms:.2f} ms wall (median of 10; "
         f"plain attention path {plain_ms:.2f} ms), {res['device_ms']:.2f} "
         f"ms of kernels in one profiled step (idle share "
@@ -3034,6 +3078,139 @@ def phase_tp(model, params) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: int8 weights on llama2-7b
+# ---------------------------------------------------------------------------
+
+INT8_BATCH, INT8_SEQ = 2, 512
+# JAX's own rules for int8 weights (tests/test_quant.py): the logits'
+# drift, the greedy tokens equal at every decisive position (top-1
+# margin over twice the largest error), the greedy agreement, the size
+# against the unquantized tree.  Its fourth rule, more than 0.1 of the
+# positions decisive, is read and not gated: it holds at the smoke
+# width JAX tests (d_model 32, 256 tokens of vocabulary), not on random
+# weights at full width, where the top-1 margin among 32000 logits
+# averages ~0.22 of their spread and twice the largest error is ~0.7 of
+# it -- 0.6-4.2% of the positions were decisive on bf16 llama2-7b at
+# d_model 2048, 16 and 32 layers, on the CPU (ROADMAP Queue 3).
+INT8_DRIFT = 0.15
+INT8_AGREE = 0.8
+INT8_SIZE = 0.6
+
+
+def int8_gate(what, got, base, size_ratio: float) -> dict:
+    """JAX's rules for int8 weights on logits ``got`` against ``base``
+    (..., V): the drift under INT8_DRIFT of ``base``'s scale, the greedy
+    tokens equal at every decisive position (their share read), agreement
+    over INT8_AGREE, the size ratio under INT8_SIZE."""
+    import torch
+    got, base = got.float(), base.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    err = (got - base).abs().max().item()
+    drift = err / max(base.abs().max().item(), 1e-9)
+    agree = torch.argmax(got, -1) == torch.argmax(base, -1)
+    top2 = torch.topk(base, 2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * err
+    res = {"drift": drift, "max_abs_err": err,
+           "decisive": decisive.float().mean().item(),
+           "agree": agree.float().mean().item(),
+           "agree_where_decisive": bool(agree[decisive].all()),
+           "size_ratio": size_ratio}
+    log(f"{what}: drift {drift:.4f} of the logits' scale (bound "
+        f"{INT8_DRIFT}), greedy agreement {res['agree']:.3f} (> "
+        f"{INT8_AGREE}), equal at every decisive position "
+        f"{res['agree_where_decisive']} ({int(decisive.sum())} decisive, "
+        f"{res['decisive']:.3f} of the positions), size {size_ratio:.4f} "
+        f"of the bf16 tree (< {INT8_SIZE})")
+    if not (drift < INT8_DRIFT and res["agree_where_decisive"]
+            and res["agree"] > INT8_AGREE and size_ratio < INT8_SIZE):
+        raise AssertionError(f"{what}: int8 weights fail JAX's rules: "
+                             f"{res}")
+    return res
+
+
+def phase_int8(model, params) -> dict:
+    """Phase 3f: ``quantize_tree`` of phase 3's llama2-7b in both of the
+    JAX tree's layouts, dequantized to bf16, ``LM.apply`` on INT8_BATCH x
+    INT8_SEQ tokens (numpy seed 5) against the bf16 weights', each run
+    launching ``fastattn_fwd`` once a layer (none on the CPU: a
+    rehearsal runs the plain attention), held by ``int8_gate``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.quant.int8 import (dequantize_tree, quantize_tree,
+                                        quantized_size_bytes)
+    cfg, dev = model.cfg, model.device
+    gc.collect()                  # phase 3e's engines and pools
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = cfg.num_layers if dev.type == "cuda" else 0
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(INT8_BATCH, INT8_SEQ)).astype(np.int32)
+    ).to(dev)
+    full = sum(t.numel() * t.element_size() for t in _leaves(params))
+
+    def run(what, p):
+        fastattn_fwd.launches = 0
+        with torch.no_grad():
+            logits = model.apply(p, toks)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        if fastattn_fwd.launches != want:
+            raise AssertionError(f"[3f] {what}: fastattn_fwd launched "
+                                 f"{fastattn_fwd.launches} times, "
+                                 f"expected {want}")
+        return logits
+
+    base = run("bf16 weights", params)
+    out = {"batch": INT8_BATCH, "seq": INT8_SEQ, "launches": [want],
+           "bf16_bytes": full, "layouts": {}}
+    for scan in (True, False):
+        what = f"[3f] {cfg.name} int8, scan_layers={scan}"
+        t1 = time.perf_counter()
+        qp = quantize_tree(params, cfg, scan_layers=scan)
+        size = quantized_size_bytes(qp)
+        qts = _quantized(qp)
+        scales = {id(x.scale) for x in qts}
+        deq = dequantize_tree(qp, torch.bfloat16)
+        del qp
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t1
+        logits = run(what, deq)
+        del deq
+        res = int8_gate(what, logits, base, size / full)
+        res.update(bytes=size, scale_tensors=len(scales),
+                   quantized_leaves=len(qts), quantize_s=quant_s)
+        log(f"{what}: {len(qts)} leaves quantized, "
+            f"{len(scales)} scale tensors, {size / 1e9:.3f} GB; quantized "
+            f"and dequantized in {quant_s:.2f}s")
+        out["layouts"][str(scan)] = res
+        out["launches"].append(want)
+        del logits
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = _card() if dev.type == "cuda" else "cpu"
+    log(f"[3f] {out['card']}: both layouts within JAX's rules in "
+        f"{out['seconds']:.1f}s; fastattn_fwd {out['launches']} launches "
+        "(bf16, scan_layers True, False)")
+    log("[3f] " + json.dumps(out))
+    return out
+
+
+def _quantized(tree) -> list:
+    """The QuantizedTensor leaves of a quantized parameter tree."""
+    from repro_torch.quant.int8 import QuantizedTensor
+    if isinstance(tree, QuantizedTensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [x for t in tree for x in _quantized(t)]
+    return []
+
+
+# ---------------------------------------------------------------------------
 # phase 4: training llama2-7b at full width
 # ---------------------------------------------------------------------------
 
@@ -3316,27 +3493,47 @@ def bits_key(t) -> tuple:
     return (int(w.sum()), int((w * idx).sum()))
 
 
-def same_checkpoint(dir_a: str, dir_b: str, step: int) -> list:
-    """The files of step ``step`` that differ between two checkpoint
-    directories (every array file byte for byte, the manifests but for
-    their write time); [] when they are the same."""
-    a = os.path.join(dir_a, f"step_{step:08d}")
-    b = os.path.join(dir_b, f"step_{step:08d}")
-    names = sorted(os.listdir(a))
-    bad = [n for n in sorted(set(names) ^ set(os.listdir(b)))]
-    for n in names:
-        if n not in os.listdir(b):
-            continue
-        with open(os.path.join(a, n), "rb") as fa, \
-                open(os.path.join(b, n), "rb") as fb:
-            da, db = fa.read(), fb.read()
-        if n == "manifest.json":
-            ma, mb = json.loads(da), json.loads(db)
-            ma.pop("time"), mb.pop("time")
-            if ma != mb:
-                bad.append(n)
-        elif da != db:
-            bad.append(n)
+def read_checkpoint(ckpt_dir: str, step: int, layouts: dict,
+                    on_card: bool) -> dict:
+    """One read of a checkpoint's step ``step``: its file names, its
+    manifest, and for each layout (name -> (meshes, specs), one mesh a
+    rank) every rank's fingerprints (``bits_key``) of its slice of each
+    saved leaf, taken on the card where there is one."""
+    from repro_torch.sharding.rules import shard_of
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    keys = {name: [[] for _ in meshes]
+            for name, (meshes, _) in layouts.items()}
+    for i, (_, t) in enumerate(checkpoint_leaves(ckpt_dir, step)):
+        t = t.cuda() if on_card else t
+        for name, (meshes, specs) in layouts.items():
+            for r, mesh in enumerate(meshes):
+                keys[name][r].append(bits_key(shard_of(t, specs[i], mesh)))
+        del t
+    return {"files": sorted(os.listdir(d)), "manifest": manifest,
+            "keys": keys}
+
+
+def checkpoint_differs(read: dict, ranks: list, layout: str) -> list:
+    """What of a checkpoint (``read_checkpoint``) differs from what a
+    one-rank save of the ranks' state gathered whole writes, the ranks
+    having saved it at ``layout``: a file missing or extra, the manifest
+    but for its write time (``ckpt_manifest``, each rank's whole-leaf
+    paths, dtypes and shapes and its extras), and each leaf whose slice
+    for some rank is not that rank's piece bit for bit (``final_keys``);
+    [] when nothing does."""
+    want = ranks[0]["ckpt_manifest"]
+    names = [f"arr_{i}.npy" for i in range(want["n_leaves"])]
+    bad = sorted(set(read["files"]) ^ set(names + ["manifest.json"]))
+    got = {k: v for k, v in read["manifest"].items() if k != "time"}
+    if got != want:
+        bad.append("manifest.json")
+    for r, res in enumerate(ranks):
+        for i, (a, b) in enumerate(zip(read["keys"][layout][r],
+                                       res["final_keys"], strict=True)):
+            if a != b and want["leaves"][i]["path"] not in bad:
+                bad.append(want["leaves"][i]["path"])
     return bad
 
 
@@ -3370,10 +3567,10 @@ def _dist_job(rank: int, mesh, cfg, mesh_kw: dict, run: dict) -> dict:
     squared norms on this rank's piece of the one-device update and of
     the updates' difference (``delta_gate``), and with "grad0" the same
     of step 0's gradients (``first_step_grads``); given a ckpt_dir, a
-    checkpoint of the final state (and, on rank 0, the same gathered
-    state saved on one rank, compared file for file), then one more
-    step.  "resume": that checkpoint restored into this rank's pieces
-    and the one more step.  The rank runs on its CUDA device (on the CPU
+    checkpoint of the final state, each piece's fingerprint and the
+    manifest a one-rank save of the whole writes (``checkpoint_differs``
+    holds the files to them), then one more step.  "resume": that
+    checkpoint restored into this rank's pieces and the one more step.  The rank runs on its CUDA device (on the CPU
     only where there is none: a rehearsal of the phase's host code, on
     one thread a rank)."""
     import torch
@@ -3386,10 +3583,11 @@ def _dist_job(rank: int, mesh, cfg, mesh_kw: dict, run: dict) -> dict:
     from repro_torch.launch.train import to_device
     from repro_torch.models import build_model
     from repro_torch.sharding import collectives as C
-    from repro_torch.sharding.rules import (axis_rules, flatten, is_spec,
-                                            shard_of)
+    from repro_torch.sharding.rules import (axis_rules, entry_axes, flatten,
+                                            is_spec, shard_of)
     from repro_torch.training import tree
-    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.checkpoint import (CheckpointManager,
+                                                 _dtype_name)
     from repro_torch.training.train_step import (init_train_state,
                                                  make_train_step,
                                                  state_specs)
@@ -3524,26 +3722,32 @@ def _dist_job(rank: int, mesh, cfg, mesh_kw: dict, run: dict) -> dict:
         if ckpt_dir is None:
             return out
         if run["mode"] == "train":
+            # gathered whole now, written to disk beside the next step
             t1 = time.perf_counter()
             mgr.save(run["dist_steps"], state,
-                     extras={"data": data.state()})
+                     extras={"data": data.state()}, async_=True)
             out["save_s"] = time.perf_counter() - t1
-            t1 = time.perf_counter()
-            host = mgr.gather_host(state)
-            if host is not None:
-                one_rank = os.path.join(ckpt_dir, "one_rank")
-                CheckpointManager(one_rank).save(
-                    run["dist_steps"],
-                    tree.unflatten(state, [t for _, t in host]),
-                    extras={"data": data.state()})
-                del host
-                out["ckpt_differs"] = same_checkpoint(
-                    ckpt_dir, one_rank, run["dist_steps"])
-                out["ckpt_files"] = len(os.listdir(os.path.join(
-                    one_rank, f"step_{run['dist_steps']:08d}")))
-            out["ckpt_check_s"] = time.perf_counter() - t1
+            # what a one-rank save of the state gathered whole writes,
+            # without gathering it again: each piece's fingerprint, and
+            # the manifest of the whole leaves
+            sspecs = flatten(state_specs(pspecs), is_spec)
+            out["final_keys"] = [bits_key(t) for t in tree.leaves(state)]
+            out["ckpt_manifest"] = {
+                "step": run["dist_steps"], "n_leaves": len(sspecs),
+                "leaves": [{"path": path, "dtype": _dtype_name(t),
+                            "shape": [n * (mesh.size(entry_axes(sp[d]))
+                                           if d < len(sp) else 1)
+                                      for d, n in enumerate(t.shape)]}
+                           for (path, t), sp in zip(
+                               tree.leaves_with_paths(state), sspecs,
+                               strict=True)],
+                "extras": {"data": data.state()}}
         state, metrics = step_fn(state, to_device(data.next(), dev))
         out["next_loss"] = float(metrics["loss"])
+        if run["mode"] == "train":
+            t1 = time.perf_counter()
+            mgr.wait()                    # on disk for every rank
+            out["write_wait_s"] = time.perf_counter() - t1
     finally:
         ops.fastattn_fwd, mops.mlstm_chunkwise_fwd = kernel, mkernel
     return out
@@ -3614,8 +3818,9 @@ def dist_gate(what, ranks: list, ref: dict, keys: list, specs: list,
                 f"against one device's {l1} / {g1} / {lr1} (rtol "
                 f"{lt} / {gt}, lr exact)")
     if checkpoint and (first["ckpt_differs"] or not first["ckpt_files"]):
-        raise AssertionError(f"{what}: the checkpoint differs from the "
-                             f"one-rank save in {first['ckpt_differs']}")
+        raise AssertionError(f"{what}: the checkpoint differs from what "
+                             "a one-rank save writes in "
+                             f"{first['ckpt_differs']}")
 
 
 def leaf_grad_norms(model, cfg, params, batch) -> list:
@@ -3776,6 +3981,7 @@ def phase_dist_training(trained: dict, cfg=None, run: dict = None,
     from repro_torch.launch.mesh import train_backend
     from repro_torch.models import build_model
     from repro_torch.sharding.rules import flatten, is_spec, shard_of
+    from repro_torch.training.train_step import state_specs
 
     ref = trained["reference"]
     run = run or dict(remat="selective", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -3812,7 +4018,7 @@ def phase_dist_training(trained: dict, cfg=None, run: dict = None,
     backend = train_backend(kind, world)[0]
     out = {"backend": backend, "mesh": DIST_MESH}
 
-    def spawn(tmp, name, n, mesh_kw, **kw):
+    def spawn(name, n, mesh_kw, **kw):
         backend, dev_of = train_backend(kind, n)
         devs = [dev_of(r) for r in range(n)]
         log(f"{tag} {name}: {n} ranks over {backend} on {devs}")
@@ -3824,12 +4030,32 @@ def phase_dist_training(trained: dict, cfg=None, run: dict = None,
             torch.cuda.ipc_collect()  # the ranks' handles on our tensors
         return res
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as stack:
         ckpt = os.path.join(tmp, "ckpt") if run["checkpoint"] else None
-        ranks = spawn(tmp, "(2,2)", world, DIST_MESH, mode="train",
+        # the launcher needs nothing of this run: it starts with it
+        launcher = stack.enter_context(_launcher(tmp, on_card)) if ckpt \
+            else None
+        ranks = spawn("(2,2)", world, DIST_MESH, mode="train",
                       ckpt_dir=ckpt, snapshot=snapshot)
         del snapshot
         what = f"{tag} {cfg.name} (data=2, model=2)"
+        if ckpt:
+            # one read of the checkpoint: held to the ranks' pieces at
+            # (2, 2), and each (1, 2) rank's slices for the restore
+            t1 = time.perf_counter()
+            par12 = ParallelConfig(data=1, model=2)
+            meshes12 = [make_mesh(par12.mesh_shape(), par12.mesh_axes(), r)
+                        for r in range(2)]
+            read = read_checkpoint(ckpt, steps, {
+                "(2,2)": (meshes, flatten(state_specs(meta.param_specs(
+                    meshes[0])), is_spec)),
+                "(1,2)": (meshes12, flatten(state_specs(meta.param_specs(
+                    meshes12[0])), is_spec))}, on_card)
+            ranks[0].update(
+                ckpt_differs=checkpoint_differs(read, ranks, "(2,2)"),
+                ckpt_files=len(read["files"]),
+                ckpt_check_s=time.perf_counter() - t1)
         dist_gate(what, ranks, ref, keys, specs, run["seq"],
                   parallel.model, layers=run["layers"], steps=steps,
                   experts=experts, checkpoint=run["checkpoint"])
@@ -3892,8 +4118,8 @@ def phase_dist_training(trained: dict, cfg=None, run: dict = None,
                 "(rows summed in f32), mesh {mesh:.5f}".format(**embed_gn))
             out.update(leaf_gnorm_step0=gn, embed_gnorm_step0=embed_gn)
         if ckpt:
-            out.update(_dist_resume(tmp, tag, spawn, meta, first, ckpt,
-                                    steps, on_card))
+            out.update(_dist_resume(tag, spawn, first, ckpt,
+                                    read["keys"]["(1,2)"], launcher))
     out["seconds"] = time.perf_counter() - t0
     out["card"] = _card() if on_card else "cpu"
     log(f"{tag} {out['card']}: all gates passed in {out['seconds']:.1f}s "
@@ -3902,19 +4128,12 @@ def phase_dist_training(trained: dict, cfg=None, run: dict = None,
     return out
 
 
-def _dist_resume(tmp, tag, spawn, meta, first, ckpt, steps,
-                 on_card) -> dict:
-    """Phase 4b's checkpoint part: the (2, 2) checkpoint restored at
-    (data=1, model=2) for the next step (``resume_gate``), beside the
-    launcher at --data 2 --model-axis 2, as a user runs it."""
-    from repro_torch.config import ParallelConfig
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.sharding.rules import flatten, is_spec, shard_of
-    from repro_torch.training.train_step import state_specs
-    log(f"{tag} checkpoint of {first['ckpt_files']} files equals the "
-        f"one-rank save; saved in {first['save_s']:.1f}s, checked in "
-        f"{first['ckpt_check_s']:.1f}s")
-    t1 = time.perf_counter()
+@contextlib.contextmanager
+def _launcher(tmp: str, on_card: bool):
+    """``python -m repro_torch.launch.train`` at --data 2 --model-axis 2
+    (``LAUNCHER``), as a user runs it, started now and run beside what
+    follows; yields (process, stdout file, stderr file, start time) and
+    kills the process if it is still running at the end."""
     cmd = [sys.executable] + LAUNCHER + ["--ckpt-dir",
                                          os.path.join(tmp, "cli")]
     if not on_card:
@@ -3924,35 +4143,40 @@ def _dist_resume(tmp, tag, spawn, meta, first, ckpt, steps,
             open(os.path.join(tmp, "cli.err"), "w+") as fe:
         cli = subprocess.Popen(cmd, env=env, stdout=fo, stderr=fe)
         try:
-            resumed = spawn(tmp, "(1,2)", 2, dict(data=1, model=2),
-                            mode="resume", ckpt_dir=ckpt, snapshot=None,
-                            leaf_gnorm=False)
-            rc = cli.wait(timeout=DIST_DEADLINE_S)
+            yield cli, fo, fe, time.perf_counter()
         finally:
             if cli.poll() is None:
                 cli.kill()
                 cli.wait()
-        cli_s = time.perf_counter() - t1
-        fo.seek(0)
-        fe.seek(0)
-        cli_out, cli_err = fo.read(), fe.read()
+
+
+def _dist_resume(tag, spawn, first, ckpt, keys12, launcher) -> dict:
+    """Phase 4b's checkpoint part: the (2, 2) checkpoint restored at
+    (data=1, model=2) for the next step, each rank's leaves held to its
+    slices of the saved ones (``keys12``, ``resume_gate``); and the
+    launcher at --data 2 --model-axis 2, which ran beside the phase
+    (``_launcher``), ending cleanly."""
+    log(f"{tag} checkpoint of {first['ckpt_files']} files holds what a "
+        f"one-rank save of the gathered state writes (each rank's "
+        f"pieces, the manifest); gathered in {first['save_s']:.1f}s and "
+        f"written beside the next step ({first['write_wait_s']:.1f}s "
+        f"waited after it), read back and checked in "
+        f"{first['ckpt_check_s']:.1f}s")
+    t1 = time.perf_counter()
+    resumed = spawn("(1,2)", 2, dict(data=1, model=2), mode="resume",
+                    ckpt_dir=ckpt, snapshot=None, leaf_gnorm=False)
+    resume_s = time.perf_counter() - t1
+    cli, fo, fe, cli_t0 = launcher
+    rc = cli.wait(timeout=DIST_DEADLINE_S)
+    cli_s = time.perf_counter() - cli_t0
+    fo.seek(0)
+    fe.seek(0)
+    cli_out, cli_err = fo.read(), fe.read()
     for line in cli_out.splitlines():
         log(f"{tag} launcher: {line}")
     if rc != 0 or "done" not in cli_out:
         raise AssertionError(f"{tag} launcher failed ({rc}):\n"
                              f"{cli_err[-3000:]}")
-    # each (1, 2) rank's slices of every saved leaf, fingerprinted
-    par12 = ParallelConfig(data=1, model=2)
-    meshes12 = [make_mesh(par12.mesh_shape(), par12.mesh_axes(), r)
-                for r in range(2)]
-    specs12 = flatten(state_specs(meta.param_specs(meshes12[0])), is_spec)
-    keys12 = [[] for _ in meshes12]
-    for (_, t), s in zip(checkpoint_leaves(ckpt, steps), specs12,
-                         strict=True):
-        t = t.cuda() if on_card else t
-        for r, mesh in enumerate(meshes12):
-            keys12[r].append(bits_key(shard_of(t, s, mesh)))
-        del t
     nxt = [r["next_loss"] for r in resumed]
     base = first["next_loss"]
     log(f"{tag} next step after the checkpoint: (2,2) {base:.6f}, "
@@ -3961,7 +4185,8 @@ def _dist_resume(tmp, tag, spawn, meta, first, ckpt, steps,
     log(f"{tag} restored at (1,2): each rank's {len(keys12[0])} leaves "
         "(params, moments, step) are its slices of the checkpoint")
     return {"next_loss": base, "resumed_next_loss": nxt,
-            "save_s": first["save_s"], "launcher_s": cli_s}
+            "save_s": first["save_s"], "resume_s": resume_s,
+            "launcher_s": cli_s}
 
 
 # ---------------------------------------------------------------------------
@@ -7155,6 +7380,452 @@ def phase_mesh(device: str = "cuda", configs: dict = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the int8 error-feedback all-reduce and GPipe, on gloo ranks
+# ---------------------------------------------------------------------------
+
+COMPRESS_LAYERS = 2           # (a): llama2-7b's first 2 layers, full width
+COMPRESS_SEQ = 2048           # (a): each rank's own 1 x 2048 batch
+COMPRESS_ROUNDS = 3
+PIPE_STAGES = 4               # (b): one llama2-7b layer a stage
+PIPE_MICRO, PIPE_SEQ = 8, 512  # (b): 8 microbatches of 1 x 512
+# (a): a reduced leaf against the same arithmetic in float64, in ulps of
+# the leaf's scale: one for each rounding the f32 arithmetic makes --
+# up to 3 in the sum of the four ranks' scales (gloo's order), one in
+# the product (the int32 sum and the division by 4 are exact)
+COMPRESS_ULPS = 4.0
+PIPE_WORLD = 4
+
+
+def _gather_rank0(t, group) -> list:
+    """Every rank's ``t`` on rank 0's host, in rank order (None on the
+    other ranks); gloo gathers CPU tensors, NCCL CUDA ones."""
+    import torch
+    import torch.distributed as dist
+    src = t.cpu() if dist.get_backend(group) == "gloo" else t
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    parts = [torch.empty_like(src) for _ in range(world)] if rank == 0 \
+        else None
+    dist.gather(src, parts, dst=0, group=group)
+    return [p.cpu() for p in parts] if rank == 0 else None
+
+
+def _compress_job(rank: int, cfg, seq: int, dev) -> dict:
+    """Phase 13 (a) on this rank: the gradient of ``cfg`` on its own
+    1 x ``seq`` batch through the train step, then COMPRESS_ROUNDS rounds
+    of ``compressed_psum`` over the world with the residuals carried,
+    each checked leaf by leaf."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.config import ParallelConfig, TrainConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import build_model
+    from repro_torch.sharding import collectives as C
+    from repro_torch.training import tree
+    from repro_torch.training.compression import (compressed_psum,
+                                                  init_residuals,
+                                                  quantize_int8)
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    group, world = dist.group.WORLD, dist.get_world_size()
+    t0 = time.perf_counter()
+    parallel = ParallelConfig(remat="selective")    # as launch/train.py
+    model = build_model(cfg, dev, parallel)
+    state = init_train_state(model, model.generator(0))
+    out = {"paths": [p for p, _ in tree.leaves_with_paths(state.params)]}
+    step_fn = make_train_step(model, cfg, parallel, TrainConfig(
+        learning_rate=3e-4, warmup_steps=1, total_steps=1))
+    batch = to_device(TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=world,
+        host_count=world, host_index=rank)).next(), dev)
+    grads: list = []
+    fastattn_fwd.launches = 0
+    with first_step_grads(grads):
+        state, metrics = step_fn(state, batch)
+    synchronize(dev)
+    out.update(launches=fastattn_fwd.launches, loss=float(metrics["loss"]),
+               numel=sum(g.numel() for g in grads),
+               grad_s=time.perf_counter() - t0)
+    del state, step_fn, model, batch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # the plain f32 mean (kept on the host), and an f32 all-reduce's bytes
+    C.COUNTS.update({k: 0 for k in C.COUNTS})
+    t0 = time.perf_counter()
+    mean = [(C.all_reduce(g.float(), group) / world).cpu() for g in grads]
+    out.update(f32_bytes=C.COUNTS["bytes"], mean_s=time.perf_counter() - t0)
+    residuals = init_residuals(grads)
+    out["rounds"] = []
+    for i in range(COMPRESS_ROUNDS):
+        # the float64 check of the last round, which carries the earlier
+        # rounds' residuals (every rank's int8 values gathered: 2 GB)
+        last = i == COMPRESS_ROUNDS - 1
+        C.COUNTS.update({k: 0 for k in C.COUNTS})
+        synchronize(dev)
+        t0 = time.perf_counter()
+        red, new_res = compressed_psum(grads, residuals, group)
+        synchronize(dev)
+        rnd = {"wall_s": time.perf_counter() - t0,
+               "counts": dict(C.COUNTS), "keys": [], "residual_exact": [],
+               "mean_err": [], "ulps": []}
+        t0 = time.perf_counter()
+        for j, g in enumerate(grads):
+            # each leaf's old residual and reduction freed once read
+            v = g.float() + residuals[j]
+            residuals[j] = None
+            q, scale = quantize_int8(v)
+            # v - q * scale: exact in float64, rounded once to f32
+            r = torch.addcmul(v.double(), q.double(), scale.double(),
+                              value=-1).float()
+            rnd["residual_exact"].append(bool(torch.equal(r, new_res[j])))
+            del v, r
+            rnd["keys"].append(bits_key(red[j]))
+            m = mean[j].to(dev)
+            rnd["mean_err"].append(((red[j] - m).abs().max() / m.abs().max(
+            ).clamp_min(1e-30)).item())
+            del m
+            if last:
+                qs = _gather_rank0(q, group)
+                ss = _gather_rank0(scale.reshape(1), group)
+            if last and rank == 0:
+                # the same arithmetic in float64 from every rank's values,
+                # on the card (the host's cores, which the four ranks
+                # share, would take each round's 667 M elements slowly)
+                qsum = sum(x.to(dev, torch.int32) for x in qs).double()
+                ssum = sum(float(x.double()) for x in ss) / world
+                ref = qsum * ssum / world
+                top = ref.abs().max().item()
+                ulp = float(np.spacing(np.float32(top))) if top else 1.0
+                rnd["ulps"].append((red[j].double() - ref).abs().max().item()
+                                   / ulp)
+                del qsum, ref, qs
+            del q
+            red[j] = None
+        rnd["check_s"] = time.perf_counter() - t0
+        residuals = new_res
+        out["rounds"].append(rnd)
+    return out
+
+
+def _pipeline_job(rank: int, cfg, stages: list, x_micro) -> dict:
+    """Phase 13 (b) on this rank: stage ``rank`` (``stages[rank]``, one
+    block of ``cfg``) of the GPipe forward of ``x_micro`` over the
+    world."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.fastattn.ops import fastattn_fwd
+    from repro_torch.models.blocks import apply_block
+    from repro_torch.sharding import collectives as C
+    from repro_torch.training.pipeline import make_pipeline
+    b, s = x_micro.shape[1:3]
+    pos = torch.arange(s, device=x_micro.device).expand(b, s)
+
+    def stage_fn(p, h):
+        return apply_block(p, h, cfg, "attn", positions=pos)
+    C.COUNTS.update({k: 0 for k in C.COUNTS})
+    fastattn_fwd.launches = 0
+    synchronize(x_micro.device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y = make_pipeline(stage_fn, group=dist.group.WORLD)(
+            stages[rank], x_micro)
+    synchronize(x_micro.device)
+    out = {"wall_s": time.perf_counter() - t0,
+           "launches": fastattn_fwd.launches, "counts": dict(C.COUNTS),
+           "key": bits_key(y),
+           "carry_bytes": x_micro[0].numel() * x_micro.element_size()}
+    if rank == 0:
+        out["out"] = y.cpu()
+    return out
+
+
+def _compress_pipeline_rank(rank: int, cfg_a, cfg_b, stages: list,
+                            x_micro, seq: int) -> dict:
+    """One rank of phase 13: (a) then, its memory freed, (b)."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() else torch.device("cpu"))
+    if dev.type == "cpu":
+        torch.set_num_threads(1)        # a rehearsal: ranks share the cores
+    out = {"rank": rank, "device": str(dev),
+           "backend": str(dist.get_backend())}
+    t0 = time.perf_counter()
+    out["compress"] = _compress_job(rank, cfg_a, seq, dev)
+    out["compress"]["job_s"] = time.perf_counter() - t0
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["pipeline"] = _pipeline_job(rank, cfg_b, stages, x_micro)
+    return out
+
+
+def compress_gate(what, ranks: list, launches: int) -> dict:
+    """Phase 13 (a)'s gates: every rank's reduced tree the same bits each
+    round, every residual exact, the payload an f32 all-reduce's bytes,
+    rank 0's float64 check of the last round within COMPRESS_ULPS, the
+    train step's launches.  Returns the readings."""
+    first = ranks[0]["compress"]
+    n_leaves = len(first["paths"])
+    out = {"rounds": [], "f32_bytes": first["f32_bytes"],
+           "numel": first["numel"], "launches": []}
+    for r, res in enumerate(ranks):
+        c = res["compress"]
+        out["launches"].append(c["launches"])
+        if c["launches"] != launches:
+            raise AssertionError(f"{what}: rank {r}'s train step launched "
+                                 f"fastattn_fwd {c['launches']} times, "
+                                 f"expected {launches}")
+    for i, rnd in enumerate(first["rounds"]):
+        for r, res in enumerate(ranks):
+            other = res["compress"]["rounds"][i]
+            if other["keys"] != rnd["keys"]:
+                bad = [p for p, a, b in zip(first["paths"], rnd["keys"],
+                                            other["keys"]) if a != b]
+                raise AssertionError(f"{what}: round {i}: rank {r}'s "
+                                     f"reduction differs from rank 0's in "
+                                     f"{bad}")
+            if not all(other["residual_exact"]):
+                bad = [p for p, ok in zip(first["paths"],
+                                          other["residual_exact"]) if not ok]
+                raise AssertionError(f"{what}: round {i}: rank {r}'s new "
+                                     f"residuals are not v - q * scale in "
+                                     f"{bad}")
+            counts = other["counts"]
+            payload = counts["bytes"] - 4 * n_leaves
+            if counts["all_reduce"] != 2 * n_leaves or \
+                    payload != first["f32_bytes"]:
+                raise AssertionError(f"{what}: round {i}: rank {r}'s "
+                                     f"collectives {counts}, an f32 "
+                                     f"all-reduce {first['f32_bytes']} B")
+        read = {"bytes": rnd["counts"]["bytes"],
+                "wall_s": [res["compress"]["rounds"][i]["wall_s"]
+                           for res in ranks],
+                "mean_err": dict(zip(first["paths"], rnd["mean_err"]))}
+        f64 = ""
+        if i == len(first["rounds"]) - 1:
+            if len(rnd["ulps"]) != n_leaves:
+                raise AssertionError(f"{what}: the last round's float64 "
+                                     f"check read {len(rnd['ulps'])} of "
+                                     f"{n_leaves} leaves")
+            worst = max(range(n_leaves), key=lambda j: rnd["ulps"][j])
+            if rnd["ulps"][worst] > COMPRESS_ULPS:
+                raise AssertionError(
+                    f"{what}: round {i}: {first['paths'][worst]} is "
+                    f"{rnd['ulps'][worst]:.2f} ulps of its scale from the "
+                    f"float64 arithmetic (bound {COMPRESS_ULPS})")
+            read["worst_ulps"] = [first["paths"][worst], rnd["ulps"][worst]]
+            f64 = (f"; worst leaf {first['paths'][worst]} "
+                   f"{rnd['ulps'][worst]:.3f} ulps of its scale from float64 "
+                   f"(bound {COMPRESS_ULPS})")
+        out["rounds"].append(read)
+        log(f"{what}: round {i}: every rank's reduction the same bits, "
+            f"residuals exact{f64}; {rnd['counts']['bytes'] / 1e9:.4f} "
+            f"GB all-reduced a rank ({first['f32_bytes'] / 1e9:.4f} GB as "
+            f"f32: int32 payload, +4 B of scale a leaf); wall "
+            f"{[round(x, 3) for x in read['wall_s']]} s")
+        log(f"{what}: round {i}: each leaf's max error against the plain "
+            "f32 mean, of its scale: " + json.dumps(
+                {p: round(e, 5) for p, e in zip(first["paths"],
+                                                rnd["mean_err"])}))
+    return out
+
+
+def pipeline_gate(what, ranks: list, ref, launches: int) -> dict:
+    """Phase 13 (b)'s gates: every rank's output the same bits and held
+    to ``ref`` (the stages applied in sequence) within the bf16 bound,
+    the launches and ring sends of every tick, the bubble 3/11.  Returns
+    the readings."""
+    from repro_torch.training.pipeline import bubble_fraction
+    n = len(ranks)
+    ticks = PIPE_MICRO + n - 1
+    out = ranks[0]["pipeline"]["out"]
+    for r, res in enumerate(ranks):
+        p = res["pipeline"]
+        if p["key"] != ranks[0]["pipeline"]["key"]:
+            raise AssertionError(f"{what}: rank {r}'s output differs from "
+                                 "rank 0's")
+        c = p["counts"]
+        if p["launches"] != launches or c["ppermute"] != ticks or \
+                c["all_reduce"] != 1 or c["bytes"] != \
+                ticks * p["carry_bytes"] + out.numel() * out.element_size():
+            raise AssertionError(
+                f"{what}: rank {r}: fastattn_fwd {p['launches']} launches "
+                f"(expected {launches}), collectives {c} (expected "
+                f"{ticks} ring sends of {p['carry_bytes']} B and one "
+                "all-reduce of the output)")
+    flat = out.shape[-1]
+    err, rel = held_to_plain("13b", "GPipe's output against the stages in "
+                             "sequence", out.reshape(-1, flat),
+                             ref.reshape(-1, flat).to(out.device),
+                             "bfloat16", unbounded=True)
+    bubble = bubble_fraction(n, PIPE_MICRO)
+    if bubble != 3 / 11:
+        raise AssertionError(f"{what}: bubble {bubble}, not 3/11")
+    res = {"ticks": ticks, "bubble": bubble, "max_abs_err": err,
+           "max_rel_err": rel,
+           "launches": [r["pipeline"]["launches"] for r in ranks],
+           "wall_s": [r["pipeline"]["wall_s"] for r in ranks],
+           "p2p_bytes": [r["pipeline"]["counts"]["ppermute"]
+                         * r["pipeline"]["carry_bytes"] for r in ranks]}
+    for r, rr in enumerate(ranks):
+        log(f"{what}: rank {r} on {rr['device']} ({rr['backend']}): wall "
+            f"{res['wall_s'][r]:.3f} s, fastattn_fwd {res['launches'][r]} "
+            f"launches, {ticks} ring sends, {res['p2p_bytes'][r] / 1e6:.2f} "
+            "MB point to point")
+    log(f"{what}: bubble {bubble:.6f} (3/11 at 4 stages, 8 microbatches)")
+    return res
+
+
+def phase_compress_pipeline(device: str = "cuda", cfg_a=None, cfg_b=None,
+                            seq: int = COMPRESS_SEQ,
+                            pipe_seq: int = PIPE_SEQ) -> dict:
+    """Phase 13: (a) the int8 error-feedback all-reduce of llama2-7b's
+    first COMPRESS_LAYERS layers' gradients (``cfg_a``) and (b) GPipe over
+    PIPE_STAGES of its layers (``cfg_b``), one spawn of PIPE_WORLD ranks
+    (gloo sharing the card; NCCL with a GPU a rank where there are as
+    many), held by ``compress_gate`` and ``pipeline_gate``.  ``cfg_a``,
+    ``cfg_b``, ``seq``, ``pipe_seq``: a rehearsal on the CPU at a reduced
+    size.  Correctness only: gloo stages every collective through the
+    host."""
+    import numpy as np
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.launch.mesh import spawn_ranks, train_backend
+    from repro_torch.layers.embedding import embed_tokens
+    from repro_torch.models import build_model
+    from repro_torch.models.blocks import apply_block
+
+    t0 = time.perf_counter()
+    kind = torch.device(device)
+    on_card = kind.type == "cuda"
+    llama = get_model_config("llama2-7b")
+    cfg_a = cfg_a or dataclasses.replace(llama, num_layers=COMPRESS_LAYERS)
+    cfg_b = cfg_b or dataclasses.replace(llama, num_layers=PIPE_STAGES)
+    world = PIPE_WORLD
+    # (b)'s stages and inputs: a seeded draw's layers 0-3, the embedded
+    # tokens of 8 microbatches, and the layers applied in sequence here
+    model = build_model(cfg_b, kind)
+    params = model.init(model.generator(0))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg_b.vocab_size, size=(PIPE_MICRO, 1, pipe_seq)).astype(
+        np.int32)).to(kind)
+    pos = torch.arange(pipe_seq, device=kind).expand(1, pipe_seq)
+    with torch.no_grad():
+        x = embed_tokens(params["embedding"], toks, cfg_b)
+        ref = []
+        for m in range(PIPE_MICRO):
+            h = x[m]
+            for layer in params["layers"]:
+                h = apply_block(layer, h, cfg_b, "attn", positions=pos)
+            ref.append(h)
+        ref = torch.stack(ref)
+    stages = params["layers"]
+    del params, model
+    backend, dev_of = train_backend(kind, world)
+    log(f"[13] one spawn of {world} ranks over {backend} on "
+        f"{[dev_of(r) for r in range(world)]}: (a) {cfg_a.name}'s first "
+        f"{cfg_a.num_layers} layers' gradients, {COMPRESS_ROUNDS} rounds of "
+        f"compressed_psum; (b) {cfg_b.num_layers} stages of one layer, "
+        f"{PIPE_MICRO} microbatches of 1 x {pipe_seq}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = spawn_ranks(
+            _compress_pipeline_rank, world,
+            args=(cfg_a, cfg_b, stages, x, seq), device_of_rank=dev_of,
+            backend=backend, init_method=f"file://{tmp}/pg-13",
+            timeout_s=DIST_DEADLINE_S, init_timeout_s=DIST_INIT_TIMEOUT_S)
+    del stages, x
+    if on_card:
+        torch.cuda.ipc_collect()      # the ranks' handles on (b)'s tensors
+    spawn_s = time.perf_counter() - t0
+    remat = 2                         # remat "selective" runs as "full"
+    out = {"backend": backend, "spawn_s": spawn_s,
+           "compress": compress_gate(
+               "[13a] compressed_psum", ranks,
+               cfg_a.num_layers * remat if on_card else 0),
+           "pipeline": pipeline_gate(
+               "[13b] GPipe", ranks, ref,
+               PIPE_MICRO + world - 1 if on_card else 0)}
+    for k in ("job_s", "grad_s", "mean_s"):
+        out["compress"][k] = [r["compress"][k] for r in ranks]
+    out["compress"]["check_s"] = [[rnd["check_s"] for rnd in
+                                   r["compress"]["rounds"]] for r in ranks]
+    log(f"[13a] a rank's time: {out['compress']['job_s'][0]:.1f}s, of "
+        f"which the gradient {out['compress']['grad_s'][0]:.1f}s, the f32 "
+        f"all-reduce {out['compress']['mean_s'][0]:.1f}s, the checks "
+        f"{[round(x, 1) for x in out['compress']['check_s'][0]]} s a round")
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = _card() if on_card else "cpu"
+    log(f"[13] {out['card']}: all gates passed in {out['seconds']:.1f}s "
+        f"({GLOO_NOTE if backend == 'gloo' else 'nccl, one GPU a rank'})")
+    log("[13] " + json.dumps(out))
+    return out
+
+
+def roofline_readings(trained: dict, long_step: dict) -> dict:
+    """The first roofline readings: phase 4's MFU (``model_flops`` of its
+    layers and batches over its median step and the bf16 peak) and phase
+    3c's decode step against ``roofline_terms`` of an analytic cost
+    (``model_flops`` + ``attention_flops`` as the FLOPs, 3c's byte
+    count), each share of its bound; a share above 1.05 means a count is
+    wrong, and fails."""
+    from repro_torch.analysis.flops import attention_flops, model_flops
+    from repro_torch.analysis.roofline import (PEAK_FLOPS, Cost, lever,
+                                               roofline_terms)
+    from repro_torch.config import ShapeConfig, get_model_config
+    llama = get_model_config("llama2-7b")
+    cfg4 = dataclasses.replace(llama, num_layers=trained["layers"])
+    train = ShapeConfig("phase4", trained["seq"], trained["batch"], "train")
+    mf = model_flops(cfg4, train)
+    mfu = mf / (trained["steady_step_s"] * PEAK_FLOPS)
+    dec = ShapeConfig("phase3c", long_step["kv_len"], 1, "decode")
+    terms = roofline_terms(Cost(flops=model_flops(llama, dec)
+                                + attention_flops(llama, dec),
+                                bytes=long_step["step_bytes"]),
+                           cfg=llama, shape=dec, n_devices=1)
+    bound_s = max(terms[k] for k in ("compute_s", "memory_s",
+                                     "collective_s"))
+    out = {"mfu": mfu, "train_model_flops": mf,
+           "train_step_s": trained["steady_step_s"],
+           "decode_terms": terms, "decode_bound_ms": bound_s * 1e3,
+           "decode_share_device": bound_s * 1e3 / long_step["device_ms"],
+           "decode_share_wall": bound_s * 1e3 / long_step["wall_ms"],
+           "lever": lever(terms)}
+    log(f"[roofline] phase 4: {mf / 1e12:.2f} TFLOP of model FLOPs a step "
+        f"({cfg4.num_layers} layers, {trained['batch']} x "
+        f"{trained['seq']}) in {trained['steady_step_s'] * 1e3:.1f} ms: "
+        f"MFU {mfu:.4f} of {PEAK_FLOPS / 1e12:.0f} TFLOP/s")
+    log(f"[roofline] phase 3c: bound {out['decode_bound_ms']:.3f} ms "
+        f"({terms['dominant']}; compute {terms['compute_s'] * 1e3:.4f} ms, "
+        f"memory {terms['memory_s'] * 1e3:.3f} ms), the step's share of "
+        f"it {out['decode_share_device']:.3f} of its device time "
+        f"({long_step['device_ms']:.2f} ms), "
+        f"{out['decode_share_wall']:.3f} of its wall "
+        f"({long_step['wall_ms']:.2f} ms); {out['lever']}")
+    if not (0 < mfu <= 1.05 and 0 < out["decode_share_device"] <= 1.05):
+        raise AssertionError(f"[roofline] a share above 1.05: MFU {mfu}, "
+                             f"decode {out['decode_share_device']}")
+    log("[roofline] " + json.dumps(out))
+    return out
+
+
+def add_int8_pipeline_entries(kernels: list, int8: dict,
+                              compress: dict) -> None:
+    """``fastattn_fwd``'s entry of the kernels line also with its
+    launches in phase 3f (each run: bf16, scan_layers True, False) and
+    on each rank of phase 13 (b)."""
+    k = next(k for k in kernels if k["name"] == "fastattn_fwd")
+    k.update(int8_launches=int8["launches"],
+             pipeline_launches=compress["pipeline"]["launches"])
+
+
 def add_mesh_entries(kernels: list, cases: dict, run: dict) -> None:
     """``mlstm_chunkwise``'s and ``fastattn_fwd``'s entries of the
     kernels line also at each (2, 2) rank's shape of phase 12 (``cases``:
@@ -7363,6 +8034,8 @@ def main() -> int:
     done("3d")
     tp = phase_tp(model, params)
     done("3e")
+    int8 = phase_int8(model, params)
+    done("3f")
     del model, params
     gc.collect()                  # phase 3's model, pools and engines
     torch.cuda.ipc_collect()      # what phase 3e's ranks held by IPC
@@ -7410,6 +8083,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh = phase_mesh()
     done("12")
+    gc.collect()                  # phase 12's models
+    torch.cuda.empty_cache()
+    compress = phase_compress_pipeline()
+    done("13")
+    roofline_readings(trained, long_step)
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
                 "mlstm_chunkwise": xlstm["launches"]}
@@ -7474,6 +8152,7 @@ def main() -> int:
     add_whisper_entries(line["kernels"], kern["whisper"], whisper)
     add_vl_entries(line["kernels"], kern["vl"], vl)
     add_mesh_entries(line["kernels"], kern["mesh"], mesh)
+    add_int8_pipeline_entries(line["kernels"], int8, compress)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s on "
         f"{_card()}")
     print(json.dumps(line))

@@ -1,1 +1,2 @@
-"""Analytic models of the port (parameter counts)."""
+"""Analytic models of the port: parameter and FLOP counts, and the
+H100 roofline."""

@@ -1,13 +1,19 @@
-"""Analytic parameter model: the port's own copy of the JAX package's
-``analysis/flops.py`` ``_block_params`` / ``param_count``, formula for
-formula (``tests/test_torch_offload.py`` holds the two equal).  The
-offload planner (``core/offload.py``) reads it.  The FLOP models of that
-module (``model_flops``, ``attention_flops``) are not copied: nothing in
-the port calls them.
+"""Analytic parameter / FLOP models: the port's own copy of the JAX
+package's ``analysis/flops.py``, formula for formula
+(``tests/test_torch_offload.py`` holds them equal).  The offload
+planner (``core/offload.py``) reads ``param_count``; the roofline
+(``analysis/roofline.py``) and ``chip_smoke.py``'s MFU read
+``model_flops`` and ``attention_flops``.
+
+MODEL_FLOPS follows the assignment convention:
+  train:   6 * N * D          (N = params w/o embeddings, D = tokens)
+  prefill: 2 * N * D          (forward only)
+  decode:  2 * N * D          (D = batch * new tokens)
+For MoE, N counts only *active* parameters (shared + top-k experts).
 """
 from __future__ import annotations
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 
 
 def _block_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
@@ -72,3 +78,46 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
                                + 2 * cfg.d_model * cfg.kv_dim)
     n += cfg.d_model                              # final norm
     return n
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS per the assignment formula (useful-compute yardstick)."""
+    n_active = param_count(cfg, active_only=True)
+    n_embed = cfg.vocab_size * cfg.d_model
+    n_body = n_active - n_embed * (1 if cfg.tie_embeddings else 2)
+    if shape.kind == "train":
+        tokens = shape.seq_len * shape.global_batch
+        return 6.0 * n_body * tokens
+    if shape.kind == "prefill":
+        tokens = shape.seq_len * shape.global_batch
+        return 2.0 * n_body * tokens
+    # decode: one new token per sequence
+    tokens = shape.global_batch * shape.gen_tokens
+    return 2.0 * n_body * tokens
+
+
+def attention_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """Exact-attention matmul FLOPs (QK^T + PV), forward pass, all layers.
+
+    Causal halves the score matrix; sliding-window blocks cap the KV extent.
+    """
+    b = shape.global_batch
+    s = shape.seq_len
+    total = 0.0
+    for kind in cfg.blocks():
+        if kind in ("mlstm", "slstm"):
+            continue
+        w = cfg.window_size if kind.endswith("local") and cfg.window_size \
+            else None
+        if shape.kind == "decode":
+            kvlen = min(w, s) if w else s
+            per_q = 2 * 2 * kvlen * cfg.head_dim       # QK^T + PV, q_len=1
+            total += b * cfg.num_heads * per_q
+        else:
+            if w and w < s:
+                pairs = s * w - w * (w - 1) // 2 if cfg.causal else s * w * 2
+            else:
+                pairs = s * (s + 1) // 2 if cfg.causal else s * s
+            total += b * cfg.num_heads * 2 * 2 * pairs * cfg.head_dim
+    mult = 3.0 if shape.kind == "train" else 1.0       # fwd+bwd
+    return total * mult

@@ -130,9 +130,12 @@ class ParallelConfig:
     ``first_chunk_frac`` (serving's tiling-AllReduce reads
     ``ServeConfig.tp_*``), ``seq_shard_activations`` and ``pcie_gbps``;
     ``scan_layers`` shapes only the JAX parameter tree (the port keeps a
-    list of layers either way).  Raised as NotImplementedError, since no
-    port path serves them: ``grad_compression="int8_ef"``,
-    ``pipeline_stages > 1`` and ``offload_kv=True``.
+    list of layers either way; ``quant.int8.quantize_tree`` takes it).
+    Raised as NotImplementedError, since no port path serves them:
+    ``grad_compression="int8_ef"`` and ``pipeline_stages > 1`` (no train
+    path reads them in either package; their functions are
+    ``training/compression.py`` and ``training/pipeline.py``) and
+    ``offload_kv=True``.
     """
     # Mesh shape.  pods * data * model == number of ranks.
     pods: int = 1
@@ -156,7 +159,7 @@ class ParallelConfig:
     # keeps the matmul outputs, which torch's checkpoint cannot select).
     remat: str = "selective"
     scan_layers: bool = True            # the JAX tree's layout only
-    grad_compression: str = "none"      # none (int8_ef is not ported)
+    grad_compression: str = "none"      # none (no train path reads int8_ef)
     microbatches: int = 1               # gradient accumulation steps
     seq_shard_activations: bool = True  # read by neither package
 
@@ -168,7 +171,7 @@ class ParallelConfig:
     device_memory_gb: float = 80.0      # one H100 SXM's HBM3
     pcie_gbps: float = 64.0             # PCIe Gen5 x16, each direction
 
-    # pipeline parallelism over the pod axis (not ported: must be 1)
+    # pipeline parallelism over the pod axis (no train path: must be 1)
     pipeline_stages: int = 1
 
     def __post_init__(self):
@@ -180,12 +183,15 @@ class ParallelConfig:
             raise ValueError(f"unknown remat {self.remat!r}")
         if self.grad_compression != "none":
             raise NotImplementedError(
-                f"grad_compression={self.grad_compression!r}: the int8 "
-                "error-feedback all-reduce is not ported yet")
+                f"grad_compression={self.grad_compression!r}: no train "
+                "path reads the field, in either package; the int8 "
+                "error-feedback all-reduce is "
+                "training/compression.compressed_psum")
         if self.pipeline_stages != 1:
             raise NotImplementedError(
-                f"pipeline_stages={self.pipeline_stages}: pipeline "
-                "parallelism is not ported yet")
+                f"pipeline_stages={self.pipeline_stages}: no train path "
+                "reads the field, in either package; the GPipe forward "
+                "is training/pipeline.make_pipeline")
         if self.offload_kv:
             raise NotImplementedError(
                 "offload_kv: no decode path reads host KV yet; drive "

@@ -1,18 +1,25 @@
 """Token data pipeline: deterministic synthetic stream or memmapped file,
-sharded per host.
+sharded per host, with background prefetch.
 
 A copy of the JAX package's ``data/pipeline.py`` (the port imports
-nothing of that package) without its prefetching iterator, which no
-caller uses.  It uses numpy only, so for the same
+nothing of that package).  It uses numpy only, so for the same
 ``DataConfig`` both packages give bit-identical batches.  Synthetic mode
 generates a fixed-seed Zipf-ish token stream so loss curves are
 reproducible across restarts (the stream position is part of the
 checkpoint extras, giving exact resume).
+
+The prefetching iterator differs from JAX's on purpose: JAX's worker
+advances the stream and drops the batch it built whenever the queue
+stays full for 0.5 s, so a slow consumer skips steps, and ``state()``
+reads the producer's position.  Here the worker keeps a batch until it
+is queued, and ``state()`` is the position after the last batch yielded.
 """
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -26,6 +33,7 @@ class DataConfig:
     host_index: int = 0
     seed: int = 1234
     path: Optional[str] = None       # memmap .bin (uint16) if set
+    prefetch: int = 2                # batches the iterator builds ahead
 
 
 class TokenPipeline:
@@ -55,13 +63,55 @@ class TokenPipeline:
         z = rng.zipf(1.3, size=(self.local_batch, cfg.seq_len + 1))
         return (z % cfg.vocab_size).astype(np.int32)
 
-    def next(self) -> dict:
-        arr = self._batch_at(self.step)
-        self.step += 1
+    def _example(self, step: int) -> dict:
+        arr = self._batch_at(step)
         return {"tokens": arr[:, :-1], "labels": arr[:, 1:]}
+
+    def next(self) -> dict:
+        batch = self._example(self.step)
+        self.step += 1
+        return batch
 
     def state(self) -> dict:
         return {"step": self.step}
 
     def restore(self, state: dict):
         self.step = int(state["step"])
+
+    # -- prefetching iterator -------------------------------------------
+    def __iter__(self) -> Iterator[dict]:
+        """``next()``'s batches from the current step on, built ahead by
+        a worker thread (at most ``cfg.prefetch`` waiting).  Closing the
+        generator stops the worker; an error in the worker is raised
+        here."""
+        q: queue.Queue = queue.Queue(maxsize=self.cfg.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> None:          # until queued or stopped
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return
+                except queue.Full:
+                    continue
+
+        def worker(step: int):
+            try:
+                while not stop.is_set():
+                    put((step, self._example(step)))
+                    step += 1
+            except Exception as e:      # handed to the consumer
+                put((None, e))
+
+        t = threading.Thread(target=worker, args=(self.step,), daemon=True)
+        t.start()
+        try:
+            while True:
+                step, batch = q.get()
+                if step is None:
+                    raise batch
+                self.step = step + 1
+                yield batch
+        finally:
+            stop.set()
+            t.join()

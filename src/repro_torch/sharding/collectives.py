@@ -9,12 +9,14 @@ block (``models/lm.py``), K/V along the sequence in context-parallel
 attention (``layers/attention.py``) and a MoE block's input under
 expert parallelism (``models/blocks.py``) through it.  ``scatter`` is
 its transpose: reduce-scatter forward, all-gather backward (the expert
-shards' partial outputs summed back to each rank's rows).
+shards' partial outputs summed back to each rank's rows).  ``ppermute``
+is JAX's ``lax.ppermute`` (GPipe's ring, ``training/pipeline.py``).
 
 gloo runs ``all_gather_into_tensor`` and ``reduce_scatter_tensor`` on
 CPU tensors (``tests/test_torch_dist_train.py``) and on CUDA tensors
 (``chip_smoke.py`` phase 4b), NCCL on CUDA tensors; a backend that does
-not raises.
+not raises.  gloo's point-to-point calls take CPU tensors only, so
+``ppermute`` stages a CUDA tensor through a host copy there.
 
 ``COUNTS`` tallies the collectives issued here and the bytes of their
 inputs.
@@ -27,7 +29,7 @@ import torch.distributed as dist
 from repro_torch.sharding.rules import entry_axes
 
 COUNTS = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
-          "bytes": 0}
+          "ppermute": 0, "bytes": 0}
 
 
 def group_size(group) -> int:
@@ -45,6 +47,32 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
         _count("all_reduce", t)
         dist.all_reduce(t, group=group)
     return t
+
+
+def ppermute(x: torch.Tensor, perm, group) -> torch.Tensor:
+    """JAX's ``lax.ppermute`` over ``group``: ``perm`` lists (source,
+    destination) pairs of group ranks; this rank sends ``x`` to its
+    destination and returns what its source sent (zeros where no pair
+    sends to it).  The sends and receives are posted together
+    (``batch_isend_irecv``), so a ring cannot deadlock.  Counts the bytes
+    this rank sends."""
+    if group_size(group) == 1:
+        return x.clone() if (0, 0) in perm else torch.zeros_like(x)
+    me = dist.get_rank(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    host = x.is_cuda and dist.get_backend(group) == "gloo"
+    send = x.detach().to("cpu") if host else x.detach().contiguous()
+    recv = torch.zeros_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, d),
+                      group) for d in dst]
+    ops += [dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, s),
+                       group) for s in src]
+    if dst:
+        _count("ppermute", x)
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+    return recv.to(x.device) if host else recv
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -1,1 +1,2 @@
-"""Training: AdamW, the train step, checkpointing, fault-tolerance hooks."""
+"""Training: AdamW, the train step, checkpointing, fault tolerance and
+elastic planning, the int8 error-feedback all-reduce, GPipe."""

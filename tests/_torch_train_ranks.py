@@ -355,3 +355,57 @@ def apply_rank(rank: int, arch: str, cfg_kw: dict, par_kw: dict,
         else:
             logits = model.apply(pieces, mb["tokens"])
     return {"coords": mesh.coords, "logits": logits.numpy()}
+
+
+def compression_rank(rank: int, rounds: list) -> list:
+    """``training.compression.compressed_psum`` over the world, one call a
+    round with the residuals carried (error feedback): ``rounds[i]`` is
+    every rank's gradient tree of round i (numpy), this rank taking its
+    own.  Returns each round's reduced tree, new residuals and the
+    collectives' counts."""
+    import torch.distributed as dist
+    from repro_torch.sharding import collectives as C
+    from repro_torch.training.compression import (compressed_psum,
+                                                  init_residuals)
+    torch.set_num_threads(1)
+    out, res = [], None
+    for grads in rounds:
+        g = tree.tree_map(torch.from_numpy, grads[rank])
+        res = init_residuals(g) if res is None else res
+        C.COUNTS.update({k: 0 for k in C.COUNTS})
+        red, res = compressed_psum(g, res, dist.group.WORLD)
+        out.append({"reduced": _np(red), "residuals": _np(res),
+                    "counts": dict(C.COUNTS)})
+    return out
+
+
+def pipeline_rank(rank: int, case: str, stages: list, x) -> dict:
+    """``training.pipeline.make_pipeline`` over the world, this rank
+    stage ``rank``: ``case`` "tanh" -- ``stages[rank]`` a (d, d) weight,
+    stage_fn tanh(x @ w); "llama" -- ``stages[rank]`` one block of the
+    smoke llama2-7b (the port's tree, numpy), stage_fn ``apply_block``.
+    ``x``: (n_micro, mb, ...) numpy.  Returns the output and the
+    collectives' counts."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.models.blocks import apply_block
+    from repro_torch.sharding import collectives as C
+    from repro_torch.training.pipeline import make_pipeline
+    torch.set_num_threads(1)
+    if case == "tanh":
+        def stage_fn(w, h):
+            return torch.tanh(h @ w)
+    else:
+        cfg = dataclasses.replace(reduce_for_smoke(
+            get_model_config("llama2-7b")), num_layers=len(stages))
+        pos = torch.arange(x.shape[2]).expand(x.shape[1], x.shape[2])
+
+        def stage_fn(p, h):
+            return apply_block(p, h, cfg, "attn", positions=pos)
+    params = tree.tree_map(torch.from_numpy, stages[rank])
+    C.COUNTS.update({k: 0 for k in C.COUNTS})
+    with torch.no_grad():
+        y = make_pipeline(stage_fn, group=dist.group.WORLD)(
+            params, torch.from_numpy(x))
+    return {"out": y.numpy(), "counts": dict(C.COUNTS)}

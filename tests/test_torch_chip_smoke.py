@@ -640,18 +640,52 @@ def test_delta_gate_holds_each_leaf_update(cs):
 
 
 def test_same_checkpoint_and_bits_key(cs, tmp_path):
+    """Phase 4b holds the (2, 2) checkpoint to what a one-rank save of
+    the gathered state writes without gathering or writing it again:
+    one read of the files, each rank's slice of each leaf against its
+    piece's fingerprint, the manifest against the ranks' -- a flipped
+    bit in a piece, other extras, a missing or an extra file each fail."""
     torch = pytest.importorskip("torch")
-    import json
-    for name, t in (("a", 1.0), ("b", 2.0)):
-        d = tmp_path / name / "step_00000003"
-        d.mkdir(parents=True)
-        (d / "arr_0.npy").write_bytes(b"\x00\x01\x02")
-        (d / "manifest.json").write_text(json.dumps({"step": 3,
-                                                     "time": t}))
-    assert cs.same_checkpoint(tmp_path / "a", tmp_path / "b", 3) == []
-    (tmp_path / "b" / "step_00000003" / "arr_0.npy").write_bytes(b"\x00\x01")
-    assert cs.same_checkpoint(tmp_path / "a", tmp_path / "b", 3) == \
-        ["arr_0.npy"]
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import tree
+    from repro_torch.training.checkpoint import CheckpointManager
+    state = {"a": torch.randn(4, 6).to(torch.bfloat16),
+             "b": torch.arange(6, dtype=torch.int32),
+             "c": torch.tensor([[0.0, 1.5], [-0.0, 2.0]]).t(),
+             "step": torch.tensor(3, dtype=torch.int32)}
+    extras = {"data": {"step": 3}}
+    CheckpointManager(str(tmp_path)).save(3, state, extras=extras)
+    # two ranks holding rows of "a" and "b" (model axis), the rest whole
+    meshes = [make_mesh((2,), ("model",), r) for r in range(2)]
+    specs = [("model", None), ("model",), (), ()]
+    read = cs.read_checkpoint(str(tmp_path), 3, {"(2,)": (meshes, specs)},
+                              False)
+    assert read["files"] == ["arr_0.npy", "arr_1.npy", "arr_2.npy",
+                             "arr_3.npy", "manifest.json"]
+    leaves = tree.leaves_with_paths(state)
+    manifest = {"step": 3, "n_leaves": 4, "extras": extras, "leaves": [
+        {"path": p, "dtype": str(t.dtype).replace("torch.", ""),
+         "shape": list(t.shape)} for p, t in leaves]}
+
+    def ranks(**change):
+        out = []
+        for r in range(2):
+            pieces = [t.chunk(2)[r] if s else t
+                      for (_, t), s in zip(leaves, specs)]
+            if r == 1 and "flip" in change:
+                pieces[2] = pieces[2].clone()
+                pieces[2][0, 1] = 0.0             # -0.0 -> 0.0: one bit
+            out.append({"final_keys": [cs.bits_key(t) for t in pieces],
+                        "ckpt_manifest": change.get("manifest", manifest)})
+        return out
+    assert cs.checkpoint_differs(read, ranks(), "(2,)") == []
+    assert cs.checkpoint_differs(read, ranks(flip=True), "(2,)") == ["/c"]
+    other = dict(manifest, extras={"data": {"step": 4}})
+    assert cs.checkpoint_differs(read, ranks(manifest=other), "(2,)") == \
+        ["manifest.json"]
+    read["files"] = read["files"][1:] + ["arr_9.npy"]
+    assert cs.checkpoint_differs(read, ranks(), "(2,)") == \
+        ["arr_0.npy", "arr_9.npy"]
     x = torch.randn(64).to(torch.bfloat16)
     assert cs.bits_key(x) == cs.bits_key(x.clone())
     assert cs.bits_key(x) != cs.bits_key(x.flip(0))
@@ -2215,3 +2249,158 @@ def test_phase12_runs_last_and_phase3e_pays_for_it(cs):
     assert cs.TP_LAYERS == 16
     assert "first_layers(model, params, TP_LAYERS)" in inspect.getsource(
         cs.phase_tp)
+
+
+def _smoke_llama(**kw):
+    import dataclasses
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    return dataclasses.replace(reduce_for_smoke(get_model_config(
+        "llama2-7b")), dtype="bfloat16", param_dtype="bfloat16", **kw)
+
+
+def test_phase3f_on_a_reduced_bf16_llama(cs):
+    """Phase 3f on the CPU before the card: both layouts of a reduced
+    bf16 llama2-7b within JAX's rules, no launch on the plain path, and
+    the stacked layout's shared scales counted once."""
+    torch = pytest.importorskip("torch")
+    from repro_torch.models import build_model
+    model = build_model(_smoke_llama(), "cpu")
+    params = model.init(model.generator(0))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = cs.phase_int8(model, params)
+    finally:
+        torch.set_num_threads(n)
+    assert out["launches"] == [0, 0, 0]
+    stacked, own = out["layouts"]["True"], out["layouts"]["False"]
+    # scan_layers=True: the 2 layers' 9 leaves (norm scales too) share
+    # one scale each, beside the embed's and the head's
+    assert stacked["scale_tensors"] == 9 + 2
+    assert own["scale_tensors"] == own["quantized_leaves"] == 2 * 7 + 2
+    for res in (stacked, own):
+        assert 0.45 < res["size_ratio"] < cs.INT8_SIZE
+        assert res["agree"] > cs.INT8_AGREE and res["agree_where_decisive"]
+
+
+def test_int8_gate_rejects_faked_failures(cs):
+    torch = pytest.importorskip("torch")
+    gen = torch.Generator().manual_seed(0)
+    base = torch.randn(4, 8, 256, generator=gen)
+    assert cs.int8_gate("ok", base + 1e-3, base, 0.5)["agree"] == 1.0
+    for got, size, match in ((base * 1.3, 0.5, "fail"),
+                             (base.flip(-1), 0.5, "fail"),
+                             (base, 0.7, "fail"),
+                             (base * float("nan"), 0.5, "non-finite")):
+        with pytest.raises(AssertionError, match=match):
+            cs.int8_gate("bad", got, base, size)
+
+
+def test_phase13_on_reduced_bf16_llama_and_cpu_ranks(cs, monkeypatch):
+    """Phase 13 on the CPU before the card: four gloo ranks take a
+    reduced bf16 llama2-7b's gradients through the train step and three
+    rounds of compressed_psum, then GPipe over four of its blocks, held
+    by the phase's gates (no launch on the plain path)."""
+    import sys
+    torch = pytest.importorskip("torch")
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(ROOT))
+    out = cs.phase_compress_pipeline(
+        device="cpu", cfg_a=_smoke_llama(num_layers=2),
+        cfg_b=_smoke_llama(num_layers=cs.PIPE_STAGES), seq=32, pipe_seq=16)
+    c, p = out["compress"], out["pipeline"]
+    assert len(c["rounds"]) == cs.COMPRESS_ROUNDS
+    assert c["rounds"][-1]["worst_ulps"][1] <= cs.COMPRESS_ULPS
+    for rnd in c["rounds"]:
+        assert rnd["bytes"] - 4 * len(rnd["mean_err"]) == c["f32_bytes"]
+    assert c["launches"] == [0] * cs.PIPE_WORLD
+    assert p["launches"] == [0] * cs.PIPE_WORLD and p["ticks"] == 11
+    assert p["bubble"] == 3 / 11
+    del torch
+
+
+def test_phase13_gates_reject_faked_failures(cs):
+    torch = pytest.importorskip("torch")
+
+    def ranks(**bad):
+        rnd = {"keys": [(1, 2), (3, 4)], "residual_exact": [True, True],
+               "counts": {"all_reduce": 4, "bytes": 8 + 80},
+               "ulps": [0.5, 1.0], "mean_err": [0.01, 0.02],
+               "wall_s": 0.1}
+        out = []
+        for r in range(4):
+            c = {"paths": ["/a", "/b"], "f32_bytes": 80, "numel": 20,
+                 "launches": 4, "rounds": [dict(rnd)]}
+            p = {"key": (5, 6), "launches": 11, "carry_bytes": 8,
+                 "counts": {"ppermute": 11, "all_reduce": 1,
+                            "bytes": 11 * 8 + 8 * 8 * 4},
+                 "out": torch.ones(8, 8), "wall_s": 0.1}
+            if r == 1:
+                for k, v in bad.items():
+                    (c["rounds"][0] if k in rnd else p if k in p
+                     else c)[k] = v
+            out.append({"compress": c, "pipeline": p, "device": "cpu",
+                        "backend": "gloo"})
+        return out
+    cs.compress_gate("ok", ranks(), 4)
+    cs.pipeline_gate("ok", ranks(), torch.ones(8, 8), 11)
+    for bad, match in ((dict(keys=[(1, 2), (3, 5)]), "differs"),
+                       (dict(residual_exact=[True, False]), "residual"),
+                       (dict(counts={"all_reduce": 4, "bytes": 8 + 20}),
+                        "collectives")):
+        with pytest.raises(AssertionError, match=match):
+            cs.compress_gate("bad", ranks(**bad), 4)
+    r = ranks()
+    r[1]["compress"]["launches"] = 3
+    with pytest.raises(AssertionError, match="launched"):
+        cs.compress_gate("bad", r, 4)
+    r = ranks()
+    r[0]["compress"]["rounds"][0]["ulps"] = [0.5, cs.COMPRESS_ULPS + 1]
+    with pytest.raises(AssertionError, match="ulps"):
+        cs.compress_gate("bad", r, 4)
+    r[0]["compress"]["rounds"][0]["ulps"] = [0.5]   # a leaf not checked
+    with pytest.raises(AssertionError, match="float64 check"):
+        cs.compress_gate("bad", r, 4)
+    with pytest.raises(AssertionError, match="differs"):
+        cs.pipeline_gate("bad", ranks(key=(5, 7)), torch.ones(8, 8), 11)
+    with pytest.raises(AssertionError, match="launches"):
+        cs.pipeline_gate("bad", ranks(launches=10), torch.ones(8, 8), 11)
+    with pytest.raises(AssertionError, match="max_abs_err"):
+        cs.pipeline_gate("bad", ranks(), torch.ones(8, 8) * 2, 11)
+
+
+def test_roofline_readings_and_kernels_line(cs):
+    trained = {"layers": 4, "seq": 2048, "batch": 4, "steady_step_s": 0.42}
+    long_step = {"kv_len": cs.LONG_KV, "step_bytes": 4.76e10,
+                 "device_ms": 19.2, "wall_ms": 31.0}
+    out = cs.roofline_readings(trained, long_step)
+    assert 0.05 < out["mfu"] < 0.15
+    assert out["decode_terms"]["dominant"] == "memory_s"
+    assert out["decode_bound_ms"] == pytest.approx(4.76e10 / 3.35e12 * 1e3)
+    assert out["decode_share_wall"] < out["decode_share_device"] < 1.05
+    with pytest.raises(AssertionError, match="1.05"):
+        cs.roofline_readings(dict(trained, steady_step_s=0.01), long_step)
+    kernels = [{"name": n} for n in ("paged_prefill", "fastattn_fwd")]
+    cs.add_int8_pipeline_entries(kernels, {"launches": [32, 32, 32]},
+                                 {"pipeline": {"launches": [11] * 4}})
+    assert kernels[0] == {"name": "paged_prefill"}
+    assert kernels[1]["int8_launches"] == [32, 32, 32]
+    assert kernels[1]["pipeline_launches"] == [11] * 4
+
+
+def test_phase3f_and_13_run_in_order_and_4b_pays(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index('done("3e")') < main.index("phase_int8(") < \
+        main.index('done("3f")') < main.index("del model, params")
+    assert main.index('done("12")') < main.index(
+        "phase_compress_pipeline()") < main.index('done("13")') < \
+        main.index("roofline_readings(") < main.index(
+            "add_int8_pipeline_entries")
+    # phase 4b writes its checkpoint once, gathers it once, and the
+    # parent reads it back once for both the (2, 2) and (1, 2) checks
+    job = inspect.getsource(cs._dist_job)
+    assert "gather_host" not in job and "final_keys" in job
+    assert inspect.getsource(cs.phase_dist_training).count(
+        "read_checkpoint(") == 1
+    assert "checkpoint_leaves" not in inspect.getsource(cs._dist_resume)

@@ -18,9 +18,11 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from repro.analysis import flops as JF  # noqa: E402
 from repro.analysis.flops import param_count as j_param_count  # noqa: E402
 from repro.config import get_model_config, reduce_for_smoke  # noqa: E402
 from repro.core import offload as J  # noqa: E402
+from repro_torch.analysis import flops as TF  # noqa: E402
 from repro_torch.analysis.flops import param_count  # noqa: E402
 from repro_torch.config import ParallelConfig  # noqa: E402
 from repro_torch.config import available_archs  # noqa: E402
@@ -136,6 +138,23 @@ def test_param_count_matches_jax(arch):
     tcfg = t_get(arch)
     for active in (False, True):
         assert param_count(tcfg, active) == j_param_count(jcfg, active)
+
+
+@pytest.mark.parametrize("arch", list(available_archs())
+                         + ["xlstm-125m"])
+def test_model_and_attention_flops_match_jax(arch):
+    """``model_flops`` and ``attention_flops``, the roofline's and the
+    MFU's FLOP counts, for every registered config at every shape of
+    ``SHAPES``: the same float, formula for formula."""
+    from repro.config import SHAPES as JSHAPES
+    from repro_torch.config import SHAPES
+    jcfg, tcfg = get_model_config(arch), t_get(arch)
+    assert list(SHAPES) == list(JSHAPES)
+    for name, shape in SHAPES.items():
+        assert TF.model_flops(tcfg, shape) == JF.model_flops(
+            jcfg, JSHAPES[name]), name
+        assert TF.attention_flops(tcfg, shape) == JF.attention_flops(
+            jcfg, JSHAPES[name]), name
 
 
 @pytest.mark.parametrize("l_cpu,layer", [(1, 0), (2, 1)])

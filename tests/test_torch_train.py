@@ -11,6 +11,7 @@ magnifies gradient differences on entries near 0); one AdamW update 1e-6
 (the same float32 arithmetic, term for term); data batches and
 checkpoints exactly.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -221,6 +222,64 @@ def test_token_pipeline_memmap_equals_jax(tmp_path):
     for _ in range(3):
         np.testing.assert_array_equal(tp.next()["labels"],
                                       jpipe.next()["labels"])
+
+
+def _steps_of(batches, cfg) -> list:
+    """The stream position of each batch, read off ``next()``'s
+    sequence."""
+    ref = TokenPipeline(cfg)
+    seq = [ref.next()["tokens"] for _ in range(16)]
+    return [next(i for i, t in enumerate(seq)
+                 if np.array_equal(t, b["tokens"])) for b in batches]
+
+
+def test_token_pipeline_iterator_yields_next_batches():
+    """The prefetching iterator yields ``next()``'s batches bit for bit
+    from the current step, ``state()`` is the position after the last
+    batch yielded (a resume repeats and skips nothing), and closing the
+    generator stops the worker."""
+    import threading
+    kw = dict(vocab_size=1000, seq_len=8, global_batch=4, prefetch=2)
+    assert dataclasses.asdict(DataConfig(**kw)) == \
+        dataclasses.asdict(JData(**kw))
+    want = TokenPipeline(DataConfig(**kw))
+    want.restore({"step": 3})
+    pipe = TokenPipeline(DataConfig(**kw), start_step=3)
+    threads = threading.active_count()
+    it = iter(pipe)
+    for i in range(6):
+        got, ref = next(it), want.next()
+        for k in ref:
+            assert got[k].dtype == ref[k].dtype
+            np.testing.assert_array_equal(got[k], ref[k])
+        assert pipe.state() == {"step": 4 + i}
+    it.close()
+    assert threading.active_count() == threads
+    np.testing.assert_array_equal(pipe.next()["tokens"],
+                                  want.next()["tokens"])
+
+
+def test_slow_consumer_skips_steps_in_jax_not_in_the_port():
+    """Prefetch 1, 1.2 s between reads: JAX's worker drops each batch it
+    cannot queue within 0.5 s (``src/repro/data/pipeline.py:72-77``), so
+    its consumer skips steps and ``state()`` runs ahead of it; the port's
+    keeps the batch (ROADMAP Queue 3)."""
+    import time
+    kw = dict(vocab_size=1000, seq_len=8, global_batch=4, prefetch=1)
+    seen = {}
+    for name, pipe in (("jax", JPipeline(JData(**kw))),
+                       ("port", TokenPipeline(DataConfig(**kw)))):
+        it, got = iter(pipe), []
+        for i in range(3):
+            if i:
+                time.sleep(1.2)
+            got.append(next(it))
+        seen[name] = (_steps_of(got, DataConfig(**kw)), pipe.state())
+        it.close()
+    assert seen["port"] == ([0, 1, 2], {"step": 3})
+    steps, state = seen["jax"]
+    assert steps[:2] == [0, 1] and steps[2] > 2, steps
+    assert state["step"] > 3, state
 
 
 def _reduced_llama():
