@@ -5,8 +5,9 @@ xLSTM, head dims 80 and 96, the mixture-of-experts block (served,
 trained, expert-parallel and at tp=2), the Mamba layer (hymba), the
 encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl), the
 recurrent cells and the encoder-decoder trained on a (data, model)
-mesh, the int8 error-feedback all-reduce, GPipe, and the first roofline
-readings.
+mesh, the int8 error-feedback all-reduce, GPipe, the first roofline
+readings, and dense decode with the cache sharded along its sequence
+over a (data, model) mesh.
 
     python3 chip_smoke.py
 
@@ -44,7 +45,15 @@ which raises on failure (the script then exits non-zero):
    at B=1 on a 65536-token cache (the kernels line's long shape) and on
    the paper's longest, 262144 tokens, qwen2.5-32b's GQA 40/8 at B=2 on
    32768 tokens, and its split-KV edges (kv_len one below, at and one
-   above a split; a window narrower than a split); ``mlstm_chunkwise_fwd``
+   above a split; a window narrower than a split); ``flash_decode`` on a
+   context-parallel rank's slice with its log-sum-exp
+   (``CP_SLICE_CASES``: llama2-7b's 32/32 at B=4 on the second 16,384
+   rows of a 32,768-position cache at kv_len 1,000, 16,390 and 32,768,
+   gemma2-2b's D=256 GQA 8/4 softcap 50 with window 4,096 emptying slice
+   0 and cutting slice 1; out float32 (the partial the ranks' merge
+   reads unrounded) within the float32 tolerance per row, the lse
+   within LSE_TOL, a row with no valid key exactly 0 and NEG_INF in both,
+   SDPA on the slice with a boolean mask beside it); ``mlstm_chunkwise_fwd``
    (``MLSTM_CASES``) at xlstm-125m's training shape (the model's
    (B, S, H, D) projections read in place), a ragged float32 case, a
    sequence shorter than the chunk, 16 chunks at a small dk/dv, a ragged
@@ -425,6 +434,28 @@ which raises on failure (the script then exits non-zero):
    3c's decode step against ``analysis.roofline.roofline_terms`` of an
    analytic cost (``model_flops`` + ``attention_flops``, 3c's bytes):
    either share above 1.05 fails the run (a count is wrong).
+14. Context-parallel dense decode (``phase_cp_decode``), its ranks in
+   phase 13's spawn after (b) (``_cp_job``), its one-device run after
+   that spawn: llama2-7b at full width cut to its first 4 of 32 layers
+   (``CP_LAYERS``), B=8 of decode_32k's 128 rows (``CP_BATCH``), a cache
+   of decode_32k's 32,768 positions (``CP_WIDTH``) filled with N(0, 1)
+   at phase 3b's per-layer K / V RMS, each (layer, K / V, row, slice)
+   piece from one generator seeded for it (``cp_cache_piece``), so that
+   the one-device run and each rank draw the same values; a decode step
+   at pos 1,000 and at 16,381-16,386 (the write crosses into model rank
+   1's slice at 16,384) on one device through ``flash_decode``, and on
+   four gloo ranks at (data=2, model=2), each on its (4, 16384, 32, 128)
+   slice (``LM.init_cache`` / ``LM.decode_step`` under ``axis_rules``).
+   Gates (``cp_gate``): each rank's logits within LOGIT_TOL of its rows'
+   scale with greedy tokens equal where the margin exceeds it, the two
+   model ranks of a data group bit for bit, each K/V row a rank wrote,
+   in every layer, within the bf16 bound of the one-device cache's
+   (``bf16_row_gate``), each slice the rule table's shape,
+   ``flash_decode`` exactly 4 x 7
+   launches a rank, every one asked for the log-sum-exp, and no plain
+   attention on CUDA tensors.  Prints each rank's step wall, merges a
+   step and their bytes, weight gathers, peak memory and the kernel's
+   device time at its slice.  Correctness only: gloo shares the card.
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -460,7 +491,10 @@ whisper's encoder), ``fastattn_fwd`` also ``mesh_hymba_*``, ``mesh_dec_*``
 and ``mesh_cross_*`` at its other shapes there (``MESH_FWD_CASES``), and
 ``mesh_launches``, each rank's launches in phase 12; ``fastattn_fwd``
 also ``int8_launches``, each run's launches in phase 3f, and
-``pipeline_launches``, each rank's in phase 13 (b)); the last line is
+``pipeline_launches``, each rank's in phase 13 (b); ``flash_decode``
+also ``cp_*``, its phase 2 slice cases (``CP_SLICE_CASES``, each with
+its ``lse_err``), and ``cp_launches`` / ``cp_lse_calls`` /
+``cp_rank_device_ms``, each phase 14 rank's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1117,6 +1151,121 @@ def dense_decode_case(name, *, b, hq, hkv, s, d, dtype, layout,
                                 softcap=softcap, lib=lib)
 
 
+
+LSE_TOL = 1e-3              # a slice's log-sum-exp, float32 on both sides
+
+
+def slice_keys(lens, kv_start: int, s: int, window=None):
+    """Valid keys of each row in a cache slice of ``s`` rows from global
+    position ``kv_start``: [max(kv_len - window, 0), kv_len) cut to the
+    slice."""
+    import numpy as np
+    lens = np.asarray(lens, np.int64)
+    lo = np.maximum(lens - window, 0) if window else np.zeros_like(lens)
+    return np.maximum(np.minimum(lens, kv_start + s)
+                      - np.maximum(lo, kv_start), 0)
+
+
+def dense_slice_case(name, *, b, hq, hkv, s, d, kv_start, lens, dtype,
+                     window=None, softcap=None, seed=0) -> dict:
+    """flash_decode on one context-parallel rank's slice of a "bshd"
+    cache (``kv_start``, kv_len global) with its log-sum-exp, against
+    decode_reference on the same slice: the output float32 on both sides
+    (the partial a cross-rank merge reads unrounded), every (batch, head)
+    row of it to its own scale at the float32 tolerance (held_to_plain:
+    both compute in float32 from the same inputs), the log-sum-exp within
+    LSE_TOL, and a row with no valid key exactly 0 and NEG_INF in both;
+    then the
+    kernel, the plain version and SDPA over the slice with a boolean mask
+    of each row's valid keys (no softcap: SDPA applies none; it returns
+    no log-sum-exp) timed, and the bound of this data's work."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import NEG_INF, decode_reference
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(tdt)
+            for _ in range(2))
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(tdt)
+    lens = np.asarray(lens, np.int32)
+    lens_t = torch.from_numpy(lens).cuda()
+    kw = dict(window=window, softcap=softcap, layout="bshd",
+              kv_start=kv_start, return_lse=True)
+
+    def kernel():
+        return flash_decode(q, k, v, lens_t, **kw)
+
+    def plain():
+        return decode_reference(q[:, :, None], k, v, lens_t, **kw)
+
+    (out, lse), (ref, ref_lse) = kernel(), plain()
+    ref, ref_lse = ref[:, :, 0], ref_lse[:, :, 0]
+    torch.cuda.synchronize()
+    keys = slice_keys(lens, kv_start, s, window)
+    log(f"[flash_decode] {name}: kv_len {lens.tolist()}, kv_start "
+        f"{kv_start}: valid keys in the slice {keys.tolist()}")
+    if not out.dtype == ref.dtype == torch.float32:
+        raise AssertionError(f"{name}: out {out.dtype}, plain {ref.dtype}, "
+                             "want float32 with the log-sum-exp")
+    err, rel = held_to_plain("flash_decode", name, out.reshape(-1, d),
+                             ref.reshape(-1, d), "float32")
+    lse_err = (lse - ref_lse).abs().max().item()
+    empty = keys == 0
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"{name}: lse differs by {lse_err} "
+                             f"(tol {LSE_TOL})")
+    for what, o, ls in (("kernel", out, lse), ("plain", ref, ref_lse)):
+        if bool(empty.any()) and not (
+                bool((o[empty] == 0).all())
+                and bool((ls[empty] == NEG_INF).all())):
+            raise AssertionError(f"{name}: a row with no valid key is not "
+                                 f"0 / NEG_INF in the {what} version")
+        if bool((~empty).any()) and not bool(
+                (ls[~empty] > NEG_INF / 2).all()):
+            raise AssertionError(f"{name}: a row with valid keys has no "
+                                 f"lse in the {what} version")
+    log(f"[flash_decode] {name}: lse max_abs_err {lse_err:.3e} (tol "
+        f"{LSE_TOL:g}); {int(empty.sum())} of {b} rows with no valid key "
+        "exactly 0 and NEG_INF in both")
+    esize = q.element_size()
+    # K/V rows read, q read; out (float32) and lse written; kv_len read
+    n_bytes = (2 * hkv * int(keys.sum()) * d + b * hq * d) * esize \
+        + b * hq * d * 4 + b * hq * 4 + lens.nbytes
+    n_ops = 4.0 * hq * int(keys.sum()) * d
+    bnd, by = bound_ms(n_bytes, n_ops, dtype)
+    res = {"err": err, "rel_err": rel, "lse_err": lse_err,
+           "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=5),
+           "device_ms": device_ms(kernel), "bound_ms": bnd, "bound_by": by,
+           "library_ms": None, "library_device_ms": None,
+           "empty_rows": int(empty.sum()), "keys": keys.tolist()}
+    lib_note = "n/a (no single PyTorch call applies a softcap)"
+    if softcap is None:
+        kd, vd = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        pos = kv_start + torch.arange(s, device="cuda")
+        lens_l = lens_t[:, None].long()
+        mask = pos[None, :] < lens_l
+        if window is not None:
+            mask &= pos[None, :] >= lens_l - window
+        mask = mask[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=hq != hkv)
+        res["library_ms"] = time_ms(lib)
+        res["library_device_ms"] = device_ms(lib)
+        lib_note = (f"{res['library_ms']:.4f} ms (scaled_dot_product_"
+                    "attention on the slice, boolean mask, layout copy "
+                    "excluded; no log-sum-exp)")
+    log(f"[flash_decode] {name}: kernel {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}, {n_bytes / 1e6:.1f} MB), library {lib_note}; "
+        + (_speed(res, n_ops) if keys.sum() else
+           f"no valid key; device time {res['device_ms']:.4f} ms"))
+    return res
+
 MLSTM_STATE_RTOL = 1e-3     # C, n, m: float32 on both sides
 
 
@@ -1325,6 +1474,35 @@ DENSE_DECODE_CASES = [
                        layout="bshd", window=20, seed=7,
                        lens=[2048, 21, 20, 1])),
 ]
+# flash_decode on one context-parallel rank's slice (phase 14's path,
+# the kernels line's cp_* entries): llama2-7b's 32/32 heads at B=4 on the
+# second 16,384-row slice of a 32,768-position cache (kv_start 16,384)
+# at kv_len 1,000 (no valid key), 16,390 (6 keys) and 32,768 (the whole
+# slice: a rank's share of decode_32k); gemma2-2b's head shape (D=256,
+# GQA 8/4, softcap 50) with window 4,096 on slices of 8,192 rows, where
+# the window leaves slice 0 no valid key (kv_len 24,000) and where it
+# cuts slice 1 (ragged rows from 1 valid key to the window's 4,096, one
+# with none)
+CP_SLICE_CASES = {
+    f"cp_{tag}": (f"llama2-7b cp rank B=4 H=32/32 D=128 bf16 slice "
+                  f"16384@16384 kv_len={n}",
+                  dict(b=4, hq=32, hkv=32, s=16384, d=128, kv_start=16384,
+                       lens=[n] * 4, dtype="bfloat16", seed=20 + i))
+    for i, (tag, n) in enumerate((("empty", 1000), ("start", 16390),
+                                  ("full", 32768)))}
+CP_SLICE_CASES.update({
+    "cp_gemma_s0": ("gemma2-2b cp B=8 H=8/4 D=256 bf16 slice 8192@0 "
+                    "window=4096 cap=50 kv_len=24000",
+                    dict(b=8, hq=8, hkv=4, s=8192, d=256, kv_start=0,
+                         lens=[24000] * 8, dtype="bfloat16", window=4096,
+                         softcap=50.0, seed=23)),
+    "cp_gemma_s1": ("gemma2-2b cp B=8 H=8/4 D=256 bf16 slice 8192@8192 "
+                    "window=4096 cap=50 ragged",
+                    dict(b=8, hq=8, hkv=4, s=8192, d=256, kv_start=8192,
+                         lens=[14000, 12288, 10000, 16384, 8200, 20000,
+                               30000, 8193], dtype="bfloat16", window=4096,
+                         softcap=50.0, seed=24)),
+})
 # head dims 80 (stablelm-3b) and 96 (phi3-mini-3.8b), phase 7's models:
 # each attention kernel in bf16 and float32 at its main path's shape (the
 # bf16 case is the kernels line's d80_* / d96_* numbers; flash_decode's at
@@ -1606,6 +1784,8 @@ def phase_kernels() -> dict:
     pres = {name: prefill_case(name, **kw) for name, kw in PREFILL_CASES}
     dense = {name: dense_decode_case(name, **kw)
              for name, kw in DENSE_DECODE_CASES}
+    cp = {pre: dense_slice_case(name, **kw)
+          for pre, (name, kw) in CP_SLICE_CASES.items()}
     mls = {name: mlstm_case(name, **kw) for name, kw in MLSTM_CASES}
     # flash_decode's numbers for the kernels line are taken at the main
     # path's own shape, in phase 3b (D = 128) and 7 (b) (D = 80, 96); its
@@ -1620,6 +1800,7 @@ def phase_kernels() -> dict:
                      "fastattn_fwd": {pre: fwds[name] for pre, (name, _)
                                       in MESH_FWD_CASES.items()}},
             "flash_decode_long": dense[LONG_DECODE],
+            "flash_decode_cp": cp,
             "paged_prefill_verify": pres[VERIFY_CASE],
             "fastattn_context": {m: fwds[name] for m, (name, _) in
                                  CONTEXT_CASES.items()},
@@ -7545,9 +7726,393 @@ def _pipeline_job(rank: int, cfg, stages: list, x_micro) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: context-parallel dense decode (the cache's kv_seq -> model)
+# ---------------------------------------------------------------------------
+
+CP_LAYERS = 4                 # llama2-7b's first 4 of 32 layers (a cut)
+CP_BATCH = 8                  # 8 of decode_32k's 128 rows (a cut)
+CP_WIDTH = 32768              # decode_32k's cache width, uncut
+CP_MESH = dict(data=2, model=2)
+# pos 1000 (model rank 1's slice holds no valid key), then 16381-16386:
+# the new row's write crosses from rank 0's slice into rank 1's at 16384
+CP_POSITIONS = (1000, 16381, 16382, 16383, 16384, 16385, 16386)
+CP_SEED = 14
+
+
+def cp_job_for(kv_rms, cfg=None, batch: int = CP_BATCH,
+               width: int = CP_WIDTH, positions=CP_POSITIONS) -> dict:
+    """Phase 14's run: ``cfg`` (llama2-7b's first CP_LAYERS layers), a
+    ``batch`` x ``width`` cache filled at phase 3b's per-layer RMS
+    ``kv_rms`` ([k, v] a layer), and a decode step at each of
+    ``positions`` with tokens from a seeded generator."""
+    import numpy as np
+    from repro_torch.config import get_model_config
+    cfg = cfg or dataclasses.replace(get_model_config("llama2-7b"),
+                                     num_layers=CP_LAYERS)
+    rng = np.random.default_rng(CP_SEED)
+    steps = [(int(pos), rng.integers(0, cfg.vocab_size, size=batch).astype(
+        np.int64)) for pos in positions]
+    return {"cfg": cfg, "batch": batch, "width": width, "steps": steps,
+            "kv_rms": [list(r) for r in kv_rms[:cfg.num_layers]],
+            "mesh": dict(CP_MESH)}
+
+
+def cp_cache_piece(job: dict, layer: int, which: int, row: int,
+                   piece: int, device):
+    """Rows ``[piece * S / model, (piece + 1) * S / model)`` of batch row
+    ``row`` of layer ``layer``'s K (``which`` 0) or V (1) cache: N(0, 1)
+    from one CUDA (or CPU) generator seeded for this piece, at the
+    layer's RMS, in the model's dtype.  The one-device run and every rank
+    draw the same values without holding the whole cache."""
+    import torch
+    from repro_torch.device import torch_dtype
+    cfg = job["cfg"]
+    n = job["mesh"]["model"]
+    s_l = job["width"] // n
+    gen = torch.Generator(device=device)
+    gen.manual_seed(CP_SEED * 1_000_003 + ((layer * 2 + which) * job["batch"]
+                                           + row) * n + piece)
+    x = torch.randn((s_l, cfg.num_kv_heads, cfg.head_dim), generator=gen,
+                    device=device)
+    return (x * job["kv_rms"][layer][which]).to(torch_dtype(cfg.dtype))
+
+
+def _cp_fill(job: dict, cache: list, rows, pieces, device) -> None:
+    """Fill each layer's (rows x pieces) cache in place with
+    ``cp_cache_piece``."""
+    s_l = job["width"] // job["mesh"]["model"]
+    for layer, kv in enumerate(cache):
+        for which, buf in enumerate((kv.k, kv.v)):
+            for i, row in enumerate(rows):
+                for j, piece in enumerate(pieces):
+                    buf[i, j * s_l:(j + 1) * s_l].copy_(cp_cache_piece(
+                        job, layer, which, row, piece, device))
+
+
+def _cp_counting():
+    """Wrap ``core.distributed_decode``'s local attention: count each
+    call it makes asked for the log-sum-exp (``flash_decode``, or the
+    plain ``decode_reference`` where the tensors are on the CPU), and
+    each plain call (``decode_reference``, ``attend_with_positions``,
+    the wrapper's own plain path) on CUDA tensors.  Returns (counts,
+    restore)."""
+    from repro_torch.core import distributed_decode as dd
+    from repro_torch.kernels.flash_decode import ops
+    counts = {"lse_calls": 0, "plain_cuda": 0}
+    saved = {(m, n): getattr(m, n) for m, n in (
+        (dd, "flash_decode"), (dd, "decode_reference"),
+        (dd, "attend_with_positions"), (ops, "decode_reference"))}
+
+    def wrap(mod, name):
+        fn = saved[(mod, name)]
+
+        def counted(q, *a, **kw):
+            if mod is dd:
+                counts["lse_calls"] += bool(kw.get("return_lse"))
+            if name != "flash_decode" and q.is_cuda:
+                counts["plain_cuda"] += 1
+            return fn(q, *a, **kw)
+        setattr(mod, name, counted)
+    for mod, name in saved:
+        wrap(mod, name)
+
+    def restore():
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return counts, restore
+
+
+def _cp_job(rank: int, job: dict, dev) -> dict:
+    """Phase 14 on this rank: its mesh coordinate's pieces of a seeded
+    draw of ``job["cfg"]`` and its slice of the cache (B / data rows x
+    S / model positions, ``LM.init_cache`` under the mesh), then every
+    step's ``LM.decode_step`` on the whole batch of tokens: its rows'
+    logits, the K/V rows it wrote, its launches and collectives, and the
+    kernel's device time at its slice."""
+    import torch
+    from repro_torch.config import ParallelConfig
+    from repro_torch.core import tiled_allreduce as tar
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import build_model
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import (axis_rules, flatten, is_spec,
+                                            shard_of)
+    from repro_torch.training import tree
+    cfg, b, width = job["cfg"], job["batch"], job["width"]
+    parallel = ParallelConfig(**job["mesh"])
+    mesh = make_mesh_for(parallel, timeout=DIST_INIT_TIMEOUT_S)
+    d, m = mesh.coords["data"], mesh.coords["model"]
+    n_data, n_model = job["mesh"]["data"], job["mesh"]["model"]
+    b_l, s_l = b // n_data, width // n_model
+    model = build_model(cfg, dev, parallel)
+    whole = model.init(model.generator(0))
+    with axis_rules(mesh=mesh), torch.no_grad():
+        pieces = tree.unflatten(whole, [
+            shard_of(t, sp, mesh) for t, sp in zip(
+                tree.leaves(whole), flatten(model.param_specs(mesh),
+                                            is_spec), strict=True)])
+        del whole
+        cache = model.init_cache(b, width)
+        _cp_fill(job, cache, range(d * b_l, (d + 1) * b_l), [m], dev)
+        shapes = [tuple(kv.k.shape) for kv in cache]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        counts, restore = _cp_counting()
+        flash_decode.launches = 0
+        C.COUNTS.update({k: 0 for k in C.COUNTS})
+        tar.COUNTS.update({k: 0 for k in tar.COUNTS})
+        logits, walls = [], []
+        try:
+            for pos, tok in job["steps"]:
+                synchronize(dev)
+                t0 = time.perf_counter()
+                lg, cache = model.decode_step(
+                    pieces, torch.from_numpy(tok).to(dev), cache, pos)
+                synchronize(dev)
+                walls.append(time.perf_counter() - t0)
+                logits.append(lg.float().cpu().numpy())
+        finally:
+            restore()
+        launches = flash_decode.launches
+        out = {"coords": mesh.coords, "shapes": shapes, "logits": logits,
+               "wall_s": walls, "launches": launches, **counts,
+               "merges": dict(tar.COUNTS), "gathers": dict(C.COUNTS),
+               "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                           if dev.type == "cuda" else 0.0)}
+        # the K/V rows this rank wrote: the steps' positions in its slice
+        # (numpy: a rank's CPU tensors would reach the parent by a file
+        # descriptor that dies with the rank)
+        owned = [pos for pos, _ in job["steps"] if pos // s_l == m]
+        out["written"] = {
+            pos: [tuple(t[:, pos - m * s_l].float().cpu().numpy()
+                        for t in (kv.k, kv.v)) for kv in cache]
+            for pos in owned}
+        if dev.type == "cuda":
+            # the kernel alone at this rank's slice and the last step's
+            # kv_len, with the log-sum-exp (not counted above)
+            kv_len = torch.full((b_l,), job["steps"][-1][0] + 1,
+                                dtype=torch.int32, device=dev)
+            q = torch.randn((b_l, cfg.num_heads, cfg.head_dim), device=dev,
+                            dtype=cache[0].k.dtype)
+            out["kernel_device_ms"] = device_ms(lambda: flash_decode(
+                q, cache[0].k, cache[0].v, kv_len, layout="bshd",
+                kv_start=m * s_l, return_lse=True))
+    return out
+
+
+def cp_reference(job: dict, device: str = "cuda") -> dict:
+    """Phase 14's one-device run: ``job["cfg"]`` from the same seeded
+    draw, the whole cache (every row and slice), every step's
+    ``decode_step`` through ``flash_decode`` on the whole cache: the
+    logits, the K/V rows written at the steps' positions, the launches
+    and the wall; the cache freed after."""
+    import torch
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.models import build_model
+    kind = torch.device(device)
+    cfg, b = job["cfg"], job["batch"]
+    model = build_model(cfg, kind)
+    params = model.init(model.generator(0))
+    cache = model.init_cache(b, job["width"])
+    _cp_fill(job, cache, range(b), range(job["mesh"]["model"]), kind)
+    cache_gb = sum(t.numel() * t.element_size()
+                   for kv in cache for t in kv) / 1e9
+    flash_decode.launches = 0
+    logits = []
+    synchronize(kind)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for pos, tok in job["steps"]:
+            lg, cache = model.decode_step(
+                params, torch.from_numpy(tok).to(kind), cache, pos)
+            logits.append(lg.float().cpu())
+    synchronize(kind)
+    wall = time.perf_counter() - t0
+    written = {pos: [(kv.k[:, pos].float().cpu(), kv.v[:, pos].float().cpu())
+                     for kv in cache] for pos, _ in job["steps"]}
+    out = {"logits": logits, "written": written, "wall_s": wall,
+           "launches": flash_decode.launches, "cache_gb": cache_gb}
+    del cache, params, model
+    gc.collect()
+    if kind.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_row_gate(what, got, ref) -> float:
+    """Each row of ``got`` against ``ref`` (leading dim = rows) in units
+    of the bf16 bound: TOL["bfloat16"] plus REL_TOL["bfloat16"] of the
+    row's largest |ref|.  Returns the largest such ratio; a ratio above
+    1 fails."""
+    import torch
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (got - ref).abs().flatten(1).amax(1)
+    bound = TOL["bfloat16"] + REL_TOL["bfloat16"] * \
+        ref.abs().flatten(1).amax(1)
+    worst = (diff / bound).max().item()
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: a row differs by {worst:.3f} of "
+                             "its bf16 bound")
+    return worst
+
+
+def cp_gate(what, ranks: list, ref: dict, job: dict, on_card: bool) -> dict:
+    """Hold phase 14's ranks to the one-device run: each rank's logits
+    within LOGIT_TOL of its rows' scale with greedy tokens equal where
+    the top-1 margin exceeds it (``_compare_logits``), the two model
+    ranks of a data group bit for bit, each K/V row a rank wrote, in
+    every layer, within the bf16 bound of the one-device cache's (the
+    slices' float32 partials merge unrounded, so a rank's attention
+    output is rounded to bf16 once, as the one device's is); its slice
+    the rule table's shape, ``flash_decode`` exactly layers x steps launches (on the card;
+    0 on the CPU's plain path), every one asked for the log-sum-exp, and
+    no plain attention on CUDA tensors."""
+    import numpy as np
+    import torch
+    cfg = job["cfg"]
+    n_layers, n_steps = cfg.num_layers, len(job["steps"])
+    b_l = job["batch"] // job["mesh"]["data"]
+    s_l = job["width"] // job["mesh"]["model"]
+    want_shape = (b_l, s_l, cfg.num_kv_heads, cfg.head_dim)
+    by_coords = {(r["coords"]["data"], r["coords"]["model"]): r
+                 for r in ranks}
+    for r, res in enumerate(ranks):
+        d, m = res["coords"]["data"], res["coords"]["model"]
+        tag = f"{what} rank {r} (data {d}, model {m})"
+        if res["shapes"] != [want_shape] * n_layers:
+            raise AssertionError(f"{tag}: cache slices {res['shapes']}, "
+                                 f"the rule table's {want_shape}")
+        want = n_layers * n_steps if on_card else 0
+        if res["launches"] != want or res["lse_calls"] != n_layers * n_steps:
+            raise AssertionError(
+                f"{tag}: flash_decode launched {res['launches']} times "
+                f"({res['lse_calls']} with the log-sum-exp), want {want} "
+                f"({n_layers * n_steps})")
+        if res["plain_cuda"]:
+            raise AssertionError(f"{tag}: {res['plain_cuda']} plain "
+                                 "attention calls on CUDA tensors")
+        rows = slice(d * b_l, (d + 1) * b_l)
+        for (pos, _), got, lg in zip(job["steps"], res["logits"],
+                                     ref["logits"], strict=True):
+            _compare_logits(f"{tag} pos {pos}", torch.from_numpy(got),
+                            lg[rows])
+        other = by_coords[(d, 1 - m)]
+        for a, b_ in zip(res["logits"], other["logits"], strict=True):
+            if not np.array_equal(a, b_):
+                raise AssertionError(f"{tag}: logits differ from its "
+                                     "model group's other rank")
+        want_pos = [pos for pos, _ in job["steps"] if pos // s_l == m]
+        if sorted(res["written"]) != sorted(want_pos):
+            raise AssertionError(f"{tag}: wrote positions "
+                                 f"{sorted(res['written'])}, owns {want_pos}")
+        worst = [0.0] * n_layers
+        for pos, layers in res["written"].items():
+            for layer, (k, v) in enumerate(layers):
+                rk, rv = ref["written"][pos][layer]
+                for name, got, exp in (("k", k, rk[rows]), ("v", v, rv[rows])):
+                    worst[layer] = max(worst[layer], bf16_row_gate(
+                        f"{tag} layer {layer} {name} rows at {pos}",
+                        torch.from_numpy(got).reshape(b_l, -1),
+                        exp.reshape(b_l, -1)))
+        res["written_worst"] = worst
+        log(f"{tag}: the K/V rows it wrote at {sorted(res['written'])}, "
+            f"each layer's worst against its bf16 bound: "
+            f"{[round(w, 3) for w in worst]}")
+    steps = n_steps
+    summary = {
+        "launches": [r["launches"] for r in ranks],
+        "lse_calls": [r["lse_calls"] for r in ranks],
+        "wall_s": [r["wall_s"] for r in ranks],
+        "merges_a_step": [r["merges"]["all_reduce"] / steps for r in ranks],
+        "merge_bytes_a_step": [r["merges"]["bytes"] / steps for r in ranks],
+        "gathers_a_step": [r["gathers"]["all_gather"] / steps
+                           for r in ranks],
+        "gather_bytes_a_step": [r["gathers"]["bytes"] / steps
+                                for r in ranks],
+        "peak_gb": [r["peak_gb"] for r in ranks],
+        "kernel_device_ms": [r.get("kernel_device_ms") for r in ranks],
+        "written_worst": [r["written_worst"] for r in ranks],
+        "ref_wall_s": ref["wall_s"], "ref_launches": ref["launches"],
+        "ref_cache_gb": ref["cache_gb"]}
+    log(f"{what}: every gate passed; per rank: step wall "
+        f"{[[round(w, 3) for w in x] for x in summary['wall_s']]} s, "
+        f"merges a step {summary['merges_a_step']} "
+        f"({summary['merge_bytes_a_step']} B), weight gathers a step "
+        f"{summary['gathers_a_step']} "
+        f"({[round(x / 1e6, 1) for x in summary['gather_bytes_a_step']]} "
+        f"MB), peak {[round(x, 2) for x in summary['peak_gb']]} GB, "
+        f"flash_decode {summary['launches']} launches "
+        f"(device ms at the rank's slice: {summary['kernel_device_ms']}); "
+        f"one device: {ref['launches']} launches, {ref['wall_s']:.2f} s, "
+        f"cache {ref['cache_gb']:.2f} GB ({GLOO_NOTE})")
+    return summary
+
+
+def _cp_rank(rank: int, job: dict) -> dict:
+    """One rank of phase 14 spawned alone (``phase_cp_decode``)."""
+    import torch
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() else torch.device("cpu"))
+    if dev.type == "cpu":
+        torch.set_num_threads(1)        # a rehearsal: ranks share the cores
+    return _cp_job(rank, job, dev)
+
+
+def phase_cp_decode(job: dict, ranks: list = None,
+                    device: str = "cuda") -> dict:
+    """Phase 14: context-parallel decode of llama2-7b (``cp_job_for``)
+    on (data=2, model=2), held by ``cp_gate`` to the one-device run
+    (``cp_reference``, run after the ranks so that the two never hold
+    the card's memory at once).  ``ranks``: the ranks' results of
+    phase 13's spawn (``phase_compress_pipeline(cp_job=job)``); None
+    spawns them here (the phase alone, or a CPU rehearsal at a reduced
+    ``job``).  Correctness only: gloo stages every collective through
+    the host."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks, train_backend
+    t0 = time.perf_counter()
+    kind = torch.device(device)
+    on_card = kind.type == "cuda"
+    cfg = job["cfg"]
+    log(f"[14] {cfg.name}: its first {cfg.num_layers} of 32 layers "
+        f"(a cut), B={job['batch']} of decode_32k's 128 rows (a cut), a "
+        f"cache of {job['width']} positions (decode_32k's width) at "
+        f"(data={job['mesh']['data']}, model={job['mesh']['model']}), "
+        f"steps at {[p for p, _ in job['steps']]}")
+    if ranks is None:
+        world = job["mesh"]["data"] * job["mesh"]["model"]
+        backend, dev_of = train_backend(kind, world)
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = spawn_ranks(
+                _cp_rank, world, args=(job,), device_of_rank=dev_of,
+                backend=backend, init_method=f"file://{tmp}/pg-14",
+                timeout_s=DIST_DEADLINE_S,
+                init_timeout_s=DIST_INIT_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    ref = cp_reference(job, device)
+    if on_card and ref["launches"] != cfg.num_layers * len(job["steps"]):
+        raise AssertionError(f"[14] one device: {ref['launches']} "
+                             "flash_decode launches")
+    out = cp_gate("[14] context-parallel decode", ranks, ref, job, on_card)
+    out["seconds"] = time.perf_counter() - t0
+    out["ranks_s"] = ranks_s
+    out["card"] = _card() if on_card else "cpu"
+    log(f"[14] {out['card']}: all gates passed in {out['seconds']:.1f}s")
+    log("[14] " + json.dumps(out))
+    return out
+
+
 def _compress_pipeline_rank(rank: int, cfg_a, cfg_b, stages: list,
-                            x_micro, seq: int) -> dict:
-    """One rank of phase 13: (a) then, its memory freed, (b)."""
+                            x_micro, seq: int, cp_job: dict = None) -> dict:
+    """One rank of phase 13: (a) then, its memory freed, (b); then with
+    ``cp_job`` phase 14's rank (``_cp_job``) in the same process."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7564,6 +8129,13 @@ def _compress_pipeline_rank(rank: int, cfg_a, cfg_b, stages: list,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out["pipeline"] = _pipeline_job(rank, cfg_b, stages, x_micro)
+    if cp_job is not None:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["cp"] = _cp_job(rank, cp_job, dev)
+        out["cp"]["job_s"] = time.perf_counter() - t0
     return out
 
 
@@ -7686,15 +8258,18 @@ def pipeline_gate(what, ranks: list, ref, launches: int) -> dict:
 
 def phase_compress_pipeline(device: str = "cuda", cfg_a=None, cfg_b=None,
                             seq: int = COMPRESS_SEQ,
-                            pipe_seq: int = PIPE_SEQ) -> dict:
+                            pipe_seq: int = PIPE_SEQ,
+                            cp_job: dict = None) -> dict:
     """Phase 13: (a) the int8 error-feedback all-reduce of llama2-7b's
     first COMPRESS_LAYERS layers' gradients (``cfg_a``) and (b) GPipe over
     PIPE_STAGES of its layers (``cfg_b``), one spawn of PIPE_WORLD ranks
     (gloo sharing the card; NCCL with a GPU a rank where there are as
     many), held by ``compress_gate`` and ``pipeline_gate``.  ``cfg_a``,
     ``cfg_b``, ``seq``, ``pipe_seq``: a rehearsal on the CPU at a reduced
-    size.  Correctness only: gloo stages every collective through the
-    host."""
+    size.  With ``cp_job`` the same ranks then run phase 14's
+    (``_cp_job``; its results in ``cp_ranks``, for ``phase_cp_decode``),
+    which pays no second process start and rendezvous.  Correctness
+    only: gloo stages every collective through the host."""
     import numpy as np
     import torch
     from repro_torch.config import get_model_config
@@ -7738,7 +8313,8 @@ def phase_compress_pipeline(device: str = "cuda", cfg_a=None, cfg_b=None,
     with tempfile.TemporaryDirectory() as tmp:
         ranks = spawn_ranks(
             _compress_pipeline_rank, world,
-            args=(cfg_a, cfg_b, stages, x, seq), device_of_rank=dev_of,
+            args=(cfg_a, cfg_b, stages, x, seq, cp_job),
+            device_of_rank=dev_of,
             backend=backend, init_method=f"file://{tmp}/pg-13",
             timeout_s=DIST_DEADLINE_S, init_timeout_s=DIST_INIT_TIMEOUT_S)
     del stages, x
@@ -7761,11 +8337,16 @@ def phase_compress_pipeline(device: str = "cuda", cfg_a=None, cfg_b=None,
         f"which the gradient {out['compress']['grad_s'][0]:.1f}s, the f32 "
         f"all-reduce {out['compress']['mean_s'][0]:.1f}s, the checks "
         f"{[round(x, 1) for x in out['compress']['check_s'][0]]} s a round")
+    if cp_job is not None:
+        out["cp_ranks"] = [r["cp"] for r in ranks]
+        log(f"[14] a rank's job in phase 13's spawn: "
+            f"{[round(r['cp']['job_s'], 1) for r in ranks]} s")
     out["seconds"] = time.perf_counter() - t0
     out["card"] = _card() if on_card else "cpu"
     log(f"[13] {out['card']}: all gates passed in {out['seconds']:.1f}s "
         f"({GLOO_NOTE if backend == 'gloo' else 'nccl, one GPU a rank'})")
-    log("[13] " + json.dumps(out))
+    log("[13] " + json.dumps({k: v for k, v in out.items()
+                              if k != "cp_ranks"}))
     return out
 
 
@@ -7824,6 +8405,25 @@ def add_int8_pipeline_entries(kernels: list, int8: dict,
     k = next(k for k in kernels if k["name"] == "fastattn_fwd")
     k.update(int8_launches=int8["launches"],
              pipeline_launches=compress["pipeline"]["launches"])
+
+
+def add_cp_entries(kernels: list, cases: dict, run: dict) -> None:
+    """``flash_decode``'s entry of the kernels line also at phase 2's
+    context-parallel slice cases (``CP_SLICE_CASES``: ``cp_full_*`` is a
+    phase 14 rank's share of decode_32k, ``cp_empty_*`` / ``cp_start_*``
+    its slice with 0 and 6 valid keys, ``cp_gemma_s0_*`` /
+    ``cp_gemma_s1_*`` a window that empties or cuts a slice), each with
+    its log-sum-exp error, and with its launches on each rank of phase 14
+    (``cp_launches``, every one with the log-sum-exp: ``cp_lse_calls``)
+    and its device time at each rank's slice there."""
+    keys = ("err", "lse_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")
+    k = next(k for k in kernels if k["name"] == "flash_decode")
+    for pre, res in cases.items():
+        k.update({f"{pre}_{'max_abs_err' if x == 'err' else x}": res.get(x)
+                  for x in keys})
+    k.update(cp_launches=run["launches"], cp_lse_calls=run["lse_calls"],
+             cp_rank_device_ms=run["kernel_device_ms"])
 
 
 def add_mesh_entries(kernels: list, cases: dict, run: dict) -> None:
@@ -8085,8 +8685,11 @@ def main() -> int:
     done("12")
     gc.collect()                  # phase 12's models
     torch.cuda.empty_cache()
-    compress = phase_compress_pipeline()
+    cp_job = cp_job_for(dense["kv_rms"])
+    compress = phase_compress_pipeline(cp_job=cp_job)
     done("13")
+    cp = phase_cp_decode(cp_job, compress.pop("cp_ranks"))
+    done("14")
     roofline_readings(trained, long_step)
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
@@ -8153,6 +8756,7 @@ def main() -> int:
     add_vl_entries(line["kernels"], kern["vl"], vl)
     add_mesh_entries(line["kernels"], kern["mesh"], mesh)
     add_int8_pipeline_entries(line["kernels"], int8, compress)
+    add_cp_entries(line["kernels"], kern["flash_decode_cp"], cp)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s on "
         f"{_card()}")
     print(json.dumps(line))

@@ -13,7 +13,12 @@ partial outputs merge exactly:
 (out_i is already normalised by its local softmax sum).  The paged
 tensor-parallel path (``layers/attention.py``) merges a kv-head group's
 page-row sub-shards this way; ``context_parallel_decode`` splits a dense
-cache into contiguous slices.
+cache into contiguous slices, and ``cp_decode_body`` is one rank's share
+of it: dense decode under a mesh with a model axis
+(``layers/attention.apply_attention_decode``, the cache's ``kv_seq ->
+model``) calls it on each layer's slice.  A rank's local attention is
+``flash_decode`` with the slice's offset and the log-sum-exp output (the
+kernel on CUDA tensors).
 """
 from __future__ import annotations
 
@@ -23,6 +28,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.tiled_allreduce import all_reduce
+from repro_torch.kernels._launch import resolve_impl
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.ref import decode_reference
 
 NEG_INF = -1e30
 
@@ -118,34 +126,46 @@ def paged_shard_kv_positions(n_kv: int, page_size: int, rows_local: int,
 # context-parallel decode over a dense cache
 # ---------------------------------------------------------------------------
 
-def _local_decode_with_lse(q, k, v, start, *, window, softcap, scale,
-                           global_len):
-    """Decode attention over a local KV slice covering positions
-    ``[start, start + k.shape[2])``.  q: (B, Hq, D); k/v: (B, Hkv,
-    S_local, D); returns (out, lse), out locally normalised."""
-    glen = global_len.reshape(-1).long()
-    kv_pos = start + torch.arange(k.shape[2], device=k.device)
-    # decode masks (pos < len, window back from len) are the causal and
-    # window masks at q_position = len - 1
-    out, lse = attend_with_positions(
-        q[:, :, None], k, v, q_positions=(glen - 1)[:, None],
-        kv_positions=kv_pos, kv_len=glen, causal=True, window=window,
-        softcap=softcap, scale=scale)
-    return out[:, :, 0], lse[:, :, 0]
+def _local_decode_with_lse(q, k, v, start, stop, *, window, softcap, scale,
+                           global_len, impl: Optional[str] = None):
+    """Decode attention over a local KV slice covering global positions
+    ``[start, stop)``.  q: (B, Hq, D); k/v: the slice, (B, S_local, Hkv,
+    D) (the dense decode caches' "bshd" layout, ``layers/attention.
+    KV_CACHE_LAYOUT``); global_len: (B,) the rows' global lengths.
+    Returns (out, lse), both float32: out (B, Hq, D) locally normalised
+    (0 where the slice holds no valid key), lse (B, Hq), NEG_INF there.
+
+    ``flash_decode`` at ``kv_start=start``: on CUDA tensors the kernel
+    (``csrc/flash_decode.cu``, which writes the log-sum-exp in the same
+    launch), on CPU tensors its plain version; ``impl="reference"`` asks
+    for the plain version (``decode_reference``) on either."""
+    if stop - start != k.shape[1]:
+        raise ValueError(f"slice [{start}, {stop}) holds {k.shape[1]} rows")
+    glen = global_len.reshape(-1).to(device=q.device, dtype=torch.int32)
+    kw = dict(window=window, softcap=softcap, scale=scale, layout="bshd",
+              kv_start=int(start), return_lse=True)
+    if resolve_impl(impl, q, "flash_decode") == "reference":
+        out, lse = decode_reference(q[:, :, None], k, v, glen, **kw)
+        return out[:, :, 0], lse[:, :, 0]
+    return flash_decode(q.contiguous(), k, v, glen.contiguous(), **kw)
 
 
 def cp_decode_body(q, k_shard, v_shard, kv_len, group=None, *,
                    window: Optional[int] = None,
                    softcap: Optional[float] = None,
-                   scale: Optional[float] = None):
-    """One rank's context-parallel decode: q (B, Hq, D) whole, k/v
-    (B, Hkv, S_local, D) the rank's contiguous slice (rank i holds
-    positions ``[i * S_local, (i + 1) * S_local)``).  Returns (B, Hq, D)
-    in q's dtype, the same on every rank of ``group``."""
-    start = dist.get_rank(group) * k_shard.shape[2]
+                   scale: Optional[float] = None,
+                   impl: Optional[str] = None):
+    """One rank's context-parallel decode: q (B, Hq, D) whole, k/v the
+    rank's contiguous slice of the caches' sequence, (B, S_local, Hkv,
+    D); rank i of ``group`` holds positions ``[i * S_local, (i + 1) *
+    S_local)``.  ``impl`` as in ``_local_decode_with_lse``.  The float32
+    partials merge unrounded.  Returns (B, Hq, D) in q's dtype, the same
+    on every rank of ``group``."""
+    s_local = k_shard.shape[1]
+    start = dist.get_rank(group) * s_local
     out, lse = _local_decode_with_lse(
-        q, k_shard, v_shard, start, window=window, softcap=softcap,
-        scale=scale, global_len=kv_len)
+        q, k_shard, v_shard, start, start + s_local, window=window,
+        softcap=softcap, scale=scale, global_len=kv_len, impl=impl)
     return merge_partial_attention(out, lse, group).to(q.dtype)
 
 
@@ -155,13 +175,15 @@ def context_parallel_decode(q, k_cache, v_cache, kv_len, group=None, *,
                             scale: Optional[float] = None):
     """Distributed decode attention: q (B, Hq, D); caches (B, Hkv, S, D),
     S split into ``world`` contiguous slices, this rank attending over
-    its own.  Returns (B, Hq, D)."""
+    its own (read in place as a (B, S_local, Hkv, D) view).  Returns
+    (B, Hq, D)."""
     n = dist.get_world_size(group)
     if k_cache.shape[2] % n:
         raise ValueError(f"cache length {k_cache.shape[2]} does not split "
                          f"into {n} slices")
     sl = k_cache.shape[2] // n
     r = dist.get_rank(group)
-    return cp_decode_body(q, k_cache[:, :, r * sl:(r + 1) * sl],
-                          v_cache[:, :, r * sl:(r + 1) * sl], kv_len, group,
-                          window=window, softcap=softcap, scale=scale)
+    return cp_decode_body(
+        q, k_cache[:, :, r * sl:(r + 1) * sl].transpose(1, 2),
+        v_cache[:, :, r * sl:(r + 1) * sl].transpose(1, 2), kv_len, group,
+        window=window, softcap=softcap, scale=scale)

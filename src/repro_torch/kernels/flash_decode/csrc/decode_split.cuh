@@ -50,12 +50,21 @@ __device__ __forceinline__ bool arrive_last(int* counter, int n_active) {
   return last != 0;
 }
 
+// A row's log-sum-exp from its running max m and sum l = sum exp(s - m).
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return m + logf(l);
+}
+
 // out[(row0 + r) * d + c] for r < nrows, c < d: the merge of the first
-// n_active partials of each row.  Partials are read through L2 (__ldcg):
-// other SMs wrote them in this launch.  Sets *counter to 0 at the end.
+// n_active partials of each row, and with `lse` given its log-sum-exp
+// M + log(L) at lse[row0 + r] and `out` float32 whatever T is (the
+// partial of a cross-rank merge, kept unrounded).  Partials are read
+// through L2 (__ldcg): other SMs wrote them in this launch.  Sets
+// *counter to 0 at the end.
 template <typename T>
 __device__ void merge_rows(const float* ws, int row0, int nrows, int n_split,
-                           int n_active, int d, T* out, int* counter) {
+                           int n_active, int d, T* out, int* counter,
+                           float* lse = nullptr) {
   const int pf = partial_floats(d);
   for (int idx = threadIdx.x; idx < nrows * d; idx += blockDim.x) {
     const int r = idx / d, c = idx % d;
@@ -68,7 +77,14 @@ __device__ void merge_rows(const float* ws, int row0, int nrows, int n_split,
       l += __ldcg(p + s * pf + 1) * w;
       a += __ldcg(p + s * pf + 2 + c) * w;
     }
-    store_out(out + (size_t)(row0 + r) * d + c, l > 0.f ? a / l : 0.f);
+    const float o = l > 0.f ? a / l : 0.f;
+    const size_t i = (size_t)(row0 + r) * d + c;
+    if (lse == nullptr) {
+      store_out(out + i, o);
+    } else {
+      reinterpret_cast<float*>(out)[i] = o;
+      if (c == 0) lse[row0 + r] = log_sum_exp(mx, l);
+    }
   }
   if (threadIdx.x == 0) *counter = 0;
 }

@@ -56,9 +56,24 @@
 //    the H100 (PERF.md);
 //  * the groups' partial (m, l, acc) merge through shared memory and
 //    divide by l there.
+//
+// Context-parallel decode (core/distributed_decode.py) reads one rank's
+// slice of a cache sharded along its sequence: `kv_start` is the global
+// position of the slice's row 0 and kv_len stays global, so the slice's
+// valid keys are the global range [max(kv_len - window, 0), kv_len) cut
+// to [kv_start, kv_start + S).  With `lse` given the launch also writes
+// each row's log-sum-exp m + log(l) of its scaled (and softcapped)
+// scores, float32, for the ranks' merge, and `out` is float32 too: the
+// merge weighs the partials unrounded, so a merged row is rounded to the
+// model's dtype once, as one launch over the whole cache rounds it.  A
+// row whose slice holds no valid key writes 0 and NEG_INF, which the
+// merge weighs at zero.  The split plan and the launch are those of
+// kv_start 0 with no lse.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "decode_split.cuh"
 
@@ -159,11 +174,25 @@ struct Args {
   void* out;
   float* partials;      // decode_split workspace
   int* counters;        // one per row tile, 0 between launches
-  int hq, hkv, s_max;
+  float* lse;           // (B, Hq) float32, or null
+  int hq, hkv, s_max, kv_start;
   int64_t stride_b, stride_s, stride_h;   // cache strides, in elements
   int window, split_keys, n_split;
   float softcap, scale;
 };
+
+// f(out) with the output as T*, or as float* when the launch writes the
+// log-sum-exp (the partial of a cross-rank merge, kept unrounded): one
+// branch for a loop of stores, not one a store.
+template <typename T, typename F>
+__device__ __forceinline__ void with_out(const Args& a, F&& f) {
+  if constexpr (std::is_same<T, float>::value) {
+    f(static_cast<float*>(a.out));
+  } else {
+    if (a.lse == nullptr) f(static_cast<T*>(a.out));
+    else f(static_cast<float*>(a.out));
+  }
+}
 
 // grid: (B, Hkv * ceil(g / G), n_split); block: NUM_THREADS.
 template <typename T, int D, int G>
@@ -192,17 +221,24 @@ flash_decode_kernel(const Args a) {
   const int r0 = tile * G;               // first query row of the group
   const int nrows = min(G, g - r0);
   const int row0 = b * a.hq + h * g + r0;   // its output row
-  T* const out = static_cast<T*>(a.out);
 
+  // the valid keys as rows of the slice: global [lo, len) minus kv_start
   const int len = a.kv_lens[b];
-  const int kv_end = min(len, a.s_max);
-  const int kv_begin = a.window > 0 ? max(len - a.window, 0) : 0;
+  const int lo = a.window > 0 ? max(len - a.window, 0) : 0;
+  const int kv_end = min(len - a.kv_start, a.s_max);
+  const int kv_begin = max(lo - a.kv_start, 0);
   const int n_keys = max(kv_end - kv_begin, 0);
   const int n_active = (n_keys + a.split_keys - 1) / a.split_keys;
   if (n_active == 0) {                   // no valid key: the row is 0
-    if (split == 0)
-      for (int idx = threadIdx.x; idx < nrows * D; idx += NUM_THREADS)
-        decode_split::store_out(out + (size_t)row0 * D + idx, 0.f);
+    if (split == 0) {
+      with_out<T>(a, [&](auto* out) {
+        for (int idx = threadIdx.x; idx < nrows * D; idx += NUM_THREADS)
+          decode_split::store_out(out + (size_t)row0 * D + idx, 0.f);
+      });
+      if (a.lse != nullptr)
+        for (int r = threadIdx.x; r < nrows; r += NUM_THREADS)
+          a.lse[row0 + r] = NEG_INF;
+    }
     return;
   }
   if (split >= n_active) return;
@@ -342,37 +378,41 @@ flash_decode_kernel(const Args a) {
 
   // this CTA's (m, l, acc) per row: the output itself when the row's keys
   // fill one split, else a partial for decode_split's merge
-  for (int idx = threadIdx.x; idx < nrows * D; idx += NUM_THREADS) {
-    const int r = idx / D;
-    const int d = idx % D;
-    float mx = NEG_INF;
+  with_out<T>(a, [&](auto* out) {
+    for (int idx = threadIdx.x; idx < nrows * D; idx += NUM_THREADS) {
+      const int r = idx / D;
+      const int d = idx % D;
+      float mx = NEG_INF;
 #pragma unroll
-    for (int j = 0; j < NG; ++j) mx = fmaxf(mx, sm_m[j][r]);
-    float lsum = 0.f, x = 0.f;
+      for (int j = 0; j < NG; ++j) mx = fmaxf(mx, sm_m[j][r]);
+      float lsum = 0.f, x = 0.f;
 #pragma unroll
-    for (int j = 0; j < NG; ++j) {
-      const float w = expf(sm_m[j][r] - mx);
-      lsum += sm_l[j][r] * w;
-      x += sm_acc[j][r][d] * w;
-    }
-    if (n_active == 1) {
-      decode_split::store_out(out + (size_t)(row0 + r) * D + d,
-                              lsum > 0.f ? x / lsum : 0.f);
-    } else {
-      float* pp =
-          decode_split::partial(a.partials, row0 + r, split, a.n_split, D);
-      pp[2 + d] = x;
-      if (d == 0) {
-        pp[0] = mx;
-        pp[1] = lsum;
+      for (int j = 0; j < NG; ++j) {
+        const float w = expf(sm_m[j][r] - mx);
+        lsum += sm_l[j][r] * w;
+        x += sm_acc[j][r][d] * w;
+      }
+      if (n_active == 1) {
+        decode_split::store_out(out + (size_t)(row0 + r) * D + d,
+                                lsum > 0.f ? x / lsum : 0.f);
+        if (a.lse != nullptr && d == 0)
+          a.lse[row0 + r] = decode_split::log_sum_exp(mx, lsum);
+      } else {
+        float* pp =
+            decode_split::partial(a.partials, row0 + r, split, a.n_split, D);
+        pp[2 + d] = x;
+        if (d == 0) {
+          pp[0] = mx;
+          pp[1] = lsum;
+        }
       }
     }
-  }
+  });
   if (n_active == 1) return;
   int* const counter = a.counters + (size_t)b * a.hkv * n_tiles + blockIdx.y;
   if (decode_split::arrive_last(counter, n_active))
     decode_split::merge_rows(a.partials, row0, nrows, a.n_split, n_active, D,
-                             out, counter);
+                             static_cast<T*>(a.out), counter, a.lse);
 }
 
 template <typename T, int D, int G>
@@ -417,28 +457,34 @@ cudaError_t dispatch_d(int d, const Args& a, int B, cudaStream_t stream) {
 // stride_s / stride_h over (batch, token, kv head) and a contiguous head
 // dim, s_max tokens each; kv_len (B,) int32; out (B, Hq, D) contiguous.
 // dtype 0 = float32, 1 = bfloat16.  window <= 0 and softcap <= 0 mean
-// "none".  Split-KV: split_keys keys a CTA; n_split = ceil(span /
-// split_keys), span = s_max, or the window where it is smaller.
+// "none".  kv_start: the global position of the caches' row 0 (0 for a
+// whole cache); lse: (B, Hq) float32, or null for none; with lse, out is
+// float32 whatever dtype says.  Split-KV:
+// split_keys keys a CTA; n_split = ceil(span / split_keys), span = s_max,
+// or the window where it is smaller.
 // partials: at least B * Hq * n_split * (D + 2) floats; counters: at least
 // B * Hq int32, all 0 (each launch leaves them 0).  Launches on
 // `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int flash_decode(const void* q, const void* k_cache,
                             const void* v_cache, const void* kv_len,
-                            void* out, void* partials, void* counters, int B,
-                            int hq, int hkv, int s_max, int d,
+                            void* out, void* partials, void* counters,
+                            void* lse, int B, int hq, int hkv, int s_max,
+                            int kv_start, int d,
                             long long stride_b, long long stride_s,
                             long long stride_h, int window, int split_keys,
                             float softcap, float scale, int dtype,
                             void* stream) {
-  if (B <= 0 || hkv <= 0 || hq % hkv != 0 || s_max <= 0 || split_keys <= 0)
+  if (B <= 0 || hkv <= 0 || hq % hkv != 0 || s_max <= 0 || split_keys <= 0
+      || kv_start < 0)
     return (int)cudaErrorInvalidValue;
   const int span = window > 0 ? min(window, s_max) : s_max;
   const int n_split = (span + split_keys - 1) / split_keys;
   if (n_split > 65535) return (int)cudaErrorInvalidValue;   // grid.z
   const Args a{q, k_cache, v_cache, static_cast<const int*>(kv_len), out,
                static_cast<float*>(partials), static_cast<int*>(counters),
-               hq, hkv, s_max, stride_b, stride_s, stride_h, window,
-               split_keys, n_split, softcap, scale};
+               static_cast<float*>(lse), hq, hkv, s_max, kv_start, stride_b,
+               stride_s, stride_h, window, split_keys, n_split, softcap,
+               scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_d<float>(d, a, B, s);
   if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(d, a, B, s);

@@ -29,8 +29,9 @@ _ARGTYPES = (L.P, L.P, L.P, L.P, L.P, L.P,        # q k v table kv_len out
              L.I, L.I, L.F, L.F, L.I, L.P)        # window split_keys cap
                                                   # scale dtype stream
 _DENSE_ARGTYPES = (L.P, L.P, L.P, L.P, L.P,     # q k v kv_len out
-                   L.P, L.P,                    # partials counters
-                   L.I, L.I, L.I, L.I, L.I,     # B hq hkv s_max d
+                   L.P, L.P, L.P,               # partials counters lse
+                   L.I, L.I, L.I, L.I, L.I,     # B hq hkv s_max kv_start
+                   L.I,                         # d
                    L.L, L.L, L.L,               # stride b, s, h
                    L.I, L.I, L.F, L.F,          # window split_keys cap scale
                    L.I, L.P)                    # dtype stream
@@ -41,10 +42,18 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  window: Optional[int] = None,
                  softcap: Optional[float] = None,
                  scale: Optional[float] = None,
-                 layout: str) -> torch.Tensor:
+                 layout: str, kv_start: int = 0,
+                 return_lse: bool = False):
     """Decode attention: q (B, Hq, D) against dense caches (B, Hkv, S, D)
     ["bhsd"] or (B, S, Hkv, D) ["bshd"]; kv_len (B,) int32.  Returns
     (B, Hq, D).
+
+    The caches may be one rank's slice of a cache sharded along its
+    sequence (context-parallel decode): ``kv_start`` is the global
+    position of their row 0 and kv_len stays global.  With
+    ``return_lse`` it returns (out, lse), both float32 (a cross-rank
+    merge reads the partial unrounded): lse (B, Hq) the rows'
+    log-sum-exp, NEG_INF (and out 0) where the slice holds no valid key.
 
     The kernel reads either layout in place through the caches' strides
     (batch, token, head); their head dim must be contiguous.  It splits
@@ -54,12 +63,18 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     The JAX kernel's ``block_kv`` has no counterpart."""
     if layout not in LAYOUTS:
         raise ValueError(f"flash_decode: unknown cache layout {layout!r}")
+    if kv_start < 0:
+        raise ValueError(f"flash_decode: kv_start {kv_start} < 0")
     b, hq, d = q.shape
     scale = scale if scale is not None else d ** -0.5
     if q.device.type == "cpu":
-        return decode_reference(
+        res = decode_reference(
             q[:, :, None], k_cache, v_cache, kv_len, window=window,
-            softcap=softcap, scale=scale, layout=layout)[:, :, 0]
+            softcap=softcap, scale=scale, layout=layout, kv_start=kv_start,
+            return_lse=return_lse)
+        if return_lse:
+            return res[0][:, :, 0], res[1][:, :, 0]
+        return res[:, :, 0]
     code = L.check_tensors("flash_decode", {"q": q}, {"kv_len": kv_len})
     L.check_strided("k_cache", k_cache, q)
     if layout == "bhsd":
@@ -82,9 +97,13 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if (v_cache.device != q.device or v_cache.dtype != q.dtype
             or v_cache.data_ptr() % 16):
         L.check_strided("v_cache", v_cache, q)
-    out = torch.empty_like(q)
+    if return_lse:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+    else:
+        out, lse = torch.empty_like(q), None
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
     split_keys, n_split = plan_dense_splits(b, hq, hkv, s_max, window,
                                             _sm_count(q.device))
     part, cnt = split_workspace(q.device, b * hq * n_split * (d + 2), b * hq)
@@ -92,11 +111,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     status = lib.flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
-        b, hq, hkv, s_max, d, sb, ss, sh, L.opt_int(window), split_keys,
+        None if lse is None else lse.data_ptr(), b, hq, hkv, s_max,
+        int(kv_start), d, sb, ss, sh, L.opt_int(window), split_keys,
         L.opt_float(softcap), float(scale), code, L.stream_ptr(q.device))
     L.check_status("flash_decode", status)
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_decode.launches = 0

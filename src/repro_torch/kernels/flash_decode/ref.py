@@ -1,7 +1,9 @@
 """Plain PyTorch versions for the decode kernels.
 
 ``decode_reference`` is the dense decode in f32 (masked softmax) over a
-"bhsd" or "bshd" cache, the function ``csrc/flash_decode.cu`` computes;
+"bhsd" or "bshd" cache, or a slice of one from global position
+``kv_start`` on (and, asked for it, the rows' log-sum-exp), the function
+``csrc/flash_decode.cu`` computes;
 ``paged_gather`` materialises the dense (B, Hkv, S, D) view of a paged
 pool and ``paged_decode_reference`` chains it with ``decode_reference``,
 the function ``csrc/paged_decode.cu`` computes.  The CPU tests hold these
@@ -44,13 +46,19 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None,
                      scale: Optional[float] = None,
-                     layout: str) -> torch.Tensor:
+                     layout: str, kv_start: int = 0,
+                     return_lse: bool = False):
     """Single-token decode attention in f32.
 
     q: (B, Hq, 1, D); caches: (B, Hkv, S, D) ["bhsd"] or (B, S, Hkv, D)
-    ["bshd"], read in place through the einsum (no transposed copy);
-    kv_len: (B,) current lengths (the new token's position is kv_len - 1).
-    Returns (B, Hq, 1, D).
+    ["bshd"], read in place through the einsum (no transposed copy),
+    their row 0 at global position ``kv_start``; kv_len: (B,) current
+    global lengths (the new token's position is kv_len - 1).  Returns
+    (B, Hq, 1, D) in q's dtype; with ``return_lse`` it returns it in
+    float32 (a cross-rank merge reads the partial unrounded) and also
+    the rows' log-sum-exp (B, Hq, 1) float32 of their scaled (and
+    softcapped) scores: NEG_INF where the slice holds no valid key (its
+    output 0), so that the merge weighs it at zero.
     """
     b, hq, _, d = q.shape
     if layout == "bhsd":
@@ -65,7 +73,7 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
     logits = torch.einsum(f"bhgd,{layout}->bhgs", qg,
                           k_cache.float()) * scale
     logits = softcap_logits(logits, softcap)
-    pos = torch.arange(s, device=q.device)[None, None, None, :]
+    pos = kv_start + torch.arange(s, device=q.device)[None, None, None, :]
     lens = kv_len.to(q.device).long().reshape(b, 1, 1, 1)
     mask = pos < lens
     if window is not None:
@@ -75,8 +83,12 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.where(mask, torch.exp(logits - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum(f"bhgs,{layout}->bhgd", p, v_cache.float())
-    out = out / torch.where(l == 0, 1.0, l)
-    return out.reshape(b, hq, 1, d).to(q.dtype)
+    l_safe = torch.where(l == 0, 1.0, l)
+    out = (out / l_safe).reshape(b, hq, 1, d)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.where(l == 0, NEG_INF, m + torch.log(l_safe))
+    return out, lse.reshape(b, hq, 1)
 
 
 def paged_decode_reference(q: torch.Tensor, k_pages: torch.Tensor,

@@ -228,11 +228,11 @@ def spawn_ranks(fn: Callable, tp: int, *, args: Sequence = (),
         for r in range(tp)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout_s
+    deadline = time.monotonic() + timeout_s  # repro-lint: disable=raw-wall-clock (spawn deadline)
     out: dict = {}
     try:
         while len(out) < tp:
-            left = deadline - time.monotonic()
+            left = deadline - time.monotonic()  # repro-lint: disable=raw-wall-clock (spawn deadline)
             if left <= 0:
                 raise TimeoutError(
                     f"{tp} ranks: no result from ranks "

@@ -94,7 +94,7 @@ def _run_stream(model, params, cfg, args) -> None:
             # queue_policy="reject" surfaces a structured error at
             # submission; the engine keeps serving what it admitted
             print(f"rejected: {e.detail}")
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # repro-lint: disable=raw-wall-clock (CLI wall time)
     n_events = 0
     while core.has_work:
         for ev in core.step():
@@ -106,7 +106,7 @@ def _run_stream(model, params, cfg, args) -> None:
                 print(f"req {ev.request_id} finished "
                       f"({ev.index + 1} tokens)")
     synchronize(model.device)
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0  # repro-lint: disable=raw-wall-clock (CLI wall time)
     s = core.stats()
     print(f"{n_events} tokens in {dt:.2f}s ({n_events / dt:.1f} tok/s), "
           f"{s['steps']} engine steps, peak pool "
@@ -254,10 +254,10 @@ def main(argv=None):
     engine = ServeEngine(model=model, params=params, cfg=cfg, serve=serve)
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len))
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # repro-lint: disable=raw-wall-clock (CLI wall time)
     out = engine.generate(tokens, args.gen)
     synchronize(device)
-    dt = time.perf_counter() - t0
+    dt = time.perf_counter() - t0  # repro-lint: disable=raw-wall-clock (CLI wall time)
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s)")
     print("sample:", out[0, :16].tolist())

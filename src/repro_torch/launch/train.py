@@ -134,17 +134,17 @@ def run(args, mesh=None) -> None:
 
     host = f"host{mesh.rank if mesh is not None else 0}"
     for step in range(start, args.steps):
-        t0 = time.perf_counter()
+        t0 = time.perf_counter()  # repro-lint: disable=raw-wall-clock (CLI wall time)
         state, metrics = step_fn(state, to_device(data.next(), device))
         if lead and (step % 5 == 0 or step == args.steps - 1):
             loss = float(metrics["loss"])       # waits for the step
-            dt = time.perf_counter() - t0
+            dt = time.perf_counter() - t0  # repro-lint: disable=raw-wall-clock (CLI wall time)
             tok_s = args.batch * args.seq / dt
             print(f"step {step:5d} loss {loss:8.4f} "
                   f"lr {float(metrics['lr']):.2e} "
                   f"gnorm {float(metrics['grad_norm']):8.3f} "
                   f"{tok_s:9.0f} tok/s", flush=True)
-        stragglers.record(host, time.perf_counter() - t0)
+        stragglers.record(host, time.perf_counter() - t0)  # repro-lint: disable=raw-wall-clock (straggler step time)
         cadence.record_steps()
         every = min(tcfg.checkpoint_every, cadence.cadence())
         if (step + 1) % every == 0:

@@ -10,6 +10,14 @@ them, all-gathers K and V along the sequence over the model axis
 with ``q_offset`` = its first row, as the JAX package's rules lay it out
 (Q sharded along seq, K/V replicated, heads local).
 
+At decode time under a mesh with a model axis the dense cache is
+instead sharded along its *sequence* (``kv_seq -> model``): each rank
+holds its B / data rows and S / model positions, the model rank that owns
+the new position writes its K/V row, and attention is context-parallel
+over the model group (``core/distributed_decode.cp_decode_body``: each
+rank's slice through ``flash_decode`` with its offset and log-sum-exp,
+then the LSE merge), the layout JAX's rules give the decode cache.
+
 Caches and pools are updated IN PLACE (slice assignment, ``index_put_``
 through a flat view): the JAX package wrote them functionally
 (``dynamic_update_slice``, ``.at[].set``) and donated the old buffers to
@@ -36,6 +44,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core.distributed_decode import (attend_with_positions,
+                                                 cp_decode_body,
                                                  merge_partial_attention,
                                                  paged_local_view,
                                                  paged_shard_kv_positions)
@@ -202,16 +211,32 @@ def apply_attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     written in place at ``pos`` for every row; attention then reads
     kv_len = pos + 1 tokens.  ``impl`` (default ``cfg.attention_impl``) as
     in the dense branches of ``fast_attention_decode``.  Returns
-    (out (B, 1, D), cache)."""
+    (out (B, 1, D), cache).
+
+    Under a mesh with a model axis of n > 1 ranks x holds this rank's
+    rows and the cache its (B, S / n, Hkv, D) slice of positions
+    ``[m * S / n, (m + 1) * S / n)`` at model coordinate m: only the rank
+    whose slice holds ``pos`` writes the new row, and attention merges
+    every rank's slice over the model group (``cp_decode_body``)."""
     impl = impl or cfg.attention_impl
     b = x.shape[0]
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, cfg,
                                    rope_positions(positions, cfg))
-    for buf, new in ((cache.k, k_new), (cache.v, v_new)):
-        buf[:, pos] = new[:, 0].to(buf.dtype)
+    mesh = current_mesh()
+    n = mesh.shape.get("model", 1) if mesh is not None else 1
+    row = pos - mesh.coords["model"] * cache.k.shape[1] if n > 1 else pos
+    if n == 1 or 0 <= row < cache.k.shape[1]:
+        for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+            buf[:, row] = new[:, 0].to(buf.dtype)
     kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+    if n > 1:
+        out = cp_decode_body(
+            q[:, 0], cache.k, cache.v, kv_len, mesh.group(("model",)),
+            window=window, softcap=cfg.attn_logit_softcap, impl=impl)
+        return common.dense(out.reshape(b, 1, cfg.q_dim), params["wo"]), \
+            cache
     out = fast_attention_decode(
         q, cache.k, cache.v, kv_len, window=window,
         softcap=cfg.attn_logit_softcap, impl=impl, layout=KV_CACHE_LAYOUT)

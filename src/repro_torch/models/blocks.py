@@ -28,6 +28,9 @@ from repro_torch.sharding.rules import current_mesh
 
 # the kinds whose cache is a KV cache: they serve paged
 ATTN_KINDS = ("attn", "attn_local", "moe")
+# the kinds that decode from a cache sharded along its sequence over the
+# model axis (``kv_seq -> model``: layers/attention.apply_attention_decode)
+MESH_DECODE_KINDS = ("attn", "attn_local")
 HYMBA_KINDS = ("hymba", "hymba_local")
 PORTED_KINDS = ATTN_KINDS + HYMBA_KINDS + ("mlstm", "slstm")
 # a recurrent kind's cell: (its subtree in the block's params, the cell)
@@ -44,6 +47,19 @@ def check_kind(kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (the port serves "
             f"{', '.join(PORTED_KINDS)})")
+
+
+def check_mesh_decode(kind: str, model: int) -> None:
+    """Dense decode under a mesh whose model axis has ``model`` > 1 ranks
+    runs the attention kinds only (context-parallel over the cache's
+    sequence); the recurrent states, hymba's KV and Mamba channels and a
+    MoE block's experts have no sharded decode yet."""
+    check_kind(kind)
+    if model > 1 and kind not in MESH_DECODE_KINDS:
+        raise NotImplementedError(
+            f"dense decode of {kind!r} blocks on a mesh with a model axis "
+            f"of {model} is not ported (ROADMAP Queue 1 item 8); it runs "
+            f"{', '.join(MESH_DECODE_KINDS)} blocks")
 
 
 def _check_paged(kind: str) -> None:
@@ -339,8 +355,10 @@ def apply_block_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                        impl: Optional[str] = None):
     """Dense-cache one-token decode: x (B, 1, D), ``pos`` the scalar
     position shared by every row (recurrent kinds carry their state in
-    ``cache`` and ignore it)."""
-    check_kind(kind)
+    ``cache`` and ignore it).  Under a mesh with a model axis the
+    attention kinds decode from their slice of the cache's sequence."""
+    mesh = current_mesh()
+    check_mesh_decode(kind, mesh.shape.get("model", 1) if mesh else 1)
     h = apply_norm(params["ln1"], x, cfg.norm_type, cfg.norm_eps)
     if kind == "mlstm":
         y, cache = ssm_mod.apply_mlstm(params["cell"], h, cfg, state=cache,

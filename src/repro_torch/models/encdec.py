@@ -258,7 +258,10 @@ class EncDec(MeshModel):
         each layer's cross K/V are projected once from it
         (``project_cross_kv``); without, they are zeros of
         ``encoder_seq`` rows (one tensor, shared: the cache never writes
-        them), as JAX's dense engine runs the model."""
+        them), as JAX's dense engine runs the model.  Under a mesh with a
+        model axis it raises NotImplementedError, as ``decode_step``
+        does."""
+        self._no_mesh_decode()
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         self_kv = [attn_mod.init_kv_cache(cfg, batch, max_seq, dtype,
@@ -272,6 +275,15 @@ class EncDec(MeshModel):
                              cfg.head_dim), dtype=dtype, device=self.device)
             cross = [(z, z)] * cfg.num_layers
         return {"self": self_kv, "cross": cross}
+
+    def _no_mesh_decode(self) -> None:
+        mesh = self._mesh()
+        n = mesh.shape.get("model", 1) if mesh is not None else 1
+        if n > 1:
+            raise NotImplementedError(
+                f"{self.cfg.name}: dense decode of an encoder-decoder on a "
+                f"mesh with a model axis of {n} is not ported (ROADMAP "
+                "Queue 1 item 8)")
 
     def cache_logical(self, batch: int, max_seq: int) -> dict:
         """Logical axes of every leaf of ``init_cache``'s tree."""
@@ -291,7 +303,10 @@ class EncDec(MeshModel):
         """One decoder token.  token: (B,) int; pos: the scalar position
         shared by every row.  Each layer writes its self-attention K/V row
         at ``pos`` in place and attends to the cross K/V.  Returns
-        (logits (B, V), cache)."""
+        (logits (B, V), cache).  Under a mesh with a model axis it raises
+        NotImplementedError: the self cache's ``kv_seq -> model`` decode
+        is not ported for an encoder-decoder."""
+        self._no_mesh_decode()
         cfg = self.cfg
         x = embed_tokens(params["embedding"], token[:, None], cfg)
         b = x.shape[0]

@@ -32,6 +32,13 @@ embedding and LM head (and a vision model's frontend) are gathered
 once, and attention is context-parallel (``layers/attention.py``).
 The gathers' gradients come back to each rank as its piece of the sum
 over the model axis.
+
+Dense decode under a mesh (``init_cache``, ``decode_step``) holds the
+rule table's slice of every cache: B / data rows and, for the attention
+kinds, S / model positions of the KV cache (``kv_seq -> model``); each
+rank decodes its rows with every block's weights gathered and merges
+attention over its model group (``blocks.check_mesh_decode`` names the
+kinds that do).
 """
 from __future__ import annotations
 
@@ -49,6 +56,7 @@ from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 from repro_torch.models import blocks as B
 from repro_torch.models.sharded import MeshModel
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding.rules import shard_index
 
 
 def _block_leaves(bp: dict, spec: dict, mesh, cfg: ModelConfig,
@@ -199,12 +207,37 @@ class LM(MeshModel):
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
+    def _decode_rows(self, mesh, batch: int, max_seq: int) -> tuple:
+        """(first row, rows, positions) of this rank's slice of a dense
+        decode cache of ``batch`` rows x ``max_seq`` positions under
+        ``mesh``: the rule table's slice of ``cache_logical`` -- the
+        batch over every axis but the model axis, the KV cache's sequence
+        over the model axis.  Raises NotImplementedError for a block kind
+        with no sharded decode, ValueError where the batch or the cache
+        width does not split."""
+        n = mesh.shape.get("model", 1)
+        for kind in set(self.cfg.blocks()):
+            B.check_mesh_decode(kind, n)
+        d, dp = shard_index(tuple(a for a in mesh.axis_names
+                                  if a != "model"), mesh, mesh.coords)
+        if batch % dp or max_seq % n:
+            raise ValueError(
+                f"a decode cache of {batch} rows x {max_seq} positions "
+                f"does not split over dp={dp} rows and model={n} sequence "
+                "pieces: the batch must be a multiple of dp and the cache "
+                "width of model")
+        return d * (batch // dp), batch // dp, max_seq // n
+
     def init_cache(self, batch: int, max_seq: int) -> List:
         """Per-layer dense decode caches on the model's device: KV caches
         (``layers/attention.KV_CACHE_LAYOUT``) for attention blocks, the
         float32 recurrent state for mlstm / slstm blocks, and for hymba
-        blocks ``{"kv": KV cache, "mamba": MambaState}``."""
+        blocks ``{"kv": KV cache, "mamba": MambaState}``.  Under a mesh:
+        this rank's slice of each (``_decode_rows``)."""
         dtype = torch_dtype(self.cfg.dtype)
+        mesh = self._mesh()
+        if mesh is not None:
+            _, batch, max_seq = self._decode_rows(mesh, batch, max_seq)
         return [B.init_block_cache(self.cfg, kind, batch, max_seq, dtype,
                                    self.device)
                 for kind in self.cfg.blocks()]
@@ -223,14 +256,20 @@ class LM(MeshModel):
                 for kind in self.cfg.blocks()]
 
     def _cached_segments(self, params: dict, x: torch.Tensor, cache: List,
-                         block_fn: Callable):
+                         block_fn: Callable,
+                         leaves: Optional[Callable] = None):
         """Thread (x, cache) through every layer, final-norm and project
         to logits.  ``block_fn(block_params, x, kind, block_cache) ->
-        (x, block_cache)`` supplies the per-block forward.
-        x: (B, S, D) embedded input; returns (logits (B, S, V), cache)."""
+        (x, block_cache)`` supplies the per-block forward, on
+        ``leaves(i, block_params)`` where given (a mesh's gathered
+        weights).  x: (B, S, D) embedded input; returns (logits (B, S, V),
+        cache)."""
         cfg = self.cfg
         new_cache = []
-        for kind, bp, bc in zip(cfg.blocks(), params["layers"], cache):
+        for i, (kind, bp, bc) in enumerate(zip(cfg.blocks(),
+                                               params["layers"], cache)):
+            if leaves is not None:
+                bp = leaves(i, bp)
             x, bc = block_fn(bp, x, kind, bc)
             new_cache.append(bc)
         x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
@@ -241,12 +280,31 @@ class LM(MeshModel):
         """Dense-cache decode step.  token: (B,) int; pos: the scalar
         position shared by every row.  Each attention layer writes its K/V
         row at ``pos`` in place; a recurrent layer returns its new state.
-        Returns (logits (B, V), cache)."""
+        Returns (logits (B, V), cache).
+
+        Under a mesh ``token`` is the whole batch and ``cache`` this
+        rank's slice (``init_cache``): the rank decodes its rows of the
+        batch, each block on its weights gathered whole, and returns its
+        rows' logits."""
+        cfg = self.cfg
+        mesh = self._mesh()
+        leaves = None
+        if mesh is not None:
+            r0, rows, _ = self._decode_rows(mesh, token.shape[0], 0)
+            token = token[r0:r0 + rows]
+            params = self._whole(params, ("embedding",))
+            specs = self.param_specs(mesh)["layers"]
+            kinds = cfg.blocks()
+
+            def leaves(i, bp):
+                return _block_leaves(bp, specs[i], mesh, cfg, kinds[i])
+
         def block_fn(bp, x, kind, bc):
-            return B.apply_block_decode(bp, x, self.cfg, kind, bc, pos=pos,
+            return B.apply_block_decode(bp, x, cfg, kind, bc, pos=pos,
                                         impl=impl)
-        x = embed_tokens(params["embedding"], token[:, None], self.cfg)
-        logits, cache = self._cached_segments(params, x, cache, block_fn)
+        x = embed_tokens(params["embedding"], token[:, None], cfg)
+        logits, cache = self._cached_segments(params, x, cache, block_fn,
+                                              leaves)
         return logits[:, 0], cache
 
     def decode_step_paged(self, params: dict, token: torch.Tensor,

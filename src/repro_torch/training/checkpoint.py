@@ -123,7 +123,7 @@ class CheckpointManager:
             "leaves": [{"path": path, "dtype": _dtype_name(t),
                         "shape": list(t.shape)} for path, t in host],
             "extras": extras or {},
-            "time": time.time(),
+            "time": time.time(),  # repro-lint: disable=raw-wall-clock (manifest timestamp)
         }
         for i, (_, t) in enumerate(host):
             np.save(os.path.join(tmp, f"arr_{i}.npy"), _to_numpy(t))

@@ -27,13 +27,13 @@ from repro_torch.config import ParallelConfig
 class HeartbeatMonitor:
     def __init__(self, hosts: Sequence[str], timeout_s: float = 60.0):
         self.timeout = timeout_s
-        self.last_seen: Dict[str, float] = {h: time.time() for h in hosts}
+        self.last_seen: Dict[str, float] = {h: time.time() for h in hosts}  # repro-lint: disable=raw-wall-clock (heartbeat)
 
     def beat(self, host: str, t: Optional[float] = None):
-        self.last_seen[host] = time.time() if t is None else t
+        self.last_seen[host] = time.time() if t is None else t  # repro-lint: disable=raw-wall-clock (heartbeat)
 
     def dead_hosts(self, now: Optional[float] = None) -> List[str]:
-        now = time.time() if now is None else now
+        now = time.time() if now is None else now  # repro-lint: disable=raw-wall-clock (heartbeat)
         return [h for h, t in self.last_seen.items()
                 if now - t > self.timeout]
 

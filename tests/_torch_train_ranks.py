@@ -409,3 +409,56 @@ def pipeline_rank(rank: int, case: str, stages: list, x) -> dict:
         y = make_pipeline(stage_fn, group=dist.group.WORLD)(
             params, torch.from_numpy(x))
     return {"out": y.numpy(), "counts": dict(C.COUNTS)}
+
+
+def cp_decode_rank(rank: int, par_kw: dict, cases: list) -> list:
+    """Dense decode on the mesh of ``par_kw`` (``LM.init_cache`` /
+    ``LM.decode_step`` under ``axis_rules``: the cache's ``kv_seq ->
+    model`` slice, context-parallel attention) for each case in turn: a
+    case holds "arch", the whole "params" (numpy, the port's tree), the
+    whole per-layer "caches" [(k, v)] (numpy, (B, S, Hkv, D)) and
+    "steps" [(pos, tokens (B,))]; with "cfg_kw" (the reduced config's
+    changed fields, e.g. a bf16 dtype) also "dtypes", each parameter's
+    torch dtype name (its float32 numpy values are exact in it).  The
+    rank fills its slices from the whole caches, decodes every step from
+    its pieces of the parameters and returns per case its coordinates,
+    its slices' shapes, its rows of every step's logits and its final
+    cache slices (float32 numpy)."""
+    import dataclasses
+    from repro_torch.sharding.rules import param_sharding_tree
+    torch.set_num_threads(1)
+    parallel = ParallelConfig(**par_kw)
+    mesh = make_mesh_for(parallel, timeout=INIT_TIMEOUT_S)
+    out = []
+    for case in cases:
+        cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
+            case["arch"])), **case.get("cfg_kw", {}))
+        model = build_model(cfg, "cpu", parallel)
+        whole = tree.tree_map(torch.from_numpy, case["params"])
+        if "dtypes" in case:
+            whole = tree.tree_map(lambda t, dt: t.to(getattr(torch, dt)),
+                                  whole, case["dtypes"])
+        b, s = case["caches"][0][0].shape[:2]
+        with axis_rules(mesh=mesh), torch.no_grad():
+            pieces = tree.unflatten(whole, [
+                shard_of(t, sp, mesh) for t, sp in zip(
+                    tree.leaves(whole), flatten(model.param_specs(mesh),
+                                                is_spec), strict=True)])
+            cache = model.init_cache(b, s)
+            specs = param_sharding_tree(model.cache_logical(b, s), mesh)
+            for kv, spec, (k, v) in zip(cache, specs, case["caches"],
+                                        strict=True):
+                kv.k.copy_(shard_of(torch.from_numpy(k), spec.k, mesh))
+                kv.v.copy_(shard_of(torch.from_numpy(v), spec.v, mesh))
+            logits = []
+            for pos, tok in case["steps"]:
+                lg, cache = model.decode_step(pieces, torch.from_numpy(tok),
+                                              cache, pos)
+                logits.append(lg.float().numpy().copy())
+        out.append({"coords": mesh.coords, "specs": specs,
+                    "shapes": [tuple(kv.k.shape) for kv in cache],
+                    "logits": logits,
+                    "cache": [(kv.k.float().numpy().copy(),
+                               kv.v.float().numpy().copy())
+                              for kv in cache]})
+    return out

@@ -2394,7 +2394,7 @@ def test_phase3f_and_13_run_in_order_and_4b_pays(cs):
     assert main.index('done("3e")') < main.index("phase_int8(") < \
         main.index('done("3f")') < main.index("del model, params")
     assert main.index('done("12")') < main.index(
-        "phase_compress_pipeline()") < main.index('done("13")') < \
+        "phase_compress_pipeline(") < main.index('done("13")') < \
         main.index("roofline_readings(") < main.index(
             "add_int8_pipeline_entries")
     # phase 4b writes its checkpoint once, gathers it once, and the
@@ -2404,3 +2404,205 @@ def test_phase3f_and_13_run_in_order_and_4b_pays(cs):
     assert inspect.getsource(cs.phase_dist_training).count(
         "read_checkpoint(") == 1
     assert "checkpoint_leaves" not in inspect.getsource(cs._dist_resume)
+
+
+def _cp_job(cs, **kw):
+    """Phase 14's run at a reduced size: a reduced bf16 llama2-7b's 2
+    layers, 4 rows on a 64-position cache (slices of 32), steps in slice
+    0, across its end and in slice 1."""
+    cfg = _smoke_llama(num_layers=2)
+    return cs.cp_job_for([[1.0, 0.8], [0.9, 1.1]], cfg=cfg, batch=4,
+                         width=64, positions=kw.get(
+                             "positions", (10, 29, 30, 31, 32, 33)))
+
+
+def test_phase14_alone_on_a_reduced_bf16_llama_and_cpu_ranks(cs,
+                                                              monkeypatch):
+    """Phase 14 on the CPU before the card: four gloo ranks at (2, 2)
+    decode a reduced bf16 llama2-7b from their cache slices, held by
+    ``cp_gate`` to the one-device run (no launch on the plain path, every
+    local attention asked for the log-sum-exp)."""
+    import sys
+    pytest.importorskip("torch")
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(ROOT))
+    job = _cp_job(cs)
+    out = cs.phase_cp_decode(job, device="cpu")
+    assert out["launches"] == [0] * 4 and out["lse_calls"] == [12] * 4
+    assert out["merges_a_step"] == [4.0] * 4        # 2 layers x (max, sum)
+    assert all(w <= 1.0 for rank in out["written_worst"] for w in rank)
+    assert out["ref_launches"] == 0 and out["card"] == "cpu"
+
+
+def test_phase14_rides_phase13s_spawn(cs, monkeypatch):
+    """On the card phase 14's ranks run in phase 13's spawn after (b):
+    the same ranks' results feed ``phase_cp_decode``."""
+    import sys
+    pytest.importorskip("torch")
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(ROOT))
+    job = _cp_job(cs, positions=(31, 32))
+    out = cs.phase_compress_pipeline(
+        device="cpu", cfg_a=_smoke_llama(num_layers=2),
+        cfg_b=_smoke_llama(num_layers=cs.PIPE_STAGES), seq=32, pipe_seq=16,
+        cp_job=job)
+    assert out["pipeline"]["ticks"] == 11 and len(out["cp_ranks"]) == 4
+    cp = cs.phase_cp_decode(job, out.pop("cp_ranks"), device="cpu")
+    assert cp["lse_calls"] == [4] * 4
+
+
+def test_cp_cache_pieces_are_the_whole_caches_slices(cs):
+    """A rank's slice drawn alone equals the one-device cache's rows and
+    positions: the pieces are seeded by (layer, k/v, row, slice)."""
+    torch = pytest.importorskip("torch")
+    from repro_torch.models import build_model
+    job = _cp_job(cs)
+    model = build_model(job["cfg"], "cpu")
+    whole = model.init_cache(4, 64)
+    cs._cp_fill(job, whole, range(4), range(2), torch.device("cpu"))
+    mine = model.init_cache(2, 32)
+    cs._cp_fill(job, mine, range(2, 4), [1], torch.device("cpu"))
+    for w, m in zip(whole, mine):
+        assert torch.equal(m.k, w.k[2:4, 32:64])
+        assert torch.equal(m.v, w.v[2:4, 32:64])
+    assert not torch.equal(whole[0].k[0], whole[0].v[0])
+    assert whole[1].v.float().square().mean().sqrt().item() == \
+        pytest.approx(1.1, rel=0.05)
+
+
+def test_phase14_gate_rejects_faked_failures(cs):
+    torch = pytest.importorskip("torch")
+    import numpy as np
+    job = _cp_job(cs, positions=(31, 32))
+    b_l, s_l = 2, 32
+    rng = np.random.default_rng(0)
+    logits = [rng.normal(size=(4, 256)).astype(np.float32) for _ in range(2)]
+    logits[0][:, 0] += 50           # clear top-1 margins
+    kv = {pos: [(rng.normal(size=(4, 2, 16)).astype(np.float32),
+                 rng.normal(size=(4, 2, 16)).astype(np.float32))
+                for _ in range(2)] for pos in (31, 32)}
+    ref = {"logits": [torch.from_numpy(x) for x in logits],
+           "written": {p: [(torch.from_numpy(k), torch.from_numpy(v))
+                           for k, v in layers] for p, layers in kv.items()},
+           "wall_s": 0.1, "launches": 4, "cache_gb": 0.1}
+
+    def ranks(**bad):
+        out = []
+        for r in range(4):
+            d, m = divmod(r, 2)
+            rows = slice(d * b_l, (d + 1) * b_l)
+            pos = 31 if m == 0 else 32
+            res = {"coords": {"data": d, "model": m},
+                   "shapes": [(b_l, s_l, 2, 16)] * 2,
+                   "logits": [x[rows].copy() for x in logits],
+                   "launches": 4, "lse_calls": 4, "plain_cuda": 0,
+                   "written": {pos: [(k[rows].copy(), v[rows].copy())
+                                     for k, v in kv[pos]]},
+                   "wall_s": [0.1, 0.1], "peak_gb": 1.0,
+                   "merges": {"all_reduce": 8, "bytes": 800},
+                   "gathers": {"all_gather": 32, "bytes": 3200},
+                   "kernel_device_ms": 0.3}
+            if r == 3:
+                for k, v in bad.items():
+                    res[k] = v(res) if callable(v) else v
+            out.append(res)
+        return out
+    cs.cp_gate("ok", ranks(), ref, job, on_card=True)
+
+    def off_logits(res):
+        return [x + 100.0 for x in res["logits"]]
+
+    def off_rows(res):
+        return {32: [(k + 1.0, v) for k, v in res["written"][32]]}
+
+    def off_deep_rows(res):
+        (k0, v0), (k1, v1) = res["written"][32]
+        return {32: [(k0, v0), (k1 * 1.1, v1)]}
+
+    def deep_in_scale(res):
+        (k0, v0), (k1, v1) = res["written"][32]
+        return {32: [(k0, v0), (k1 * 1.02 + 0.03, v1)]}
+
+    def deep_in_bound(res):
+        (k0, v0), (k1, v1) = res["written"][32]
+        return {32: [(k0, v0), (k1 + 0.01, v1)]}
+
+    def one_ulp(res):
+        return [x + np.float32(1e-3) for x in res["logits"]]
+    for bad, match in ((dict(shapes=[(b_l, 64, 2, 16)] * 2), "rule table"),
+                       (dict(launches=3), "launched"),
+                       (dict(lse_calls=3), "log-sum-exp"),
+                       (dict(plain_cuda=1), "plain attention"),
+                       (dict(logits=off_logits), "logits differ"),
+                       (dict(logits=one_ulp), "other rank"),
+                       (dict(written={31: kv[31]}), "owns"),
+                       (dict(written=off_rows), "bf16 bound"),
+                       (dict(written=off_deep_rows), "layer 1 k.*bf16 bound"),
+                       (dict(written=deep_in_scale), "layer 1 k.*bf16 bound")):
+        with pytest.raises(AssertionError, match=match):
+            cs.cp_gate("bad", ranks(**bad), ref, job, on_card=True)
+    with pytest.raises(AssertionError, match="launched"):
+        cs.cp_gate("cpu", ranks(), ref, job, on_card=False)
+    # every layer's rows are held to the bf16 bound, each layer's worst
+    # ratio reported
+    out = cs.cp_gate("deep", ranks(written=deep_in_bound), ref, job,
+                     on_card=True)
+    assert out["written_worst"][3][0] == 0.0
+    assert 0.0 < out["written_worst"][3][1] <= 1.0
+
+
+def test_phase2_slice_cases_cover_phase14s_edges(cs):
+    """Phase 2 holds flash_decode's slice and log-sum-exp on llama2-7b's
+    32/32 heads at a rank's second slice of decode_32k (no valid key, 6,
+    the whole slice) and gemma2-2b's head shape where the window empties
+    slice 0 and cuts slice 1."""
+    keys = {pre: cs.slice_keys(kw["lens"], kw["kv_start"], kw["s"],
+                               kw.get("window"))
+            for pre, (_, kw) in cs.CP_SLICE_CASES.items()}
+    assert keys["cp_empty"].tolist() == [0] * 4
+    assert keys["cp_start"].tolist() == [6] * 4
+    assert keys["cp_full"].tolist() == [16384] * 4
+    full = cs.CP_SLICE_CASES["cp_full"][1]
+    assert (full["b"], full["hq"], full["hkv"], full["d"], full["s"],
+            full["kv_start"]) == (4, 32, 32, 128, 16384, 16384)
+    assert keys["cp_gemma_s0"].tolist() == [0] * 8
+    s1 = keys["cp_gemma_s1"]
+    assert 0 in s1 and s1.max() == 4096 and sorted(s1)[1] == 1
+    g = cs.CP_SLICE_CASES["cp_gemma_s1"][1]
+    assert (g["hq"], g["hkv"], g["d"], g["window"], g["softcap"]) == (
+        8, 4, 256, 4096, 50.0)
+    # a window that starts inside the slice (cuts it from below)
+    import numpy as np
+    lo = np.asarray(g["lens"]) - g["window"]
+    assert ((lo > g["kv_start"]) & (lo < g["kv_start"] + g["s"])).any()
+
+
+def test_kernels_line_gains_cp_entries(cs):
+    kernels = [{"name": n} for n in ("fastattn_fwd", "flash_decode")]
+    res = {"err": 1e-3, "lse_err": 2e-6, "ms": 0.4, "device_ms": 0.33,
+           "plain_ms": 9.0, "bound_ms": 0.32, "bound_by": "bytes",
+           "library_ms": 0.5, "library_device_ms": 0.45}
+    cs.add_cp_entries(kernels, {"cp_full": res},
+                      {"launches": [28] * 4, "lse_calls": [28] * 4,
+                       "kernel_device_ms": [0.33, 0.01, 0.33, 0.01]})
+    assert kernels[0] == {"name": "fastattn_fwd"}
+    k = kernels[1]
+    assert k["cp_full_max_abs_err"] == 1e-3 and k["cp_full_lse_err"] == 2e-6
+    assert k["cp_full_bound_ms"] == 0.32 and k["cp_launches"] == [28] * 4
+    assert k["cp_lse_calls"] == [28] * 4
+
+
+def test_phase14_runs_after_13_in_its_spawn(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index('done("12")') < main.index("cp_job_for(") < \
+        main.index("phase_compress_pipeline(cp_job=cp_job)") < \
+        main.index('done("13")') < main.index("phase_cp_decode(") < \
+        main.index('done("14")') < main.index("roofline_readings(") < \
+        main.index("add_cp_entries(")
+    job = cs.cp_job_for([[1.0, 1.0]] * 32)
+    assert job["cfg"].num_layers == 4 and job["cfg"].d_model == 4096
+    assert (job["batch"], job["width"], job["mesh"]) == (
+        8, 32768, {"data": 2, "model": 2})
+    assert [p for p, _ in job["steps"]] == [1000, 16381, 16382, 16383,
+                                            16384, 16385, 16386]

@@ -1,0 +1,549 @@
+"""Context-parallel dense decode -- the cache's ``kv_seq -> model`` --
+against the JAX package, on the CPU.
+
+* (a) the plain version of ``flash_decode`` at a slice offset with its
+  log-sum-exp (``decode_reference(kv_start=, return_lse=True)`` and the
+  port's ``_local_decode_with_lse``) against JAX's
+  ``_local_decode_with_lse``: a slice with no valid key, a window that
+  cuts or empties the slice, softcap, GQA;
+  and in bf16, where each slice's output stays float32 for the merge as
+  JAX's does;
+* (b) ``LM.init_cache`` / ``LM.decode_step`` of reduced llama2-7b,
+  gemma2-2b (window, softcaps) and qwen2.5-32b (qkv bias), and of
+  llama2-7b in bf16, on (1, 2) and (2, 2) gloo ranks
+  (``_torch_train_ranks.cp_decode_rank``) against JAX's one-device
+  ``decode_step`` on the same weights (``params_from_jax``) and the
+  same random caches, at positions in the first slice, across the slice
+  boundary and in the last slice, where gemma2-2b's window empties the
+  first slice;
+* (c) the float32 (2, 2) ranks against JAX's own (2, 2) mesh running
+  the dry run's decode shardings (``cache_logical`` and ``param_sharding_tree``,
+  a subprocess on four forced host devices): the logits, and each rank's
+  cache slice against JAX's shard at its coordinate;
+* (d) the block kinds with no sharded decode refuse a model axis, a cache
+  width that does not split raises, and a mesh whose model axis is 1
+  decodes each rank's rows as one device does.
+
+Inputs are made with numpy from a seed, float32 but for the bf16 cases
+(bf16 values, exact in float32).  Tolerances: 1e-5 for the attention
+functions (the order of float32 sums), the mesh tests'
+``_torch_mesh_pair.TOL`` for the float32 models, and the bf16 bound
+``BF16_ROW`` (2e-2 plus 1e-2 of each row's largest value: a few bf16
+roundings that land differently) for the bf16 model.  One deliberate difference: a
+slice with no valid key gives 0 here, where JAX averages the masked
+values; its log-sum-exp is NEG_INF in both, so the merge weighs it at
+zero and the difference never reaches a result.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.config import ParallelConfig as JParallel  # noqa: E402
+from repro.config import get_model_config, reduce_for_smoke  # noqa: E402
+from repro.core.distributed_decode import \
+    _local_decode_with_lse as j_local  # noqa: E402
+from repro.layers.attention import KVCache as JKV  # noqa: E402
+from repro.models import build_model as j_build  # noqa: E402
+from repro.models.lm import periodic_segments  # noqa: E402
+from repro_torch.config import get_model_config as t_get  # noqa: E402
+from repro_torch.config import reduce_for_smoke as t_reduce  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core.distributed_decode import \
+    _local_decode_with_lse  # noqa: E402
+from repro_torch.kernels.flash_decode.ref import (NEG_INF,  # noqa: E402
+                                                  decode_reference)
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.sharding.rules import (axis_rules,  # noqa: E402
+                                        param_sharding_tree, shard_of)
+from repro_torch.training import tree  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_mesh_pair import ROOT, TOL  # noqa: E402
+from _torch_train_ranks import cp_decode_rank, spawn  # noqa: E402
+
+ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_ROW = (2e-2, 1e-2)       # absolute, and relative to a row's max |x|
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_on_one_thread():
+    """torch on one intra-op thread beside JAX in this process, as the
+    port's tests hold it there (ROADMAP Queue 3 item 10)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------------------
+# (a) one slice: the plain kernel against JAX's _local_decode_with_lse
+# ---------------------------------------------------------------------------
+
+# (b, hq, hkv, s_local, d, start, lens, window, softcap): rows ending
+# before the slice (no valid key), inside it and past it; a window that
+# cuts the slice from below, one inside it and one that starts past it
+# (no valid key); softcap; GQA 4 and 1
+SLICE_CASES = [
+    (3, 4, 4, 64, 32, 64, [30, 64, 100], None, None),
+    (3, 8, 2, 64, 32, 64, [100, 130, 200], 20, None),
+    (2, 8, 2, 48, 16, 0, [60, 40], 16, 30.0),
+    (3, 4, 1, 40, 64, 80, [81, 120, 500], 100, 50.0),
+    (2, 2, 2, 32, 16, 32, [1, 64], None, 20.0),
+]
+
+
+@pytest.mark.parametrize("case", SLICE_CASES)
+def test_slice_decode_with_lse_matches_jax(case):
+    b, hq, hkv, s, d, start, lens, window, softcap = case
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(b, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, s, d)).astype(np.float32)
+    kv_len = np.asarray(lens, np.int32)
+    kw = dict(window=window, softcap=softcap, scale=None)
+    jout, jlse = (np.asarray(a) for a in j_local(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), start, start + s,
+        global_len=jnp.asarray(kv_len), **kw))
+    qt, lt = torch.from_numpy(q), torch.from_numpy(kv_len)
+    kt, vt = torch.from_numpy(k), torch.from_numpy(v)
+    out, lse = _local_decode_with_lse(qt, kt.transpose(1, 2),
+                                      vt.transpose(1, 2), start, start + s,
+                                      global_len=lt, **kw)
+    ref, ref_lse = decode_reference(
+        qt[:, :, None], kt.transpose(1, 2), vt.transpose(1, 2), lt,
+        layout="bshd", kv_start=start, return_lse=True, **kw)
+    assert out.shape == (b, hq, d) and lse.dtype == torch.float32
+    empty = jlse <= NEG_INF / 2
+    assert empty.any() or start == 0
+    for got, got_lse in ((out, lse), (ref[:, :, 0], ref_lse[:, :, 0])):
+        np.testing.assert_allclose(got_lse.numpy(), jlse, **ATTN_TOL)
+        np.testing.assert_allclose(got.numpy()[~empty], jout[~empty],
+                                   **ATTN_TOL)
+        assert not got.numpy()[empty].any()
+
+
+@pytest.mark.parametrize("case", SLICE_CASES)
+def test_bf16_slice_partial_is_jaxs_float32_partial(case):
+    """On bf16 inputs the slice's output and log-sum-exp are float32, as
+    JAX's ``_local_decode_with_lse`` gives them, so the ranks' merge
+    weighs unrounded partials: held to JAX's within the float32
+    tolerance, far inside one bf16 rounding (2^-9 of a value)."""
+    b, hq, hkv, s, d, start, lens, window, softcap = case
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).bfloat16() for shape in ((b, hq, d), (b, hkv, s, d),
+                                              (b, hkv, s, d)))
+    kv_len = np.asarray(lens, np.int32)
+    kw = dict(window=window, softcap=softcap, scale=None)
+    jout, jlse = (np.asarray(a) for a in j_local(
+        *(jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+          for t in (q, k, v)), start, start + s,
+        global_len=jnp.asarray(kv_len), **kw))
+    assert jout.dtype == np.float32
+    out, lse = _local_decode_with_lse(
+        q, k.transpose(1, 2), v.transpose(1, 2), start, start + s,
+        global_len=torch.from_numpy(kv_len), **kw)
+    assert out.dtype == lse.dtype == torch.float32
+    empty = jlse <= NEG_INF / 2
+    np.testing.assert_allclose(lse.numpy(), jlse, **ATTN_TOL)
+    np.testing.assert_allclose(out.numpy()[~empty], jout[~empty],
+                               **ATTN_TOL)
+    assert not out.numpy()[empty].any()
+
+
+def test_slice_offset_zero_without_lse_is_the_whole_cache():
+    """kv_start 0 and no lse: decode_reference's old function."""
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.normal(size=(2, 4, 1, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 40, 2, 16)).astype(
+        np.float32)) for _ in range(2))
+    lens = torch.tensor([40, 9], dtype=torch.int32)
+    out, lse = decode_reference(q, k, v, lens, layout="bshd", window=8,
+                                return_lse=True)
+    torch.testing.assert_close(
+        decode_reference(q, k, v, lens, layout="bshd", window=8), out,
+        rtol=0, atol=0)
+    assert lse.shape == (2, 4, 1) and bool((lse > NEG_INF / 2).all())
+
+
+# ---------------------------------------------------------------------------
+# (b), (c) the model on gloo ranks against JAX
+# ---------------------------------------------------------------------------
+
+BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
+# name -> (arch, the reduced config's changed fields)
+CASES = {"llama2-7b": ("llama2-7b", {}), "gemma2-2b": ("gemma2-2b", {}),
+         "qwen2.5-32b": ("qwen2.5-32b", {}),
+         "llama2-7b-bf16": ("llama2-7b", BF16)}
+ARCHS = list(CASES)
+# (c) compares the float32 cases: in bf16, JAX's own (2, 2) mesh is 1.105
+# of the bf16 bound from its one-device logits (the ranks: 0.845), so it
+# is no tighter reference than the one device (b) holds them to
+MESH_ARCHS = [name for name in ARCHS if not CASES[name][1]]
+B, S = 4, 96                  # two slices of 48 positions at model = 2
+# the first slice; across its end (47 | 48); the last slice, where
+# gemma2-2b's window of 32 leaves slice 0 no valid key (kv_len 81, 82)
+POSITIONS = [0, 1, 2, 46, 47, 48, 49, 80, 81]
+MESHES = {"1x2": dict(data=1, model=2), "2x2": dict(data=2, model=2)}
+
+
+def _layer_index(jcfg):
+    """(segment, rep, unit) of every layer of JAX's stacked cache, in
+    layer order."""
+    out = []
+    for si, (unit, reps) in enumerate(periodic_segments(jcfg)):
+        for rep in range(reps):
+            for i in range(len(unit)):
+                out.append((si, rep if reps > 1 else None, i))
+    return out
+
+
+def _jax_cache(jm, caches):
+    """JAX's (scan-stacked) cache holding the per-layer numpy caches."""
+    cache = jm.init_cache(B, S)
+    index = _layer_index(jm.cfg)
+    for si, (unit, reps) in enumerate(periodic_segments(jm.cfg)):
+        for i in range(len(unit)):
+            layers = [li for li, (s_, _, u) in enumerate(index)
+                      if (s_, u) == (si, i)]
+            k = np.stack([caches[li][0] for li in layers])
+            v = np.stack([caches[li][1] for li in layers])
+            if reps == 1:
+                k, v = k[0], v[0]
+            dt = cache[f"seg{si}"][f"u{i}"].k.dtype
+            cache[f"seg{si}"][f"u{i}"] = JKV(jnp.asarray(k, dtype=dt),
+                                             jnp.asarray(v, dtype=dt))
+    return cache
+
+
+def _layers_of(jm, cache):
+    """The per-layer (k, v) float32 numpy caches of JAX's stacked
+    cache."""
+    out = []
+    for si, rep, i in _layer_index(jm.cfg):
+        kv = cache[f"seg{si}"][f"u{i}"]
+        k, v = (np.asarray(t, dtype=np.float32) for t in (kv.k, kv.v))
+        out.append((k, v) if rep is None else (k[rep], v[rep]))
+    return out
+
+
+def _case(name: str) -> dict:
+    """JAX's reduced ``arch`` of case ``name`` (with its changed fields)
+    at PRNGKey(0), its weights as the port's float32 numpy tree with each
+    leaf's dtype, random per-layer caches (values exact in the model's
+    dtype), the steps' tokens, and JAX's one-device decode: every step's
+    logits and the final caches."""
+    arch, cfg_kw = CASES[name]
+    jcfg = dataclasses.replace(reduce_for_smoke(get_model_config(arch)),
+                               **cfg_kw)
+    tcfg = dataclasses.replace(t_reduce(t_get(arch)), **cfg_kw)
+    jm = j_build(jcfg, JParallel(remat="none"))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    params = tree.tree_map(lambda t: t.float().numpy().copy(), tparams)
+    dtypes = tree.tree_map(lambda t: str(t.dtype).split(".")[-1], tparams)
+    rng = np.random.default_rng(7)
+    shape = (B, S, jcfg.num_kv_heads, jcfg.head_dim)
+    exact = (lambda a: a) if not cfg_kw else (
+        lambda a: torch.from_numpy(a).bfloat16().float().numpy())
+    caches = [(exact(rng.normal(size=shape).astype(np.float32)),
+               exact(rng.normal(size=shape).astype(np.float32)))
+              for _ in range(jcfg.num_layers)]
+    steps = [(pos, rng.integers(0, jcfg.vocab_size, size=B).astype(np.int32))
+             for pos in POSITIONS]
+    jcache = _jax_cache(jm, caches)
+    logits = []
+    for pos, tok in steps:
+        lg, jcache = jm.decode_step(jp, jnp.asarray(tok), jcache,
+                                    jnp.int32(pos))
+        logits.append(np.asarray(lg, dtype=np.float32))
+    return {"arch": arch, "cfg_kw": cfg_kw, "params": params,
+            "dtypes": dtypes, "caches": caches, "steps": steps,
+            "logits": logits, "final": _layers_of(jm, jcache)}
+
+
+JAX_DECODE_CHILD = r"""
+import dataclasses, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.config import ParallelConfig, get_model_config, reduce_for_smoke
+from repro.layers.attention import KVCache
+from repro.models import build_model
+from repro.models.lm import periodic_segments
+from repro.sharding.rules import axis_rules, param_sharding_tree
+inp, out_path = sys.argv[1:]
+cases = np.load(inp, allow_pickle=True).item()
+mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+coords = {d.id: (i, j) for i, row in enumerate(mesh.devices)
+          for j, d in enumerate(row)}
+res = {}
+for name, case in cases.items():
+    cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
+        case["arch"])), **case["cfg_kw"])
+    model = build_model(cfg, ParallelConfig(data=2, model=2, remat="none"))
+    caches = case["caches"]
+    b, s = caches[0][0].shape[:2]
+    index = []
+    for si, (unit, reps) in enumerate(periodic_segments(cfg)):
+        for rep in range(reps):
+            for i in range(len(unit)):
+                index.append((si, rep if reps > 1 else None, i))
+    with axis_rules(mesh=mesh):
+        params = model.init(jax.random.PRNGKey(0))
+        cache = model.init_cache(b, s)
+        for si, (unit, reps) in enumerate(periodic_segments(cfg)):
+            for i in range(len(unit)):
+                ls = [li for li, (s_, _, u) in enumerate(index)
+                      if (s_, u) == (si, i)]
+                k = np.stack([caches[li][0] for li in ls])
+                v = np.stack([caches[li][1] for li in ls])
+                if reps == 1:
+                    k, v = k[0], v[0]
+                dt = cache[f"seg{si}"][f"u{i}"].k.dtype
+                cache[f"seg{si}"][f"u{i}"] = KVCache(
+                    jnp.asarray(k, dtype=dt), jnp.asarray(v, dtype=dt))
+        psh = param_sharding_tree(model.logical(), mesh)
+        csh = param_sharding_tree(model.cache_logical(b, s), mesh)
+        tsh = param_sharding_tree((("batch",), (b,)), mesh)
+        params = jax.device_put(params, psh)
+        cache = jax.device_put(cache, csh)
+        step = jax.jit(model.decode_step,
+                       in_shardings=(psh, tsh, csh, NamedSharding(mesh, P())),
+                       out_shardings=(None, csh))
+        logits = []
+        with mesh:
+            for pos, tok in case["steps"]:
+                lg, cache = step(params, jnp.asarray(tok), cache,
+                                 jnp.int32(pos))
+                logits.append(np.asarray(lg, dtype=np.float32))
+    final, shards = [], []
+    for si, rep, i in index:
+        kv = cache[f"seg{si}"][f"u{i}"]
+        lead = 0 if rep is None else 1
+        k, v = (np.asarray(t, dtype=np.float32) for t in (kv.k, kv.v))
+        final.append((k, v) if rep is None else (k[rep], v[rep]))
+        where = {}
+        for sh in kv.k.addressable_shards:
+            idx = sh.index[lead:lead + 2]
+            where[coords[sh.device.id]] = [
+                [sl.start or 0, sl.stop if sl.stop is not None else n]
+                for sl, n in zip(idx, (b, s))]
+        shards.append(where)
+    res[name] = {"logits": logits, "final": final, "shards": shards}
+np.save(out_path, res, allow_pickle=True)
+print("ok")
+"""
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """JAX's one-device decode of every arch; JAX's own (2, 2) mesh in a
+    subprocess started first, beside the port's (1, 2) and (2, 2) ranks
+    (one spawn a mesh, every arch in turn)."""
+    tmp = tmp_path_factory.mktemp("cp_decode")
+    cases = {name: _case(name) for name in ARCHS}
+    np.save(tmp / "cases.npy", {
+        name: {k: cases[name][k] for k in ("arch", "cfg_kw", "caches",
+                                           "steps")}
+        for name in MESH_ARCHS}, allow_pickle=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu")
+    child = subprocess.Popen(
+        [sys.executable, "-c", JAX_DECODE_CHILD, str(tmp / "cases.npy"),
+         str(tmp / "jax_mesh.npy")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        work = [{k: c[k] for k in ("arch", "cfg_kw", "params", "dtypes",
+                                   "caches", "steps")}
+                for c in cases.values()]
+        ranks = {name: spawn(cp_decode_rank, kw["data"] * kw["model"], tmp,
+                             kw, work)
+                 for name, kw in MESHES.items()}
+        _, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    assert child.returncode == 0, err[-3000:]
+    jax_mesh = np.load(tmp / "jax_mesh.npy", allow_pickle=True).item()
+    return cases, ranks, jax_mesh
+
+
+def _close(name: str, got, want, err_msg: str = "") -> None:
+    """``got`` against ``want``: ``TOL`` in a float32 case; in a bf16 one
+    each row along the last axis within BF16_ROW of the row's largest
+    |want|."""
+    if not CASES[name][1]:
+        np.testing.assert_allclose(got, want, err_msg=err_msg, **TOL)
+        return
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape and np.isfinite(got).all(), err_msg
+    bound = BF16_ROW[0] + BF16_ROW[1] * np.abs(want).max(-1, keepdims=True)
+    worst = (np.abs(got - want) / bound).max()
+    assert worst <= 1.0, f"{err_msg}: {worst:.3f} of the bf16 bound"
+
+
+def _rows(mesh_kw: dict, coords: dict) -> slice:
+    n = B // mesh_kw["data"]
+    return slice(coords["data"] * n, (coords["data"] + 1) * n)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+def test_mesh_decode_matches_jax_one_device(runs, mesh_name, arch):
+    """Every rank's logits at every position are JAX's one-device logits
+    of its rows; the two model ranks of a row group agree bit for bit;
+    each rank's cache is the rule table's slice of (B, S, Hkv, D), and at
+    the end it holds the slice of JAX's final cache (the new rows written
+    by the rank that owns their position, the rest untouched)."""
+    cases, ranks, _ = runs
+    case = cases[arch]
+    mesh_kw = MESHES[mesh_name]
+    ai = ARCHS.index(arch)
+    mesh = make_mesh((mesh_kw["data"], mesh_kw["model"]), ("data", "model"))
+    for r, res in enumerate(ranks[mesh_name]):
+        got = res[ai]
+        assert got["coords"] == make_mesh(mesh.sizes, mesh.axis_names,
+                                          r).coords
+        rows = _rows(mesh_kw, got["coords"])
+        hkv, d = case["caches"][0][0].shape[2:]
+        assert got["shapes"] == [(B // mesh_kw["data"],
+                                  S // mesh_kw["model"], hkv, d)] * len(
+            case["caches"])
+        for step, (lg, want) in enumerate(zip(got["logits"],
+                                              case["logits"], strict=True)):
+            _close(arch, lg, want[rows], str(step))
+        pair = ranks[mesh_name][r ^ 1][ai]
+        for a, b_ in zip(got["logits"], pair["logits"]):
+            np.testing.assert_array_equal(a, b_)
+        rank_mesh = make_mesh(mesh.sizes, mesh.axis_names, r)
+        for layer, ((k, v), spec, (jk, jv)) in enumerate(zip(
+                got["cache"], got["specs"], case["final"], strict=True)):
+            for part, whole, sp in ((k, jk, spec.k), (v, jv, spec.v)):
+                _close(arch, part, shard_of(torch.from_numpy(whole), sp,
+                                            rank_mesh).numpy(),
+                       f"layer {layer}")
+
+
+@pytest.mark.parametrize("arch", MESH_ARCHS)
+def test_mesh_decode_matches_jax_mesh(runs, arch):
+    """The (2, 2) ranks against JAX's own (2, 2) mesh under the dry run's
+    decode shardings: each rank's logits are the JAX mesh's of its rows,
+    JAX's cache shard at the rank's coordinate covers the rule table's
+    rows and positions, and the rank's final slice holds that shard."""
+    cases, ranks, jax_mesh = runs
+    want = jax_mesh[arch]
+    ai = ARCHS.index(arch)
+    for step, (jl, ol) in enumerate(zip(want["logits"],
+                                        cases[arch]["logits"])):
+        _close(arch, jl, ol, str(step))
+    for res in ranks["2x2"]:
+        got = res[ai]
+        c = got["coords"]
+        rows = _rows(MESHES["2x2"], c)
+        for lg, jl in zip(got["logits"], want["logits"], strict=True):
+            _close(arch, lg, jl[rows])
+        s_l = S // 2
+        for layer, ((k, v), (jk, jv), where) in enumerate(zip(
+                got["cache"], want["final"], want["shards"], strict=True)):
+            (b0, b1), (s0, s1) = where[(c["data"], c["model"])]
+            assert (b0, b1) == (rows.start, rows.stop), layer
+            assert (s0, s1) == (c["model"] * s_l, (c["model"] + 1) * s_l)
+            _close(arch, k, jk[b0:b1, s0:s1], f"layer {layer}")
+            _close(arch, v, jv[b0:b1, s0:s1], f"layer {layer}")
+
+
+# ---------------------------------------------------------------------------
+# (d) what is left out, and the layout without a collective
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "hymba", "hymba_local",
+                                  "moe"])
+def test_block_kinds_without_sharded_decode_refuse_a_model_axis(kind):
+    with pytest.raises(NotImplementedError, match=f"'{kind}'.*ROADMAP"):
+        blocks.check_mesh_decode(kind, 2)
+    blocks.check_mesh_decode(kind, 1)       # a model axis of 1: unchanged
+
+
+@pytest.mark.parametrize("arch,kw,kind", [
+    ("xlstm-125m", {}, "mlstm"),
+    ("xlstm-125m", dict(block_pattern=("slstm",)), "slstm"),
+    ("hymba-1.5b", {}, "hymba"),
+    ("qwen3-moe-30b-a3b", {}, "moe"),
+    ("whisper-small", {}, "encoder-decoder"),
+])
+def test_models_without_sharded_decode_refuse_a_model_axis(arch, kw, kind):
+    cfg = dataclasses.replace(t_reduce(t_get(arch)), **kw)
+    model = build_model(cfg, "cpu")
+    mesh = make_mesh((2, 2), ("data", "model"), 3)
+    with axis_rules(mesh=mesh), pytest.raises(NotImplementedError,
+                                              match="ROADMAP") as err:
+        model.init_cache(B, S)
+    assert kind in str(err.value)
+
+
+def test_cache_width_or_batch_that_does_not_split_raises():
+    model = build_model(t_reduce(t_get("llama2-7b")), "cpu")
+    with axis_rules(mesh=make_mesh((2, 2), ("data", "model"), 1)):
+        with pytest.raises(ValueError, match="97 positions"):
+            model.init_cache(B, 97)
+        with pytest.raises(ValueError, match="3 rows"):
+            model.init_cache(3, S)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)])
+def test_init_cache_is_the_rule_table_slice(shape):
+    """Each rank's cache has the shape of its rule-table slice of
+    ``cache_logical`` (``kv_seq -> model``, ``batch -> data``)."""
+    cfg = t_reduce(t_get("gemma2-2b"))
+    model = build_model(cfg, "cpu")
+    whole = model.init_cache(B, S)
+    for r in range(shape[0] * shape[1]):
+        mesh = make_mesh(shape, ("data", "model"), r)
+        with axis_rules(mesh=mesh):
+            mine = model.init_cache(B, S)
+        specs = param_sharding_tree(model.cache_logical(B, S), mesh)
+        for kv, w, sp in zip(mine, whole, specs, strict=True):
+            assert sp.k[:2] == ("data", "model")
+            assert kv.k.shape == kv.v.shape == shard_of(w.k, sp.k,
+                                                        mesh).shape
+            assert kv.k.shape == (B // shape[0], S // shape[1],
+                                  cfg.num_kv_heads, cfg.head_dim)
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "xlstm-125m"])
+def test_data_only_mesh_decodes_each_ranks_rows(arch):
+    """Under a (2, 1) mesh (no model axis to split: no collective) each
+    rank decodes its rows of the batch from its rows of the cache, as the
+    one-device step does those rows; recurrent kinds included."""
+    cfg = t_reduce(t_get(arch))
+    model = build_model(cfg, "cpu")
+    params = model.init(model.generator(0))
+    rng = np.random.default_rng(5)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, size=B).astype(
+        np.int64)) for _ in range(4)]
+    one = model.init_cache(B, 16)
+    want = []
+    for pos, tok in enumerate(toks):
+        lg, one = model.decode_step(params, tok, one, pos)
+        want.append(lg)
+    for r in range(2):
+        with axis_rules(mesh=make_mesh((2, 1), ("data", "model"), r)):
+            cache = model.init_cache(B, 16)
+            for pos, tok in enumerate(toks):
+                lg, cache = model.decode_step(params, tok, cache, pos)
+                torch.testing.assert_close(lg, want[pos][2 * r:2 * r + 2],
+                                           **TOL)
+

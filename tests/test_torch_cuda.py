@@ -361,6 +361,61 @@ def test_cuda_flash_decode_split_edges_match_plain(cuda_device, case, layout,
     assert bool((diff <= rtol * scale).all()), (diff / scale).max().item()
 
 
+# (b, hq, hkv, s, d, kv_start, lens, window, softcap): one rank's slice of
+# a cache sharded along its sequence, kv_len global: a row with no valid
+# key in the slice (ending before it, or a window starting past it), rows
+# ending inside and past it, a window that cuts it from below, GQA 4 and
+# 8 at D = 256 with a softcap, rows over many splits and in one split
+DENSE_SLICE_CASES = [
+    (4, 8, 8, 1024, 128, 1024, [1000, 1030, 2048, 1025], None, None),
+    (3, 8, 2, 2048, 256, 0, [3100, 1500, 2049], 1024, 50.0),
+    (3, 8, 2, 2048, 256, 2048, [3100, 1500, 4096], 1024, 50.0),
+    (2, 32, 4, 4096, 128, 4096, [8192, 4097], None, 30.0),
+    (2, 16, 16, 512, 64, 512, [1024, 600], 20, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", DENSE_SLICE_CASES)
+def test_cuda_flash_decode_slice_and_lse_match_plain(cuda_device, case,
+                                                     dtype, tol):
+    """``kv_start`` and the log-sum-exp output against the plain version:
+    out float32 (unrounded, whatever the inputs' dtype) within 1e-4, lse
+    within 1e-3, and a row with no valid key exactly 0 and NEG_INF on
+    both sides; without the log-sum-exp, out in the inputs' dtype within
+    its tolerance."""
+    b, hq, hkv, s, d, kv_start, lens, window, softcap = case
+    rng = np.random.default_rng(12)
+    q, k, v = _dense_inputs(rng, b, hq, hkv, s, d, "bshd", cuda_device,
+                            dtype)
+    kv_len = _t(np.asarray(lens, np.int32)).to(cuda_device)
+    kw = dict(window=window, softcap=softcap, layout="bshd",
+              kv_start=kv_start)
+    before = flash_decode.launches
+    got, lse = flash_decode(q, k, v, kv_len, return_lse=True, **kw)
+    assert flash_decode.launches == before + 1
+    want, want_lse = decode_reference(q[:, :, None], k, v, kv_len,
+                                      return_lse=True, **kw)
+    torch.cuda.synchronize()
+    want, want_lse = want[:, :, 0], want_lse[:, :, 0]
+    assert lse.dtype == torch.float32 and lse.shape == (b, hq)
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    empty = want_lse == -1e30
+    assert bool((lse[empty] == -1e30).all())
+    assert bool((got[empty] == 0).all()) and bool((want[empty] == 0).all())
+    # without lse, at kv_start 0: the same output as before
+    plain = flash_decode(q, k, v, kv_len, window=window, softcap=softcap,
+                         layout="bshd")
+    ref = decode_reference(q[:, :, None], k, v, kv_len, window=window,
+                           softcap=softcap, layout="bshd")[:, :, 0]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(plain.float(), ref.float(), rtol=0, atol=tol)
+
+
 @pytest.mark.cuda
 def test_cuda_dense_and_paged_decode_share_the_split_workspace(cuda_device):
     """Dense and paged split-KV launches back to back on one stream share
