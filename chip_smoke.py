@@ -6,8 +6,9 @@ trained, expert-parallel and at tp=2), the Mamba layer (hymba), the
 encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl), the
 recurrent cells and the encoder-decoder trained on a (data, model)
 mesh, the int8 error-feedback all-reduce, GPipe, the first roofline
-readings, and dense decode with the cache sharded along its sequence
-over a (data, model) mesh.
+readings, dense decode with the cache sharded along its sequence over a
+(data, model) mesh, and dense decode on that mesh for every other block
+kind (hymba, the mLSTM and sLSTM, the encoder-decoder, MoE).
 
     python3 chip_smoke.py
 
@@ -53,7 +54,10 @@ which raises on failure (the script then exits non-zero):
    0 and cutting slice 1; out float32 (the partial the ranks' merge
    reads unrounded) within the float32 tolerance per row, the lse
    within LSE_TOL, a row with no valid key exactly 0 and NEG_INF in both,
-   SDPA on the slice with a boolean mask beside it); ``mlstm_chunkwise_fwd``
+   SDPA on the slice with a boolean mask beside it; and phase 15's head
+   shapes on a rank's second slice: hymba's 25/5 at D=64 with its window
+   of 1,024, qwen3-moe's GQA 32/4, whisper's 12/12);
+   ``mlstm_chunkwise_fwd``
    (``MLSTM_CASES``) at xlstm-125m's training shape (the model's
    (B, S, H, D) projections read in place), a ragged float32 case, a
    sequence shorter than the chunk, 16 chunks at a small dk/dv, a ragged
@@ -149,8 +153,9 @@ which raises on failure (the script then exits non-zero):
    (e) one 128-token prompt through the scan prefill oracle (a decode
    step a prompt token, no prefill launch) against the chunked prefill.
 3e. Tensor-parallel serving (``phase_tp``), after 3d: (a) phase 3's 12
-   requests on phase 3's llama2-7b cut to its first 16 of 32 layers
-   (``TP_LAYERS``, the cut that pays for phase 12) at tp=2 (g=2, s=1) as
+   requests on phase 3's llama2-7b cut to its first 8 of 32 layers
+   (``TP_LAYERS``, the cut that pays for phases 12 and 15) at tp=2 (g=2,
+   s=1) as
    two ranks of ``launch.mesh.spawn_ranks``, the weights shared by CUDA
    IPC and each
    rank keeping its slices, under the tiled and the single all-reduce;
@@ -456,6 +461,34 @@ which raises on failure (the script then exits non-zero):
    attention on CUDA tensors.  Prints each rank's step wall, merges a
    step and their bytes, weight gathers, peak memory and the kernel's
    device time at its slice.  Correctness only: gloo shares the card.
+15. Dense decode on a mesh for every other block kind
+   (``phase_mesh_decode``), after phase 14; its ranks ran in phase 12's
+   spawn after each model's steps and in phase 8 (h)'s after its steps
+   (``_decode_job``): xlstm-125m's first 3 layers, hymba-1.5b's first 2
+   (global, windowed), whisper-small's 2 + 2 and qwen3-moe-30b-a3b's
+   first 2 at full width, bf16, random weights from seed 0, B=8
+   (``MESH_DECODE_BATCH``) at (data=2, model=2), each rank on the rule
+   table's slice of every cache leaf (``init_cache`` under
+   ``axis_rules``): the KV caches over their sequence (hymba 8,192
+   positions, steps 4,094-4,097 across the slice boundary and 5,200 /
+   5,201 where hymba_local's window of 1,024 leaves slice 0 no valid
+   key; whisper's self cache 448, its cross K/V of 1,500 frames from
+   ``encode`` on the mesh; qwen3-moe 4,096), hymba's Mamba h and conv
+   history and the sLSTM's states over their channels, the mLSTM's C
+   over dv, qwen3-moe's 64 experts a rank (``MESH_DECODE``).  Every leaf
+   filled per (leaf, row, piece) from one seeded generator
+   (``decode_fill``), so the one-device run (``decode_reference``, after
+   the ranks) draws the same.  Gates (``decode_gate``): each rank's
+   logits within the model's measured gate (LOGIT_TOL, or twice what one
+   ulp on 1% of the embedded tokens does to one device's logits where
+   larger) with greedy tokens equal where decisive, the model ranks of a
+   data group bit for bit, every layer's written K/V rows and the rank's
+   slice of every recurrent state within the bf16 bound of one device's,
+   every leaf the rule table's shape, ``flash_decode`` exactly attention
+   layers x steps a rank, every one with the log-sum-exp,
+   ``fastattn_fwd`` whisper's 2 cross layers x steps, no plain attention
+   on CUDA tensors.  Prints each rank's step wall, collectives a step
+   and their bytes, peak memory and launches.  Correctness only.
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -494,8 +527,11 @@ also ``int8_launches``, each run's launches in phase 3f, and
 ``pipeline_launches``, each rank's in phase 13 (b); ``flash_decode``
 also ``cp_*``, its phase 2 slice cases (``CP_SLICE_CASES``, each with
 its ``lse_err``), and ``cp_launches`` / ``cp_lse_calls`` /
-``cp_rank_device_ms``, each phase 14 rank's); the last line is
-``{"ok": true, "device": {...}}``.
+``cp_rank_device_ms``, each phase 14 rank's, with phase 15's
+``cp_hymba_*`` / ``cp_moe_*`` / ``cp_whisper_*``; ``flash_decode`` and
+``fastattn_fwd`` also ``mesh_decode_launches``, each phase 15 model's
+launches on each rank, flash_decode's ``mesh_decode_lse_calls``); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1502,6 +1538,27 @@ CP_SLICE_CASES.update({
                          lens=[14000, 12288, 10000, 16384, 8200, 20000,
                                30000, 8193], dtype="bfloat16", window=4096,
                          softcap=50.0, seed=24)),
+})
+# phase 15's head shapes, each on a (data=2, model=2) rank's 4 rows of
+# its second slice: hymba's 25/5 at D=64 on 4,096 of 8,192 positions with
+# its window of 1,024 (kv_len 5,202: the window inside the slice, as at
+# phase 15's last step), qwen3-moe's GQA 32/4 on 2,048 of 4,096 and
+# whisper's 12/12 on 224 of 448 (kv_len the cache's width: the whole
+# slice)
+CP_SLICE_CASES.update({
+    "cp_hymba": ("hymba-1.5b cp B=4 H=25/5 D=64 bf16 slice 4096@4096 "
+                 "window=1024 kv_len=5202",
+                 dict(b=4, hq=25, hkv=5, s=4096, d=64, kv_start=4096,
+                      lens=[5202] * 4, dtype="bfloat16", window=1024,
+                      seed=25)),
+    "cp_moe": ("qwen3-moe-30b-a3b cp B=4 H=32/4 D=128 bf16 slice 2048@2048 "
+               "kv_len=4096",
+               dict(b=4, hq=32, hkv=4, s=2048, d=128, kv_start=2048,
+                    lens=[4096] * 4, dtype="bfloat16", seed=26)),
+    "cp_whisper": ("whisper-small cp B=4 H=12/12 D=64 bf16 slice 224@224 "
+                   "kv_len=448",
+                   dict(b=4, hq=12, hkv=12, s=224, d=64, kv_start=224,
+                        lens=[448] * 4, dtype="bfloat16", seed=27)),
 })
 # head dims 80 (stablelm-3b) and 96 (phi3-mini-3.8b), phase 7's models:
 # each attention kernel in bf16 and float32 at its main path's shape (the
@@ -3112,8 +3169,9 @@ def _tp_nccl_collectives(rank: int) -> dict:
 
 
 # phase 3e (a) runs llama2-7b's first TP_LAYERS of 32 layers at tp=2,
-# against a tp=1 run at the same depth: the cut that pays for phase 12
-TP_LAYERS = 16
+# against a tp=1 run at the same depth: the cut that pays for phases 12
+# (16 layers) and 15 (8)
+TP_LAYERS = 8
 
 
 def phase_tp(model, params) -> dict:
@@ -3721,12 +3779,18 @@ def checkpoint_differs(read: dict, ranks: list, layout: str) -> list:
 def _dist_rank(rank: int, cfg, mesh_kw: dict, run: dict) -> dict:
     """One rank of a training run on a mesh (phase 4b; phase 8 (h)): the
     one-device run's model (``cfg``), seed, batches and schedule at
-    ``ParallelConfig(remat=run["remat"], **mesh_kw)`` (``_dist_job``)."""
+    ``ParallelConfig(remat=run["remat"], **mesh_kw)`` (``_dist_job``),
+    then phase 15's decode where ``run`` holds a "decode" job (phase 8
+    (h): ``_decode_job``)."""
     from repro_torch.config import ParallelConfig
     from repro_torch.launch.mesh import make_mesh_for
     mesh = make_mesh_for(ParallelConfig(remat=run["remat"], **mesh_kw),
                          timeout=DIST_INIT_TIMEOUT_S)
-    return _dist_job(rank, mesh, cfg, mesh_kw, run)
+    out = _dist_job(rank, mesh, cfg, mesh_kw, run)
+    if run.get("decode"):
+        _free_card()
+        out["decode"] = _decode_job(mesh, run["decode"])
+    return out
 
 
 def _dist_job(rank: int, mesh, cfg, mesh_kw: dict, run: dict) -> dict:
@@ -4145,7 +4209,8 @@ def checkpoint_leaves(ckpt_dir: str, step: int):
 
 
 def phase_dist_training(trained: dict, cfg=None, run: dict = None,
-                        tag: str = "[4b]", experts: int = None) -> dict:
+                        tag: str = "[4b]", experts: int = None,
+                        decode: dict = None) -> dict:
     """Phase 4b: phase 4's training (llama2-7b cut to TRAIN_LAYERS, or
     ``cfg``) at (data=2, model=2), four ranks over gloo sharing the card
     (NCCL where there is a GPU a rank), held to phase 4's run
@@ -4155,7 +4220,9 @@ def phase_dist_training(trained: dict, cfg=None, run: dict = None,
     "remat", "batch" x "seq" batches, "steps" and "layers", the
     "dist_steps" taken, whether to "checkpoint" (and then restore and
     run the launcher) and to read step 0's "leaf_gnorm"; ``experts``,
-    the expert count each rank's expert leaves must hold."""
+    the expert count each rank's expert leaves must hold; ``decode``, a
+    phase 15 job the (2, 2) ranks run after their steps (phase 8 (h)),
+    whose results come back as "decode_ranks"."""
     import torch
     from repro_torch.config import ParallelConfig, get_model_config
     from repro_torch.launch.mesh import make_mesh, spawn_ranks
@@ -4218,8 +4285,9 @@ def phase_dist_training(trained: dict, cfg=None, run: dict = None,
         launcher = stack.enter_context(_launcher(tmp, on_card)) if ckpt \
             else None
         ranks = spawn("(2,2)", world, DIST_MESH, mode="train",
-                      ckpt_dir=ckpt, snapshot=snapshot)
+                      ckpt_dir=ckpt, snapshot=snapshot, decode=decode)
         del snapshot
+        decoded = [r.pop("decode") for r in ranks] if decode else None
         what = f"{tag} {cfg.name} (data=2, model=2)"
         if ckpt:
             # one read of the checkpoint: held to the ranks' pieces at
@@ -4306,6 +4374,10 @@ def phase_dist_training(trained: dict, cfg=None, run: dict = None,
     log(f"{tag} {out['card']}: all gates passed in {out['seconds']:.1f}s "
         f"({GLOO_NOTE if backend == 'gloo' else 'nccl, one GPU a rank'})")
     log(f"{tag} " + json.dumps(out))
+    if decoded:
+        log(f"[15] a rank's job in {tag}'s spawn: "
+            f"{[round(r['job_s'], 1) for r in decoded]} s")
+        out["decode_ranks"] = decoded
     return out
 
 
@@ -4751,7 +4823,7 @@ def phase_xlstm() -> dict:
         for i, (bp, x) in enumerate(captured):
             out_k = apply_mlstm(bp, x, cfg)
             out_p = apply_mlstm(bp, x, cfg, impl="reference")
-            out_r, _ = apply_mlstm(bp, x[:, :p], cfg, decode=True)
+            out_r, _ = ssm.mlstm_decode(bp, x[:, :p], cfg)
             for key, got, want in (
                     ("kernel_vs_plain", out_k, out_p),
                     ("recurrent_vs_kernel", out_r, out_k[:, :p])):
@@ -5748,19 +5820,21 @@ def moe_train(cfg, device: str = "cuda") -> dict:
             / statistics.median(step_s[1:]), "reference": ref}
 
 
-def moe_dist(trained: dict, cfg) -> dict:
+def moe_dist(trained: dict, cfg, decode: dict = None) -> dict:
     """(h): (g)'s training (``cfg`` cut to MOE_TRAIN_LAYERS) at
     DIST_MESH on phase 4b's harness (``phase_dist_training``) for (g)'s
     first MOE_DIST_STEPS steps, without the checkpoint: each rank's
-    expert leaves its E / model experts.  Correctness only: gloo stages
-    every collective through the host."""
+    expert leaves its E / model experts; then ``decode``, phase 15's
+    job, on the same ranks.  Correctness only: gloo stages every
+    collective through the host."""
     return phase_dist_training(
         trained, dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS),
         run=dict(remat="full", batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ,
                  steps=MOE_TRAIN_STEPS, layers=MOE_TRAIN_LAYERS,
                  dist_steps=MOE_DIST_STEPS, checkpoint=False,
                  leaf_gnorm=False),
-        tag="[moe] (h)", experts=cfg.num_experts // DIST_MESH["model"])
+        tag="[moe] (h)", experts=cfg.num_experts // DIST_MESH["model"],
+        decode=decode)
 
 
 def whole_experts_gate(what, ranks: list, experts: int, layers: int) -> None:
@@ -5831,7 +5905,9 @@ def phase_moe_parallel(done=lambda phase: None) -> dict:
     """Phase 8 (g)-(i), after phase 8's 48-layer model is freed:
     qwen3-moe-30b-a3b at full width trained on one device (g), at
     (data=2, model=2) with its experts sharded over the model axis (h),
-    and served at tp=2 (i).  ``done`` is called after each part."""
+    and served at tp=2 (i); (h)'s ranks then decode phase 15's qwen3-moe
+    job (its (job, ranks) returned as "decode").  ``done`` is called
+    after each part."""
     import torch
     from repro_torch.config import get_model_config
     cfg = get_model_config(MOE_ARCH)
@@ -5844,7 +5920,10 @@ def phase_moe_parallel(done=lambda phase: None) -> dict:
     trained = out["train"]
     gc.collect()                  # (g)'s model and optimizer state
     torch.cuda.empty_cache()
-    out["dist"] = moe_dist(trained, cfg)
+    job = decode_job_for(MOE_ARCH, dataclasses.replace(
+        cfg, num_layers=MOE_TRAIN_LAYERS))
+    out["dist"] = moe_dist(trained, cfg, decode=job)
+    decode = (job, out["dist"].pop("decode_ranks"))
     del trained["reference"]
     done("8h")
     gc.collect()
@@ -5856,6 +5935,7 @@ def phase_moe_parallel(done=lambda phase: None) -> dict:
     out["card"] = _card()
     log(f"[moe] {out['card']}: phase 8 (g)-(i) passed")
     log(f"[moe] (g)-(i) {json.dumps(out)}")
+    out["decode"] = decode        # phase 15's qwen3-moe ranks
     return out
 
 
@@ -7332,8 +7412,8 @@ def mesh_launch_gate(what, ranks: list, want: dict) -> None:
 def _mesh_models_rank(rank: int, mesh_kw: dict, jobs: list) -> list:
     """One rank of phase 12: its mesh once, then each (cfg, run) of
     ``jobs`` through ``_dist_job`` in turn, the last's memory freed
-    before the next."""
-    import torch
+    before the next, each followed by phase 15's decode of that model
+    where ``run`` holds a "decode" job (``_decode_job``)."""
     from repro_torch.config import ParallelConfig
     from repro_torch.launch.mesh import make_mesh_for
     mesh = make_mesh_for(ParallelConfig(**mesh_kw),
@@ -7344,10 +7424,19 @@ def _mesh_models_rank(rank: int, mesh_kw: dict, jobs: list) -> list:
         res = _dist_job(rank, mesh, cfg, mesh_kw, run)
         res["job_s"] = time.perf_counter() - t0
         out.append(res)
-        gc.collect()
-        if torch.cuda.is_available():
-            torch.cuda.empty_cache()
+        _free_card()
+        if run.get("decode"):
+            res["decode"] = _decode_job(mesh, run["decode"])
+            _free_card()
     return out
+
+
+def _free_card() -> None:
+    """Collect garbage and return the card's cached blocks."""
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
 
 
 def _mesh_one_device(arch: str, cfg, seq: int, device: str, parallel,
@@ -7391,7 +7480,8 @@ def _mesh_one_device(arch: str, cfg, seq: int, device: str, parallel,
                 specs=specs, params=n_params)
 
 
-def phase_mesh(device: str = "cuda", configs: dict = None) -> dict:
+def phase_mesh(device: str = "cuda", configs: dict = None,
+               decode: dict = None) -> dict:
     """Phase 12: xlstm-125m, hymba-1.5b and whisper-small at full width
     (``MESH_MODELS``' cuts), bf16, random weights from seed 0, each
     trained MESH_STEPS AdamW steps on one device (``mesh_reference``) and,
@@ -7408,8 +7498,11 @@ def phase_mesh(device: str = "cuda", configs: dict = None) -> dict:
     its measured gate where larger (``measured_mesh_gate``), and each
     rank's launches are exact
     (``mesh_expected``).  ``configs`` (arch -> (cfg, seq); a rehearsal
-    on the CPU) replaces MESH_MODELS' cuts.  Correctness only: gloo
-    stages every collective through the host."""
+    on the CPU) replaces MESH_MODELS' cuts.  After each model's steps the
+    ranks decode its phase 15 job (``decode``: arch -> job, by default
+    ``decode_job_for`` of MESH_DECODE where ``configs`` is not given;
+    the (job, ranks) of each returned as "decode").  Correctness only:
+    gloo stages every collective through the host."""
     import threading
 
     import torch
@@ -7425,9 +7518,13 @@ def phase_mesh(device: str = "cuda", configs: dict = None) -> dict:
     world = parallel.dp * parallel.model
     meshes = [make_mesh(parallel.mesh_shape(), parallel.mesh_axes(), r)
               for r in range(world)]
-    configs = configs or {
-        arch: (dataclasses.replace(get_model_config(arch), **keep), seq)
-        for arch, (keep, seq) in MESH_MODELS.items()}
+    if configs is None:
+        configs = {
+            arch: (dataclasses.replace(get_model_config(arch), **keep), seq)
+            for arch, (keep, seq) in MESH_MODELS.items()}
+        decode = {arch: decode_job_for(arch, cfg)
+                  for arch, (cfg, _) in configs.items()}
+    decode = decode or {}
     # the ranks start and train while the one-device runs go on here: each
     # rank takes a run's snapshot from its queue after its own steps
     feeds = {arch: torch.multiprocessing.get_context("spawn").Queue()
@@ -7440,7 +7537,8 @@ def phase_mesh(device: str = "cuda", configs: dict = None) -> dict:
                        steps=MESH_STEPS, dist_steps=MESH_STEPS, mode="train",
                        ckpt_dir=None, snapshot=None, feed=feeds[arch],
                        leaf_gnorm=False, grad0=True,
-                       frames=cfg.is_encoder_decoder))
+                       frames=cfg.is_encoder_decoder,
+                       decode=decode.get(arch)))
             for arch, (cfg, seq) in reversed(configs.items())]
     backend, dev_of = train_backend(kind, world)
     log(f"[12] one spawn of {world} ranks over {backend} on "
@@ -7485,8 +7583,13 @@ def phase_mesh(device: str = "cuda", configs: dict = None) -> dict:
         torch.cuda.ipc_collect()      # the ranks' handles on the snapshots
     out = {"backend": backend, "mesh": DIST_MESH,
            "spawn_s": time.perf_counter() - t0, "models": {}}
+    decoded = {}
     for i, (arch, mm) in enumerate(reversed(models.items())):
         rr = [r[i] for r in ranks]
+        if arch in decode:
+            decoded[arch] = (decode[arch], [r.pop("decode") for r in rr])
+            log(f"[15] a rank's {arch} job in phase 12's spawn: "
+                f"{[round(r['job_s'], 1) for r in decoded[arch][1]]} s")
         cfg, ref, gates = mm["cfg"], mm["ref"], mm["gates"]
         want = mesh_expected(cfg, mm["seq"], parallel.model)
         what = f"[12] {arch} (data=2, model=2)"
@@ -7558,6 +7661,7 @@ def phase_mesh(device: str = "cuda", configs: dict = None) -> dict:
         f"(the ranks, beside the one-device runs, {out['spawn_s']:.1f}s; "
         f"{GLOO_NOTE if backend == 'gloo' else 'nccl, one GPU a rank'})")
     log("[12] " + json.dumps(out))
+    out["decode"] = decoded
     return out
 
 
@@ -8350,6 +8454,587 @@ def phase_compress_pipeline(device: str = "cuda", cfg_a=None, cfg_b=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: dense decode on a mesh for every block kind, on gloo ranks
+# ---------------------------------------------------------------------------
+
+MESH_DECODE_BATCH = 8
+# arch -> (the cache width, the decode steps' positions), at phase 12's
+# cuts (qwen3-moe: phase 8 (h)'s 2 layers).  hymba's steps cross the
+# slice boundary at 4096 and at 5200 / 5201 hymba_local's window of 1024
+# leaves slice 0 no valid key; qwen3-moe's and whisper's cross theirs
+# (2048, 224); xlstm-125m holds no KV cache (the width is unused)
+MESH_DECODE = {"xlstm-125m": (16, (0, 1, 2, 3)),
+               "hymba-1.5b": (8192, (4094, 4095, 4096, 4097, 5200, 5201)),
+               "whisper-small": (448, (222, 223, 224, 225)),
+               "qwen3-moe-30b-a3b": (4096, (2046, 2047, 2048, 2049))}
+DECODE_SEED = 15
+DECODE_FLIP = 0.01            # the share of the embedded tokens moved 1 ulp
+
+
+def decode_job_for(arch: str, cfg, batch: int = MESH_DECODE_BATCH,
+                   width: int = None, positions=None) -> dict:
+    """Phase 15's run of ``arch`` (``cfg``: its cut): a ``batch`` x
+    ``width`` cache (MESH_DECODE's by default) filled by ``decode_fill``,
+    and a decode step at each of ``positions`` with tokens from a seeded
+    generator, at DIST_MESH."""
+    import numpy as np
+    w, p = MESH_DECODE[arch]
+    rng = np.random.default_rng(DECODE_SEED)
+    steps = [(int(pos), rng.integers(0, cfg.vocab_size, size=batch).astype(
+        np.int64)) for pos in (positions or p)]
+    return {"arch": arch, "cfg": cfg, "batch": batch, "width": width or w,
+            "steps": steps, "mesh": dict(DIST_MESH)}
+
+
+def decode_fill(job: dict, model, cache, coords: dict = None) -> None:
+    """Fill ``cache`` in place -- the whole one-device cache, or with
+    ``coords`` a rank's slice (of an encoder-decoder: the self caches) --
+    with N(0, 1) in each leaf's dtype: each batch row's piece of each
+    leaf along the dim the model axis splits (all of it where it splits
+    none) from one generator seeded for (leaf, row, piece), so that the
+    one-device run and each rank draw the same values."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import (entry_axes, flatten, is_spec,
+                                            param_sharding_tree)
+    from repro_torch.training import tree
+    n_data, n = job["mesh"]["data"], job["mesh"]["model"]
+    b = job["batch"]
+    specs = param_sharding_tree(model.cache_logical(b, job["width"]),
+                                make_mesh((n_data, n), ("data", "model")))
+    if isinstance(cache, dict):
+        cache, specs = cache["self"], specs["self"]
+    b_l = b // n_data
+    rows = range(b) if coords is None else range(
+        coords["data"] * b_l, (coords["data"] + 1) * b_l)
+    for i, (t, sp) in enumerate(zip(tree.leaves(cache),
+                                    flatten(specs, is_spec), strict=True)):
+        if not t.numel():                 # the mLSTM's conv placeholder
+            continue
+        split = next((d for d, e in enumerate(sp)
+                      if "model" in entry_axes(e)), None)
+        count = 1 if split is None else n
+        pieces = ([0] if split is None else
+                  range(n) if coords is None else [coords["model"]])
+        for r, row in enumerate(rows):
+            for j, piece in enumerate(pieces):
+                dst = t[r]
+                if split is not None:
+                    size = t.shape[split] // len(pieces)
+                    dst = dst.narrow(split - 1, j * size, size)
+                gen = torch.Generator(device=t.device)
+                gen.manual_seed(DECODE_SEED * 1_000_003
+                                + (i * b + row) * count + piece)
+                dst.copy_(torch.randn(dst.shape, generator=gen,
+                                      device=t.device))
+
+
+def _decode_cache(job: dict, model, params, dev, mesh=None):
+    """Phase 15's cache on ``dev``: one device's whole, or under ``mesh``
+    (the rule context entered) the rank's slice, filled by
+    ``decode_fill``; an encoder-decoder's cross K/V projected from
+    ``encode`` of N(0, 1) frames from a generator seeded with DECODE_SEED
+    (under the mesh: of the rank's rows and frames)."""
+    import torch
+    from repro_torch.sharding.rules import param_sharding_tree, shard_of
+    cfg, b = model.cfg, job["batch"]
+    kw = {}
+    if cfg.is_encoder_decoder:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(DECODE_SEED)
+        frames = torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                             generator=gen, device=dev)
+        if mesh is not None:
+            frames = shard_of(frames, param_sharding_tree(
+                (("batch", "seq", None), tuple(frames.shape)), mesh), mesh)
+        kw = dict(enc_out=model.encode(params, frames), params=params)
+    cache = model.init_cache(b, job["width"], **kw)
+    decode_fill(job, model, cache, None if mesh is None else mesh.coords)
+    return cache
+
+
+def decode_parts(cache) -> tuple:
+    """(each KV cache as (layer, KVCache), each recurrent state leaf as
+    (layer, name, tensor)) of a dense decode cache (an encoder-decoder's
+    self caches: no states)."""
+    from repro_torch.layers.attention import KVCache
+    kvs, states = [], []
+    for li, c in enumerate(cache["self"] if isinstance(cache, dict)
+                           else cache):
+        if isinstance(c, dict):
+            kvs.append((li, c["kv"]))
+            c = c["mamba"]
+        if isinstance(c, KVCache):
+            kvs.append((li, c))
+            continue
+        states += [(li, f"{type(c).__name__}.{f}", t)
+                   for f, t in zip(c._fields, c) if t.numel()]
+    return kvs, states
+
+
+def _decode_counts():
+    """Zero the launch and collective counters phase 15 reads: returns
+    (the flash_decode LSE / plain-on-CUDA counts, restore)."""
+    from repro_torch.core import tiled_allreduce as tar
+    from repro_torch.kernels.fastattn import ops as fops
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.sharding import collectives as C
+    flash_decode.launches = fops.fastattn_fwd.launches = 0
+    C.COUNTS.update({k: 0 for k in C.COUNTS})
+    tar.COUNTS.update({k: 0 for k in tar.COUNTS})
+    return _cp_counting()
+
+
+def _last_moe_blocks(cfg, into: list):
+    """Within the block, the input and output of the last MoE block of
+    every decode step, (B, D) each on its device, land in ``into`` (a
+    null context for a model with no MoE block)."""
+    import itertools
+    from repro_torch.models import blocks
+    n_moe = cfg.blocks().count("moe")
+    if not n_moe:
+        return contextlib.nullcontext()
+    calls = itertools.count()
+
+    def wrap(ffn):
+        def run(params, h2, c, decode=False):
+            out = ffn(params, h2, c, decode)
+            if next(calls) % n_moe == n_moe - 1:
+                into.append((h2[:, 0].detach().clone(),
+                             out[:, 0].detach().clone()))
+            return out
+        return run
+    return _wrapped(blocks, "_moe_ffn", wrap)
+
+
+def _decode_job(mesh, job: dict) -> dict:
+    """Phase 15 on this rank, in phase 12's or phase 8 (h)'s spawn after
+    its training job: its pieces of a seeded draw of ``job["cfg"]``, its
+    slice of every cache leaf (``init_cache`` under the mesh), then every
+    step's ``decode_step`` on the whole batch of tokens: its rows'
+    logits, the K/V rows it wrote, its final state slices, the input and
+    output of its last MoE block each step (``_last_moe_blocks``), its
+    launches, collectives, walls and peak memory."""
+    import torch
+    from repro_torch.config import ParallelConfig
+    from repro_torch.core import tiled_allreduce as tar
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.fastattn import ops as fops
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.models import build_model
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.rules import (axis_rules, flatten, is_spec,
+                                            shard_of)
+    from repro_torch.training import tree
+    t0 = time.perf_counter()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() else torch.device("cpu"))
+    cfg = job["cfg"]
+    model = build_model(cfg, dev, ParallelConfig(**job["mesh"]))
+    whole = model.init(model.generator(0))
+    m = mesh.coords["model"]
+    with axis_rules(mesh=mesh), torch.no_grad():
+        pieces = tree.unflatten(whole, [
+            shard_of(t, sp, mesh) for t, sp in zip(
+                tree.leaves(whole), flatten(model.param_specs(mesh),
+                                            is_spec), strict=True)])
+        del whole
+        cache = _decode_cache(job, model, pieces, dev, mesh)
+        shapes = [tuple(t.shape) for t in tree.leaves(cache)]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        counts, restore = _decode_counts()
+        logits, walls, moe = [], [], []
+        try:
+            with _last_moe_blocks(cfg, moe):
+                for pos, tok in job["steps"]:
+                    synchronize(dev)
+                    t1 = time.perf_counter()
+                    lg, cache = model.decode_step(
+                        pieces, torch.from_numpy(tok).to(dev), cache, pos)
+                    synchronize(dev)
+                    walls.append(time.perf_counter() - t1)
+                    logits.append(lg.float().cpu().numpy())
+        finally:
+            restore()
+        kvs, states = decode_parts(cache)
+        s_l = kvs[0][1].k.shape[1] if kvs else 0
+        # numpy: a rank's CPU tensors would reach the parent by a file
+        # descriptor that dies with the rank
+        out = {"coords": mesh.coords, "shapes": shapes, "logits": logits,
+               "wall_s": walls, "launches": flash_decode.launches,
+               "fastattn_launches": fops.fastattn_fwd.launches, **counts,
+               "merges": dict(tar.COUNTS), "collectives": dict(C.COUNTS),
+               "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                           if dev.type == "cuda" else 0.0),
+               "written": {pos: [tuple(t[:, pos - m * s_l].float().cpu()
+                                       .numpy() for t in kv)
+                                 for _, kv in kvs]
+                           for pos, _ in job["steps"]
+                           if kvs and pos // s_l == m},
+               "states": [t.float().cpu().numpy() for _, _, t in states],
+               "moe": [tuple(t.float().cpu().numpy() for t in pair)
+                       for pair in moe]}
+    out["job_s"] = time.perf_counter() - t0
+    return out
+
+
+def _perturbed_tokens(model, seed: int = 9, frac: float = DECODE_FLIP):
+    """Within the block, every embedding of ``model``'s tokens comes out
+    with a seeded ``frac`` of its elements moved by one ulp: what
+    rounding alone does upstream of every block."""
+    noisy = _ulp_noise(seed, frac)
+
+    def wrap(embed):
+        def run(*a, **kw):
+            return noisy(embed(*a, **kw))
+        return run
+    return _wrapped(sys.modules[type(model).__module__], "embed_tokens",
+                    wrap)
+
+
+def moe_block_reference(cfg, params, mine: list, ranks: list,
+                        batch: int, n_data: int) -> list:
+    """For each rank of ``ranks`` (their ``_decode_job`` results) and each
+    step: the plain one-device MoE block -- ``apply_moe`` over every
+    expert of the last MoE block's ``params`` -- on the rank's own input
+    to that block, and the number of the rank's routing choices (its
+    rows' top-k experts) that are not among one device's on its own
+    input (``mine``: the one-device run's ``_last_moe_blocks``)."""
+    import torch
+    from repro_torch.layers import moe as moe_mod
+    last = max(i for i, k in enumerate(cfg.blocks()) if k == "moe")
+    p = params["layers"][last]["moe"]
+    dev = mine[0][0].device
+    b_l = batch // n_data
+    out = []
+    for res in ranks:
+        d = res["coords"]["data"]
+        per = []
+        for (h2, _), (h2_one, _) in zip(res["moe"], mine, strict=True):
+            x = torch.from_numpy(h2).to(dev, h2_one.dtype)[:, None]
+            one_idx = moe_mod.routing(
+                p, h2_one[d * b_l:(d + 1) * b_l, None], cfg).idx
+            idx = moe_mod.routing(p, x, cfg).idx
+            kept = (idx[..., :, None] == one_idx[..., None, :]).any(-1)
+            per.append({"plain": moe_mod.apply_moe(p, x, cfg)[:, 0]
+                        .float().cpu(),
+                        "flips": int((~kept).sum()),
+                        "choices": int(kept.numel())})
+        out.append(per)
+    return out
+
+
+def decode_reference(job: dict, device: str = "cuda",
+                     ranks: list = None) -> dict:
+    """Phase 15's one-device run of ``job``: the same seeded draw and
+    whole cache, every step's ``decode_step``: the logits, the K/V rows
+    written at the steps' positions, the final states, the launches and
+    the wall; then the same run with the embedded tokens one ulp off on
+    DECODE_FLIP of their elements (``_perturbed_tokens``), whose largest
+    relative logits change sets the logits gate (``hymba_gate``'s rule).
+    With ``ranks`` (their ``_decode_job`` results) and a MoE block:
+    ``moe_block_reference`` on each rank's inputs to the last one.  The
+    model and caches are freed after."""
+    import torch
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.fastattn import ops as fops
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.models import build_model
+    kind = torch.device(device)
+    model = build_model(job["cfg"], kind)
+    params = model.init(model.generator(0))
+
+    def run():
+        cache = _decode_cache(job, model, params, kind)
+        counts, restore = _decode_counts()
+        logits = []
+        synchronize(kind)
+        t0 = time.perf_counter()
+        try:
+            for pos, tok in job["steps"]:
+                lg, cache = model.decode_step(
+                    params, torch.from_numpy(tok).to(kind), cache, pos)
+                logits.append(lg.float().cpu())
+        finally:
+            restore()
+        synchronize(kind)
+        return cache, logits, counts, time.perf_counter() - t0
+    with torch.no_grad():
+        mine = []
+        with _last_moe_blocks(job["cfg"], mine):
+            cache, logits, counts, wall = run()
+        kvs, states = decode_parts(cache)
+        out = {"logits": logits, "wall_s": wall, **counts,
+               "launches": flash_decode.launches,
+               "fastattn_launches": fops.fastattn_fwd.launches,
+               "written": {pos: [(kv.k[:, pos].float().cpu(),
+                                  kv.v[:, pos].float().cpu())
+                                 for _, kv in kvs]
+                           for pos, _ in job["steps"] if kvs},
+               "states": [(li, name, t.float().cpu())
+                          for li, name, t in states]}
+        if mine and ranks is not None:
+            out["moe"] = moe_block_reference(
+                job["cfg"], params, mine, ranks, job["batch"],
+                job["mesh"]["data"])
+        del cache, kvs, states, mine
+        with _perturbed_tokens(model):
+            moved = run()[1]
+    out["change"] = max(_rel_change(a, b) for a, b in zip(moved, logits))
+    out["gate"], out["rule"] = hymba_gate(out["change"])
+    del model, params
+    gc.collect()
+    if kind.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_expected(cfg, steps: int, on_card: bool) -> dict:
+    """Each phase 15 rank's launches over ``steps`` decode steps:
+    ``flash_decode`` once an attention layer a step, each asked for the
+    log-sum-exp, and (an encoder-decoder's cross-attention)
+    ``fastattn_fwd`` once a decoder layer a step; the kernels count 0 on
+    the CPU's plain path."""
+    if cfg.is_encoder_decoder:
+        attn, cross = cfg.num_layers, cfg.num_layers
+    else:
+        attn = sum(k not in ("mlstm", "slstm") for k in cfg.blocks())
+        cross = 0
+    return {"lse_calls": attn * steps,
+            "flash_decode": attn * steps if on_card else 0,
+            "fastattn_fwd": cross * steps if on_card else 0}
+
+
+def decode_gate(what, ranks: list, ref: dict, job: dict,
+                on_card: bool) -> dict:
+    """Hold phase 15's ranks of ``job`` to the one-device run: each
+    rank's logits within the measured gate ``ref["gate"]`` of its rows'
+    scale with greedy tokens equal where the top-1 margin exceeds it
+    (``_compare_logits``), the model ranks of a data group bit for bit,
+    every layer's K/V rows a rank wrote and its slice of every recurrent
+    state within the bf16 bound of the one-device run's (``bf16_row_gate``),
+    its last MoE block's output each step within the bf16 bound of the
+    plain one-device block's on the rank's own input (``ref["moe"]``,
+    which also counts the routing choices that differ from one device's),
+    every cache leaf the rule table's slice of ``cache_logical``, the
+    launches exact (``decode_expected``: every ``flash_decode`` with the
+    log-sum-exp) and no plain attention on CUDA tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import (flatten, is_logical_leaf,
+                                            is_spec, local_shape,
+                                            param_sharding_tree)
+    cfg, b = job["cfg"], job["batch"]
+    n_data, n = job["mesh"]["data"], job["mesh"]["model"]
+    b_l = b // n_data
+    steps = len(job["steps"])
+    want = decode_expected(cfg, steps, on_card)
+    logical = build_model(cfg, "cpu").cache_logical(b, job["width"])
+    leaves = flatten(logical, is_logical_leaf)
+    by_coords = {(r["coords"]["data"], r["coords"]["model"]): r
+                 for r in ranks}
+    out = {"written_worst": [], "state_worst": [], "moe_worst": [],
+           "moe_flips": [], "moe_choices": []}
+    for r, res in enumerate(ranks):
+        d, m = res["coords"]["data"], res["coords"]["model"]
+        tag = f"{what} rank {r} (data {d}, model {m})"
+        mesh = make_mesh((n_data, n), ("data", "model"), r)
+        specs = flatten(param_sharding_tree(logical, mesh), is_spec)
+        shapes = [local_shape(shape, sp, mesh)
+                  for (_, shape), sp in zip(leaves, specs, strict=True)]
+        if res["shapes"] != shapes:
+            raise AssertionError(f"{tag}: cache slices {res['shapes']}, "
+                                 f"the rule table's {shapes}")
+        got = {"lse_calls": res["lse_calls"],
+               "flash_decode": res["launches"],
+               "fastattn_fwd": res["fastattn_launches"]}
+        if got != want:
+            raise AssertionError(f"{tag}: launched {got} (flash_decode "
+                                 f"with the log-sum-exp: lse_calls), want "
+                                 f"{want}")
+        if res["plain_cuda"]:
+            raise AssertionError(f"{tag}: {res['plain_cuda']} plain "
+                                 "attention calls on CUDA tensors")
+        rows = slice(d * b_l, (d + 1) * b_l)
+        for (pos, _), lg, rl in zip(job["steps"], res["logits"],
+                                    ref["logits"], strict=True):
+            _compare_logits(f"{tag} pos {pos}", torch.from_numpy(lg),
+                            rl[rows], rel_tol=ref["gate"])
+        for peer in range(n):
+            other = by_coords[(d, peer)]
+            for a, b_ in zip(res["logits"], other["logits"], strict=True):
+                if not np.array_equal(a, b_):
+                    raise AssertionError(f"{tag}: logits differ from its "
+                                         f"model group's rank {peer}")
+        s_l = job["width"] // n
+        owned = sorted(pos for pos, _ in job["steps"]
+                       if ref["written"] and pos // s_l == m)
+        if sorted(res["written"]) != owned:
+            raise AssertionError(f"{tag}: wrote positions "
+                                 f"{sorted(res['written'])}, owns {owned}")
+        worst = 0.0
+        for pos, layers in res["written"].items():
+            for layer, (k, v) in enumerate(layers):
+                rk, rv = ref["written"][pos][layer]
+                for name, g, e in (("k", k, rk[rows]), ("v", v, rv[rows])):
+                    worst = max(worst, bf16_row_gate(
+                        f"{tag} KV layer {layer} {name} rows at {pos}",
+                        torch.from_numpy(g).reshape(b_l, -1),
+                        e.reshape(b_l, -1)))
+        sworst = 0.0
+        if len(res["states"]) != len(ref["states"]):
+            raise AssertionError(f"{tag}: {len(res['states'])} state "
+                                 f"leaves, one device {len(ref['states'])}")
+        for g, (layer, name, e) in zip(res["states"], ref["states"]):
+            e = e[rows]
+            for dim, size in enumerate(g.shape):
+                if size != e.shape[dim]:      # the model axis splits it
+                    e = e.narrow(dim, m * size, size)
+            sworst = max(sworst, bf16_row_gate(
+                f"{tag} layer {layer} {name}",
+                torch.from_numpy(g).reshape(b_l, -1), e.reshape(b_l, -1)))
+        out["written_worst"].append(worst)
+        out["state_worst"].append(sworst)
+        if "moe" in ref:
+            mine = ref["moe"][r]
+            if len(res["moe"]) != len(mine):
+                raise AssertionError(f"{tag}: {len(res['moe'])} MoE block "
+                                     f"records, one device {len(mine)}")
+            out["moe_worst"].append(max(bf16_row_gate(
+                f"{tag} last MoE block at {pos}", torch.from_numpy(got),
+                want["plain"]) for (pos, _), (_, got), want in zip(
+                    job["steps"], res["moe"], mine, strict=True)))
+            out["moe_flips"].append(sum(w["flips"] for w in mine))
+            out["moe_choices"].append(sum(w["choices"] for w in mine))
+    out.update({
+        "gate": ref["gate"], "rule": ref["rule"], "change": ref["change"],
+        "launches": [r["launches"] for r in ranks],
+        "lse_calls": [r["lse_calls"] for r in ranks],
+        "fastattn_launches": [r["fastattn_launches"] for r in ranks],
+        "wall_s": [r["wall_s"] for r in ranks],
+        "job_s": [r["job_s"] for r in ranks],
+        "collectives_a_step": [{k: v / steps for k, v in
+                                r["collectives"].items()} for r in ranks],
+        "merges_a_step": [{k: v / steps for k, v in r["merges"].items()}
+                          for r in ranks],
+        "peak_gb": [r["peak_gb"] for r in ranks],
+        "ref_wall_s": ref["wall_s"], "ref_launches": ref["launches"],
+        "ref_fastattn_launches": ref["fastattn_launches"]})
+    log(f"{what}: every gate passed; logits gate {ref['gate']:.3g} "
+        f"({ref['rule']}: one ulp on {DECODE_FLIP} of the embedded tokens "
+        f"moves one device's logits {ref['change']:.3g} of their scale); "
+        f"per rank: written K/V rows {[round(x, 3) for x in out['written_worst']]}"
+        f" and states {[round(x, 3) for x in out['state_worst']]} of the "
+        f"bf16 bound at worst"
+        + (f", last MoE block {[round(x, 3) for x in out['moe_worst']]} of"
+           f" it on the rank's own input, routing choices unlike one "
+           f"device's {out['moe_flips']} of {out['moe_choices']}"
+           if out["moe_worst"] else "")
+        + ", step wall "
+        f"{[[round(w, 3) for w in x] for x in out['wall_s']]} s, "
+        f"collectives a step {out['collectives_a_step'][0]}, merges a "
+        f"step {out['merges_a_step'][0]}, peak "
+        f"{[round(x, 2) for x in out['peak_gb']]} GB, flash_decode "
+        f"{out['launches']} (lse {out['lse_calls']}), fastattn_fwd "
+        f"{out['fastattn_launches']}; one device {ref['launches']} / "
+        f"{ref['fastattn_launches']} launches, {ref['wall_s']:.2f} s "
+        f"({GLOO_NOTE})")
+    return out
+
+
+def _decode_rank(rank: int, jobs: list) -> list:
+    """One rank of phase 15 spawned alone (``phase_mesh_decode``): its
+    mesh at DIST_MESH, then each job's ``_decode_job``."""
+    import torch
+    from repro_torch.config import ParallelConfig
+    from repro_torch.launch.mesh import make_mesh_for
+    if not torch.cuda.is_available():
+        torch.set_num_threads(1)        # a rehearsal: ranks share the cores
+    mesh = make_mesh_for(ParallelConfig(**DIST_MESH),
+                         timeout=DIST_INIT_TIMEOUT_S)
+    out = []
+    for job in jobs:
+        out.append(_decode_job(mesh, job))
+        _free_card()
+    return out
+
+
+def phase_mesh_decode(runs: dict, device: str = "cuda") -> dict:
+    """Phase 15: dense decode at (data=2, model=2) for every block kind
+    left after phase 14 -- xlstm-125m's first 3 layers (the mLSTM's C
+    over dv, the sLSTM's states over DI), hymba-1.5b's first 2 (its KV
+    cache over the sequence, its Mamba h and conv history over DI),
+    whisper-small's 2 + 2 (its self caches over the sequence, its cross
+    K/V of every frame from ``encode`` on the mesh) and qwen3-moe's first
+    2 (its KV caches, 64 experts a rank) at full width, bf16, random
+    weights from seed 0 -- whose ranks ran in phase 12's and phase 8
+    (h)'s spawns (``_decode_job``).  ``runs``: arch -> (job, the ranks'
+    results, or None: one spawn of four ranks here runs those jobs, the
+    phase alone).  Each one-device run (``decode_reference``) runs after
+    the ranks; ``decode_gate`` holds the ranks to it.  Correctness only:
+    gloo stages every collective through the host."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks, train_backend
+    t0 = time.perf_counter()
+    kind = torch.device(device)
+    on_card = kind.type == "cuda"
+    alone = [arch for arch, (_, ranks) in runs.items() if ranks is None]
+    if alone:
+        world = DIST_MESH["data"] * DIST_MESH["model"]
+        backend, dev_of = train_backend(kind, world)
+        with tempfile.TemporaryDirectory() as tmp:
+            got = spawn_ranks(
+                _decode_rank, world, args=([runs[a][0] for a in alone],),
+                device_of_rank=dev_of, backend=backend,
+                init_method=f"file://{tmp}/pg-15",
+                timeout_s=DIST_DEADLINE_S,
+                init_timeout_s=DIST_INIT_TIMEOUT_S)
+        runs = dict(runs, **{a: (runs[a][0], [r[i] for r in got])
+                             for i, a in enumerate(alone)})
+        log(f"[15] one spawn of {world} ranks over {backend} for "
+            f"{alone}: {time.perf_counter() - t0:.1f}s")
+    out = {"models": {}}
+    for arch, (job, ranks) in runs.items():
+        cfg = job["cfg"]
+        layers = (f"{cfg.encoder_layers} + {cfg.num_layers} layers"
+                  if cfg.is_encoder_decoder else ", ".join(cfg.blocks()))
+        log(f"[15] {arch} ({layers}), B={job['batch']}, a cache of "
+            f"{job['width']} positions, steps at "
+            f"{[p for p, _ in job['steps']]} at (data="
+            f"{job['mesh']['data']}, model={job['mesh']['model']})")
+        ref = decode_reference(job, device, ranks)
+        out["models"][arch] = decode_gate(f"[15] {arch}", ranks, ref, job,
+                                          on_card)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = _card() if on_card else "cpu"
+    log(f"[15] {out['card']}: all gates passed in {out['seconds']:.1f}s "
+        "(the one-device runs and the gates; the ranks ran in phases 8 "
+        "(h) and 12)")
+    log("[15] " + json.dumps(out))
+    return out
+
+
+def add_mesh_decode_entries(kernels: list, run: dict) -> None:
+    """``flash_decode``'s and ``fastattn_fwd``'s entries of the kernels
+    line also ``mesh_decode_launches``: each phase 15 model's launches
+    on each rank (flash_decode's every one with the log-sum-exp:
+    ``mesh_decode_lse_calls``)."""
+    k = {e["name"]: e for e in kernels}
+    models = run["models"]
+    k["flash_decode"].update(
+        mesh_decode_launches={a: m["launches"] for a, m in models.items()},
+        mesh_decode_lse_calls={a: m["lse_calls"]
+                               for a, m in models.items()})
+    k["fastattn_fwd"]["mesh_decode_launches"] = {
+        a: m["fastattn_launches"] for a, m in models.items()
+        if any(m["fastattn_launches"])}
+
+
 def roofline_readings(trained: dict, long_step: dict) -> dict:
     """The first roofline readings: phase 4's MFU (``model_flops`` of its
     layers and batches over its median step and the bf16 peak) and phase
@@ -8690,6 +9375,9 @@ def main() -> int:
     done("13")
     cp = phase_cp_decode(cp_job, compress.pop("cp_ranks"))
     done("14")
+    decode = phase_mesh_decode({**mesh.pop("decode"),
+                                MOE_ARCH: moe_par.pop("decode")})
+    done("15")
     roofline_readings(trained, long_step)
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
@@ -8757,6 +9445,7 @@ def main() -> int:
     add_mesh_entries(line["kernels"], kern["mesh"], mesh)
     add_int8_pipeline_entries(line["kernels"], int8, compress)
     add_cp_entries(line["kernels"], kern["flash_decode_cp"], cp)
+    add_mesh_decode_entries(line["kernels"], decode)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s on "
         f"{_card()}")
     print(json.dumps(line))

@@ -166,7 +166,7 @@ def init_tp_group(tp: int, rank: int, *, backend: str, init_method: str,
 
 
 def _rank_main(fn, rank, tp, device, backend, init_method, init_timeout,
-               box, results) -> None:
+               box, results, received, wait_s) -> None:
     try:
         if device is not None and torch.device(device).type == "cuda":
             torch.cuda.set_device(torch.device(device))
@@ -181,6 +181,10 @@ def _rank_main(fn, rank, tp, device, backend, init_method, init_timeout,
         del args
         gc.collect()
         results.put((rank, True, out))
+        # a CPU tensor in ``out`` reaches the parent by a file descriptor
+        # that this process serves while it lives: stay until the parent
+        # has read every rank's result
+        received.wait(wait_s)
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -218,13 +222,16 @@ def spawn_ranks(fn: Callable, tp: int, *, args: Sequence = (),
     first pins ``device_of_rank(rank)`` when it is a CUDA device.  A rank
     that raises makes this raise RuntimeError with its traceback; past
     ``timeout_s`` every rank is killed and this raises TimeoutError.
-    Every process started here is stopped before it returns."""
+    A rank stays alive until every result is read: a CPU tensor in one
+    travels by a file descriptor its process serves.  Every process
+    started here is stopped before it returns."""
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    results, received = ctx.Queue(), ctx.Event()
     procs = [ctx.Process(
         target=_rank_main, daemon=True,
         args=(fn, r, tp, device_of_rank(r) if device_of_rank else None,
-              backend, init_method, init_timeout_s, [tuple(args)], results))
+              backend, init_method, init_timeout_s, [tuple(args)], results,
+              received, timeout_s))
         for r in range(tp)]
     for p in procs:
         p.start()
@@ -252,6 +259,7 @@ def spawn_ranks(fn: Callable, tp: int, *, args: Sequence = (),
                 raise RuntimeError(f"rank {rank} of {tp} failed:\n{val}")
             out[rank] = val
     finally:
+        received.set()
         for p in procs:
             p.join(timeout=5.0 if len(out) == tp else 0.0)
             if p.is_alive():

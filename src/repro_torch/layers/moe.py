@@ -175,14 +175,30 @@ def expert_ffn(params: dict, xe: torch.Tensor,
     return torch.bmm(h, params["w_down"].to(dt))
 
 
+def sum_slots(take, k: int) -> torch.Tensor:
+    """``take(0) + take(1) + ... + take(k - 1)``, in that order and in
+    their dtype: a token's k weighted expert outputs summed as JAX's
+    combine sums them."""
+    y = take(0)
+    for j in range(1, k):
+        y = y + take(j)
+    return y
+
+
 def combine(ye: torch.Tensor, r: Routing, num_experts: int,
-            experts: tuple) -> torch.Tensor:
+            experts: tuple, slots: bool = False) -> torch.Tensor:
     """The partial combine of experts ``[e0, e1)``: each token's weighted
     outputs from the slots of those experts (``ye``, (e1 - e0, B * cap,
     D)) summed in expert order, (B, S, D); zero for a token with none.
     Over every expert it is the block's output; the partials of disjoint
     ranges sum to it (JAX's combine plan: only (B, S, D) crosses
-    shards)."""
+    shards).
+
+    With ``slots``: each token's k weighted outputs unsummed, (B, S, k,
+    D) in summing order, zero in a slot that another range's expert (or
+    a drop) holds.  The ranges' slot tensors then sum exactly (no slot
+    is nonzero in two), and ``sum_slots`` over that sum is the block's
+    output bit for bit."""
     el, _, d = ye.shape
     b, s, k = r.idx.shape
     plan, cap = r.plan, r.plan.cap
@@ -208,22 +224,22 @@ def combine(ye: torch.Tensor, r: Routing, num_experts: int,
     src = torch.where(mine, ((ex - e0) * b + rows) * cap + c, el * b * cap)
     by_expert = torch.argsort(r.idx, dim=-1)
     src = torch.gather(src.reshape(b, s, k), 2, by_expert)
-    y = weighted[src[..., 0]]
-    for j in range(1, k):
-        y = y + weighted[src[..., j]]
-    return y
+    if slots:
+        return weighted[src]
+    return sum_slots(lambda j: weighted[src[..., j]], k)
 
 
 def apply_moe(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               capacity_factor: Optional[float] = None,
-              experts: Optional[tuple] = None) -> torch.Tensor:
+              experts: Optional[tuple] = None,
+              slots: bool = False) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).  Routing and dispatch of whole rows,
     then the expert FFN and the combine over experts ``[e0, e1)``
     (``experts``; by default every expert): ``params``' expert leaves
     then hold those e1 - e0 experts (the router is whole), and the result
-    is their partial combine (``combine``)."""
+    is their partial combine (``combine``; with ``slots`` unsummed)."""
     e = cfg.num_experts
     experts = experts or (0, e)
     r = routing(params, x, cfg, capacity_factor=capacity_factor)
     ye = expert_ffn(params, expert_inputs(x, r, e, experts), cfg)
-    return combine(ye, r, e, experts)
+    return combine(ye, r, e, experts, slots)

@@ -9,14 +9,18 @@ mLSTM trains and prefills through the chunkwise kernel
 (``kernels/mlstm``: the CUDA ``mlstm_chunkwise_fwd`` on the card, the plain
 version on the CPU) and decodes through the plain recurrent cell; the
 sLSTM runs a Python loop over time steps where the JAX package runs
-``lax.scan``.  The ``*_logical`` sharding trees are the JAX package's;
-the trainer shards these blocks over the data axis only (their
-``channels -> model`` layout is not ported: ``models/lm.py`` refuses a
-model axis above 1).
+``lax.scan``.  The ``*_logical`` sharding trees are the JAX package's.
+
+Each cell decodes through ``<cell>_decode`` (steps from a state, which
+returns the new one).  Under a mesh's model axis a cell trains on the
+rank's channels or heads (``apply_<cell>``'s ``part``) and decodes on
+the rank's slice of its state's channels (``<cell>_decode``'s ``part``:
+the rule table's ``channels -> model`` on the decode cache,
+``models/blocks.block_cache_logical``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +45,11 @@ def channel_shards(cfg: ModelConfig, cell: str, n: int) -> bool:
     if cell == "mamba":
         return cfg.q_dim % n == 0
     return cfg.num_heads % n == 0
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """The ``gather`` of a cell that decodes its whole state."""
+    return t
 
 
 def _span(part: Optional[Tuple[int, int]], width: int) -> slice:
@@ -136,17 +145,25 @@ def mamba_scan_chunk(h0: torch.Tensor, xc: torch.Tensor, dtc: torch.Tensor,
     return y, h[:, -1]
 
 
+def _conv(xin_ext: torch.Tensor, conv_w: torch.Tensor,
+          conv_b: torch.Tensor, s: int) -> torch.Tensor:
+    """The causal depthwise conv over [history | x] (B, K - 1 + S, C) and
+    its SiLU, in x's dtype, the K taps summed in order (as JAX)."""
+    conv_w = conv_w.to(xin_ext.dtype)                       # (K, C)
+    xc = sum(xin_ext[:, i:i + s] * conv_w[i] for i in range(len(conv_w)))
+    return F.silu(xc + conv_b.to(xin_ext.dtype))
+
+
 def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                 chunk: int = 256, state: Optional[MambaState] = None,
-                decode: bool = False,
                 part: Optional[Tuple[int, int]] = None):
-    """x: (B, S, D) -> (B, S, D), and with ``decode`` also the new state.
+    """x: (B, S, D) -> (B, S, D), from ``state`` (zero where None).
 
     In-projection, a causal depthwise conv over [history | x] in x's
     dtype (the taps summed in order, as JAX), dt / B / C projections, the
-    float32 selective scan -- one chunk when ``decode`` or S == 1, else
-    chunks of ``chunk`` steps with S zero-padded to a multiple (a padded
-    step has decay 1 and drive 0) -- the skip, the SiLU gate and the
+    float32 selective scan -- one chunk when S == 1, else chunks of
+    ``chunk`` steps with S zero-padded to a multiple (a padded step has
+    decay 1 and drive 0) -- the skip, the SiLU gate and the
     out-projection.
 
     ``part`` = (m, n) (training only): the scan, the skip and the gate
@@ -172,10 +189,7 @@ def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     h0 = h0[:, own]
 
     xin_ext = torch.cat([conv_hist, xin], dim=1)
-    conv_w = params["conv_w"].to(xin.dtype)                 # (K, DI)
-    xc = sum(xin_ext[:, i:i + s] * conv_w[i] for i in range(kconv))
-    xc = F.silu(xc + params["conv_b"].to(xin.dtype))
-    new_hist = xin_ext[:, s:]
+    xc = _conv(xin_ext, params["conv_w"], params["conv_b"], s)
 
     dt = F.softplus(dense(xc, params["w_dt"][:, own])
                     + params["dt_bias"].to(xc.dtype))
@@ -185,8 +199,8 @@ def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     a = -torch.exp(params["a_log"].float())                 # (DI, N)
     xcf, dtf = xc.float(), dt.float()
 
-    if decode or s == 1:
-        y, h = mamba_scan_chunk(h0, xcf, dtf, bmat, cmat, a)
+    if s == 1:
+        y, _ = mamba_scan_chunk(h0, xcf, dtf, bmat, cmat, a)
     else:
         chunk = min(chunk, s)
         pad = (-s) % chunk
@@ -205,10 +219,47 @@ def apply_mamba(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     y = y * F.silu(z)
     if part is not None:
         return dense(y, params["w_out"], dtype=torch.float32)
-    out = dense(y, params["w_out"])
-    if decode:
-        return out, MambaState(h=h, conv=new_hist)
-    return out
+    return dense(y, params["w_out"])
+
+
+def mamba_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 state: Optional[MambaState] = None,
+                 part: Tuple[int, int] = (0, 1),
+                 gather: Callable = _whole):
+    """Decode steps of the Mamba cell from ``state`` (zero where None),
+    its selective scan one chunk: x (B, S, D) -> (out (B, S, D), the new
+    state); every weight whole.
+
+    ``part`` = (m, n): the state holds channels [m DI/n, (m+1) DI/n).
+    The conv runs on the rank's channels from their history; dt and B/C
+    read every channel of the conv's output, so ``gather`` (an
+    all-gather of the last dim over the model ranks) makes it whole and
+    they are computed whole, as one device does.  The scan, the skip and
+    the gate run on the rank's channels, whose outputs are gathered for
+    the whole out-projection."""
+    b, s, _ = x.shape
+    di, n = cfg.q_dim, cfg.ssm_state_size
+    own = _span(part, di)
+    xin, z = torch.split(dense(x, params["w_in"]), di, dim=-1)
+    if state is None:
+        w = own.stop - own.start
+        state = MambaState(
+            h=torch.zeros((b, w, n), dtype=torch.float32, device=x.device),
+            conv=torch.zeros((b, cfg.conv_kernel - 1, w), dtype=xin.dtype,
+                             device=x.device))
+    xin_ext = torch.cat([state.conv, xin[..., own]], dim=1)
+    xc = _conv(xin_ext, params["conv_w"][:, own], params["conv_b"][own], s)
+    xc_all = gather(xc)                                     # (B, S, DI)
+    dt = F.softplus(dense(xc_all, params["w_dt"])
+                    + params["dt_bias"].to(xc.dtype))[..., own]
+    bmat, cmat = torch.split(dense(xc_all, params["w_bc"]).float(), n,
+                             dim=-1)
+    a = -torch.exp(params["a_log"][own].float())
+    y, h = mamba_scan_chunk(state.h, xc.float(), dt.float(), bmat, cmat, a)
+    y = y.to(x.dtype) + xc * params["d_skip"][own].to(x.dtype)
+    y = y * F.silu(z[..., own])
+    return dense(gather(y), params["w_out"]), \
+        MambaState(h=h, conv=xin_ext[:, s:])
 
 
 # ===========================================================================
@@ -257,15 +308,14 @@ def mlstm_logical(cfg: ModelConfig) -> dict:
 
 
 def apply_mlstm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                chunk: int = 128, state: Optional[MLSTMState] = None,
-                decode: bool = False, impl: Optional[str] = None,
+                chunk: int = 128, impl: Optional[str] = None,
                 part: Optional[Tuple[int, int]] = None):
     """xLSTM mLSTM block body (norm handled by the caller).  x: (B, S, D).
 
-    Train/prefill (``decode=False``): the chunkwise form through
-    ``mlstm_chunkwise`` (``impl`` as there, default ``cfg.attention_impl``)
-    reading the (B, S, H, hd) projections in place; returns (B, S, D).
-    Decode: the recurrent cell from ``state``; returns (out, new state).
+    Train/prefill: the chunkwise form through ``mlstm_chunkwise``
+    (``impl`` as there, default ``cfg.attention_impl``) reading the (B,
+    S, H, hd) projections in place; returns (B, S, D).  Decode is
+    ``mlstm_decode``.
 
     ``part`` = (m, n) (training only): heads [m H/n, (m+1) H/n) go
     through the kernel -- q, k, v and z from the rank's columns of
@@ -291,24 +341,46 @@ def apply_mlstm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     qT, kT, vT = (t.transpose(1, 2) for t in (q, k, v))    # (B, H, S, hd)
     igT, fgT = ig.transpose(1, 2), fg.transpose(1, 2)
 
-    if decode:
-        init = None if state is None else (state.c, state.n, state.m)
-        h_out, st = mref.mlstm_recurrent(qT, kT, vT, igT, fgT,
-                                         initial_state=init)
-        new_state = MLSTMState(c=st[0], n=st[1], m=st[2],
-                               conv=torch.zeros((0,), dtype=x.dtype,
-                                                device=x.device))
-    else:
-        h_out = mlstm_chunkwise(qT, kT, vT, igT, fgT, chunk,
-                                impl=impl or cfg.attention_impl)
+    h_out = mlstm_chunkwise(qT, kT, vT, igT, fgT, chunk,
+                            impl=impl or cfg.attention_impl)
     h_out = h_out.transpose(1, 2).reshape(b, s, nl * hd).to(x.dtype)
     if part is not None:
         return dense(h_out * F.silu(z), params["w_down"],
                      dtype=torch.float32)
-    out = dense(h_out * F.silu(z), params["w_down"])
-    if decode:
-        return out, new_state
-    return out
+    return dense(h_out * F.silu(z), params["w_down"])
+
+
+def mlstm_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 state: Optional[MLSTMState] = None,
+                 part: Tuple[int, int] = (0, 1),
+                 gather: Callable = _whole):
+    """Decode steps of the mLSTM cell through the plain recurrent cell
+    from ``state`` (none where None): x (B, S, D) -> (out (B, S, D), the
+    new state); every weight whole.
+
+    ``part`` = (m, n): the state holds dv columns [m hd/n, (m+1) hd/n)
+    of every head's C beside the whole n and m.  q, k, the gates, n and
+    m are computed whole on every rank; v is cut to the rank's columns,
+    C and h updated there.  ``gather`` (an all-gather of the last dim
+    over the model ranks) makes h whole for the gate and the whole
+    out-projection."""
+    b, s, _ = x.shape
+    di, nh = _di(cfg), cfg.num_heads
+    hd = di // nh
+    xin = dense(x, params["w_up"])
+    z = dense(x, params["w_gate"])
+    q, k, v = (dense(xin, params[w]).reshape(b, s, nh, hd).transpose(1, 2)
+               for w in ("wq", "wk", "wv"))
+    gif = (dense(xin, params["w_if"]) + params["b_if"].to(x.dtype)).float()
+    ig, fg = (g.transpose(1, 2) for g in torch.split(gif, nh, dim=-1))
+    h_out, (c, n, m) = mref.mlstm_recurrent(
+        q, k, v[..., _span(part, hd)], ig, fg,
+        initial_state=None if state is None else state[:3])
+    h_out = gather(h_out.to(x.dtype))                       # (B, H, S, hd)
+    h_out = h_out.transpose(1, 2).reshape(b, s, di)
+    return dense(h_out * F.silu(z), params["w_down"]), MLSTMState(
+        c=c, n=n, m=m, conv=torch.zeros((0,), dtype=x.dtype,
+                                        device=x.device))
 
 
 # ===========================================================================
@@ -392,12 +464,11 @@ def slstm_recurrence(pre: torch.Tensor, r: torch.Tensor,
 
 
 def apply_slstm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                state: Optional[SLSTMState] = None, decode: bool = False,
                 part: Optional[Tuple[int, int]] = None):
     """xLSTM sLSTM block body.  x: (B, S, D).  A loop over the S time
     steps (each step's gates read the previous step's h through the
-    block-diagonal recurrent weights).  Returns (B, S, D), and with
-    ``decode`` also the new state.
+    block-diagonal recurrent weights).  Returns (B, S, D); decode is
+    ``slstm_decode``.
 
     ``part`` = (m, n) (training only): the loop walks heads
     [m NH/n, (m+1) NH/n) only, their four gate inputs from the rank's
@@ -413,11 +484,40 @@ def apply_slstm(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         w_gates = w_gates.reshape(di, 4, di)[..., own].reshape(di, -1)
         b_gates = b_gates.reshape(4, di)[:, own].reshape(-1)
     pre = (dense(xin, w_gates) + b_gates.to(x.dtype)).float()
-    hs, new_state = slstm_recurrence(
-        pre, params["r_gates"][:, heads].float(), state)
+    hs, _ = slstm_recurrence(pre, params["r_gates"][:, heads].float())
     if part is not None:
         return dense(hs.to(x.dtype), params["w_down"], dtype=torch.float32)
-    out = dense(hs.to(x.dtype), params["w_down"])
-    if decode:
-        return out, new_state
-    return out
+    return dense(hs.to(x.dtype), params["w_down"])
+
+
+def slstm_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 state: Optional[SLSTMState] = None,
+                 part: Tuple[int, int] = (0, 1),
+                 gather: Callable = _whole):
+    """Decode steps of the sLSTM cell from ``state`` (zero, m -1e30,
+    where None): x (B, S, D) -> (out (B, S, D), the new state); every
+    weight whole.
+
+    ``part`` = (m, n): the state holds channels [m DI/n, (m+1) DI/n) of
+    its four states.  The gate inputs are computed whole and cut to the
+    rank's channels.  Where n divides the heads the loop walks the
+    rank's heads (their blocks of ``r_gates``); otherwise the slice cuts
+    a head, whose recurrence reads all of its h: the state is gathered
+    whole, stepped whole and cut.  ``gather`` is an all-gather of the
+    last dim over the model ranks; the new h is gathered for the whole
+    out-projection."""
+    b, s, _ = x.shape
+    di, nh = _di(cfg), cfg.num_heads
+    own = _span(part, di)
+    xin = dense(x, params["w_up"])
+    pre = (dense(xin, params["w_gates"])
+           + params["b_gates"].to(x.dtype)).float()         # (B, S, 4 DI)
+    r = params["r_gates"].float()
+    if nh % part[1] == 0:
+        pre = pre.reshape(b, s, 4, di)[..., own].reshape(b, s, -1)
+        hs, new = slstm_recurrence(pre, r[:, _span(part, nh)], state)
+        return dense(gather(hs.to(x.dtype)), params["w_down"]), new
+    whole = SLSTMState(*gather(torch.stack(state)).unbind(0))
+    hs, new = slstm_recurrence(pre, r, whole)
+    return dense(hs.to(x.dtype), params["w_down"]), \
+        SLSTMState(*(t[:, own] for t in new))

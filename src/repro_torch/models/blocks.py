@@ -9,7 +9,11 @@ Under a training mesh with a model axis each block runs one rank's
 share of its rows (``models/lm.py``): attention is context-parallel,
 a MoE FFN runs the rank's experts on the gathered rows (``_moe_ffn``)
 and a recurrent cell its channels or heads on the gathered rows
-(``_channel_cell``).
+(``_channel_cell``).  Dense decode under such a mesh runs each block on
+the rank's slice of its cache, the rule table's (``block_cache_logical``):
+attention over its slice of the KV cache's sequence, a recurrent cell on
+its slice of the state's channels (``_cell_decode``), a MoE FFN on the
+rank's experts (``_moe_ffn``).
 """
 from __future__ import annotations
 
@@ -24,13 +28,11 @@ from repro_torch.layers import moe as moe_mod
 from repro_torch.layers import ssm as ssm_mod
 from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.rules import current_mesh
+from repro_torch.sharding.rules import (current_mesh, is_spec, local_shape,
+                                        map_tree)
 
 # the kinds whose cache is a KV cache: they serve paged
 ATTN_KINDS = ("attn", "attn_local", "moe")
-# the kinds that decode from a cache sharded along its sequence over the
-# model axis (``kv_seq -> model``: layers/attention.apply_attention_decode)
-MESH_DECODE_KINDS = ("attn", "attn_local")
 HYMBA_KINDS = ("hymba", "hymba_local")
 PORTED_KINDS = ATTN_KINDS + HYMBA_KINDS + ("mlstm", "slstm")
 # a recurrent kind's cell: (its subtree in the block's params, the cell)
@@ -47,19 +49,6 @@ def check_kind(kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (the port serves "
             f"{', '.join(PORTED_KINDS)})")
-
-
-def check_mesh_decode(kind: str, model: int) -> None:
-    """Dense decode under a mesh whose model axis has ``model`` > 1 ranks
-    runs the attention kinds only (context-parallel over the cache's
-    sequence); the recurrent states, hymba's KV and Mamba channels and a
-    MoE block's experts have no sharded decode yet."""
-    check_kind(kind)
-    if model > 1 and kind not in MESH_DECODE_KINDS:
-        raise NotImplementedError(
-            f"dense decode of {kind!r} blocks on a mesh with a model axis "
-            f"of {model} is not ported (ROADMAP Queue 1 item 8); it runs "
-            f"{', '.join(MESH_DECODE_KINDS)} blocks")
 
 
 def _check_paged(kind: str) -> None:
@@ -127,67 +116,75 @@ def block_logical(cfg: ModelConfig, kind: str) -> dict:
     return p
 
 
-def block_cache_logical(cfg: ModelConfig, kind: str, batch: int,
-                        max_seq: int):
-    """Logical axes of every leaf of ``init_block_cache``'s tree."""
+def _cache_leaves(cfg: ModelConfig, kind: str, batch: int, max_seq: int):
+    """Every leaf of a block's dense decode cache as (logical axes, shape,
+    fill, float32): a KVCache for attention kinds, the float32 recurrent
+    state for mlstm / slstm (``max_seq`` unused), and ``{"kv": KVCache,
+    "mamba": MambaState}`` for hymba kinds (the Mamba state's h float32,
+    its conv history in the model's dtype)."""
     check_kind(kind)
+
+    def f32(axes, shape, fill=0.0):
+        return (axes, shape, fill, True)
     if kind == "mlstm":
         di = ssm_mod._di(cfg)
         nh = cfg.num_heads
         hd = di // nh
         return ssm_mod.MLSTMState(
-            c=(("batch", None, None, "channels"), (batch, nh, hd, hd)),
-            n=(("batch", None, None), (batch, nh, hd)),
-            m=(("batch", None), (batch, nh)),
-            conv=((None,), (0,)))
+            c=f32(("batch", None, None, "channels"), (batch, nh, hd, hd)),
+            n=f32(("batch", None, None), (batch, nh, hd)),
+            m=f32(("batch", None), (batch, nh), -1e30),
+            conv=((None,), (0,), 0.0, False))
     if kind == "slstm":
         s2 = (("batch", "channels"), (batch, ssm_mod._di(cfg)))
-        return ssm_mod.SLSTMState(c=s2, n=s2, h=s2, m=s2)
+        return ssm_mod.SLSTMState(c=f32(*s2), n=f32(*s2), h=f32(*s2),
+                                  m=f32(*s2, -1e30))
     # attn_mod.KV_CACHE_LAYOUT == "bshd"
     kvshape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     axes = ("batch", "kv_seq", "heads", None)
-    kv = attn_mod.KVCache(k=(axes, kvshape), v=(axes, kvshape))
+    kv = attn_mod.KVCache(k=(axes, kvshape, 0.0, False),
+                          v=(axes, kvshape, 0.0, False))
     if kind in HYMBA_KINDS:
         di, n = cfg.q_dim, cfg.ssm_state_size
         return {"kv": kv, "mamba": ssm_mod.MambaState(
-            h=(("batch", "channels", None), (batch, di, n)),
+            h=f32(("batch", "channels", None), (batch, di, n)),
             conv=(("batch", None, "channels"),
-                  (batch, cfg.conv_kernel - 1, di)))}
+                  (batch, cfg.conv_kernel - 1, di), 0.0, False))}
     return kv
+
+
+def _is_cache_leaf(x) -> bool:
+    return isinstance(x, tuple) and not hasattr(x, "_fields") \
+        and len(x) == 4
+
+
+def block_cache_logical(cfg: ModelConfig, kind: str, batch: int,
+                        max_seq: int):
+    """Logical axes of every leaf of ``init_block_cache``'s tree."""
+    return map_tree(lambda leaf: leaf[:2],
+                    _cache_leaves(cfg, kind, batch, max_seq), _is_cache_leaf)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
-                     dtype: torch.dtype, device: torch.device):
-    """A block's dense decode cache: a KVCache for attention kinds, the
-    float32 recurrent state for mlstm / slstm (``max_seq`` unused), and
-    ``{"kv": KVCache, "mamba": MambaState}`` for hymba kinds (the Mamba
-    state's h float32, its conv history in ``dtype``)."""
-    check_kind(kind)
-    f32 = dict(dtype=torch.float32, device=device)
-    if kind == "mlstm":
-        di = ssm_mod._di(cfg)
-        nh = cfg.num_heads
-        hd = di // nh
-        return ssm_mod.MLSTMState(
-            c=torch.zeros((batch, nh, hd, hd), **f32),
-            n=torch.zeros((batch, nh, hd), **f32),
-            m=torch.full((batch, nh), -1e30, **f32),
-            conv=torch.zeros((0,), dtype=dtype, device=device))
-    if kind == "slstm":
-        di = ssm_mod._di(cfg)
-        return ssm_mod.SLSTMState(
-            c=torch.zeros((batch, di), **f32),
-            n=torch.zeros((batch, di), **f32),
-            h=torch.zeros((batch, di), **f32),
-            m=torch.full((batch, di), -1e30, **f32))
-    kv = attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, device)
-    if kind in HYMBA_KINDS:
-        di = cfg.q_dim
-        return {"kv": kv, "mamba": ssm_mod.MambaState(
-            h=torch.zeros((batch, di, cfg.ssm_state_size), **f32),
-            conv=torch.zeros((batch, cfg.conv_kernel - 1, di), dtype=dtype,
-                             device=device))}
-    return kv
+                     dtype: torch.dtype, device: torch.device,
+                     spec=None, mesh=None):
+    """A block's dense decode cache (``_cache_leaves``), every leaf in
+    ``dtype`` but the float32 state.  With ``spec`` (the block's entry of
+    ``param_sharding_tree(cache_logical)``) and ``mesh``: each leaf is
+    this rank's slice of it."""
+    specs: list = []
+    if spec is not None:
+        map_tree(specs.append, spec, is_spec)
+    specs = iter(specs)
+
+    def alloc(leaf):
+        _, shape, fill, f32 = leaf
+        if spec is not None:
+            shape = local_shape(shape, next(specs), mesh)
+        return torch.full(shape, fill, device=device,
+                          dtype=torch.float32 if f32 else dtype)
+    return map_tree(alloc, _cache_leaves(cfg, kind, batch, max_seq),
+                    _is_cache_leaf)
 
 
 def init_block_pages(cfg: ModelConfig, kind: str, num_pages: int,
@@ -198,15 +195,17 @@ def init_block_pages(cfg: ModelConfig, kind: str, num_pages: int,
 
 
 def _attn_block_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
-                     cfg: ModelConfig, kind: str) -> torch.Tensor:
+                     cfg: ModelConfig, kind: str,
+                     decode: bool = False) -> torch.Tensor:
     """Residual + FFN half of an attention block, shared by the training,
-    prefill and decode paths so they cannot diverge."""
+    prefill and decode paths so they cannot diverge (``decode``: a dense
+    decode step, whose rows a mesh's model ranks share)."""
     if cfg.post_norm:
         a = apply_norm(params["ln1_post"], a, cfg.norm_type, cfg.norm_eps)
     x = x + a
     h2 = apply_norm(params["ln2"], x, cfg.norm_type, cfg.norm_eps)
     if kind == "moe":
-        f = _moe_ffn(params["moe"], h2, cfg)
+        f = _moe_ffn(params["moe"], h2, cfg, decode)
     else:
         f = mlp_mod.apply_mlp(params["mlp"], h2, cfg.mlp_type)
     if cfg.post_norm:
@@ -214,8 +213,8 @@ def _attn_block_tail(params: dict, x: torch.Tensor, a: torch.Tensor,
     return x + f
 
 
-def _moe_ffn(params: dict, h2: torch.Tensor,
-             cfg: ModelConfig) -> torch.Tensor:
+def _moe_ffn(params: dict, h2: torch.Tensor, cfg: ModelConfig,
+             decode: bool = False) -> torch.Tensor:
     """The MoE FFN of a block.  Under a training mesh with a model axis
     the rank holds S / model rows of each batch row, and JAX's capacity
     counts a whole row: ``h2`` is gathered along the sequence so that
@@ -227,15 +226,27 @@ def _moe_ffn(params: dict, h2: torch.Tensor,
     from its own experts' slots only, and the train step sums it over the
     mesh like every replicated leaf's.  Where E % model != 0 the rule
     table keeps the experts whole (gathered with the block): every rank
-    runs every expert and keeps its rows."""
+    runs every expert and keeps its rows.
+
+    At ``decode`` the model ranks of a row group hold the same rows, so
+    nothing is gathered: each routes them whole and runs its experts'
+    slots, the unsummed slots of the ranks (``combine``'s ``slots``: at
+    most one rank's is nonzero) are summed exactly over the model group,
+    and each token's k outputs are summed in one device's order -- the
+    block's output bit for bit."""
     mesh = current_mesh()
     n = mesh.shape.get("model", 1) if mesh is not None else 1
-    if n == 1:
+    el = params["w_up"].shape[0]
+    if n == 1 or (decode and el == cfg.num_experts):
         return moe_mod.apply_moe(params, h2, cfg)
     group = mesh.group(("model",))
     m, s = mesh.coords["model"], h2.shape[1]
+    if decode:
+        part = moe_mod.apply_moe(params, h2, cfg,
+                                 experts=(m * el, (m + 1) * el), slots=True)
+        whole = C.all_reduce(part.float(), group).to(h2.dtype)
+        return moe_mod.sum_slots(lambda j: whole[..., j, :], whole.shape[-2])
     whole = C.gather(h2, 1, group)
-    el = params["w_up"].shape[0]
     if el == cfg.num_experts:
         return moe_mod.apply_moe(params, whole, cfg)[:, m * s:(m + 1) * s]
     part = moe_mod.apply_moe(params, whole, cfg,
@@ -243,17 +254,20 @@ def _moe_ffn(params: dict, h2: torch.Tensor,
     return C.scatter(part, 1, group)
 
 
-def local_leaves(cfg: ModelConfig, kind: str, spec: dict,
-                 model: int) -> dict:
+def local_leaves(cfg: ModelConfig, kind: str, spec: dict, model: int,
+                 decode: bool = False) -> dict:
     """The leaves of a block that a rank runs as its own pieces under a
     model axis of ``model`` (subtree -> leaf names; every other leaf is
     gathered whole): a MoE block's expert leaves sharded over the model
-    axis (``_moe_ffn``), a recurrent cell's ``ssm.LOCAL_LEAVES`` where
-    the model axis splits its recurrence (``_channel_cell``)."""
+    axis (``_moe_ffn``), and in training a recurrent cell's
+    ``ssm.LOCAL_LEAVES`` where the model axis splits its recurrence
+    (``_channel_cell``).  A decoding cell runs its slice of the state's
+    channels, which those pieces do not match (the mLSTM's are heads, its
+    state's dv within each head): it takes every leaf whole."""
     if kind == "moe":
         return {"moe": {k for k, s in spec["moe"].items()
                         if s[:1] == ("model",)}}
-    if kind in CELLS and model > 1:
+    if kind in CELLS and model > 1 and not decode:
         sub, cell = CELLS[kind]
         if ssm_mod.channel_shards(cfg, cell, model):
             return {sub: set(ssm_mod.LOCAL_LEAVES[cell])}
@@ -350,33 +364,54 @@ def apply_block_decode_paged(params: dict, x: torch.Tensor,
     return _attn_block_tail(params, x, a, cfg, kind), cache
 
 
+def _cell_decode(params: dict, h: torch.Tensor, cfg: ModelConfig,
+                 cell: str, state, logical):
+    """One decode step of the recurrent ``cell`` from ``state``, whose
+    logical axes and whole shapes are ``logical`` (its entry of
+    ``block_cache_logical``).  Where the state's channel dim is narrower
+    than the whole (the rule table's ``channels -> model`` under a mesh
+    whose model axis divides it) the state is the rank's slice, and
+    ``ssm``'s ``<cell>_decode`` steps it, all-gathering what the cell
+    mixes across channels; otherwise the rank steps the whole state, as
+    one device does."""
+    axes, shape = logical[0]
+    dim = axes.index("channels")
+    step = getattr(ssm_mod, f"{cell}_decode")
+    if state[0].shape[dim] == shape[dim]:
+        return step(params, h, cfg, state)
+    mesh = current_mesh()
+    group = mesh.group(("model",))
+    return step(params, h, cfg, state,
+                (mesh.coords["model"], mesh.shape["model"]),
+                lambda t: C.all_gather_dim(t, t.dim() - 1, group))
+
+
 def apply_block_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                        kind: str, cache, *, pos: int,
                        impl: Optional[str] = None):
     """Dense-cache one-token decode: x (B, 1, D), ``pos`` the scalar
     position shared by every row (recurrent kinds carry their state in
-    ``cache`` and ignore it).  Under a mesh with a model axis the
-    attention kinds decode from their slice of the cache's sequence."""
-    mesh = current_mesh()
-    check_mesh_decode(kind, mesh.shape.get("model", 1) if mesh else 1)
+    ``cache`` and ignore it).  Under a mesh with a model axis each block
+    decodes from the rank's slice of its cache: attention from its slice
+    of the KV cache's sequence, a recurrent cell from its slice of the
+    state's channels (``_cell_decode``), a MoE FFN through the rank's
+    experts."""
+    check_kind(kind)
     h = apply_norm(params["ln1"], x, cfg.norm_type, cfg.norm_eps)
-    if kind == "mlstm":
-        y, cache = ssm_mod.apply_mlstm(params["cell"], h, cfg, state=cache,
-                                       decode=True)
-        return x + y, cache
-    if kind == "slstm":
-        y, cache = ssm_mod.apply_slstm(params["cell"], h, cfg, state=cache,
-                                       decode=True)
+    logical = block_cache_logical(cfg, kind, 1, 1)
+    if kind in ("mlstm", "slstm"):
+        y, cache = _cell_decode(params["cell"], h, cfg, kind, cache,
+                                logical)
         return x + y, cache
     if kind in HYMBA_KINDS:
         a, kv = attn_mod.apply_attention_decode(
             params["attn"], h, cfg, cache["kv"], pos=pos,
             window=_window(cfg, kind), impl=impl)
-        m, mstate = ssm_mod.apply_mamba(params["mamba"], h, cfg,
-                                        state=cache["mamba"], decode=True)
+        m, mstate = _cell_decode(params["mamba"], h, cfg, "mamba",
+                                 cache["mamba"], logical["mamba"])
         return _hymba_tail(params, x, a, m, cfg), {"kv": kv,
                                                    "mamba": mstate}
     a, cache = attn_mod.apply_attention_decode(
         params["attn"], h, cfg, cache, pos=pos, window=_window(cfg, kind),
         impl=impl)
-    return _attn_block_tail(params, x, a, cfg, kind), cache
+    return _attn_block_tail(params, x, a, cfg, kind, decode=True), cache

@@ -32,6 +32,13 @@ decoder's sinusoids start at the rank's global offset; each
 cross-attention gathers its K and V of every frame
 (``attention.project_cross_kv``) for the rank's decoder rows.
 
+Dense decode under a mesh (``init_cache``, ``decode_step``) holds the
+rule table's slice of the cache: each self cache's B / data rows and S /
+model positions (``kv_seq -> model``), each cross K/V's B / data rows
+and every encoder frame.  Each rank decodes its rows with every block's
+weights gathered: self-attention context-parallel over its model group,
+cross-attention whole.
+
 Not ported: the paged engine, which JAX cannot run on this model either
 (``EngineCore`` refuses it).
 """
@@ -51,6 +58,7 @@ from repro_torch.layers.frontend import (apply_frontend, frontend_logical,
                                          init_frontend)
 from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 from repro_torch.models.sharded import MeshModel
+from repro_torch.sharding import collectives as C
 
 
 def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -258,35 +266,44 @@ class EncDec(MeshModel):
         each layer's cross K/V are projected once from it
         (``project_cross_kv``); without, they are zeros of
         ``encoder_seq`` rows (one tensor, shared: the cache never writes
-        them), as JAX's dense engine runs the model.  Under a mesh with a
-        model axis it raises NotImplementedError, as ``decode_step``
-        does."""
-        self._no_mesh_decode()
+        them), as JAX's dense engine runs the model.  Under a mesh: the
+        rank's slice (ValueError where the batch or the width does not
+        split), ``params`` its pieces and ``enc_out`` the states of its
+        rows and frames (``encode``'s), whose K/V are gathered over the
+        frames."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
+        mesh = self._mesh()
+        if mesh is not None:
+            _, batch = self._decode_rows(mesh, batch, max_seq)
+            max_seq //= mesh.shape.get("model", 1)
         self_kv = [attn_mod.init_kv_cache(cfg, batch, max_seq, dtype,
                                           self.device)
                    for _ in range(cfg.num_layers)]
         if enc_out is not None:
             cross = [attn_mod.project_cross_kv(p["cross_attn"], enc_out, cfg)
-                     for p in params["dec_blocks"]]
+                     for p in self._dec_blocks(params)]
         else:
             z = torch.zeros((batch, cfg.encoder_seq, cfg.num_kv_heads,
                              cfg.head_dim), dtype=dtype, device=self.device)
             cross = [(z, z)] * cfg.num_layers
         return {"self": self_kv, "cross": cross}
 
-    def _no_mesh_decode(self) -> None:
+    def _dec_blocks(self, params: dict):
+        """The decoder blocks' weights, each gathered whole under a mesh
+        when it is reached."""
         mesh = self._mesh()
-        n = mesh.shape.get("model", 1) if mesh is not None else 1
-        if n > 1:
-            raise NotImplementedError(
-                f"{self.cfg.name}: dense decode of an encoder-decoder on a "
-                f"mesh with a model axis of {n} is not ported (ROADMAP "
-                "Queue 1 item 8)")
+        if mesh is None:
+            yield from params["dec_blocks"]
+            return
+        specs = self.param_specs(mesh)["dec_blocks"]
+        for p, spec in zip(params["dec_blocks"], specs, strict=True):
+            yield C.gather_tree(p, spec, mesh)
 
     def cache_logical(self, batch: int, max_seq: int) -> dict:
-        """Logical axes of every leaf of ``init_cache``'s tree."""
+        """Logical axes of every leaf of ``init_cache``'s tree (each
+        layer's cross (k, v) a KVCache here: the rule functions walk
+        NamedTuples, not plain tuples)."""
         cfg = self.cfg
         kvshape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
         crshape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
@@ -295,7 +312,8 @@ class EncDec(MeshModel):
         return {"self": [attn_mod.KVCache(k=(kv_ax, kvshape),
                                           v=(kv_ax, kvshape))
                          for _ in range(cfg.num_layers)],
-                "cross": [((cr_ax, crshape), (cr_ax, crshape))
+                "cross": [attn_mod.KVCache(k=(cr_ax, crshape),
+                                           v=(cr_ax, crshape))
                           for _ in range(cfg.num_layers)]}
 
     def decode_step(self, params: dict, token: torch.Tensor, cache: dict,
@@ -303,17 +321,22 @@ class EncDec(MeshModel):
         """One decoder token.  token: (B,) int; pos: the scalar position
         shared by every row.  Each layer writes its self-attention K/V row
         at ``pos`` in place and attends to the cross K/V.  Returns
-        (logits (B, V), cache).  Under a mesh with a model axis it raises
-        NotImplementedError: the self cache's ``kv_seq -> model`` decode
-        is not ported for an encoder-decoder."""
-        self._no_mesh_decode()
+        (logits (B, V), cache).  Under a mesh ``token`` is the whole
+        batch and ``cache`` the rank's slice (``init_cache``): the rank
+        decodes its rows, each block on its weights gathered whole, and
+        returns its rows' logits."""
         cfg = self.cfg
+        mesh = self._mesh()
+        if mesh is not None:
+            r0, rows = self._decode_rows(mesh, token.shape[0])
+            token = token[r0:r0 + rows]
+            params = self._whole(params, ("embedding", "final_norm"))
         x = embed_tokens(params["embedding"], token[:, None], cfg)
         b = x.shape[0]
         posv = torch.full((b, 1), int(pos), device=x.device)
         x = x + sinusoid(posv, cfg.d_model).to(x.dtype)
         new_kv = []
-        for p, kv, (ck, cv) in zip(params["dec_blocks"], cache["self"],
+        for p, kv, (ck, cv) in zip(self._dec_blocks(params), cache["self"],
                                    cache["cross"]):
             h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
             a, kv = attn_mod.apply_attention_decode(p["self_attn"], h, cfg,

@@ -34,11 +34,14 @@ The gathers' gradients come back to each rank as its piece of the sum
 over the model axis.
 
 Dense decode under a mesh (``init_cache``, ``decode_step``) holds the
-rule table's slice of every cache: B / data rows and, for the attention
-kinds, S / model positions of the KV cache (``kv_seq -> model``); each
-rank decodes its rows with every block's weights gathered and merges
-attention over its model group (``blocks.check_mesh_decode`` names the
-kinds that do).
+rule table's slice of every cache: B / data rows, S / model positions of
+each KV cache (``kv_seq -> model``) and C / model channels of each
+recurrent state (``channels -> model``: Mamba's DI, the mLSTM's dv, the
+sLSTM's DI; a dim the model axis does not divide stays whole).  Each
+rank decodes its rows with every block's weights gathered (but a MoE
+block's experts sharded over the model axis) and merges attention, the
+cells' channels and the experts' combines over its model group
+(``blocks.apply_block_decode``).
 """
 from __future__ import annotations
 
@@ -56,16 +59,18 @@ from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 from repro_torch.models import blocks as B
 from repro_torch.models.sharded import MeshModel
 from repro_torch.sharding import collectives as C
-from repro_torch.sharding.rules import shard_index
+from repro_torch.sharding.rules import param_sharding_tree
 
 
 def _block_leaves(bp: dict, spec: dict, mesh, cfg: ModelConfig,
-                  kind: str) -> dict:
-    """A block's weights as it runs them under ``mesh``: every sharded
-    leaf gathered whole, but those it runs as this rank's pieces
-    (``blocks.local_leaves``: a MoE block's experts sharded over the
-    model axis, a recurrent cell's channel pieces) stay this rank's."""
-    local = B.local_leaves(cfg, kind, spec, mesh.shape.get("model", 1))
+                  kind: str, decode: bool = False) -> dict:
+    """A block's weights as it runs them under ``mesh`` (in training, or
+    at ``decode``): every sharded leaf gathered whole, but those it runs
+    as this rank's pieces (``blocks.local_leaves``: a MoE block's experts
+    sharded over the model axis, a training cell's channel pieces) stay
+    this rank's."""
+    local = B.local_leaves(cfg, kind, spec, mesh.shape.get("model", 1),
+                           decode)
     out = C.gather_tree({k: v for k, v in bp.items() if k not in local},
                         spec, mesh)
     for sub, keys in local.items():
@@ -207,40 +212,26 @@ class LM(MeshModel):
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
-    def _decode_rows(self, mesh, batch: int, max_seq: int) -> tuple:
-        """(first row, rows, positions) of this rank's slice of a dense
-        decode cache of ``batch`` rows x ``max_seq`` positions under
-        ``mesh``: the rule table's slice of ``cache_logical`` -- the
-        batch over every axis but the model axis, the KV cache's sequence
-        over the model axis.  Raises NotImplementedError for a block kind
-        with no sharded decode, ValueError where the batch or the cache
-        width does not split."""
-        n = mesh.shape.get("model", 1)
-        for kind in set(self.cfg.blocks()):
-            B.check_mesh_decode(kind, n)
-        d, dp = shard_index(tuple(a for a in mesh.axis_names
-                                  if a != "model"), mesh, mesh.coords)
-        if batch % dp or max_seq % n:
-            raise ValueError(
-                f"a decode cache of {batch} rows x {max_seq} positions "
-                f"does not split over dp={dp} rows and model={n} sequence "
-                "pieces: the batch must be a multiple of dp and the cache "
-                "width of model")
-        return d * (batch // dp), batch // dp, max_seq // n
-
     def init_cache(self, batch: int, max_seq: int) -> List:
         """Per-layer dense decode caches on the model's device: KV caches
         (``layers/attention.KV_CACHE_LAYOUT``) for attention blocks, the
         float32 recurrent state for mlstm / slstm blocks, and for hymba
         blocks ``{"kv": KV cache, "mamba": MambaState}``.  Under a mesh:
-        this rank's slice of each (``_decode_rows``)."""
-        dtype = torch_dtype(self.cfg.dtype)
+        this rank's slice of each, the rule table's slice of
+        ``cache_logical`` (ValueError where the batch or a KV cache's
+        width does not split, ``_decode_rows``)."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
         mesh = self._mesh()
+        specs = [None] * cfg.num_layers
         if mesh is not None:
-            _, batch, max_seq = self._decode_rows(mesh, batch, max_seq)
-        return [B.init_block_cache(self.cfg, kind, batch, max_seq, dtype,
-                                   self.device)
-                for kind in self.cfg.blocks()]
+            kv = any(k not in ("mlstm", "slstm") for k in cfg.blocks())
+            self._decode_rows(mesh, batch, max_seq if kv else 0)
+            specs = param_sharding_tree(self.cache_logical(batch, max_seq),
+                                        mesh)
+        return [B.init_block_cache(cfg, kind, batch, max_seq, dtype,
+                                   self.device, spec, mesh)
+                for kind, spec in zip(cfg.blocks(), specs)]
 
     def init_paged_cache(self, num_pages: int, page_size: int) -> List:
         """Per-layer KV page pools (no batch dim -- the serving page
@@ -290,14 +281,15 @@ class LM(MeshModel):
         mesh = self._mesh()
         leaves = None
         if mesh is not None:
-            r0, rows, _ = self._decode_rows(mesh, token.shape[0], 0)
+            r0, rows = self._decode_rows(mesh, token.shape[0])
             token = token[r0:r0 + rows]
             params = self._whole(params, ("embedding",))
             specs = self.param_specs(mesh)["layers"]
             kinds = cfg.blocks()
 
             def leaves(i, bp):
-                return _block_leaves(bp, specs[i], mesh, cfg, kinds[i])
+                return _block_leaves(bp, specs[i], mesh, cfg, kinds[i],
+                                     decode=True)
 
         def block_fn(bp, x, kind, bc):
             return B.apply_block_decode(bp, x, cfg, kind, bc, pos=pos,

@@ -13,7 +13,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import (axis_rules, current_mesh,
-                                        current_rules, param_sharding_tree)
+                                        current_rules, param_sharding_tree,
+                                        shard_index)
 
 
 def _gathered(i: int, params: dict, spec: dict, mesh) -> dict:
@@ -42,6 +43,23 @@ class MeshModel:
         """The global index of this rank's first row of a sequence it
         holds ``s`` rows of."""
         return mesh.coords.get("model", 0) * s if mesh is not None else 0
+
+    def _decode_rows(self, mesh, batch: int, max_seq: int = 0) -> tuple:
+        """(first row, rows) of this rank's slice of a dense decode batch
+        of ``batch`` rows under ``mesh``: the rule table's ``batch`` over
+        every axis but the model axis.  ValueError where the batch does
+        not split, or a KV cache of ``max_seq`` positions over the model
+        axis (``kv_seq``)."""
+        n = mesh.shape.get("model", 1)
+        d, dp = shard_index(tuple(a for a in mesh.axis_names
+                                  if a != "model"), mesh, mesh.coords)
+        if batch % dp or max_seq % n:
+            raise ValueError(
+                f"a decode cache of {batch} rows x {max_seq} positions "
+                f"does not split over dp={dp} rows and model={n} sequence "
+                "pieces: the batch must be a multiple of dp and the cache "
+                "width of model")
+        return d * (batch // dp), batch // dp
 
     def _whole(self, params: dict, keys: tuple) -> dict:
         """``params`` with those of its top-level subtrees named in

@@ -231,6 +231,15 @@ def shard_index(entry, mesh, coords: dict) -> tuple:
     return idx, n
 
 
+def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """The shape of this rank's piece of a leaf of ``shape`` under
+    ``spec``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        out[dim] //= shard_index(entry, mesh, mesh.coords)[1]
+    return tuple(out)
+
+
 def shard_of(tensor: torch.Tensor, spec: tuple, mesh,
              coords: Optional[dict] = None) -> torch.Tensor:
     """The piece of ``tensor`` that the rank at ``coords`` (axis name ->

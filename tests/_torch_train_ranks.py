@@ -244,8 +244,8 @@ def moe_routes_rank(rank: int, arch: str, par_kw: dict, params: dict,
                      "w_up": tuple(p["w_up"].shape)})
         return apply(p, x, c, **kw)
 
-    def recording_ffn(p, h2, c):
-        y = ffn(p, h2, c)
+    def recording_ffn(p, h2, c, *a):
+        y = ffn(p, h2, c, *a)
         seen[-1]["y"] = y.numpy().copy()
         return y
     moe.apply_moe, blocks._moe_ffn = recording_apply, recording_ffn
@@ -411,19 +411,23 @@ def pipeline_rank(rank: int, case: str, stages: list, x) -> dict:
     return {"out": y.numpy(), "counts": dict(C.COUNTS)}
 
 
-def cp_decode_rank(rank: int, par_kw: dict, cases: list) -> list:
-    """Dense decode on the mesh of ``par_kw`` (``LM.init_cache`` /
-    ``LM.decode_step`` under ``axis_rules``: the cache's ``kv_seq ->
-    model`` slice, context-parallel attention) for each case in turn: a
-    case holds "arch", the whole "params" (numpy, the port's tree), the
-    whole per-layer "caches" [(k, v)] (numpy, (B, S, Hkv, D)) and
-    "steps" [(pos, tokens (B,))]; with "cfg_kw" (the reduced config's
-    changed fields, e.g. a bf16 dtype) also "dtypes", each parameter's
-    torch dtype name (its float32 numpy values are exact in it).  The
-    rank fills its slices from the whole caches, decodes every step from
-    its pieces of the parameters and returns per case its coordinates,
-    its slices' shapes, its rows of every step's logits and its final
-    cache slices (float32 numpy)."""
+def mesh_decode_rank(rank: int, par_kw: dict, cases: list) -> list:
+    """Dense decode of any model on the mesh of ``par_kw`` (``init_cache``
+    / ``decode_step`` under ``axis_rules``: the rule table's slice of
+    every cache leaf) for each case in turn.  A case holds "arch",
+    "cfg_kw" (the reduced config's changed fields, e.g. a bf16 dtype),
+    the whole "params" (numpy, the port's tree; float32 values exact in
+    each leaf's torch dtype, named in "dtypes"), "batch" and "seq" (the
+    cache's rows and positions), "steps" [(pos, tokens (B,))] and
+    "leaves": the whole cache's leaves in ``tree.leaves`` order (numpy)
+    -- of an
+    encoder-decoder its self caches' only, whose cross K/V the rank
+    projects from ``encode`` of its rows and frames of "frames" (B,
+    S_enc, D).  The rank fills its slices, decodes every step from its
+    pieces of the parameters and returns per case its coordinates, the
+    specs and shapes of its cache leaves, its rows of every step's logits
+    and its final cache leaves (float32 numpy).  (The rank body of
+    ``test_torch_cp_decode.py`` and ``test_torch_mesh_decode.py``.)"""
     import dataclasses
     from repro_torch.sharding.rules import param_sharding_tree
     torch.set_num_threads(1)
@@ -432,33 +436,40 @@ def cp_decode_rank(rank: int, par_kw: dict, cases: list) -> list:
     out = []
     for case in cases:
         cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
-            case["arch"])), **case.get("cfg_kw", {}))
+            case["arch"])), **case["cfg_kw"])
         model = build_model(cfg, "cpu", parallel)
         whole = tree.tree_map(torch.from_numpy, case["params"])
-        if "dtypes" in case:
-            whole = tree.tree_map(lambda t, dt: t.to(getattr(torch, dt)),
-                                  whole, case["dtypes"])
-        b, s = case["caches"][0][0].shape[:2]
+        whole = tree.tree_map(lambda t, dt: t.to(getattr(torch, dt)),
+                              whole, case["dtypes"])
+        b, s = case["batch"], case["seq"]
         with axis_rules(mesh=mesh), torch.no_grad():
             pieces = tree.unflatten(whole, [
                 shard_of(t, sp, mesh) for t, sp in zip(
                     tree.leaves(whole), flatten(model.param_specs(mesh),
                                                 is_spec), strict=True)])
-            cache = model.init_cache(b, s)
             specs = param_sharding_tree(model.cache_logical(b, s), mesh)
-            for kv, spec, (k, v) in zip(cache, specs, case["caches"],
-                                        strict=True):
-                kv.k.copy_(shard_of(torch.from_numpy(k), spec.k, mesh))
-                kv.v.copy_(shard_of(torch.from_numpy(v), spec.v, mesh))
+            if cfg.is_encoder_decoder:
+                frames = torch.from_numpy(case["frames"])
+                fspec = param_sharding_tree(
+                    (("batch", "seq", None), tuple(frames.shape)), mesh)
+                enc = model.encode(pieces, shard_of(frames, fspec, mesh))
+                cache = model.init_cache(b, s, enc_out=enc, params=pieces)
+                filled, fspecs = cache["self"], specs["self"]
+            else:
+                cache = model.init_cache(b, s)
+                filled, fspecs = cache, specs
+            for t, sp, w in zip(tree.leaves(filled), flatten(fspecs, is_spec),
+                                case["leaves"], strict=True):
+                t.copy_(shard_of(torch.from_numpy(w), sp, mesh))
             logits = []
             for pos, tok in case["steps"]:
                 lg, cache = model.decode_step(pieces, torch.from_numpy(tok),
                                               cache, pos)
                 logits.append(lg.float().numpy().copy())
-        out.append({"coords": mesh.coords, "specs": specs,
-                    "shapes": [tuple(kv.k.shape) for kv in cache],
+        out.append({"coords": mesh.coords,
+                    "specs": flatten(specs, is_spec),
+                    "shapes": [tuple(t.shape) for t in tree.leaves(cache)],
                     "logits": logits,
-                    "cache": [(kv.k.float().numpy().copy(),
-                               kv.v.float().numpy().copy())
-                              for kv in cache]})
+                    "leaves": [t.float().numpy().copy()
+                               for t in tree.leaves(cache)]})
     return out

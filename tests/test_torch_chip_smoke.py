@@ -1937,7 +1937,8 @@ def test_phase8g_h_on_a_reduced_bf16_moe_and_cpu_ranks(cs, monkeypatch):
     gates -- phase 4b's bounds against (g), each leaf's update from the
     ranks' pieces, the rule table's 2 of 4 experts a rank -- with the
     launch and q_offset check fed the card's counts (the CPU runs the
-    plain attention, which counts no launches)."""
+    plain attention, which counts no launches).  The same ranks then
+    decode phase 15's qwen3-moe job, held by its gates."""
     import dataclasses
     import sys
     import torch
@@ -1971,12 +1972,23 @@ def test_phase8g_h_on_a_reduced_bf16_moe_and_cpu_ranks(cs, monkeypatch):
     assert len(g["losses"]) == cs.MOE_TRAIN_STEPS
     assert all(0 < x < 1 for x in g["drop_share"])
     assert g["loss_rel"] <= cs.LOSS_RTOL and g["gnorm_rel"] <= cs.GNORM_RTOL
-    h = cs.moe_dist(g, cfg)
+    arch = "qwen3-moe-30b-a3b"
+    cut = dataclasses.replace(cfg, num_layers=cs.MOE_TRAIN_LAYERS)
+    job = _decode_job(cs, arch, cut)
+    h = cs.moe_dist(g, cfg, decode=job)
     print(f"(h) worst update {h['worst_delta']}, loss {h['loss']} vs "
           f"{h['ref_loss']}, grad norm {h['grad_norm']} vs "
           f"{h['ref_grad_norm']}")
     assert h["experts"] == [2] * 4
     assert h["worst_delta"][1] <= cs.DIST_DELTA_RTOL
+    # phase 15's qwen3-moe job rode (h)'s ranks
+    torch.set_num_threads(1)
+    try:
+        dec = cs.phase_mesh_decode({arch: (job, h.pop("decode_ranks"))},
+                                   device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    _check_decode(cs, dec, {arch: (cut, None)})
 
 
 def test_phase8_parallel_runs_after_phase8_and_feeds_the_kernels_line(cs):
@@ -2174,7 +2186,8 @@ def test_phase12_on_reduced_bf16_models_and_cpu_ranks(cs, monkeypatch):
     then one spawn of four gloo ranks that trains the three in turn, held
     by the phase's gates -- with the launch counts fed the card's (the
     CPU runs the plain attention and the plain mLSTM, which count no
-    launches)."""
+    launches).  The same ranks then decode each model's phase 15 job
+    (``REHEARSAL_DECODE``), held by phase 15's gates after the spawn."""
     import dataclasses
     import sys
     import torch
@@ -2209,12 +2222,19 @@ def test_phase12_on_reduced_bf16_models_and_cpu_ranks(cs, monkeypatch):
     configs = {"xlstm-125m": (small("xlstm-125m", num_layers=3), 32),
                "hymba-1.5b": (small("hymba-1.5b"), 48),
                "whisper-small": (small("whisper-small"), 16)}
+    decode = {arch: _decode_job(cs, arch, cfg)
+              for arch, (cfg, _) in configs.items()}
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        out = cs.phase_mesh(device="cpu", configs=configs)
+        out = cs.phase_mesh(device="cpu", configs=configs, decode=decode)
+        assert set(out["decode"]) == set(configs)
+        for arch, (job, ranks) in out["decode"].items():
+            assert job is decode[arch] and len(ranks) == 4
+        dec = cs.phase_mesh_decode(out.pop("decode"), device="cpu")
     finally:
         torch.set_num_threads(n)
+    _check_decode(cs, dec, configs)
     for arch, res in out["models"].items():
         print(f"{arch}: worst update {res['worst_delta']}, loss "
               f"{res['loss']} vs {res['ref_loss']}, grad norm "
@@ -2241,12 +2261,53 @@ def test_phase12_on_reduced_bf16_models_and_cpu_ranks(cs, monkeypatch):
     assert k["fastattn_fwd"]["mesh_device_ms"] == 0.1
 
 
+# arch -> (cache width, positions) of phase 15's rehearsal at reduced
+# widths: slices of 48 (hymba: its window of 32 empties slice 0 at 80,
+# 81), 16 (whisper) and 32 (qwen3-moe) positions at model = 2
+REHEARSAL_DECODE = {"xlstm-125m": (16, (0, 1, 2)),
+                    "hymba-1.5b": (96, (46, 47, 48, 80, 81)),
+                    "whisper-small": (32, (14, 15, 16, 17)),
+                    "qwen3-moe-30b-a3b": (64, (30, 31, 32, 33))}
+
+
+def _decode_job(cs, arch, cfg):
+    width, positions = REHEARSAL_DECODE[arch]
+    return cs.decode_job_for(arch, cfg, batch=4, width=width,
+                             positions=positions)
+
+
+def _check_decode(cs, dec, configs):
+    """Phase 15's summary of a rehearsal: every model gated, the CPU's
+    plain path launching nothing, every local attention asked for the
+    log-sum-exp, each rank's worst rows and states within the bound, and
+    a MoE model's last MoE block on every rank held to the plain block
+    on the rank's own input, its routing choices counted."""
+    assert set(dec["models"]) == set(configs) and dec["card"] == "cpu"
+    for arch, res in dec["models"].items():
+        cfg = configs[arch][0]
+        steps = len(REHEARSAL_DECODE[arch][1])
+        want = cs.decode_expected(cfg, steps, on_card=False)
+        assert res["launches"] == [0] * 4, arch
+        assert res["lse_calls"] == [want["lse_calls"]] * 4, arch
+        assert res["fastattn_launches"] == [0] * 4, arch
+        assert all(w <= 1.0 for w in res["written_worst"] +
+                   res["state_worst"] + res["moe_worst"]), arch
+        moe = "moe" in cfg.blocks()
+        assert len(res["moe_worst"]) == (4 if moe else 0), arch
+        assert res["moe_choices"] == ([2 * steps * cfg.num_experts_per_tok]
+                                      * 4 if moe else []), arch
+        print(f"[15] {arch}: gate {res['gate']:.3g} ({res['rule']}), "
+              f"written {res['written_worst']}, states "
+              f"{res['state_worst']}, last MoE block {res['moe_worst']}, "
+              f"routing flips {res['moe_flips']} of {res['moe_choices']}")
+
+
 def test_phase12_runs_last_and_phase3e_pays_for_it(cs):
     import inspect
     main = inspect.getsource(cs.main)
     assert main.index("phase_vl()") < main.index("phase_mesh()") < \
         main.index('done("12")') < main.index("add_mesh_entries")
-    assert cs.TP_LAYERS == 16
+    assert cs.TP_LAYERS == 8
     assert "first_layers(model, params, TP_LAYERS)" in inspect.getsource(
         cs.phase_tp)
 
@@ -2606,3 +2667,287 @@ def test_phase14_runs_after_13_in_its_spawn(cs):
         8, 32768, {"data": 2, "model": 2})
     assert [p for p, _ in job["steps"]] == [1000, 16381, 16382, 16383,
                                             16384, 16385, 16386]
+
+
+# ---------------------------------------------------------------------------
+# phase 15: dense decode on a mesh for every block kind
+# ---------------------------------------------------------------------------
+
+def _small(arch, **kw):
+    import dataclasses
+    from repro_torch.config import get_model_config, reduce_for_smoke
+    return dataclasses.replace(reduce_for_smoke(get_model_config(arch)),
+                               dtype="bfloat16", param_dtype="bfloat16",
+                               **kw)
+
+
+def test_phase15_alone_on_reduced_bf16_models_and_cpu_ranks(cs,
+                                                             monkeypatch):
+    """Phase 15 spawned alone on the CPU (``phase_mesh_decode`` with no
+    ranks' results: one spawn of four gloo ranks runs every job): reduced
+    bf16 xlstm-125m (3 layers), hymba-1.5b, whisper-small and qwen3-moe
+    (2 layers), each held by ``decode_gate`` to its one-device run."""
+    import sys
+    torch = pytest.importorskip("torch")
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(ROOT))
+    configs = {"xlstm-125m": (_small("xlstm-125m", num_layers=3), None),
+               "hymba-1.5b": (_small("hymba-1.5b"), None),
+               "whisper-small": (_small("whisper-small"), None),
+               "qwen3-moe-30b-a3b": (_small("qwen3-moe-30b-a3b"), None)}
+    runs = {arch: (_decode_job(cs, arch, cfg), None)
+            for arch, (cfg, _) in configs.items()}
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        dec = cs.phase_mesh_decode(runs, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    _check_decode(cs, dec, configs)
+    assert dec["models"]["whisper-small"]["collectives_a_step"][0][
+        "all_gather"] > 0
+
+
+def _decode_case(cs):
+    """A faked phase 15 run of a reduced bf16 hymba (2 layers, B=4 on 96
+    positions at (2, 2)): the one-device results and four ranks' that
+    pass ``decode_gate`` (each rank's slices of the same values)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import (flatten, is_logical_leaf,
+                                            is_spec, local_shape,
+                                            param_sharding_tree)
+    cfg = _small("hymba-1.5b")
+    job = cs.decode_job_for("hymba-1.5b", cfg, batch=4, width=96,
+                            positions=(46, 48))
+    rng = np.random.default_rng(0)
+    logits = [rng.normal(size=(4, 256)).astype(np.float32) for _ in range(2)]
+    logits[0][:, 0] += 50           # clear top-1 margins
+    kv = {pos: [tuple(rng.normal(size=(4, 2, 16)).astype(np.float32)
+                      for _ in range(2)) for _ in range(2)]
+          for pos in (46, 48)}
+    di = cfg.q_dim
+    states = [(li, name, rng.normal(size=shape).astype(np.float32))
+              for li in range(2) for name, shape in (
+                  ("MambaState.h", (4, di, 16)),
+                  ("MambaState.conv", (4, 3, di)))]
+    ref = {"logits": [torch.from_numpy(x) for x in logits],
+           "written": {p: [tuple(torch.from_numpy(t) for t in layer)
+                           for layer in layers] for p, layers in kv.items()},
+           "states": [(li, name, torch.from_numpy(x))
+                      for li, name, x in states],
+           "wall_s": 0.1, "launches": 4, "fastattn_launches": 0,
+           "gate": 0.05, "rule": "LOGIT_TOL", "change": 0.01}
+    # a MoE block's records (the gate checks them wherever ref has them)
+    moe = [rng.normal(size=(4, 32)).astype(np.float32) for _ in range(2)]
+    ref["moe"] = [[{"plain": torch.from_numpy(x[2 * (r // 2):][:2]),
+                    "flips": r % 2, "choices": 4} for x in moe]
+                  for r in range(4)]
+    logical = build_model(cfg, "cpu").cache_logical(4, 96)
+
+    def ranks(**bad):
+        out = []
+        for r in range(4):
+            d, m = divmod(r, 2)
+            rows = slice(2 * d, 2 * d + 2)
+            mesh = make_mesh((2, 2), ("data", "model"), r)
+            specs = flatten(param_sharding_tree(logical, mesh), is_spec)
+            pos = 46 if m == 0 else 48
+            half = slice(m * di // 2, (m + 1) * di // 2)
+            res = {"coords": {"data": d, "model": m},
+                   "shapes": [local_shape(shape, sp, mesh) for (_, shape), sp
+                              in zip(flatten(logical, is_logical_leaf),
+                                     specs)],
+                   "logits": [x[rows].copy() for x in logits],
+                   "launches": 4, "lse_calls": 4, "fastattn_launches": 0,
+                   "plain_cuda": 0,
+                   "written": {pos: [tuple(t[rows].copy() for t in layer)
+                                     for layer in kv[pos]]},
+                   "states": [x[rows][:, half].copy()
+                              if name.endswith(".h")
+                              else x[rows][:, :, half].copy()
+                              for _, name, x in states],
+                   "moe": [(x[rows].copy(), x[rows].copy()) for x in moe],
+                   "wall_s": [0.1, 0.1], "job_s": 1.0, "peak_gb": 1.0,
+                   "merges": {"all_reduce": 8, "bytes": 800},
+                   "collectives": {"all_gather": 32, "bytes": 3200}}
+            if r == 3:
+                for k, v in bad.items():
+                    res[k] = v(res) if callable(v) else v
+            out.append(res)
+        return out
+    return job, ref, ranks
+
+
+def test_phase15_gate_rejects_faked_failures(cs):
+    np = pytest.importorskip("numpy")
+    pytest.importorskip("torch")
+    job, ref, ranks = _decode_case(cs)
+    out = cs.decode_gate("ok", ranks(), ref, job, on_card=True)
+    assert out["written_worst"] == [0.0] * 4
+    assert out["state_worst"] == [0.0] * 4
+    assert out["moe_worst"] == [0.0] * 4
+    assert out["moe_flips"] == [0, 2, 0, 2]
+    assert out["moe_choices"] == [8] * 4
+    without = {k: v for k, v in ref.items() if k != "moe"}
+    assert cs.decode_gate("no moe", ranks(), without, job,
+                          on_card=True)["moe_worst"] == []
+
+    def off_logits(res):
+        return [x + 100.0 for x in res["logits"]]
+
+    def one_ulp(res):
+        return [x + np.float32(1e-3) for x in res["logits"]]
+
+    def off_rows(res):
+        return {48: [(res["written"][48][0][0] + 1.0,
+                      res["written"][48][0][1]), res["written"][48][1]]}
+
+    def off_state(res):
+        return res["states"][:3] + [res["states"][3] * 1.5]
+
+    def whole_state(res):
+        return res["states"][:1] + [np.concatenate(
+            [res["states"][1]] * 2, axis=2)] + res["states"][2:]
+
+    def off_moe(res):
+        return [res["moe"][0], (res["moe"][1][0], res["moe"][1][1] + 1.0)]
+
+    def wrong_shape(res):
+        return [tuple(s[:1]) + (s[1] * 2,) + tuple(s[2:])
+                for s in res["shapes"]]
+    for bad, match in ((dict(shapes=wrong_shape), "rule table"),
+                       (dict(launches=3), "launched"),
+                       (dict(lse_calls=3), "launched"),
+                       (dict(fastattn_launches=1), "launched"),
+                       (dict(plain_cuda=1), "plain attention"),
+                       (dict(logits=off_logits), "logits differ"),
+                       (dict(logits=one_ulp), "model group"),
+                       (dict(written={46: ranks()[0]["written"][46]}),
+                        "owns"),
+                       (dict(written=off_rows), "KV layer 0 k.*bf16 bound"),
+                       (dict(states=off_state),
+                        "layer 1 MambaState.conv.*bf16 bound"),
+                       (dict(states=whole_state),
+                        "layer 0 MambaState.conv.*bf16 bound"),
+                       (dict(states=lambda res: res["states"][:3]),
+                        "state leaves"),
+                       (dict(moe=off_moe), "last MoE block at 48.*bf16 bound"),
+                       (dict(moe=lambda res: res["moe"][:1]),
+                        "MoE block records")):
+        with pytest.raises((AssertionError, RuntimeError), match=match):
+            cs.decode_gate("bad", ranks(**bad), ref, job, on_card=True)
+    # the CPU's plain path launches nothing
+    with pytest.raises(AssertionError, match="launched"):
+        cs.decode_gate("cpu", ranks(), ref, job, on_card=False)
+    # a measured gate lets logits through that LOGIT_TOL would not
+    loose = dict(ref, gate=0.5)
+    near = [x * 1.1 for x in ranks()[0]["logits"]]
+    with pytest.raises(AssertionError, match="logits differ"):
+        cs.decode_gate("tight", ranks(logits=near), ref, job, on_card=True)
+    with pytest.raises(AssertionError, match="model group"):
+        cs.decode_gate("loose", ranks(logits=near), loose, job,
+                       on_card=True)
+
+
+def test_phase15_measured_gate_and_launches(cs):
+    assert cs.hymba_gate(0.01) == (cs.LOGIT_TOL, "LOGIT_TOL")
+    assert cs.hymba_gate(0.2) == (0.4, "G")
+    from repro_torch.config import get_model_config
+    want = {arch: cs.decode_expected(get_model_config(arch), 4, True)
+            for arch in ("xlstm-125m", "whisper-small")}
+    assert want["whisper-small"] == {"lse_calls": 48, "flash_decode": 48,
+                                     "fastattn_fwd": 48}
+    cut = cs.decode_expected(_small("xlstm-125m", num_layers=3), 4, True)
+    assert cut == {"lse_calls": 0, "flash_decode": 0, "fastattn_fwd": 0}
+    hymba = cs.decode_expected(_small("hymba-1.5b"), 6, False)
+    assert hymba == {"lse_calls": 12, "flash_decode": 0, "fastattn_fwd": 0}
+
+
+def test_phase15_cache_pieces_are_the_whole_caches_slices(cs):
+    """A rank's slice of every leaf drawn alone equals the one-device
+    cache's (``decode_fill``): rows, KV positions and state channels."""
+    torch = pytest.importorskip("torch")
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding.rules import (axis_rules, flatten, is_spec,
+                                            param_sharding_tree, shard_of)
+    from repro_torch.training import tree
+    for arch, cfg in (("hymba-1.5b", _small("hymba-1.5b")),
+                      ("xlstm-125m", _small("xlstm-125m", num_layers=3))):
+        job = _decode_job(cs, arch, cfg)
+        model = build_model(cfg, "cpu")
+        whole = model.init_cache(4, job["width"])
+        cs.decode_fill(job, model, whole)
+        for r in range(4):
+            mesh = make_mesh((2, 2), ("data", "model"), r)
+            with axis_rules(mesh=mesh):
+                mine = model.init_cache(4, job["width"])
+            cs.decode_fill(job, model, mine, mesh.coords)
+            specs = param_sharding_tree(model.cache_logical(
+                4, job["width"]), mesh)
+            for t, w, sp in zip(tree.leaves(mine), tree.leaves(whole),
+                                flatten(specs, is_spec), strict=True):
+                assert torch.equal(t, shard_of(w, sp, mesh)), (arch, r)
+        leaves = [t for t in tree.leaves(whole) if t.numel()]
+        assert all(t.float().std().item() > 0.5 for t in leaves)
+
+
+def test_phase2_slice_cases_cover_phase15s_shapes(cs):
+    """Phase 2 holds flash_decode's slice and log-sum-exp at phase 15's
+    head shapes, each on a (2, 2) rank's second slice."""
+    keys = {pre: cs.slice_keys(kw["lens"], kw["kv_start"], kw["s"],
+                               kw.get("window")).tolist()
+            for pre, (_, kw) in cs.CP_SLICE_CASES.items()}
+    cases = {pre: kw for pre, (_, kw) in cs.CP_SLICE_CASES.items()}
+    h, m, w = cases["cp_hymba"], cases["cp_moe"], cases["cp_whisper"]
+    assert (h["hq"], h["hkv"], h["d"], h["window"], h["s"], h["kv_start"]) \
+        == (25, 5, 64, 1024, 4096, 4096)
+    assert keys["cp_hymba"] == [1024] * 4
+    assert (m["hq"], m["hkv"], m["d"], m["s"], m["kv_start"]) == (
+        32, 4, 128, 2048, 2048) and keys["cp_moe"] == [2048] * 4
+    assert (w["hq"], w["hkv"], w["d"], w["s"], w["kv_start"]) == (
+        12, 12, 64, 224, 224) and keys["cp_whisper"] == [224] * 4
+    width, positions = cs.MESH_DECODE["hymba-1.5b"]
+    assert (width, h["lens"][0] - 1) == (2 * h["s"], positions[-1])
+
+
+def test_kernels_line_gains_mesh_decode_entries(cs):
+    kernels = [{"name": n} for n in ("fastattn_fwd", "flash_decode")]
+    cs.add_mesh_decode_entries(kernels, {"models": {
+        "hymba-1.5b": {"launches": [12] * 4, "lse_calls": [12] * 4,
+                       "fastattn_launches": [0] * 4},
+        "whisper-small": {"launches": [8] * 4, "lse_calls": [8] * 4,
+                          "fastattn_launches": [8] * 4}}})
+    k = {e["name"]: e for e in kernels}
+    assert k["flash_decode"]["mesh_decode_launches"] == {
+        "hymba-1.5b": [12] * 4, "whisper-small": [8] * 4}
+    assert k["flash_decode"]["mesh_decode_lse_calls"]["hymba-1.5b"] == \
+        [12] * 4
+    assert k["fastattn_fwd"]["mesh_decode_launches"] == {
+        "whisper-small": [8] * 4}
+
+
+def test_phase15_rides_phase12_and_8h_and_runs_after_14(cs):
+    """On the card phase 15's ranks run in phase 12's spawn (xlstm-125m,
+    hymba-1.5b, whisper-small) and phase 8 (h)'s (qwen3-moe) after their
+    training jobs; the one-device runs and the gates after phase 14."""
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index("phase_moe_parallel(") < main.index("phase_mesh()") \
+        < main.index('done("14")') < main.index("phase_mesh_decode(") < \
+        main.index('done("15")') < main.index("add_mesh_decode_entries(")
+    assert 'mesh.pop("decode")' in main and \
+        'moe_par.pop("decode")' in main
+    assert "_decode_job(mesh" in inspect.getsource(cs._mesh_models_rank)
+    assert "_decode_job(mesh" in inspect.getsource(cs._dist_rank)
+    assert "decode=job" in inspect.getsource(cs.phase_moe_parallel)
+    assert set(cs.MESH_DECODE) == set(cs.MESH_MODELS) | {cs.MOE_ARCH}
+    hymba = cs.MESH_DECODE["hymba-1.5b"]
+    assert hymba[0] == 8192 and min(hymba[1]) < 4096 <= max(hymba[1])
+    assert max(hymba[1]) + 1 - 1024 > 4096       # slice 0 out of the window
+    assert cs.MESH_DECODE["whisper-small"][0] == 448
+    assert cs.MESH_DECODE["qwen3-moe-30b-a3b"][0] == 4096
+    assert cs.MESH_DECODE_BATCH == 8

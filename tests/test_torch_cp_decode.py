@@ -11,7 +11,7 @@ against the JAX package, on the CPU.
 * (b) ``LM.init_cache`` / ``LM.decode_step`` of reduced llama2-7b,
   gemma2-2b (window, softcaps) and qwen2.5-32b (qkv bias), and of
   llama2-7b in bf16, on (1, 2) and (2, 2) gloo ranks
-  (``_torch_train_ranks.cp_decode_rank``) against JAX's one-device
+  (``_torch_train_ranks.mesh_decode_rank``) against JAX's one-device
   ``decode_step`` on the same weights (``params_from_jax``) and the
   same random caches, at positions in the first slice, across the slice
   boundary and in the last slice, where gemma2-2b's window empties the
@@ -20,9 +20,9 @@ against the JAX package, on the CPU.
   the dry run's decode shardings (``cache_logical`` and ``param_sharding_tree``,
   a subprocess on four forced host devices): the logits, and each rank's
   cache slice against JAX's shard at its coordinate;
-* (d) the block kinds with no sharded decode refuse a model axis, a cache
-  width that does not split raises, and a mesh whose model axis is 1
-  decodes each rank's rows as one device does.
+* (d) a cache width that does not split raises, and a mesh whose model
+  axis is 1 decodes each rank's rows as one device does (the other block
+  kinds on a model axis: ``test_torch_mesh_decode.py``).
 
 Inputs are made with numpy from a seed, float32 but for the bf16 cases
 (bf16 values, exact in float32).  Tolerances: 1e-5 for the attention
@@ -48,12 +48,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.config import ParallelConfig as JParallel  # noqa: E402
-from repro.config import get_model_config, reduce_for_smoke  # noqa: E402
 from repro.core.distributed_decode import \
     _local_decode_with_lse as j_local  # noqa: E402
-from repro.layers.attention import KVCache as JKV  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
-from repro.models.lm import periodic_segments  # noqa: E402
 from repro_torch.config import get_model_config as t_get  # noqa: E402
 from repro_torch.config import reduce_for_smoke as t_reduce  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
@@ -62,7 +59,6 @@ from repro_torch.core.distributed_decode import \
 from repro_torch.kernels.flash_decode.ref import (NEG_INF,  # noqa: E402
                                                   decode_reference)
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
-from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.sharding.rules import (axis_rules,  # noqa: E402
                                         param_sharding_tree, shard_of)
@@ -70,7 +66,8 @@ from repro_torch.training import tree  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from _torch_mesh_pair import ROOT, TOL  # noqa: E402
-from _torch_train_ranks import cp_decode_rank, spawn  # noqa: E402
+import _jax_decode_cache as jdc  # noqa: E402
+from _torch_train_ranks import mesh_decode_rank, spawn  # noqa: E402
 
 ATTN_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_ROW = (2e-2, 1e-2)       # absolute, and relative to a row's max |x|
@@ -198,178 +195,66 @@ POSITIONS = [0, 1, 2, 46, 47, 48, 49, 80, 81]
 MESHES = {"1x2": dict(data=1, model=2), "2x2": dict(data=2, model=2)}
 
 
-def _layer_index(jcfg):
-    """(segment, rep, unit) of every layer of JAX's stacked cache, in
-    layer order."""
-    out = []
-    for si, (unit, reps) in enumerate(periodic_segments(jcfg)):
-        for rep in range(reps):
-            for i in range(len(unit)):
-                out.append((si, rep if reps > 1 else None, i))
-    return out
-
-
-def _jax_cache(jm, caches):
-    """JAX's (scan-stacked) cache holding the per-layer numpy caches."""
-    cache = jm.init_cache(B, S)
-    index = _layer_index(jm.cfg)
-    for si, (unit, reps) in enumerate(periodic_segments(jm.cfg)):
-        for i in range(len(unit)):
-            layers = [li for li, (s_, _, u) in enumerate(index)
-                      if (s_, u) == (si, i)]
-            k = np.stack([caches[li][0] for li in layers])
-            v = np.stack([caches[li][1] for li in layers])
-            if reps == 1:
-                k, v = k[0], v[0]
-            dt = cache[f"seg{si}"][f"u{i}"].k.dtype
-            cache[f"seg{si}"][f"u{i}"] = JKV(jnp.asarray(k, dtype=dt),
-                                             jnp.asarray(v, dtype=dt))
-    return cache
-
-
-def _layers_of(jm, cache):
-    """The per-layer (k, v) float32 numpy caches of JAX's stacked
-    cache."""
-    out = []
-    for si, rep, i in _layer_index(jm.cfg):
-        kv = cache[f"seg{si}"][f"u{i}"]
-        k, v = (np.asarray(t, dtype=np.float32) for t in (kv.k, kv.v))
-        out.append((k, v) if rep is None else (k[rep], v[rep]))
-    return out
-
-
 def _case(name: str) -> dict:
     """JAX's reduced ``arch`` of case ``name`` (with its changed fields)
     at PRNGKey(0), its weights as the port's float32 numpy tree with each
     leaf's dtype, random per-layer caches (values exact in the model's
-    dtype), the steps' tokens, and JAX's one-device decode: every step's
-    logits and the final caches."""
+    dtype) as the cache's leaves (k, v of each layer), the steps' tokens,
+    and JAX's one-device decode: every step's logits and the final
+    cache's leaves (``_jax_decode_cache``)."""
     arch, cfg_kw = CASES[name]
-    jcfg = dataclasses.replace(reduce_for_smoke(get_model_config(arch)),
-                               **cfg_kw)
+    case = {"arch": arch, "cfg_kw": cfg_kw, "batch": B, "seq": S}
+    jcfg = jdc.config(case)
     tcfg = dataclasses.replace(t_reduce(t_get(arch)), **cfg_kw)
     jm = j_build(jcfg, JParallel(remat="none"))
     jp = jm.init(jax.random.PRNGKey(0))
     tparams = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
-    params = tree.tree_map(lambda t: t.float().numpy().copy(), tparams)
-    dtypes = tree.tree_map(lambda t: str(t.dtype).split(".")[-1], tparams)
+    case["params"] = tree.tree_map(lambda t: t.float().numpy().copy(),
+                                   tparams)
+    case["dtypes"] = tree.tree_map(lambda t: str(t.dtype).split(".")[-1],
+                                   tparams)
     rng = np.random.default_rng(7)
     shape = (B, S, jcfg.num_kv_heads, jcfg.head_dim)
     exact = (lambda a: a) if not cfg_kw else (
         lambda a: torch.from_numpy(a).bfloat16().float().numpy())
-    caches = [(exact(rng.normal(size=shape).astype(np.float32)),
-               exact(rng.normal(size=shape).astype(np.float32)))
-              for _ in range(jcfg.num_layers)]
-    steps = [(pos, rng.integers(0, jcfg.vocab_size, size=B).astype(np.int32))
-             for pos in POSITIONS]
-    jcache = _jax_cache(jm, caches)
+    case["leaves"] = [exact(rng.normal(size=shape).astype(np.float32))
+                      for _ in range(2 * jcfg.num_layers)]
+    case["steps"] = [(pos, rng.integers(0, jcfg.vocab_size,
+                                        size=B).astype(np.int32))
+                     for pos in POSITIONS]
+    jcache = jdc.jax_cache(jm, case["leaves"], B, S)
     logits = []
-    for pos, tok in steps:
+    for pos, tok in case["steps"]:
         lg, jcache = jm.decode_step(jp, jnp.asarray(tok), jcache,
                                     jnp.int32(pos))
         logits.append(np.asarray(lg, dtype=np.float32))
-    return {"arch": arch, "cfg_kw": cfg_kw, "params": params,
-            "dtypes": dtypes, "caches": caches, "steps": steps,
-            "logits": logits, "final": _layers_of(jm, jcache)}
-
-
-JAX_DECODE_CHILD = r"""
-import dataclasses, sys
-import jax, jax.numpy as jnp, numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from repro.config import ParallelConfig, get_model_config, reduce_for_smoke
-from repro.layers.attention import KVCache
-from repro.models import build_model
-from repro.models.lm import periodic_segments
-from repro.sharding.rules import axis_rules, param_sharding_tree
-inp, out_path = sys.argv[1:]
-cases = np.load(inp, allow_pickle=True).item()
-mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
-coords = {d.id: (i, j) for i, row in enumerate(mesh.devices)
-          for j, d in enumerate(row)}
-res = {}
-for name, case in cases.items():
-    cfg = dataclasses.replace(reduce_for_smoke(get_model_config(
-        case["arch"])), **case["cfg_kw"])
-    model = build_model(cfg, ParallelConfig(data=2, model=2, remat="none"))
-    caches = case["caches"]
-    b, s = caches[0][0].shape[:2]
-    index = []
-    for si, (unit, reps) in enumerate(periodic_segments(cfg)):
-        for rep in range(reps):
-            for i in range(len(unit)):
-                index.append((si, rep if reps > 1 else None, i))
-    with axis_rules(mesh=mesh):
-        params = model.init(jax.random.PRNGKey(0))
-        cache = model.init_cache(b, s)
-        for si, (unit, reps) in enumerate(periodic_segments(cfg)):
-            for i in range(len(unit)):
-                ls = [li for li, (s_, _, u) in enumerate(index)
-                      if (s_, u) == (si, i)]
-                k = np.stack([caches[li][0] for li in ls])
-                v = np.stack([caches[li][1] for li in ls])
-                if reps == 1:
-                    k, v = k[0], v[0]
-                dt = cache[f"seg{si}"][f"u{i}"].k.dtype
-                cache[f"seg{si}"][f"u{i}"] = KVCache(
-                    jnp.asarray(k, dtype=dt), jnp.asarray(v, dtype=dt))
-        psh = param_sharding_tree(model.logical(), mesh)
-        csh = param_sharding_tree(model.cache_logical(b, s), mesh)
-        tsh = param_sharding_tree((("batch",), (b,)), mesh)
-        params = jax.device_put(params, psh)
-        cache = jax.device_put(cache, csh)
-        step = jax.jit(model.decode_step,
-                       in_shardings=(psh, tsh, csh, NamedSharding(mesh, P())),
-                       out_shardings=(None, csh))
-        logits = []
-        with mesh:
-            for pos, tok in case["steps"]:
-                lg, cache = step(params, jnp.asarray(tok), cache,
-                                 jnp.int32(pos))
-                logits.append(np.asarray(lg, dtype=np.float32))
-    final, shards = [], []
-    for si, rep, i in index:
-        kv = cache[f"seg{si}"][f"u{i}"]
-        lead = 0 if rep is None else 1
-        k, v = (np.asarray(t, dtype=np.float32) for t in (kv.k, kv.v))
-        final.append((k, v) if rep is None else (k[rep], v[rep]))
-        where = {}
-        for sh in kv.k.addressable_shards:
-            idx = sh.index[lead:lead + 2]
-            where[coords[sh.device.id]] = [
-                [sl.start or 0, sl.stop if sl.stop is not None else n]
-                for sl, n in zip(idx, (b, s))]
-        shards.append(where)
-    res[name] = {"logits": logits, "final": final, "shards": shards}
-np.save(out_path, res, allow_pickle=True)
-print("ok")
-"""
+    return dict(case, logits=logits, final=jdc.port_leaves(jcfg, jcache))
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """JAX's one-device decode of every arch; JAX's own (2, 2) mesh in a
-    subprocess started first, beside the port's (1, 2) and (2, 2) ranks
-    (one spawn a mesh, every arch in turn)."""
+    subprocess started first (``_jax_decode_cache.jax_mesh_main``),
+    beside the port's (1, 2) and (2, 2) ranks (one spawn a mesh, every
+    arch in turn)."""
     tmp = tmp_path_factory.mktemp("cp_decode")
     cases = {name: _case(name) for name in ARCHS}
-    np.save(tmp / "cases.npy", {
-        name: {k: cases[name][k] for k in ("arch", "cfg_kw", "caches",
-                                           "steps")}
-        for name in MESH_ARCHS}, allow_pickle=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               JAX_PLATFORMS="cpu")
+    keys = ("arch", "cfg_kw", "batch", "seq", "leaves", "steps")
+    np.save(tmp / "cases.npy", {name: {k: cases[name][k] for k in keys}
+                                for name in MESH_ARCHS}, allow_pickle=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([
+        os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]),
+        XLA_FLAGS="--xla_force_host_platform_device_count=4",
+        JAX_PLATFORMS="cpu")
     child = subprocess.Popen(
-        [sys.executable, "-c", JAX_DECODE_CHILD, str(tmp / "cases.npy"),
+        [sys.executable, "-m", "_jax_decode_cache", str(tmp / "cases.npy"),
          str(tmp / "jax_mesh.npy")], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
-        work = [{k: c[k] for k in ("arch", "cfg_kw", "params", "dtypes",
-                                   "caches", "steps")}
+        work = [{k: c[k] for k in keys + ("params", "dtypes")}
                 for c in cases.values()]
-        ranks = {name: spawn(cp_decode_rank, kw["data"] * kw["model"], tmp,
-                             kw, work)
+        ranks = {name: spawn(mesh_decode_rank, kw["data"] * kw["model"],
+                             tmp, kw, work)
                  for name, kw in MESHES.items()}
         _, err = child.communicate(timeout=300)
     finally:
@@ -418,10 +303,10 @@ def test_mesh_decode_matches_jax_one_device(runs, mesh_name, arch):
         assert got["coords"] == make_mesh(mesh.sizes, mesh.axis_names,
                                           r).coords
         rows = _rows(mesh_kw, got["coords"])
-        hkv, d = case["caches"][0][0].shape[2:]
+        hkv, d = case["leaves"][0].shape[2:]
         assert got["shapes"] == [(B // mesh_kw["data"],
                                   S // mesh_kw["model"], hkv, d)] * len(
-            case["caches"])
+            case["leaves"])
         for step, (lg, want) in enumerate(zip(got["logits"],
                                               case["logits"], strict=True)):
             _close(arch, lg, want[rows], str(step))
@@ -429,12 +314,11 @@ def test_mesh_decode_matches_jax_one_device(runs, mesh_name, arch):
         for a, b_ in zip(got["logits"], pair["logits"]):
             np.testing.assert_array_equal(a, b_)
         rank_mesh = make_mesh(mesh.sizes, mesh.axis_names, r)
-        for layer, ((k, v), spec, (jk, jv)) in enumerate(zip(
-                got["cache"], got["specs"], case["final"], strict=True)):
-            for part, whole, sp in ((k, jk, spec.k), (v, jv, spec.v)):
-                _close(arch, part, shard_of(torch.from_numpy(whole), sp,
-                                            rank_mesh).numpy(),
-                       f"layer {layer}")
+        for i, (part, sp, whole) in enumerate(zip(
+                got["leaves"], got["specs"], case["final"], strict=True)):
+            _close(arch, part, shard_of(torch.from_numpy(whole), sp,
+                                        rank_mesh).numpy(),
+                   f"layer {i // 2} {'kv'[i % 2]}")
 
 
 @pytest.mark.parametrize("arch", MESH_ARCHS)
@@ -456,43 +340,17 @@ def test_mesh_decode_matches_jax_mesh(runs, arch):
         for lg, jl in zip(got["logits"], want["logits"], strict=True):
             _close(arch, lg, jl[rows])
         s_l = S // 2
-        for layer, ((k, v), (jk, jv), where) in enumerate(zip(
-                got["cache"], want["final"], want["shards"], strict=True)):
-            (b0, b1), (s0, s1) = where[(c["data"], c["model"])]
-            assert (b0, b1) == (rows.start, rows.stop), layer
+        for i, (part, whole, where) in enumerate(zip(
+                got["leaves"], want["leaves"], want["shards"], strict=True)):
+            (b0, b1), (s0, s1) = where[(c["data"], c["model"])][:2]
+            assert (b0, b1) == (rows.start, rows.stop), i
             assert (s0, s1) == (c["model"] * s_l, (c["model"] + 1) * s_l)
-            _close(arch, k, jk[b0:b1, s0:s1], f"layer {layer}")
-            _close(arch, v, jv[b0:b1, s0:s1], f"layer {layer}")
+            _close(arch, part, whole[b0:b1, s0:s1], f"layer {i // 2}")
 
 
 # ---------------------------------------------------------------------------
 # (d) what is left out, and the layout without a collective
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("kind", ["mlstm", "slstm", "hymba", "hymba_local",
-                                  "moe"])
-def test_block_kinds_without_sharded_decode_refuse_a_model_axis(kind):
-    with pytest.raises(NotImplementedError, match=f"'{kind}'.*ROADMAP"):
-        blocks.check_mesh_decode(kind, 2)
-    blocks.check_mesh_decode(kind, 1)       # a model axis of 1: unchanged
-
-
-@pytest.mark.parametrize("arch,kw,kind", [
-    ("xlstm-125m", {}, "mlstm"),
-    ("xlstm-125m", dict(block_pattern=("slstm",)), "slstm"),
-    ("hymba-1.5b", {}, "hymba"),
-    ("qwen3-moe-30b-a3b", {}, "moe"),
-    ("whisper-small", {}, "encoder-decoder"),
-])
-def test_models_without_sharded_decode_refuse_a_model_axis(arch, kw, kind):
-    cfg = dataclasses.replace(t_reduce(t_get(arch)), **kw)
-    model = build_model(cfg, "cpu")
-    mesh = make_mesh((2, 2), ("data", "model"), 3)
-    with axis_rules(mesh=mesh), pytest.raises(NotImplementedError,
-                                              match="ROADMAP") as err:
-        model.init_cache(B, S)
-    assert kind in str(err.value)
-
 
 def test_cache_width_or_batch_that_does_not_split_raises():
     model = build_model(t_reduce(t_get("llama2-7b")), "cpu")

@@ -288,7 +288,7 @@ def test_apply_mamba_decode_from_a_state_matches_jax(dtype):
     jx, tx = _x((B, 5, tcfg.d_model), dtype, seed=3)
     jst, tst = _state(tcfg, dtype)
     jy, jnew = jssm.apply_mamba(jp, jx, jcfg, state=jst, decode=True)
-    ty, tnew = ssm.apply_mamba(tp, tx, tcfg, state=tst, decode=True)
+    ty, tnew = ssm.mamba_decode(tp, tx, tcfg, tst)
     _held(ty, jy, dtype, "output")
     assert tnew.h.dtype == torch.float32 and tnew.conv.dtype == tx.dtype
     # h is float32, but in a bf16 model it integrates bf16 inputs that the
@@ -310,8 +310,7 @@ def test_mamba_single_steps_match_jax_and_the_chunked_pass():
     for t in range(12):
         jy, jst = jssm.apply_mamba(jp, jx[:, t:t + 1], jcfg, state=jst,
                                    decode=True)
-        ty, tst = ssm.apply_mamba(tp, tx[:, t:t + 1], tcfg, state=tst,
-                                  decode=True)
+        ty, tst = ssm.mamba_decode(tp, tx[:, t:t + 1], tcfg, tst)
         _close(ty, jy, err_msg=f"step {t}")
         _close(tst.h, jst.h, err_msg=f"h after step {t}")
         _close(tst.conv, jst.conv, err_msg=f"conv after step {t}")

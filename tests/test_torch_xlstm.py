@@ -212,14 +212,12 @@ def test_apply_mlstm_decode_matches_jax(with_state):
         tst = ssm.MLSTMState(*(torch.from_numpy(a) for a in (c, n, m, z)))
     jy, jst = jssm.apply_mlstm(jp, jnp.asarray(x), jcfg, state=jst,
                                decode=True)
-    ty, tst = ssm.apply_mlstm(tp, torch.from_numpy(x), tcfg, state=tst,
-                              decode=True)
+    ty, tst = ssm.mlstm_decode(tp, torch.from_numpy(x), tcfg, tst)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     x1 = x[:, :1] * 0.5
     jy, jst = jssm.apply_mlstm(jp, jnp.asarray(x1), jcfg, state=jst,
                                decode=True)
-    ty, tst = ssm.apply_mlstm(tp, torch.from_numpy(x1), tcfg, state=tst,
-                              decode=True)
+    ty, tst = ssm.mlstm_decode(tp, torch.from_numpy(x1), tcfg, tst)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
     for a, w in zip(tst[:3], jst[:3]):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
@@ -240,8 +238,10 @@ def test_apply_slstm_matches_jax(decode, with_state):
         tst = ssm.SLSTMState(*(torch.from_numpy(a) for a in arrs))
     want = jssm.apply_slstm(jp, jnp.asarray(x), jcfg, state=jst,
                             decode=decode)
-    got = ssm.apply_slstm(tp, torch.from_numpy(x), tcfg, state=tst,
-                          decode=decode)
+    if decode:
+        got = ssm.slstm_decode(tp, torch.from_numpy(x), tcfg, tst)
+    else:
+        got = ssm.apply_slstm(tp, torch.from_numpy(x), tcfg)
     if not decode:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         return
