@@ -7,8 +7,9 @@ encoder-decoder (whisper), M-RoPE and the vision stub (qwen2-vl), the
 recurrent cells and the encoder-decoder trained on a (data, model)
 mesh, the int8 error-feedback all-reduce, GPipe, the first roofline
 readings, dense decode with the cache sharded along its sequence over a
-(data, model) mesh, and dense decode on that mesh for every other block
-kind (hymba, the mLSTM and sLSTM, the encoder-decoder, MoE).
+(data, model) mesh, dense decode on that mesh for every other block
+kind (hymba, the mLSTM and sLSTM, the encoder-decoder, MoE), and the dry
+run beside one rank of three production cells run at full size.
 
     python3 chip_smoke.py
 
@@ -489,6 +490,32 @@ which raises on failure (the script then exits non-zero):
    ``fastattn_fwd`` whisper's 2 cross layers x steps, no plain attention
    on CUDA tensors.  Prints each rank's step wall, collectives a step
    and their bytes, peak memory and launches.  Correctness only.
+16. The dry run and one rank of three production cells
+   (``phase_dryrun``, after phase 15): (a) ``python -m
+   repro_torch.launch.dryrun --all`` in this process on the meta device
+   (nothing allocated on the card): every assigned arch x shape x
+   {16 x 16, 2 x 16 x 16} cell's bytes a rank, no error cell and JAX's
+   skipped set (long_500k but for ``JAX_LONG_ARCHS``), each ok cell's
+   argument GB and fits_h100 printed; beside it (b) three spawned
+   processes, one a cell, each rank 0 of a fake world of 256 ranks
+   (torch's "fake" backend, whose collectives move no data: values are
+   not checked), run
+   qwen2.5-32b decode_32k (4 decode steps), hymba-1.5b long_500k (B=1,
+   the batch whole on every data rank; 4 steps) and qwen2.5-32b
+   train_4k (one AdamW step of the rank's 16 rows x 256 positions) at
+   full width and depth on the card, each parameter made as the rank's
+   piece (``DRYRUN_CELLS``).  Gates (``dryrun_gate``): the bytes the
+   rank's parameters, AdamW state and cache ask the caching allocator
+   for are the dry run's count, and the allocated bytes they add lie
+   between that count and the count + 512 B a tensor (``ALLOC_ROUND``)
+   + 1 MiB a tensor over 1 MiB (``ALLOC_LARGE``: a large block is handed
+   out whole where at most 1 MiB would be left), the step's ``sharding/collectives.COUNTS`` and
+   ``core/tiled_allreduce.COUNTS`` equal the record's ``collectives``
+   (times the decode steps), ``flash_decode`` exactly attention layers
+   x steps, each with the log-sum-exp, no plain attention on CUDA,
+   ``fastattn_fwd`` 2 x layers in training, the peak under 80 GB; the
+   peak minus the arguments is printed beside the record's activation
+   estimate (read, not gated).
 
 The line before the last is a JSON object with one entry per kernel
 (``ms`` per launch as above, ``device_ms`` on the device alone;
@@ -530,8 +557,9 @@ its ``lse_err``), and ``cp_launches`` / ``cp_lse_calls`` /
 ``cp_rank_device_ms``, each phase 14 rank's, with phase 15's
 ``cp_hymba_*`` / ``cp_moe_*`` / ``cp_whisper_*``; ``flash_decode`` and
 ``fastattn_fwd`` also ``mesh_decode_launches``, each phase 15 model's
-launches on each rank, flash_decode's ``mesh_decode_lse_calls``); the
-last line is ``{"ok": true, "device": {...}}``.
+launches on each rank, flash_decode's ``mesh_decode_lse_calls``, and
+``dryrun_launches``, their launches in each of phase 16 (b)'s cells);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -9035,6 +9063,266 @@ def add_mesh_decode_entries(kernels: list, run: dict) -> None:
         if any(m["fastattn_launches"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry run, and one rank of three production cells
+# ---------------------------------------------------------------------------
+
+# (b)'s cells, run as rank 0 of the 16 x 16 production mesh: (arch, shape,
+# the decode steps' positions: every one in rank 0's slice of the cache)
+DRYRUN_CELLS = (("qwen2.5-32b", "decode_32k", (1000, 1001, 1002, 1003)),
+                ("hymba-1.5b", "long_500k", (1000, 1001, 1002, 1003)),
+                ("qwen2.5-32b", "train_4k", ()))
+DRYRUN_MESH = dict(data=16, model=16)
+# JAX's skipped cells (its launch/dryrun.skip_reason): long_500k for every
+# assigned arch but these two, the sub-quadratic ones
+JAX_LONG_ARCHS = ("xlstm-125m", "hymba-1.5b")
+# the caching allocator rounds every block up to a multiple of this, and
+# hands a block of its large pool (requests over ALLOC_LARGE) out whole
+# where what is left would be ALLOC_LARGE or less: up to that much more
+ALLOC_ROUND = 512
+ALLOC_LARGE = 1 << 20
+DRYRUN_TIMEOUT_S = 600.0
+
+
+def dryrun_summary(out_dir: str) -> dict:
+    """(a): the records ``launch.dryrun.main`` wrote to ``out_dir``,
+    counted; each ok cell's argument GB and fits_h100 logged.  Fails on
+    an error cell and on a skipped set other than JAX's."""
+    from repro_torch.config import SHAPES
+    from repro_torch.configs import ASSIGNED_ARCHS
+    recs = []
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            recs.append(json.load(f))
+    by = {st: [r for r in recs if r["status"] == st]
+          for st in ("ok", "skipped", "error")}
+    if by["error"] or len(recs) != 2 * len(ASSIGNED_ARCHS) * len(SHAPES):
+        raise AssertionError(f"(a) {len(recs)} records, errors: " + "; ".join(
+            f"{r['cell']}: {r['error']}" for r in by["error"]))
+    skipped = {(r["arch"], r["shape"]) for r in by["skipped"]}
+    want = {(a, "long_500k") for a in ASSIGNED_ARCHS
+            if a not in JAX_LONG_ARCHS}
+    if skipped != want:
+        raise AssertionError(f"(a) skipped {sorted(skipped)}, JAX skips "
+                             f"{sorted(want)}")
+    for r in by["ok"]:
+        m = r["memory"]
+        log(f"[16] (a) {r['cell']}: arguments "
+            f"{m['argument_bytes'] / 1e9:.3f} GB, estimate "
+            f"{m['activation_bytes_estimate'] / 1e9:.3f} GB, fits_h100 "
+            f"{r['fits_h100']}" + (f" (the port's step: {r['refused']})"
+                                   if r.get("refused") else ""))
+    return {"ok": len(by["ok"]), "skipped": len(by["skipped"]),
+            "error": 0, "fits": sum(r["fits_h100"] for r in by["ok"])}
+
+
+def _state_tensors(cell) -> tuple:
+    """(the tensors of a cell's parameters, AdamW state and cache that
+    hold any bytes -- each one allocation on the card --, those of them
+    over ``ALLOC_LARGE``)."""
+    from repro_torch.training import tree
+    sizes = {id(x): x.numel() * x.element_size()
+             for t in (cell.params, cell.opt, cell.cache) if t is not None
+             for x in tree.leaves(t) if x.numel()}
+    return len(sizes), sum(n > ALLOC_LARGE for n in sizes.values())
+
+
+def _dryrun_rank(job: tuple, mesh_kw: dict, device: str) -> dict:
+    """(b) for one cell, in a process of its own (a fresh allocator, so
+    that the bytes the state adds are its own allocations: a block the
+    caching allocator kept from an earlier cell may be handed out up to
+    1 MiB larger than asked): a fake world of the mesh's ranks
+    (``launch.mesh.fake_world``, this process rank 0), the mesh's groups
+    (``make_mesh_for``), the dry run's record of rank 0 for ``job``
+    (config, shape, decode positions), its state made at its shapes on
+    ``device`` (``launch.dryrun.materialize``: the allocated bytes it
+    adds), then one step (``rank_step``) with the collectives and
+    launches counted and the peak read."""
+    import torch
+    from repro_torch.config import ParallelConfig
+    from repro_torch.core import tiled_allreduce as tar
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.fastattn import ops as fops
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import fake_world, make_mesh_for
+    from repro_torch.sharding import collectives as C
+    cfg, shape, positions = job
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)
+    parallel = ParallelConfig(**mesh_kw)
+    with fake_world(math.prod(parallel.mesh_shape())):
+        cell = D.build_cell(cfg, shape, make_mesh_for(parallel))
+        res = {"memory": D.memory(cell),
+               "collectives": D.collective_counts(cell),
+               "tensors": _state_tensors(cell),
+               "steps": max(len(positions), 1)}
+        def stats():
+            m = torch.cuda.memory_stats(dev)
+            return m["allocated_bytes.all.current"], \
+                m["requested_bytes.all.current"]
+        base = stats() if on_card else None
+        real = D.materialize(cell, dev)
+        synchronize(dev)
+        res["grown"], res["requested"] = (
+            (a - b for a, b in zip(stats(), base)) if on_card
+            else (None, None))
+        flash_decode.launches = fops.fastattn_fwd.launches = 0
+        C.COUNTS.update({k: 0 for k in C.COUNTS})
+        tar.COUNTS.update({k: 0 for k in tar.COUNTS})
+        counts, restore = _cp_counting()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        try:
+            D.rank_step(real, positions=positions)
+            synchronize(dev)
+        finally:
+            restore()
+        res.update(
+            wall_s=time.perf_counter() - t0,
+            counts={"sharding": dict(C.COUNTS), "merge": dict(tar.COUNTS)},
+            flash_decode=flash_decode.launches,
+            fastattn_fwd=fops.fastattn_fwd.launches, **counts,
+            peak=torch.cuda.max_memory_allocated(dev) if on_card else None)
+    return res
+
+
+def dryrun_gate(what, res: dict, cfg, kind: str, on_card: bool) -> dict:
+    """(b)'s gates on one cell's rank: the bytes its state added within
+    the caching allocator's rounding of the dry run's count, the step's
+    collectives the record's (a decode step's times the steps), the
+    kernel launches (``flash_decode`` with the log-sum-exp each
+    attention layer a step, no plain attention on CUDA; ``fastattn_fwd``
+    twice an attention layer under remat), the peak under the card's
+    80 GB.  Returns the readings."""
+    mem = res["memory"]
+    count = mem["param_bytes"] + mem["opt_bytes"] + mem["cache_bytes"]
+    steps = res["steps"]
+    want = {part: {k: v * steps for k, v in c.items()}
+            for part, c in res["collectives"].items()}
+    if res["counts"] != want:
+        raise AssertionError(f"{what}: collectives {res['counts']}, the "
+                             f"dry run's {want}")
+    attn = sum(k not in ("mlstm", "slstm") for k in cfg.blocks())
+    if kind == "decode":
+        launches = {"lse_calls": attn * steps, "plain_cuda": 0}
+        if on_card:
+            launches["flash_decode"] = attn * steps
+    else:
+        launches = {"fastattn_fwd": 2 * attn} if on_card else {}
+    got = {k: res[k] for k in launches}
+    if got != launches:
+        raise AssertionError(f"{what}: launches {got}, want {launches}")
+    if on_card:
+        tensors, large = res["tensors"]
+        slack = ALLOC_ROUND * tensors + ALLOC_LARGE * large
+        if res["requested"] != count or \
+                not count <= res["grown"] <= count + slack:
+            raise AssertionError(
+                f"{what}: its state asked for {res['requested']} B and "
+                f"added {res['grown']} B; the dry run counts {count} B (+ "
+                f"at most {slack} B of the allocator's rounding)")
+        if res["peak"] >= 80e9:
+            raise AssertionError(f"{what}: peak {res['peak'] / 1e9:.2f} GB")
+    out = {"count_bytes": count, "grown_bytes": res["grown"],
+           "requested_bytes": res["requested"],
+           "tensors": res["tensors"], "peak_bytes": res["peak"],
+           "argument_bytes": mem["argument_bytes"],
+           "estimate_bytes": mem["activation_bytes_estimate"],
+           "wall_s": round(res["wall_s"], 3), "launches": got,
+           "collectives": res["counts"]}
+    peak = "" if res["peak"] is None else (
+        f"; peak {res['peak'] / 1e9:.3f} GB, peak - arguments "
+        f"{(res['peak'] - mem['argument_bytes']) / 1e9:.3f} GB beside the "
+        f"estimate {mem['activation_bytes_estimate'] / 1e9:.3f} GB (read, "
+        "not gated)")
+    grown = "" if res["grown"] is None else (
+        f", requested {res['requested']} B, allocated {res['grown']} B "
+        f"(+{res['grown'] - count} over {res['tensors'][0]} tensors, "
+        f"{res['tensors'][1]} of them over 1 MiB)")
+    log(f"{what}: state {count} B by the dry run{grown}; collectives "
+        f"{res['counts']}; launches {got}; step {res['wall_s']:.2f}s{peak}")
+    return out
+
+
+def phase_dryrun(device: str = "cuda", cells=DRYRUN_CELLS,
+                 mesh_kw: dict = None) -> dict:
+    """Phase 16: (a) ``python -m repro_torch.launch.dryrun --all`` in
+    this process, on the meta device (nothing allocated on the card),
+    read by ``dryrun_summary``; beside it (b) spawned processes, each
+    rank 0 of a fake world of the production mesh's 256 ranks, run
+    ``cells`` for real on ``device`` at the rank's shapes, one process a
+    cell (``_dryrun_rank``), held by ``dryrun_gate``.  ``cells``: (arch or
+    config, shape name or ShapeConfig, decode positions); ``mesh_kw``
+    (default ``DRYRUN_MESH``) the mesh (b) runs."""
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
+    from repro_torch.config import SHAPES, get_model_config
+    from repro_torch.launch import dryrun as D
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    mesh_kw = mesh_kw or DRYRUN_MESH
+    jobs = [(get_model_config(a) if isinstance(a, str) else a,
+             SHAPES[s] if isinstance(s, str) else s, tuple(p))
+            for a, s, p in cells]
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("[16] (b) under the fake backend the collectives move no data: "
+        "values are not checked, only what the rank holds, issues and "
+        "launches")
+    # one fresh process a cell, side by side (their peaks together stay
+    # under the card's memory: ~12.5 + 2 + 45 GB at the production cells)
+    with concurrent.futures.ProcessPoolExecutor(
+            len(jobs), mp_context=multiprocessing.get_context("spawn"),
+            max_tasks_per_child=1) as pool:
+        ranks = [pool.submit(_dryrun_rank, job, mesh_kw, device)
+                 for job in jobs]
+        before = torch.cuda.memory_allocated() if on_card else 0
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                D.main(["--all", "--out", tmp])
+            except SystemExit as e:
+                if e.code:
+                    raise AssertionError(f"(a) the dry run exited {e.code}")
+            summary = dryrun_summary(tmp)
+        if on_card and torch.cuda.memory_allocated() != before:
+            raise AssertionError("(a) the dry run allocated on the card")
+        t_a = time.perf_counter() - t0
+        log(f"[16] (a) {summary} in {t_a:.1f}s")
+        got = [r.result(timeout=DRYRUN_TIMEOUT_S) for r in ranks]
+    out = {"a": dict(summary, seconds=t_a), "b": {}}
+    for (cfg, shape, _), res in zip(jobs, got, strict=True):
+        name = f"{cfg.name} {shape.name}"
+        out["b"][name] = dryrun_gate(f"[16] (b) {name}", res, cfg,
+                                     shape.kind, on_card)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = _card() if on_card else "cpu"
+    log(f"[16] {out['card']}: all gates passed in {out['seconds']:.1f}s")
+    log("[16] " + json.dumps(out))
+    return out
+
+
+def add_dryrun_entries(kernels: list, run: dict) -> None:
+    """``flash_decode``'s and ``fastattn_fwd``'s entries of the kernels
+    line also ``dryrun_launches``: their launches in each of phase 16
+    (b)'s cells (rank 0 of the production mesh)."""
+    k = {e["name"]: e for e in kernels}
+    for name, key in (("flash_decode", "flash_decode"),
+                      ("fastattn_fwd", "fastattn_fwd")):
+        k[name]["dryrun_launches"] = {
+            cell: r["launches"][key] for cell, r in run["b"].items()
+            if key in r["launches"]}
+
+
 def roofline_readings(trained: dict, long_step: dict) -> dict:
     """The first roofline readings: phase 4's MFU (``model_flops`` of its
     layers and batches over its median step and the bf16 peak) and phase
@@ -9378,6 +9666,10 @@ def main() -> int:
     decode = phase_mesh_decode({**mesh.pop("decode"),
                                 MOE_ARCH: moe_par.pop("decode")})
     done("15")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = phase_dryrun()
+    done("16")
     roofline_readings(trained, long_step)
     launches = {**served["launches"], "fastattn_fwd": trained["launches"],
                 "flash_decode": dense["launches"],
@@ -9446,6 +9738,7 @@ def main() -> int:
     add_int8_pipeline_entries(line["kernels"], int8, compress)
     add_cp_entries(line["kernels"], kern["flash_decode_cp"], cp)
     add_mesh_decode_entries(line["kernels"], decode)
+    add_dryrun_entries(line["kernels"], dry)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s on "
         f"{_card()}")
     print(json.dumps(line))

@@ -14,11 +14,17 @@ XLA text (``roofline_from_hlo_text`` over ``analysis/hlo.py``); the port
 has no XLA, so ``roofline_terms`` takes the cost record itself -- from
 an analytic count or any other source -- and computes the same dict.
 ``kernel_adjusted_terms``, JAX's rewrite of the attention loops in that
-text, and the command-line ``main`` over the dry-run's records are not
-ported: both read XLA artifacts.
+text, is not ported (it reads XLA artifacts).  The command line renders
+the port's dry-run records (``launch/dryrun.py``, whose ``roofline`` key
+is ``roofline_terms`` of its counts) as JAX's ``main`` renders JAX's,
+without JAX's ``--reparse`` of stored HLO:
+
+    PYTHONPATH=src python -m repro_torch.analysis.roofline \
+        [--dir results/dryrun_torch] [--mesh 16x16]
 """
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 import os
@@ -143,3 +149,22 @@ def render_table(recs, *, mesh: Optional[str] = None) -> str:
             f"{rf['memory_s']:9.4f} {rf['collective_s']:9.4f} {dom:>5s} "
             f"{rf['useful_ratio']:7.3f} {100*rf['roofline_fraction']:7.2f}")
     return "\n".join(rows)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default=os.path.join(
+        os.path.dirname(__file__), "..", "..", "..", "results",
+        "dryrun_torch"))
+    ap.add_argument("--mesh", default=None)
+    args = ap.parse_args(argv)
+    recs = load_records(args.dir)
+    print(render_table(recs, mesh=args.mesh))
+    for r in recs:
+        if r.get("status") == "ok" and r.get("roofline") and (
+                not args.mesh or r.get("mesh") == args.mesh):
+            print(f"{r['cell']}: {lever(r)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -111,6 +111,14 @@ class ModelConfig:
     def expert_dff(self) -> int:
         return self.moe_dff or self.d_ff
 
+    def is_subquadratic(self) -> bool:
+        """True if no block is full (global) quadratic attention, i.e. the
+        arch is eligible for the long_500k shape."""
+        quad = {"attn", "moe"}
+        if self.is_encoder_decoder:
+            return False
+        return not any(b in quad for b in self.blocks())
+
 
 # ---------------------------------------------------------------------------
 # Parallel / distribution configuration

@@ -16,3 +16,18 @@ from repro_torch.configs import (  # noqa: F401
     whisper_small,
     xlstm_125m,
 )
+
+# the assigned architectures, in the JAX package's order (the dry run's
+# cells, ``launch/dryrun.py``)
+ASSIGNED_ARCHS = (
+    "xlstm-125m",
+    "qwen2.5-32b",
+    "phi3-mini-3.8b",
+    "gemma2-2b",
+    "stablelm-3b",
+    "grok-1-314b",
+    "qwen3-moe-30b-a3b",
+    "hymba-1.5b",
+    "qwen2-vl-72b",
+    "whisper-small",
+)

@@ -2,7 +2,8 @@
 
 Entry points run on the card: ``device=None`` means ``"cuda"``.  Without a
 GPU they raise instead of falling back to the CPU quietly; the CPU runs
-only when the caller asks for it (as the tests do).
+only when the caller asks for it (as the tests do).  A model on the meta
+device holds shapes and dtypes only (the dry run, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,20 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def check_generator(gen: Optional[torch.Generator],
+                    device: torch.device) -> None:
+    """An init's generator must be on the model's device type; an init
+    with none (``gen=None``: every leaf empty, nothing drawn) runs on the
+    meta device only."""
+    if gen is None:
+        if device.type != "meta":
+            raise ValueError(f"a model on {device} needs a generator to "
+                             "draw its parameters (only the meta device "
+                             "takes none)")
+    elif gen.device.type != device.type:
+        raise ValueError(f"generator on {gen.device}, model on {device}")
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -27,6 +27,7 @@ rank.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import gc
 import itertools
@@ -96,6 +97,15 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
     return Mesh(tuple(axes), tuple(shape), rank)
 
 
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The JAX package's production meshes, as rank ``rank`` sees them:
+    (data=16, model=16), or (pod=2, data=16, model=16) with
+    ``multi_pod``.  No process group is made (``make_mesh``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, rank)
+
+
 def make_mesh_for(parallel: ParallelConfig, *,
                   timeout: float = 60.0) -> Mesh:
     """This rank's mesh of ``parallel``'s shape.  With more than one rank
@@ -145,6 +155,24 @@ def make_mesh_for(parallel: ParallelConfig, *,
                 if rank in members:
                     groups[key] = g
     return Mesh(axes, shape, rank, groups)
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """A ``torch.distributed`` world of ``world`` ranks in which this
+    process is rank ``rank`` and no other runs: torch's "fake" backend,
+    whose collectives return at once and move no data (an all-gather's
+    output keeps what its allocation held).  It lets one process build
+    ``make_mesh_for``'s groups of a production mesh and run one rank's
+    step at its real shapes, to read what the rank holds and issues, not
+    its values.  The world is destroyed on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), world_size=world,
+                            rank=rank)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def parallel_for_mesh(mesh: Mesh) -> ParallelConfig:

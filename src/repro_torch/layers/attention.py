@@ -81,7 +81,8 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
     }
     if cfg.qkv_bias:
         for name, n in (("bq", qd), ("bk", kvd), ("bv", kvd)):
-            p[name] = torch.zeros((n,), dtype=dtype, device=gen.device)
+            p[name] = torch.zeros((n,), dtype=dtype,
+                                  device=common.device_of(gen))
     return p
 
 
@@ -205,7 +206,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
 def apply_attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                            cache: KVCache, *, pos: int,
                            window: Optional[int] = None,
-                           impl: Optional[str] = None):
+                           impl: Optional[str] = None, split: bool = True):
     """One-token decode against dense caches.  x: (B, 1, D); pos: the
     scalar current position, shared by every row.  The new K/V row is
     written in place at ``pos`` for every row; attention then reads
@@ -217,7 +218,10 @@ def apply_attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     rows and the cache its (B, S / n, Hkv, D) slice of positions
     ``[m * S / n, (m + 1) * S / n)`` at model coordinate m: only the rank
     whose slice holds ``pos`` writes the new row, and attention merges
-    every rank's slice over the model group (``cp_decode_body``)."""
+    every rank's slice over the model group (``cp_decode_body``).  Not
+    ``split`` (the model axis does not divide the cache's width, so every
+    model rank holds it whole): each rank decodes it as one device does.
+    """
     impl = impl or cfg.attention_impl
     b = x.shape[0]
     pos = int(pos)
@@ -225,7 +229,7 @@ def apply_attention_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q, k_new, v_new = _project_qkv(params, x, cfg,
                                    rope_positions(positions, cfg))
     mesh = current_mesh()
-    n = mesh.shape.get("model", 1) if mesh is not None else 1
+    n = mesh.shape.get("model", 1) if mesh is not None and split else 1
     row = pos - mesh.coords["model"] * cache.k.shape[1] if n > 1 else pos
     if n == 1 or 0 <= row < cache.k.shape[1]:
         for buf, new in ((cache.k, k_new), (cache.v, v_new)):

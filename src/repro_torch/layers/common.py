@@ -3,7 +3,10 @@
 Parameters are nested dicts of tensors.  ``dense_init`` draws the same
 distribution as the JAX package's ``layers/common.py`` (a float32 normal
 scaled by ``in_dim ** -0.5``, cast to the parameter dtype) from an explicit
-``torch.Generator``; the numbers differ, the distribution does not.  Each
+``torch.Generator``; the numbers differ, the distribution does not.
+With no generator (``gen=None``) an init draws nothing: every leaf is an
+empty tensor of its shape and dtype on the meta device (``normal``), the
+counterpart of JAX's ``jax.eval_shape(model.init, key)``.  Each
 layer also describes its parameters by *logical axes* in a parallel tree
 (same structure, leaves ``(logical_axes_tuple, shape)``) that
 ``sharding/rules.py`` reads.
@@ -15,14 +18,29 @@ from typing import Optional
 import torch
 
 
-def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+def device_of(gen: Optional[torch.Generator]) -> torch.device:
+    """Where an init from ``gen`` puts its leaves: ``gen``'s device, or
+    the meta device for ``gen=None``."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def normal(gen: Optional[torch.Generator], shape: tuple) -> torch.Tensor:
+    """float32 N(0, 1) draws of ``shape`` from ``gen`` on its device; for
+    ``gen=None`` an empty float32 tensor on the meta device (nothing
+    drawn)."""
+    if gen is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
+def dense_init(gen: Optional[torch.Generator], in_dim: int, out_dim: int,
                dtype: torch.dtype, scale: Optional[float] = None
                ) -> torch.Tensor:
-    """An (in_dim, out_dim) weight used as ``x @ w``, on ``gen``'s device."""
+    """An (in_dim, out_dim) weight used as ``x @ w``, on ``gen``'s device
+    (``device_of``)."""
     scale = scale if scale is not None else in_dim ** -0.5
-    w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device,
-                    dtype=torch.float32) * scale
-    return w.to(dtype)
+    return (normal(gen, (in_dim, out_dim)) * scale).to(dtype)
 
 
 def dense_logical(in_dim: int, out_dim: int, logical) -> tuple:

@@ -4,19 +4,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.layers.common import normal
 
 
 def init_embedding(gen: torch.Generator, cfg: ModelConfig,
                    dtype: torch.dtype) -> dict:
     """Same distributions as the JAX package's ``init_embedding``."""
     scale = cfg.d_model ** -0.5
-    p = {"embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                               device=gen.device, dtype=torch.float32)
+    p = {"embed": (normal(gen, (cfg.vocab_size, cfg.d_model))
                    * scale).to(dtype)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab_size),
-                                    generator=gen, device=gen.device,
-                                    dtype=torch.float32) * scale).to(dtype)
+        p["lm_head"] = (normal(gen, (cfg.d_model, cfg.vocab_size))
+                        * scale).to(dtype)
     return p
 
 

@@ -26,8 +26,7 @@ def init_frontend(gen: torch.Generator, cfg: ModelConfig,
     if cfg.modality == "text":
         return {}
     d = cfg.d_model
-    pos = torch.randn((_rows(cfg), d), generator=gen, device=gen.device,
-                      dtype=torch.float32) * 0.02
+    pos = common.normal(gen, (_rows(cfg), d)) * 0.02
     return {"adapter": common.dense_init(gen, d, d, dtype),
             "pos_embed": pos.to(dtype)}
 

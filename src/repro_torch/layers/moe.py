@@ -45,8 +45,7 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig,
     d, f, e = cfg.d_model, cfg.expert_dff, cfg.num_experts
 
     def normal(shape, scale):
-        return (torch.randn(shape, generator=gen, device=gen.device,
-                            dtype=torch.float32) * scale).to(dtype)
+        return (common.normal(gen, shape) * scale).to(dtype)
     p = {"router": common.dense_init(gen, d, e, dtype),
          "w_up": normal((e, d, f), d ** -0.5),
          "w_down": normal((e, f, d), f ** -0.5)}

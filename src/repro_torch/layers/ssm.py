@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.mlstm import ref as mref
 from repro_torch.kernels.mlstm.ops import mlstm_chunkwise
-from repro_torch.layers.common import dense, dense_init
+from repro_torch.layers.common import dense, dense_init, device_of, normal
 
 # the leaves a rank holds and uses as its own pieces of the channel dim
 # under ``part`` (each cell's other leaves arrive whole)
@@ -75,10 +75,9 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig,
     its deterministic leaves exactly (``a_log`` stays float32)."""
     d, di = cfg.d_model, cfg.q_dim          # channels mirror attention heads
     n, kconv = cfg.ssm_state_size, cfg.conv_kernel
-    dev = gen.device
+    dev = device_of(gen)
     w_in = dense_init(gen, d, 2 * di, dtype)
-    conv_w = (torch.randn((kconv, di), generator=gen, device=dev,
-                          dtype=torch.float32) * kconv ** -0.5).to(dtype)
+    conv_w = (normal(gen, (kconv, di)) * kconv ** -0.5).to(dtype)
     w_bc = dense_init(gen, di, 2 * n, dtype)
     w_dt = dense_init(gen, di, di, dtype, scale=di ** -0.5)
     w_out = dense_init(gen, di, d, dtype, scale=di ** -0.5)
@@ -288,7 +287,7 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig,
         "wk": dense_init(gen, di, di, dtype),
         "wv": dense_init(gen, di, di, dtype),
         "w_if": dense_init(gen, di, 2 * nh, dtype),
-        "b_if": b_if.to(device=gen.device, dtype=dtype),
+        "b_if": b_if.to(device=device_of(gen), dtype=dtype),
         "w_down": dense_init(gen, di, d, dtype, scale=di ** -0.5),
     }
 
@@ -398,14 +397,12 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig,
                dtype: torch.dtype) -> dict:
     d, di, nh = cfg.d_model, _di(cfg), cfg.num_heads
     hd = di // nh
-    dev = gen.device
+    dev = device_of(gen)
     return {
         "w_up": dense_init(gen, d, di, dtype),
         "w_gates": dense_init(gen, di, 4 * di, dtype),
         # block-diagonal recurrent weights, one (hd, hd) block per head
-        "r_gates": (torch.randn((4, nh, hd, hd), generator=gen, device=dev,
-                                dtype=torch.float32)
-                    * hd ** -0.5).to(dtype),
+        "r_gates": (normal(gen, (4, nh, hd, hd)) * hd ** -0.5).to(dtype),
         "b_gates": torch.zeros((4 * di,), dtype=dtype, device=dev),
         "w_down": dense_init(gen, di, d, dtype, scale=di ** -0.5),
     }

@@ -26,6 +26,7 @@ from repro_torch.layers import attention as attn_mod
 from repro_torch.layers import mlp as mlp_mod
 from repro_torch.layers import moe as moe_mod
 from repro_torch.layers import ssm as ssm_mod
+from repro_torch.layers.common import device_of
 from repro_torch.layers.norms import apply_norm, init_norm, norm_logical
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.rules import (current_mesh, is_spec, local_shape,
@@ -65,7 +66,7 @@ def _check_paged(kind: str) -> None:
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                dtype: torch.dtype) -> dict:
     check_kind(kind)
-    d, dev = cfg.d_model, gen.device
+    d, dev = cfg.d_model, device_of(gen)
     p: dict = {"ln1": init_norm(d, cfg.norm_type, dtype, dev)}
     if kind == "mlstm":
         p["cell"] = ssm_mod.init_mlstm(gen, cfg, dtype)
@@ -388,12 +389,13 @@ def _cell_decode(params: dict, h: torch.Tensor, cfg: ModelConfig,
 
 def apply_block_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
                        kind: str, cache, *, pos: int,
-                       impl: Optional[str] = None):
+                       impl: Optional[str] = None, kv_split: bool = True):
     """Dense-cache one-token decode: x (B, 1, D), ``pos`` the scalar
     position shared by every row (recurrent kinds carry their state in
     ``cache`` and ignore it).  Under a mesh with a model axis each block
     decodes from the rank's slice of its cache: attention from its slice
-    of the KV cache's sequence, a recurrent cell from its slice of the
+    of the KV cache's sequence (or, without ``kv_split``, from the whole
+    cache every model rank holds), a recurrent cell from its slice of the
     state's channels (``_cell_decode``), a MoE FFN through the rank's
     experts."""
     check_kind(kind)
@@ -406,12 +408,12 @@ def apply_block_decode(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if kind in HYMBA_KINDS:
         a, kv = attn_mod.apply_attention_decode(
             params["attn"], h, cfg, cache["kv"], pos=pos,
-            window=_window(cfg, kind), impl=impl)
+            window=_window(cfg, kind), impl=impl, split=kv_split)
         m, mstate = _cell_decode(params["mamba"], h, cfg, "mamba",
                                  cache["mamba"], logical["mamba"])
         return _hymba_tail(params, x, a, m, cfg), {"kv": kv,
                                                    "mamba": mstate}
     a, cache = attn_mod.apply_attention_decode(
         params["attn"], h, cfg, cache, pos=pos, window=_window(cfg, kind),
-        impl=impl)
+        impl=impl, split=kv_split)
     return _attn_block_tail(params, x, a, cfg, kind, decode=True), cache

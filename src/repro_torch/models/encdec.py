@@ -49,9 +49,11 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.config import ModelConfig, ParallelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import (check_generator, resolve_device,
+                                torch_dtype)
 from repro_torch.layers import attention as attn_mod
 from repro_torch.layers import mlp as mlp_mod
+from repro_torch.layers.common import device_of
 from repro_torch.layers.embedding import (embed_tokens, embedding_logical,
                                           init_embedding, lm_logits)
 from repro_torch.layers.frontend import (apply_frontend, frontend_logical,
@@ -75,7 +77,7 @@ def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 def _init_enc_block(gen: torch.Generator, cfg: ModelConfig,
                     dtype: torch.dtype) -> dict:
-    d, dev = cfg.d_model, gen.device
+    d, dev = cfg.d_model, device_of(gen)
     return {"ln1": init_norm(d, cfg.norm_type, dtype, dev),
             "attn": attn_mod.init_attention(gen, cfg, dtype),
             "ln2": init_norm(d, cfg.norm_type, dtype, dev),
@@ -84,7 +86,7 @@ def _init_enc_block(gen: torch.Generator, cfg: ModelConfig,
 
 def _init_dec_block(gen: torch.Generator, cfg: ModelConfig,
                     dtype: torch.dtype) -> dict:
-    d, dev = cfg.d_model, gen.device
+    d, dev = cfg.d_model, device_of(gen)
     return {"ln1": init_norm(d, cfg.norm_type, dtype, dev),
             "self_attn": attn_mod.init_attention(gen, cfg, dtype),
             "ln_x": init_norm(d, cfg.norm_type, dtype, dev),
@@ -121,6 +123,7 @@ class EncDec(MeshModel):
         self.parallel = parallel or ParallelConfig()
         self.device = resolve_device(device)
         self._specs: dict = {}
+        self._cache_seq: Optional[int] = None
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on the model's device seeded with ``seed``."""
@@ -129,12 +132,13 @@ class EncDec(MeshModel):
         return gen
 
     # ------------------------------------------------------------------
-    def init(self, gen: torch.Generator) -> dict:
+    def init(self, gen: Optional[torch.Generator] = None) -> dict:
         """Random parameters from ``gen`` (on the model's device), drawn
-        from the same distributions as the JAX package's ``EncDec.init``."""
-        if gen.device.type != self.device.type:
-            raise ValueError(f"generator on {gen.device}, model on "
-                             f"{self.device}")
+        from the same distributions as the JAX package's ``EncDec.init``.
+        On the meta device ``gen=None`` draws nothing: every leaf is made
+        with its shape and dtype (the counterpart of JAX's
+        ``jax.eval_shape(model.init, key)``)."""
+        check_generator(gen, self.device)
         cfg = self.cfg
         dtype = torch_dtype(cfg.param_dtype)
         return {
@@ -267,16 +271,18 @@ class EncDec(MeshModel):
         (``project_cross_kv``); without, they are zeros of
         ``encoder_seq`` rows (one tensor, shared: the cache never writes
         them), as JAX's dense engine runs the model.  Under a mesh: the
-        rank's slice (ValueError where the batch or the width does not
-        split), ``params`` its pieces and ``enc_out`` the states of its
-        rows and frames (``encode``'s), whose K/V are gathered over the
-        frames."""
+        rank's slice (whole along a dim the mesh does not divide, as in
+        ``LM.init_cache``), ``params`` its pieces and ``enc_out`` the
+        states of its rows and frames (``encode``'s), whose K/V are
+        gathered over the frames."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         mesh = self._mesh()
         if mesh is not None:
-            _, batch = self._decode_rows(mesh, batch, max_seq)
-            max_seq //= mesh.shape.get("model", 1)
+            self._cache_seq = max_seq
+            _, batch = self._decode_rows(mesh, batch)
+            if self._kv_split(mesh):
+                max_seq //= mesh.shape["model"]
         self_kv = [attn_mod.init_kv_cache(cfg, batch, max_seq, dtype,
                                           self.device)
                    for _ in range(cfg.num_layers)]
@@ -327,7 +333,9 @@ class EncDec(MeshModel):
         returns its rows' logits."""
         cfg = self.cfg
         mesh = self._mesh()
+        split = True
         if mesh is not None:
+            split = self._kv_split(mesh)
             r0, rows = self._decode_rows(mesh, token.shape[0])
             token = token[r0:r0 + rows]
             params = self._whole(params, ("embedding", "final_norm"))
@@ -339,8 +347,8 @@ class EncDec(MeshModel):
         for p, kv, (ck, cv) in zip(self._dec_blocks(params), cache["self"],
                                    cache["cross"]):
             h = apply_norm(p["ln1"], x, cfg.norm_type, cfg.norm_eps)
-            a, kv = attn_mod.apply_attention_decode(p["self_attn"], h, cfg,
-                                                    kv, pos=pos, impl=impl)
+            a, kv = attn_mod.apply_attention_decode(
+                p["self_attn"], h, cfg, kv, pos=pos, impl=impl, split=split)
             x = x + a
             new_kv.append(kv)
             h = apply_norm(p["ln_x"], x, cfg.norm_type, cfg.norm_eps)

@@ -50,7 +50,8 @@ from typing import Callable, List, Optional, Union
 import torch
 
 from repro_torch.config import ModelConfig, ParallelConfig
-from repro_torch.device import resolve_device, torch_dtype
+from repro_torch.device import (check_generator, resolve_device,
+                                torch_dtype)
 from repro_torch.layers.embedding import (embed_tokens, embedding_logical,
                                           init_embedding, lm_logits)
 from repro_torch.layers.frontend import (apply_frontend, frontend_logical,
@@ -93,6 +94,7 @@ class LM(MeshModel):
         self.parallel = parallel or ParallelConfig()
         self.device = resolve_device(device)
         self._specs: dict = {}
+        self._cache_seq: Optional[int] = None
 
     def generator(self, seed: int) -> torch.Generator:
         """A generator on the model's device seeded with ``seed``."""
@@ -101,12 +103,13 @@ class LM(MeshModel):
         return gen
 
     # ------------------------------------------------------------------
-    def init(self, gen: torch.Generator) -> dict:
+    def init(self, gen: Optional[torch.Generator] = None) -> dict:
         """Random parameters from ``gen`` (on the model's device), drawn
-        from the same distributions as the JAX package's ``LM.init``."""
-        if gen.device.type != self.device.type:
-            raise ValueError(f"generator on {gen.device}, model on "
-                             f"{self.device}")
+        from the same distributions as the JAX package's ``LM.init``.
+        On the meta device ``gen=None`` draws nothing: every leaf is made
+        with its shape and dtype (the counterpart of JAX's
+        ``jax.eval_shape(model.init, key)``)."""
+        check_generator(gen, self.device)
         cfg = self.cfg
         dtype = torch_dtype(cfg.param_dtype)
         params = {"embedding": init_embedding(gen, cfg, dtype),
@@ -218,15 +221,15 @@ class LM(MeshModel):
         float32 recurrent state for mlstm / slstm blocks, and for hymba
         blocks ``{"kv": KV cache, "mamba": MambaState}``.  Under a mesh:
         this rank's slice of each, the rule table's slice of
-        ``cache_logical`` (ValueError where the batch or a KV cache's
-        width does not split, ``_decode_rows``)."""
+        ``cache_logical`` -- whole along a dim the mesh does not divide:
+        the batch over dp (``_decode_rows``), a KV cache's positions over
+        the model axis (``_kv_split``)."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
         mesh = self._mesh()
         specs = [None] * cfg.num_layers
         if mesh is not None:
-            kv = any(k not in ("mlstm", "slstm") for k in cfg.blocks())
-            self._decode_rows(mesh, batch, max_seq if kv else 0)
+            self._cache_seq = max_seq
             specs = param_sharding_tree(self.cache_logical(batch, max_seq),
                                         mesh)
         return [B.init_block_cache(cfg, kind, batch, max_seq, dtype,
@@ -275,12 +278,13 @@ class LM(MeshModel):
 
         Under a mesh ``token`` is the whole batch and ``cache`` this
         rank's slice (``init_cache``): the rank decodes its rows of the
-        batch, each block on its weights gathered whole, and returns its
-        rows' logits."""
+        batch (every row where dp does not divide the batch), each block
+        on its weights gathered whole, and returns its rows' logits."""
         cfg = self.cfg
         mesh = self._mesh()
-        leaves = None
+        leaves, split = None, True
         if mesh is not None:
+            split = self._kv_split(mesh)
             r0, rows = self._decode_rows(mesh, token.shape[0])
             token = token[r0:r0 + rows]
             params = self._whole(params, ("embedding",))
@@ -293,7 +297,7 @@ class LM(MeshModel):
 
         def block_fn(bp, x, kind, bc):
             return B.apply_block_decode(bp, x, cfg, kind, bc, pos=pos,
-                                        impl=impl)
+                                        impl=impl, kv_split=split)
         x = embed_tokens(params["embedding"], token[:, None], cfg)
         logits, cache = self._cached_segments(params, x, cache, block_fn,
                                               leaves)

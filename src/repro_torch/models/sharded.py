@@ -23,8 +23,9 @@ def _gathered(i: int, params: dict, spec: dict, mesh) -> dict:
 
 
 class MeshModel:
-    """Mixed into a model that has ``logical()``, ``parallel`` and a
-    ``_specs`` dict."""
+    """Mixed into a model that has ``logical()``, ``parallel``, a
+    ``_specs`` dict and ``_cache_seq`` (the positions of the dense cache
+    ``init_cache`` made last under a mesh; None before)."""
 
     def param_specs(self, mesh) -> dict:
         """``param_sharding_tree`` of ``logical()`` on ``mesh`` (cached
@@ -44,22 +45,29 @@ class MeshModel:
         holds ``s`` rows of."""
         return mesh.coords.get("model", 0) * s if mesh is not None else 0
 
-    def _decode_rows(self, mesh, batch: int, max_seq: int = 0) -> tuple:
+    def _decode_rows(self, mesh, batch: int) -> tuple:
         """(first row, rows) of this rank's slice of a dense decode batch
         of ``batch`` rows under ``mesh``: the rule table's ``batch`` over
-        every axis but the model axis.  ValueError where the batch does
-        not split, or a KV cache of ``max_seq`` positions over the model
-        axis (``kv_seq``)."""
-        n = mesh.shape.get("model", 1)
+        every axis but the model axis, or -- where dp does not divide the
+        batch, as ``param_sharding_tree`` keeps such a dim whole -- every
+        row on every data rank, ``(0, batch)``.  Decode sums nothing over
+        the data axes, so rows held whole by every data rank are decoded
+        alike on each and counted nowhere twice."""
         d, dp = shard_index(tuple(a for a in mesh.axis_names
                                   if a != "model"), mesh, mesh.coords)
-        if batch % dp or max_seq % n:
-            raise ValueError(
-                f"a decode cache of {batch} rows x {max_seq} positions "
-                f"does not split over dp={dp} rows and model={n} sequence "
-                "pieces: the batch must be a multiple of dp and the cache "
-                "width of model")
+        if batch % dp:
+            return 0, batch
         return d * (batch // dp), batch // dp
+
+    def _kv_split(self, mesh) -> bool:
+        """Whether the model axis splits the dense KV caches' positions
+        (``kv_seq -> model``) of the cache ``init_cache`` made last under
+        a mesh: not where it does not divide their width -- every model
+        rank then holds them whole and decodes them as one device does,
+        with no merge."""
+        n = mesh.shape.get("model", 1)
+        return n > 1 and (self._cache_seq is None
+                          or self._cache_seq % n == 0)
 
     def _whole(self, params: dict, keys: tuple) -> dict:
         """``params`` with those of its top-level subtrees named in

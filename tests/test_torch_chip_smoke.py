@@ -2951,3 +2951,89 @@ def test_phase15_rides_phase12_and_8h_and_runs_after_14(cs):
     assert cs.MESH_DECODE["whisper-small"][0] == 448
     assert cs.MESH_DECODE["qwen3-moe-30b-a3b"][0] == 4096
     assert cs.MESH_DECODE_BATCH == 8
+
+
+def _dryrun_cells():
+    """Phase 16 (b)'s three cells, reduced in size and run at (2, 2): a
+    dense decode, hymba's one row and a dense training step."""
+    from repro_torch.config import (ShapeConfig, get_model_config,
+                                    reduce_for_smoke)
+    qwen = reduce_for_smoke(get_model_config("qwen2.5-32b"))
+    hymba = reduce_for_smoke(get_model_config("hymba-1.5b"))
+    return [(qwen, ShapeConfig("decode_r", 64, 8, "decode"), (10, 11, 12)),
+            (hymba, ShapeConfig("long_r", 64, 1, "decode"), (10, 11)),
+            (qwen, ShapeConfig("train_r", 32, 8, "train"), ())]
+
+
+def test_phase16_on_reduced_cells_and_the_cpu(cs, monkeypatch):
+    """Phase 16 on the CPU: (a) the whole dry run in process (64 ok
+    cells, JAX's 16 skipped, no error) beside (b) three spawned
+    processes, each rank 0 of a fake world of four, that run reduced
+    versions of the card's cells: each step's collectives are the
+    record's (times the decode steps), every attention layer's local
+    decode asked for the log-sum-exp, no plain attention on CUDA."""
+    import sys
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(ROOT))
+    out = cs.phase_dryrun("cpu", _dryrun_cells(), dict(data=2, model=2))
+    assert {k: out["a"][k] for k in ("ok", "skipped", "error")} == \
+        {"ok": 64, "skipped": 16, "error": 0}
+    b = out["b"]
+    assert list(b) == ["qwen2.5-32b decode_r", "hymba-1.5b long_r",
+                       "qwen2.5-32b train_r"]
+    assert b["qwen2.5-32b decode_r"]["launches"] == {"lse_calls": 2 * 3,
+                                                     "plain_cuda": 0}
+    assert b["hymba-1.5b long_r"]["launches"]["lse_calls"] == 2 * 2
+    merges = b["hymba-1.5b long_r"]["collectives"]["merge"]
+    assert merges["all_reduce"] == 2 * 2 * 2
+    train = b["qwen2.5-32b train_r"]["collectives"]["sharding"]
+    assert train["reduce_scatter"] > 0 and train["all_reduce"] > 0
+    assert all(r["grown_bytes"] is None for r in b.values())
+
+
+def test_dryrun_gate_rejects_faked_failures(cs):
+    """``dryrun_gate`` fails a step whose collectives are not the
+    record's, a launch count off by one, plain attention on CUDA, state
+    bytes outside the allocator's rounding of the count, and a peak at
+    the card's 80 GB."""
+    from repro_torch.config import get_model_config
+    cfg = get_model_config("qwen2.5-32b")
+    coll = {"sharding": {"all_gather": 450, "reduce_scatter": 0,
+                         "all_reduce": 0, "ppermute": 0, "bytes": 10},
+            "merge": {"all_reduce": 128, "bytes": 20}}
+    mem = {"param_bytes": 1000, "opt_bytes": 0, "cache_bytes": 24,
+           "argument_bytes": 1030, "activation_bytes_estimate": 5}
+    ok = {"memory": mem, "collectives": coll, "steps": 2,
+          "tensors": (3, 1), "grown": 1024 + 512, "requested": 1024,
+          "wall_s": 0.1, "peak": 2000,
+          "counts": {p: {k: 2 * v for k, v in c.items()}
+                     for p, c in coll.items()},
+          "flash_decode": 128, "fastattn_fwd": 0, "lse_calls": 128,
+          "plain_cuda": 0}
+    got = cs.dryrun_gate("ok", ok, cfg, "decode", True)
+    assert got["launches"]["flash_decode"] == 128
+    bad = [dict(ok, counts={**ok["counts"], "merge": coll["merge"]}),
+           dict(ok, flash_decode=127), dict(ok, plain_cuda=1),
+           dict(ok, grown=1023), dict(ok, requested=1025),
+           dict(ok, grown=1024 + 3 * 512 + (1 << 20) + 1),
+           dict(ok, peak=int(80e9))]
+    for res in bad:
+        with pytest.raises(AssertionError):
+            cs.dryrun_gate("bad", res, cfg, "decode", True)
+
+
+def test_phase16_runs_after_15_and_enters_the_kernels_line(cs):
+    import inspect
+    main = inspect.getsource(cs.main)
+    assert main.index('done("15")') < main.index("phase_dryrun()") < \
+        main.index('done("16")') < main.index("add_dryrun_entries(")
+    assert [(a, s) for a, s, _ in cs.DRYRUN_CELLS] == [
+        ("qwen2.5-32b", "decode_32k"), ("hymba-1.5b", "long_500k"),
+        ("qwen2.5-32b", "train_4k")]
+    assert cs.DRYRUN_MESH == dict(data=16, model=16)
+    kernels = [{"name": "flash_decode"}, {"name": "fastattn_fwd"}]
+    run = {"b": {"q d": {"launches": {"flash_decode": 256}},
+                 "q t": {"launches": {"fastattn_fwd": 128}}}}
+    cs.add_dryrun_entries(kernels, run)
+    assert kernels[0]["dryrun_launches"] == {"q d": 256}
+    assert kernels[1]["dryrun_launches"] == {"q t": 128}

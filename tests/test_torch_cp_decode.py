@@ -20,9 +20,11 @@ against the JAX package, on the CPU.
   the dry run's decode shardings (``cache_logical`` and ``param_sharding_tree``,
   a subprocess on four forced host devices): the logits, and each rank's
   cache slice against JAX's shard at its coordinate;
-* (d) a cache width that does not split raises, and a mesh whose model
-  axis is 1 decodes each rank's rows as one device does (the other block
-  kinds on a model axis: ``test_torch_mesh_decode.py``).
+* (d) a cache width or a batch that the mesh does not split stays whole
+  on the ranks (as the rule table keeps such a dim) and decodes as JAX's
+  one device does, and a mesh whose model axis is 1 decodes each rank's
+  rows as one device does (the other block kinds on a model axis:
+  ``test_torch_mesh_decode.py``).
 
 Inputs are made with numpy from a seed, float32 but for the bf16 cases
 (bf16 values, exact in float32).  Tolerances: 1e-5 for the attention
@@ -352,13 +354,69 @@ def test_mesh_decode_matches_jax_mesh(runs, arch):
 # (d) what is left out, and the layout without a collective
 # ---------------------------------------------------------------------------
 
-def test_cache_width_or_batch_that_does_not_split_raises():
-    model = build_model(t_reduce(t_get("llama2-7b")), "cpu")
-    with axis_rules(mesh=make_mesh((2, 2), ("data", "model"), 1)):
-        with pytest.raises(ValueError, match="97 positions"):
-            model.init_cache(B, 97)
-        with pytest.raises(ValueError, match="3 rows"):
-            model.init_cache(3, S)
+# (batch, positions) the (2, 2) mesh does not split: a cache width the
+# model axis does not divide, a batch the data axis does not
+UNSPLIT = {"97-positions": (B, 97), "3-rows": (3, S)}
+
+
+@pytest.fixture(scope="module")
+def unsplit_runs(tmp_path_factory):
+    """JAX's one-device decode of reduced llama2-7b on each UNSPLIT
+    cache, beside the port's (2, 2) gloo ranks (one spawn)."""
+    tmp = tmp_path_factory.mktemp("cp_unsplit")
+    case0 = {"arch": "llama2-7b", "cfg_kw": {}}
+    jcfg = jdc.config(dict(case0, batch=B, seq=S))
+    jm = j_build(jcfg, JParallel(remat="none"))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jp),
+                              t_reduce(t_get("llama2-7b")), "cpu")
+    cases, want = [], []
+    for b, s in UNSPLIT.values():
+        rng = np.random.default_rng(11)
+        case = dict(case0, batch=b, seq=s,
+                    params=tree.tree_map(lambda t: t.numpy().copy(),
+                                         tparams),
+                    dtypes=tree.tree_map(lambda t: "float32", tparams))
+        shape = (b, s, jcfg.num_kv_heads, jcfg.head_dim)
+        case["leaves"] = [rng.normal(size=shape).astype(np.float32)
+                          for _ in range(2 * jcfg.num_layers)]
+        case["steps"] = [(pos, rng.integers(0, jcfg.vocab_size,
+                                            size=b).astype(np.int32))
+                         for pos in (0, 47, 48, s - 1)]
+        cache = jdc.jax_cache(jm, case["leaves"], b, s)
+        logits = []
+        for pos, tok in case["steps"]:
+            lg, cache = jm.decode_step(jp, jnp.asarray(tok), cache,
+                                       jnp.int32(pos))
+            logits.append(np.asarray(lg, dtype=np.float32))
+        cases.append(case)
+        want.append(logits)
+    ranks = spawn(mesh_decode_rank, 4, tmp, MESHES["2x2"], cases)
+    return want, ranks
+
+
+@pytest.mark.parametrize("name", list(UNSPLIT))
+def test_cache_width_or_batch_that_does_not_split_raises(unsplit_runs,
+                                                        name):
+    """What raised ValueError before the rule table's layout was followed
+    now decodes: a dim the mesh does not divide stays whole, as
+    ``param_sharding_tree`` keeps it -- 97 positions on every model rank
+    (decoded as one device does, no merge), 3 rows on every data rank --
+    and every rank's logits of its rows are JAX's one-device logits
+    within TOL."""
+    want, ranks = unsplit_runs
+    i = list(UNSPLIT).index(name)
+    b, s = UNSPLIT[name]
+    mesh = make_mesh((2, 2), ("data", "model"))
+    for r, res in enumerate(ranks):
+        got = res[i]
+        coords = make_mesh(mesh.sizes, mesh.axis_names, r).coords
+        rows = slice(0, b) if b % 2 else _rows(MESHES["2x2"], coords)
+        s_l = s if s % 2 else s // 2
+        assert set(got["shapes"]) == {(rows.stop - rows.start, s_l, 2, 16)}
+        for step, (lg, w) in enumerate(zip(got["logits"], want[i],
+                                           strict=True)):
+            np.testing.assert_allclose(lg, w[rows], err_msg=str(step), **TOL)
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1)])

@@ -8,7 +8,10 @@ the CPU.
   ``block_pattern=("slstm",)``; and d_model 48 over 3 heads, whose sLSTM
   slice cuts a head at model 2), qwen3-moe-30b-a3b (4 experts, 2 a rank
   at model 2), whisper-small (its cross K/V projected from ``encode`` on
-  the mesh), and hymba, xlstm, whisper and qwen3-moe in bf16, on (1, 2)
+  the mesh), qwen2-vl-72b (M-RoPE: a text token's three position
+  components equal), grok-1-314b (4 GeGLU experts, 2 a rank at model 2;
+  the attention and final softcaps), and hymba, xlstm, whisper and
+  qwen3-moe in bf16, on (1, 2)
   and (2, 2) gloo ranks (``_torch_train_ranks.mesh_decode_rank``), and
   every float32 LM case on (1, 3) ranks, where the model axis divides no
   channel dim and no expert count (each such leaf stays whole and its
@@ -82,6 +85,8 @@ CASES = {
                                     block_pattern=("mlstm", "slstm"))),
     "qwen3-moe": ("qwen3-moe-30b-a3b", {}),
     "whisper": ("whisper-small", {}),
+    "qwen2-vl": ("qwen2-vl-72b", {}),
+    "grok": ("grok-1-314b", {}),
     "hymba-bf16": ("hymba-1.5b", BF16),
     "xlstm-bf16": ("xlstm-125m", BF16),
     "whisper-bf16": ("whisper-small", BF16),
